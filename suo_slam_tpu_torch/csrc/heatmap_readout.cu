@@ -1,0 +1,127 @@
+// K2 — heatmap readout: per-(crop, keypoint) spatial softmax + soft-argmax
+// mean and covariance, plus the mean-pooled logit for the validity head.
+//
+// Replaces `suo_slam_tpu/ops/heatmap.py` `spatial_softmax` + `soft_argmax`
+// (what `models/pkpnet.py:127-133` calls) and `soft_argmax_from_logits`.
+// On the TPU the moments are one [N*K, HW] x [HW, 6] MXU contraction; here a
+// block owns one (n, k) plane and reduces it twice (max, then the six
+// exp-weighted moments 1, u, v, u^2, v^2, uv), all in f32:
+//   uv  = (E[u], E[v]),  cov = E[pp^T] - uv uv^T + min_var * I,
+//   pooled = mean of the raw logits (the validity head's input).
+// The plane is read with the strides the caller passes, so the NCHW /
+// channels_last head output and the transpose_heatmaps view need no copy.
+//
+// Bound on this card: bytes. At the main path's shapes (8 x 41 planes of
+// 64x64 f32) it must read 5.4 MB once: ~1.6 us at 3.35 TB/s; the outputs are
+// 8 KB. Design: one 256-thread block per plane (328 blocks over 132 SMs), the
+// second pass re-reads the 16 KB plane from L1/L2, warp-shuffle reductions.
+
+#include <cuda_runtime.h>
+#include <cfloat>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+heatmap_readout_kernel(const float* __restrict__ logits, long long sn,
+                       long long sh, long long sw, long long sk, int H, int W,
+                       int K, float min_var, float* __restrict__ uv,
+                       float* __restrict__ cov, float* __restrict__ pooled) {
+  const int plane = blockIdx.x;  // n * K + k
+  const int n = plane / K, k = plane % K;
+  const float* base = logits + n * sn + k * sk;
+  const int P = H * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ float red[6][kWarps];
+
+  // pass 1: max (softmax shift) and sum (pooled mean)
+  float mx = -FLT_MAX, sm = 0.f;
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const int h = p / W, w = p % W;
+    const float x = base[h * sh + w * sw];
+    mx = fmaxf(mx, x);
+    sm += x;
+  }
+  mx = warp_max(mx);
+  sm = warp_sum(sm);
+  if (lane == 0) { red[0][warp] = mx; red[1][warp] = sm; }
+  __syncthreads();
+  if (warp == 0) {
+    float a = lane < kWarps ? red[0][lane] : -FLT_MAX;
+    float s = lane < kWarps ? red[1][lane] : 0.f;
+    a = warp_max(a);
+    s = warp_sum(s);
+    if (lane == 0) { red[0][0] = a; red[1][0] = s; }
+  }
+  __syncthreads();
+  const float shift = red[0][0];
+  const float total = red[1][0];
+  __syncthreads();
+
+  // pass 2: the six exp-weighted moments over the NDC pixel-centre grid
+  const float hw = 0.5f * (float)W, hh = 0.5f * (float)H;
+  float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const int h = p / W, w = p % W;
+    const float e = expf(base[h * sh + w * sw] - shift);
+    const float u = ((float)w + 0.5f) / hw - 1.f;
+    const float v = 1.f - ((float)h + 0.5f) / hh;
+    m[0] += e;
+    m[1] += e * u;
+    m[2] += e * v;
+    m[3] += e * (u * u);
+    m[4] += e * (v * v);
+    m[5] += e * (u * v);
+  }
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float s = warp_sum(m[f]);
+    if (lane == 0) red[f][warp] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float s[6];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) s[f] = warp_sum(lane < kWarps ? red[f][lane] : 0.f);
+    if (lane == 0) {
+      const float z = fmaxf(s[0], FLT_MIN);
+      const float eu = s[1] / z, ev = s[2] / z;
+      const float euu = s[3] / z, evv = s[4] / z, euv = s[5] / z;
+      uv[plane * 2 + 0] = eu;
+      uv[plane * 2 + 1] = ev;
+      const float cuv = euv - eu * ev;
+      cov[plane * 4 + 0] = euu - eu * eu + min_var;
+      cov[plane * 4 + 1] = cuv;
+      cov[plane * 4 + 2] = cuv;
+      cov[plane * 4 + 3] = evv - ev * ev + min_var;
+      pooled[plane] = total / (float)P;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int suo_heatmap_readout(const void* logits, long long sn,
+                                   long long sh, long long sw, long long sk,
+                                   int N, int H, int W, int K, float min_var,
+                                   void* uv, void* cov, void* pooled,
+                                   void* stream) {
+  if (N * K > 0) {
+    heatmap_readout_kernel<<<N * K, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)logits, sn, sh, sw, sk, H, W, K, min_var, (float*)uv,
+        (float*)cov, (float*)pooled);
+  }
+  return (int)cudaGetLastError();
+}

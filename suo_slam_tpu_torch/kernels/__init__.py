@@ -1,0 +1,31 @@
+"""Launch counters and build entry for the port's hand-written kernels.
+
+Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
+K2 `ops/heatmap.py`, K3 `solvers/pnp.py`, K4 `solvers/ba.py`) and adds one to
+its counter here where — and only where — it launches its CUDA kernel.
+"""
+
+from __future__ import annotations
+
+from ._build import build_all  # noqa: F401
+
+# kernel name -> launches since the last `reset_counts()`
+LAUNCHES: dict[str, int] = {
+    "roi_crop": 0,      # K1
+    "heatmap_readout": 0,  # K2
+    "pnp_hypotheses": 0,   # K3
+    "ba_edges": 0,      # K4
+}
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def counts() -> dict[str, int]:
+    return dict(LAUNCHES)

@@ -1,0 +1,125 @@
+"""PkpNet: probabilistic keypoint network (uv + 2x2 covariance + validity).
+
+Port of `suo_slam_tpu/models/pkpnet.py` for inference. The public input is
+the JAX package's NHWC crop batch [N, 256, 256, 3]; inside, the backbone runs
+NCHW with `channels_last` memory, so the head's logits are already laid out
+as the public NHWC heatmaps [N, H/4, W/4, K] and the readout (kernel K2,
+`ops/heatmap.heatmap_readout`) reads them through strides, without a copy.
+
+Validity head: mean-pooled raw logits -> ReLU -> Linear(K, K) -> sigmoid
+(dropout is inference-off). `prior_mode="post_stem"` injects the prior after
+the stem through a 1x1 projection; with no prior the projection contributes
+its bias only (what the JAX net computes on its all-zero prior).
+`prior_mode="concat"` concatenates the prior to the RGB input.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..kp import config as kp_config
+from ..ops import heatmap as hm
+from .hourglass import HourglassNet
+
+
+class PkpNetOutput(NamedTuple):
+    uv: torch.Tensor                 # [N, K, 2] expected NDC keypoint
+    cov: torch.Tensor | None         # [N, K, 2, 2] heatmap covariance
+    prob_logits: torch.Tensor        # [N, H/4, W/4, K] final-stack logits
+    kp_mask_logits: torch.Tensor     # [N, K]
+    kp_mask: torch.Tensor            # [N, K] sigmoid validity probability
+    aux_logits: tuple = ()           # earlier stacks, NHWC
+    # The softmaxed heatmaps (`prob` in the JAX output) are never formed by
+    # the readout kernel: `hm.spatial_softmax(out.prob_logits)` gives them.
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class PkpNet(nn.Module):
+    """Stacked-hourglass keypoint network with covariance readout."""
+
+    def __init__(self, num_kp: int = kp_config.num_kp(), calc_cov: bool = True,
+                 n_stack: int = 2, n_modules: int = 2, features: int = 256,
+                 norm: str = "batch", prior_mode: str = "post_stem",
+                 transpose_heatmaps: bool = False):
+        super().__init__()
+        if norm != "batch":
+            raise NotImplementedError(
+                f"norm={norm!r}: only the BatchNorm net is ported"
+            )
+        if prior_mode not in ("post_stem", "concat"):
+            raise ValueError(f"unknown prior_mode {prior_mode!r}")
+        self.num_kp = num_kp
+        self.calc_cov = calc_cov
+        self.prior_mode = prior_mode
+        self.transpose_heatmaps = transpose_heatmaps
+        self.backbone = HourglassNet(
+            in_features=3 + (num_kp if prior_mode == "concat" else 0),
+            num_output=num_kp, n_stack=n_stack, n_modules=n_modules,
+            features=features, with_extra=prior_mode == "post_stem",
+            extra_features=num_kp,
+        )
+        self.classifier = nn.Linear(num_kp, num_kp)
+
+    def prior_hw(self, input_hw: tuple[int, int]) -> tuple[int, int]:
+        """Resolution the prior heatmaps are rendered at."""
+        if self.prior_mode == "concat":
+            return tuple(input_hw)
+        return (input_hw[0] // 4, input_hw[1] // 4)
+
+    def backbone_logits(self, images_roi: torch.Tensor,
+                        prior_kp: torch.Tensor | None = None) -> list:
+        """Backbone only: NHWC crops (+ NHWC prior) -> n_stack NHWC logits."""
+        n, h, w, c = images_roi.shape
+        if c != 3:
+            raise ValueError(f"expected an RGB ROI batch, got {tuple(images_roi.shape)}")
+        x = _nhwc_to_cl(images_roi)
+        if self.prior_mode == "concat":
+            if prior_kp is None:
+                prior_kp = images_roi.new_zeros((n, h, w, self.num_kp))
+            if tuple(prior_kp.shape[1:3]) != (h, w):
+                raise ValueError(f"concat prior must be {h}x{w}, got {tuple(prior_kp.shape)}")
+            x = torch.cat([x, _nhwc_to_cl(prior_kp.to(x.dtype))], dim=1)
+            outs = self.backbone(x.contiguous(memory_format=torch.channels_last))
+        else:
+            extra = None
+            if prior_kp is not None:
+                if tuple(prior_kp.shape[1:3]) != (h // 4, w // 4):
+                    raise ValueError(f"post_stem prior must be H/4 x W/4, got "
+                                     f"{tuple(prior_kp.shape)}")
+                extra = _nhwc_to_cl(prior_kp.to(x.dtype))
+            outs = self.backbone(x, extra)
+        return [_nhwc(o) for o in outs]
+
+    def forward(self, images_roi: torch.Tensor,
+                prior_kp: torch.Tensor | None = None) -> PkpNetOutput:
+        """images_roi [N, H, W, 3] NHWC; prior_kp NHWC at `prior_hw` or None
+        (no prior: the statically prior-free program)."""
+        outs = self.backbone_logits(images_roi, prior_kp)
+        return self.readout(outs[-1], tuple(outs[:-1]))
+
+    def readout(self, raw: torch.Tensor, aux: tuple = ()) -> PkpNetOutput:
+        """Heatmap readout (K2) + validity head on NHWC final-stack logits."""
+        if self.transpose_heatmaps:
+            raw = raw.transpose(1, 2)
+        uv, cov, pooled = hm.heatmap_readout(raw)
+        mask_logits = self.classifier(torch.relu(pooled))
+        return PkpNetOutput(
+            uv=uv,
+            cov=cov if self.calc_cov else None,
+            prob_logits=raw,
+            kp_mask_logits=mask_logits,
+            kp_mask=torch.sigmoid(mask_logits),
+            aux_logits=aux,
+        )
+
+
+def _nhwc_to_cl(x: torch.Tensor) -> torch.Tensor:
+    """NHWC tensor -> NCHW view in channels_last memory (no copy when x is
+    contiguous NHWC)."""
+    return x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

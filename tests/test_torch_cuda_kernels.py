@@ -1,0 +1,101 @@
+"""Kernels K1-K4 against their plain PyTorch versions on the card.
+
+Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
+CPU mode). On a machine with an H100:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q --noconftest
+
+(`--noconftest`: tests/conftest.py configures JAX, which that machine need
+not have; this file imports only the port.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from suo_slam_tpu_torch import _device
+    from suo_slam_tpu_torch.kernels import build_all
+
+    d = _device.resolve_device("cuda")
+    build_all()
+    return d
+
+
+def test_k1_roi_crop(dev):
+    from suo_slam_tpu_torch.ops import roi
+
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 96, 128, 3)).astype(np.float32)).to(dev)
+    boxes = torch.tensor([[[4.0, 6.0, 60.5, 40.25], [-30.0, -12.0, 20.0, 15.0],
+                           [float("nan"), 3.0, 20.0, 30.0]]] * 2, device=dev)
+    mask = torch.tensor([[True, True, True], [True, False, True]], device=dev)
+    k = roi.roi_crop_batch(img, boxes, mask, (32, 48))
+    p = roi.roi_crop_batch_plain(img, boxes, mask, (32, 48))
+    assert (k - p).abs().max().item() <= 1e-5
+    assert not k[1, 1].any()
+
+
+def test_k2_heatmap_readout(dev):
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    x = torch.randn(3, 41, 64, 64, device=dev).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    for view in (x, x.transpose(1, 2)):
+        for a, b in zip(hm.heatmap_readout(view), hm.heatmap_readout_plain(view)):
+            assert (a - b).abs().max().item() <= 1e-5
+
+
+def test_k3_pnp_hypotheses(dev):
+    from suo_slam_tpu_torch.solvers import pnp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.rand(4, 41, 3, device=dev, generator=g) * 2 - 1
+    y = torch.rand(4, 41, 2, device=dev, generator=g) * 0.2 - 0.1
+    mask = torch.rand(4, 41, device=dev, generator=g) < 0.7
+    idx = pnp.sample_hypothesis_indices(mask, 64, g)
+    Tk, okk, ck = pnp.pnp_hypotheses(x, y, mask, idx, 1e-3)
+    Tp, okp, cp = pnp.pnp_hypotheses_plain(x, y, mask, idx, 1e-3)
+    assert torch.equal(okk, okp)
+    assert torch.equal(ck, cp)
+    both = okk & okp
+    assert (Tk - Tp).abs().amax(dim=(-2, -1))[both].max().item() <= 1e-4
+    # an index outside the point set fails that hypothesis alone
+    bad = idx.clone()
+    bad[0, 0, 1] = 41
+    bad[1, 0, 2] = -1
+    Tb, okb, cb = pnp.pnp_hypotheses(x, y, mask, bad, 1e-3)
+    assert not okb[0, 0] and not okb[1, 0] and cb[0, 0] == -1 and cb[1, 0] == -1
+    assert torch.equal(Tb[0, 0], torch.eye(4, device=dev))
+    assert torch.equal(cb[:, 1:], ck[:, 1:])
+
+
+def test_k4_ba_edges(dev):
+    from suo_slam_tpu_torch.core import lie
+    from suo_slam_tpu_torch.solvers import ba
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    V, O, K = 4, 3, 41
+    cam_T = lie.se3_exp(torch.randn(V, 6, device=dev, generator=g) * 0.05)
+    obj_T = lie.se3_exp(torch.randn(O, 6, device=dev, generator=g) * 0.3)
+    obj_T[:, 2, 3] += 8.0
+    uv = torch.rand(V, O, K, 2, device=dev, generator=g) * 0.4 - 0.2
+    info = torch.eye(2, device=dev).expand(V, O, K, 2, 2) * 1e4
+    model_kp = torch.rand(O, K, 3, device=dev, generator=g) - 0.5
+    cam_k = torch.tensor([2.0, 2.0, 0.0, 0.0], device=dev).expand(V, O, 4).contiguous()
+    inl = torch.rand(V, O, K, device=dev, generator=g) < 0.8
+    args = (cam_T, obj_T, uv, info, model_kp, cam_k)
+    Hk, gk, ck, zk = ba._edge_planes_Hg(*args, inl=inl, use_huber=True, huber_d=ba.HUBER_DELTA)
+    Hp, gp, cp, zp = ba._edge_planes_Hg_plain(*args, inl, True, ba.HUBER_DELTA)
+    from chip_smoke import k4_scaled_errors
+
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    sH, sg = k4_scaled_errors(Hk, gk, Hp, gp, cp, inl, ba.HUBER_DELTA)
+    assert sH <= 1e-4 and sg <= 1e-4 and rel(ck, cp) <= 1e-5
+    assert rel(ba._edge_chi2(*args), ba._edge_chi2_plain(*args)) <= 1e-5
