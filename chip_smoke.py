@@ -1,5 +1,5 @@
-"""Chip smoke test of the PyTorch/CUDA port: the single-view SUO-SLAM frame on
-one NVIDIA GPU, through the entry points a user calls.
+"""Chip smoke test of the PyTorch/CUDA port: the single-view frame and SLAM
+mode of SUO-SLAM on one NVIDIA GPU, through the entry points a user calls.
 
     python3 chip_smoke.py
 
@@ -8,26 +8,41 @@ Phases (any failure raises and exits non-zero):
      precision flags;
   2. build: every `suo_slam_tpu_torch/csrc/*.cu` with nvcc (one process per
      source, in parallel) and the seconds it took;
-  3. kernels: K1-K4 against their plain PyTorch versions on the same CUDA
-     inputs at the main path's shapes, with the stated tolerances; kernel,
+  3. kernels: K1-K7 against their plain PyTorch versions on the same CUDA
+     inputs at the main paths' shapes, with the stated tolerances; kernel,
      plain and library times (median of CUDA-event timings) and each
      kernel's bound on an H100 (bytes at 3.35 TB/s or f32 operations at
      67 TFLOP/s, counted from this run's inputs);
-  4. the main path: full-width PkpNet (2 stacks x 2 modules x 256 features,
-     256x256 crops, seeded random weights, non-trivial BatchNorm statistics)
-     in `ObjectSlam(single_view_mode=True)` over synthetic 480x640 views with
-     8 objects each, `reset()` before every view as `evaluate.py --nviews 1`
-     does: per-view latency and per-stage times; every kernel's launch
-     counter must rise; the network path's outputs are held against the same
-     net on the CPU for two crops; one more view runs under torch.profiler
-     (device-busy share of the per-view latency, top device operations);
+  4. the single-view path: full-width PkpNet (2 stacks x 2 modules x 256
+     features, 256x256 crops, seeded random weights, non-trivial BatchNorm
+     statistics) in `ObjectSlam(single_view_mode=True)` over synthetic
+     480x640 views with 8 objects each, `reset()` before every view as
+     `evaluate.py --nviews 1` does: per-view latency and per-stage times;
+     the launch counters of K1-K4 must rise; the prior-free network path is
+     held against the same net on the CPU for two crops; one more view runs
+     under torch.profiler;
   5. solver check: the same engine with an injected ground-truth inference
      (projected keypoints + N(0, 0.005) NDC noise, cov sigma^2 I, validity
      1): ADD < 0.1 diameter for >= 90% of the objects;
-  6. the kernels JSON line, the nvidia-smi line, and the last line
-     {"ok": true, "device": {...}}.
+  6. the SLAM path: `ObjectSlam(SlamConfig())` in SLAM mode over 22 frames
+     of a smooth camera trajectory around the same 8 objects fixed in the
+     world, 3 of them symmetric (prior feedback). The full-width net runs on
+     every call through `make_frame_inference` — so the symmetric group
+     renders its map priors with K5 — and a wrapper then replaces the net's
+     uv / cov / validity with the group's projected ground truth plus
+     N(0, 0.005) NDC noise: random weights would leave every object
+     uninitialised, while these keypoints make PnP, camera RANSAC, late
+     init, the priors, re-init and both BAs do real work, as trained
+     weights would. The view capacity grows 16 -> 32, global BA runs at
+     frames 10 and 20 and in `collect_results(final=True)`. Every counter
+     K1-K7 must rise; the camera trajectory error and ADD < 0.1 d for >= 90%
+     of the (frame, object) poses; the with-prior program against the CPU
+     for two crops (1e-3). Prints per-frame latency, tracking and global BA
+     ms, launches per frame, and a torch.profiler summary of one frame;
+  7. the kernels JSON line (launches from the SLAM path), the nvidia-smi
+     line, and the last line {"ok": true, "device": {...}}.
 
-The script imports nothing of JAX or of the JAX package; its scene is made
+The script imports nothing of JAX or of the JAX package; its scenes are made
 with numpy from --seed.
 """
 
@@ -49,6 +64,7 @@ H_IMG, W_IMG = 480, 640
 YCBV_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0.0, 1.0]])
 N_OBJ = 8
 NK = 41
+SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_hypotheses", "ba_edges")
 
 
 # ----------------------------------------------------------------- helpers --
@@ -104,7 +120,8 @@ def random_rotation(rng):
 
 class Objects:
     """Eight synthetic objects: 16 of the 41 keypoint channels each, model
-    points in a 100 mm cube."""
+    points in a 100 mm cube; objects 1, 4 and 7 are symmetric (the SLAM
+    path's prior feedback; single-view mode ignores symmetry)."""
 
     def __init__(self, rng):
         self.model_kps = np.zeros((N_OBJ, NK, 3), np.float32)
@@ -117,6 +134,7 @@ class Objects:
             p = self.model_kps[o, ch]
             self.diameter[o] = np.max(np.linalg.norm(p[:, None] - p[None], axis=-1))
         self.is_symmetric = np.zeros((N_OBJ,), bool)
+        self.is_symmetric[[0, 3, 6]] = True
 
 
 def make_view(rng, objs: Objects):
@@ -447,6 +465,231 @@ def check_k4(dev, rng, objs):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
 
 
+def check_k5(dev, rng):
+    import torch
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    # the SLAM path's symmetric group: 3 objects in a bucket of 4 crops,
+    # post_stem priors at 64x64, about half the channels valid
+    ob, hw = 4, (64, 64)
+    uv = torch.from_numpy(rng.uniform(-1.1, 1.1, (ob, NK, 2)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.uniform(size=(ob, NK)) < 0.4).to(dev)
+    mask[3] = False  # the padded slot
+    sigma = hm.prior_sigma_for(hw)
+    out_k = hm._render_prior_cuda(uv, mask, hw, sigma)
+    out_p = hm.render_prior_heatmaps_plain(uv, mask, hw, sigma)
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs().max().item()
+    tol = 1e-6  # the same f32 Gaussian of values in [0, 1]
+    if not (err <= tol and out_k.is_contiguous()):
+        raise AssertionError(f"K5 disagrees with its plain version: {err}")
+    ms = cuda_ms(lambda: hm._render_prior_cuda(uv, mask, hw, sigma))
+    plain_ms = cuda_ms(lambda: hm.render_prior_heatmaps_plain(uv, mask, hw, sigma))
+    n_out = out_k.numel()
+    # ~20 f32 operations per output (2 sub, 2 div, 3 mul, 1 add, the exp)
+    b = bound(n_out * 4 + ob * NK * 9, n_out * 20)
+    _report("K5 prior_render", err, tol, ms, plain_ms, None, b)
+    return dict(name="prior_render", route="cuda",
+                source="suo_slam_tpu_torch/csrc/prior_render.cu",
+                replaces="suo_slam_tpu/ops/heatmap.py:166", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def _k6_inputs(dev, rng, objs, S, M):
+    """S pose sets of the 8 objects near their true camera-frame poses and M
+    rows of noisy detections, info (1/0.005^2) I."""
+    import torch
+
+    from suo_slam_tpu_torch.core import lie
+    from suo_slam_tpu_torch.slam.engine import _fix_K_np
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    rows = [make_view(rng, objs) for _ in range(M)]
+    k4 = np.zeros((M, N_OBJ, 4), np.float32)
+    for m, (_, _, bb, _) in enumerate(rows):
+        for o in range(N_OBJ):
+            K = _fix_K_np(YCBV_K, bb[o])
+            k4[m, o] = (K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+    T = np.stack([rows[s % M][1] for s in range(S)])
+    # pose sets 0.2-1.5 mm and ~1 mrad off: counts from most to few edges
+    scale = np.array([0.001] * 3 + [0.2] * 3) * (1 + np.arange(S) % 8)[:, None, None]
+    jitter = lie.se3_exp(t(rng.normal(size=(S, N_OBJ, 6)) * scale))
+    T_sets = (jitter @ t(T)).contiguous()
+    uv = np.stack([r[3] for r in rows]) + rng.normal(scale=0.005, size=(M, N_OBJ, NK, 2))
+    info = np.broadcast_to(np.eye(2) / 0.005 ** 2, (M, N_OBJ, NK, 2, 2))
+    mask = np.broadcast_to(objs.masks, (M, N_OBJ, NK)) & (rng.uniform(size=(M, N_OBJ, NK)) < 0.9)
+    return (T_sets, t(objs.model_kps), t(uv), t(info),
+            torch.from_numpy(np.ascontiguousarray(mask)).to(dev), t(k4))
+
+
+def check_k6(dev, rng, objs):
+    import torch
+
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    # camera RANSAC: H = 8 hypotheses x 8 objects x 41 keypoints of one
+    # frame; re-init: the PnP and map poses over the 15-view window
+    cases = {"ransac": (_k6_inputs(dev, rng, objs, N_OBJ, 1), False),
+             "reinit": (_k6_inputs(dev, rng, objs, 30, 15), True)}
+    res = {}
+    for name, (args, per_obj) in cases.items():
+        ck = sk._chi2_counts_cuda(*args, 5.991, per_obj)
+        cp = sk.chi2_counts_plain(*args, 5.991, per_obj)
+        torch.cuda.synchronize()
+        diff = int((ck != cp).sum())
+        log(f"[kernel] K6 {name}: counts {ck.flatten().tolist()[:16]} ... "
+            f"({diff} of {ck.numel()} differ)")
+        if diff:
+            raise AssertionError(f"K6 {name} counts differ from the plain version: "
+                                 f"{ck.tolist()} vs {cp.tolist()}")
+        S, O, K, M = args[0].shape[0], N_OBJ, NK, args[2].shape[0]
+        ms = cuda_ms(lambda: sk._chi2_counts_cuda(*args, 5.991, per_obj))
+        plain_ms = cuda_ms(lambda: sk.chi2_counts_plain(*args, 5.991, per_obj))
+        # ~45 f32 operations per edge: the pose (18), the projection (8),
+        # the residual and chi2 (11), the tests and the sum
+        b = bound(S * O * 64 + O * K * 12 + M * O * K * (8 + 16 + 1) + M * O * 16
+                  + (S // M if per_obj else S) * (O if per_obj else 1) * 4, S * O * K * 45)
+        res[name] = (ms, plain_ms, b)
+        _report(f"K6 chi2_counts ({name})", 0.0, "exact", ms, plain_ms, None, b)
+    ms, plain_ms, b = res["ransac"]
+    return dict(name="chi2_counts", route="cuda", source="suo_slam_tpu_torch/csrc/chi2_counts.cu",
+                replaces="suo_slam_tpu/slam/kernels.py:116", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def k7_scaled_errors(k, p):
+    """The largest errors of K7's (d_cam, d_obj) against the plain ones, each
+    entry over the largest |entry| of the plain version's 6-vector block
+    (one camera's or one object's step); in a block that is exactly 0 every
+    entry must be 0."""
+    import torch
+
+    def worst(a, b):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            return math.inf
+        e = (a.double() - b.double()).abs()
+        s = b.double().abs().amax(-1, keepdim=True)
+        r = torch.where(s > 0, e / s.clamp(min=1e-300), torch.where(e > 0, math.inf, 0.0))
+        return r.max().item() if r.numel() else 0.0
+
+    return worst(k[0], p[0]), worst(k[1], p[1])
+
+
+def _normal_equations(dev, scene, V):
+    """The global BA's normal-equation blocks at the SLAM path's shapes:
+    V view slots (the first n active), 8 objects, 41 keypoints, noisy
+    measurements and perturbed poses, through the plain K4."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import ba
+
+    rng = np.random.default_rng(5)
+    n = min(V, len(scene.cams))
+    uv = np.zeros((V, N_OBJ, NK, 2), np.float32)
+    k4 = np.zeros((V, N_OBJ, 4), np.float32)
+    valid = np.zeros((V, N_OBJ, NK), bool)
+    for v in range(n):
+        _, bb, uvs = scene.frame(v)
+        uv[v] = uvs + rng.normal(scale=0.005, size=uvs.shape)
+        k4[v] = scene.k4(bb)
+        valid[v] = scene.objs.masks
+    cam_T = np.tile(np.eye(4), (V, 1, 1))
+    cam_T[:n] = scene.cams[:n]
+    cam_T[1:n, :3, 3] += rng.normal(scale=2.0, size=(n - 1, 3))
+    obj_T = scene.T_obj.copy()
+    obj_T[:, :3, 3] += rng.normal(scale=2.0, size=(N_OBJ, 3))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    info = t(np.broadcast_to(np.eye(2) / 0.005 ** 2, (V, N_OBJ, NK, 2, 2)))
+    inl = torch.from_numpy(valid).to(dev)
+    H, g, _, _ = ba._edge_planes_Hg_plain(t(cam_T), t(obj_T), t(uv), info, t(scene.objs.model_kps),
+                                          t(k4), inl, True, ba.HUBER_DELTA)
+    blocks = (H[..., :6, :6].sum(1), H[..., 6:, 6:].sum(0), H[..., :6, 6:].contiguous(),
+              g[..., :6].sum(1), g[..., 6:].sum(0))
+    cam_free = torch.zeros(V, dtype=torch.bool, device=dev)
+    cam_free[1:n] = True
+    return blocks, cam_free, torch.ones(N_OBJ, dtype=torch.bool, device=dev)
+
+
+def check_k7(dev, scene):
+    """K7 on the SLAM path's normal equations (global V = 32 and tracking
+    V = 1). Gate 1: each entry within 1e-4 of its plain 6-block's largest
+    |entry|, ok flags equal, at LM damping 1e-2: there a 1e-7 relative
+    perturbation of the f32 inputs moves the solution by ~3e-5 of that
+    scale (measured on the CPU), so 1e-4 measures the kernel. At the
+    engine's first damping 1e-5 the global system is ill-conditioned: the
+    same perturbation moves it by ~1e-2, for any f32 solve. Gate 2, at
+    1e-5: K7's error against the plain solve in f64 at most twice the plain
+    f32 solve's (or 1e-4)."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import ba
+
+    cases = {}
+    blocks, cam_free, obj_free = _normal_equations(dev, scene, 32)
+    cases["global"] = (blocks, cam_free, obj_free, False)
+    tb, tcf, _ = _normal_equations(dev, scene, 1)
+    tcf[0] = True
+    cases["tracking"] = (tb, tcf, torch.zeros(N_OBJ, dtype=torch.bool, device=dev), True)
+    res = {}
+    for name, (bl, cf, of, frozen) in cases.items():
+        lam = torch.tensor(1e-2, device=dev)
+        k = ba._solve_normal_eq_schur_cuda(*bl, cf, of, lam, frozen)
+        p = ba._solve_normal_eq_schur_plain(*bl, cf, of, lam)
+        lam5 = torch.tensor(1e-5, device=dev)
+        k5 = ba._solve_normal_eq_schur_cuda(*bl, cf, of, lam5, frozen)
+        p5 = ba._solve_normal_eq_schur_plain(*bl, cf, of, lam5)
+        r64 = ba._solve_normal_eq_schur_plain(*[b.double() for b in bl], cf, of,
+                                              lam5.double())
+        r64 = (r64[0].float(), r64[1].float())
+        torch.cuda.synchronize()
+        sc, so = k7_scaled_errors(k, p)
+        err = max((k[0] - p[0]).abs().max().item(), (k[1] - p[1]).abs().max().item())
+        ek, ep = max(k7_scaled_errors(k5, r64)), max(k7_scaled_errors(p5, r64))
+        log(f"[kernel] K7 {name}: ok {bool(k[2])}/{bool(p[2])}, scaled errors d_cam {sc:.3e} "
+            f"d_obj {so:.3e} (tol 1e-4, damping 1e-2), max abs {err:.3e}, max |d_cam| "
+            f"{p[0].abs().max().item():.3e}; at damping 1e-5 against the f64 solve: "
+            f"K7 {ek:.3e}, plain {ep:.3e}")
+        if not (bool(k[2]) == bool(p[2]) and bool(p[2]) and max(sc, so) <= 1e-4
+                and bool(k5[2]) == bool(p5[2]) and ek <= max(2 * ep, 1e-4)):
+            raise AssertionError(f"K7 {name} disagrees with its plain version: {sc}, {so}, "
+                                 f"{ek} vs {ep}")
+        # the same blocks with one camera block not positive definite:
+        # a NaN factor -> zero steps and ok False, no raise
+        bad = bl[0].clone()
+        bad[0] = -torch.eye(6, device=dev)
+        cf_bad = cf.clone()
+        cf_bad[0] = True
+        kb = ba._solve_normal_eq_schur_cuda(bad, *bl[1:], cf_bad, of, lam, frozen)
+        pb = ba._solve_normal_eq_schur_plain(bad, *bl[1:], cf_bad, of, lam)
+        if bool(kb[2]) or bool(pb[2]) or kb[0].any() or kb[1].any():
+            raise AssertionError(f"K7 {name}: a non-PD camera block must give ok False")
+        ms = cuda_ms(lambda: ba._solve_normal_eq_schur_cuda(*bl, cf, of, lam, frozen))
+        plain_ms = cuda_ms(lambda: ba._solve_normal_eq_schur_plain(*bl, cf, of, lam))
+        V, O = bl[2].shape[:2]
+        Hcc = bl[0]
+
+        def lib():  # the camera blocks' factor and the two triangular solves
+            L, _ = torch.linalg.cholesky_ex(Hcc)
+            rhs = torch.cat([bl[2].permute(0, 2, 1, 3).reshape(V, 6, 6 * O), bl[3][..., None]], -1)
+            half = torch.linalg.solve_triangular(L, rhs, upper=False)
+            return torch.linalg.solve_triangular(L.transpose(-1, -2), half, upper=True)
+
+        lib_ms = cuda_ms(lib)
+        n_o = 0 if frozen else 6 * O
+        flops = V * (300 + (n_o + 1) * 80) + (n_o * n_o + n_o) * V * 12 + n_o ** 3 // 3 \
+            + 2 * n_o * n_o + V * (12 * n_o + 80)
+        b = bound(V * 144 + O * 144 + V * O * 144 + V * 24 + O * 24 + V + O + 4
+                  + V * 24 + O * 24 + 1, flops)
+        res[name] = (max(sc, so), ms, plain_ms, lib_ms, b)
+        _report(f"K7 ba_schur ({name}, V={V})", max(sc, so), "1e-4 of each 6-block's max",
+                ms, plain_ms, lib_ms, b)
+    err, ms, plain_ms, lib_ms, b = res["global"]
+    return dict(name="ba_schur", route="cuda", source="suo_slam_tpu_torch/csrc/ba_schur.cu",
+                replaces="suo_slam_tpu/solvers/ba.py:267", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
 def _views(rng, objs, n):
     return [make_view(rng, objs) for _ in range(n)]
 
@@ -516,9 +759,9 @@ def stage_times(engine, objs, view, dev, n=5):
     return out
 
 
-def profile_view(engine, objs, view, per_view_ms):
-    """One more view under torch.profiler: the device time of the view's
-    kernels, its share of the unprofiled per-view latency, the number of
+def profile_run(run, per_ms, label):
+    """`run()` once more under torch.profiler: the device time of its
+    kernels, its share of the unprofiled latency `per_ms`, the number of
     kernels, the PyTorch operations that hold the most device time, and the
     device time per launch of each of the port's kernels (without the host
     time of its wrapper, which `cuda_ms` includes)."""
@@ -528,7 +771,7 @@ def profile_view(engine, objs, view, per_view_ms):
     from suo_slam_tpu_torch import kernels
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t, _ = _drive(engine, objs, [view])
+        wall = run()
     avg = prof.key_averages()
     kern = [e for e in avg if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
@@ -537,17 +780,17 @@ def profile_view(engine, objs, view, per_view_ms):
     ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    log(f"[profile] one view: device busy {busy_ms:.2f} ms in {sum(e.count for e in kern)} "
-        f"kernels = {busy_ms / per_view_ms:.4f} of the {per_view_ms:.2f} ms per-view latency "
-        f"(profiled wall {t[0] * 1e3:.2f} ms)")
-    log("[profile] device ms and calls by operation: " + json.dumps(
+    log(f"[profile] {label}: device busy {busy_ms:.2f} ms in {sum(e.count for e in kern)} "
+        f"kernels = {busy_ms / per_ms:.4f} of the {per_ms:.2f} ms latency "
+        f"(profiled wall {wall * 1e3:.2f} ms)")
+    log(f"[profile] {label}: device ms and calls by operation: " + json.dumps(
         {e.key: [round(e.self_device_time_total / 1e3, 3), e.count] for e in ops}))
     mine = {}
-    for name in kernels.LAUNCHES:  # csrc kernels are named <counter name>_kernel
+    for name in kernels.LAUNCHES:  # csrc kernels are named <counter name>_kernel*
         es = [e for e in kern if f"{name}_kernel" in e.key]
         n = sum(e.count for e in es)
         mine[name] = [round(sum(e.self_device_time_total for e in es) / max(n, 1), 3), n]
-    log("[profile] the port's kernels, device us per launch and launches: "
+    log(f"[profile] {label}: the port's kernels, device us per launch and launches: "
         + json.dumps(mine))
 
 
@@ -565,9 +808,9 @@ def phase_main_path(dev, rng, objs, net, seed, n_views=6):
     times, results = _drive(engine, objs, views)
     counts = kernels.counts()
     log(f"[main] launches over {len(views)} views: {json.dumps(counts)}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in SINGLE_VIEW_KERNELS if counts[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the single-view path: {missing}")
     per_view_ms = statistics.median(times[1:]) * 1e3
     log(f"[main] per-view latency: median {per_view_ms:.2f} ms over {n_views} views "
         f"after 1 warm-up (all: {[round(t * 1e3, 2) for t in times]})")
@@ -575,7 +818,7 @@ def phase_main_path(dev, rng, objs, net, seed, n_views=6):
     st = stage_times(engine, objs, views[-1], dev)
     log("[main] per-stage ms (each stage alone, last view's inputs): "
         + json.dumps({k: round(v, 3) for k, v in st.items()}))
-    profile_view(engine, objs, views[-1], per_view_ms)
+    profile_run(lambda: _drive(engine, objs, [views[-1]])[0][0], per_view_ms, "one view")
     # outputs: finite, expected shapes, and the network path against the same
     # net on the CPU for two crops of the last view
     for poses in results:
@@ -662,10 +905,283 @@ def phase_solver_check(dev, rng, objs, seed, n_views=6):
     return frac
 
 
+class SlamScene:
+    """The eight objects fixed in the world (the first camera's frame, on a
+    4 x 2 grid 0.75-0.85 m away) and a smooth camera orbit around the
+    scene's centre: frame i yaws 4 deg x sin(i / 4) and bobs a few mm."""
+
+    def __init__(self, rng, objs: Objects, n_frames):
+        self.objs = objs
+        self.T_obj = np.tile(np.eye(4), (N_OBJ, 1, 1))
+        for o in range(N_OBJ):
+            z = rng.uniform(750, 850)
+            self.T_obj[o, :3, :3] = random_rotation(rng)
+            self.T_obj[o, :3, 3] = [-150 + 100 * (o % 4), -60 + 120 * (o // 4), z]
+        c = np.array([0.0, 0.0, 800.0])
+        self.cams = np.tile(np.eye(4), (n_frames, 1, 1))
+        for i in range(n_frames):
+            a = math.radians(4.0) * math.sin(i / 4.0)
+            R = np.array([[math.cos(a), 0, math.sin(a)], [0, 1, 0],
+                          [-math.sin(a), 0, math.cos(a)]])
+            self.cams[i, :3, :3] = R
+            self.cams[i, :3, 3] = c - R @ c + [0.0, 5.0 * math.sin(i / 3.0), 0.0]
+
+    def frame(self, i):
+        """(T_OtoC [8, 4, 4], bboxes [8, 4], uv_gt [8, 41, 2] NDC) of frame i."""
+        T = self.cams[i] @ self.T_obj
+        bboxes = np.zeros((N_OBJ, 4), np.float32)
+        uv_gt = np.zeros((N_OBJ, NK, 2), np.float32)
+        for o in range(N_OBJ):
+            p = self.objs.model_kps[o] @ T[o, :3, :3].T + T[o, :3, 3]
+            uvw = p @ YCBV_K.T
+            uv = uvw[:, :2] / uvw[:, 2:]
+            m = self.objs.masks[o]
+            x1, y1 = uv[m].min(0) - 10
+            x2, y2 = uv[m].max(0) + 10
+            if x1 < 0 or y1 < 0 or x2 > W_IMG or y2 > H_IMG:
+                raise AssertionError(f"object {o + 1} leaves frame {i}")
+            bboxes[o] = (x1, y1, x2, y2)
+            uv_gt[o] = np.stack([2 * (uv[:, 0] - x1) / (x2 - x1) - 1,
+                                 1 - 2 * (uv[:, 1] - y1) / (y2 - y1)], -1)
+        return T, bboxes, uv_gt
+
+    @staticmethod
+    def k4(bboxes):
+        from suo_slam_tpu_torch.slam.engine import _fix_K_np
+
+        out = np.zeros((len(bboxes), 4), np.float32)
+        for o, bb in enumerate(bboxes):
+            K = _fix_K_np(YCBV_K, bb)
+            out[o] = (K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+        return out
+
+
+class GtPriorInfer:
+    """The SLAM path's frame inference: runs the full-width net
+    (`make_frame_inference`: K1 crop -> K5 prior render -> PkpNet -> K2
+    readout) on every call, then returns, in place of its uv / cov /
+    validity, the group's projected ground-truth keypoints + N(0, sigma)
+    NDC noise, cov sigma^2 I and validity 1. The group's objects are found
+    by their boxes (one small read-back of the boxes per call)."""
+
+    supports_no_prior = True
+
+    def __init__(self, fn, dev, seed, sigma=0.005):
+        self.fn = fn
+        self.dev = dev
+        self.sigma = sigma
+        self.rng = np.random.default_rng(seed)
+        self.last_prior_call = None
+        self.n_prior_calls = 0
+
+    def set_frame(self, bboxes, uv_gt):
+        self.boxes = bboxes
+        self.uv = (uv_gt + self.rng.normal(scale=self.sigma, size=uv_gt.shape)).astype(np.float32)
+
+    def __call__(self, img, boxes, obj_valid, prior_uv, prior_valid, has_prior=True):
+        import torch
+
+        bx = boxes.cpu().numpy()
+        out = self.fn(img, boxes, obj_valid, prior_uv, prior_valid, has_prior=has_prior)
+        if has_prior:
+            self.n_prior_calls += 1
+            self.last_prior_call = ((img, boxes, obj_valid, prior_uv, prior_valid), out)
+        ob = bx.shape[0]
+        uv = np.zeros((ob, NK, 2), np.float32)
+        for i in range(ob):
+            hit = np.flatnonzero(np.all(np.abs(self.boxes - bx[i]) < 1e-3, axis=1))
+            if hit.size:
+                uv[i] = self.uv[hit[0]]
+        cov = np.broadcast_to(np.eye(2, dtype=np.float32) * self.sigma ** 2, (ob, NK, 2, 2))
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+        return t(uv), t(cov), t(np.ones((ob, NK), np.float32))
+
+
+def _tracking_ba_ms(engine, dev, n=5):
+    """The tracking BA alone on the engine's last view row (all objects
+    fixed, rounds (10, 10, 10, 10)), host clock around a synchronized call."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import ba
+
+    v = engine.view_slot[engine.view_ids[-1]]
+    t = lambda a: torch.tensor(np.asarray(a), device=dev)
+    problem = ba.BAProblem(
+        cam_T=t(engine.cam_T[v:v + 1]), obj_T=t(engine.obj_T), uv=t(engine.uv[v:v + 1]),
+        info=t(engine.info[v:v + 1]), model_kp=t(engine.model_kp),
+        cam_k=t(engine.cam_k4[v:v + 1]), valid=t(engine.valid[v:v + 1]),
+        inliers=t(engine.inliers[v:v + 1]), cam_active=t(np.ones((1,), bool)),
+        obj_active=t(engine.obj_active))
+    vals = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ba.optimize(problem, iters_per_round=(10, 10, 10, 10), tracking_only=True,
+                        fix_first_cam=False)
+        torch.cuda.synchronize()
+        vals.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(vals[1:])
+
+
+def _add_ok(T_est, T_gt, objs, o):
+    m = objs.masks[o]
+    p_gt = objs.model_kps[o][m] @ T_gt[:3, :3].T + T_gt[:3, 3]
+    p_es = objs.model_kps[o][m] @ T_est[:3, :3].T + T_est[:3, 3]
+    return float(np.linalg.norm(p_gt - p_es, axis=-1).mean()) < 0.1 * objs.diameter[o]
+
+
+def compare_global_ba(engine, dev):
+    """The SLAM path's global BA problem (V = 32, its poses moved ~0.2 mm
+    off the engine's, inside the chi2 inlier basin) through `ba.optimize` on
+    the card twice: with K7 and with the plain solve (K4 in both). Poses
+    within 1e-4 (rotation absolute; translation relative to its norm, at
+    least the 800 mm scene depth) and equal inlier masks, except edges
+    within 1% of the chi2 threshold, each printed with its chi2. The same
+    problem in f64 on the CPU (plain versions) is printed beside it as the
+    reference both f32 runs approximate."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import ba
+
+    rng = np.random.default_rng(9)
+    cam_T = engine.cam_T.copy()
+    obj_T = engine.obj_T.copy()
+    cam_T[1:, :3, 3] += rng.normal(scale=0.2, size=(engine.V - 1, 3)).astype(np.float32)
+    obj_T[:, :3, 3] += rng.normal(scale=0.2, size=(engine.O, 3)).astype(np.float32)
+    arrays = dict(cam_T=cam_T, obj_T=obj_T, uv=engine.uv, info=engine.info,
+                  model_kp=engine.model_kp, cam_k=engine.cam_k4, valid=engine.valid,
+                  inliers=engine.inliers, cam_active=engine.cam_active,
+                  obj_active=engine.obj_active, cam_frozen=np.zeros(engine.V, bool))
+
+    def problem(device, f64=False):
+        return ba.BAProblem(**{k: torch.tensor(
+            a.astype(np.float64) if f64 and a.dtype == np.float32 else a, device=device)
+            for k, a in arrays.items()})
+
+    kernel_solve = ba._solve_normal_eq_schur_cuda
+    with torch.inference_mode():
+        pk = problem(dev)
+        rk = ba.optimize(pk)
+        ba._solve_normal_eq_schur_cuda = lambda *a: ba._solve_normal_eq_schur_plain(*a[:-1])
+        rp = ba.optimize(pk)
+        ba._solve_normal_eq_schur_cuda = kernel_solve
+        chi2 = ba._edge_chi2(rk.cam_T, rk.obj_T, pk.uv, pk.info, pk.model_kp, pk.cam_k)
+        r64 = ba.optimize(problem("cpu", f64=True))
+    ca, oa = engine.cam_active, engine.obj_active
+
+    def gap(r1, r2):
+        out = {}
+        for name, a, b, act in (("cam", r1.cam_T, r2.cam_T, ca), ("obj", r1.obj_T, r2.obj_T, oa)):
+            a = a.cpu().numpy()[act].astype(np.float64)
+            b = b.cpu().numpy()[act].astype(np.float64)
+            scale = np.maximum(np.linalg.norm(b[:, :3, 3], axis=-1), 800.0)
+            out[name] = [float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max()),
+                         float((np.abs(a[:, :3, 3] - b[:, :3, 3]).max(-1) / scale).max())]
+        return out
+
+    errs = gap(rk, rp)
+    flips = (rk.inliers != rp.inliers).nonzero().tolist()
+    fchi2 = [round(float(chi2[tuple(f)]), 4) for f in flips]
+    n64 = lambda r: int((r.inliers.cpu() != r64.inliers).sum())
+    log(f"[slam] global BA with K7 vs the plain solve: rotation / relative translation errors "
+        f"{json.dumps(errs)} (tol 1e-4); {int(rk.num_inliers)} inliers, {len(flips)} flipped "
+        f"edges (v, o, k) {flips[:8]} with chi2 {fchi2[:8]} (threshold 5.991); against the "
+        f"f64 BA: K7 {json.dumps(gap(rk, r64))} and {n64(rk)} edges apart, plain "
+        f"{json.dumps(gap(rp, r64))} and {n64(rp)} apart")
+    if max(max(e) for e in errs.values()) > 1e-4:
+        raise AssertionError(f"global BA with K7 disagrees with the plain solve: {errs}")
+    if any(abs(c - ba.CHI2_THRESH_2DOF) > 0.01 * ba.CHI2_THRESH_2DOF for c in fchi2):
+        raise AssertionError(f"global BA: an edge away from the threshold flipped: {fchi2}")
+
+
+def phase_slam(dev, rng, objs, net, seed, scene):
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.slam import kernels as sk
+    from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
+
+    n_frames = len(scene.cams) - 1  # the last frame is the profiled one
+    img = rng.uniform(0, 1, (H_IMG, W_IMG, 3)).astype(np.float32)
+    fn = sk.make_frame_inference(net, device=dev)
+    inf = GtPriorInfer(fn, dev, seed)
+    engine = ObjectSlam(SlamConfig(), mesh_db=objs, infer_fn=inf, device=dev)
+    ids = np.arange(1, N_OBJ + 1)
+
+    def frame(i):
+        _, bboxes, uv_gt = scene.frame(i)
+        inf.set_frame(bboxes, uv_gt)
+        t0 = time.perf_counter()
+        engine.process_view(i, img, YCBV_K, ids, bboxes, objs.model_kps, objs.masks, objs.masks)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    kernels.reset_counts()
+    times = [frame(i) for i in range(n_frames)]
+    t0 = time.perf_counter()
+    results = engine.collect_results(final=True)
+    torch.cuda.synchronize()
+    final_s = time.perf_counter() - t0
+    counts = kernels.counts()
+    log(f"[slam] launches over {n_frames} frames + the final BA: {json.dumps(counts)}")
+    log("[slam] launches per frame: " + json.dumps(
+        {k: round(c / n_frames, 2) for k, c in counts.items()}))
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the SLAM path: {missing}")
+    if engine.V != 32 or len(engine.opt_times) != 3:
+        raise AssertionError(f"SLAM path: capacity {engine.V}, {len(engine.opt_times)} global BAs")
+    per_frame_ms = statistics.median(times[1:]) * 1e3
+    log(f"[slam] per-frame latency: median {per_frame_ms:.2f} ms over {n_frames - 1} frames "
+        f"after 1 warm-up (all: {[round(t * 1e3, 2) for t in times]})")
+    log(f"[slam] global BA ms (frames 10, 20, final): "
+        f"{[round(t * 1e3, 2) for t in engine.opt_times]}; final collect_results "
+        f"{final_s * 1e3:.2f} ms; tracking BA alone {_tracking_ba_ms(engine, dev):.2f} ms; "
+        f"{inf.n_prior_calls} with-prior network calls")
+    # the trajectory and the objects against the ground truth
+    rot, trans, ok = [], [], []
+    for i in range(n_frames):
+        T_gt = scene.cams[i]
+        Te = engine.cam_T[engine.view_slot[i]].astype(np.float64)
+        c = (np.trace(Te[:3, :3].T @ T_gt[:3, :3]) - 1) / 2
+        rot.append(math.degrees(math.acos(min(1.0, max(-1.0, c)))))
+        trans.append(float(np.linalg.norm(Te[:3, 3] - T_gt[:3, 3])))
+        T_OtoC, _, _ = scene.frame(i)
+        for o in range(N_OBJ):
+            p = results[i]["poses"].get(o + 1, {}).get("T_OtoC")
+            ok.append(p is not None and np.isfinite(p).all() and _add_ok(p, T_OtoC[o], objs, o))
+    frac = float(np.mean(ok))
+    log(f"[slam] camera trajectory: max rotation error {max(rot):.4f} deg, max translation "
+        f"error {max(trans):.3f} mm; ADD < 0.1 d for {frac:.3f} of {len(ok)} (frame, object) "
+        f"poses")
+    if frac < 0.9:
+        raise AssertionError(f"SLAM path: ADD < 0.1 d for only {frac:.3f} of the poses")
+    # the with-prior program on the card against the same net on the CPU
+    if inf.last_prior_call is None:
+        raise AssertionError("the SLAM path ran no with-prior network call")
+    (img_d, boxes, valid, prior_uv, prior_valid), out = inf.last_prior_call
+    if not prior_valid.any():
+        raise AssertionError("the last with-prior call had no valid prior keypoint")
+    cpu_fn = sk.make_frame_inference(full_width_net(seed), device="cpu")
+    out_c = cpu_fn(img_d.cpu(), boxes[:2].cpu(), valid[:2].cpu(), prior_uv[:2].cpu(),
+                   prior_valid[:2].cpu())
+    errs = {n: (a[:2].cpu() - b).abs().max().item()
+            for n, a, b in zip(("uv", "cov", "mask"), out, out_c)}
+    log(f"[slam] with-prior network path vs CPU (2 crops, {int(prior_valid[:2].sum())} prior "
+        f"keypoints): {json.dumps(errs)} (tol 1e-3)")
+    if not all(e <= 1e-3 for e in errs.values()):
+        raise AssertionError(f"with-prior network path disagrees with the CPU: {errs}")
+    compare_global_ba(engine, dev)
+    profile_run(lambda: frame(n_frames), per_frame_ms, "one SLAM frame")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--views", type=int, default=6)
+    ap.add_argument("--frames", type=int, default=22)
     args = ap.parse_args(argv)
 
     import torch
@@ -679,10 +1195,13 @@ def main(argv=None):
     from suo_slam_tpu_torch.slam import kernels as sk
 
     net = sk.make_frame_inference(net, device=dev).net  # on the card, eval, channels_last
+    scene = SlamScene(np.random.default_rng(args.seed + 1), objs, args.frames + 1)
     entries = [check_k1(dev, rng, objs), check_k2(dev, rng, net), check_k3(dev, rng, objs),
-               check_k4(dev, rng, objs)]
-    counts = phase_main_path(dev, rng, objs, net, args.seed, args.views)
+               check_k4(dev, rng, objs), check_k5(dev, rng), check_k6(dev, rng, objs),
+               check_k7(dev, scene)]
+    phase_main_path(dev, rng, objs, net, args.seed, args.views)
     phase_solver_check(dev, rng, objs, args.seed, args.views)
+    counts = phase_slam(dev, rng, objs, net, args.seed, scene)
     for e in entries:
         e["launches"] = counts[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,8 +1,9 @@
 """Launch counters and build entry for the port's hand-written kernels.
 
 Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
-K2 `ops/heatmap.py`, K3 `solvers/pnp.py`, K4 `solvers/ba.py`) and adds one to
-its counter here where — and only where — it launches its CUDA kernel.
+K2 and K5 `ops/heatmap.py`, K3 `solvers/pnp.py`, K4 and K7 `solvers/ba.py`,
+K6 `slam/kernels.py`) and adds one to its counter here where — and only
+where — it launches its CUDA kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ LAUNCHES: dict[str, int] = {
     "heatmap_readout": 0,  # K2
     "pnp_hypotheses": 0,   # K3
     "ba_edges": 0,      # K4
+    "prior_render": 0,  # K5
+    "chi2_counts": 0,   # K6
+    "ba_schur": 0,      # K7
 }
 
 

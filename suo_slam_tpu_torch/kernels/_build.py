@@ -93,18 +93,19 @@ def build_all() -> float:
         return time.perf_counter() - t0
 
 
-def entry(stem: str, argtypes: list):
-    """The C entry point `suo_<stem>` of `csrc/<stem>.cu` (building every
-    kernel on first use), typed once with `argtypes` and an int
-    (cudaError_t) return."""
-    fn = _entries.get(stem)
+def entry(stem: str, argtypes: list, symbol: str | None = None):
+    """The C entry point `symbol` (default `suo_<stem>`) of `csrc/<stem>.cu`
+    (building every kernel on first use), typed once with `argtypes` and an
+    int (cudaError_t) return."""
+    symbol = symbol or f"suo_{stem}"
+    fn = _entries.get(symbol)
     if fn is None:
         if stem not in _libs:
             build_all()
-        fn = getattr(_libs[stem], f"suo_{stem}")
+        fn = getattr(_libs[stem], symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        _entries[stem] = fn
+        _entries[symbol] = fn
     return fn
 
 

@@ -1,17 +1,28 @@
-"""The object-SLAM engine, single-view configuration.
+"""The object-SLAM engine: symmetric / non-symmetric split, prior feedback,
+camera-pose RANSAC, late init, re-init voting and removals, tracking and
+global bundle adjustment.
 
-Port of `suo_slam_tpu/slam/engine.py` for `SlamConfig(single_view_mode=True)`
-— `evaluate.py --nviews 1`, which resets the engine before every view. Per
-view: frame inference (K1 crop -> PkpNet -> K2 readout) and the fused front
-end (filter -> PnP with K3 -> information) in one device chain with ONE host
-read-back; first-view object init from the PnP poses; then the robust LM
-bundle adjustment (`solvers.ba.optimize`, K4) over the [V, O, K] buffers,
-the behind-camera and low-inlier removals, and `collect_results`.
+Port of `suo_slam_tpu/slam/engine.py`. The state machine (which objects and
+views exist, success and failure branches) is host Python over host numpy
+measurement buffers [V, O, K]; the numeric paths are the device programs of
+`slam.kernels` and `solvers.ba`, and a frame costs two host read-backs:
 
-The state machine and the measurement buffers are host numpy, as in the JAX
-engine; the BA problem is uploaded per `optimize()`. SLAM and SfM modes,
-camera-pose RANSAC, prior feedback, `debug_gt_kp` and int8 inference are not
-ported yet and raise `NotImplementedError` naming their ROADMAP item.
+1. the non-symmetric group: frame inference (K1 crop -> K5 prior render ->
+   PkpNet -> K2 readout) chained into `kernels.frontend_step` (filter ->
+   PnP with K3 -> information -> camera-pose RANSAC with K6), read back
+   once;
+2. `kernels.tracking_tail`: the symmetric group's front end (dispatched,
+   not yet read) is scattered into the device mirrors, then late init, the
+   re-init vote (K6) and the tracking BA (K4, K7) run on them; one combined
+   read-back.
+
+Global BA (`optimize`, K4 + K7) runs every `global_opt_every` posed views
+(every view in SfM and single-view modes) over device mirrors of the bulk
+buffers (`_dev_buf`), which are updated row by row (`_sync_view_row`) and
+dropped when a capacity grows. Modes: SLAM (default), SfM (`sfm_mode`) and
+single view (`single_view_mode`, `evaluate.py --nviews 1`, which resets the
+engine before every view). `debug_gt_kp` and int8 inference raise
+`NotImplementedError` naming their ROADMAP entries.
 """
 
 from __future__ import annotations
@@ -69,6 +80,13 @@ def _fix_K_np(K, bbox):
     return S @ T @ K
 
 
+def _host(tree):
+    """Read a (nested) dict of device tensors back as numpy."""
+    if isinstance(tree, dict):
+        return {k: _host(x) for k, x in tree.items()}
+    return None if tree is None else tree.cpu().numpy()
+
+
 @dataclass
 class SlamConfig:
     # mode flags
@@ -76,18 +94,28 @@ class SlamConfig:
     single_view_mode: bool = False
     # ablations
     no_network_cov: bool = False
+    no_prior_det: bool = False
+    give_all_prior: bool = False
     debug_gt_kp: bool = False
     # thresholds
+    global_opt_every: int = 10
     kp_var_thresh: float = 0.2
     bbox_thresh: float = 0.9
     bbox_inflate: float = 0.0
     mask_thresh: float = 0.3
     manual_kp_std: float = 0.005
+    opt_init_with_outliers: bool = False
+    # rescale the BA information of a run whose information is manual
+    # (1 / manual_kp_std^2) back to identity, as the reference BA weights
+    # no-cov edges; RANSAC and re-init keep 1 / sigma^2
     ref_manual_info: bool = False
-    # capacities
+    # sliding window: global BA moves only the last N views' cameras
+    max_active_views: int | None = None
+    # capacities (power-of-2 growth)
     view_capacity: int = 16
     obj_capacity: int = 8
     pnp_hypotheses: int = 64
+    reinit_check_views: int = 15
     input_hw: tuple[int, int] = (256, 256)
     int8_inference: bool = False
     seed: int = 666
@@ -100,7 +128,9 @@ class SlamConfig:
 class TorchGumbelSampler:
     """The default RANSAC hypothesis sampler: Gumbel top-4 on a
     `torch.Generator` seeded from `SlamConfig.seed` (re-made at every
-    `ObjectSlam.reset()`)."""
+    `ObjectSlam.reset()`). `sampler(keep [O, K], n_hyp)` draws a group's
+    [O, n_hyp, 4] indices; `sampler.single(mask [N], n_hyp)` draws one
+    point set's [n_hyp, 4] (the backup camera pose)."""
 
     def __init__(self, seed: int, device: torch.device):
         self.gen = torch.Generator(device=device)
@@ -108,6 +138,9 @@ class TorchGumbelSampler:
 
     def __call__(self, mask: torch.Tensor, n_hyp: int) -> torch.Tensor:
         return pnp_mod.sample_hypothesis_indices(mask, n_hyp, self.gen)
+
+    def single(self, mask: torch.Tensor, n_hyp: int) -> torch.Tensor:
+        return pnp_mod.sample_hypothesis_indices(mask[None], n_hyp, self.gen)[0]
 
 
 @dataclass
@@ -119,8 +152,7 @@ class _Detection:
 
 
 class ObjectSlam:
-    """Feed `process_view` per view (after `reset()`); read
-    `collect_results`."""
+    """Feed `process_view` per frame; read `collect_results`."""
 
     def __init__(self, config: SlamConfig, mesh_db=None, net=None,
                  infer_fn=None, hyp_sampler=None, device="cuda"):
@@ -132,19 +164,17 @@ class ObjectSlam:
         `(img, boxes, obj_valid, prior_uv, prior_valid) -> (uv, cov,
         mask_prob)`, which overrides net.
 
-        hyp_sampler: factory `seed -> sampler`, where `sampler(keep [O, K],
-        n_hyp) -> idx [O, n_hyp, 4]` draws the PnP RANSAC hypotheses; called
-        at every `reset()`. Default: `TorchGumbelSampler`.
+        hyp_sampler: factory `seed -> sampler` called at every `reset()`;
+        `sampler(keep [O, K], n_hyp) -> idx [O, n_hyp, 4]` draws a group's
+        PnP RANSAC hypotheses and `sampler.single(mask [N], n_hyp) ->
+        idx [n_hyp, 4]` the backup camera pose's. Default:
+        `TorchGumbelSampler`.
         """
-        if not config.single_view_mode:
-            raise NotImplementedError(
-                "SLAM and SfM modes (camera RANSAC, tracking tail, global BA "
-                "schedule) are not ported yet: ROADMAP A9"
-            )
         if config.debug_gt_kp:
             raise NotImplementedError("debug_gt_kp is not ported yet: ROADMAP A9")
         if config.int8_inference:
-            raise NotImplementedError("int8 inference is not ported yet: ROADMAP A11")
+            raise NotImplementedError("int8 inference is not ported yet: ROADMAP B5 "
+                                      "(queue item 'int8 serving')")
         self.device = resolve_device(device)
         self.cfg = config
         self.mesh_db = mesh_db
@@ -181,41 +211,108 @@ class ObjectSlam:
         self.model_mask = np.zeros((self.O, K), bool)
         self.cam_T = np.tile(np.eye(4, dtype=np.float32), (self.V, 1, 1))
         self.obj_T = np.tile(np.eye(4, dtype=np.float32), (self.O, 1, 1))
-        self.cam_active = np.zeros((self.V,), bool)
-        self.obj_active = np.zeros((self.O,), bool)
+        self.cam_active = np.zeros((self.V,), bool)   # view has a pose
+        self.obj_active = np.zeros((self.O,), bool)   # object has a map pose
         self.obj_diam = np.full((self.O,), 1e-3, np.float32)
         self.view_slot: dict[int, int] = {}
         self.obj_slot: dict[int, int] = {}
-        self.view_ids: list[int] = []
-        self.views_seen: list[int] = []
+        self.view_ids: list[int] = []     # insertion order of POSED views
+        self.views_seen: list[int] = []   # all processed views
         self.detections: dict[int, dict[int, _Detection]] = {}
         self.cam_K_full: dict[int, np.ndarray] = {}
         self.obj_num_dets: dict[int, int] = {}
         self.obj_num_det_kps: dict[int, int] = {}
         self.needs_opt = False
+        # whether this run's stored information is manual (1/sigma^2, the
+        # front end got no covariance) or network-predicted; uniform within
+        # a run (None until the first detection)
+        self._manual_info_run: bool | None = None
+        # device mirrors of the bulk measurement buffers (host numpy stays
+        # the source of truth for the control logic)
+        self._dev: dict[str, torch.Tensor] = {}
 
+    def _up(self, a, dtype=None) -> torch.Tensor:
+        """A device copy of a host array (never a view of it)."""
+        return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # device mirrors ----------------------------------------------------------
+    _MIRRORED = ("uv", "info", "valid", "inliers", "cam_k4", "model_kp")
+
+    def _dev_buf(self, name):
+        """Device copy of a mirrored host buffer (uploaded once, then kept in
+        sync by `_sync_view_row`, the tracking tail and the BA write-back, or
+        dropped)."""
+        buf = self._dev.get(name)
+        if buf is None:
+            buf = self._up(getattr(self, name))
+            self._dev[name] = buf
+        return buf
+
+    def _sync_view_row(self, v):
+        """Push row v of the per-view buffers to the device mirrors (in
+        place: one small transfer per buffer)."""
+        for name in ("uv", "info", "valid", "inliers", "cam_k4"):
+            if name in self._dev:
+                self._dev[name][v] = self._up(getattr(self, name)[v])
+
+    # capacity management ----------------------------------------------------
     def _ensure_view_slot(self, view_id) -> int:
-        if view_id not in self.view_slot:
-            if len(self.view_slot) >= self.V:
-                raise NotImplementedError("view-capacity growth is SLAM mode: ROADMAP A9")
-            self.view_slot[view_id] = len(self.view_slot)
-        return self.view_slot[view_id]
+        if view_id in self.view_slot:
+            return self.view_slot[view_id]
+        n = len(self.view_slot)
+        if n >= self.V:
+            self._grow_views(self.V * 2)
+        self.view_slot[view_id] = n
+        return n
+
+    def _grow_views(self, new_v):
+        grow = new_v - self.V
+        pad = lambda a: np.concatenate([a, np.zeros((grow,) + a.shape[1:], a.dtype)])
+        self.uv = pad(self.uv)
+        self.info = pad(self.info)
+        self.valid = pad(self.valid)
+        self.inliers = pad(self.inliers)
+        self.cam_k4 = pad(self.cam_k4)
+        self.cam_T = np.concatenate([self.cam_T,
+                                     np.tile(np.eye(4, dtype=np.float32), (grow, 1, 1))])
+        self.cam_active = np.concatenate([self.cam_active, np.zeros((grow,), bool)])
+        self.V = new_v
+        self._dev.clear()  # mirror shapes changed
 
     def _ensure_obj_slot(self, obj_id, model_kp=None, model_mask=None) -> int:
         if obj_id in self.obj_slot:
             return self.obj_slot[obj_id]
         n = len(self.obj_slot)
         if n >= self.O:
-            raise ValueError(f"more than obj_capacity={self.O} objects in one view")
+            self._grow_objects(self.O * 2)
         self.obj_slot[obj_id] = n
         if model_kp is not None:
             self.model_kp[n] = model_kp
             self.model_mask[n] = model_mask
+            self._dev.pop("model_kp", None)  # rare; re-uploaded lazily
         if self.mesh_db is not None:
             self.obj_diam[n] = self.mesh_db.diameter[obj_id - 1]
         self.obj_num_dets.setdefault(obj_id, 0)
         self.obj_num_det_kps.setdefault(obj_id, 0)
         return n
+
+    def _grow_objects(self, new_o):
+        grow = new_o - self.O
+        pad1 = lambda a: np.concatenate(
+            [a, np.zeros((a.shape[0], grow) + a.shape[2:], a.dtype)], axis=1)
+        self.uv = pad1(self.uv)
+        self.info = pad1(self.info)
+        self.valid = pad1(self.valid)
+        self.inliers = pad1(self.inliers)
+        self.cam_k4 = pad1(self.cam_k4)
+        self.model_kp = np.concatenate([self.model_kp, np.zeros((grow, self.nk, 3), np.float32)])
+        self.model_mask = np.concatenate([self.model_mask, np.zeros((grow, self.nk), bool)])
+        self.obj_T = np.concatenate([self.obj_T,
+                                     np.tile(np.eye(4, dtype=np.float32), (grow, 1, 1))])
+        self.obj_active = np.concatenate([self.obj_active, np.zeros((grow,), bool)])
+        self.obj_diam = np.concatenate([self.obj_diam, np.full((grow,), 1e-3, np.float32)])
+        self.O = new_o
+        self._dev.clear()  # mirror shapes changed
 
     def num_views_processed(self):
         return len(self.view_ids)
@@ -225,18 +322,15 @@ class ObjectSlam:
         return 0 if s is None else int(self.inliers[:, s].sum())
 
     # ------------------------------------------------------------- frame ----
+    @torch.inference_mode()
     def process_view(self, view_id, img, K, obj_ids, bboxes, model_kps,
                      model_kps_masks, kp_masks, uv_gt=None, cam_pose=None):
-        """Process one view. img [H, W, 3] f32 RGB in [0, 1]; K [3, 3];
+        """Process one frame. img [H, W, 3] f32 RGB in [0, 1]; K [3, 3];
         obj_ids [O_f]; bboxes [O_f, 4] xyxy pixels; model_kps [O_f, K, 3];
-        model_kps_masks / kp_masks [O_f, K]; cam_pose optional T_GtoC."""
+        model_kps_masks / kp_masks [O_f, K]; cam_pose optional external
+        T_GtoC."""
         if view_id in self.views_seen:
             raise ValueError(f"repeat view {view_id}")
-        if self.view_ids:
-            raise NotImplementedError(
-                "single-view mode is driven with reset() before every view; a "
-                "second posed view needs camera RANSAC: ROADMAP A7"
-            )
         c = self.cfg
         tt0 = time.perf_counter()
         self.views_seen.append(view_id)
@@ -247,23 +341,60 @@ class ObjectSlam:
         bboxes = np.array(bboxes, np.float32)
         model_kps = np.asarray(model_kps, np.float32)
         model_kps_masks = np.asarray(model_kps_masks, bool)
+
+        # symmetric / non-symmetric split
+        if not c.no_prior_det and self.mesh_db is not None:
+            is_sym = np.array([bool(self.mesh_db.is_symmetric[o - 1]) for o in obj_ids],
+                              bool)
+        else:
+            is_sym = np.zeros(len(obj_ids), bool)
         if cam_pose is not None:
             self._set_cam_pose(view_id, _to44(cam_pose))
+            is_sym = np.ones(len(obj_ids), bool)
+        if c.give_all_prior:
+            is_sym = np.ones(len(obj_ids), bool)
+        if c.single_view_mode:
+            is_sym = np.zeros(len(obj_ids), bool)
+
+        n_non_sym = int((~is_sym).sum())
+        if (cam_pose is None and not c.single_view_mode and len(self.view_ids) > 0
+                and n_non_sym == 0):
+            self._backup_estimate_camera_pose(view_id, obj_ids, bboxes)
+
         self.needs_opt = True
         bboxes[:, :2] *= 1.0 - c.bbox_inflate
         bboxes[:, 2:] *= 1.0 + c.bbox_inflate
-        # single-view mode: every object goes through the non-symmetric group
-        self._process_objects(view_id, img, K, obj_ids, bboxes, model_kps,
-                              model_kps_masks)
+
+        if n_non_sym > 0:
+            ns = ~is_sym
+            self._process_objects(False, view_id, img, K, obj_ids[ns], bboxes[ns],
+                                  model_kps[ns], model_kps_masks[ns])
         if not self._has_cam_pose(view_id):
-            self._set_cam_pose(view_id, np.eye(4))
+            if len(self.view_ids) == 0:
+                self._set_cam_pose(view_id, np.eye(4))
+            else:
+                self._backup_estimate_camera_pose(view_id, obj_ids, bboxes)
+        sym_pending = None
+        if is_sym.any() and (self._has_cam_pose(view_id) or c.no_prior_det):
+            # the symmetric group's front end is dispatched now and read back
+            # with the tracking tail
+            sym_pending = self._group_frontend(
+                True, view_id, img, K, obj_ids[is_sym], bboxes[is_sym],
+                model_kps[is_sym], model_kps_masks[is_sym], with_cam_ransac=False,
+            )
+        if not c.single_view_mode:
+            self._fused_tail(view_id, sym_pending)
+
         tt1 = time.perf_counter()
-        if self.all_time_num_views > 5:
+        if self.all_time_num_views > 5:  # warm-up exclusion
             self.track_times.append(tt1 - tt0)
-        t0 = time.perf_counter()
-        self.optimize()
-        self.opt_times.append(time.perf_counter() - t0)
-        self.needs_opt = False
+        if c.sfm_mode or c.single_view_mode or (
+            len(self.view_ids) > 1 and len(self.view_ids) % c.global_opt_every == 0
+        ):
+            t0 = time.perf_counter()
+            self.optimize()
+            self.opt_times.append(time.perf_counter() - t0)
+            self.needs_opt = False
 
     def _has_cam_pose(self, view_id):
         s = self.view_slot.get(view_id)
@@ -276,64 +407,116 @@ class ObjectSlam:
             self.cam_active[s] = True
             self.view_ids.append(view_id)
 
-    def _process_objects(self, view_id, img, K, obj_ids, bboxes, model_kps,
+    def _process_objects(self, is_sym, view_id, img, K, obj_ids, bboxes, model_kps,
                          model_kps_masks):
-        """Network + PnP for the view's objects: one device chain, ONE host
-        read-back."""
+        """Network + PnP + camera-pose RANSAC for the non-symmetric group: one
+        device chain, the frame's first host read-back; then the camera pose
+        and late init."""
         if len(obj_ids) == 0:
             return
-        meta, dev = self._group_frontend(view_id, img, K, obj_ids, bboxes,
-                                         model_kps, model_kps_masks)
-        host = {k: (None if x is None else x.cpu().numpy()) for k, x in dev.items()}
-        self._commit_group(view_id, meta, host)
+        with_cam_ransac = not self._has_cam_pose(view_id) and self.num_views_processed() > 0
+        meta, dev = self._group_frontend(is_sym, view_id, img, K, obj_ids, bboxes,
+                                         model_kps, model_kps_masks, with_cam_ransac)
+        host = _host(dev)
+        self._commit_group(view_id, meta, host, sync=True)
 
-    def _group_frontend(self, view_id, img, K, obj_ids, bboxes, model_kps,
-                        model_kps_masks):
+        if not self._has_cam_pose(view_id):
+            if self.num_views_processed() == 0:
+                self._set_cam_pose(view_id, np.eye(4))
+            elif host["cam_ok"]:
+                self._set_cam_pose(view_id, _to44(host["T_cam"]))
+            else:
+                # RANSAC found no camera: no late init for this group; the
+                # caller falls back to the backup pose
+                return
+
+        # late object init
+        T_GtoC = _to44(self.cam_T[self.view_slot[view_id]])
+        dets = self.detections[view_id]
+        for obj_id in meta["obj_ids"]:
+            s = self.obj_slot[obj_id]
+            det = dets.get(obj_id)
+            if not self.obj_active[s] and det is not None and det.pose_pnp is not None:
+                self._set_obj_pose(obj_id, np.linalg.inv(T_GtoC) @ det.pose_pnp)
+
+    def _group_frontend(self, is_sym, view_id, img, K, obj_ids, bboxes, model_kps,
+                        model_kps_masks, with_cam_ransac):
+        """Host preparation and the device chain of one group: network
+        inference -> `kernels.frontend_step`. No host read-back: the caller
+        decides when to read the returned device dict."""
         c = self.cfg
         of = len(obj_ids)
         nk = self.nk
-        dev = self.device
+        K_nd = np.zeros((of, 3, 3), np.float64)
         cam_k4 = np.zeros((of, 4), np.float32)
         for i in range(of):
-            K_nd = _fix_K_np(np.asarray(K, np.float64), bboxes[i])
-            cam_k4[i] = (K_nd[0, 0], K_nd[1, 1], K_nd[0, 2], K_nd[1, 2])
+            K_nd[i] = _fix_K_np(np.asarray(K, np.float64), bboxes[i])
+            cam_k4[i] = (K_nd[i][0, 0], K_nd[i][1, 1], K_nd[i][0, 2], K_nd[i][1, 2])
+
+        # prior detections for symmetric objects with map estimates (host
+        # numpy, f64)
         prior_uv = np.zeros((of, nk, 2), np.float32)
         prior_valid = np.zeros((of, nk), bool)
+        if is_sym and not c.no_prior_det and self._has_cam_pose(view_id):
+            T_GtoC = _to44(self.cam_T[self.view_slot[view_id]])
+            for i, obj_id in enumerate(obj_ids):
+                s = self.obj_slot.get(obj_id)
+                if s is None or not self.obj_active[s]:
+                    continue
+                T_OtoC = T_GtoC @ _to44(self.obj_T[s])
+                m = model_kps_masks[i]
+                p_C = model_kps[i] @ T_OtoC[:3, :3].T + T_OtoC[:3, 3]
+                uvd = p_C @ K_nd[i].T
+                if np.all(uvd[m, 2] > 0):
+                    prior_uv[i] = uvd[:, :2] / np.where(
+                        np.abs(uvd[:, 2:3]) < 1e-9, 1e-9, uvd[:, 2:3])
+                    prior_valid[i] = m
+
+        # slot assignment before the chain (insertion order, host only)
         slots = np.empty((of,), np.int32)
         for i, obj_id in enumerate(int(o) for o in obj_ids):
             slots[i] = self._ensure_obj_slot(obj_id, model_kps[i], model_kps_masks[i])
+
+        # pad the object batch to a power-of-2 bucket
         ob = _bucket(of)
+        pad_slots = np.full((ob,), self.O, np.int64)  # O = dropped in a scatter
+        pad_slots[:of] = slots
         obj_valid = np.zeros((ob,), bool)
         obj_valid[:of] = True
         bx = _pad0(bboxes, ob)
         bx[of:] = (0.0, 0.0, MIN_PAD_BOX, MIN_PAD_BOX)
         infer_kw = {}
-        if getattr(self._infer, "supports_no_prior", False):
-            infer_kw["has_prior"] = False  # single view never has a prior
-        t = lambda a, dt=None: torch.as_tensor(a, dtype=dt).to(dev)
+        if not prior_valid.any() and getattr(self._infer, "supports_no_prior", False):
+            infer_kw["has_prior"] = False  # the statically prior-free program
+        f32 = torch.float32
         uv_d, cov_d, maskp_d = self._infer(
-            img, t(bx, torch.float32), t(obj_valid),
-            t(_pad0(prior_uv, ob)), t(_pad0(prior_valid, ob)), **infer_kw,
+            img, self._up(bx, f32), self._up(obj_valid), self._up(_pad0(prior_uv, ob), f32),
+            self._up(_pad0(prior_valid, ob)), **infer_kw,
         )
         if c.no_network_cov:
-            cov_d = None
+            cov_d = None  # manual information, no stdev filter or meter
         diams = _pad0(np.asarray([self._diam(o) for o in obj_ids], np.float32), ob)
         diams[of:] = np.inf  # padded slots never pass the depth gate
-        out = kernels.frontend_step(
-            uv_d, cov_d, maskp_d,
-            t(_pad0(model_kps, ob), torch.float32), t(_pad0(model_kps_masks, ob)),
-            t(_pad0(cam_k4, ob), torch.float32), t(diams, torch.float32),
-            self._sampler, c.manual_kp_std, c.bbox_thresh, c.kp_var_thresh,
-            c.mask_thresh, n_hyp=c.pnp_hypotheses,
+        fs_kw = {}
+        if with_cam_ransac:
+            fs_kw = dict(slots=self._up(pad_slots), obj_T=self._up(self.obj_T),
+                         obj_active=self._up(self.obj_active),
+                         model_kp_full=self._dev_buf("model_kp"))
+        dev = kernels.frontend_step(
+            uv_d, cov_d, maskp_d, self._up(_pad0(model_kps, ob), f32),
+            self._up(_pad0(model_kps_masks, ob)), self._up(_pad0(cam_k4, ob), f32),
+            self._up(diams, f32), self._sampler, c.manual_kp_std, c.bbox_thresh,
+            c.kp_var_thresh, c.mask_thresh, n_hyp=c.pnp_hypotheses, **fs_kw,
         )
         meta = dict(of=of, obj_ids=[int(o) for o in obj_ids], bboxes=bboxes,
-                    cam_k4=cam_k4, slots=slots, prior_uv=prior_uv,
-                    prior_valid=prior_valid)
-        return meta, out
+                    cam_k4=cam_k4, slots=slots, pad_slots=pad_slots,
+                    prior_uv=prior_uv, prior_valid=prior_valid)
+        return meta, dev
 
-    def _commit_group(self, view_id, meta, host):
-        """Host bookkeeping for the read-back: buffer rows, detection
-        records, meters, first-view object init."""
+    def _commit_group(self, view_id, meta, host, sync):
+        """Host bookkeeping for one group's read-back: buffer rows, detection
+        records, meters, first-view object init. sync=False when the device
+        mirrors were already updated (the tracking tail's scatter)."""
         of = meta["of"]
         uv_pred = host["uv"][:of]
         keep = host["keep"][:of]
@@ -343,6 +526,14 @@ class ObjectSlam:
         if host["cov"] is not None:
             self.avg_std_sum += float(host["std_sum"])
             self.avg_std_n += int(host["std_cnt"])
+        is_manual = host["cov"] is None
+        if self._manual_info_run is None:
+            self._manual_info_run = is_manual
+        elif self._manual_info_run != is_manual:
+            raise ValueError(
+                "mixed manual/network info within one run: the ref_manual_info "
+                "BA rescale assumes a uniform info source"
+            )
         dets = self.detections.setdefault(view_id, {})
         v = self._ensure_view_slot(view_id)
         for i, obj_id in enumerate(meta["obj_ids"]):
@@ -350,7 +541,7 @@ class ObjectSlam:
             self.uv[v, s] = uv_pred[i]
             self.info[v, s] = info[i]
             self.valid[v, s] = keep[i]
-            self.inliers[v, s] = keep[i]
+            self.inliers[v, s] = keep[i]  # every edge starts as an inlier
             self.cam_k4[v, s] = meta["cam_k4"][i]
             pose = _to44(T_pnp[i]) if pnp_ok[i] else None
             dets[obj_id] = _Detection(
@@ -361,12 +552,16 @@ class ObjectSlam:
             )
             self.obj_num_dets[obj_id] += 1
             self.obj_num_det_kps[obj_id] += int(keep[i].sum())
+            # first-view object init (only the non-symmetric group can run
+            # before the first camera pose)
             if self.num_views_processed() == 0 and pose is not None:
                 if self._has_cam_pose(view_id):
                     T_GtoC = _to44(self.cam_T[self.view_slot[view_id]])
                     self._set_obj_pose(obj_id, np.linalg.inv(T_GtoC) @ pose)
                 else:
                     self._set_obj_pose(obj_id, pose)
+        if sync:
+            self._sync_view_row(v)
         return v
 
     def _diam(self, obj_id):
@@ -384,41 +579,162 @@ class ObjectSlam:
         if s is not None:
             self.obj_active[s] = False
 
+    def _backup_estimate_camera_pose(self, view_id, obj_ids, bboxes):
+        """bbox-centroid PnP against the mapped objects' centres (>= 4 of
+        them), else constant velocity, else hold the last pose."""
+        assert len(self.view_ids) > 0 and not self._has_cam_pose(view_id)
+        K = self.cam_K_full[view_id]
+        centroids, centers = [], []
+        for i, obj_id in enumerate(int(o) for o in obj_ids):
+            s = self.obj_slot.get(obj_id)
+            if s is not None and self.obj_active[s]:
+                centroids.append(0.5 * (bboxes[i, :2] + bboxes[i, 2:]))
+                centers.append(self.obj_T[s][:3, 3])
+        T = None
+        if len(centroids) >= 4:
+            uv1 = np.concatenate([np.stack(centroids), np.ones((len(centroids), 1))], -1)
+            y = (uv1 @ np.linalg.inv(K).T)[:, :2]
+            mask = torch.ones((len(centroids),), dtype=torch.bool, device=self.device)
+            idx = self._sampler.single(mask, pnp_mod.DEFAULT_HYPOTHESES)
+            res = pnp_mod.pnp_ransac(self._up(np.stack(centers), torch.float32),
+                                     self._up(y, torch.float32), mask, idx)
+            if bool(res.success):
+                T = res.T.cpu().numpy()
+        if T is None:
+            if len(self.view_ids) > 1:
+                T1 = _to44(self.cam_T[self.view_slot[self.view_ids[-2]]])
+                T2 = _to44(self.cam_T[self.view_slot[self.view_ids[-1]]])
+                T = (T2 @ np.linalg.inv(T1)) @ T2  # constant velocity
+            else:
+                T = _to44(self.cam_T[self.view_slot[self.view_ids[-1]]])
+        self._set_cam_pose(view_id, T)
+
+    # fused per-frame tail ------------------------------------------------------
+    def _fused_tail(self, view_id, sym_pending):
+        """Symmetric-group scatter + re-init vote + tracking BA in one device
+        chain ending in the frame's second host read-back
+        (`kernels.tracking_tail`)."""
+        c = self.cfg
+        if len(self.view_ids) == 0 or not self._has_cam_pose(view_id):
+            assert sym_pending is None  # the symmetric group runs with a pose
+            return
+        v = self.view_slot[view_id]
+        f32 = torch.float32
+
+        sym_dev = meta_sym = None
+        if sym_pending is not None:
+            meta_sym, dev = sym_pending
+            ob = len(meta_sym["pad_slots"])
+            sym_dev = {
+                "slots": self._up(meta_sym["pad_slots"]),
+                "uv": dev["uv"], "info": dev["info"], "keep": dev["keep"],
+                "T_pnp": dev["T_pnp"], "pnp_ok": dev["pnp_ok"],
+                "cam_k4": self._up(_pad0(meta_sym["cam_k4"], ob), f32),
+            }
+
+        # re-init vote window over the last views (from 2 posed views on)
+        reinit_in = None
+        if self.num_views_processed() >= 2:
+            check_n_views = len(self.view_ids) if c.sfm_mode else c.reinit_check_views
+            check_n = min(len(self.view_ids), check_n_views)
+            # non-symmetric candidates are host state (committed above);
+            # symmetric ones join on the device from the pending group
+            cand_sel = np.zeros((self.O,), bool)
+            T_pnp_G = np.tile(np.eye(4, dtype=np.float32), (self.O, 1, 1))
+            T_GtoC_inv = np.linalg.inv(_to44(self.cam_T[v]))
+            for obj_id, det in self.detections.get(view_id, {}).items():
+                s = self.obj_slot[obj_id]
+                if det.pose_pnp is not None and self.obj_active[s]:
+                    T_pnp_G[s] = T_GtoC_inv @ det.pose_pnp
+                    cand_sel[s] = True
+            # fixed-size view window padded with invalid slots
+            n_fix = _bucket(check_n, lo=c.reinit_check_views)
+            cs = np.zeros((n_fix,), np.int64)
+            cam_valid = np.zeros((n_fix,), bool)
+            for i in range(check_n):
+                cs[i] = self.view_slot[self.view_ids[-(i + 1)]]
+                cam_valid[i] = self.cam_active[cs[i]]
+            reinit_in = {
+                "cand_sel": self._up(cand_sel), "T_pnp_G": self._up(T_pnp_G),
+                "cs": self._up(cs), "cam_valid": self._up(cam_valid),
+                "cam_T_w": self._up(self.cam_T[cs]),
+            }
+
+        info_scale = float(np.float32(
+            c.manual_kp_std ** 2 if (c.ref_manual_info and self._manual_info_run) else 1.0))
+        mirrors, tail_dev = kernels.tracking_tail(
+            self._dev_buf("uv"), self._dev_buf("info"), self._dev_buf("valid"),
+            self._dev_buf("inliers"), self._dev_buf("cam_k4"), self._dev_buf("model_kp"),
+            v, self._up(self.cam_T[v]), self._up(self.obj_T), self._up(self.obj_active),
+            sym_dev, reinit_in, info_scale, bool(c.opt_init_with_outliers),
+        )
+        fetch = {"tail": tail_dev}
+        if sym_pending is not None:
+            fetch["sym"] = sym_pending[1]
+        host = _host(fetch)  # the frame's second host read-back
+        for name, buf in zip(self._MIRRORED[:5], mirrors):
+            self._dev[name] = buf
+
+        t = host["tail"]
+        if sym_pending is not None:
+            self._commit_group(view_id, meta_sym, host["sym"], sync=False)
+        # the kernel's map updates: late inits and re-init votes (untouched
+        # slots pass through, so a full copy is exact)
+        self.obj_T[...] = t["obj_T"]
+        self.obj_active |= t["late"]
+        # tracking BA write-back (the unchanged values when the < 3-edge
+        # gate fired)
+        self.cam_T[v] = t["cam_T_v"]
+        self.inliers[v] = t["inliers_row"]
+        if t["did_opt"]:
+            # min-inlier removal runs after every completed optimize,
+            # tracking included
+            self._remove_low_inlier_objects()
+
     # BA ----------------------------------------------------------------------
+    @torch.inference_mode()
     def optimize(self):
-        """Robust LM over the measurement buffers (single view: rounds
-        (10, 10, 10, 10), the first camera fixed as the gauge)."""
+        """Global robust LM over the measurement buffers: rounds
+        (10, 10, 40, 40), or (10, 10, 10, 10) in single-view mode, the first
+        camera fixed as the gauge, cameras older than `max_active_views`
+        frozen; then both removals. Per-frame tracking runs in the fused
+        tail instead."""
         if len(self.view_ids) == 0:
             return
         c = self.cfg
-        dev = self.device
-        t = lambda a: torch.as_tensor(a).to(dev)
-        info = self.info
-        if c.ref_manual_info and c.no_network_cov:
-            info = info * np.float32(c.manual_kp_std ** 2)
+        cam_frozen = np.zeros((self.V,), bool)
+        if c.max_active_views is not None:
+            for view_id_old in self.view_ids[: -c.max_active_views]:
+                cam_frozen[self.view_slot[view_id_old]] = True
+        # stored information is 1/sigma^2 for a manual-information run (what
+        # RANSAC and re-init need); ref_manual_info rescales the BA's copy
+        info = self._dev_buf("info")
+        if c.ref_manual_info and self._manual_info_run:
+            info = info * (c.manual_kp_std ** 2)
         problem = ba.BAProblem(
-            cam_T=t(self.cam_T), obj_T=t(self.obj_T), uv=t(self.uv),
-            info=t(info), model_kp=t(self.model_kp), cam_k=t(self.cam_k4),
-            valid=t(self.valid), inliers=t(self.inliers),
-            cam_active=t(self.cam_active), obj_active=t(self.obj_active),
-            cam_frozen=t(np.zeros((self.V,), bool)),
+            cam_T=self._up(self.cam_T), obj_T=self._up(self.obj_T),
+            uv=self._dev_buf("uv"), info=info, model_kp=self._dev_buf("model_kp"),
+            cam_k=self._dev_buf("cam_k4"), valid=self._dev_buf("valid"),
+            inliers=self._dev_buf("inliers"), cam_active=self._up(self.cam_active),
+            obj_active=self._up(self.obj_active), cam_frozen=self._up(cam_frozen),
         )
-        with torch.inference_mode():
-            result = ba.optimize(problem, iters_per_round=(10, 10, 10, 10),
-                                 tracking_only=False, fix_first_cam=True,
-                                 init_with_outliers=False)
-        new_cam = result.cam_T.cpu().numpy()
-        new_obj = result.obj_T.cpu().numpy()
-        new_inl = result.inliers.cpu().numpy()
+        rounds = (10, 10, 10, 10) if c.single_view_mode else (10, 10, 40, 40)
+        result = ba.optimize(problem, iters_per_round=rounds, tracking_only=False,
+                             fix_first_cam=True, init_with_outliers=False)
+        new_cam, new_obj, new_inl = (result.cam_T.cpu().numpy(), result.obj_T.cpu().numpy(),
+                                     result.inliers.cpu().numpy())
         upd = self.cam_active
         self.cam_T[upd] = new_cam[upd]
         self.obj_T[self.obj_active] = new_obj[self.obj_active]
         self.inliers[self.cam_active] = new_inl[self.cam_active]
+        # the masked write-back changes rows of the inlier mirror: refresh it
+        self._dev["inliers"] = self._up(self.inliers)
         self._remove_behind_camera()
+        # min-inlier removal runs after every optimize, tracking included
         self._remove_low_inlier_objects()
 
     def _remove_behind_camera(self):
-        """Behind-camera object removal after the global BA."""
+        """Behind-camera object removal, global BA only."""
         if not self.view_ids:
             return
         v = self.view_slot[self.view_ids[-1]]
@@ -441,8 +757,13 @@ class ObjectSlam:
 
     # results -----------------------------------------------------------------
     def collect_results(self, last_only=False, final=False):
-        """Per-view object poses T_OtoC for evaluation (single view has no
-        pending optimize, so `final` changes nothing)."""
+        """Per-view object poses T_OtoC for evaluation; with `final` in SLAM
+        mode, the pending global BA runs first."""
+        if self.cfg.slam_mode and self.needs_opt and final:
+            t0 = time.perf_counter()
+            self.optimize()
+            self.opt_times.append(time.perf_counter() - t0)
+            self.needs_opt = False
         results = {}
         view_ids = [self.view_ids[-1]] if last_only else list(self.view_ids)
         for view_id in view_ids:

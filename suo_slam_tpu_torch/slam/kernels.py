@@ -1,23 +1,34 @@
-"""Per-frame device programs of the single-view SLAM front end.
+"""Per-frame device programs of the SLAM front end and tracking tail.
 
-Port of the single-view part of `suo_slam_tpu/slam/kernels.py`:
+Port of `suo_slam_tpu/slam/kernels.py`:
 
-- `make_frame_inference`: ROI crop (K1) -> PkpNet -> heatmap readout (K2)
-  + validity head, for every object of a frame in one call;
+- `make_frame_inference`: ROI crop (K1) -> prior render (K5) -> PkpNet ->
+  heatmap readout (K2) + validity head, for every object of a frame in one
+  call; `has_prior=False` is the statically prior-free program;
 - `frontend_step`: keypoint filter -> batched PnP (`pnp_frame`, K3) ->
-  information matrices, with no host round-trip between the stages.
-
-Camera-pose RANSAC, `reinit_counts` and `tracking_tail` belong to SLAM mode
-and are not ported yet (ROADMAP).
+  information -> (optionally) camera-pose RANSAC, with no host round-trip
+  between the stages;
+- `chi2_counts` (kernel K6) under `camera_pose_ransac` and `reinit_counts`;
+- `tracking_tail`: the symmetric group's scatter into the device mirrors ->
+  late init -> re-init vote -> tracking BA (K4, K7), ending in the frame's
+  second host read-back.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import kernels as kcount
 from .._device import resolve_device
+from ..core import lie
+from ..kernels import _build
+from ..ops import heatmap as hm
 from ..ops import roi as roi_ops
+from ..solvers import ba
 from ..solvers import pnp as pnp_mod
+from ..solvers.ba import CHI2_THRESH_2DOF
 
 COV_DIAG_FLOOR = 1e-4
 
@@ -66,12 +77,136 @@ def pnp_frame(model_kps, uv, kp_mask, cam_k4, diameters, idx):
     return torch.where(ok[:, None, None], res.T, eye), ok
 
 
+def chi2_counts_plain(T_OtoC, model_kp, uv, info, mask, cam_k4,
+                      chi2_thresh: float = CHI2_THRESH_2DOF, per_object: bool = False):
+    """Plain PyTorch K6. T_OtoC [S, O, 4, 4] pose sets; model_kp [O, K, 3];
+    uv [M, O, K, 2], info [M, O, K, 2, 2], mask [M, O, K], cam_k4 [M, O, 4]
+    measurement rows, set s reading row s % M (S a multiple of M). An edge
+    counts when chi2 <= chi2_thresh, it lies in front of the camera (z > 0)
+    and its mask is set. Returns int32 counts: [S] (per set, summed over
+    objects and keypoints) or, with per_object, [S // M, O] (per group of M
+    consecutive sets and object, summed over the group and keypoints)."""
+    S, O = T_OtoC.shape[:2]
+    M, K = uv.shape[0], uv.shape[2]
+    R, t = T_OtoC[..., :3, :3], T_OtoC[..., :3, 3]
+    x, y, z = (model_kp[..., i] for i in range(3))
+    p = [x * R[..., i, 0, None] + y * R[..., i, 1, None] + z * R[..., i, 2, None]
+         + t[..., i, None] for i in range(3)]                      # [S, O, K]
+    p = [a.reshape(S // M, M, O, K) for a in p]
+    pz = p[2]
+    iz = 1.0 / torch.where(torch.abs(pz) < 1e-12, 1e-12, pz)
+    u = cam_k4[..., 0, None] * p[0] * iz + cam_k4[..., 2, None]
+    v = cam_k4[..., 1, None] * p[1] * iz + cam_k4[..., 3, None]
+    ru = uv[..., 0] - u
+    rv = uv[..., 1] - v
+    chi2 = (ru * (info[..., 0, 0] * ru + info[..., 0, 1] * rv)
+            + rv * (info[..., 1, 0] * ru + info[..., 1, 1] * rv))
+    good = (chi2 <= chi2_thresh) & (pz > 0) & mask.bool()          # [G, M, O, K]
+    if per_object:
+        return good.sum(dim=(1, 3)).to(torch.int32)
+    return good.reshape(S, O * K).sum(-1).to(torch.int32)
+
+
+_CHI2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                  + [ctypes.c_void_p] * 2)
+
+
+def _chi2_counts_cuda(T_OtoC, model_kp, uv, info, mask, cam_k4, chi2_thresh,
+                      per_object):
+    S, O = T_OtoC.shape[:2]
+    M, K = uv.shape[0], uv.shape[2]
+    if (T_OtoC.shape != (S, O, 4, 4) or model_kp.shape != (O, K, 3)
+            or uv.shape != (M, O, K, 2) or info.shape != (M, O, K, 2, 2)
+            or mask.shape != (M, O, K) or cam_k4.shape != (M, O, 4) or S % M):
+        raise ValueError("K6: inconsistent chi2-count shapes")
+    fs = (T_OtoC, model_kp, uv, info, cam_k4)
+    if any(a.dtype != torch.float32 for a in fs):
+        raise ValueError("K6 runs in f32")
+    dev = uv.device
+    if any(a.device != dev for a in fs + (mask,)):
+        raise ValueError("K6 inputs must lie on one CUDA device")
+    cs = [a.contiguous() for a in fs]
+    mk = mask.to(torch.uint8).contiguous()
+    out = torch.empty(((S // M) * O,) if per_object else (S,), dtype=torch.int32,
+                      device=dev)
+    fn = _build.entry("chi2_counts", _CHI2_ARGTYPES)
+    err = fn(_build.ptr(cs[0]), _build.ptr(cs[1]), _build.ptr(cs[2]), _build.ptr(cs[3]),
+             _build.ptr(mk), _build.ptr(cs[4]), S, O, K, M, int(bool(per_object)),
+             float(chi2_thresh), _build.ptr(out), _build.stream())
+    _build.check(err, "K6 chi2_counts")
+    kcount.count("chi2_counts")
+    return out.reshape(S // M, O) if per_object else out
+
+
+def chi2_counts(T_OtoC, model_kp, uv, info, mask, cam_k4,
+                chi2_thresh: float = CHI2_THRESH_2DOF, per_object: bool = False):
+    """Masked chi2 inlier counts (see `chi2_counts_plain`): K6 on CUDA
+    tensors, the plain version on CPU tensors."""
+    if uv.device.type == "cpu":
+        return chi2_counts_plain(T_OtoC, model_kp, uv, info, mask, cam_k4,
+                                 chi2_thresh, per_object)
+    if uv.device.type != "cuda":
+        raise ValueError(f"chi2_counts: unsupported device {uv.device}")
+    return _chi2_counts_cuda(T_OtoC, model_kp, uv, info, mask, cam_k4, chi2_thresh,
+                             per_object)
+
+
+def camera_pose_ransac(T_pnp, pnp_ok, T_obj, obj_ok, model_kp, uv, info, inliers,
+                       cam_k4, min_num_inliers: int = 4):
+    """RANSAC over per-object camera-pose hypotheses. Hypothesis j is
+    T_GtoC = T_pnp[j] inv(T_obj[j]); each is scored (K6) against every
+    object's inlier keypoints of this frame; an object whose detection has
+    no inlier does not score. T_pnp [O, 4, 4], pnp_ok [O], T_obj [O, 4, 4]
+    (T_OtoG), obj_ok [O], model_kp [O, K, 3], uv [O, K, 2],
+    info [O, K, 2, 2], inliers [O, K], cam_k4 [O, 4].
+    Returns (T_GtoC [4, 4], best count, ok), all on the device."""
+    cand = pnp_ok & obj_ok
+    T_hyp = T_pnp @ lie.invert_SE3(T_obj)                 # [H=O, 4, 4]
+    T_OtoC_hyp = T_hyp[:, None] @ T_obj[None, :]          # [H, O, 4, 4]
+    score_mask = inliers & (torch.any(inliers, -1) & cand)[:, None]
+    counts = chi2_counts(T_OtoC_hyp, model_kp, uv[None], info[None], score_mask[None],
+                         cam_k4[None])                    # [H]
+    counts = torch.where(cand, counts, -1)
+    best = torch.argmax(counts)  # first maximum
+    best_count = counts[best]
+    ok = best_count >= min_num_inliers
+    eye = torch.eye(4, dtype=T_hyp.dtype, device=T_hyp.device)
+    return torch.where(ok, T_hyp[best], eye), best_count, ok
+
+
+def reinit_counts(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv, info,
+                  valid, cam_k4):
+    """chi2 inlier counts over the last N views of this frame's PnP poses and
+    of the map estimates, per object: T_pnp_OtoG / T_est_OtoG [O, 4, 4],
+    cam_T [N, 4, 4], cam_valid [N], model_kp [O, K, 3], uv [N, O, K, 2],
+    info [N, O, K, 2, 2], valid [N, O, K] (detected keypoints, not inlier
+    gated), cam_k4 [N, O, 4]. Both pose sets share one K6 launch.
+    Returns (count_pnp [O], count_est [O])."""
+    mask = valid & cam_valid[:, None, None]
+    T = torch.cat([cam_T[:, None] @ T_pnp_OtoG[None], cam_T[:, None] @ T_est_OtoG[None]])
+    counts = chi2_counts(T, model_kp, uv, info, mask, cam_k4, per_object=True)  # [2, O]
+    return counts[0], counts[1]
+
+
+def _scatter_rows(dst, idx, src):
+    """dst [O, ...] with rows idx [ob] set to src [ob, ...]; an index equal
+    to O (a padded slot) is dropped, as JAX's `.at[].set(mode="drop")`."""
+    ext = torch.cat([dst, dst[:1]])
+    ext[idx.long()] = src.to(dst.dtype)
+    return ext[: dst.shape[0]]
+
+
 def frontend_step(uv, cov, mask_prob, model_kps, model_masks, cam_k4, diams,
                   hyp_sampler, manual_kp_std: float, bbox_thresh: float,
-                  kp_var_thresh: float, mask_thresh: float, n_hyp: int = 64):
-    """Fused per-group front end without camera RANSAC: keypoint filter ->
-    PnP -> information. `hyp_sampler(keep [O, K], n_hyp) -> idx
-    [O, n_hyp, 4]` draws the RANSAC hypotheses. Returns a dict of small
+                  kp_var_thresh: float, mask_thresh: float, n_hyp: int = 64,
+                  slots=None, obj_T=None, obj_active=None, model_kp_full=None,
+                  min_num_inliers: int = 4):
+    """Fused per-group front end: keypoint filter -> PnP -> information ->
+    (when `slots`/`obj_T`/`obj_active`/`model_kp_full` are given) camera-pose
+    RANSAC. `hyp_sampler(keep [O, K], n_hyp) -> idx [O, n_hyp, 4]` draws the
+    RANSAC hypotheses. For camera RANSAC the frame's results are scattered
+    into slot-indexed [O] rows (slots [ob], a padded slot = O is dropped) and
+    scored against the map poses obj_T [O, 4, 4]. Returns a dict of small
     per-frame tensors that the caller reads back in one transfer."""
     keep = filter_keypoints(uv, cov, mask_prob, model_masks,
                             bbox_thresh, kp_var_thresh, mask_thresh)
@@ -87,11 +222,100 @@ def frontend_step(uv, cov, mask_prob, model_kps, model_masks, cam_k4, diams,
         info = manual_info(uv.shape[:2], manual_kp_std, uv.dtype, uv.device)
         std_sum = torch.zeros((), dtype=uv.dtype, device=uv.device)
         std_cnt = torch.zeros((), dtype=torch.int64, device=uv.device)
-    return {
+    out = {
         "uv": uv, "cov": cov, "keep": keep, "info": info,
         "T_pnp": T_pnp, "pnp_ok": pnp_ok,
         "std_sum": std_sum, "std_cnt": std_cnt,
     }
+    if slots is not None:
+        O, K = obj_T.shape[0], uv.shape[1]
+        dt, dev = uv.dtype, uv.device
+        rows = lambda shape, src, dtype=dt: _scatter_rows(
+            torch.zeros((O,) + shape, dtype=dtype, device=dev), slots, src)
+        T_row = _scatter_rows(torch.eye(4, dtype=dt, device=dev).repeat(O, 1, 1),
+                              slots, T_pnp)
+        ok_row = rows((), pnp_ok, torch.bool)
+        T_cam, cam_count, cam_ok = camera_pose_ransac(
+            T_row, ok_row, obj_T, obj_active & ok_row, model_kp_full,
+            rows((K, 2), uv), rows((K, 2, 2), info), rows((K,), keep, torch.bool),
+            rows((4,), cam_k4), min_num_inliers,
+        )
+        out.update({"T_cam": T_cam, "cam_count": cam_count, "cam_ok": cam_ok})
+    return out
+
+
+def tracking_tail(uv_m, info_m, valid_m, inliers_m, cam_k4_m, model_kp_m, v: int,
+                  cam_T_v, obj_T, obj_active, sym, reinit, info_scale: float,
+                  init_with_outliers: bool, iters_per_round=(10, 10, 10, 10)):
+    """The per-frame tail, one device chain ending in the frame's second host
+    read-back: scatter the symmetric group's measurements into the device
+    mirrors of row v -> late object init -> re-init vote over the last views
+    -> tracking BA of the current camera with every object fixed.
+
+    uv_m [V, O, K, 2], info_m, valid_m, inliers_m, cam_k4_m are the engine's
+    device mirrors and are updated IN PLACE (row v only; the port keeps one
+    copy where JAX returns new arrays). sym: the symmetric group's front-end
+    outputs plus "slots" [ob] (pad = O) and "cam_k4" [ob, 4], or None.
+    reinit: "cand_sel" [O], "T_pnp_G" [O, 4, 4], "cs" [n] view slots,
+    "cam_valid" [n], "cam_T_w" [n, 4, 4], or None. Returns the mirrors and a
+    dict of the host's updates: late, obj_T, reinit_cond, did_opt, cam_T_v,
+    inliers_row."""
+    O, K = model_kp_m.shape[:2]
+    dt, dev = cam_T_v.dtype, cam_T_v.device
+    ok_row = torch.zeros((O,), dtype=torch.bool, device=dev)
+    T_pnp_row = torch.eye(4, dtype=dt, device=dev).repeat(O, 1, 1)
+    late = torch.zeros((O,), dtype=torch.bool, device=dev)
+    T_GtoC_inv = lie.invert_SE3(cam_T_v)
+    if sym is not None:
+        sl = sym["slots"]
+        uv_m[v] = _scatter_rows(uv_m[v], sl, sym["uv"])
+        info_m[v] = _scatter_rows(info_m[v], sl, sym["info"])
+        valid_m[v] = _scatter_rows(valid_m[v], sl, sym["keep"])
+        inliers_m[v] = _scatter_rows(inliers_m[v], sl, sym["keep"])
+        cam_k4_m[v] = _scatter_rows(cam_k4_m[v], sl, sym["cam_k4"])
+        ok_row = _scatter_rows(ok_row, sl, sym["pnp_ok"])
+        T_pnp_row = _scatter_rows(T_pnp_row, sl, sym["T_pnp"])
+        # late init: a detected but unmapped object with a successful PnP
+        # enters the map at inv(T_GtoC) T_pnp
+        late = ok_row & ~obj_active
+        obj_T = torch.where(late[:, None, None], T_GtoC_inv[None] @ T_pnp_row, obj_T)
+        obj_active = obj_active | late
+
+    reinit_cond = torch.zeros((O,), dtype=torch.bool, device=dev)
+    if reinit is not None:
+        # candidates: this frame's detections with a PnP pose on an active
+        # object (a freshly late-initialized object is a formal candidate
+        # that cannot fire: its PnP pose is its map pose)
+        T_pnp_G = torch.where(reinit["cand_sel"][:, None, None], reinit["T_pnp_G"],
+                              T_GtoC_inv[None] @ T_pnp_row)
+        sel = reinit["cand_sel"] | (ok_row & obj_active)
+        cs = reinit["cs"]
+        n_pnp, n_est = reinit_counts(
+            T_pnp_G, obj_T, reinit["cam_T_w"], reinit["cam_valid"], model_kp_m,
+            uv_m[cs], info_m[cs], valid_m[cs], cam_k4_m[cs],
+        )
+        reinit_cond = sel & (n_pnp >= 3) & (n_pnp > 3 * n_est)
+        obj_T = torch.where(reinit_cond[:, None, None], T_pnp_G, obj_T)
+
+    # tracking BA over the current view row only
+    row = slice(v, v + 1)
+    inl_r = inliers_m[row]
+    problem = ba.BAProblem(
+        cam_T=cam_T_v[None], obj_T=obj_T, uv=uv_m[row], info=info_m[row] * info_scale,
+        model_kp=model_kp_m, cam_k=cam_k4_m[row], valid=valid_m[row], inliers=inl_r,
+        cam_active=torch.ones((1,), dtype=torch.bool, device=dev), obj_active=obj_active,
+    )
+    res = ba.optimize(problem, iters_per_round=iters_per_round, tracking_only=True,
+                      fix_first_cam=False, init_with_outliers=init_with_outliers)
+    # no tracking opt below 3 inlier edges in the current frame: a select,
+    # not a branch
+    did_opt = torch.sum(inl_r[0] & obj_active[:, None]) >= 3
+    cam_T_new = torch.where(did_opt, res.cam_T[0], cam_T_v)
+    inl_new = torch.where(did_opt, res.inliers[0], inl_r[0])
+    inliers_m[v] = inl_new
+    out = {"late": late, "obj_T": obj_T, "reinit_cond": reinit_cond,
+           "did_opt": did_opt, "cam_T_v": cam_T_new, "inliers_row": inl_new}
+    return (uv_m, info_m, valid_m, inliers_m, cam_k4_m), out
 
 
 def make_frame_inference(net, input_hw=(256, 256), device="cuda"):
@@ -103,28 +327,32 @@ def make_frame_inference(net, input_hw=(256, 256), device="cuda"):
 
     Returns fn(img [H, W, 3], boxes [O, 4], obj_valid [O], prior_uv
     [O, K, 2], prior_valid [O, K], has_prior=True) -> (uv [O, K, 2],
-    cov [O, K, 2, 2] | None, mask_prob [O, K]). has_prior=False runs the
-    statically prior-free program (every single-view frame): no prior render
-    and, for post_stem nets, only the bias of the prior projection. The
-    with-prior program needs `render_prior_heatmaps`, which comes with the
-    SLAM slice, and raises until then.
+    cov [O, K, 2, 2] | None, mask_prob [O, K]). The with-prior program
+    renders the prior keypoints (K5) at `net.prior_hw(input_hw)` with sigma
+    `prior_sigma_for` of that size and feeds them to the net.
+    has_prior=False runs the statically prior-free program (every
+    non-symmetric batch and all of single-view mode): no prior render and,
+    for post_stem nets, only the bias of the prior projection — the same
+    output as an all-zero prior.
     """
     dev = resolve_device(device)
     net = net.to(dev).eval().to(memory_format=torch.channels_last)
     input_hw = tuple(input_hw)
+    phw = net.prior_hw(input_hw)
 
     @torch.inference_mode()
     def fn(img, boxes, obj_valid, prior_uv=None, prior_valid=None, has_prior=True):
-        if has_prior:
-            raise NotImplementedError(
-                "with-prior frame inference needs render_prior_heatmaps "
-                "(ROADMAP B2, SLAM slice); single-view frames pass has_prior=False"
-            )
         crops = roi_ops.roi_crop_batch(
             img[None].to(dev, torch.float32), boxes[None].to(dev, torch.float32),
             obj_valid[None].to(dev), input_hw,
         )[0]
-        out = net(crops)
+        prior = None
+        if has_prior:
+            prior = hm.render_prior_heatmaps(
+                prior_uv.to(dev, torch.float32), prior_valid.to(dev), hw=phw,
+                sigma_px=hm.prior_sigma_for(phw),
+            )
+        out = net(crops, prior)
         return out.uv, out.cov, out.kp_mask
 
     fn.supports_no_prior = True

@@ -8,11 +8,13 @@ factor and the inlier mask; analytic left-se(3) Jacobians; rounds of LM with
 chi2 <= 5.991 reclassification between them and Huber on the first half.
 
 The per-(v, o) edge assembly (`_edge_planes_Hg`, `_edge_chi2`) is kernel K4
-on CUDA tensors and its plain version on CPU tensors. The Schur solve stays
-plain PyTorch (`torch.linalg.cholesky_ex`, triangular solves), as the JAX
-package left it to XLA. `_lm_while` is a fixed-length loop whose `done`
-flag lives on the device and freezes the state with `torch.where` — the same
-result as the JAX `while_loop`, with no host sync per iteration.
+and the camera-block part of the Schur solve (`_solve_normal_eq_schur`) is
+kernel K7 on CUDA tensors; CPU tensors take their plain versions. The
+objects' reduced 6O x 6O system stays on `torch.linalg.cholesky_ex` and
+triangular solves, as the JAX package left it to XLA. `_lm_while` is a
+fixed-length loop whose `done` flag lives on the device and freezes the state
+with `torch.where` — the same result as the JAX `while_loop`, with no host
+sync per iteration.
 """
 
 from __future__ import annotations
@@ -216,11 +218,12 @@ def _cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.transpose(-1, -2), half, upper=True)
 
 
-def _solve_normal_eq_schur(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam):
-    """Damped, Jacobi-scaled Schur-complement solve: eliminate the cameras'
-    6x6 blocks, solve the dense 6O x 6O reduced system over the objects,
-    back-substitute. Frozen states get delta 0; a non-finite solve returns
-    zeros and ok False."""
+def _solve_normal_eq_schur_plain(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam):
+    """Plain PyTorch K7 (and the reduced solve around it). Damped,
+    Jacobi-scaled Schur-complement solve: eliminate the cameras' 6x6 blocks,
+    solve the dense 6O x 6O reduced system over the objects, back-substitute.
+    Frozen states get delta 0; a non-finite solve returns zeros and ok
+    False."""
     dtype, dev = Hcc.dtype, Hcc.device
     V, O = Hco.shape[0], Hco.shape[1]
     eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -266,8 +269,83 @@ def _solve_normal_eq_schur(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam):
 
     d_cam = d_cam_s * ic * mc[:, None]
     d_obj = d_obj_s * io * mo[:, None]
+    return _finite_or_zero(d_cam, d_obj)
+
+
+def _finite_or_zero(d_cam, d_obj):
     ok = torch.isfinite(d_cam).all() & torch.isfinite(d_obj).all()
     return (torch.where(ok, d_cam, 0.0), torch.where(ok, d_obj, 0.0), ok)
+
+
+_CAMS_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+_REDUCE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+_BACK_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+
+
+def _solve_normal_eq_schur_cuda(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam,
+                                objects_frozen: bool):
+    V, O = Hco.shape[0], Hco.shape[1]
+    fs = (Hcc, Hoo, Hco, gc, go)
+    if (Hcc.shape != (V, 6, 6) or Hoo.shape != (O, 6, 6) or Hco.shape != (V, O, 6, 6)
+            or gc.shape != (V, 6) or go.shape != (O, 6) or cam_free.shape != (V,)
+            or obj_free.shape != (O,)):
+        raise ValueError("K7: inconsistent normal-equation shapes")
+    if any(a.dtype != torch.float32 for a in fs):
+        raise ValueError("K7 runs in f32")
+    dev = Hcc.device
+    if any(a.device != dev for a in fs + (cam_free, obj_free)):
+        raise ValueError("K7 inputs must lie on one CUDA device")
+    Hcc, Hoo, Hco, gc, go = (a.contiguous() for a in fs)
+    lam_t = torch.as_tensor(lam, dtype=torch.float32, device=dev).reshape(1).contiguous()
+    cf = cam_free.to(torch.uint8).contiguous()
+    of = obj_free.to(torch.uint8).contiguous()
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    d_cam = empty(V, 6)
+    p = _build.ptr
+    cams = _build.entry("ba_schur", _CAMS_ARGTYPES, "suo_ba_schur_cams")
+    if objects_frozen:
+        # every object frozen (tracking): Hco_s = 0 and d_obj = 0, so the
+        # camera steps come out of the one launch
+        err = cams(p(Hcc), p(Hoo), p(Hco), p(gc), p(go), p(cf), p(of), p(lam_t), V, O, 0,
+                   *[p(d_cam)] * 8, p(d_cam), _build.stream())
+        _build.check(err, "K7 ba_schur (cameras)")
+        kernels.count("ba_schur")
+        return _finite_or_zero(d_cam, torch.zeros((O, 6), dtype=torch.float32, device=dev))
+    Lc, ic, io = empty(V, 6, 6), empty(V, 6), empty(O, 6)
+    Hoo_s, go_s, Hco_s, gc_s = empty(O, 6, 6), empty(O, 6), empty(V, O, 6, 6), empty(V, 6)
+    X = empty(V, 6, 6 * O + 1)
+    err = cams(p(Hcc), p(Hoo), p(Hco), p(gc), p(go), p(cf), p(of), p(lam_t), V, O, 1,
+               p(Lc), p(ic), p(io), p(Hoo_s), p(go_s), p(Hco_s), p(gc_s), p(X), p(d_cam),
+               _build.stream())
+    _build.check(err, "K7 ba_schur (cameras)")
+    kernels.count("ba_schur")
+    S, b = empty(6 * O, 6 * O), empty(6 * O)
+    reduce = _build.entry("ba_schur", _REDUCE_ARGTYPES, "suo_ba_schur_reduce")
+    err = reduce(p(Hoo_s), p(go_s), p(Hco_s), p(X), V, O, p(S), p(b), _build.stream())
+    _build.check(err, "K7 ba_schur (reduce)")
+    kernels.count("ba_schur")
+    Ls = _cholesky(S)
+    d_obj_s = _cho_solve(Ls, b[:, None]).reshape(O, 6).contiguous()
+    back = _build.entry("ba_schur", _BACK_ARGTYPES, "suo_ba_schur_back")
+    err = back(p(Lc), p(ic), p(cf), p(Hco_s), p(gc_s), p(d_obj_s), V, O, p(d_cam),
+               _build.stream())
+    _build.check(err, "K7 ba_schur (back-substitution)")
+    kernels.count("ba_schur")
+    return _finite_or_zero(d_cam, d_obj_s * io * obj_free.to(torch.float32)[:, None])
+
+
+def _solve_normal_eq_schur(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam,
+                           objects_frozen: bool = False):
+    """Solve (H + lam diag(H)) [d_cam; d_obj] = -g for the two-block BA
+    normal equations by eliminating the cameras. K7 on CUDA tensors (with
+    `objects_frozen`, a promise that obj_free is all False, the one-launch
+    camera-only form, equal to the general one there), the plain version on
+    CPU tensors. Returns (d_cam [V, 6], d_obj [O, 6], ok); a non-finite
+    solve gives zeros and ok False."""
+    if _device_of(Hcc) == "cpu":
+        return _solve_normal_eq_schur_plain(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam)
+    return _solve_normal_eq_schur_cuda(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam,
+                                       objects_frozen)
 
 
 def _make_lm_iteration(problem: BAProblem, tracking_only: bool,
@@ -318,7 +396,7 @@ def _make_lm_iteration(problem: BAProblem, tracking_only: bool,
         gc = torch.sum(gvo[..., :6], dim=1)
         go = torch.sum(gvo[..., 6:], dim=0)
         d_cam, d_obj, ok = _solve_normal_eq_schur(
-            Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam
+            Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam, objects_frozen=tracking_only
         )
         cam_T_new = lie.se3_exp(d_cam) @ cam_T
         obj_T_new = lie.se3_exp(d_obj) @ obj_T

@@ -262,3 +262,14 @@ def pnp_ransac_batch(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
     inliers = inliers & success[:, None]
     return PnpResult(T=T_out, inliers=inliers,
                      num_inliers=torch.where(success, num, 0), success=success)
+
+
+def pnp_ransac(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+               refine: bool = True) -> PnpResult:
+    """Robust PnP of one point set: x [N, 3], y [N, 2], mask [N] and
+    idx [n_hyp, 4] hypothesis indices (the JAX `pnp_ransac` draws
+    DEFAULT_HYPOTHESES = 128 from one whole key). `pnp_ransac_batch` with a
+    batch of one; the result's fields drop the batch axis."""
+    r = pnp_ransac_batch(x[None], y[None], mask[None], idx[None], threshold, refine)
+    return PnpResult(T=r.T[0], inliers=r.inliers[0], num_inliers=r.num_inliers[0],
+                     success=r.success[0])

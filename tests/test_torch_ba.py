@@ -1,8 +1,10 @@
 """Port parity for bundle adjustment: kernel K4's plain version
 (`_edge_planes_Hg`, `_edge_chi2`) at 1e-9 relative to the largest entry in
-f64, the Schur solve, and `optimize` on `tests/test_ba.py`-style problems:
-equal inlier sets, poses within 1e-8 in f64 and 1e-4 in f32 (rotation
-absolute, translation relative to its norm)."""
+f64, kernel K7's plain version (`_solve_normal_eq_schur` on CPU tensors:
+free, frozen and tracking masks, a non-PD block) at 1e-10 absolute + 1e-8
+relative in f64, and `optimize` on `tests/test_ba.py`-style problems, global
+and tracking: equal inlier sets, poses within 1e-8 in f64 and 1e-4 in f32
+(rotation absolute, translation relative to its norm)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,6 +83,63 @@ def test_schur_solve_matches_jax_f64():
     assert not bool(okb) and not dcb.any() and not dob.any()
 
 
+def _normal_eq(prob, seed=0):
+    tp = _to_torch(prob, np.float64)
+    inl = tp.valid & torch.from_numpy(np.random.default_rng(seed).uniform(
+        size=tuple(tp.valid.shape)) < 0.9)
+    H, g, _, _ = tba._edge_planes_Hg(tp.cam_T, tp.obj_T, tp.uv, tp.info, tp.model_kp,
+                                     tp.cam_k, inl=inl, use_huber=True,
+                                     huber_d=tba.HUBER_DELTA)
+    return H[..., :6, :6].sum(1), H[..., 6:, 6:].sum(0), H[..., :6, 6:], g[..., :6].sum(1), \
+        g[..., 6:].sum(0)
+
+
+@pytest.mark.parametrize("cam_free,obj_free", [
+    ([True] * 5, [False] * 4),                              # tracking: objects frozen
+    ([False, False, False, False, False], [True, True, True, True]),  # cameras frozen
+    ([False, True, False, True, True], [True, False, True, False]),
+])
+def test_schur_solve_masks_match_jax_f64(cam_free, obj_free):
+    prob, *_ = make_problem(n_views=4, n_objs=3, V=5, O=4, K=10, noise=0.005,
+                            pose_noise=0.01, seed=7)
+    blocks = _normal_eq(prob)
+    cf, of = np.array(cam_free), np.array(obj_free)
+    dj = jba._solve_normal_eq_schur(*(jnp.asarray(a.numpy()) for a in blocks),
+                                    jnp.asarray(cf), jnp.asarray(of), 1e-2)
+    dt = tba._solve_normal_eq_schur(*blocks, torch.from_numpy(cf), torch.from_numpy(of),
+                                    torch.tensor(1e-2, dtype=torch.float64),
+                                    objects_frozen=not of.any())
+    assert bool(dj[2]) and bool(dt[2])
+    np.testing.assert_allclose(np.asarray(dj[0]), dt[0].numpy(), atol=1e-10, rtol=1e-8)
+    np.testing.assert_allclose(np.asarray(dj[1]), dt[1].numpy(), atol=1e-10, rtol=1e-8)
+    assert not dt[0][~torch.from_numpy(cf)].any() and not dt[1][~torch.from_numpy(of)].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-8), (np.float32, 1e-4)])
+def test_optimize_tracking_matches_jax(dtype, tol):
+    """The tracking tail's call: one camera row, every object fixed, no
+    gauge, rounds (10, 10, 10, 10), with and without init_with_outliers."""
+    prob, *_ = make_problem(n_views=3, n_objs=4, V=3, O=4, K=12, noise=0.003,
+                            outlier_frac=0.1, seed=8, dtype=dtype)
+    row = lambda a: None if a is None else a[2:3]
+    cam_T = np.array(prob.cam_T[2:3])
+    cam_T[0, :3, 3] += np.array([3.0, -2.0, 4.0], dtype)  # the tracking BA's job
+    prob = prob._replace(cam_T=cam_T, uv=row(prob.uv), info=row(prob.info),
+                         cam_k=row(prob.cam_k), valid=row(prob.valid),
+                         inliers=row(prob.inliers), cam_active=np.ones((1,), bool),
+                         cam_frozen=None)
+    for iwo in (False, True):
+        kw = dict(iters_per_round=(10, 10, 10, 10), tracking_only=True, fix_first_cam=False,
+                  init_with_outliers=iwo)
+        r = jba.optimize(jba.BAProblem(*[None if a is None else jnp.asarray(a) for a in prob]),
+                         **kw)
+        rt = tba.optimize(_to_torch(prob, dtype), **kw)
+        np.testing.assert_array_equal(np.asarray(r.inliers), rt.inliers.numpy())
+        _assert_poses(r.cam_T, rt.cam_T.numpy(), tol)
+        np.testing.assert_array_equal(np.asarray(r.obj_T), rt.obj_T.numpy())
+        assert np.abs(rt.cam_T.numpy() - np.asarray(prob.cam_T)).max() > 1e-3  # it moved
+
+
 def _assert_poses(Tj, Tt, tol):
     Tj = np.asarray(Tj)
     np.testing.assert_allclose(Tj[..., :3, :3], Tt[..., :3, :3], atol=tol, rtol=0)
@@ -149,3 +208,21 @@ def test_k4_gate_holds_each_entry_to_its_own_scale():
     gb = g.clone()
     gb[1, 0, 0] = 1e-6  # view 1 is inactive: its blocks are exactly 0
     assert cs.k4_scaled_errors(H, gb, H, g, chi2, p.valid, d)[1] == float("inf")
+
+
+def test_k7_gate_scales_each_six_block():
+    """chip_smoke's K7 gate: each entry of d_cam / d_obj over the largest
+    |entry| of the plain version's 6-vector block; a block that is exactly 0
+    must stay exactly 0, and a non-finite step fails."""
+    import chip_smoke as cs
+
+    p = (torch.tensor([[1.0, -2.0, 0.5, 0, 0, 0], [0.0] * 6]),
+         torch.tensor([[1e-3, 0, 0, 0, 0, 2e-3]]))
+    assert cs.k7_scaled_errors(p, p) == (0.0, 0.0)
+    k = (p[0] + torch.tensor([[0, 1e-4, 0, 0, 0, 0], [0.0] * 6]), p[1] + 1e-7)
+    sc, so = cs.k7_scaled_errors(k, p)
+    assert sc == pytest.approx(5e-5, rel=0.01) and so == pytest.approx(5e-5, rel=0.01)
+    k = (p[0] + torch.tensor([[0.0] * 6, [0, 0, 1e-9, 0, 0, 0]]), p[1])
+    assert cs.k7_scaled_errors(k, p)[0] == float("inf")
+    k = (p[0] * float("nan"), p[1])
+    assert cs.k7_scaled_errors(k, p)[0] == float("inf")

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 against their plain PyTorch versions on the card.
+"""Kernels K1-K7 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -99,3 +99,72 @@ def test_k4_ba_edges(dev):
     sH, sg = k4_scaled_errors(Hk, gk, Hp, gp, cp, inl, ba.HUBER_DELTA)
     assert sH <= 1e-4 and sg <= 1e-4 and rel(ck, cp) <= 1e-5
     assert rel(ba._edge_chi2(*args), ba._edge_chi2_plain(*args)) <= 1e-5
+
+
+def test_k5_prior_render(dev):
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    uv = torch.rand(8, 41, 2, device=dev, generator=g) * 2.4 - 1.2
+    uv[0, 0, 0] = float("nan")
+    uv[0, 1, 1] = float("inf")
+    mask = torch.rand(8, 41, device=dev, generator=g) < 0.7
+    for hw in ((64, 64), (256, 256)):
+        k = hm.render_prior_heatmaps(uv, mask, hw, hm.prior_sigma_for(hw))
+        p = hm.render_prior_heatmaps_plain(uv, mask, hw, hm.prior_sigma_for(hw))
+        assert k.is_contiguous() and k.shape == p.shape
+        assert (k - p).abs().max().item() <= 1e-6
+        assert not k[0, ..., :2].any()
+
+
+def _ransac_problem(dev, g, S=8, M=1):
+    from suo_slam_tpu_torch.core import lie
+
+    O, K = 8, 41
+    T = lie.se3_exp(torch.randn(S, O, 6, device=dev, generator=g) * 0.05)
+    T[..., 2, 3] += 8.0
+    model_kp = torch.rand(O, K, 3, device=dev, generator=g) - 0.5
+    uv = (model_kp[..., :2] / 8.0 * 2.0)[None].expand(M, O, K, 2).contiguous()
+    uv = uv + torch.randn(M, O, K, 2, device=dev, generator=g) * 0.01
+    info = (torch.eye(2, device=dev) * 1e4).expand(M, O, K, 2, 2).contiguous()
+    mask = torch.rand(M, O, K, device=dev, generator=g) < 0.8
+    cam_k4 = torch.tensor([2.0, 2.0, 0.0, 0.0], device=dev).expand(M, O, 4).contiguous()
+    return T, model_kp, uv, info, mask, cam_k4
+
+
+def test_k6_chi2_counts(dev):
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for S, M, per_object in ((8, 1, False), (30, 15, True)):
+        args = _ransac_problem(dev, g, S, M)
+        k = sk.chi2_counts(*args, per_object=per_object)
+        p = sk.chi2_counts_plain(*args, per_object=per_object)
+        assert torch.equal(k, p)
+        assert 0 < int(k.min()) and int(k.max()) < args[4].sum()
+
+
+def test_k7_ba_schur(dev):
+    from chip_smoke import k7_scaled_errors
+    from suo_slam_tpu_torch.solvers import ba
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    V, O = 6, 4
+    J = torch.randn(V, O, 40, 12, device=dev, generator=g)
+    H = torch.einsum("voki,vokj->voij", J, J)
+    gv = torch.randn(V, O, 12, device=dev, generator=g)
+    blocks = (H[..., :6, :6].sum(1), H[..., 6:, 6:].sum(0), H[..., :6, 6:].contiguous(),
+              gv[..., :6].sum(1), gv[..., 6:].sum(0))
+    lam = torch.tensor(1e-3, device=dev)
+    cam_free = torch.tensor([False, True, True, True, False, True], device=dev)
+    for obj_free in (torch.tensor([True, False, True, True], device=dev),
+                     torch.zeros(O, dtype=torch.bool, device=dev)):
+        frozen = not bool(obj_free.any())
+        k = ba._solve_normal_eq_schur(*blocks, cam_free, obj_free, lam, objects_frozen=frozen)
+        p = ba._solve_normal_eq_schur_plain(*blocks, cam_free, obj_free, lam)
+        assert bool(k[2]) == bool(p[2]) is True
+        assert max(k7_scaled_errors(k, p)) <= 1e-4
+    bad = blocks[0].clone()
+    bad[1] = -torch.eye(6, device=dev)
+    k = ba._solve_normal_eq_schur(bad, *blocks[1:], cam_free, obj_free, lam)
+    assert not bool(k[2]) and not k[0].any() and not k[1].any()

@@ -23,6 +23,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "from suo_slam_tpu_torch.models import pkpnet, convert\n"
         "from suo_slam_tpu_torch.solvers import ba, pnp, p3p\n"
         "from suo_slam_tpu_torch.ops import roi, heatmap\n"
+        "from suo_slam_tpu_torch.kernels import _build\n"
         "from suo_slam_tpu_torch.core import lie, geometry\n"
         "from suo_slam_tpu_torch.kp import config\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -76,7 +77,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_slam_mode_raises_naming_its_roadmap_item():
+    """SLAM and SfM modes construct; the features still owed (debug_gt_kp,
+    int8 inference) raise naming ROADMAP entries that exist."""
+    import re
+
     from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ObjectSlam(SlamConfig(), infer_fn=lambda *a: None, device="cpu")
+    for cfg in (SlamConfig(), SlamConfig(sfm_mode=True)):
+        ObjectSlam(cfg, infer_fn=lambda *a: None, device="cpu")
+    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
+    for kw in ("debug_gt_kp", "int8_inference"):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
+            ObjectSlam(SlamConfig(**{kw: True}), infer_fn=lambda *a: None, device="cpu")
+        item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
+        assert re.search(rf"\*\*{item}[ .]", roadmap), (item, str(e.value))

@@ -31,20 +31,31 @@ from tests.helpers.synthetic_scene import NK, StubMeshDb, make_scene, project_fr
 TOL = 1e-4
 
 
-def jax_key_chain(seed):
-    """hyp_sampler factory replaying the JAX engine's RANSAC key stream."""
-    state = {"key": jax.random.PRNGKey(seed)}
+class jax_key_chain:
+    """hyp_sampler factory replaying the JAX engine's RANSAC key stream
+    (reset -> PRNGKey(seed), one split per call): a group call splits its
+    key per object (`pnp_ransac_batch`), the backup camera pose's single-set
+    call uses its key whole (`pnp_ransac`)."""
 
-    def sampler(keep, n_hyp):
-        state["key"], k = jax.random.split(state["key"])
-        keys = jax.random.split(k, keep.shape[0])
+    def __init__(self, seed):
+        self.key = jax.random.PRNGKey(seed)
+
+    def _next(self):
+        self.key, k = jax.random.split(self.key)
+        return k
+
+    def __call__(self, keep, n_hyp):
+        keys = jax.random.split(self._next(), keep.shape[0])
         m = keep.cpu().numpy()
         return torch.from_numpy(np.stack([
             np.asarray(jpnp._sample_hypothesis_indices(keys[o], jnp.asarray(m[o]), n_hyp))
             for o in range(m.shape[0])
         ]))
 
-    return sampler
+    def single(self, mask, n_hyp):
+        m = jnp.asarray(mask.cpu().numpy())
+        return torch.from_numpy(np.asarray(
+            jpnp._sample_hypothesis_indices(self._next(), m, n_hyp)))
 
 
 def _compare(eng_j, eng_t, res_j, res_t):
