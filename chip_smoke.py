@@ -1,5 +1,6 @@
-"""Chip smoke test of the PyTorch/CUDA port: the single-view frame and SLAM
-mode of SUO-SLAM on one NVIDIA GPU, through the entry points a user calls.
+"""Chip smoke test of the PyTorch/CUDA port: the single-view frame, SLAM
+mode and the evaluation entry point of SUO-SLAM on one NVIDIA GPU, through the
+entry points a user calls.
 
     python3 chip_smoke.py
 
@@ -8,11 +9,15 @@ Phases (any failure raises and exits non-zero):
      precision flags;
   2. build: every `suo_slam_tpu_torch/csrc/*.cu` with nvcc (one process per
      source, in parallel) and the seconds it took;
-  3. kernels: K1-K7 against their plain PyTorch versions on the same CUDA
+  3. kernels: K1-K10 against their plain PyTorch versions on the same CUDA
      inputs at the main paths' shapes, with the stated tolerances; kernel,
      plain and library times (median of CUDA-event timings) and each
      kernel's bound on an H100 (bytes at 3.35 TB/s or f32 operations at
-     67 TFLOP/s, counted from this run's inputs);
+     67 TFLOP/s, counted from this run's inputs); K8 and K9's launches per
+     forward of the full-width net; then the full-width net in bf16 against
+     the same net in f32 on the card (uv within the bf16 error the CPU shows
+     for the same crops), both nets' ms per call on the host clock (with K8 /
+     K9 and with their plain versions) and their device ms per call;
   4. the single-view path: full-width PkpNet (2 stacks x 2 modules x 256
      features, 256x256 crops, seeded random weights, non-trivial BatchNorm
      statistics) in `ObjectSlam(single_view_mode=True)` over synthetic
@@ -39,8 +44,18 @@ Phases (any failure raises and exits non-zero):
      of the (frame, object) poses; the with-prior program against the CPU
      for two crops (1e-3). Prints per-frame latency, tracking and global BA
      ms, launches per frame, and a torch.profiler summary of one frame;
-  7. the kernels JSON line (launches from the SLAM path), the nvidia-smi
-     line, and the last line {"ok": true, "device": {...}}.
+  7. the evaluation entry point: a BOP tree written here (one scene of 12
+     480x640 views with the YCB-V intrinsics, 8 objects with keypoint
+     configs and 6000-point PLY models, PNGs from this script's own writer)
+     read by the port's loader and scored by its meter (K10):
+     `Evaluator(nviews=-1, debug_gt_kp=True)` must reach AUC of ADD(-S) > 80
+     and 100% of camera poses; `Evaluator(nviews=1)` with the full-width
+     bf16 net (seeded random weights, passed as `net=`) must run to its end
+     and write summary.txt and the BOP CSV. Per-view latency and the K8-K10
+     counts of the phase;
+  8. the kernels JSON line (K1-K7's launches from the SLAM path, K8-K10's
+     from the evaluation phase), the nvidia-smi line, and the last line
+     {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package; its scenes are made
 with numpy from --seed.
@@ -65,6 +80,7 @@ YCBV_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0
 N_OBJ = 8
 NK = 41
 SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_hypotheses", "ba_edges")
+EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
 
 
 # ----------------------------------------------------------------- helpers --
@@ -160,16 +176,17 @@ def make_view(rng, objs: Objects):
     return img, T, bboxes, uv_gt
 
 
-def full_width_net(seed):
+def full_width_net(seed, dtype=None):
     """PkpNet at full width with seeded random weights and non-trivial
-    BatchNorm running statistics."""
+    BatchNorm running statistics, in f32 (default) or `dtype`."""
     import torch
 
     from suo_slam_tpu_torch.models.hourglass import MaskedBatchNorm
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
 
     torch.manual_seed(seed)
-    net = PkpNet(n_stack=2, n_modules=2, features=256, prior_mode="post_stem")
+    net = PkpNet(n_stack=2, n_modules=2, features=256, prior_mode="post_stem",
+                 dtype=dtype or torch.float32)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in net.modules():
@@ -775,8 +792,9 @@ def profile_run(run, per_ms, label):
     avg = prof.key_averages()
     kern = [e for e in avg if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    if busy_ms <= 0:
-        raise AssertionError("the profiler recorded no device time")
+    if busy_ms <= 0:  # the tracer lost the session; the run itself is not repeated
+        log(f"[profile] {label}: the trace holds no device time (not measured)")
+        return
     ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)[:10]
@@ -1127,7 +1145,7 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     log(f"[slam] launches over {n_frames} frames + the final BA: {json.dumps(counts)}")
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
-    missing = [k for k, c in counts.items() if c == 0]
+    missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"]
     if missing:
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}")
     if engine.V != 32 or len(engine.opt_times) != 3:
@@ -1177,6 +1195,500 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     return counts
 
 
+def traced(fn, holds, label, attempts=3):
+    """torch.profiler's key averages over one call of `fn` (a pure call: it
+    is repeated), taken again while `holds(averages)` is false: the card's
+    tracer now and then returns a short session without its kernels. None
+    when every attempt came back without them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        if holds(avg):
+            return avg
+        log(f"[profile] {label}: trace {i + 1} of {attempts} holds none of the kernels")
+    return None
+
+
+def device_us(fn, key, n=10):
+    """Device microseconds per call of fn in the kernels whose names hold
+    `key`, over n calls, from torch.profiler (without the wrapper's host
+    time, which `cuda_ms` includes), and where they were read. When the
+    tracer returns no such kernel, CUDA events around the n back-to-back
+    calls (host time of the wrappers included) stand in for it."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def calls():
+        for _ in range(n):
+            fn()
+
+    def mine(avg):
+        return [e for e in avg if e.device_type == DeviceType.CUDA and key in e.key]
+
+    fn()
+    torch.cuda.synchronize()
+    avg = traced(calls, lambda a: sum(e.count for e in mine(a)) > 0, key)
+    if avg is not None:
+        return sum(e.self_device_time_total for e in mine(avg)) / n, "profiler"
+    return 1e3 * cuda_ms(fn, n=5, inner=n), "CUDA events"
+
+
+def _bf16_ulps(k, p):
+    """|k - p| in units of the bf16 spacing at p (1 ulp: 2^(floor(log2|p|) - 7))."""
+    import torch
+
+    kd, pd = k.double(), p.double()
+    e = torch.floor(torch.log2(pd.abs().clamp(min=2.0 ** -126)))
+    return ((kd - pd).abs() / torch.exp2(e - 7)).max().item()
+
+
+def _per_forward_launches(net, crops, names):
+    """Launches of the named kernels in one forward of `net` on `crops`."""
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+
+    before = kernels.counts()
+    with torch.inference_mode():
+        net.backbone_logits(crops)
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    return {n: after[n] - before[n] for n in names}
+
+
+def check_k8(dev, rng, net32, net16, crops):
+    """K8 at the net's shapes (8 crops): the stem norm (64 ch at 128x128),
+    a residual's first norm at 64x64 x 256 (the largest call) and a
+    bottleneck norm at 64x64 x 128; f32 equal, bf16 within 1 ulp."""
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    shapes = [(N_OBJ, 64, 128, 128), (N_OBJ, 256, 64, 64), (N_OBJ, 128, 64, 64)]
+    err32, ulps = 0.0, 0.0
+    for shape in shapes:
+        C = shape[1]
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        inv = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+        shift = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev)
+        k, p = hg._norm_relu_cuda(x, inv, shift), hg.norm_relu_plain(x, inv, shift)
+        x16 = x.to(torch.bfloat16)
+        k16, p16 = hg._norm_relu_cuda(x16, inv, shift), hg.norm_relu_plain(x16, inv, shift)
+        torch.cuda.synchronize()
+        err32 = max(err32, (k - p).abs().max().item())
+        ulps = max(ulps, _bf16_ulps(k16, p16))
+        if not (k16.is_contiguous(memory_format=torch.channels_last)
+                and torch.equal(k16 == 0, p16 == 0)):
+            raise AssertionError("K8 bf16: layout or zero pattern differs from the plain version")
+    log(f"[kernel] K8 f32 max abs err {err32:.3e} (tol 0), bf16 max err {ulps:.3f} ulp (tol 1)")
+    if not (err32 == 0.0 and ulps <= 1.0):
+        raise AssertionError(f"K8 disagrees with its plain version: f32 {err32}, bf16 {ulps} ulp")
+    per_fwd = {dt: _per_forward_launches(n, crops, ("norm_relu", "upsample_add"))
+               for dt, n in (("f32", net32), ("bf16", net16))}
+    log(f"[kernel] K8 / K9 launches per forward of the full-width net (8 crops): "
+        f"{json.dumps(per_fwd)}")
+    if any(v != {"norm_relu": 180, "upsample_add": 8} for v in per_fwd.values()):
+        raise AssertionError(f"K8 / K9 launches per forward: {per_fwd}, expected 180 and 8")
+    # timed at the largest call, a residual's first norm at 64x64 x 256
+    x = torch.from_numpy(rng.normal(size=shapes[1]).astype(np.float32)).to(dev).contiguous(
+        memory_format=torch.channels_last)
+    inv = torch.ones(256, device=dev)
+    shift = torch.zeros(256, device=dev)
+    out = {}
+    for name, xd in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+        ms = cuda_ms(lambda: hg._norm_relu_cuda(xd, inv, shift))
+        plain_ms = cuda_ms(lambda: hg.norm_relu_plain(xd, inv, shift))
+        us, src = device_us(lambda: hg._norm_relu_cuda(xd, inv, shift), "norm_relu_kernel")
+        n = xd.numel()
+        b = bound(2 * n * xd.element_size() + 2 * 256 * 4, n * 3)
+        out[name] = (ms, plain_ms, b)
+        _report(f"K8 norm_relu ({name}, {list(xd.shape)}, device {us:.3f} us by {src})",
+                err32 if name == "f32" else ulps, "0" if name == "f32" else "1 bf16 ulp", ms,
+                plain_ms, None, b)
+    ms, plain_ms, b = out["bf16"]
+    return dict(name="norm_relu", route="cuda", source="suo_slam_tpu_torch/csrc/norm_relu.cu",
+                replaces="suo_slam_tpu/models/hourglass.py:88", max_abs_err=err32, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def check_k9(dev, rng):
+    """K9 at the hourglass junctions: up1 [8, 256, H, W] for H = 64, 32, 16,
+    8 and low at half; f32 and bf16 equal to the plain version."""
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+    err = 0.0
+    for H in (64, 32, 16, 8):
+        up1 = cl(rng.normal(size=(N_OBJ, 256, H, H)).astype(np.float32))
+        low = cl(rng.normal(size=(N_OBJ, 256, H // 2, H // 2)).astype(np.float32))
+        for dt in (torch.float32, torch.bfloat16):
+            a, b = up1.to(dt), low.to(dt)
+            k, p = hg._upsample_add_cuda(a, b), hg.upsample_add_plain(a, b)
+            torch.cuda.synchronize()
+            err = max(err, (k.float() - p.float()).abs().max().item())
+    log(f"[kernel] K9 max abs err over 4 levels, f32 and bf16: {err:.3e} (tol 0)")
+    if err != 0.0:
+        raise AssertionError(f"K9 disagrees with its plain version: {err}")
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        a = cl(rng.normal(size=(N_OBJ, 256, 64, 64)).astype(np.float32)).to(dt)
+        b = cl(rng.normal(size=(N_OBJ, 256, 32, 32)).astype(np.float32)).to(dt)
+        ms = cuda_ms(lambda: hg._upsample_add_cuda(a, b))
+        plain_ms = cuda_ms(lambda: hg.upsample_add_plain(a, b))
+        us, src = device_us(lambda: hg._upsample_add_cuda(a, b), "upsample_add_kernel")
+        bnd = bound((2 * a.numel() + b.numel()) * a.element_size(), a.numel())
+        out[name] = (ms, plain_ms, bnd)
+        _report(f"K9 upsample_add ({name}, up1 {list(a.shape)}, device {us:.3f} us by {src})",
+                err, "0",
+                ms, plain_ms, None, bnd)
+    ms, plain_ms, b = out["bf16"]
+    return dict(name="upsample_add", route="cuda",
+                source="suo_slam_tpu_torch/csrc/upsample_add.cu",
+                replaces="suo_slam_tpu/models/hourglass.py:35", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def check_k10(dev, rng):
+    """K10 at P = 4096 (the MeshDb subsample), B = 1 (one object per meter
+    update, as the evaluation calls it) and B = 8: per-point distances equal
+    to the plain version's, means within 1e-6 relative."""
+    import torch
+
+    from suo_slam_tpu_torch.core import lie
+    from suo_slam_tpu_torch.eval import meter
+
+    P = 4096
+    res = {}
+    for B in (1, 8):
+        pts = torch.from_numpy(rng.uniform(-50, 50, (B, P, 3)).astype(np.float32)).to(dev)
+        n = torch.full((B,), P, dtype=torch.int32, device=dev)
+        if B > 1:
+            n[1:] = torch.from_numpy(rng.integers(P // 2, P, B - 1).astype(np.int32)).to(dev)
+        Tg = torch.from_numpy(np.stack([np.eye(4)] * B).astype(np.float32)).to(dev)
+        Tg[:, :3, :3] = torch.from_numpy(np.stack([random_rotation(rng) for _ in range(B)])
+                                         .astype(np.float32)).to(dev)
+        Tg[:, 2, 3] = 800.0
+        w = rng.normal(size=(B, 6)) * np.array([0.01] * 3 + [0.0] * 3)
+        dT = lie.se3_exp(torch.from_numpy(w.astype(np.float32)).to(dev))
+        dT[:, :3, 3] = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32) * 3).to(dev)
+        Tp = dT @ Tg
+        k = meter._add_dists_cuda(pts, n, Tp, Tg, per_point=True)
+        p = meter.add_dists_plain(pts, n, Tp, Tg, per_point=True)
+        torch.cuda.synchronize()
+        pt_equal = torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+        rel = max(((a - b).abs() / b.abs()).max().item() for a, b in zip(k[:2], p[:2]))
+        log(f"[kernel] K10 B={B}: per-point distances equal {pt_equal}, means rel err "
+            f"{rel:.3e} (tol 1e-6); ADD {k[0][:4].tolist()}, ADD-S {k[1][:4].tolist()}")
+        if not (pt_equal and rel <= 1e-6):
+            raise AssertionError(f"K10 disagrees with its plain version (B={B}): {rel}")
+        ms = cuda_ms(lambda: meter._add_dists_cuda(pts, n, Tp, Tg))
+        plain_ms = cuda_ms(lambda: meter.add_dists_plain(pts, n, Tp, Tg), n=5, inner=2)
+
+        def lib():  # the ADD-S minimum by cdist
+            R, t = Tg[:, :3, :3], Tg[:, :3, 3]
+            g = pts @ R.transpose(1, 2) + t[:, None]
+            q = pts @ Tp[:, :3, :3].transpose(1, 2) + Tp[:, None, :3, 3]
+            return torch.cdist(g, q).amin(-1)
+
+        lib_ms = cuda_ms(lib)
+        us, src = device_us(lambda: meter._add_dists_cuda(pts, n, Tp, Tg), "add_dists_")
+        pairs = float((n.double() ** 2).sum())
+        b = bound(pts.numel() * 4 + B * (2 * 64 + 4 + 8), pairs * 9)
+        res[B] = (rel, ms, plain_ms, lib_ms, b)
+        _report(f"K10 add_dists (B={B}, P={P}, device {us:.3f} us per call of 2 kernels by "
+                f"{src})",
+                rel, "1e-6 relative; per-point equal", ms, plain_ms, lib_ms, b)
+    rel, ms, plain_ms, lib_ms, b = res[1]
+    return dict(name="add_dists", route="cuda", source="suo_slam_tpu_torch/csrc/add_dists.cu",
+                replaces="suo_slam_tpu/eval/meter.py:82", max_abs_err=rel, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+def phase_bf16_net(dev, rng, seed, net32, net16, crops):
+    """The full-width net in bf16 against the same weights in f32 on the
+    card. With random weights the heatmaps are flat and uv moves with the
+    rounding, so the gate is the bf16 error the CPU shows on the same two
+    crops: the card's bf16-vs-f32 gap (largest and mean |uv|) within 1.5x the
+    CPU's, whose convolutions round elsewhere. Prints both nets' ms per call
+    (8 crops, backbone + readout)."""
+    import torch
+
+    cpu = {dt: full_width_net(seed, dt).eval().to(memory_format=torch.channels_last)
+           for dt in (torch.float32, torch.bfloat16)}
+    with torch.inference_mode():
+        o32, o16 = net32(crops), net16(crops)
+        torch.cuda.synchronize()
+        c2 = crops[:2].cpu()
+        c32, c16 = cpu[torch.float32](c2), cpu[torch.bfloat16](c2)
+    gap = (o16.uv[:2].cpu() - o32.uv[:2].cpu()).abs()
+    ref = (c16.uv - c32.uv).abs()
+    card_all = (o16.uv - o32.uv).abs()
+    f32_cpu = (o32.uv[:2].cpu() - c32.uv).abs().max().item()
+    log(f"[bf16] uv |bf16 - f32| on the card: max {card_all.max().item():.4f} mean "
+        f"{card_all.mean().item():.5f} NDC (8 crops); the 2 crops: card max "
+        f"{gap.max().item():.4f} mean {gap.mean().item():.5f}, CPU max {ref.max().item():.4f} "
+        f"mean {ref.mean().item():.5f} (gate 1.5x the CPU's); f32 card vs CPU {f32_cpu:.2e}; "
+        f"mask |bf16 - f32| max {(o16.kp_mask - o32.kp_mask).abs().max().item():.4f}")
+    if not (torch.isfinite(o16.uv).all() and torch.isfinite(o16.cov).all()):
+        raise AssertionError("bf16 net: non-finite outputs")
+    if not (gap.max() <= 1.5 * ref.max() and gap.mean() <= 1.5 * ref.mean()):
+        raise AssertionError("bf16 net on the card: uv farther from f32 than the CPU's bf16 net")
+    # ms per call with K8 / K9 and with their plain versions in the same
+    # net, in turns (kernels, plain, plain, kernels), host clock around
+    # synchronized calls: the layer's own A/B
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    fused = (hg.norm_relu, hg.upsample_add)
+    plain = (hg.norm_relu_plain, hg.upsample_add_plain)
+
+    def wall_ms(n, reps=10):
+        vals = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                n(crops)
+            torch.cuda.synchronize()
+            vals.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(vals[1:])
+
+    t = {}
+    try:
+        for turn, fns in (("kernels", fused), ("plain", plain), ("plain", plain),
+                          ("kernels", fused)):
+            hg.norm_relu, hg.upsample_add = fns
+            for name, n in (("f32", net32), ("bf16", net16)):
+                t.setdefault(f"{name} {turn}", []).append(wall_ms(n))
+    finally:
+        hg.norm_relu, hg.upsample_add = fused
+    log("[bf16] full-width net ms per call (8 crops, 256x256, backbone + readout; median of "
+        "10 synchronized calls; two turns each, kernels / plain epilogues in the order "
+        "K P P K): " + json.dumps({k: [round(x, 3) for x in v] for k, v in t.items()}))
+    # the same calls' device time, from torch.profiler: all kernels, and the
+    # convolutions alone, per call of 3
+    from torch.autograd import DeviceType
+
+    def kern(avg):
+        return [e for e in avg if e.device_type == DeviceType.CUDA]
+
+    def three_calls(n):
+        with torch.inference_mode():
+            for _ in range(3):
+                n(crops)
+
+    dev_ms = {}
+    for name, n in (("f32", net32), ("bf16", net16)):
+        avg = traced(lambda: three_calls(n), lambda a: len(kern(a)) > 0, f"{name} net")
+        if avg is None:
+            dev_ms[name] = "not measured"
+            continue
+        conv = sum(e.self_device_time_total for e in avg if e.device_type == DeviceType.CPU
+                   and e.key == "aten::cudnn_convolution")
+        dev_ms[name] = {"busy": round(sum(e.self_device_time_total for e in kern(avg)) / 3e3, 3),
+                        "conv": round(conv / 3e3, 3),
+                        "kernels": sum(e.count for e in kern(avg)) // 3}
+    log("[bf16] full-width net device ms per call (8 crops, with K8 / K9): " + json.dumps(dev_ms))
+    return t
+
+
+# evaluation phase ---------------------------------------------------------------
+EVAL_CONFIGS = [  # kp config rows: class, grip, spout, brand name, nutrition facts, bar code
+    ("box_like", 0, 0, 1, 0, 1), ("cylinder_like", 1, 1, 0, 0, 0), ("hand_tool", 0, 0, 1, 1, 0),
+    ("box_like", 1, 0, 0, 1, 0), ("cylinder_like", 0, 0, 1, 0, 1), ("hand_tool", 1, 1, 0, 0, 1),
+    ("box_like", 0, 1, 1, 1, 0), ("cylinder_like", 0, 0, 0, 1, 1),
+]
+EVAL_VIEWS = 12
+
+
+def write_png(path, img):
+    """A PNG of a uint8 (gray or RGB) or uint16 (gray) array: zlib + numpy,
+    one row filter (None)."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+    ch = 1 if img.ndim == 2 else img.shape[2]
+    data = img.astype(">u2") if img.dtype == np.uint16 else img.astype(np.uint8)
+    rows = np.ascontiguousarray(data).view(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 16 if img.dtype == np.uint16 else 8,
+                       0 if ch == 1 else 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+class EvalObjects:
+    """The evaluation phase's 8 objects: the channels of their kp config rows
+    (14-18 of the 41), keypoints and 6000 model points in a 100 mm cube;
+    objects 1, 4 and 7 symmetric (a 180-degree turn about z), as in the
+    SLAM phase."""
+
+    def __init__(self, rng):
+        from suo_slam_tpu_torch.kp import config as kp_config
+
+        self.names = [kp_config.get_kps(c, *map(bool, f)) for c, *f in EVAL_CONFIGS]
+        self.model_kps = np.zeros((N_OBJ, NK, 3), np.float32)
+        self.masks = np.zeros((N_OBJ, NK), bool)
+        self.points = []
+        for o, names in enumerate(self.names):
+            ch = np.array(sorted(names.values()))
+            self.masks[o, ch] = True
+            self.model_kps[o, ch] = rng.uniform(-50, 50, (len(ch), 3))
+            self.points.append(rng.uniform(-50, 50, (6000, 3)).astype(np.float32))
+        self.diameter = np.full((N_OBJ,), 100.0 * math.sqrt(3.0), np.float32)
+        self.is_symmetric = np.zeros((N_OBJ,), bool)
+        self.is_symmetric[[0, 3, 6]] = True
+
+
+def write_bop_tree(root, objs, scene):
+    """One YCB-V-layout BOP dataset under `root`: models_bop-compat (binary
+    PLYs + models_info.json), kp_info, kp_configs, test/000000 with rgb,
+    depth and mask PNGs and the scene JSONs, keyframe.txt."""
+    import os
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    models = os.path.join(root, "models_bop-compat")
+    for d in (models, os.path.join(root, "kp_info"), os.path.join(root, "kp_configs")):
+        os.makedirs(d)
+    info = {}
+    for o in range(N_OBJ):
+        pts = objs.points[o]
+        with open(os.path.join(models, f"obj_{o + 1:06d}.ply"), "wb") as f:
+            f.write(f"ply\nformat binary_little_endian 1.0\nelement vertex {len(pts)}\n"
+                    "property float x\nproperty float y\nproperty float z\nend_header\n"
+                    .encode())
+            f.write(pts.astype("<f4").tobytes())
+        mi = {"diameter": float(objs.diameter[o])}
+        if objs.is_symmetric[o]:
+            mi["symmetries_discrete"] = [[-1, 0, 0, 0, 0, -1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1]]
+        info[str(o + 1)] = mi
+        kps = {n: {"pos_mean": objs.model_kps[o, ch].tolist(),
+                   "pos_cov": np.eye(3).reshape(-1).tolist()}
+               for n, ch in objs.names[o].items()}
+        with open(os.path.join(root, "kp_info", f"obj_{o + 1:06d}_kp_info.json"), "w") as f:
+            json.dump({"keypoints": kps, "view_pose": np.eye(4).reshape(-1).tolist()}, f)
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump(info, f)
+    with open(os.path.join(root, "kp_configs", "ycbv_kp_config.csv"), "w") as f:
+        f.write("# instance,class,has_grip,has_spout,has_brand_name,has_nutrition_facts,"
+                "has_bar_code\n")
+        for o, (c, *fl) in enumerate(EVAL_CONFIGS):
+            f.write(f"obj_{o + 1},{c},{','.join(map(str, fl))}\n")
+    sdir = os.path.join(root, "test", "000000")
+    for d in ("rgb", "depth", "mask_visib"):
+        os.makedirs(os.path.join(sdir, d))
+    cams, gts, gt_infos, keyframes = {}, {}, {}, []
+    for v in range(EVAL_VIEWS):
+        T, bboxes, _ = scene.frame(v)
+        img = np.full((H_IMG, W_IMG, 3), 40, np.uint8)
+        depth = np.zeros((H_IMG, W_IMG), np.uint16)
+        gts[str(v)], gt_infos[str(v)] = [], []
+        for o in range(N_OBJ):
+            x1, y1, x2, y2 = (int(round(c)) for c in bboxes[o])
+            img[y1:y2, x1:x2] = (60 + 20 * o, 200 - 15 * o, 90 + 10 * o)
+            depth[y1:y2, x1:x2] = int(T[o, 2, 3])
+            mask = np.zeros((H_IMG, W_IMG), np.uint8)
+            mask[y1:y2, x1:x2] = 255
+            write_png(os.path.join(sdir, "mask_visib", f"{v:06d}_{o:06d}.png"), mask)
+            gts[str(v)].append({"obj_id": o + 1, "cam_R_m2c": T[o, :3, :3].reshape(-1).tolist(),
+                                "cam_t_m2c": T[o, :3, 3].tolist()})
+            x1, y1, x2, y2 = (float(c) for c in bboxes[o])
+            gt_infos[str(v)].append({"bbox_obj": [x1, y1, x2 - x1, y2 - y1],
+                                     "bbox_visib": [x1, y1, x2 - x1, y2 - y1],
+                                     "visib_fract": 1.0, "px_count_visib": 1000})
+        write_png(os.path.join(sdir, "rgb", f"{v:06d}.png"), img)
+        write_png(os.path.join(sdir, "depth", f"{v:06d}.png"), depth)
+        cams[str(v)] = {"cam_K": YCBV_K.reshape(-1).tolist(), "depth_scale": 1.0,
+                        "cam_R_w2c": scene.cams[v, :3, :3].reshape(-1).tolist(),
+                        "cam_t_w2c": scene.cams[v, :3, 3].tolist()}
+        keyframes.append(f"000000/{v:06d}")
+    for name, d in (("scene_camera", cams), ("scene_gt", gts), ("scene_gt_info", gt_infos)):
+        with open(os.path.join(sdir, f"{name}.json"), "w") as f:
+            json.dump(d, f)
+    with open(os.path.join(root, "keyframe.txt"), "w") as f:
+        f.write("\n".join(keyframes) + "\n")
+
+
+def phase_evaluate(dev, seed, net16):
+    """The evaluation entry point on a BOP tree written here (see the module
+    docstring, phase 7). Returns the kernel counts of the phase."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.evaluate import Evaluator
+
+    rng = np.random.default_rng(seed + 2)
+    objs = EvalObjects(rng)
+    scene = SlamScene(rng, objs, EVAL_VIEWS)
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_eval")
+    root = os.path.join(base, "bop_datasets", "ycbv")
+    t0 = time.perf_counter()
+    write_bop_tree(root, objs, scene)
+    log(f"[eval] BOP tree of {EVAL_VIEWS} views x {N_OBJ} objects written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kernels.reset_counts()
+    out = {}
+    for leg, kw in (("slam", dict(nviews=-1, debug_gt_kp=True)),
+                    ("single_view_bf16", dict(nviews=1, net=net16))):
+        ev = Evaluator("ycbv", root, "", detection_type="gt", no_viz=True,
+                       kp_config_root=os.path.join(root, "kp_configs"), device=dev, **kw)
+        ev.model_path = os.path.join(base, "results")
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            summary = ev.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        if summary is None:
+            raise AssertionError(f"evaluation leg {leg} failed:\n{text[-3000:]}")
+        outdir = os.path.join(ev.model_path, ev.method_name())
+        csv_path = os.path.join(outdir, ev.method_name() + ".csv")
+        if not (os.path.isfile(os.path.join(outdir, "summary.txt")) and os.path.isfile(csv_path)):
+            raise AssertionError(f"evaluation leg {leg}: summary.txt or the CSV is missing")
+        rows = open(csv_path).read().splitlines()
+        auc = float(re.search(r"AUC of ADD\(-S\): ([\d.]+)", text).group(1))
+        cam = summary.get("cam_pose_pct")
+        log(f"[eval] {leg}: {ev.method_name()}: AUC of ADD(-S) {auc:.1f}, ADD "
+            f"{100 * summary['ours']['AUC of ADD']:.2f}, ADD-S "
+            f"{100 * summary['ours']['AUC of ADD-S']:.2f}, camera poses found {cam}%, "
+            f"{len(rows)} CSV rows; {wall:.2f} s for {EVAL_VIEWS} views = "
+            f"{wall / EVAL_VIEWS * 1e3:.2f} ms per view (loading, engine and meter), tracking "
+            f"{ev.object_slam.tracking_hz():.2f} Hz")
+        out[leg] = (auc, cam, wall)
+    counts = kernels.counts()
+    log(f"[eval] launches over both legs: {json.dumps(counts)}")
+    auc, cam, _ = out["slam"]
+    if not (auc > 80.0 and cam == 100.0):
+        raise AssertionError(f"evaluation (SLAM, GT keypoints): AUC {auc}, camera poses {cam}%")
+    missing = [k for k in ("norm_relu", "upsample_add", "add_dists", "roi_crop",
+                           "heatmap_readout") if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the evaluation path: {missing}")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1195,15 +1707,20 @@ def main(argv=None):
     from suo_slam_tpu_torch.slam import kernels as sk
 
     net = sk.make_frame_inference(net, device=dev).net  # on the card, eval, channels_last
+    net16 = sk.make_frame_inference(full_width_net(args.seed, torch.bfloat16), device=dev).net
+    crops = torch.from_numpy(rng.uniform(0, 1, (N_OBJ, 256, 256, 3)).astype(np.float32)).to(dev)
     scene = SlamScene(np.random.default_rng(args.seed + 1), objs, args.frames + 1)
     entries = [check_k1(dev, rng, objs), check_k2(dev, rng, net), check_k3(dev, rng, objs),
                check_k4(dev, rng, objs), check_k5(dev, rng), check_k6(dev, rng, objs),
-               check_k7(dev, scene)]
+               check_k7(dev, scene), check_k8(dev, rng, net, net16, crops), check_k9(dev, rng),
+               check_k10(dev, rng)]
+    phase_bf16_net(dev, rng, args.seed, net, net16, crops)
     phase_main_path(dev, rng, objs, net, args.seed, args.views)
     phase_solver_check(dev, rng, objs, args.seed, args.views)
     counts = phase_slam(dev, rng, objs, net, args.seed, scene)
+    eval_counts = phase_evaluate(dev, args.seed, net16)
     for e in entries:
-        e["launches"] = counts[e["name"]]
+        e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else counts)[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,0 +1,34 @@
+"""Checkpoint -> PkpNet loading for the evaluation CLI.
+
+Port of `suo_slam_tpu/eval/loading.py`. A reference PyTorch checkpoint
+(`.pth.tar`) converts layer for layer (`train/torch_convert.py`) into
+`PkpNet(prior_mode="concat", transpose_heatmaps=True)`. The JAX package's own
+checkpoints are orbax directories, which need flax to read; the port reads
+them with the training slice (ROADMAP A12) and raises until then.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.pkpnet import PkpNet
+
+
+def load_eval_network(chkpt_path, bf16=True, norm="batch", no_network_cov=False):
+    """Load a PkpNet with its weights for inference, in bf16 (the default)
+    or f32. Returns (net, model_epoch)."""
+    if chkpt_path.endswith((".pth.tar", ".pth")):
+        from ..models.convert import backbone_config, from_jax_variables
+        from ..train.torch_convert import load_torch_checkpoint
+
+        variables, model_epoch, _ = load_torch_checkpoint(chkpt_path)
+        # the reference net: concat prior mode (no post-stem projection)
+        net = PkpNet(
+            **backbone_config(variables), calc_cov=not no_network_cov, norm="batch",
+            transpose_heatmaps=True, dtype=torch.bfloat16 if bf16 else torch.float32,
+        )
+        net.load_state_dict(from_jax_variables(variables))
+        return net, model_epoch
+    raise NotImplementedError(
+        f"{chkpt_path!r}: orbax checkpoints need flax; reading them comes with the "
+        "training slice: ROADMAP A12 (a reference .pth.tar loads now)")

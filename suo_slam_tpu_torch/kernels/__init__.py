@@ -2,7 +2,8 @@
 
 Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
 K2 and K5 `ops/heatmap.py`, K3 `solvers/pnp.py`, K4 and K7 `solvers/ba.py`,
-K6 `slam/kernels.py`) and adds one to its counter here where — and only
+K6 `slam/kernels.py`, K8 and K9 `models/hourglass.py`, K10 `eval/meter.py`)
+and adds one to its counter here where — and only
 where — it launches its CUDA kernel.
 """
 
@@ -19,6 +20,9 @@ LAUNCHES: dict[str, int] = {
     "prior_render": 0,  # K5
     "chi2_counts": 0,   # K6
     "ba_schur": 0,      # K7
+    "norm_relu": 0,     # K8
+    "upsample_add": 0,  # K9
+    "add_dists": 0,     # K10
 }
 
 

@@ -11,6 +11,11 @@ Validity head: mean-pooled raw logits -> ReLU -> Linear(K, K) -> sigmoid
 the stem through a 1x1 projection; with no prior the projection contributes
 its bias only (what the JAX net computes on its all-zero prior).
 `prior_mode="concat"` concatenates the prior to the RGB input.
+
+`dtype` is the backbone's working dtype, f32 or bf16 (the JAX package's
+`PkpNet(dtype=...)`; `evaluate.py` runs bf16 by default): the crops and the
+prior are cast to it inside the backbone, whose heads return f32 logits, so
+the readout and the validity head stay f32 (`models/hourglass.py`).
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ class PkpNet(nn.Module):
     def __init__(self, num_kp: int = kp_config.num_kp(), calc_cov: bool = True,
                  n_stack: int = 2, n_modules: int = 2, features: int = 256,
                  norm: str = "batch", prior_mode: str = "post_stem",
-                 transpose_heatmaps: bool = False):
+                 transpose_heatmaps: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if norm != "batch":
             raise NotImplementedError(
@@ -62,9 +67,14 @@ class PkpNet(nn.Module):
             in_features=3 + (num_kp if prior_mode == "concat" else 0),
             num_output=num_kp, n_stack=n_stack, n_modules=n_modules,
             features=features, with_extra=prior_mode == "post_stem",
-            extra_features=num_kp,
+            extra_features=num_kp, dtype=dtype,
         )
         self.classifier = nn.Linear(num_kp, num_kp)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The backbone's working dtype."""
+        return self.backbone.dtype
 
     def prior_hw(self, input_hw: tuple[int, int]) -> tuple[int, int]:
         """Resolution the prior heatmaps are rendered at."""

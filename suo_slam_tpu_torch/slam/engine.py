@@ -21,8 +21,10 @@ Global BA (`optimize`, K4 + K7) runs every `global_opt_every` posed views
 buffers (`_dev_buf`), which are updated row by row (`_sync_view_row`) and
 dropped when a capacity grows. Modes: SLAM (default), SfM (`sfm_mode`) and
 single view (`single_view_mode`, `evaluate.py --nviews 1`, which resets the
-engine before every view). `debug_gt_kp` and int8 inference raise
-`NotImplementedError` naming their ROADMAP entries.
+engine before every view). `debug_gt_kp` replaces the network with the
+ground-truth keypoints plus N(0, gt_kp_noise_std) NDC noise drawn by the
+hypothesis sampler's `noise` hook. int8 inference raises
+`NotImplementedError` naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ class SlamConfig:
     mask_thresh: float = 0.3
     manual_kp_std: float = 0.005
     opt_init_with_outliers: bool = False
+    gt_kp_noise_std: float = 0.01  # debug_gt_kp's NDC noise
     # rescale the BA information of a run whose information is manual
     # (1 / manual_kp_std^2) back to identity, as the reference BA weights
     # no-cov edges; RANSAC and re-init keep 1 / sigma^2
@@ -126,11 +129,12 @@ class SlamConfig:
 
 
 class TorchGumbelSampler:
-    """The default RANSAC hypothesis sampler: Gumbel top-4 on a
-    `torch.Generator` seeded from `SlamConfig.seed` (re-made at every
-    `ObjectSlam.reset()`). `sampler(keep [O, K], n_hyp)` draws a group's
-    [O, n_hyp, 4] indices; `sampler.single(mask [N], n_hyp)` draws one
-    point set's [n_hyp, 4] (the backup camera pose)."""
+    """The engine's random draws on one `torch.Generator` seeded from
+    `SlamConfig.seed` (re-made at every `ObjectSlam.reset()`): the RANSAC
+    hypotheses by Gumbel top-4 — `sampler(keep [O, K], n_hyp)` draws a
+    group's [O, n_hyp, 4] indices, `sampler.single(mask [N], n_hyp)` one
+    point set's [n_hyp, 4] (the backup camera pose) — and
+    `sampler.noise(shape, std)`, debug_gt_kp's keypoint noise (f32 numpy)."""
 
     def __init__(self, seed: int, device: torch.device):
         self.gen = torch.Generator(device=device)
@@ -141,6 +145,10 @@ class TorchGumbelSampler:
 
     def single(self, mask: torch.Tensor, n_hyp: int) -> torch.Tensor:
         return pnp_mod.sample_hypothesis_indices(mask[None], n_hyp, self.gen)[0]
+
+    def noise(self, shape, std: float) -> np.ndarray:
+        z = torch.randn(tuple(shape), generator=self.gen, device=self.gen.device)
+        return (z * std).cpu().numpy()
 
 
 @dataclass
@@ -166,12 +174,12 @@ class ObjectSlam:
 
         hyp_sampler: factory `seed -> sampler` called at every `reset()`;
         `sampler(keep [O, K], n_hyp) -> idx [O, n_hyp, 4]` draws a group's
-        PnP RANSAC hypotheses and `sampler.single(mask [N], n_hyp) ->
-        idx [n_hyp, 4]` the backup camera pose's. Default:
-        `TorchGumbelSampler`.
+        PnP RANSAC hypotheses, `sampler.single(mask [N], n_hyp) ->
+        idx [n_hyp, 4]` the backup camera pose's and, with debug_gt_kp,
+        `sampler.noise(shape, std)` the keypoint noise (f32 numpy), each
+        in the engine's order of draws. Default: `TorchGumbelSampler`.
+        With `config.debug_gt_kp` neither net nor infer_fn is needed.
         """
-        if config.debug_gt_kp:
-            raise NotImplementedError("debug_gt_kp is not ported yet: ROADMAP A9")
         if config.int8_inference:
             raise NotImplementedError("int8 inference is not ported yet: ROADMAP B5 "
                                       "(queue item 'int8 serving')")
@@ -179,9 +187,9 @@ class ObjectSlam:
         self.cfg = config
         self.mesh_db = mesh_db
         self._infer = infer_fn
-        if infer_fn is None:
+        if infer_fn is None and not config.debug_gt_kp:
             if net is None:
-                raise ValueError("ObjectSlam needs net or infer_fn")
+                raise ValueError("ObjectSlam needs net or infer_fn unless debug_gt_kp is set")
             self._infer = kernels.make_frame_inference(net, config.input_hw,
                                                        device=self.device)
         self._hyp_factory = hyp_sampler or (
@@ -327,8 +335,8 @@ class ObjectSlam:
                      model_kps_masks, kp_masks, uv_gt=None, cam_pose=None):
         """Process one frame. img [H, W, 3] f32 RGB in [0, 1]; K [3, 3];
         obj_ids [O_f]; bboxes [O_f, 4] xyxy pixels; model_kps [O_f, K, 3];
-        model_kps_masks / kp_masks [O_f, K]; cam_pose optional external
-        T_GtoC."""
+        model_kps_masks / kp_masks [O_f, K]; uv_gt [O_f, K, 2] ground-truth
+        NDC keypoints (debug_gt_kp); cam_pose optional external T_GtoC."""
         if view_id in self.views_seen:
             raise ValueError(f"repeat view {view_id}")
         c = self.cfg
@@ -336,11 +344,14 @@ class ObjectSlam:
         self.views_seen.append(view_id)
         self.all_time_num_views += 1
         self.cam_K_full[view_id] = np.asarray(K, np.float64)
-        img = torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
+        if not c.debug_gt_kp:  # the frame goes to the device once
+            img = torch.as_tensor(np.asarray(img, np.float32)).to(self.device)
         obj_ids = np.asarray(obj_ids)
         bboxes = np.array(bboxes, np.float32)
         model_kps = np.asarray(model_kps, np.float32)
         model_kps_masks = np.asarray(model_kps_masks, bool)
+        kp_masks = np.asarray(kp_masks, bool)
+        gt = (lambda sel: None) if uv_gt is None else (lambda sel: np.asarray(uv_gt)[sel])
 
         # symmetric / non-symmetric split
         if not c.no_prior_det and self.mesh_db is not None:
@@ -368,7 +379,7 @@ class ObjectSlam:
         if n_non_sym > 0:
             ns = ~is_sym
             self._process_objects(False, view_id, img, K, obj_ids[ns], bboxes[ns],
-                                  model_kps[ns], model_kps_masks[ns])
+                                  model_kps[ns], model_kps_masks[ns], kp_masks[ns], gt(ns))
         if not self._has_cam_pose(view_id):
             if len(self.view_ids) == 0:
                 self._set_cam_pose(view_id, np.eye(4))
@@ -380,7 +391,8 @@ class ObjectSlam:
             # with the tracking tail
             sym_pending = self._group_frontend(
                 True, view_id, img, K, obj_ids[is_sym], bboxes[is_sym],
-                model_kps[is_sym], model_kps_masks[is_sym], with_cam_ransac=False,
+                model_kps[is_sym], model_kps_masks[is_sym], kp_masks[is_sym], gt(is_sym),
+                with_cam_ransac=False,
             )
         if not c.single_view_mode:
             self._fused_tail(view_id, sym_pending)
@@ -408,7 +420,7 @@ class ObjectSlam:
             self.view_ids.append(view_id)
 
     def _process_objects(self, is_sym, view_id, img, K, obj_ids, bboxes, model_kps,
-                         model_kps_masks):
+                         model_kps_masks, kp_masks, uv_gt):
         """Network + PnP + camera-pose RANSAC for the non-symmetric group: one
         device chain, the frame's first host read-back; then the camera pose
         and late init."""
@@ -416,7 +428,8 @@ class ObjectSlam:
             return
         with_cam_ransac = not self._has_cam_pose(view_id) and self.num_views_processed() > 0
         meta, dev = self._group_frontend(is_sym, view_id, img, K, obj_ids, bboxes,
-                                         model_kps, model_kps_masks, with_cam_ransac)
+                                         model_kps, model_kps_masks, kp_masks, uv_gt,
+                                         with_cam_ransac)
         host = _host(dev)
         self._commit_group(view_id, meta, host, sync=True)
 
@@ -440,10 +453,12 @@ class ObjectSlam:
                 self._set_obj_pose(obj_id, np.linalg.inv(T_GtoC) @ det.pose_pnp)
 
     def _group_frontend(self, is_sym, view_id, img, K, obj_ids, bboxes, model_kps,
-                        model_kps_masks, with_cam_ransac):
+                        model_kps_masks, kp_masks, uv_gt, with_cam_ransac):
         """Host preparation and the device chain of one group: network
-        inference -> `kernels.frontend_step`. No host read-back: the caller
-        decides when to read the returned device dict."""
+        inference (or, with debug_gt_kp, the noisy ground-truth keypoints
+        and the dataset's keypoint masks as keep) ->
+        `kernels.frontend_step`. No host read-back: the caller decides when
+        to read the returned device dict."""
         c = self.cfg
         of = len(obj_ids)
         nk = self.nk
@@ -481,20 +496,31 @@ class ObjectSlam:
         ob = _bucket(of)
         pad_slots = np.full((ob,), self.O, np.int64)  # O = dropped in a scatter
         pad_slots[:of] = slots
-        obj_valid = np.zeros((ob,), bool)
-        obj_valid[:of] = True
-        bx = _pad0(bboxes, ob)
-        bx[of:] = (0.0, 0.0, MIN_PAD_BOX, MIN_PAD_BOX)
-        infer_kw = {}
-        if not prior_valid.any() and getattr(self._infer, "supports_no_prior", False):
-            infer_kw["has_prior"] = False  # the statically prior-free program
         f32 = torch.float32
-        uv_d, cov_d, maskp_d = self._infer(
-            img, self._up(bx, f32), self._up(obj_valid), self._up(_pad0(prior_uv, ob), f32),
-            self._up(_pad0(prior_valid, ob)), **infer_kw,
-        )
-        if c.no_network_cov:
-            cov_d = None  # manual information, no stdev filter or meter
+        keep_in = None
+        if c.debug_gt_kp:
+            if uv_gt is None:
+                raise ValueError("debug_gt_kp needs uv_gt")
+            uv_in = np.asarray(uv_gt, np.float32) + np.asarray(
+                self._sampler.noise((of, nk, 2), c.gt_kp_noise_std), np.float32)
+            uv_d = self._up(_pad0(uv_in, ob))
+            cov_d = maskp_d = None
+            keep_in = self._up(_pad0(np.asarray(kp_masks, bool), ob))
+        else:
+            obj_valid = np.zeros((ob,), bool)
+            obj_valid[:of] = True
+            bx = _pad0(bboxes, ob)
+            bx[of:] = (0.0, 0.0, MIN_PAD_BOX, MIN_PAD_BOX)
+            infer_kw = {}
+            if not prior_valid.any() and getattr(self._infer, "supports_no_prior", False):
+                infer_kw["has_prior"] = False  # the statically prior-free program
+            uv_d, cov_d, maskp_d = self._infer(
+                img, self._up(bx, f32), self._up(obj_valid),
+                self._up(_pad0(prior_uv, ob), f32), self._up(_pad0(prior_valid, ob)),
+                **infer_kw,
+            )
+            if c.no_network_cov:
+                cov_d = None  # manual information, no stdev filter or meter
         diams = _pad0(np.asarray([self._diam(o) for o in obj_ids], np.float32), ob)
         diams[of:] = np.inf  # padded slots never pass the depth gate
         fs_kw = {}
@@ -506,7 +532,7 @@ class ObjectSlam:
             uv_d, cov_d, maskp_d, self._up(_pad0(model_kps, ob), f32),
             self._up(_pad0(model_kps_masks, ob)), self._up(_pad0(cam_k4, ob), f32),
             self._up(diams, f32), self._sampler, c.manual_kp_std, c.bbox_thresh,
-            c.kp_var_thresh, c.mask_thresh, n_hyp=c.pnp_hypotheses, **fs_kw,
+            c.kp_var_thresh, c.mask_thresh, n_hyp=c.pnp_hypotheses, keep_in=keep_in, **fs_kw,
         )
         meta = dict(of=of, obj_ids=[int(o) for o in obj_ids], bboxes=bboxes,
                     cam_k4=cam_k4, slots=slots, pad_slots=pad_slots,
@@ -780,6 +806,32 @@ class ObjectSlam:
                                  "score": 1 + self.obj_num_inliers(obj_id)}
             results[view_id] = {"poses": poses}
         return results
+
+    def get_view_viz_data(self, view_id):
+        """Per-detection data of one view for drawing: obj_id -> {bbox,
+        uv [K, 2] NDC, cov [K, 2, 2] NDC (the inverse of the stored
+        information) or None with manual information, kp_mask [K],
+        prior_uv or None, model_mask [K]}."""
+        out = {}
+        v = self.view_slot.get(view_id)
+        if v is None:
+            return out
+        for obj_id, det in self.detections.get(view_id, {}).items():
+            s = self.obj_slot[obj_id]
+            info = self.info[v, s]
+            a, b, d = info[:, 0, 0], info[:, 0, 1], info[:, 1, 1]
+            det_i = np.maximum(a * d - b * b, 1e-12)
+            cov = np.stack([np.stack([d, -b], -1), np.stack([-b, a], -1)],
+                           axis=-2) / det_i[:, None, None]
+            out[obj_id] = {
+                "bbox": det.bbox,
+                "uv": self.uv[v, s],
+                "cov": None if self.cfg.no_network_cov or self.cfg.debug_gt_kp else cov,
+                "kp_mask": self.valid[v, s],
+                "prior_uv": det.prior_uv,
+                "model_mask": self.model_mask[s],
+            }
+        return out
 
     # timing ------------------------------------------------------------------
     def tracking_hz(self):

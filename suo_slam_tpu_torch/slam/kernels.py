@@ -200,16 +200,21 @@ def frontend_step(uv, cov, mask_prob, model_kps, model_masks, cam_k4, diams,
                   hyp_sampler, manual_kp_std: float, bbox_thresh: float,
                   kp_var_thresh: float, mask_thresh: float, n_hyp: int = 64,
                   slots=None, obj_T=None, obj_active=None, model_kp_full=None,
-                  min_num_inliers: int = 4):
+                  min_num_inliers: int = 4, keep_in=None):
     """Fused per-group front end: keypoint filter -> PnP -> information ->
     (when `slots`/`obj_T`/`obj_active`/`model_kp_full` are given) camera-pose
     RANSAC. `hyp_sampler(keep [O, K], n_hyp) -> idx [O, n_hyp, 4]` draws the
     RANSAC hypotheses. For camera RANSAC the frame's results are scattered
     into slot-indexed [O] rows (slots [ob], a padded slot = O is dropped) and
-    scored against the map poses obj_T [O, 4, 4]. Returns a dict of small
-    per-frame tensors that the caller reads back in one transfer."""
-    keep = filter_keypoints(uv, cov, mask_prob, model_masks,
-                            bbox_thresh, kp_var_thresh, mask_thresh)
+    scored against the map poses obj_T [O, 4, 4]. `keep_in` [O, K]
+    (debug_gt_kp: the dataset's keypoint masks) replaces the filter.
+    Returns a dict of small per-frame tensors that the caller reads back in
+    one transfer."""
+    if keep_in is not None:
+        keep = keep_in
+    else:
+        keep = filter_keypoints(uv, cov, mask_prob, model_masks,
+                                bbox_thresh, kp_var_thresh, mask_thresh)
     idx = hyp_sampler(keep, n_hyp)
     T_pnp, pnp_ok = pnp_frame(model_kps, uv, keep, cam_k4, diams, idx)
     if cov is not None:
@@ -319,11 +324,13 @@ def tracking_tail(uv_m, info_m, valid_m, inliers_m, cam_k4_m, model_kp_m, v: int
 
 
 def make_frame_inference(net, input_hw=(256, 256), device="cuda"):
-    """The fused per-frame network call in f32.
+    """The fused per-frame network call.
 
     `net` is a `models.pkpnet.PkpNet` holding its weights (see
     `models.convert.from_jax_variables`); it is moved to `device`, put in
-    eval mode and `channels_last` memory.
+    eval mode and `channels_last` memory. Its backbone runs in the net's
+    working dtype (`PkpNet(dtype=...)`, f32 or bf16); the crops, the prior
+    render and the readout stay f32.
 
     Returns fn(img [H, W, 3], boxes [O, 4], obj_valid [O], prior_uv
     [O, K, 2], prior_valid [O, K], has_prior=True) -> (uv [O, K, 2],

@@ -1,4 +1,4 @@
-"""Kernels K1-K7 against their plain PyTorch versions on the card.
+"""Kernels K1-K10 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -168,3 +168,64 @@ def test_k7_ba_schur(dev):
     bad[1] = -torch.eye(6, device=dev)
     k = ba._solve_normal_eq_schur(bad, *blocks[1:], cam_free, obj_free, lam)
     assert not bool(k[2]) and not k[0].any() and not k[1].any()
+
+
+def test_k8_norm_relu(dev):
+    """f32 equal, bf16 within 1 ulp of bf16 (measured equal); vector and
+    scalar paths (C % 8 and not)."""
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for C in (64, 256, 6):
+        x = torch.randn(4, C, 16, 16, device=dev, generator=g).contiguous(
+            memory_format=torch.channels_last)
+        inv = torch.rand(C, device=dev, generator=g) + 0.5
+        shift = torch.randn(C, device=dev, generator=g)
+        for dt in (torch.float32, torch.bfloat16):
+            xd = x.to(dt)
+            k = hg.norm_relu(xd, inv, shift)
+            p = hg.norm_relu_plain(xd, inv, shift)
+            assert k.dtype == dt and k.is_contiguous(memory_format=torch.channels_last)
+            ulp = 0.0 if dt == torch.float32 else 2.0 ** -7
+            err = ((k.float() - p.float()).abs() / p.float().abs().clamp(min=1e-30))
+            assert torch.equal(k == 0, p == 0) and float(err.max()) <= ulp
+    with pytest.raises(ValueError, match="channels_last"):
+        hg.norm_relu(torch.randn(2, 8, 4, 4, device=dev), inv[:8], shift[:8])
+
+
+def test_k9_upsample_add(dev):
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    for C, H in ((256, 16), (5, 8)):
+        up1 = torch.randn(3, C, H, H, device=dev, generator=g).contiguous(
+            memory_format=torch.channels_last)
+        low = torch.randn(3, C, H // 2, H // 2, device=dev, generator=g).contiguous(
+            memory_format=torch.channels_last)
+        for dt in (torch.float32, torch.bfloat16):
+            k = hg.upsample_add(up1.to(dt), low.to(dt))
+            p = hg.upsample_add_plain(up1.to(dt), low.to(dt))
+            assert k.dtype == dt and torch.equal(k, p)
+
+
+def test_k10_add_dists(dev):
+    """Per-point distances equal to the plain version's, means within 1e-6
+    relative; padded rows, n = 0 and P not a multiple of the tiles."""
+    from suo_slam_tpu_torch.core import lie
+    from suo_slam_tpu_torch.eval import meter
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    for B, P in ((1, 4096), (5, 700)):
+        pts = (torch.rand(B, P, 3, device=dev, generator=g) - 0.5) * 100
+        n = torch.randint(1, P + 1, (B,), device=dev, generator=g).to(torch.int32)
+        n[0] = P
+        if B > 1:
+            n[1] = 0
+        Tg = lie.se3_exp(torch.randn(B, 6, device=dev, generator=g) * 0.3)
+        Tg[:, 2, 3] += 800.0
+        Tp = lie.se3_exp(torch.randn(B, 6, device=dev, generator=g) * 0.01) @ Tg
+        k = meter._add_dists_cuda(pts, n, Tp, Tg, per_point=True)
+        p = meter.add_dists_plain(pts, n, Tp, Tg, per_point=True)
+        assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
+        for a, b in zip(k[:2], p[:2]):
+            assert float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) <= 1e-6

@@ -26,8 +26,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "from suo_slam_tpu_torch.kernels import _build\n"
         "from suo_slam_tpu_torch.core import lie, geometry\n"
         "from suo_slam_tpu_torch.kp import config\n"
+        "from suo_slam_tpu_torch import evaluate\n"
+        "from suo_slam_tpu_torch.data import bop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'suo_slam_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'suo_slam_tpu', 'cv2'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -77,16 +79,17 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_slam_mode_raises_naming_its_roadmap_item():
-    """SLAM and SfM modes construct; the features still owed (debug_gt_kp,
-    int8 inference) raise naming ROADMAP entries that exist."""
+    """SLAM, SfM and debug_gt_kp runs construct; the feature still owed
+    (int8 inference) raises naming a ROADMAP entry that exists."""
     import re
 
     from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
 
     for cfg in (SlamConfig(), SlamConfig(sfm_mode=True)):
         ObjectSlam(cfg, infer_fn=lambda *a: None, device="cpu")
+    ObjectSlam(SlamConfig(debug_gt_kp=True), device="cpu")
     roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
-    for kw in ("debug_gt_kp", "int8_inference"):
+    for kw in ("int8_inference",):
         with pytest.raises(NotImplementedError, match="ROADMAP") as e:
             ObjectSlam(SlamConfig(**{kw: True}), infer_fn=lambda *a: None, device="cpu")
         item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
