@@ -53,8 +53,25 @@ Phases (any failure raises and exits non-zero):
      bf16 net (seeded random weights, passed as `net=`) must run to its end
      and write summary.txt and the BOP CSV. Per-view latency and the K8-K10
      counts of the phase;
-  8. the kernels JSON line (K1-K7's launches from the SLAM path, K8-K10's
-     from the evaluation phase), the nvidia-smi line, and the last line
+  8. int8 serving: the full-width net's s8-resident program
+     (`models/int8_forward.py`) calibrated on the card; K11 (every distinct
+     convolution shape of the forward, with its real codes, plus the concat
+     stem's 7x7 stride-2 prior convolution), K12 (each mode and dtype) and
+     K13 (each level) bit-equal to their plain versions on the same CUDA
+     inputs, with kernel, plain, `torch._int_mm` (cuBLASLt s8 GEMM; an
+     im2col of the 3x3 input) times and bounds (int8 operations at 1,979
+     TOP/s or bytes at 3.35 TB/s); K2 on the bf16 logits against its plain
+     version; launches per forward; the whole int8 net against its
+     plain-version run on the card (equal logits) and against the f32 net
+     (uv gap within 1.5x the CPU's on the same two crops); the int8 and
+     bf16 nets' host and device ms per call; a scales sidecar written by
+     `calibrate_int8` over the phase-7 BOP tree, then `Evaluator(nviews=1,
+     int8=True)` to its end; a 6-frame SLAM run with
+     `SlamConfig(int8_inference=True, int8_calib_frames=2)` under phase 6's
+     ground-truth wrapper (the with-prior int8 program and K5);
+  9. the kernels JSON line (K1-K7's launches from the SLAM path, K8-K10's
+     from the evaluation phase, K11-K13's from the int8 phase's evaluation
+     and SLAM runs), the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package; its scenes are made
@@ -75,12 +92,14 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM f32 outside the tensor cores (data sheet)
+INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core operations (data sheet)
 H_IMG, W_IMG = 480, 640
 YCBV_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0.0, 1.0]])
 N_OBJ = 8
 NK = 41
 SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_hypotheses", "ba_edges")
 EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
+INT8_KERNELS = ("int8_conv", "int8_quant", "int8_pool_junction")  # from the int8 phase
 
 
 # ----------------------------------------------------------------- helpers --
@@ -117,9 +136,9 @@ def cuda_ms(fn, n=20, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, ops_per_s: float = F32_FLOP_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOP_PER_S * 1e3
+    tf = flops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -1145,7 +1164,8 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     log(f"[slam] launches over {n_frames} frames + the final BA: {json.dumps(counts)}")
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
-    missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"]
+    missing = [k for k, c in counts.items()
+               if c == 0 and k != "add_dists" and k not in INT8_KERNELS]
     if missing:
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}")
     if engine.V != 32 or len(engine.opt_times) != 3:
@@ -1214,12 +1234,15 @@ def traced(fn, holds, label, attempts=3):
     return None
 
 
-def device_us(fn, key, n=10):
+def device_us(fn, key, n=10, per_call=1):
     """Device microseconds per call of fn in the kernels whose names hold
-    `key`, over n calls, from torch.profiler (without the wrapper's host
-    time, which `cuda_ms` includes), and where they were read. When the
-    tracer returns no such kernel, CUDA events around the n back-to-back
-    calls (host time of the wrappers included) stand in for it."""
+    `key` (per_call of them per call), from torch.profiler over n calls
+    (without the wrapper's host time, which `cuda_ms` includes), and where
+    they were read. The time is averaged over the launches the trace holds,
+    not over n: a retaken trace can also hold launches an earlier one lost,
+    and a partial one fewer. When the tracer returns no such kernel, CUDA
+    events around the n back-to-back calls (host time of the wrappers
+    included) stand in for it."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1234,7 +1257,9 @@ def device_us(fn, key, n=10):
     torch.cuda.synchronize()
     avg = traced(calls, lambda a: sum(e.count for e in mine(a)) > 0, key)
     if avg is not None:
-        return sum(e.self_device_time_total for e in mine(avg)) / n, "profiler"
+        ks = mine(avg)
+        launches = sum(e.count for e in ks)
+        return sum(e.self_device_time_total for e in ks) * per_call / launches, "profiler"
     return 1e3 * cuda_ms(fn, n=5, inner=n), "CUDA events"
 
 
@@ -1399,7 +1424,8 @@ def check_k10(dev, rng):
             return torch.cdist(g, q).amin(-1)
 
         lib_ms = cuda_ms(lib)
-        us, src = device_us(lambda: meter._add_dists_cuda(pts, n, Tp, Tg), "add_dists_")
+        us, src = device_us(lambda: meter._add_dists_cuda(pts, n, Tp, Tg), "add_dists_",
+                            per_call=2)
         pairs = float((n.double() ** 2).sum())
         b = bound(pts.numel() * 4 + B * (2 * 64 + 4 + 8), pairs * 9)
         res[B] = (rel, ms, plain_ms, lib_ms, b)
@@ -1689,6 +1715,494 @@ def phase_evaluate(dev, seed, net16):
     return counts
 
 
+# int8 phase ---------------------------------------------------------------------
+def _eval_root():
+    import os
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_eval")
+    return base, os.path.join(base, "bop_datasets", "ycbv")
+
+
+def _int8_traffic(name, a, kw):
+    """(bytes, int8 operations) a K11 / K12 / K13 call must move and do:
+    each input read once, each output written once."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    x = a[0]
+    if name == "int8_conv":
+        qc = a[1]
+        cout, kh, kw_, _ = qc.wq.shape
+        Ho, Wo = ik.out_hw(x.shape[1], x.shape[2], qc)
+        M = x.shape[0] * Ho * Wo
+        out_b = 1 if kw.get("out_s8", a[4] if len(a) > 4 else False) else 2
+        return (x.numel() + qc.wq.numel() + M * cout * out_b + 8 * cout,
+                2.0 * M * cout * kh * kw_ * x.shape[-1])
+    if name == "int8_quant":
+        n_out = (a[1] is not None) + (len(a) > 2 and a[2] is not None)
+        return x.numel() * (x.element_size() + n_out), 0.0
+    if name == "int8_maxpool":
+        return x.numel() * 1.25, 0.0
+    return x.numel() * 3.25, 0.0  # the junction: up1, low, bf16 out
+
+
+def _int8_calls(run, traffic=None):
+    """`run()` with the int8 kernel entry points spied: the arguments of the
+    first call of each distinct shape (K11 by input and weight shape and
+    epilogue, K12 by input dtype, shape and outputs, K13 by shape); every
+    call's (bytes, operations) go to `traffic` when given."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    names = ("int8_conv", "int8_quant", "int8_maxpool", "int8_upsample_add")
+    orig = {n: getattr(ik, n) for n in names}
+    seen = {}
+
+    def key(name, a, kw):
+        x = a[0]
+        if name == "int8_conv":
+            return (name, tuple(x.shape), tuple(a[1].wq.shape), a[1].stride,
+                    bool(kw.get("out_s8", a[4] if len(a) > 4 else False)))
+        if name == "int8_quant":
+            return (name, x.dtype, tuple(x.shape), a[1] is not None,
+                    len(a) > 2 and a[2] is not None)
+        return (name, tuple(x.shape))
+
+    def spy(name):
+        def f(*a, **kw):
+            seen.setdefault(key(name, a, kw), (a, kw))
+            if traffic is not None:
+                traffic.append((name,) + _int8_traffic(name, a, kw))
+            return orig[name](*a, **kw)
+        return f
+
+    try:
+        for n in names:
+            setattr(ik, n, spy(n))
+        run()
+    finally:
+        for n, f in orig.items():
+            setattr(ik, n, f)
+    return seen
+
+
+def _im2col(x, kh, kw, pad, cin_p):
+    """[N, H, W, C] s8 -> [N*H*W, kh*kw*cin_p] patches in the K11 weights'
+    (r, s, c) order (stride 1, channels zero-padded to cin_p), for the
+    library GEMM yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    N, H, W, C = x.shape
+    xp = F.pad(x, (0, cin_p - C, pad, pad, pad, pad))
+    cols = [xp[:, r:r + H, s:s + W] for r in range(kh) for s in range(kw)]
+    return torch.cat(cols, dim=-1).reshape(N * H * W, kh * kw * cin_p)
+
+
+def _int_mm_ms(x, qc, M):
+    """`torch._int_mm` (cuBLASLt s8 GEMM) on the convolution's GEMM, or None
+    where its shape rules (M > 16, K and N multiples of 8) or the layout
+    refuse it; the im2col of a 3x3 input is made before the clock."""
+    import torch
+
+    cout, kh, kw, cin_p = qc.wq.shape
+    if qc.stride != 1 or M <= 16 or cin_p % 8 or cout % 8:
+        return None
+    A = x.reshape(M, -1) if kh == 1 and x.shape[-1] == cin_p else _im2col(x, kh, kw, qc.pad,
+                                                                         cin_p)
+    B = qc.wq.reshape(cout, -1).t()
+    try:
+        torch._int_mm(A, B)
+    except RuntimeError as e:
+        log(f"[kernel] torch._int_mm refused [{M}, {A.shape[1]}] x [{B.shape[0]}, {cout}]: {e}")
+        return None
+    return cuda_ms(lambda: torch._int_mm(A, B), n=10, inner=5)
+
+
+def check_k11(dev, calls):
+    """K11 at every distinct convolution of one forward (their real codes
+    and epilogue vectors) and the concat stem's 7x7 stride-2 prior
+    convolution: equal bf16 bits / s8 codes; times, bounds (int8 operations
+    or bytes) and `torch._int_mm` on the same s8 GEMM (1x1: the activations
+    as [M, Cin]; 3x3: an im2col of them, not timed)."""
+    import torch
+
+    from suo_slam_tpu_torch.models import int8_forward as i8
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    convs = [(k, v) for k, v in calls.items() if k[0] == "int8_conv"]
+    g = torch.Generator(device=dev).manual_seed(12)
+    stem = torch.nn.Conv2d(44, 64, 7, 2, 3).to(dev)
+    qs = i8.quantize_conv(stem, 3, dev)
+    xp = torch.randint(0, 128, (N_OBJ, 256, 256, 41), device=dev, generator=g,
+                       dtype=torch.int32).to(torch.int8)
+    e1 = torch.full((64,), 1e-4, device=dev).to(torch.bfloat16).float()
+    convs.append((("int8_conv", tuple(xp.shape), tuple(qs.wq.shape), 2, False),
+                  ((xp, qs, e1, torch.zeros(64, device=dev), False), {})))
+    rows, err = [], 0.0
+    for key, (a, kw) in convs:
+        x, qc, e1, e2 = a[:4]
+        out_s8 = kw.get("out_s8", a[4] if len(a) > 4 else False)
+        k = ik._int8_conv_cuda(x, qc, e1, e2, out_s8)
+        p = ik.int8_conv_plain(x, qc, e1, e2, out_s8)
+        torch.cuda.synchronize()
+        if not (k.dtype == p.dtype and torch.equal(k, p)):
+            raise AssertionError(f"K11 disagrees with its plain version at {key}: "
+                                 f"{(k.float() - p.float()).abs().max().item()}")
+        Ho, Wo = ik.out_hw(x.shape[1], x.shape[2], qc)
+        M = x.shape[0] * Ho * Wo
+        b = bound(*_int8_traffic("int8_conv", a, kw), INT8_OPS_PER_S)
+        rows.append((key, x, qc, e1, e2, out_s8, M, b))
+    # time one call of each distinct weight shape at its largest input
+    best = {}
+    for r in rows:
+        wk = (r[0][2], r[0][3])
+        if wk not in best or r[6] > best[wk][6]:
+            best[wk] = r
+    out = {}
+    for wk, (key, x, qc, e1, e2, out_s8, M, b) in sorted(best.items(), key=lambda t: -t[1][6]):
+        f = lambda: ik._int8_conv_cuda(x, qc, e1, e2, out_s8)
+        ms = cuda_ms(f, n=10, inner=5)
+        plain_ms = cuda_ms(lambda: ik.int8_conv_plain(x, qc, e1, e2, out_s8), n=3, inner=2,
+                           warmup=1)
+        us, src = device_us(f, "int8_conv_kernel", n=5)
+        cout, kh, kwd, cin_p = qc.wq.shape
+        lib_ms = _int_mm_ms(x, qc, M)
+        name = (f"{kh}x{kwd} {x.shape[-1]}->{cout} s{qc.stride} on {list(x.shape)} "
+                f"{'s8' if out_s8 else 'bf16'} out")
+        _report(f"K11 int8_conv ({name}, device {us:.3f} us by {src})", 0.0, "0 (bit-equal)",
+                ms, plain_ms, lib_ms, b)
+        out[name] = (ms, us, plain_ms, lib_ms, b)
+    log(f"[kernel] K11: {len(rows)} distinct convolution calls bit-equal to the plain version, "
+        f"{len(best)} weight shapes timed")
+    # the JSON row: the forward's own convolution with the most operations
+    # (3x3 128->128 at 64x64 at full width), not the concat stem's
+    name = max((n for n in out if " s1 " in n),
+               key=lambda n: out[n][4][0] if out[n][4][1] == "operations" else 0)
+    ms, us, plain_ms, lib_ms, b = out[name]
+    return dict(name="int8_conv", route="cuda", source="suo_slam_tpu_torch/csrc/int8_conv.cu",
+                replaces="suo_slam_tpu/models/int8_forward.py:254", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+def check_k12(dev, calls):
+    """K12 in every mode the forward used (f32 / bf16 / s8 input; raw,
+    normalised or both outputs), on its real inputs: equal codes."""
+    import torch
+
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    res = {}
+    for key, (a, kw) in calls.items():
+        if key[0] != "int8_quant":
+            continue
+        k = ik._int8_quant_cuda(*a, **kw)
+        p = ik.int8_quant_plain(*a, **kw)
+        torch.cuda.synchronize()
+        if not all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, p)):
+            raise AssertionError(f"K12 disagrees with its plain version at {key}")
+        x = a[0]
+        mode = ("pair" if key[3] and key[4] else "raw" if key[3] else "norm")
+        b = bound(*_int8_traffic("int8_quant", a, kw))
+        mk = (str(x.dtype).replace("torch.", ""), mode)
+        if mk not in res or x.numel() > res[mk][0].numel():
+            res[mk] = (x, a, kw, b)
+    out = {}
+    for (dt, mode), (x, a, kw, b) in res.items():
+        f = lambda: ik._int8_quant_cuda(*a, **kw)
+        ms = cuda_ms(f, n=10, inner=5)
+        plain_ms = cuda_ms(lambda: ik.int8_quant_plain(*a, **kw), n=5, inner=2)
+        us, src = device_us(f, "int8_quant_kernel", n=5)
+        _report(f"K12 int8_quant ({dt} in, {mode}, {list(x.shape)}, device {us:.3f} us by {src})",
+                0.0, "0 (bit-equal)", ms, plain_ms, None, b)
+        out[(dt, mode)] = (ms, plain_ms, b, x.numel())
+    key = max(out, key=lambda k: (k[1] == "pair", k[0] == "bfloat16", out[k][3]))
+    ms, plain_ms, b, _ = out[key]
+    return dict(name="int8_quant", route="cuda", source="suo_slam_tpu_torch/csrc/int8_quant.cu",
+                replaces="suo_slam_tpu/models/int8_forward.py:223", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def check_k13(dev, calls):
+    """K13's pool and junction at every level of the forward, on their real
+    codes: equal codes / bf16 bits."""
+    import torch
+
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    out = {}
+    for key, (a, kw) in sorted(calls.items(), key=lambda t: str(t[0])):
+        if key[0] == "int8_maxpool":
+            kf, pf = ik._int8_maxpool_cuda, ik.int8_maxpool_plain
+        elif key[0] == "int8_upsample_add":
+            kf, pf = ik._int8_upsample_add_cuda, ik.int8_upsample_add_plain
+        else:
+            continue
+        k, p = kf(*a), pf(*a)
+        torch.cuda.synchronize()
+        if not torch.equal(k, p):
+            raise AssertionError(f"K13 disagrees with its plain version at {key}")
+        b = bound(*_int8_traffic(key[0], a, kw))
+        ms = cuda_ms(lambda: kf(*a), n=10, inner=5)
+        plain_ms = cuda_ms(lambda: pf(*a), n=5, inner=2)
+        us, src = device_us(lambda: kf(*a), "int8_pool_junction_kernel", n=5)
+        kind = "junction" if key[0] == "int8_upsample_add" else "max-pool"
+        _report(f"K13 {kind} ({list(a[0].shape)}, device {us:.3f} us by {src})", 0.0,
+                "0 (bit-equal)", ms, plain_ms, None, b)
+        out[(kind, a[0].numel())] = (ms, plain_ms, b)
+    key = max((k for k in out if k[0] == "junction"), key=lambda k: k[1])
+    ms, plain_ms, b = out[key]
+    return dict(name="int8_pool_junction", route="cuda",
+                source="suo_slam_tpu_torch/csrc/int8_pool_junction.cu",
+                replaces="suo_slam_tpu/models/int8_forward.py:292", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
+def check_k2_bf16(dev, raw16):
+    """K2 on the int8 net's bf16 logits against its plain version."""
+    import torch
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    k = hm._heatmap_readout_cuda(raw16, 1e-6)
+    p = hm.heatmap_readout_plain(raw16, 1e-6)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(k, p))
+    ms = cuda_ms(lambda: hm._heatmap_readout_cuda(raw16, 1e-6))
+    plain_ms = cuda_ms(lambda: hm.heatmap_readout_plain(raw16, 1e-6))
+    us, src = device_us(lambda: hm._heatmap_readout_cuda(raw16, 1e-6), "heatmap_readout_kernel")
+    n = raw16.numel()
+    b = bound(n * 2 + N_OBJ * NK * 7 * 4, n * 24)
+    _report(f"K2 heatmap_readout (bf16 logits {list(raw16.shape)}, device {us:.3f} us by {src})",
+            err, 1e-5, ms, plain_ms, None, b)
+    if not err <= 1e-5:
+        raise AssertionError(f"K2 on bf16 logits disagrees with its plain version: {err}")
+    return err
+
+
+def _with_plain_int8(fn):
+    """fn() with the int8 wrappers routing CUDA tensors through the plain
+    versions instead of K11-K13."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    ops = ("conv", "quant", "maxpool", "upsample_add")
+    kernels = {op: getattr(ik, f"_int8_{op}_cuda") for op in ops}
+    try:
+        for op in ops:
+            setattr(ik, f"_int8_{op}_cuda", getattr(ik, f"int8_{op}_plain"))
+        return fn()
+    finally:
+        for op, f in kernels.items():
+            setattr(ik, f"_int8_{op}_cuda", f)
+
+
+def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
+    """int8 serving on the card (the module docstring's phase 8). Returns the
+    kernels' JSON entries and the launches of the int8 path's runs."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from suo_slam_tpu_torch import calibrate_int8 as ci8
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.data.bop import BopDataset
+    from suo_slam_tpu_torch.evaluate import Evaluator
+    from suo_slam_tpu_torch.models import int8_forward as i8
+    from suo_slam_tpu_torch.ops import heatmap as hm
+    from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
+
+    t0 = time.perf_counter()
+    scales = i8.calibrate(net16, [crops])  # the worst-case all-ones prior
+    qw = i8.quantize_weights(net16)
+    apply, apply_np = i8.make_int8_apply(net16), i8.make_int8_apply(net16, no_prior=True)
+    uv0 = torch.from_numpy(rng.uniform(-0.8, 0.8, (N_OBJ, NK, 2)).astype(np.float32)).to(dev)
+    pv = torch.from_numpy(rng.uniform(size=(N_OBJ, NK)) < 0.4).to(dev)
+    prior = hm.render_prior_heatmaps(uv0, pv, (64, 64), hm.prior_sigma_for((64, 64)))
+    torch.cuda.synchronize()
+    log(f"[int8] calibration ({len(scales)} points) and weight quantization "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    # launches per forward, then every distinct kernel call of a forward
+    per_fwd = {}
+    for name, f in (("with prior", lambda: apply(qw, scales, crops, prior)),
+                    ("prior-free", lambda: apply_np(qw, scales, crops))):
+        f()
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        f()
+        torch.cuda.synchronize()
+        c = kernels.counts()
+        per_fwd[name] = {k: c[k] for k in INT8_KERNELS + ("heatmap_readout",)}
+    log(f"[int8] launches per forward (8 crops): {json.dumps(per_fwd)}")
+    want = {"with prior": (186, 85), "prior-free": (185, 84)}
+    for name, c in per_fwd.items():
+        if (c["int8_conv"], c["int8_quant"], c["int8_pool_junction"],
+                c["heatmap_readout"]) != want[name] + (17, 1):
+            raise AssertionError(f"int8 launches per forward ({name}): {c}")
+    calls, traffic = {}, []
+    calls.update(_int8_calls(lambda: apply(qw, scales, crops, prior)))
+    calls.update(_int8_calls(lambda: apply_np(qw, scales, crops), traffic))
+    tot = {}
+    for name, nb, ops in traffic:
+        t = tot.setdefault(name, [0, 0.0, 0.0, 0.0])
+        t[0] += 1
+        t[1] += nb
+        t[2] += ops
+        t[3] += bound(nb, ops, INT8_OPS_PER_S)[0]
+    log("[int8] the prior-free forward's K11-K13 calls (8 crops): calls, GB, G int8 "
+        "operations and the sum of their bounds in ms: " + json.dumps(
+            {k: [v[0], round(v[1] / 1e9, 4), round(v[2] / 1e9, 3), round(v[3], 4)]
+             for k, v in tot.items()})
+        + f"; total bound {sum(v[3] for v in tot.values()):.4f} ms")
+    entries = [check_k11(dev, calls), check_k12(dev, calls), check_k13(dev, calls)]
+    # the whole net: kernels against plain versions on the card, then against f32
+    o8 = apply(qw, scales, crops, prior)
+    o8p = _with_plain_int8(lambda: apply(qw, scales, crops, prior))
+    torch.cuda.synchronize()
+    if not torch.equal(o8.prob_logits, o8p.prob_logits):
+        d = (o8.prob_logits.float() - o8p.prob_logits.float()).abs()
+        raise AssertionError(f"int8 net: kernels and plain versions differ on "
+                             f"{int((d > 0).sum())} logits (max {d.max().item()})")
+    k2_err = check_k2_bf16(dev, o8.prob_logits)
+    with torch.inference_mode():
+        o32 = net32(crops, prior)
+    cpu16 = full_width_net(seed, torch.bfloat16).eval()
+    cpu32 = full_width_net(seed).eval()
+    c2, p2 = crops[:2].cpu(), prior[:2].cpu()
+    oc8 = i8.make_int8_apply(cpu16)(None, scales, c2, p2)
+    with torch.inference_mode():
+        oc32 = cpu32(c2, p2)
+    gap = (o8.uv[:2].cpu() - o32.uv[:2].cpu()).abs()
+    ref = (oc8.uv - oc32.uv).abs()
+    card_all = (o8.uv - o32.uv).abs()
+    same = torch.equal(o8.prob_logits[:2].cpu(), oc8.prob_logits)
+    log(f"[int8] int8 net (8 crops, with prior) equal to its plain-version run on the card: "
+        f"logits equal, uv max diff {(o8.uv - o8p.uv).abs().max().item():.2e}; uv |int8 - f32| "
+        f"on the card: max {card_all.max().item():.4f} mean {card_all.mean().item():.5f} NDC; "
+        f"the 2 crops: card max {gap.max().item():.4f} mean {gap.mean().item():.5f}, CPU max "
+        f"{ref.max().item():.4f} mean {ref.mean().item():.5f} (gate 1.5x the CPU's); card and "
+        f"CPU int8 logits equal: {same}")
+    if not (torch.isfinite(o8.uv).all() and torch.isfinite(o8.cov).all()):
+        raise AssertionError("int8 net: non-finite outputs")
+    if not (gap.max() <= 1.5 * ref.max() and gap.mean() <= 1.5 * ref.mean()):
+        raise AssertionError("int8 net on the card: uv farther from f32 than the CPU's int8 net")
+
+    # host ms per call, int8 (prior-free program, as the frame's
+    # non-symmetric group) and bf16 in turns (I B B I), and device ms
+    def wall_ms(f, reps=10):
+        vals = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                f()
+            torch.cuda.synchronize()
+            vals.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(vals[1:])
+
+    def bf16_call():
+        with torch.inference_mode():
+            return net16(crops)
+
+    nets = {"int8": lambda: apply_np(qw, scales, crops), "bf16": bf16_call}
+    t = {}
+    for turn in ("int8", "bf16", "bf16", "int8"):
+        t.setdefault(turn, []).append(wall_ms(nets[turn]))
+    from torch.autograd import DeviceType
+
+    dev_ms = {}
+    for name, f in nets.items():
+        avg = traced(lambda: [f() for _ in range(3)], lambda a: any(
+            e.device_type == DeviceType.CUDA for e in a), f"{name} net")
+        if avg is None:
+            dev_ms[name] = "not measured"
+            continue
+        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+        by = {k: sum(e.self_device_time_total for e in kern if f"{k}_kernel" in e.key) / 3e3
+              for k in INT8_KERNELS + ("heatmap_readout", "norm_relu", "upsample_add")}
+        ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
+                      and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)[:6]
+        dev_ms[name] = {"busy": round(sum(e.self_device_time_total for e in kern) / 3e3, 3),
+                        "kernels": sum(e.count for e in kern) // 3,
+                        "by kernel": {k: round(v, 3) for k, v in by.items() if v},
+                        "by torch operation": {e.key: round(e.self_device_time_total / 3e3, 3)
+                                               for e in ops}}
+    log("[int8] full-width net ms per call (8 crops, 256x256, backbone + readout, prior-free; "
+        "median of 10 synchronized calls, turns I B B I): "
+        + json.dumps({k: [round(x, 3) for x in v] for k, v in t.items()})
+        + "; device ms per call: " + json.dumps(dev_ms))
+
+    # the evaluation entry point with a sidecar from calibrate_int8, then a
+    # short SLAM run; the int8 path's launches
+    base, root = _eval_root()
+    ds = BopDataset(root, "test", bop_dset="ycbv", ignore_symmetry=True,
+                    kp_config_root=os.path.join(root, "kp_configs"))
+    sc, n_frames, n_crops = ci8.calibrate_dataset(net16, ds, n_frames=EVAL_VIEWS, device=dev)
+    side = os.path.join(base, "int8_scales.npz")
+    i8.save_scales(side, sc)
+    log(f"[int8] calibrate_int8: {len(sc)} scales from {n_crops} crops of {n_frames} frames "
+        f"-> {side}")
+    kernels.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = Evaluator("ycbv", root, "", nviews=1, detection_type="gt", no_viz=True,
+                       kp_config_root=os.path.join(root, "kp_configs"), device=dev, net=net16,
+                       int8=True, int8_scales=side)
+    ev.model_path = os.path.join(base, "results_int8")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        summary = ev.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    text = buf.getvalue()
+    outdir = os.path.join(ev.model_path, ev.method_name())
+    if summary is None or f"int8 scales sidecar: {side}" not in text or not os.path.isfile(
+            os.path.join(outdir, "summary.txt")):
+        raise AssertionError(f"int8 evaluation leg failed:\n{text[-3000:]}")
+    log(f"[int8] Evaluator(nviews=1, int8=True): {ev.method_name()} ran to its end, "
+        f"{wall / EVAL_VIEWS * 1e3:.2f} ms per view over {EVAL_VIEWS} views; launches "
+        + json.dumps({k: v for k, v in kernels.counts().items() if v}))
+    engine = ObjectSlam(SlamConfig(int8_inference=True, int8_calib_frames=2), mesh_db=objs,
+                        net=net16, device=dev)
+    inf = GtPriorInfer(engine._infer, dev, seed)
+    engine._infer = inf
+    img = rng.uniform(0, 1, (H_IMG, W_IMG, 3)).astype(np.float32)
+    ids = np.arange(1, N_OBJ + 1)
+    times, ok = [], []
+    before = kernels.counts()
+    for i in range(6):
+        T_OtoC, bboxes, uv_gt = scene.frame(i)
+        inf.set_frame(bboxes, uv_gt)
+        t1 = time.perf_counter()
+        engine.process_view(i, img, YCBV_K, ids, bboxes, objs.model_kps, objs.masks,
+                            objs.masks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    results = engine.collect_results(final=True)
+    counts = kernels.counts()
+    for i in range(6):
+        T_OtoC, _, _ = scene.frame(i)
+        for o in range(N_OBJ):
+            p = results[i]["poses"].get(o + 1, {}).get("T_OtoC")
+            ok.append(p is not None and np.isfinite(p).all() and _add_ok(p, T_OtoC[o], objs, o))
+    state = inf.fn.int8_state
+    slam_counts = {k: counts[k] - before[k] for k in counts}
+    log(f"[int8] SLAM, 6 frames, int8_calib_frames=2: {inf.n_prior_calls} with-prior int8 "
+        f"calls, {state['n_calib']} calibration frames; ms per frame "
+        f"{[round(x, 2) for x in times]}; ADD < 0.1 d for {float(np.mean(ok)):.3f} of "
+        f"{len(ok)} poses; launches " + json.dumps({k: v for k, v in slam_counts.items() if v}))
+    if inf.n_prior_calls == 0 or slam_counts["prior_render"] == 0 or state["n_calib"] != 2:
+        raise AssertionError("int8 SLAM run: no with-prior int8 call, no K5 or no calibration")
+    if float(np.mean(ok)) < 0.9:
+        raise AssertionError(f"int8 SLAM run: ADD < 0.1 d for only {np.mean(ok):.3f}")
+    missing = [k for k in INT8_KERNELS + ("roi_crop", "heatmap_readout", "prior_render")
+               if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the int8 path: {missing}")
+    return entries, counts, k2_err
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1719,8 +2233,13 @@ def main(argv=None):
     phase_solver_check(dev, rng, objs, args.seed, args.views)
     counts = phase_slam(dev, rng, objs, net, args.seed, scene)
     eval_counts = phase_evaluate(dev, args.seed, net16)
+    int8_entries, int8_counts, k2_bf16_err = phase_int8(dev, rng, args.seed, net, net16, crops,
+                                                        objs, scene)
+    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], k2_bf16_err)
+    entries += int8_entries
     for e in entries:
-        e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else counts)[e["name"]]
+        e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts
+                         if e["name"] in INT8_KERNELS else counts)[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

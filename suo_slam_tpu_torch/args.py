@@ -3,11 +3,13 @@
 Port of the `eval` mode of `suo_slam_tpu/args.py`: the same flag names and
 defaults (bf16 network on, saved detections, `--nviews -1` SLAM, data root
 `./data/bop_datasets/<dataset>`), plus `--device` (default `cuda`; `cpu` runs
-the plain PyTorch version of every kernel). The flags of the paths not
-ported yet are accepted, so that a JAX command line parses, and the
-`Evaluator` refuses them; `--eval_window`, `--int8_scales` and
-`--int8_online_ok` only qualify those paths. The training flags come with
-the training slice (ROADMAP A12).
+the plain PyTorch version of every kernel). `--int8` serves the network
+with the s8-resident executor on the scales sidecar of `--int8_scales` (or
+the one beside the checkpoint, `calibrate_int8`), else with online
+calibration. The flags of the paths not ported yet are accepted, so that a
+JAX command line parses, and the `Evaluator` refuses them; `--eval_window`
+and `--int8_online_ok` only qualify those paths. The training flags come
+with the training slice (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -52,9 +54,13 @@ def get_args(argv_override=None):
                         help="Scene-pipelined throughput mode (not ported yet); 0/1 "
                              "disables.")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 network inference (not ported yet).")
-    parser.add_argument("--int8_scales", default=None)
-    parser.add_argument("--int8_online_ok", action="store_true")
+                        help="int8-resident network inference (norm='batch' nets).")
+    parser.add_argument("--int8_scales", default=None,
+                        help="int8 activation-scales sidecar (default: the one beside "
+                             "the checkpoint if present, else online calibration).")
+    parser.add_argument("--int8_online_ok", action="store_true",
+                        help="Accept online calibration under --pipeline_scenes "
+                             "(not ported yet).")
     parser.add_argument("--data_root", default=None,
                         help="Override BOP dataset root (default ./data/bop_datasets/<dataset>).")
     parser.add_argument("--kp_config_root", default=None,

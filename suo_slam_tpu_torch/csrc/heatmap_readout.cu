@@ -10,12 +10,17 @@
 //   pooled = mean of the raw logits (the validity head's input).
 // The plane is read with the strides the caller passes, so the NCHW /
 // channels_last head output and the transpose_heatmaps view need no copy.
+// Logits are f32 or bf16 (the int8 engine's head, `int8_forward.py:526-543`):
+// for bf16 the shifted logit l - max rounds to bf16 before the f32 exp, as
+// JAX subtracts in the logits' dtype (`ops/heatmap.py:84-85`); the moments
+// and the pooled mean stay f32.
 //
 // Bound on this card: bytes. At the main path's shapes (8 x 41 planes of
 // 64x64 f32) it must read 5.4 MB once: ~1.6 us at 3.35 TB/s; the outputs are
 // 8 KB. Design: one 256-thread block per plane (328 blocks over 132 SMs), the
 // second pass re-reads the 16 KB plane from L1/L2, warp-shuffle reductions.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cfloat>
 
@@ -34,14 +39,23 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// the shifted logit in the logits' dtype
+__device__ __forceinline__ float shifted(float x, float shift, float) { return x - shift; }
+__device__ __forceinline__ float shifted(float x, float shift, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(x - shift));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-heatmap_readout_kernel(const float* __restrict__ logits, long long sn,
+heatmap_readout_kernel(const T* __restrict__ logits, long long sn,
                        long long sh, long long sw, long long sk, int H, int W,
                        int K, float min_var, float* __restrict__ uv,
                        float* __restrict__ cov, float* __restrict__ pooled) {
   const int plane = blockIdx.x;  // n * K + k
   const int n = plane / K, k = plane % K;
-  const float* base = logits + n * sn + k * sk;
+  const T* base = logits + n * sn + k * sk;
   const int P = H * W;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __shared__ float red[6][kWarps];
@@ -50,7 +64,7 @@ heatmap_readout_kernel(const float* __restrict__ logits, long long sn,
   float mx = -FLT_MAX, sm = 0.f;
   for (int p = threadIdx.x; p < P; p += kThreads) {
     const int h = p / W, w = p % W;
-    const float x = base[h * sh + w * sw];
+    const float x = to_f32(base[h * sh + w * sw]);
     mx = fmaxf(mx, x);
     sm += x;
   }
@@ -75,7 +89,7 @@ heatmap_readout_kernel(const float* __restrict__ logits, long long sn,
   float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int p = threadIdx.x; p < P; p += kThreads) {
     const int h = p / W, w = p % W;
-    const float e = expf(base[h * sh + w * sw] - shift);
+    const float e = expf(shifted(to_f32(base[h * sh + w * sw]), shift, T()));
     const float u = ((float)w + 0.5f) / hw - 1.f;
     const float v = 1.f - ((float)h + 0.5f) / hh;
     m[0] += e;
@@ -113,15 +127,22 @@ heatmap_readout_kernel(const float* __restrict__ logits, long long sn,
 
 }  // namespace
 
+// dtype: 0 = f32 logits, 1 = bf16 logits (strides in elements).
 extern "C" int suo_heatmap_readout(const void* logits, long long sn,
                                    long long sh, long long sw, long long sk,
                                    int N, int H, int W, int K, float min_var,
-                                   void* uv, void* cov, void* pooled,
+                                   void* uv, void* cov, void* pooled, int dtype,
                                    void* stream) {
   if (N * K > 0) {
-    heatmap_readout_kernel<<<N * K, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)logits, sn, sh, sw, sk, H, W, K, min_var, (float*)uv,
-        (float*)cov, (float*)pooled);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dtype == 0)
+      heatmap_readout_kernel<float><<<N * K, kThreads, 0, s>>>(
+          (const float*)logits, sn, sh, sw, sk, H, W, K, min_var, (float*)uv,
+          (float*)cov, (float*)pooled);
+    else
+      heatmap_readout_kernel<__nv_bfloat16><<<N * K, kThreads, 0, s>>>(
+          (const __nv_bfloat16*)logits, sn, sh, sw, sk, H, W, K, min_var, (float*)uv,
+          (float*)cov, (float*)pooled);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Checkpoint -> PkpNet loading for the evaluation CLI.
+"""Checkpoint -> PkpNet loading for the evaluation CLIs (`evaluate`,
+`calibrate_int8`), and the int8 scales sidecar's place beside a checkpoint.
 
 Port of `suo_slam_tpu/eval/loading.py`. A reference PyTorch checkpoint
 (`.pth.tar`) converts layer for layer (`train/torch_convert.py`) into
@@ -8,6 +9,8 @@ them with the training slice (ROADMAP A12) and raises until then.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -32,3 +35,11 @@ def load_eval_network(chkpt_path, bf16=True, norm="batch", no_network_cov=False)
     raise NotImplementedError(
         f"{chkpt_path!r}: orbax checkpoints need flax; reading them comes with the "
         "training slice: ROADMAP A12 (a reference .pth.tar loads now)")
+
+
+def default_scales_path(chkpt_path):
+    """The int8 scales sidecar of a checkpoint: a file inside a checkpoint
+    directory, a sibling of a checkpoint file."""
+    if os.path.isdir(chkpt_path):
+        return os.path.join(chkpt_path, "int8_scales.npz")
+    return chkpt_path + ".int8_scales.npz"

@@ -9,12 +9,16 @@ time`, plus the VSD recall for T-LESS — driving the port's `ObjectSlam` on
 the card (`--device cpu` runs the plain PyTorch versions).
 
     python -m suo_slam_tpu_torch.evaluate --dataset ycbv --nviews -1 \\
-        --checkpoint_path <ref>.pth.tar --no_viz [--device cpu]
+        --checkpoint_path <ref>.pth.tar --no_viz [--device cpu] [--int8]
 
-Not ported yet, and refused with SystemExit naming their ROADMAP items:
-visualization (viz is on unless `--no_viz`; `--viz_cov`, `--do_viz_extra`,
-`--show_viz`), the throughput modes `--batched` and `--pipeline_scenes`, and
-`--int8`.
+`--int8` serves the network with the s8-resident executor: its scales come
+from `--int8_scales`, else from the sidecar beside the checkpoint
+(`python -m suo_slam_tpu_torch.calibrate_int8` writes it), else from online
+calibration over the first frames. Not ported yet, and refused with
+SystemExit naming their ROADMAP items: visualization (viz is on unless
+`--no_viz`; `--viz_cov`, `--do_viz_extra`, `--show_viz`), the throughput
+modes `--batched` and `--pipeline_scenes`, and `--int8_online_ok`, which
+only qualifies the latter.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ TLESS_CLASSES = {i + 1: str(i + 1) for i in range(30)}
 
 
 def refuse_unported(no_viz=True, viz_cov=False, do_viz_extra=False, show_viz=False,
-                    batched=False, pipeline_scenes=0, int8=False, debug_saved_only=False):
+                    batched=False, pipeline_scenes=0, int8_online_ok=False,
+                    debug_saved_only=False):
     """SystemExit for a flag whose path is not ported yet, naming its
     ROADMAP item."""
     viz = [f for f, on in (("--viz_cov", viz_cov), ("--do_viz_extra", do_viz_extra),
@@ -51,8 +56,9 @@ def refuse_unported(no_viz=True, viz_cov=False, do_viz_extra=False, show_viz=Fal
         flag = "--batched" if batched else "--pipeline_scenes"
         raise SystemExit(f"{flag}: the throughput evaluation modes are not ported yet: "
                          "ROADMAP A13")
-    if int8:
-        raise SystemExit("--int8: int8 inference is not ported yet: ROADMAP B5")
+    if int8_online_ok:
+        raise SystemExit("--int8_online_ok qualifies --pipeline_scenes, which is not "
+                         "ported yet: ROADMAP A13")
 
 
 class Evaluator:
@@ -66,16 +72,16 @@ class Evaluator:
                  gt_cam_pose=False, no_prior_det=False, no_viz=True,
                  debug_saved_only=False, give_all_prior=False,
                  kp_config_root=None, bf16=True, norm="batch", int8=False,
-                 ref_manual_info=False, viz_cov=False, do_viz_extra=False,
-                 show_viz=False, batched=False, pipeline_scenes=0,
-                 device="cuda", net=None, hyp_sampler=None):
+                 int8_scales=None, ref_manual_info=False, viz_cov=False,
+                 do_viz_extra=False, show_viz=False, batched=False, pipeline_scenes=0,
+                 int8_online_ok=False, device="cuda", net=None, hyp_sampler=None):
         from ._device import resolve_device
         from .data.bop import BopDataset
         from .data.mesh import load_mesh_db
         from .slam.engine import ObjectSlam, SlamConfig
 
         refuse_unported(no_viz, viz_cov, do_viz_extra, show_viz, batched,
-                        pipeline_scenes, int8, debug_saved_only)
+                        pipeline_scenes, int8_online_ok, debug_saved_only)
         self.device = resolve_device(device)
         self.model_path = os.path.dirname(chkpt_path) if chkpt_path else "results"
         # per-dataset settings
@@ -109,6 +115,7 @@ class Evaluator:
                 net, self.model_epoch = load_eval_network(
                     chkpt_path, bf16=bf16, norm=norm, no_network_cov=no_network_cov,
                 )
+            scales_path = self._int8_scales_path(int8, net, norm, chkpt_path, int8_scales)
             cfg = SlamConfig(
                 sfm_mode=nviews > 1,
                 single_view_mode=nviews == 1,
@@ -121,6 +128,8 @@ class Evaluator:
                 manual_kp_std=manual_kp_std,
                 opt_init_with_outliers=opt_init_with_outliers,
                 ref_manual_info=ref_manual_info,
+                int8_inference=int8,
+                int8_scales_path=scales_path,
             )
             self.object_slam = ObjectSlam(
                 cfg, mesh_db=self.mesh_db, net=None if debug_gt_kp else net,
@@ -151,6 +160,32 @@ class Evaluator:
             self.saved_detections_map = build_detection_map(
                 self.saved_detections, self.dataset.targets
             )
+
+    @staticmethod
+    def _int8_scales_path(int8, net, norm, chkpt_path, int8_scales):
+        """The scales sidecar an int8 run serves with: `int8_scales`, else
+        the checkpoint's own (`default_scales_path`), else None (online
+        calibration, announced). SystemExit without a norm='batch' network
+        or when an explicit `int8_scales` is missing."""
+        if not int8:
+            return None
+        if net is None or norm != "batch":
+            raise SystemExit(
+                "--int8 requires a norm='batch' network (the int8 executor folds "
+                "BatchNorm into its convolution epilogues); got "
+                + ("no network (--debug_gt_kp)" if net is None else f"norm={norm!r}"))
+        from .eval.loading import default_scales_path
+
+        cand = int8_scales or default_scales_path(chkpt_path)
+        if os.path.isfile(cand):
+            print(f"[evaluate] int8 scales sidecar: {cand}")
+            return cand
+        if int8_scales:
+            raise SystemExit(f"--int8_scales not found: {int8_scales}")
+        print("[evaluate] no int8 scales sidecar (run python -m "
+              "suo_slam_tpu_torch.calibrate_int8 to persist one) — falling back "
+              "to online first-frames calibration")
+        return None
 
     # ------------------------------------------------------------------ run --
     def run(self):
@@ -409,10 +444,12 @@ def main(argv=None):
         no_prior_det=args.no_prior_det, no_viz=args.no_viz,
         debug_saved_only=args.debug_saved_only, give_all_prior=args.give_all_prior,
         kp_config_root=args.kp_config_root, bf16=args.bf16, norm=args.norm,
-        int8=args.int8, ref_manual_info=args.ref_manual_info,
+        int8=args.int8, int8_scales=args.int8_scales,
+        ref_manual_info=args.ref_manual_info,
         viz_cov=args.viz_cov, do_viz_extra=args.do_viz_extra,
         show_viz=args.show_viz, batched=args.batched,
-        pipeline_scenes=args.pipeline_scenes, device=args.device,
+        pipeline_scenes=args.pipeline_scenes, int8_online_ok=args.int8_online_ok,
+        device=args.device,
     ).run()
 
 

@@ -2,7 +2,8 @@
 
 Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
 K2 and K5 `ops/heatmap.py`, K3 `solvers/pnp.py`, K4 and K7 `solvers/ba.py`,
-K6 `slam/kernels.py`, K8 and K9 `models/hourglass.py`, K10 `eval/meter.py`)
+K6 `slam/kernels.py`, K8 and K9 `models/hourglass.py`, K10 `eval/meter.py`,
+K11-K13 `models/int8_kernels.py`)
 and adds one to its counter here where — and only
 where — it launches its CUDA kernel.
 """
@@ -23,6 +24,9 @@ LAUNCHES: dict[str, int] = {
     "norm_relu": 0,     # K8
     "upsample_add": 0,  # K9
     "add_dists": 0,     # K10
+    "int8_conv": 0,     # K11
+    "int8_quant": 0,    # K12
+    "int8_pool_junction": 0,  # K13 (max-pool and junction)
 }
 
 

@@ -10,8 +10,11 @@ rows carrying v (v up), matching `pixels_to_ndc`.
 `heatmap_readout` is what PkpNet calls: per (crop, keypoint) a max-shifted
 softmax over H x W, the f32 moments (1, u, v, u^2, v^2, uv) -> uv and
 cov = E[pp^T] - mu mu^T + min_var I, and the mean-pooled raw logit for the
-validity head. `render_prior_heatmaps` draws the peak-1 Gaussians of the
-SLAM engine's projected prior keypoints. A CPU tensor takes the plain
+validity head. Logits are f32, or bf16 from the int8 engine: then the shift
+l - max rounds to bf16 before the f32 exp, as JAX subtracts in the logits'
+dtype, and the pooled mean is taken in f32 (`int8_forward.py:535`).
+`render_prior_heatmaps` draws the peak-1 Gaussians of the SLAM engine's
+projected prior keypoints. A CPU tensor takes the plain
 version; a CUDA tensor launches `csrc/heatmap_readout.cu` /
 `csrc/prior_render.cu` or raises.
 """
@@ -104,16 +107,17 @@ def heatmap_readout_plain(logits: torch.Tensor, min_var: float = 1e-6):
     """Plain PyTorch K2 on [N, H, W, K] logits -> (uv [N, K, 2],
     cov [N, K, 2, 2], pooled [N, K])."""
     uv, cov, _ = soft_argmax_from_logits(logits, True, min_var)
-    return uv, cov, torch.mean(logits, dim=(1, 2))
+    return uv, cov, torch.mean(logits.to(torch.float32), dim=(1, 2))
 
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
-             + [ctypes.c_float] + [ctypes.c_void_p] * 4)
+             + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+_LOGIT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _heatmap_readout_cuda(logits: torch.Tensor, min_var: float):
-    if logits.dtype != torch.float32 or logits.dim() != 4:
-        raise ValueError(f"K2 takes [N,H,W,K] f32 logits, got "
+    if logits.dtype not in _LOGIT_DTYPES or logits.dim() != 4:
+        raise ValueError(f"K2 takes [N,H,W,K] f32 or bf16 logits, got "
                          f"{tuple(logits.shape)} {logits.dtype}")
     N, H, W, K = logits.shape
     sn, sh, sw, sk = logits.stride()
@@ -124,15 +128,15 @@ def _heatmap_readout_cuda(logits: torch.Tensor, min_var: float):
     fn = _build.entry("heatmap_readout", _ARGTYPES)
     err = fn(_build.ptr(logits), sn, sh, sw, sk, N, H, W, K, float(min_var),
              _build.ptr(uv), _build.ptr(cov), _build.ptr(pooled),
-             _build.stream())
+             _LOGIT_DTYPES[logits.dtype], _build.stream())
     _build.check(err, "K2 heatmap_readout")
     kernels.count("heatmap_readout")
     return uv, cov, pooled
 
 
 def heatmap_readout(logits: torch.Tensor, min_var: float = 1e-6):
-    """Softmax + soft-argmax + mean-pool readout of [N, H, W, K] logits (any
-    strides). Returns (uv [N, K, 2], cov [N, K, 2, 2], pooled [N, K])."""
+    """Softmax + soft-argmax + mean-pool readout of [N, H, W, K] f32 or bf16
+    logits (any strides). Returns (uv [N, K, 2], cov [N, K, 2, 2], pooled [N, K])."""
     if logits.device.type == "cpu":
         return heatmap_readout_plain(logits, min_var)
     if logits.device.type != "cuda":

@@ -23,8 +23,10 @@ dropped when a capacity grows. Modes: SLAM (default), SfM (`sfm_mode`) and
 single view (`single_view_mode`, `evaluate.py --nviews 1`, which resets the
 engine before every view). `debug_gt_kp` replaces the network with the
 ground-truth keypoints plus N(0, gt_kp_noise_std) NDC noise drawn by the
-hypothesis sampler's `noise` hook. int8 inference raises
-`NotImplementedError` naming its ROADMAP entry.
+hypothesis sampler's `noise` hook. `int8_inference` serves the network
+with the s8-resident executor (`make_frame_inference(int8=True)`: kernels
+K11-K13) on scales from `int8_scales_path` (an `.npz` sidecar) or from
+online calibration over the first `int8_calib_frames` frames.
 """
 
 from __future__ import annotations
@@ -120,7 +122,13 @@ class SlamConfig:
     pnp_hypotheses: int = 64
     reinit_check_views: int = 15
     input_hw: tuple[int, int] = (256, 256)
+    # s8-resident network inference (`models/int8_forward.py`, norm="batch"
+    # nets, either prior mode). Activation scales: the `.npz` sidecar at
+    # int8_scales_path (`calibrate_int8`) when given, else absmax over the
+    # first int8_calib_frames frames' crops.
     int8_inference: bool = False
+    int8_scales_path: str | None = None
+    int8_calib_frames: int = 8
     seed: int = 666
 
     @property
@@ -180,9 +188,6 @@ class ObjectSlam:
         in the engine's order of draws. Default: `TorchGumbelSampler`.
         With `config.debug_gt_kp` neither net nor infer_fn is needed.
         """
-        if config.int8_inference:
-            raise NotImplementedError("int8 inference is not ported yet: ROADMAP B5 "
-                                      "(queue item 'int8 serving')")
         self.device = resolve_device(device)
         self.cfg = config
         self.mesh_db = mesh_db
@@ -190,8 +195,14 @@ class ObjectSlam:
         if infer_fn is None and not config.debug_gt_kp:
             if net is None:
                 raise ValueError("ObjectSlam needs net or infer_fn unless debug_gt_kp is set")
-            self._infer = kernels.make_frame_inference(net, config.input_hw,
-                                                       device=self.device)
+            int8_scales = None
+            if config.int8_inference and config.int8_scales_path:
+                from ..models import int8_forward as i8
+
+                int8_scales = i8.load_scales(config.int8_scales_path)
+            self._infer = kernels.make_frame_inference(
+                net, config.input_hw, device=self.device, int8=config.int8_inference,
+                int8_scales=int8_scales, int8_calib_frames=config.int8_calib_frames)
         self._hyp_factory = hyp_sampler or (
             lambda seed: TorchGumbelSampler(seed, self.device)
         )

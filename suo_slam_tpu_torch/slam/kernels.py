@@ -4,7 +4,9 @@ Port of `suo_slam_tpu/slam/kernels.py`:
 
 - `make_frame_inference`: ROI crop (K1) -> prior render (K5) -> PkpNet ->
   heatmap readout (K2) + validity head, for every object of a frame in one
-  call; `has_prior=False` is the statically prior-free program;
+  call; `has_prior=False` is the statically prior-free program; `int8=True`
+  runs the s8-resident executor (K11-K13) with persisted or online-calibrated
+  scales;
 - `frontend_step`: keypoint filter -> batched PnP (`pnp_frame`, K3) ->
   information -> (optionally) camera-pose RANSAC, with no host round-trip
   between the stages;
@@ -323,7 +325,8 @@ def tracking_tail(uv_m, info_m, valid_m, inliers_m, cam_k4_m, model_kp_m, v: int
     return (uv_m, info_m, valid_m, inliers_m, cam_k4_m), out
 
 
-def make_frame_inference(net, input_hw=(256, 256), device="cuda"):
+def make_frame_inference(net, input_hw=(256, 256), device="cuda", int8=False,
+                         int8_scales=None, int8_calib_frames=8):
     """The fused per-frame network call.
 
     `net` is a `models.pkpnet.PkpNet` holding its weights (see
@@ -331,6 +334,16 @@ def make_frame_inference(net, input_hw=(256, 256), device="cuda"):
     eval mode and `channels_last` memory. Its backbone runs in the net's
     working dtype (`PkpNet(dtype=...)`, f32 or bf16); the crops, the prior
     render and the readout stay f32.
+
+    int8=True runs the backbone through the s8-resident executor
+    (`models/int8_forward.py`, kernels K11-K13) on the net's f32 parameters,
+    whatever its working dtype; its bf16 logits go to K2. Activation scales
+    come from `int8_scales` (a persisted tuple, `int8_forward.load_scales`),
+    else from online calibration over the first `int8_calib_frames` frames'
+    crops with the worst-case prior (peak-1 Gaussians on every channel: K5 on
+    zero uv, every keypoint valid), tree-maximised over frames; a frame that
+    calibrates then runs with the scales so far. The s8 weights are quantized
+    once, at the first call.
 
     Returns fn(img [H, W, 3], boxes [O, 4], obj_valid [O], prior_uv
     [O, K, 2], prior_valid [O, K], has_prior=True) -> (uv [O, K, 2],
@@ -340,28 +353,76 @@ def make_frame_inference(net, input_hw=(256, 256), device="cuda"):
     has_prior=False runs the statically prior-free program (every
     non-symmetric batch and all of single-view mode): no prior render and,
     for post_stem nets, only the bias of the prior projection — the same
-    output as an all-zero prior.
+    output as an all-zero prior. The int8 fn also carries `int8_state`
+    ("scales", "n_calib", "vq": the quantized weights).
     """
     dev = resolve_device(device)
     net = net.to(dev).eval().to(memory_format=torch.channels_last)
     input_hw = tuple(input_hw)
     phw = net.prior_hw(input_hw)
 
-    @torch.inference_mode()
-    def fn(img, boxes, obj_valid, prior_uv=None, prior_valid=None, has_prior=True):
-        crops = roi_ops.roi_crop_batch(
+    def crop(img, boxes, obj_valid):
+        return roi_ops.roi_crop_batch(
             img[None].to(dev, torch.float32), boxes[None].to(dev, torch.float32),
             obj_valid[None].to(dev), input_hw,
         )[0]
-        prior = None
+
+    def render(uv, valid):
+        return hm.render_prior_heatmaps(uv.to(dev, torch.float32), valid.to(dev), hw=phw,
+                                        sigma_px=hm.prior_sigma_for(phw))
+
+    if not int8:
+
+        @torch.inference_mode()
+        def fn(img, boxes, obj_valid, prior_uv=None, prior_valid=None, has_prior=True):
+            crops = crop(img, boxes, obj_valid)
+            prior = render(prior_uv, prior_valid) if has_prior else None
+            out = net(crops, prior)
+            return out.uv, out.cov, out.kp_mask
+
+        fn.supports_no_prior = True
+        fn.net = net
+        return fn
+
+    from ..models import int8_forward as i8
+
+    if int8_scales is None and int8_calib_frames < 1:
+        raise ValueError(
+            "int8 inference needs activation scales: pass int8_scales (a "
+            "persisted sidecar) or int8_calib_frames >= 1 for online "
+            "calibration"
+        )
+    apply_i8 = i8.make_int8_apply(net)
+    apply_i8_np = i8.make_int8_apply(net, no_prior=True)
+    state = {}
+    if int8_scales is not None:
+        state["scales"] = tuple(torch.as_tensor(s, dtype=torch.float32).cpu()
+                                for s in int8_scales)
+        state["n_calib"] = int8_calib_frames  # calibration complete
+
+    @torch.inference_mode()
+    def fn(img, boxes, obj_valid, prior_uv=None, prior_valid=None, has_prior=True):
+        crops = crop(img, boxes, obj_valid)
+        if state.get("n_calib", 0) < int8_calib_frames:
+            # the worst-case prior: a frame's own prior may be all zero (the
+            # first frame never has one), which would collapse the prior
+            # point's scale and erase all later prior feedback
+            n, k = crops.shape[0], net.num_kp
+            full = render(torch.zeros((n, k, 2), device=dev),
+                          torch.ones((n, k), dtype=torch.bool, device=dev))
+            s = i8.calibrate(net, [crops], [full])
+            state["scales"] = (s if "scales" not in state
+                               else tuple(map(torch.maximum, state["scales"], s)))
+            state["n_calib"] = state.get("n_calib", 0) + 1
+        if "vq" not in state:
+            state["vq"] = i8.quantize_weights(net)
         if has_prior:
-            prior = hm.render_prior_heatmaps(
-                prior_uv.to(dev, torch.float32), prior_valid.to(dev), hw=phw,
-                sigma_px=hm.prior_sigma_for(phw),
-            )
-        out = net(crops, prior)
+            out = apply_i8(state["vq"], state["scales"], crops, render(prior_uv, prior_valid))
+        else:
+            out = apply_i8_np(state["vq"], state["scales"], crops)
         return out.uv, out.cov, out.kp_mask
 
+    fn.int8_state = state
     fn.supports_no_prior = True
     fn.net = net
     return fn

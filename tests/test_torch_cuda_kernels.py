@@ -1,4 +1,4 @@
-"""Kernels K1-K10 against their plain PyTorch versions on the card.
+"""Kernels K1-K13 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -229,3 +229,83 @@ def test_k10_add_dists(dev):
         assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
         for a, b in zip(k[:2], p[:2]):
             assert float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) <= 1e-6
+
+
+def test_k2_heatmap_readout_bf16(dev):
+    """bf16 logits (the int8 engine's head): the shift rounds to bf16 in both."""
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = (torch.randn(3, 41, 64, 64, device=dev, generator=g) * 4).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    for view in (x, x.transpose(1, 2)):
+        for a, b in zip(hm.heatmap_readout(view), hm.heatmap_readout_plain(view)):
+            assert a.dtype == torch.float32 and (a - b).abs().max().item() <= 1e-5
+
+
+def _qconv(dev, cin, cout, k, stride=1):
+    from suo_slam_tpu_torch.models import int8_forward as i8
+
+    conv = torch.nn.Conv2d(cin, cout, k, stride, k // 2)
+    return i8.quantize_conv(conv.to(dev), 0, dev)
+
+
+def test_k11_int8_conv(dev):
+    """Equal bf16 bits and s8 codes at the engine's kinds of shape: 1x1 and
+    3x3, Cout 41 (a partial tile), the prior's 41 input channels (padded to
+    48) in a 7x7 stride-2 convolution, pixels not a multiple of the tile."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    for cin, cout, k, stride, hw in ((128, 256, 1, 1, 16), (128, 128, 3, 1, 16),
+                                     (256, 41, 1, 1, 9), (41, 64, 7, 2, 32), (64, 64, 3, 1, 5)):
+        qc = _qconv(dev, cin, cout, k, stride)
+        x = torch.randint(-127, 128, (2, hw, hw, cin), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.int8)
+        e1 = (torch.rand(cout, device=dev, generator=g) * 1e-3).to(torch.bfloat16).float()
+        e2 = torch.randn(cout, device=dev, generator=g).to(torch.bfloat16).float()
+        for out_s8 in (False, True):
+            a = ik.int8_conv(x, qc, e1, e2, out_s8)
+            b = ik.int8_conv_plain(x, qc, e1, e2, out_s8)
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (cin, k)
+
+
+def test_k12_int8_quant(dev):
+    """Equal codes for f32, bf16 and s8 inputs, per-tensor and per-channel
+    divisors, raw, normalised and both outputs."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    C = 48
+    x32 = torch.randn(2, 7, 9, C, device=dev, generator=g) * 3
+    codes = torch.randint(-127, 128, (2, 7, 9, C), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.int8)
+    for x in (x32, x32.to(torch.bfloat16), codes):
+        dt = torch.bfloat16 if x.dtype != torch.float32 else torch.float32
+        r = lambda t: t.to(dt).float()
+        m = r(torch.randn(C, device=dev, generator=g) * 20)
+        c = r(torch.randn(C, device=dev, generator=g) * 5)
+        for div in (r(torch.full((C,), 0.021, device=dev)), r(torch.rand(C, device=dev,
+                                                                           generator=g) + 0.01)):
+            for args in ((div,), (div, m, c), (None, m, c)):
+                if x.dtype == torch.int8 and args[0] is not None:
+                    continue
+                for a, b in zip(ik.int8_quant(x, *args), ik.int8_quant_plain(x, *args)):
+                    assert (a is None) == (b is None)
+                    assert a is None or torch.equal(a, b), (x.dtype, len(args))
+
+
+def test_k13_int8_pool_junction(dev):
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    for C, H in ((256, 16), (128, 8), (4, 2)):
+        x = torch.randint(-128, 128, (3, H, H, C), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.int8)
+        assert torch.equal(ik.int8_maxpool(x), ik.int8_maxpool_plain(x))
+        low = x[:, : H // 2, : H // 2].contiguous()
+        e_up = (torch.rand(C, device=dev, generator=g) * 0.1).to(torch.bfloat16).float()
+        e_low = torch.full((C,), 0.03, device=dev).to(torch.bfloat16).float()
+        a = ik.int8_upsample_add(x, low, e_up, e_low)
+        b = ik.int8_upsample_add_plain(x, low, e_up, e_low)
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)

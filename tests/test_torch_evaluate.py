@@ -20,9 +20,10 @@ scene has no edge at the gate, so the two engines' f32 differences (~0.02 mm
 after tracking) cannot choose different branches.
 
 Also: one subprocess run of `python -m suo_slam_tpu_torch.evaluate --device
-cpu`; the flags whose paths are not ported raise SystemExit naming ROADMAP
-items that exist; a reference `.pth.tar` loads through the port's converter;
-the VSD scoring of a T-LESS CSV equals the JAX package's.
+cpu`; the flags whose paths are not ported (`--batched` beside `--int8`
+too) raise SystemExit naming ROADMAP items that exist; a reference
+`.pth.tar` loads through the port's converter; the VSD scoring of a T-LESS
+CSV equals the JAX package's.
 """
 
 import os
@@ -144,7 +145,8 @@ def test_cli_runs_on_the_cpu(ycbv, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     dict(no_viz=False), dict(viz_cov=True), dict(do_viz_extra=True), dict(show_viz=True),
-    dict(batched=True), dict(pipeline_scenes=2), dict(int8=True),
+    dict(batched=True), dict(pipeline_scenes=2), dict(int8=True, batched=True),
+    dict(int8_online_ok=True),
 ])
 def test_unported_flags_raise_naming_roadmap_items(ycbv, flags):
     kw = dict(no_viz=True, **{k: v for k, v in flags.items() if k != "no_viz"})

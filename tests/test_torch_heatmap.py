@@ -63,3 +63,25 @@ def test_ndc_grid_and_spatial_softmax():
     np.testing.assert_allclose(np.asarray(jhm.spatial_softmax(jnp.asarray(x))),
                                thm.spatial_softmax(torch.from_numpy(x)).numpy(),
                                atol=1e-7, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["random", "peaked"])
+def test_readout_on_bf16_logits_matches_jax(kind):
+    """The int8 engine's bf16 logits (`int8_forward._readout`): l - max rounds
+    to bf16 before the f32 exp, and the validity head's mean pools in f32.
+    The bf16 values are exact in both; 1e-5 on uv and cov as above, 1e-6 on
+    the pooled mean (f32 sums of the same values in another order)."""
+    x = (_logits(kind, seed=2) * 4).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    assert np.array_equal(np.asarray(xj.astype(jnp.float32)), xt.float().numpy())
+    uv_j, cov_j, _ = jhm.soft_argmax_from_logits(xj)
+    pooled_j = jnp.mean(xj.astype(jnp.float32), axis=(1, 2))
+    uv_t, cov_t, pooled_t = thm.heatmap_readout(xt)
+    assert uv_t.dtype == cov_t.dtype == pooled_t.dtype == torch.float32
+    np.testing.assert_allclose(np.asarray(uv_j), uv_t.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(np.asarray(cov_j), cov_t.numpy(), atol=TOL, rtol=0)
+    np.testing.assert_allclose(np.asarray(pooled_j), pooled_t.numpy(), atol=1e-6, rtol=0)
+    if kind == "random":  # there the bf16 shift rounds: an f32 one moves uv off JAX's
+        uv_f, _, _ = thm.heatmap_readout(xt.float())
+        assert np.abs(uv_f.numpy() - np.asarray(uv_j)).max() > TOL

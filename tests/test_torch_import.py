@@ -26,8 +26,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "from suo_slam_tpu_torch.kernels import _build\n"
         "from suo_slam_tpu_torch.core import lie, geometry\n"
         "from suo_slam_tpu_torch.kp import config\n"
-        "from suo_slam_tpu_torch import evaluate\n"
+        "from suo_slam_tpu_torch import evaluate, calibrate_int8\n"
         "from suo_slam_tpu_torch.data import bop\n"
+        "from suo_slam_tpu_torch.models import int8_forward, int8_kernels\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'suo_slam_tpu', 'cv2'))\n"
         "print(bad)\n"
@@ -79,18 +80,29 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
 
 def test_slam_mode_raises_naming_its_roadmap_item():
-    """SLAM, SfM and debug_gt_kp runs construct; the feature still owed
-    (int8 inference) raises naming a ROADMAP entry that exists."""
+    """SLAM, SfM, debug_gt_kp and int8 runs construct (int8 serving, B5, is
+    ported: an int8 engine builds its s8 program and refuses a run with
+    neither scales nor calibration frames); the throughput modes that stay
+    owed raise in the CLI naming a ROADMAP entry that exists."""
     import re
 
+    from suo_slam_tpu_torch.evaluate import refuse_unported
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
     from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
 
-    for cfg in (SlamConfig(), SlamConfig(sfm_mode=True)):
+    for cfg in (SlamConfig(), SlamConfig(sfm_mode=True),
+                SlamConfig(int8_inference=True)):
         ObjectSlam(cfg, infer_fn=lambda *a: None, device="cpu")
     ObjectSlam(SlamConfig(debug_gt_kp=True), device="cpu")
+    net = PkpNet(n_stack=1, n_modules=1, features=8)
+    eng = ObjectSlam(SlamConfig(int8_inference=True), net=net, device="cpu")
+    assert eng._infer.int8_state == {} and eng._infer.supports_no_prior
+    with pytest.raises(ValueError, match="activation scales"):
+        ObjectSlam(SlamConfig(int8_inference=True, int8_calib_frames=0), net=net,
+                   device="cpu")
     roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
-    for kw in ("int8_inference",):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            ObjectSlam(SlamConfig(**{kw: True}), infer_fn=lambda *a: None, device="cpu")
+    for kw in ("batched", "int8_online_ok"):
+        with pytest.raises(SystemExit, match="ROADMAP") as e:
+            refuse_unported(**{kw: True})
         item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
         assert re.search(rf"\*\*{item}[ .]", roadmap), (item, str(e.value))
