@@ -8,10 +8,12 @@ Phases (any failure raises and exits non-zero):
   1. card: nvidia-smi name and power limit, torch / CUDA versions, the f32
      precision flags;
   2. build: every `suo_slam_tpu_torch/csrc/*.cu` with nvcc (one process per
-     source, in parallel) and the seconds it took;
+     source, in parallel) and the seconds it took; the count of IGMMA (s8
+     `wgmma`) instructions in K11's SASS, where the toolkit has cuobjdump;
   3. kernels: K1-K10 against their plain PyTorch versions on the same CUDA
      inputs at the main paths' shapes, with the stated tolerances; kernel,
-     plain and library times (median of CUDA-event timings) and each
+     plain and library times (median of CUDA-event timings; the library
+     yardsticks' device time from torch.profiler beside them) and each
      kernel's bound on an H100 (bytes at 3.35 TB/s or f32 operations at
      67 TFLOP/s, counted from this run's inputs); K8 and K9's launches per
      forward of the full-width net; then the full-width net in bf16 against
@@ -55,16 +57,21 @@ Phases (any failure raises and exits non-zero):
      counts of the phase;
   8. int8 serving: the full-width net's s8-resident program
      (`models/int8_forward.py`) calibrated on the card; K11 (every distinct
-     convolution shape of the forward, with its real codes, plus the concat
-     stem's 7x7 stride-2 prior convolution), K12 (each mode and dtype) and
-     K13 (each level) bit-equal to their plain versions on the same CUDA
-     inputs, with kernel, plain, `torch._int_mm` (cuBLASLt s8 GEMM; an
-     im2col of the 3x3 input) times and bounds (int8 operations at 1,979
-     TOP/s or bytes at 3.35 TB/s); K2 on the bf16 logits against its plain
-     version; launches per forward; the whole int8 net against its
+     convolution shape of the forward, with its real codes and its route —
+     wgmma for every stride-1 convolution —, plus the concat stem's 7x7
+     stride-2 prior convolution on the mma.sync route), K12 (each mode:
+     input dtype or prologue, outputs, padded rows) and K13 (each level)
+     bit-equal to their plain versions on the same CUDA inputs, with
+     kernel, device, plain, `torch._int_mm` (cuBLASLt s8 GEMM; an im2col of
+     the 3x3 input; wrapper and device) times and bounds (int8 operations at
+     1,979 TOP/s or bytes at 3.35 TB/s); K2 on the bf16 logits against its
+     plain version; launches per forward; the whole int8 net against its
      plain-version run on the card (equal logits) and against the f32 net
      (uv gap within 1.5x the CPU's on the same two crops); the int8 and
-     bf16 nets' host and device ms per call; a scales sidecar written by
+     bf16 nets' host and device ms per call and crops/s; the same at 128
+     crops (the JAX bench's batch: launches per prior-free forward, K11 and
+     K12 bit-equal and timed at every distinct call, device ms per call,
+     crops/s and kernels of the int8 and bf16 nets); a scales sidecar written by
      `calibrate_int8` over the phase-7 BOP tree, then `Evaluator(nviews=1,
      int8=True)` to its end; a 6-frame SLAM run with
      `SlamConfig(int8_inference=True, int8_calib_frames=2)` under phase 6's
@@ -243,16 +250,34 @@ def phase_build():
     log(f"[build] nvcc of {len(_build._sources())} sources: {secs:.2f} s")
     for stem, text in sorted(_build.build_log.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] {stem}: {line.strip()}")
+    # K11's s8 wgmma in the SASS (IGMMA), where the toolkit has cuobjdump
+    import os
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    lib = _build.BUILD_DIR / "libint8_conv.so"
+    if os.path.isfile(tool):
+        r = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+        n = sum("IGMMA" in line for line in r.stdout.splitlines())
+        log(f"[build] {lib.name}: {n} IGMMA instructions in its SASS (cuobjdump -sass)")
+    else:
+        log(f"[build] {lib.name}: cuobjdump is missing; its SASS was not read")
     return secs
 
 
-def _report(name, err, tol, ms, plain_ms, lib_ms, b):
+def _report(name, err, tol, ms, plain_ms, lib_ms, b, lib_fn=None):
+    """One kernel line; with `lib_fn`, the library yardstick's device time
+    too (`lib_device_us`: its wrapper-free time beside `lib_ms`)."""
     tol = tol if isinstance(tol, str) else f"{tol:.1e}"
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    if lib_fn is not None:
+        us, src = lib_device_us(lib_fn)
+        lib += f" (device {us:.3f} us by {src})"
     log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol}) | kernel {ms:.4f} ms"
-        f" | plain {plain_ms:.4f} ms | library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-        f" | bound {b[0]:.5f} ms ({b[1]})")
+        f" | plain {plain_ms:.4f} ms | library {lib} | bound {b[0]:.5f} ms ({b[1]})")
 
 
 def check_k1(dev, rng, objs):
@@ -284,8 +309,11 @@ def check_k1(dev, rng, objs):
     grid = torch.stack([gx[:, None, :].expand(N_OBJ, 256, 256),
                         gy[:, :, None].expand(N_OBJ, 256, 256)], -1)
     nchw = imgs.permute(0, 3, 1, 2).expand(N_OBJ, 3, H_IMG, W_IMG)
-    lib_ms = cuda_ms(lambda: F.grid_sample(nchw, grid, mode="bilinear",
-                                           padding_mode="border", align_corners=False))
+    def lib():
+        return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    lib_ms = cuda_ms(lib)
     x1 = bboxes[:, 0].clip(0, W_IMG)
     x2 = bboxes[:, 2].clip(0, W_IMG)
     y1 = bboxes[:, 1].clip(0, H_IMG)
@@ -293,7 +321,7 @@ def check_k1(dev, rng, objs):
     read = min(float(np.sum((x2 - x1 + 2) * (y2 - y1 + 2))), H_IMG * W_IMG) * 3 * 4
     n_out = N_OBJ * 256 * 256
     b = bound(n_out * 3 * 4 + read + bboxes.nbytes + N_OBJ, n_out * 54)
-    _report("K1 roi_crop", err, tol, ms, plain_ms, lib_ms, b)
+    _report("K1 roi_crop", err, tol, ms, plain_ms, lib_ms, b, lib)
     return dict(name="roi_crop", route="cuda", source="suo_slam_tpu_torch/csrc/roi_crop.cu",
                 replaces="suo_slam_tpu/ops/roi.py:84", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
@@ -330,7 +358,7 @@ def check_k2(dev, rng, net):
     lib_ms = cuda_ms(lib)
     n = raw.numel()
     b = bound(n * 4 + N_OBJ * NK * (2 + 4 + 1) * 4, n * 24)
-    _report("K2 heatmap_readout", err, tol, ms, plain_ms, lib_ms, b)
+    _report("K2 heatmap_readout", err, tol, ms, plain_ms, lib_ms, b, lib)
     return dict(name="heatmap_readout", route="cuda",
                 source="suo_slam_tpu_torch/csrc/heatmap_readout.cu",
                 replaces="suo_slam_tpu/ops/heatmap.py:56", max_abs_err=err, ms=ms,
@@ -485,7 +513,8 @@ def check_k4(dev, rng, objs):
     # the H/g contraction alone as one bmm: the library yardstick
     JW = torch.randn(V * O, 12, 2 * K, device=dev)
     J = torch.randn(V * O, 2 * K, 12, device=dev)
-    lib_ms = cuda_ms(lambda: torch.bmm(JW, J))
+    lib = lambda: torch.bmm(JW, J)
+    lib_ms = cuda_ms(lib)
     e = V * O * K
     in_bytes = V * 64 + O * 64 + e * (8 + 16 + 1) + O * K * 12 + V * O * 16
     out_bytes = V * O * (144 + 12) * 4 + e * 8
@@ -493,7 +522,7 @@ def check_k4(dev, rng, objs):
     # weighting) + 156 outputs x 2K products x 2 per (v, o)
     b = bound(in_bytes + out_bytes, e * 200 + V * O * 156 * 2 * K * 2)
     b_chi2 = bound(in_bytes - e + e * 8, e * 45)
-    _report("K4 ba_edges (H/g mode, H)", err, tol, ms, plain_ms, lib_ms, b)
+    _report("K4 ba_edges (H/g mode, H)", err, tol, ms, plain_ms, lib_ms, b, lib)
     log(f"[kernel] K4 ba_edges (chi2 mode): kernel {ms_chi2:.4f} ms | plain "
         f"{plain_chi2:.4f} ms | bound {b_chi2[0]:.5f} ms ({b_chi2[1]})")
     return dict(name="ba_edges", route="cuda", source="suo_slam_tpu_torch/csrc/ba_edges.cu",
@@ -719,7 +748,7 @@ def check_k7(dev, scene):
                   + V * 24 + O * 24 + 1, flops)
         res[name] = (max(sc, so), ms, plain_ms, lib_ms, b)
         _report(f"K7 ba_schur ({name}, V={V})", max(sc, so), "1e-4 of each 6-block's max",
-                ms, plain_ms, lib_ms, b)
+                ms, plain_ms, lib_ms, b, lib)
     err, ms, plain_ms, lib_ms, b = res["global"]
     return dict(name="ba_schur", route="cuda", source="suo_slam_tpu_torch/csrc/ba_schur.cu",
                 replaces="suo_slam_tpu/solvers/ba.py:267", max_abs_err=err, ms=ms,
@@ -1263,6 +1292,26 @@ def device_us(fn, key, n=10, per_call=1):
     return 1e3 * cuda_ms(fn, n=5, inner=n), "CUDA events"
 
 
+def lib_device_us(fn, n=5):
+    """Device microseconds per call of a library yardstick: every kernel of
+    one trace of n calls (the wrapper's host time, which `cuda_ms` includes,
+    left out), over the calls the trace holds — the launches of its most
+    launched kernel, since a short session can lose some; CUDA events when
+    the tracer returns no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    cuda = lambda a: [e for e in a if e.device_type == DeviceType.CUDA]
+    avg = traced(lambda: [fn() for _ in range(n)], lambda a: len(cuda(a)) > 0, "library")
+    if avg is None:
+        return 1e3 * cuda_ms(fn, n=5, inner=n), "CUDA events"
+    ks = cuda(avg)
+    calls = min(n, max(e.count for e in ks))
+    return sum(e.self_device_time_total for e in ks) / calls, "profiler"
+
+
 def _bf16_ulps(k, p):
     """|k - p| in units of the bf16 spacing at p (1 ulp: 2^(floor(log2|p|) - 7))."""
     import torch
@@ -1431,7 +1480,7 @@ def check_k10(dev, rng):
         res[B] = (rel, ms, plain_ms, lib_ms, b)
         _report(f"K10 add_dists (B={B}, P={P}, device {us:.3f} us per call of 2 kernels by "
                 f"{src})",
-                rel, "1e-6 relative; per-point equal", ms, plain_ms, lib_ms, b)
+                rel, "1e-6 relative; per-point equal", ms, plain_ms, lib_ms, b, lib)
     rel, ms, plain_ms, lib_ms, b = res[1]
     return dict(name="add_dists", route="cuda", source="suo_slam_tpu_torch/csrc/add_dists.cu",
                 replaces="suo_slam_tpu/eval/meter.py:82", max_abs_err=rel, ms=ms,
@@ -1736,13 +1785,41 @@ def _int8_traffic(name, a, kw):
         M = x.shape[0] * Ho * Wo
         out_b = 1 if kw.get("out_s8", a[4] if len(a) > 4 else False) else 2
         return (x.numel() + qc.wq.numel() + M * cout * out_b + 8 * cout,
-                2.0 * M * cout * kh * kw_ * x.shape[-1])
-    if name == "int8_quant":
+                2.0 * M * cout * kh * kw_ * qc.cin)
+    if name == "int8_quant":  # the prologue's operands, the input, the outputs
+        xq = x.q if isinstance(x, ik.Deq) else x
+        C = xq.shape[-1]
         n_out = (a[1] is not None) + (len(a) > 2 and a[2] is not None)
-        return x.numel() * (x.element_size() + n_out), 0.0
+        nb = xq.numel() * xq.element_size() + n_out * (xq.numel() // C) * (kw.get("c_out") or C)
+        if kw.get("x2") is not None:
+            nb += xq.numel()
+        if kw.get("add") is not None:
+            nb += kw["add"].numel() * kw["add"].element_size()
+        return nb, 0.0
     if name == "int8_maxpool":
         return x.numel() * 1.25, 0.0
     return x.numel() * 3.25, 0.0  # the junction: up1, low, bf16 out
+
+
+def _quant_mode(a, kw):
+    """A K12 call's mode: its input ("f32", "bf16", "s8", or the prologue
+    "deq[+deq][+tensor|+vector]") and outputs ("raw", "norm", "pair"), with
+    "padded" where it writes wider rows."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    x = a[0]
+    if isinstance(x, ik.Deq):
+        src = "deq" + ("+deq" if kw.get("x2") is not None else "")
+        add = kw.get("add")
+        if add is not None:
+            src += "+vector" if add.dim() == 1 else "+tensor"
+    else:
+        src = str(x.dtype).replace("torch.", "").replace("bfloat16", "bf16").replace(
+            "float32", "f32").replace("int8", "s8")
+    raw, norm = a[1] is not None, len(a) > 2 and a[2] is not None
+    out = "pair" if raw and norm else "raw" if raw else "norm"
+    C = (x.q if isinstance(x, ik.Deq) else x).shape[-1]
+    return f"{src} {out}" + (" padded" if (kw.get("c_out") or C) != C else "")
 
 
 def _int8_calls(run, traffic=None):
@@ -1762,8 +1839,7 @@ def _int8_calls(run, traffic=None):
             return (name, tuple(x.shape), tuple(a[1].wq.shape), a[1].stride,
                     bool(kw.get("out_s8", a[4] if len(a) > 4 else False)))
         if name == "int8_quant":
-            return (name, x.dtype, tuple(x.shape), a[1] is not None,
-                    len(a) > 2 and a[2] is not None)
+            return (name, _quant_mode(a, kw), tuple((x.q if isinstance(x, ik.Deq) else x).shape))
         return (name, tuple(x.shape))
 
     def spy(name):
@@ -1797,10 +1873,11 @@ def _im2col(x, kh, kw, pad, cin_p):
     return torch.cat(cols, dim=-1).reshape(N * H * W, kh * kw * cin_p)
 
 
-def _int_mm_ms(x, qc, M):
-    """`torch._int_mm` (cuBLASLt s8 GEMM) on the convolution's GEMM, or None
-    where its shape rules (M > 16, K and N multiples of 8) or the layout
-    refuse it; the im2col of a 3x3 input is made before the clock."""
+def _int_mm(x, qc, M):
+    """`torch._int_mm` (cuBLASLt s8 GEMM) on the convolution's GEMM as a
+    function, or None where its shape rules (M > 16, K and N multiples of 8)
+    or the layout refuse it; the im2col of a 3x3 input is made here, before
+    any clock."""
     import torch
 
     cout, kh, kw, cin_p = qc.wq.shape
@@ -1814,43 +1891,57 @@ def _int_mm_ms(x, qc, M):
     except RuntimeError as e:
         log(f"[kernel] torch._int_mm refused [{M}, {A.shape[1]}] x [{B.shape[0]}, {cout}]: {e}")
         return None
-    return cuda_ms(lambda: torch._int_mm(A, B), n=10, inner=5)
+    return lambda: torch._int_mm(A, B)
 
 
-def check_k11(dev, calls):
+def check_k11(dev, calls, label="8 crops", stem=True, time_plain=True):
     """K11 at every distinct convolution of one forward (their real codes
-    and epilogue vectors) and the concat stem's 7x7 stride-2 prior
-    convolution: equal bf16 bits / s8 codes; times, bounds (int8 operations
-    or bytes) and `torch._int_mm` on the same s8 GEMM (1x1: the activations
-    as [M, Cin]; 3x3: an im2col of them, not timed)."""
+    and epilogue vectors) and, with `stem`, the concat stem's 7x7 stride-2
+    prior convolution: equal bf16 bits / s8 codes, each call's route from
+    `plan_conv`; times, device times, bounds (int8 operations or bytes) and
+    `torch._int_mm` on the same s8 GEMM (1x1: the activations as [M, Cin];
+    3x3: an im2col of them, made before the clock), its wrapper and device
+    time. Returns the JSON row (8 crops) and the per-shape numbers."""
     import torch
 
     from suo_slam_tpu_torch.models import int8_forward as i8
     from suo_slam_tpu_torch.models import int8_kernels as ik
 
     convs = [(k, v) for k, v in calls.items() if k[0] == "int8_conv"]
-    g = torch.Generator(device=dev).manual_seed(12)
-    stem = torch.nn.Conv2d(44, 64, 7, 2, 3).to(dev)
-    qs = i8.quantize_conv(stem, 3, dev)
-    xp = torch.randint(0, 128, (N_OBJ, 256, 256, 41), device=dev, generator=g,
-                       dtype=torch.int32).to(torch.int8)
-    e1 = torch.full((64,), 1e-4, device=dev).to(torch.bfloat16).float()
-    convs.append((("int8_conv", tuple(xp.shape), tuple(qs.wq.shape), 2, False),
-                  ((xp, qs, e1, torch.zeros(64, device=dev), False), {})))
-    rows, err = [], 0.0
+    if stem:
+        g = torch.Generator(device=dev).manual_seed(12)
+        qs = i8.quantize_conv(torch.nn.Conv2d(44, 64, 7, 2, 3).to(dev), 3, dev)
+        xp = torch.randint(0, 128, (N_OBJ, 256, 256, 48), device=dev, generator=g,
+                           dtype=torch.int32).to(torch.int8)
+        xp[..., 41:] = 0  # as K12 writes the prior: 41 channels in 48-wide rows
+        e1 = torch.full((64,), 1e-4, device=dev).to(torch.bfloat16).float()
+        convs.append((("int8_conv", tuple(xp.shape), tuple(qs.wq.shape), 2, False),
+                      ((xp, qs, e1, torch.zeros(64, device=dev), False), {})))
+    rows, routes = [], {}
     for key, (a, kw) in convs:
         x, qc, e1, e2 = a[:4]
         out_s8 = kw.get("out_s8", a[4] if len(a) > 4 else False)
+        cout, kh, kwd, cin_p = qc.wq.shape
+        plan = ik.plan_conv(x.shape[0], x.shape[1], x.shape[2], cin_p, cout, kh, kwd,
+                            qc.stride, qc.pad)
         k = ik._int8_conv_cuda(x, qc, e1, e2, out_s8)
         p = ik.int8_conv_plain(x, qc, e1, e2, out_s8)
         torch.cuda.synchronize()
         if not (k.dtype == p.dtype and torch.equal(k, p)):
-            raise AssertionError(f"K11 disagrees with its plain version at {key}: "
+            raise AssertionError(f"K11 disagrees with its plain version at {key} ({label}): "
                                  f"{(k.float() - p.float()).abs().max().item()}")
+        del k, p
         Ho, Wo = ik.out_hw(x.shape[1], x.shape[2], qc)
         M = x.shape[0] * Ho * Wo
         b = bound(*_int8_traffic("int8_conv", a, kw), INT8_OPS_PER_S)
+        routes[f"{kh}x{kwd} s{qc.stride} {list(x.shape)}"] = (plan.route, plan.tile)
         rows.append((key, x, qc, e1, e2, out_s8, M, b))
+    log(f"[kernel] K11 ({label}) routes and pixel tiles: " + json.dumps(
+        {k: f"{r} {list(t)}" for k, (r, t) in routes.items()}))
+    if stem and routes.pop(next(k for k in routes if " s2 " in k))[0] != "mma_sync":
+        raise AssertionError("K11: the stride-2 stem convolution left its mma.sync route")
+    if any(r != "wgmma" for r, _ in routes.values()):
+        raise AssertionError(f"K11 ({label}): a stride-1 convolution is not on the wgmma route")
     # time one call of each distinct weight shape at its largest input
     best = {}
     for r in rows:
@@ -1861,31 +1952,40 @@ def check_k11(dev, calls):
     for wk, (key, x, qc, e1, e2, out_s8, M, b) in sorted(best.items(), key=lambda t: -t[1][6]):
         f = lambda: ik._int8_conv_cuda(x, qc, e1, e2, out_s8)
         ms = cuda_ms(f, n=10, inner=5)
-        plain_ms = cuda_ms(lambda: ik.int8_conv_plain(x, qc, e1, e2, out_s8), n=3, inner=2,
-                           warmup=1)
+        plain_ms = (cuda_ms(lambda: ik.int8_conv_plain(x, qc, e1, e2, out_s8), n=3, inner=2,
+                            warmup=1) if time_plain else None)
         us, src = device_us(f, "int8_conv_kernel", n=5)
         cout, kh, kwd, cin_p = qc.wq.shape
-        lib_ms = _int_mm_ms(x, qc, M)
+        lib = _int_mm(x, qc, M)
+        lib_ms = cuda_ms(lib, n=10, inner=5) if lib else None
+        lib_us = lib_device_us(lib) if lib else (None, None)
+        del lib
         name = (f"{kh}x{kwd} {x.shape[-1]}->{cout} s{qc.stride} on {list(x.shape)} "
                 f"{'s8' if out_s8 else 'bf16'} out")
-        _report(f"K11 int8_conv ({name}, device {us:.3f} us by {src})", 0.0, "0 (bit-equal)",
-                ms, plain_ms, lib_ms, b)
-        out[name] = (ms, us, plain_ms, lib_ms, b)
-    log(f"[kernel] K11: {len(rows)} distinct convolution calls bit-equal to the plain version, "
-        f"{len(best)} weight shapes timed")
+        lib_txt = ("n/a" if lib_ms is None
+                   else f"{lib_ms:.4f} ms, device {lib_us[0]:.3f} us by {lib_us[1]}")
+        log(f"[kernel] K11 int8_conv ({label}, {name}): bit-equal | kernel {ms:.4f} ms, device "
+            f"{us:.3f} us by {src} | plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'} | torch._int_mm "
+            f"{lib_txt} | bound {b[0]:.5f} ms ({b[1]})")
+        out[name] = (ms, us, plain_ms, lib_ms, b, lib_us[0])
+    log(f"[kernel] K11 ({label}): {len(rows)} distinct convolution calls bit-equal to the plain "
+        f"version, {len(best)} weight shapes timed")
     # the JSON row: the forward's own convolution with the most operations
     # (3x3 128->128 at 64x64 at full width), not the concat stem's
     name = max((n for n in out if " s1 " in n),
                key=lambda n: out[n][4][0] if out[n][4][1] == "operations" else 0)
-    ms, us, plain_ms, lib_ms, b = out[name]
+    ms, us, plain_ms, lib_ms, b, _ = out[name]
     return dict(name="int8_conv", route="cuda", source="suo_slam_tpu_torch/csrc/int8_conv.cu",
                 replaces="suo_slam_tpu/models/int8_forward.py:254", max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms), out
 
 
-def check_k12(dev, calls):
-    """K12 in every mode the forward used (f32 / bf16 / s8 input; raw,
-    normalised or both outputs), on its real inputs: equal codes."""
+def check_k12(dev, calls, label="8 crops", time_plain=True):
+    """K12 in every mode the forward used (f32 / bf16 / s8 input or a
+    prologue of s8 operands; raw, normalised or both outputs; padded rows),
+    on its real inputs: equal codes; wrapper and device times at each mode's
+    largest call."""
     import torch
 
     from suo_slam_tpu_torch.models import int8_kernels as ik
@@ -1898,27 +1998,29 @@ def check_k12(dev, calls):
         p = ik.int8_quant_plain(*a, **kw)
         torch.cuda.synchronize()
         if not all((u is None and v is None) or torch.equal(u, v) for u, v in zip(k, p)):
-            raise AssertionError(f"K12 disagrees with its plain version at {key}")
-        x = a[0]
-        mode = ("pair" if key[3] and key[4] else "raw" if key[3] else "norm")
+            raise AssertionError(f"K12 disagrees with its plain version at {key} ({label})")
         b = bound(*_int8_traffic("int8_quant", a, kw))
-        mk = (str(x.dtype).replace("torch.", ""), mode)
-        if mk not in res or x.numel() > res[mk][0].numel():
-            res[mk] = (x, a, kw, b)
+        n = key[2]
+        if key[1] not in res or np.prod(n) > np.prod(res[key[1]][0]):
+            res[key[1]] = (n, a, kw, b)
     out = {}
-    for (dt, mode), (x, a, kw, b) in res.items():
+    for mode, (shape, a, kw, b) in res.items():
         f = lambda: ik._int8_quant_cuda(*a, **kw)
         ms = cuda_ms(f, n=10, inner=5)
-        plain_ms = cuda_ms(lambda: ik.int8_quant_plain(*a, **kw), n=5, inner=2)
+        plain_ms = (cuda_ms(lambda: ik.int8_quant_plain(*a, **kw), n=5, inner=2)
+                    if time_plain else None)
         us, src = device_us(f, "int8_quant_kernel", n=5)
-        _report(f"K12 int8_quant ({dt} in, {mode}, {list(x.shape)}, device {us:.3f} us by {src})",
-                0.0, "0 (bit-equal)", ms, plain_ms, None, b)
-        out[(dt, mode)] = (ms, plain_ms, b, x.numel())
-    key = max(out, key=lambda k: (k[1] == "pair", k[0] == "bfloat16", out[k][3]))
-    ms, plain_ms, b, _ = out[key]
+        log(f"[kernel] K12 int8_quant ({label}, {mode}, {list(shape)}): bit-equal | kernel "
+            f"{ms:.4f} ms, device {us:.3f} us by {src} | plain "
+            f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'} | bound "
+            f"{b[0]:.5f} ms ({b[1]})")
+        out[mode] = (ms, plain_ms, b, int(np.prod(shape)), us)
+    log(f"[kernel] K12 ({label}): {len(res)} modes bit-equal to the plain version")
+    key = max(out, key=lambda k: (k.endswith("pair"), k.startswith("deq"), out[k][3]))
+    ms, plain_ms, b, _, _ = out[key]
     return dict(name="int8_quant", route="cuda", source="suo_slam_tpu_torch/csrc/int8_quant.cu",
                 replaces="suo_slam_tpu/models/int8_forward.py:223", max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None), out
 
 
 def check_k13(dev, calls):
@@ -1994,6 +2096,79 @@ def _with_plain_int8(fn):
             setattr(ik, f"_int8_{op}_cuda", f)
 
 
+def _net_device_ms(nets, n_crops, calls=3):
+    """Device ms per call of each net in `nets` (name -> call) from one
+    torch.profiler trace of `calls` calls: busy time, crops per second of
+    device time, kernels per call, the port's kernels and the torch
+    operations that hold the most device time."""
+    from torch.autograd import DeviceType
+
+    dev_ms = {}
+    for name, f in nets.items():
+        avg = traced(lambda: [f() for _ in range(calls)], lambda a: any(
+            e.device_type == DeviceType.CUDA for e in a), f"{name} net")
+        if avg is None:
+            dev_ms[name] = "not measured"
+            continue
+        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
+        by = {k: sum(e.self_device_time_total for e in kern if f"{k}_kernel" in e.key)
+              / (1e3 * calls) for k in INT8_KERNELS + ("heatmap_readout", "norm_relu",
+                                                       "upsample_add")}
+        ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
+                      and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)[:6]
+        busy = sum(e.self_device_time_total for e in kern) / (1e3 * calls)
+        dev_ms[name] = {"busy": round(busy, 4), "crops/s": round(n_crops / busy * 1e3, 1),
+                        "kernels": sum(e.count for e in kern) // calls,
+                        "by kernel": {k: round(v, 4) for k, v in by.items() if v},
+                        "by torch operation": {
+                            e.key: round(e.self_device_time_total / (1e3 * calls), 4)
+                            for e in ops}}
+    return dev_ms
+
+
+def _int8_128(dev, seed, net16, qw, scales, n=128):
+    """Phase 8 at the JAX bench's batch, 128 crops: launches per prior-free
+    forward, K11 at every distinct convolution and K12 in every mode
+    bit-equal to their plain versions on the forward's own inputs (kernel
+    and device times; the plain versions are not timed), then the int8 and
+    bf16 nets' device ms per call and crops/s."""
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import int8_forward as i8
+
+    g = torch.Generator(device=dev).manual_seed(seed + 128)
+    crops = torch.rand((n, 256, 256, 3), device=dev, generator=g)
+    apply_np = i8.make_int8_apply(net16, no_prior=True)
+    f = lambda: apply_np(qw, scales, crops)
+    f()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    f()
+    torch.cuda.synchronize()
+    c = kernels.counts()
+    c = {k: c[k] for k in INT8_KERNELS + ("heatmap_readout",)}
+    log(f"[int8 {n}] launches per prior-free forward ({n} crops): {json.dumps(c)}")
+    if (c["int8_conv"], c["int8_quant"], c["int8_pool_junction"]) != (185, 84, 17):
+        raise AssertionError(f"int8 launches per forward at {n} crops: {c}")
+    calls = _int8_calls(f)
+    check_k11(dev, calls, f"{n} crops", stem=False, time_plain=False)
+    check_k12(dev, calls, f"{n} crops", time_plain=False)
+    del calls
+    torch.cuda.empty_cache()
+
+    def bf16_call():
+        with torch.inference_mode():
+            return net16(crops)
+
+    log(f"[int8 {n}] full-width net device ms per call ({n} crops, 256x256, backbone + "
+        f"readout, prior-free int8 and bf16): "
+        + json.dumps(_net_device_ms({"int8": f, "bf16": bf16_call}, n)))
+    del crops
+    torch.cuda.empty_cache()
+
+
 def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
     """int8 serving on the card (the module docstring's phase 8). Returns the
     kernels' JSON entries and the launches of the int8 path's runs."""
@@ -2053,7 +2228,9 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
             {k: [v[0], round(v[1] / 1e9, 4), round(v[2] / 1e9, 3), round(v[3], 4)]
              for k, v in tot.items()})
         + f"; total bound {sum(v[3] for v in tot.values()):.4f} ms")
-    entries = [check_k11(dev, calls), check_k12(dev, calls), check_k13(dev, calls)]
+    (k11, _), (k12, _) = check_k11(dev, calls), check_k12(dev, calls)
+    entries = [k11, k12, check_k13(dev, calls)]
+    del calls
     # the whole net: kernels against plain versions on the card, then against f32
     o8 = apply(qw, scales, crops, prior)
     o8p = _with_plain_int8(lambda: apply(qw, scales, crops, prior))
@@ -2107,30 +2284,11 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
     t = {}
     for turn in ("int8", "bf16", "bf16", "int8"):
         t.setdefault(turn, []).append(wall_ms(nets[turn]))
-    from torch.autograd import DeviceType
-
-    dev_ms = {}
-    for name, f in nets.items():
-        avg = traced(lambda: [f() for _ in range(3)], lambda a: any(
-            e.device_type == DeviceType.CUDA for e in a), f"{name} net")
-        if avg is None:
-            dev_ms[name] = "not measured"
-            continue
-        kern = [e for e in avg if e.device_type == DeviceType.CUDA]
-        by = {k: sum(e.self_device_time_total for e in kern if f"{k}_kernel" in e.key) / 3e3
-              for k in INT8_KERNELS + ("heatmap_readout", "norm_relu", "upsample_add")}
-        ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
-                      and e.self_device_time_total > 0),
-                     key=lambda e: e.self_device_time_total, reverse=True)[:6]
-        dev_ms[name] = {"busy": round(sum(e.self_device_time_total for e in kern) / 3e3, 3),
-                        "kernels": sum(e.count for e in kern) // 3,
-                        "by kernel": {k: round(v, 3) for k, v in by.items() if v},
-                        "by torch operation": {e.key: round(e.self_device_time_total / 3e3, 3)
-                                               for e in ops}}
     log("[int8] full-width net ms per call (8 crops, 256x256, backbone + readout, prior-free; "
         "median of 10 synchronized calls, turns I B B I): "
         + json.dumps({k: [round(x, 3) for x in v] for k, v in t.items()})
-        + "; device ms per call: " + json.dumps(dev_ms))
+        + "; device ms per call: " + json.dumps(_net_device_ms(nets, N_OBJ)))
+    _int8_128(dev, seed, net16, qw, scales)
 
     # the evaluation entry point with a sidecar from calibrate_int8, then a
     # short SLAM run; the int8 path's launches

@@ -10,8 +10,10 @@ from the running statistics (its masked training statistics are not ported).
 
 Working dtype (`HourglassNet(dtype=...)`, f32 or bf16), with the JAX
 package's casts: parameters stay f32; the input is cast to the working dtype
-(`hourglass.py:199`); convolutions run in it on a cached cast of their
-weights; each norm computes in f32 and casts back (`:88-90`); the heatmap
+(`hourglass.py:199`); convolutions run in it on a cast of their weights
+(made in the autograd graph while autograd records the parameters, else
+cached once per weight update); each norm computes in f32 and casts back
+(`:88-90`); the heatmap
 heads are f32 convolutions of an f32 cast (`:225-227`), and the re-injection
 of their logits casts back (`:231-233`).
 
@@ -149,12 +151,30 @@ def _max_pool2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, kernel_size=2, stride=2).contiguous(memory_format=_CL)
 
 
+def _in_graph(*params: torch.Tensor) -> bool:
+    """True when autograd records this call for a parameter: then a derived
+    tensor (a weight cast, a norm's affine) is computed in the graph on
+    every call, never cached, so that the gradient reaches the parameter."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in params)
+
+
+def _cache_key(*ts: torch.Tensor) -> tuple:
+    """`_weights_key` plus the inference-mode flag: a tensor made under
+    `torch.inference_mode` is an inference tensor, which autograd may not
+    save, so it is never reused outside that mode (nor the reverse)."""
+    return _weights_key(*ts) + (torch.is_inference_mode_enabled(),)
+
+
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`m` applied in x's dtype: parameters stay f32 and are cast (once per
-    weight update, cached on the module) when x is bf16."""
+    """`m` applied in x's dtype: parameters stay f32 and are cast when x is
+    bf16 — in the autograd graph while it records the parameters, otherwise
+    once per weight update, cached on the module."""
     if x.dtype == m.weight.dtype:
         return m(x)
-    key = _weights_key(m.weight, m.bias) + (x.dtype,)
+    if _in_graph(m.weight, m.bias):
+        return F.conv2d(x, m.weight.to(x.dtype, memory_format=_CL), m.bias.to(x.dtype),
+                        m.stride, m.padding)
+    key = _cache_key(m.weight, m.bias) + (x.dtype,)
     cache = getattr(m, "_cast_cache", None)
     if cache is None or cache[0] != key:
         with torch.no_grad():
@@ -178,14 +198,19 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
         self._affine = None
 
+    def _inv_shift(self) -> tuple[torch.Tensor, torch.Tensor]:
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        return inv, self.bias - self.mean * inv
+
     def affine(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """(inv, shift), f32 [C], computed once per weight update."""
-        key = _weights_key(self.scale, self.bias, self.mean, self.var)
+        """(inv, shift), f32 [C]: in the autograd graph while it records
+        `scale` / `bias`, otherwise computed once per weight update."""
+        if _in_graph(self.scale, self.bias):
+            return self._inv_shift()
+        key = _cache_key(self.scale, self.bias, self.mean, self.var)
         if self._affine is None or self._affine[0] != key:
             with torch.no_grad():
-                inv = torch.rsqrt(self.var + self.eps) * self.scale
-                shift = self.bias - self.mean * inv
-            self._affine = (key, inv, shift)
+                self._affine = (key, *self._inv_shift())
         return self._affine[1], self._affine[2]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ inputs (so that the scale factors out of the convolution) and per-channel on
 the residual trunk. The engine's device steps are the hand-written kernels of
 `models/int8_kernels.py`: K11 (convolution + folded dequant / BatchNorm /
 ReLU / requantize epilogue), K12 (quant, nrq and the dual-output quant_pair
-of every chained block boundary) and K13 (s8 max-pool, s8 junction). The
+of every chained block boundary, behind a prologue that forms JAX's bf16
+dequantize-and-add of the residual, projection, injection and junction
+sums: the engine's `sum` hands it the operands instead of computing the
+sum in torch) and K13 (s8 max-pool, s8 junction). The
 stem convolution stays f32 (`F.conv2d`, TF32 off), and so do the readout's
 moments and the validity head (`ops/heatmap.py`, K2 on the bf16 logits).
 
@@ -62,6 +65,14 @@ def _bn_affine(norm: MaskedBatchNorm, device=None):
     return a, f(norm.bias) - f(norm.mean) * a
 
 
+class _Sum(NamedTuple):
+    """The int8 engine's `sum`: JAX's bf16 dequantize-and-add, formed by the
+    next quantize's prologue (K12) instead of being materialised."""
+
+    acts: tuple
+    add: torch.Tensor | None
+
+
 class _CalAct(NamedTuple):
     """Calibration-engine activation: f32 NHWC tensor + per-channel tag (keeps
     the structural path, and so the point indices, equal to the int8
@@ -102,7 +113,7 @@ class _CalibEngine:
         else:
             self.absmax.append(torch.amax(torch.abs(xf)))
 
-    def quant(self, xf, pc=False):
+    def quant(self, xf, pc=False, pad=False):
         self._record(xf, pc)
         return _CalAct(xf, pc)
 
@@ -114,8 +125,13 @@ class _CalibEngine:
         normed = self.quant(torch.relu(xf * a + b))
         return raw, normed
 
-    def dequant(self, act):
-        return act.x
+    def sum(self, *terms):
+        """The f32 sum, left to right, of activations and tensors."""
+        out = None
+        for t in terms:
+            v = t.x if isinstance(t, _CalAct) else t
+            out = v if out is None else out + v
+        return out
 
     def is_per_channel(self, act):
         return act.pc
@@ -223,12 +239,45 @@ class _Int8Engine:
         quant of the prior-free program)."""
         self._next_point()
 
-    def quant(self, xf, pc=False):
+    def sum(self, *terms):
+        """JAX's `dequant(a) [+ dequant(b)] [+ t]`, left to right, left for
+        the next quantize's prologue (K12) to form: one or two activations,
+        then at most one bf16 tensor or [C] vector."""
+        acts = tuple(t for t in terms if isinstance(t, QT))
+        rest = terms[len(acts):]
+        if not 1 <= len(acts) <= 2 or len(rest) > 1 or any(isinstance(t, QT) for t in rest):
+            raise ValueError("int8 sum: one or two activations, then at most one addend")
+        return _Sum(acts, rest[0] if rest else None)
+
+    def _quant(self, xf, points, make_norm=None, c_out=None):
+        """K12 on xf (a tensor or a `sum`): raw codes at points[0]; with
+        make_norm(dt) -> (m, c) the normed codes at points[1] too."""
+        dt = torch.bfloat16 if isinstance(xf, _Sum) else ik.op_dtype(xf)
+        acts = xf.acts if isinstance(xf, _Sum) else ()
+        C = (acts[0].q if acts else xf).shape[-1]
+        dev = (acts[0].q if acts else xf).device
+
+        def make():
+            deq = tuple(a.s.to(torch.bfloat16).float().expand(C) for a in acts)
+            norm = make_norm(dt) if make_norm else ()
+            return (self._s(points[0]).to(dt).float().expand(C),) + tuple(norm) + deq
+
+        v = self._vecs(dev, make)
+        n_norm = 2 if make_norm else 0
+        div, mc, deq = v[0], v[1:1 + n_norm], v[1 + n_norm:]
+        if acts:
+            x = ik.Deq(acts[0].q, deq[0])
+            x2 = ik.Deq(acts[1].q, deq[1]) if len(acts) > 1 else None
+            return ik.int8_quant(x, div, *mc, x2=x2, add=xf.add, c_out=c_out)
+        return ik.int8_quant(xf, div, *mc, c_out=c_out)
+
+    def quant(self, xf, pc=False, pad=False):
+        """Codes of xf (a tensor or a `sum`); pad=True (a convolution's
+        input: the prior, the heads' logits) stores them K11's CIN_ALIGN
+        channels wide, 41 -> 48, zero beyond."""
         p = self._next_point()
-        C = xf.shape[-1]
-        (div,) = self._vecs(xf.device, lambda: (
-            self._s(p).to(ik.op_dtype(xf)).float().expand(C),))
-        q, _ = ik.int8_quant(xf, div)
+        C = (xf.acts[0].q if isinstance(xf, _Sum) else xf).shape[-1]
+        q, _ = self._quant(xf, (p,), c_out=ik.padded(C) if pad else C)
         return QT(q, self._s(p))
 
     def quant_pair(self, xf, norm, pc=True):
@@ -236,21 +285,14 @@ class _Int8Engine:
         one pass (JAX's multi-output fusion): the norm applies to the value
         before its quantization."""
         p, pn = self._next_point(), self._next_point()
-        C, dt = xf.shape[-1], ik.op_dtype(xf)
 
-        def make():
+        def make_norm(dt):
             a, b = _bn_affine(norm)
             s_n = self._s(pn)
-            return (self._s(p).to(dt).float().expand(C), (a / s_n).to(dt).float(),
-                    (b / s_n).to(dt).float())
+            return (a / s_n).to(dt).float(), (b / s_n).to(dt).float()
 
-        div, m, c = self._vecs(xf.device, make)
-        q, qn = ik.int8_quant(xf, div, m, c)
+        q, qn = self._quant(xf, (p, pn), make_norm)
         return QT(q, self._s(p)), QT(qn, self._s(pn))
-
-    def dequant(self, act: QT):
-        (s,) = self._vecs(act.q.device, lambda: (act.s.to(torch.bfloat16),))
-        return act.q.to(torch.bfloat16) * s
 
     def is_per_channel(self, act: QT):
         return act.s.dim() > 0
@@ -278,9 +320,10 @@ class _Int8Engine:
         return ik.int8_conv(act.q, qc, e1, e2, out_s8=False)
 
     def conv_bias(self, conv, act: QT):
-        """What `conv_raw` gives for all-zero codes: the bias in bf16."""
+        """What `conv_raw` gives for all-zero codes: the bias in bf16, as
+        an f32 [C] vector (a `sum` addend)."""
         (b,) = self._vecs(act.q.device, lambda: (
-            conv.bias.detach().to("cpu", torch.float32).to(torch.bfloat16),))
+            conv.bias.detach().to("cpu", torch.float32).to(torch.bfloat16).float(),))
         return b
 
     def conv_nrq(self, act: QT, conv, norm):
@@ -324,14 +367,14 @@ def _residual(eng, m: Residual, act_x, out_pc=True, pre_norm=None, pair_norm=Non
     if m.skip is not None:
         # the projection skip reads the RAW block input; conv2 requantizes on
         # its own so that one convolution feeds the add (`:324-330`)
-        y = eng.dequant(eng.quant(eng.conv_raw(act3, m.conv2)))
+        y = eng.quant(eng.conv_raw(act3, m.conv2))
         skip = eng.conv_raw(_per_tensor(eng, act_x), m.skip)
+        out = eng.sum(y, skip)
     else:
-        y = eng.conv_raw(act3, m.conv2)
-        skip = eng.dequant(act_x)
+        out = eng.sum(act_x, eng.conv_raw(act3, m.conv2))
     if pair_norm is None:
-        return eng.quant(skip + y, pc=out_pc)
-    return eng.quant_pair(skip + y, pair_norm, pc=out_pc)
+        return eng.quant(out, pc=out_pc)
+    return eng.quant_pair(out, pair_norm, pc=out_pc)
 
 
 def _res_chain(eng, blocks, act, pre_norm=None, last_out_pc=True, tail_norm=None):
@@ -354,7 +397,7 @@ def _res_chain(eng, blocks, act, pre_norm=None, last_out_pc=True, tail_norm=None
 def _per_tensor(eng, act):
     """Requantize a per-channel trunk tensor for direct conv consumption."""
     if eng.is_per_channel(act):
-        return eng.quant(eng.dequant(act))
+        return eng.quant(eng.sum(act))
     return act
 
 
@@ -404,7 +447,7 @@ def _traverse(eng, net: PkpNet, images_roi, prior_kp, no_prior=False):
         if no_prior:
             eng.skip_scale()
         else:
-            prior_act = eng.quant(prior_kp.to(torch.float32).contiguous())
+            prior_act = eng.quant(prior_kp.to(torch.float32).contiguous(), pad=True)
             x = x + eng.conv_raw(prior_act, stem, cin_lo=3).to(torch.float32)
     a0, b0 = _bn_affine(bb.stem_norm, x.device)
     x = torch.relu(x * a0 + b0).contiguous()
@@ -421,10 +464,10 @@ def _traverse(eng, net: PkpNet, images_roi, prior_kp, no_prior=False):
             # a zero prior's codes add the projection's bias alone (JAX's
             # prior-free program drops it: see ROADMAP C)
             eng.skip_scale()
-            inj = eng.dequant(act) + eng.conv_bias(bb.extra_proj, act)
+            inj = eng.sum(act, eng.conv_bias(bb.extra_proj, act))
         else:
-            prior_act = eng.quant(prior_kp.to(torch.float32).contiguous())
-            inj = eng.dequant(act) + eng.conv_raw(prior_act, bb.extra_proj)
+            prior_act = eng.quant(prior_kp.to(torch.float32).contiguous(), pad=True)
+            inj = eng.sum(act, eng.conv_raw(prior_act, bb.extra_proj))
         act, pn = eng.quant_pair(inj, hg0, pc=True)
 
     outs = []
@@ -439,9 +482,9 @@ def _traverse(eng, net: PkpNet, images_roi, prior_kp, no_prior=False):
         if i < bb.n_stack - 1:
             # 3-way junction: one convolution requantizes on its own
             ll_q = eng.quant(eng.conv_raw(ll_act, bb.ll_merges[i]))
-            raw_act = eng.quant(raw)
+            raw_act = eng.quant(raw, pad=True)
             tmp_ = eng.conv_raw(raw_act, bb.out_merges[i])
-            act, pn = eng.quant_pair(eng.dequant(act) + eng.dequant(ll_q) + tmp_,
+            act, pn = eng.quant_pair(eng.sum(act, ll_q, tmp_),
                                      bb.hgs[i + 1].up1[0].norm0, pc=True)
     return outs
 

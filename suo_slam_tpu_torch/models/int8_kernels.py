@@ -8,10 +8,14 @@ product, sum and quotient as XLA does on the CPU:
 - K11 `int8_conv` (`csrc/int8_conv.cu`): s8 x s8 convolution with exact s32
   sums, rounded once to bf16, then z = bf16(bf16(y * e1) + e2) per output
   channel, written as bf16 (`conv_raw`) or as s8 codes
-  clip(rint(max(z, 0))) (`conv_nrq`);
+  clip(rint(max(z, 0))) (`conv_nrq`); `plan_conv` picks its route (`wgmma`
+  fed by a TMA ring in persistent blocks for every stride-1 convolution,
+  `mma.sync` for the stride-2 stem), tiles and ring on the host;
 - K12 `int8_quant` (`csrc/int8_quant.cu`): the quantize family — raw codes
   clip(rint(x / div)), normalised codes clip(rint(max(x * m + c, 0))), or
-  both in one pass (`quant`, `nrq`, `quant_pair`), on f32, bf16 or s8 input;
+  both in one pass (`quant`, `nrq`, `quant_pair`), on f32, bf16 or s8 input,
+  or on the prologue bf16(q1 * s1) [+ bf16(q2 * s2)] [+ t] of s8 operands
+  (`Deq`): JAX's dequantize-and-add before a quantize, formed in the pass;
 - K13 `int8_maxpool` / `int8_upsample_add` (`csrc/int8_pool_junction.cu`):
   the s8 2x2 max-pool and the junction bf16(up1 * e_up) + bf16(low * e_low)
   with `low` upsampled 2x through indices.
@@ -27,6 +31,7 @@ the integer to bf16 once, as the kernel does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -76,7 +81,7 @@ def out_hw(h: int, w: int, qc: QConv) -> tuple[int, int]:
 def s32_to_bf16(y: torch.Tensor) -> torch.Tensor:
     """Integer-valued f64 / int64 -> bf16 with one round to nearest even:
     truncate to f32, set a sticky bit when that was inexact, then round (the
-    kernel's `s32_to_bf16`)."""
+    kernel's `acc_f32`)."""
     v = y.to(torch.int64)
     f = v.to(torch.float32)
     over = f.to(torch.int64).abs() > v.abs()
@@ -98,7 +103,79 @@ def int8_conv_plain(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tens
     return torch.clamp(torch.round(torch.relu(z)), -127, 127).to(torch.int8).contiguous()
 
 
-_CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+WG_ROWS = 128          # K11's wgmma route: output pixels per tile (two warpgroups of 64)
+WG_MAX_STAGES = 6      # the deepest ring of TMA stages it plans
+WG_MAX_COUT = 512      # its e1 / e2 are staged whole in shared memory
+WG_SMEM = 115712       # shared memory of one of two blocks on an SM (228 KB, 1 KB reserved each)
+
+
+class ConvPlan(NamedTuple):
+    """How K11 runs one convolution (`plan_conv`): route "wgmma" (persistent
+    blocks, a TMA ring of `stages`, `wgmma` s8) with its pixel tile (Nt, Ht,
+    Wt), channel box `cbox` (bytes of Cin per stage; its swizzle is as
+    wide), N tile `bn`, the count of (pixel, N) tiles and dynamic shared
+    memory; or route "mma_sync" (the stride-2 stem: `mma.sync` with a
+    `cp.async` double buffer, one block per 128 x 64 tile)."""
+
+    route: str
+    tile: tuple
+    cbox: int
+    bn: int
+    grid: tuple
+    smem: int
+    stages: int
+
+
+def wg_smem(stages: int, bn: int, cbox: int, n_cols: int) -> int:
+    """Dynamic shared memory of K11's wgmma route (`wg_smem` in
+    `csrc/int8_conv.cu`): alignment, the ring, the output tile at the bf16
+    pitch, the barriers, e1 / e2 for every N tile (bf16x2 pairs), the rows'
+    offsets."""
+    return (1024 + stages * (WG_ROWS + bn) * cbox + WG_ROWS * (2 * bn + 16) + 16 * stages
+            + 4 * n_cols * bn + 8 * WG_ROWS)
+
+
+def wg_smem_stage(bn: int, cbox: int) -> int:
+    """Shared memory of one stage of the ring: its A and B boxes and its
+    two barriers."""
+    return (WG_ROWS + bn) * cbox + 16
+
+
+@functools.lru_cache(maxsize=None)
+def plan_conv(N: int, H: int, W: int, cin_p: int, cout: int, kh: int, kw: int, stride: int,
+              pad: int) -> ConvPlan:
+    """K11's host-side plan for an NHWC [N, H, W, cin_p] s8 input. Every
+    stride-1 "SAME" convolution with cout <= WG_MAX_COUT takes the wgmma
+    route: the pixel tile is whole rows of the image (Wt = W up to 128),
+    then rows (Ht), then images (Nt), at most WG_ROWS pixels, so one TMA box
+    per tap holds the tile's inputs at every hourglass level (8 x 4 x 4 at
+    4x4, 1 x 2 x 64 at 64x64, 1 x 1 x 128 at 128x128); N tiles of 64 or 128
+    columns (Cout 256: two, on neighbouring tiles); a channel box of 128
+    bytes where cin_p is a multiple of 128, else 64 (cin_p 48: the box's
+    tail is TMA's zero fill; on the card 128-byte boxes in a ring of 2
+    beat 64-byte ones in a ring of 4); the ring as deep as two blocks on an
+    SM allow (at most WG_MAX_STAGES)."""
+    cdiv = lambda a, b: -(-a // b)
+    ho, wo = (H + 2 * pad - kh) // stride + 1, (W + 2 * pad - kw) // stride + 1
+    if (stride == 1 and (ho, wo) == (H, W) and cin_p % CIN_ALIGN == 0
+            and cout <= WG_MAX_COUT):
+        wt = min(W, WG_ROWS)
+        ht = min(H, max(1, WG_ROWS // wt))
+        nt = min(N, max(1, WG_ROWS // (wt * ht)))
+        bn = min(128, 64 * cdiv(cout, 64))
+        n_cols = cdiv(cout, bn)
+        fits = lambda cb: (WG_SMEM - wg_smem(0, bn, cb, n_cols)) // wg_smem_stage(bn, cb)
+        cbox = 128 if cin_p % 128 == 0 and fits(128) >= 2 else 64
+        stages = min(WG_MAX_STAGES, fits(cbox))
+        if stages >= 2:  # (a ring of one stage would deadlock)
+            grid = (cdiv(N, nt) * cdiv(H, ht) * cdiv(W, wt), n_cols)
+            return ConvPlan("wgmma", (nt, ht, wt), cbox, bn, grid,
+                            wg_smem(stages, bn, cbox, n_cols), stages)
+    return ConvPlan("mma_sync", (0, 0, 0), 0, 0, (cdiv(N * ho * wo, 128), cdiv(cout, 64)), 0, 0)
+
+
+_ROUTES = {"mma_sync": 0, "wgmma": 1}
+_CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 
 
 def _int8_conv_cuda(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tensor,
@@ -109,20 +186,21 @@ def _int8_conv_cuda(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tens
            f"expected contiguous NHWC s8 codes, got {tuple(x.shape)} {x.dtype}")
     N, H, W, cin = x.shape
     Cout, KH, KW, cin_p = qc.wq.shape
-    _check(name, cin == qc.cin and qc.wq.dtype == torch.int8 and qc.wq.device == dev
+    _check(name, cin in (qc.cin, cin_p) and qc.wq.dtype == torch.int8 and qc.wq.device == dev
            and qc.wq.is_contiguous() and cin_p % CIN_ALIGN == 0,
            f"weights {tuple(qc.wq.shape)} {qc.wq.dtype} on {qc.wq.device} do not fit "
            f"input {tuple(x.shape)} on {dev}")
-    if cin != cin_p:
+    if cin != cin_p:  # codes not written CIN_ALIGN wide by K12 (the engine's are)
         x = F.pad(x, (0, cin_p - cin))
     e1, e2 = _vec(name, e1, Cout, dev), _vec(name, e2, Cout, dev)
     Ho, Wo = out_hw(H, W, qc)
     out = torch.empty((N, Ho, Wo, Cout), dtype=torch.int8 if out_s8 else torch.bfloat16,
                       device=dev)
+    plan = plan_conv(N, H, W, cin_p, Cout, KH, KW, qc.stride, qc.pad)
     fn = _build.entry("int8_conv", _CONV_ARGTYPES)
     err = fn(_build.ptr(x), _build.ptr(qc.wq), _build.ptr(e1), _build.ptr(e2), _build.ptr(out),
              N, H, W, cin_p, Cout, KH, KW, qc.stride, qc.pad, Ho, Wo, int(out_s8),
-             _build.stream())
+             _ROUTES[plan.route], *plan.tile, plan.cbox, plan.bn, plan.stages, _build.stream())
     _build.check(err, name)
     kcount.count("int8_conv")
     return out
@@ -142,70 +220,145 @@ def int8_conv(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tensor,
 
 # K12 ---------------------------------------------------------------------------
 _QUANT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+QUANT_MAX_C = 1024  # K12 stages its per-channel vectors in shared memory
 
 
-def op_dtype(x: torch.Tensor) -> torch.dtype:
-    """The dtype the quantize family computes in: x's own, bf16 for codes."""
-    return torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+class Deq(NamedTuple):
+    """An operand of K12's prologue, dequantized as bf16(q * s): NHWC s8
+    codes q and their scale s, an f32 [C] vector of bf16 values (a
+    per-tensor scale expanded)."""
+
+    q: torch.Tensor
+    s: torch.Tensor
 
 
-def int8_quant_plain(x: torch.Tensor, div: torch.Tensor | None, m: torch.Tensor | None = None,
-                     c: torch.Tensor | None = None):
-    """Plain K12 on an NHWC tensor (f32, bf16 or s8 codes): (raw codes
-    clip(rint(x / div)) or None, normalised codes clip(rint(max(x * m + c,
-    0))) or None), each operation in the op dtype."""
-    dt = op_dtype(x)
-    xd = x.to(dt)
+def op_dtype(x) -> torch.dtype:
+    """The dtype the quantize family computes in: x's own, bf16 for codes
+    and for a prologue."""
+    return torch.bfloat16 if isinstance(x, Deq) or x.dtype == torch.int8 else x.dtype
+
+
+def padded(c: int) -> int:
+    """Channels rounded up to K11's CIN_ALIGN."""
+    return -(-c // CIN_ALIGN) * CIN_ALIGN
+
+
+def prologue_plain(x, x2: Deq | None = None, add: torch.Tensor | None = None) -> torch.Tensor:
+    """K12's input: x itself (f32, bf16 or s8 codes), or for a `Deq` x the
+    sum bf16(q * s) [+ bf16(q2 * s2)] [+ add] left to right in bf16, `add` a
+    bf16 tensor of x's shape or an f32 [C] vector of bf16 values."""
+    if not isinstance(x, Deq):
+        if x2 is not None or add is not None:
+            raise ValueError("int8_quant: a prologue starts from a Deq operand")
+        return x
+    bf = torch.bfloat16
+    v = x.q.to(bf) * x.s.to(bf)
+    if x2 is not None:
+        v = v + x2.q.to(bf) * x2.s.to(bf)
+    if add is not None:
+        v = v + add.to(bf)
+    return v
+
+
+def int8_quant_plain(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
+                     c: torch.Tensor | None = None, *, x2: Deq | None = None,
+                     add: torch.Tensor | None = None, c_out: int | None = None):
+    """Plain K12 on an NHWC input (f32, bf16, s8 codes, or the prologue
+    `prologue_plain(x, x2, add)`): (raw codes clip(rint(x / div)) or None,
+    normalised codes clip(rint(max(x * m + c, 0))) or None), each operation
+    in the op dtype; both outputs c_out (default C) channels wide, zero
+    beyond C."""
+    xd = prologue_plain(x, x2, add)
+    dt = op_dtype(xd)
+    xd = xd.to(dt)
+    C = xd.shape[-1]
+    c_out = C if c_out is None else c_out
     raw = norm = None
     if div is not None:
         raw = torch.clamp(torch.round(xd / div.to(dt)), -127, 127).to(torch.int8)
     if m is not None:
         y = torch.relu(xd * m.to(dt) + c.to(dt))
         norm = torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+    if c_out != C:
+        raw, norm = (None if t is None else F.pad(t, (0, c_out - C)).contiguous()
+                     for t in (raw, norm))
     return raw, norm
 
 
-_QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6)
+_QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6)
 
 
-def _int8_quant_cuda(x: torch.Tensor, div: torch.Tensor | None, m: torch.Tensor | None = None,
-                     c: torch.Tensor | None = None):
+def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
+                     c: torch.Tensor | None = None, *, x2: Deq | None = None,
+                     add: torch.Tensor | None = None, c_out: int | None = None):
     name = "K12 int8_quant"
-    dev = x.device
-    _check(name, x.dtype in _QUANT_DTYPES and x.is_contiguous() and x.dim() >= 1,
-           f"expected a contiguous f32, bf16 or s8 tensor, got {x.dtype}")
-    _check(name, div is not None or m is not None, "no output requested")
-    _check(name, div is None or x.dtype != torch.int8, "s8 codes take no raw output")
-    C = x.shape[-1]
     null = ctypes.c_void_p(None)
+    p_s1 = p_x2 = p_s2 = p_add = p_addv = null
+    if isinstance(x, Deq):
+        xq = x.q
+        _check(name, xq.dtype == torch.int8 and xq.is_contiguous(),
+               f"a Deq operand holds contiguous s8 codes, got {xq.dtype}")
+        C = xq.shape[-1]
+        s1 = _vec(name, x.s, C, xq.device)  # kept alive until the launch
+        p_s1 = _build.ptr(s1)
+        if x2 is not None:
+            _check(name, x2.q.dtype == torch.int8 and x2.q.shape == xq.shape
+                   and x2.q.is_contiguous() and x2.q.device == xq.device,
+                   f"second operand {tuple(x2.q.shape)} {x2.q.dtype} does not fit "
+                   f"{tuple(xq.shape)}")
+            s2 = _vec(name, x2.s, C, xq.device)
+            p_x2, p_s2 = _build.ptr(x2.q), _build.ptr(s2)
+        if add is not None and add.dim() == 1:
+            add = _vec(name, add, C, xq.device)
+            p_addv = _build.ptr(add)
+        elif add is not None:
+            _check(name, add.dtype == torch.bfloat16 and add.shape == xq.shape
+                   and add.is_contiguous() and add.device == xq.device,
+                   f"the addend must be a contiguous bf16 {tuple(xq.shape)} tensor or an f32 "
+                   f"[C] vector, got {tuple(add.shape)} {add.dtype}")
+            p_add = _build.ptr(add)
+    else:
+        xq = x
+        _check(name, x2 is None and add is None, "a prologue starts from a Deq operand")
+        _check(name, xq.dtype in _QUANT_DTYPES and xq.is_contiguous() and xq.dim() >= 1,
+               f"expected a contiguous f32, bf16 or s8 tensor, got {xq.dtype}")
+        _check(name, div is None or xq.dtype != torch.int8, "s8 codes take no raw output")
+    dev = xq.device
+    _check(name, div is not None or m is not None, "no output requested")
+    C = xq.shape[-1]
+    c_out = C if c_out is None else c_out
+    _check(name, 0 < C <= QUANT_MAX_C and c_out >= C, f"C = {C}, c_out = {c_out}")
+    shape = tuple(xq.shape[:-1]) + (c_out,)
     raw = norm = None
     p_div = p_m = p_c = p_raw = p_norm = null
     if div is not None:
+        raw = torch.empty(shape, dtype=torch.int8, device=dev)
         div = _vec(name, div, C, dev)
-        raw = torch.empty(x.shape, dtype=torch.int8, device=dev)
         p_div, p_raw = _build.ptr(div), _build.ptr(raw)
     if m is not None:
         m, c = _vec(name, m, C, dev), _vec(name, c, C, dev)
-        norm = torch.empty(x.shape, dtype=torch.int8, device=dev)
+        norm = torch.empty(shape, dtype=torch.int8, device=dev)
         p_m, p_c, p_norm = _build.ptr(m), _build.ptr(c), _build.ptr(norm)
     fn = _build.entry("int8_quant", _QUANT_ARGTYPES)
-    err = fn(_build.ptr(x), _QUANT_DTYPES[x.dtype], x.numel(), C, p_div, p_m, p_c, p_raw,
-             p_norm, _build.stream())
+    err = fn(_build.ptr(xq), _QUANT_DTYPES[xq.dtype], p_s1, p_x2, p_s2, p_add, p_addv,
+             xq.numel() // C, C, c_out, p_div, p_m, p_c, p_raw, p_norm, _build.stream())
     _build.check(err, name)
     kcount.count("int8_quant")
     return raw, norm
 
 
-def int8_quant(x: torch.Tensor, div: torch.Tensor | None, m: torch.Tensor | None = None,
-               c: torch.Tensor | None = None):
-    """The quantize family (see `int8_quant_plain`): K12 on CUDA tensors, the
-    plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return int8_quant_plain(x, div, m, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"int8_quant: unsupported device {x.device}")
-    return _int8_quant_cuda(x, div, m, c)
+def int8_quant(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
+               c: torch.Tensor | None = None, *, x2: Deq | None = None,
+               add: torch.Tensor | None = None, c_out: int | None = None):
+    """The quantize family with its prologue (see `int8_quant_plain`): K12
+    on CUDA tensors, the plain version on CPU tensors."""
+    d = (x.q if isinstance(x, Deq) else x).device
+    if d.type == "cpu":
+        return int8_quant_plain(x, div, m, c, x2=x2, add=add, c_out=c_out)
+    if d.type != "cuda":
+        raise ValueError(f"int8_quant: unsupported device {d}")
+    return _int8_quant_cuda(x, div, m, c, x2=x2, add=add, c_out=c_out)
 
 
 # K13 ---------------------------------------------------------------------------

@@ -251,28 +251,45 @@ def _qconv(dev, cin, cout, k, stride=1):
 
 
 def test_k11_int8_conv(dev):
-    """Equal bf16 bits and s8 codes at the engine's kinds of shape: 1x1 and
-    3x3, Cout 41 (a partial tile), the prior's 41 input channels (padded to
-    48) in a 7x7 stride-2 convolution, pixels not a multiple of the tile."""
+    """Equal bf16 bits and s8 codes at the engine's kinds of shape, on both
+    routes: 1x1 and 3x3 at every hourglass width (64, 32, 16, 8, 4; the small
+    levels' tiles span several images) and at 128x128, Cout 41 (a partial N
+    tile, 82-byte bf16 rows), Cin 41 padded to 48 (a 64-byte channel box with
+    a zero-filled tail), pixels not a multiple of the tile (5x5, 9x9), the
+    concat stem's 7x7 stride-2 prior convolution (the mma.sync route), and a
+    3x3 128->128 at 128 crops of 64x64."""
     from suo_slam_tpu_torch.models import int8_kernels as ik
 
     g = torch.Generator(device=dev).manual_seed(9)
-    for cin, cout, k, stride, hw in ((128, 256, 1, 1, 16), (128, 128, 3, 1, 16),
-                                     (256, 41, 1, 1, 9), (41, 64, 7, 2, 32), (64, 64, 3, 1, 5)):
+    cases = [(128, 256, 1, 1, 16, 2), (128, 128, 3, 1, 16, 2), (256, 41, 1, 1, 9, 2),
+             (41, 64, 7, 2, 32, 2), (64, 64, 3, 1, 5, 2), (48, 256, 1, 1, 16, 3),
+             (64, 64, 3, 1, 128, 1), (64, 128, 1, 1, 128, 1), (128, 128, 3, 1, 64, 128)]
+    cases += [(cin, cout, k, 1, hw, 8) for hw in (64, 32, 16, 8, 4)
+              for cin, cout, k in ((256, 128, 1), (128, 128, 3), (128, 256, 1))]
+    routes = set()
+    for cin, cout, k, stride, hw, n in cases:
         qc = _qconv(dev, cin, cout, k, stride)
-        x = torch.randint(-127, 128, (2, hw, hw, cin), device=dev, generator=g,
+        x = torch.randint(-127, 128, (n, hw, hw, cin), device=dev, generator=g,
                           dtype=torch.int32).to(torch.int8)
+        if cin % ik.CIN_ALIGN:  # as K12 writes it: zero channels up to Cin_p
+            x = torch.nn.functional.pad(x, (0, ik.padded(cin) - cin))
         e1 = (torch.rand(cout, device=dev, generator=g) * 1e-3).to(torch.bfloat16).float()
         e2 = torch.randn(cout, device=dev, generator=g).to(torch.bfloat16).float()
+        routes.add(ik.plan_conv(n, hw, hw, qc.wq.shape[-1], cout, k, k, stride, k // 2).route)
         for out_s8 in (False, True):
             a = ik.int8_conv(x, qc, e1, e2, out_s8)
             b = ik.int8_conv_plain(x, qc, e1, e2, out_s8)
-            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (cin, k)
+            torch.cuda.synchronize()
+            assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), (
+                cin, cout, k, hw, n, out_s8)
+    assert routes == {"wgmma", "mma_sync"}
 
 
 def test_k12_int8_quant(dev):
     """Equal codes for f32, bf16 and s8 inputs, per-tensor and per-channel
-    divisors, raw, normalised and both outputs."""
+    divisors, raw, normalised and both outputs; every prologue (one or two
+    s8 operands, a bf16 tensor or [C] vector addend) and the padded output
+    (41 channels written 48 wide, f32 and bf16 input)."""
     from suo_slam_tpu_torch.models import int8_kernels as ik
 
     g = torch.Generator(device=dev).manual_seed(10)
@@ -293,6 +310,33 @@ def test_k12_int8_quant(dev):
                 for a, b in zip(ik.int8_quant(x, *args), ik.int8_quant_plain(x, *args)):
                     assert (a is None) == (b is None)
                     assert a is None or torch.equal(a, b), (x.dtype, len(args))
+    bf = lambda t: t.to(torch.bfloat16).float()
+    for C, shape in ((256, (8, 16, 16)), (48, (2, 7, 9)), (128, (3, 5, 5))):
+        q1, q2 = (torch.randint(-127, 128, shape + (C,), device=dev, generator=g,
+                                dtype=torch.int32).to(torch.int8) for _ in range(2))
+        s1 = bf(torch.rand(C, device=dev, generator=g) * 0.05 + 0.001)
+        s2 = bf(torch.full((C,), 0.02, device=dev))
+        t = (torch.randn(shape + (C,), device=dev, generator=g) * 2).to(torch.bfloat16)
+        v = bf(torch.randn(C, device=dev, generator=g))
+        div = bf(torch.rand(C, device=dev, generator=g) * 0.05 + 0.01)
+        m = bf(torch.randn(C, device=dev, generator=g) * 20)
+        c = bf(torch.randn(C, device=dev, generator=g) * 5)
+        for kw in (dict(), dict(add=t), dict(add=v), dict(x2=ik.Deq(q2, s2)),
+                   dict(x2=ik.Deq(q2, s2), add=t)):
+            for args in ((div,), (div, m, c)):
+                a = ik.int8_quant(ik.Deq(q1, s1), *args, **kw)
+                b = ik.int8_quant_plain(ik.Deq(q1, s1), *args, **kw)
+                torch.cuda.synchronize()
+                for u, w in zip(a, b):
+                    assert (u is None) == (w is None)
+                    assert u is None or torch.equal(u, w), (C, sorted(kw), len(args))
+    for x in (torch.rand(8, 64, 64, 41, device=dev, generator=g),
+              (torch.randn(8, 64, 64, 41, device=dev, generator=g) * 3).to(torch.bfloat16)):
+        div = torch.full((41,), 1 / 127, device=dev).to(x.dtype).float()
+        a, _ = ik.int8_quant(x, div, c_out=48)
+        b, _ = ik.int8_quant_plain(x, div, c_out=48)
+        torch.cuda.synchronize()
+        assert a.shape == (8, 64, 64, 48) and torch.equal(a, b) and not a[..., 41:].any()
 
 
 def test_k13_int8_pool_junction(dev):

@@ -15,6 +15,11 @@
   bf16-vs-f32 gap (largest and mean absolute error), and against JAX's bf16
   within twice that gap (the triangle inequality). The f32 nets agree within
   2e-4 as in test_torch_pkpnet.py.
+- Gradients after an inference call: a net first called under
+  `torch.inference_mode`, then with autograd on, gives the convolutions'
+  weights and the norms' scale / bias the gradients of a net that was never
+  called before (the weight cast and the norm affine are made in the graph
+  while autograd records the parameters, and cached only outside it).
 - The call counts per forward of the full architecture (2 stacks x 2 modules,
   depth 4): 180 norm-ReLU passes (59 residuals x 3, the stem, 2 ll norms) and
   8 upsample-adds (4 levels x 2 stacks).
@@ -59,7 +64,7 @@ def test_norm_relu_plain_matches_jax_norm_then_relu(dt):
     xt = _to_torch(x, dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
     out = m(xt)
     assert out.dtype == dt and out.is_contiguous(memory_format=torch.channels_last)
-    got = out.permute(0, 2, 3, 1).float().numpy()
+    got = out.permute(0, 2, 3, 1).float().detach().numpy()  # the affine is in the graph
     want = np.asarray(ref.astype(jnp.float32))
     # f32: the same product and sum (XLA may contract them, 1 ulp); bf16: one
     # rounding of that f32 value, at most 1 bf16 ulp apart
@@ -139,3 +144,45 @@ def test_launches_per_forward_of_the_full_architecture(monkeypatch):
         out = net(torch.rand(2, 64, 64, 3))
     assert calls == {"norm_relu": 180, "upsample_add": 8}
     assert torch.isfinite(out.uv).all() and out.uv.dtype == torch.float32
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_gradients_after_an_inference_mode_call(dt):
+    torch.manual_seed(0)
+    kw = dict(n_stack=2, n_modules=1, features=8, dtype=dt)
+    net = PkpNet(**kw)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, thg.MaskedBatchNorm):
+                m.mean.normal_(0, 0.1)
+                m.var.uniform_(0.5, 1.5)
+                m.scale.uniform_(0.5, 1.5)
+                m.bias.normal_(0, 0.1)
+    fresh = PkpNet(**kw)
+    fresh.load_state_dict(net.state_dict())
+    x, prior = torch.rand(2, 64, 64, 3), torch.rand(2, 16, 16, 41)
+    with torch.inference_mode():
+        before = net.backbone_logits(x, prior)
+
+    def grads(m):
+        m.zero_grad(set_to_none=True)
+        loss = sum(o.float().square().mean() for o in m.backbone_logits(x, prior))
+        loss.backward()
+        return {n: p.grad for n, p in m.named_parameters()}
+
+    got, want = grads(net), grads(fresh)
+    checked = 0
+    for name, g in want.items():
+        if name.endswith(("weight", ".scale", ".bias")) and "classifier" not in name:
+            assert g is not None and got[name] is not None, name
+            assert torch.equal(got[name], g), name
+            checked += 1
+    assert checked > 100 and any(n.endswith(".scale") for n in want)
+    # inference is unchanged: the same bits, and one cast per weight update
+    with torch.inference_mode():
+        again = net.backbone_logits(x, prior)
+        casts = {m: m._cast_cache for m in net.modules() if hasattr(m, "_cast_cache")}
+        net.backbone_logits(x, prior)
+    assert all(torch.equal(a, b) for a, b in zip(before, again))
+    assert all(m._cast_cache is c for m, c in casts.items())
+    assert (len(casts) > 0) == (dt == torch.bfloat16)

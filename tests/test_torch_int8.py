@@ -225,6 +225,166 @@ def test_engine_operation_matches_jax(name):
     assert any(len(np.unique(t.to(torch.float32).numpy())) > 8 for _, t in outs)
 
 
+def _prologue_case(site, C):
+    """One prologue site of the traversal in both engines: JAX's eager
+    dequantize-and-add feeding quant / quant_pair, the port's `sum` formed
+    by K12's prologue (its plain version here)."""
+    rng = np.random.default_rng(C + sum(map(ord, site)))
+    shape = (2, 8, 8, C)
+    bf = jnp.bfloat16
+    s_pc = (rng.uniform(0.005, 0.05, C)).astype(f32)
+    s_pt = f32(0.03)
+    qa_j, qa_t = _qt(_codes(rng, shape), s_pt if site == "residual_pt" else s_pc)
+    y = (rng.normal(size=shape) * 2).astype(f32)
+    yj, yt = jnp.asarray(y).astype(bf), _t(y).to(torch.bfloat16)
+    absmax = lambda v, pc: (np.abs(np.asarray(v, f32)).max(axis=(0, 1, 2)) * 0.8 if pc
+                            else f32(np.abs(np.asarray(v, f32)).max() * 0.8)).astype(f32)
+
+    def engines(*scales):
+        return (ji8._Int8Engine(tuple(jnp.asarray(v) for v in scales)),
+                ti8._Int8Engine(tuple(_t(v) for v in scales)))
+
+    if site.startswith("residual"):  # skip + y, into a quant_pair (pc) or quant
+        v = np.asarray((ji8._Int8Engine(()).dequant(qa_j) + yj).astype(jnp.float32))
+        if site == "residual_pc":
+            norm, a, b = _norm(rng, C)
+            ej, et = engines(absmax(v, True), absmax(np.maximum(v, 0), False))
+            j = ej.quant_pair(ej.dequant(qa_j) + yj, a, b, pc=True)
+            t = et.quant_pair(et.sum(qa_t, yt), norm, pc=True)
+            return [(j[0].q, t[0].q), (j[1].q, t[1].q)]
+        ej, et = engines(absmax(v, False))
+        return [(ej.quant(ej.dequant(qa_j) + yj).q, et.quant(et.sum(qa_t, yt)).q)]
+    if site == "projection":  # dequant(quant(conv_raw)) + skip
+        ej, et = engines(absmax(y, False), absmax(2 * y, False))
+        sk = (rng.normal(size=shape)).astype(f32)
+        skj, skt = jnp.asarray(sk).astype(bf), _t(sk).to(torch.bfloat16)
+        yq_j, yq_t = ej.quant(yj), et.quant(yt)
+        return [(yq_j.q, yq_t.q), (ej.quant(skj + ej.dequant(yq_j)).q,
+                                   et.quant(et.sum(yq_t, skt)).q)]
+    if site == "per_tensor":  # quant(dequant(per-channel act))
+        v = ji8._Int8Engine(()).dequant(qa_j)
+        ej, et = engines(absmax(v, False))
+        return [(ej.quant(ej.dequant(qa_j)).q, et.quant(et.sum(qa_t)).q)]
+    if site.startswith("injection"):  # dequant(act) + conv_raw(prior) or + bias
+        norm, a, b = _norm(rng, C)
+        if site == "injection_prior":
+            addj, addt = yj, yt
+        else:
+            conv, p = _conv(rng, 41, C, 1)
+            addj = jnp.asarray(p["bias"]).astype(bf)
+            addt = ti8._Int8Engine(()).conv_bias(conv, qa_t)
+        v = np.asarray((ji8._Int8Engine(()).dequant(qa_j) + addj).astype(jnp.float32))
+        ej, et = engines(absmax(v, True), absmax(np.maximum(v, 0), False))
+        j = ej.quant_pair(ej.dequant(qa_j) + addj, a, b, pc=True)
+        t = et.quant_pair(et.sum(qa_t, addt), norm, pc=True)
+        return [(j[0].q, t[0].q), (j[1].q, t[1].q)]
+    if site == "junction":  # dequant(act) + dequant(ll_q) + tmp
+        norm, a, b = _norm(rng, C)
+        lj, lt = _qt(_codes(rng, shape), f32(0.02))
+        v = np.asarray((ji8._Int8Engine(()).dequant(qa_j) + ji8._Int8Engine(()).dequant(lj)
+                        + yj).astype(jnp.float32))
+        ej, et = engines(absmax(v, True), absmax(np.maximum(v, 0), False))
+        j = ej.quant_pair(ej.dequant(qa_j) + ej.dequant(lj) + yj, a, b, pc=True)
+        t = et.quant_pair(et.sum(qa_t, lt, yt), norm, pc=True)
+        return [(j[0].q, t[0].q), (j[1].q, t[1].q)]
+    raise AssertionError(site)
+
+
+@pytest.mark.parametrize("C", [16, 48, 64])
+@pytest.mark.parametrize("site", ["residual_pc", "residual_pt", "projection", "per_tensor",
+                                  "injection_prior", "injection_bias", "junction"])
+def test_prologue_site_matches_jax(site, C):
+    """Each traversal site whose dequantize-and-add K12's prologue forms
+    (`int8_forward.py` `_residual`, `_per_tensor`, the post-stem injection
+    with and without a prior, the 3-way junction): equal codes."""
+    outs = _prologue_case(site, C)
+    for j, t in outs:
+        _same(j, t)
+    assert all(len(np.unique(t.numpy())) > 8 for _, t in outs)
+
+
+def test_padded_quant_and_sum_refusals():
+    """A padded quantize writes zero codes beyond C; `sum` takes one or two
+    activations, then at most one addend."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.normal(size=(2, 4, 4, 41)))
+    eng = ti8._Int8Engine((_t(f32(2.0)), _t(f32(2.0))))
+    q = eng.quant(x, pad=True).q
+    assert q.shape == (2, 4, 4, 48) and not q[..., 41:].any()
+    assert torch.equal(q[..., :41], eng.quant(x).q)
+    qa = ti8.QT(torch.zeros((2, 4, 4, 41), dtype=torch.int8), _t(f32(0.1)))
+    for bad in ((x,), (qa, x, x), (qa, qa, qa), (qa, x, qa)):
+        with pytest.raises(ValueError, match="int8 sum"):
+            eng.sum(*bad)
+
+
+def _bf16_from_f32(f):
+    """f32 array -> f32 array rounded to bf16, nearest even (finite values)."""
+    u = f.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def _bf16_from_f64(d):
+    """Exact f64 values -> bf16, one rounding to nearest even (as f64)."""
+    u = d.view(np.uint64)
+    low = np.uint64((1 << 45) - 1)
+    return ((u + (low >> np.uint64(1)) + ((u >> np.uint64(45)) & np.uint64(1))) & ~low).view(
+        np.float64)
+
+
+def test_bf16x2_and_magic_conversions_match_the_plain_arithmetic():
+    """The arithmetic K11's wgmma epilogue and K12 rely on for bit-equality
+    with their plain versions (f32 operations rounded to bf16): a bf16 sum or
+    product rounded once (`add.rn.bf16x2`, `mul.rn.bf16x2`) equals the f32
+    one rounded to bf16 (f32 has p' = 24 >= 2p + 2 bits for bf16's p = 8);
+    bf16(x * RN(1/d)) equals bf16(x / d) for bf16 x, d; for f32 operands
+    x * RN(1/d) has the rint of x / d outside 2^-10 of a half-integer; the
+    magic-number conversions (s32 and s8 codes to f32, clip-and-rint by an
+    add of 1.5 * 2^23) are exact."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+
+    def bf16s(lo, hi):
+        m = rng.integers(128, 256, n) * rng.choice([-1, 1], n)
+        return (m * 2.0 ** (rng.integers(lo, hi, n) - 7)).astype(np.float32)
+
+    a, b = bf16s(-20, 20), bf16s(-20, 20)
+    close = _bf16_from_f32((a * (1 + rng.integers(-300, 300, n) / 256)).astype(np.float32))
+    for x, y in ((a, b), (a, close)):  # exponents far apart, and cancelling sums
+        exact = _bf16_from_f64(x.astype(np.float64) + y.astype(np.float64))
+        assert np.array_equal(exact, _bf16_from_f32(x + y).astype(np.float64))
+    exact = _bf16_from_f64(a.astype(np.float64) * b.astype(np.float64))
+    assert np.array_equal(exact, _bf16_from_f32(a * b).astype(np.float64))
+
+    x, d = bf16s(-12, 12), np.abs(bf16s(-12, 4))
+    r = np.float32(1) / d
+    assert np.array_equal(_bf16_from_f32(x * r), _bf16_from_f32(x / d))
+
+    x = (rng.standard_normal(n) * 60).astype(np.float32)
+    d = (rng.random(n) * 2 + 1e-3).astype(np.float32)
+    x = np.where(rng.random(n) < 0.3, (np.round(x) + 0.5).astype(np.float32) * d, x)
+    x = x.astype(np.float32)
+    q = x * (np.float32(1) / d)
+    t = np.clip(q, -128, 128).astype(np.float32)
+    k = (t + np.float32(12582912)).astype(np.float32) - np.float32(12582912)
+    near = np.abs(np.abs(t - k) - np.float32(0.5)) < 2.0 ** -10
+    codes = lambda v: np.clip(np.rint(v), -127, 127)
+    assert near.any() and not np.array_equal(codes(q), codes(x / d))  # the band is needed
+    assert np.array_equal(codes(np.where(near, x / d, q)), codes(x / d))
+
+    v = np.concatenate([(rng.random(n) * 300 - 150).astype(np.float32),
+                        np.arange(-255, 256, dtype=np.float32) / 2])
+    magic = (np.clip(v, -127, 127).astype(np.float32) + np.float32(12582912)).astype(np.float32)
+    low = (magic.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    assert np.array_equal(low.astype(np.float64), codes(v))
+    s32 = rng.integers(-(1 << 22), 1 << 22, n).astype(np.int64)
+    f = (s32 + 0x4B400000).astype(np.uint32).view(np.float32) - np.float32(12582912)
+    assert np.array_equal(f.astype(np.float64), s32.astype(np.float64))
+    s8 = np.arange(-128, 128)
+    f = (0x4B000000 | (s8 + 128)).astype(np.uint32).view(np.float32) - np.float32(8388736)
+    assert np.array_equal(f, s8.astype(np.float32)) and not (f.view(np.uint32) & 0xFFFF).any()
+
+
 def test_s32_to_bf16_rounds_once():
     """Integers past 2^24 (the 7x7 prior convolution's sums reach 3.2e7):
     one round to nearest even, not f32 then bf16."""
@@ -290,6 +450,57 @@ def test_calibration_structure_matches_jax(post_stem):
     for a, b in zip(scales, mine):
         a = np.asarray(a)
         np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-5 * np.abs(a).max())
+
+
+@pytest.mark.parametrize("crops", [8, 128])
+def test_k11_plan_takes_every_forward_convolution_to_wgmma(crops, monkeypatch):
+    """K11's host planner (`int8_kernels.plan_conv`) on every convolution of
+    the full-width forward (2 stacks x 2 modules x 256 features, 256x256
+    crops; the traversal on the meta device): each stride-1 convolution of
+    both prior modes takes the wgmma route with N tiles of 64 or 128
+    columns, a pixel tile of whole rows (1 x 1 x 128 at 128x128 down to
+    8 x 4 x 4 at 4x4), a channel box of 128 bytes where Cin allows, else
+    64, a ring of 2 to 6 stages, as deep as two blocks on an SM (228 KB)
+    allow; the
+    concat stem's 7x7 stride-2 prior convolution takes the mma.sync route."""
+    seen = []
+    orig = ti8._CalibEngine.conv_raw
+
+    def spy(self, act, conv, cin_lo=0):
+        seen.append((tuple(act.x.shape), conv, cin_lo))
+        return orig(self, act, conv, cin_lo)
+
+    monkeypatch.setattr(ti8._CalibEngine, "conv_raw", spy)
+    tiles = {128: (1, 1, 128), 64: (1, 2, 64), 32: (1, 4, 32), 16: (1, 8, 16), 8: (2, 8, 8),
+             4: (8, 4, 4)}
+    for mode in ("post_stem", "concat"):
+        seen.clear()
+        with torch.device("meta"):
+            net = PkpNet(n_stack=2, n_modules=2, features=256, prior_mode=mode)
+            hw = net.prior_hw((256, 256))
+            ti8._traverse(ti8._CalibEngine(), net, torch.zeros((crops, 256, 256, 3)),
+                          torch.zeros((crops,) + hw + (41,)))
+        assert len(seen) == 186  # the prior convolution: post_stem's 1x1, concat's 7x7
+        routes = {}
+        for (n, h, w, _), conv, lo in seen:
+            cout, cin, kh, kw = conv.weight.shape
+            cin_p = ik.padded(cin - lo)
+            plan = ik.plan_conv(n, h, w, cin_p, cout, kh, kw, conv.stride[0], conv.padding[0])
+            routes[plan.route] = routes.get(plan.route, 0) + 1
+            if lo:  # the concat stem's prior half
+                assert (plan.route, kh, conv.stride[0]) == ("mma_sync", 7, 2)
+                continue
+            assert plan.route == "wgmma" and plan.tile == tiles[w], (n, h, w, cin, cout, kh)
+            assert plan.cbox == (128 if cin_p % 128 == 0 else 64)
+            assert plan.bn == min(128, -(-cout // 64) * 64) and plan.grid[1] * plan.bn >= cout
+            assert plan.smem <= ik.WG_SMEM and plan.smem + 1024 <= 228 * 1024 // 2  # 2 per SM
+            assert 2 <= plan.stages <= ik.WG_MAX_STAGES
+            assert plan.smem + ik.wg_smem_stage(plan.bn, plan.cbox) > ik.WG_SMEM or (
+                plan.stages == ik.WG_MAX_STAGES)  # the ring is as deep as fits
+            nt, ht, wt = plan.tile
+            assert nt * ht * wt == ik.WG_ROWS and plan.grid[0] * ik.WG_ROWS == n * h * w
+        assert routes == ({"wgmma": 186} if mode == "post_stem"
+                          else {"wgmma": 185, "mma_sync": 1})
 
 
 def test_launches_per_forward_of_the_full_architecture(monkeypatch):
