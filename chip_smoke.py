@@ -10,8 +10,10 @@ Phases (any failure raises and exits non-zero):
   2. build: every `suo_slam_tpu_torch/csrc/*.cu` with nvcc (one process per
      source, in parallel) and the seconds it took; the count of IGMMA (s8
      `wgmma`) instructions in K11's SASS, where the toolkit has cuobjdump;
-  3. kernels: K1-K10 against their plain PyTorch versions on the same CUDA
-     inputs at the main paths' shapes, with the stated tolerances; kernel,
+  3. kernels: K1-K10 and K14 against their plain PyTorch versions on the same CUDA
+     inputs at the main paths' shapes, with the stated tolerances (K14, the
+     whole LM schedule of `ba.optimize` in one launch: one iteration against
+     one eager iteration with K4 + K7, which stay off the main path); kernel,
      plain and library times (median of CUDA-event timings; the library
      yardsticks' device time from torch.profiler beside them) and each
      kernel's bound on an H100 (bytes at 3.35 TB/s or f32 operations at
@@ -25,7 +27,8 @@ Phases (any failure raises and exits non-zero):
      statistics) in `ObjectSlam(single_view_mode=True)` over synthetic
      480x640 views with 8 objects each, `reset()` before every view as
      `evaluate.py --nviews 1` does: per-view latency and per-stage times;
-     the launch counters of K1-K4 must rise; the prior-free network path is
+     the launch counters of K1-K3 and K14 must rise, K4's and K7's stay 0;
+     the prior-free network path is
      held against the same net on the CPU for two crops; one more view runs
      under torch.profiler;
   5. solver check: the same engine with an injected ground-truth inference
@@ -42,10 +45,16 @@ Phases (any failure raises and exits non-zero):
      init, the priors, re-init and both BAs do real work, as trained
      weights would. The view capacity grows 16 -> 32, global BA runs at
      frames 10 and 20 and in `collect_results(final=True)`. Every counter
-     K1-K7 must rise; the camera trajectory error and ADD < 0.1 d for >= 90%
-     of the (frame, object) poses; the with-prior program against the CPU
-     for two crops (1e-3). Prints per-frame latency, tracking and global BA
-     ms, launches per frame, and a torch.profiler summary of one frame;
+     K1-K3, K5, K6 and K14 must rise and K4's and K7's stay 0 (K14: one
+     launch per tracking BA and per global BA); the camera trajectory error
+     and ADD < 0.1 d for >= 90% of the (frame, object) poses; the
+     with-prior program against the CPU for two crops (1e-3); the global
+     (V = 32) and tracking BA problems through K14, the eager schedule with
+     K4 + K7 and with the plain versions, and f64 on the CPU (`compare_ba`).
+     Prints per-frame latency, tracking (K14 and the eager K4 + K7
+     schedule) and global BA ms, launches per frame, and a torch.profiler
+     summary of one frame with its launches (K14 1, K4 and K7 0, no
+     cholesky) and the sum of its K8 / K9 calls' bounds;
   7. the evaluation entry point: a BOP tree written here (one scene of 12
      480x640 views with the YCB-V intrinsics, 8 objects with keypoint
      configs and 6000-point PLY models, PNGs from this script's own writer)
@@ -76,9 +85,9 @@ Phases (any failure raises and exits non-zero):
      int8=True)` to its end; a 6-frame SLAM run with
      `SlamConfig(int8_inference=True, int8_calib_frames=2)` under phase 6's
      ground-truth wrapper (the with-prior int8 program and K5);
-  9. the kernels JSON line (K1-K7's launches from the SLAM path, K8-K10's
-     from the evaluation phase, K11-K13's from the int8 phase's evaluation
-     and SLAM runs), the nvidia-smi line, and the last line
+  9. the kernels JSON line (K1-K7's and K14's launches from the SLAM path,
+     K8-K10's from the evaluation phase, K11-K13's from the int8 phase's
+     evaluation and SLAM runs), the nvidia-smi line, and the last line
      {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package; its scenes are made
@@ -104,7 +113,8 @@ H_IMG, W_IMG = 480, 640
 YCBV_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0.0, 1.0]])
 N_OBJ = 8
 NK = 41
-SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_hypotheses", "ba_edges")
+SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_hypotheses", "ba_lm")
+OFF_PATH_KERNELS = ("ba_edges", "ba_schur")  # K4, K7: checked in phase 3, off the main path
 EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
 INT8_KERNELS = ("int8_conv", "int8_quant", "int8_pool_junction")  # from the int8 phase
 
@@ -417,9 +427,10 @@ def check_k3(dev, rng, objs):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
 
 
-def _ba_problem(dev, rng, objs, V=16):
+def _ba_problem(dev, rng, objs, V=16, obj_noise=5.0, cam_noise=0.0):
     """The engine's single-view BA problem: capacity V x 8 x 41, one active
-    view, objects at perturbed poses, NDC measurements with info 1e4 I."""
+    view, objects at poses perturbed by N(0, obj_noise) mm (the camera by
+    N(0, cam_noise) mm), NDC measurements with info 1e4 I."""
     import torch
 
     from suo_slam_tpu_torch.slam.engine import _fix_K_np
@@ -437,13 +448,14 @@ def _ba_problem(dev, rng, objs, V=16):
     valid = np.zeros((V, N_OBJ, NK), bool)
     valid[0] = objs.masks
     obj_T = T.copy()
-    obj_T[:, :3, 3] += rng.normal(scale=5.0, size=(N_OBJ, 3))
+    obj_T[:, :3, 3] += rng.normal(scale=obj_noise, size=(N_OBJ, 3))
+    cam_T = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    cam_T[0, :3, 3] += rng.normal(scale=cam_noise, size=3)
     cam_active = np.zeros((V,), bool)
     cam_active[0] = True
     t = lambda a: torch.as_tensor(a).to(dev)
     return ba.BAProblem(
-        cam_T=t(np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))),
-        obj_T=t(obj_T.astype(np.float32)), uv=t(uv), info=t(info),
+        cam_T=t(cam_T), obj_T=t(obj_T.astype(np.float32)), uv=t(uv), info=t(info),
         model_kp=t(objs.model_kps), cam_k=t(k4), valid=t(valid), inliers=t(valid),
         cam_active=t(cam_active), obj_active=t(np.ones((N_OBJ,), bool)),
     )
@@ -755,6 +767,103 @@ def check_k7(dev, scene):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
 
 
+def _steps(r, p):
+    """The f64 left steps log(T_out T_in^-1) of a BA result's cameras and
+    objects against its problem's poses."""
+    from suo_slam_tpu_torch.core import lie
+
+    d = lambda a, b: lie.se3_log(a.double() @ lie.invert_SE3(b.double()))
+    return d(r.cam_T, p.cam_T), d(r.obj_T, p.obj_T)
+
+
+def lm_bound(p, iters, tracking):
+    """K14's bound for one call on problem p that ran `iters` LM iterations
+    per round: each input read once and each output written once, against
+    the f32 operations of this run's iterations, rounds and classifications.
+    Per edge and iteration: ~130 for the projection, chi2, Huber weight,
+    Jacobian and weighted rows, 4 per H / g sum (27 tracking, 90 global),
+    ~45 for the trial chi2; the Schur solve as K7 counts it (its 6x6
+    factors, column solves, reduction to S, S's factor and back-substitution);
+    ~45 per edge for each classification."""
+    V, O, K = p.valid.shape
+    E, R = V * O * K, len(iters)
+    n_it, n_rnd = sum(iters), sum(1 for i in iters if i > 0)
+    n_o = 0 if tracking else 6 * O
+    solve = V * (300 + (n_o + 1) * 80) + (n_o * n_o + n_o) * V * 12 + n_o ** 3 // 3 \
+        + 2 * n_o * n_o + V * (12 * n_o + 80) + (V + O) * 150
+    per_it = E * (130 + 4 * (27 if tracking else 90) + 45) + solve
+    flops = n_it * per_it + (n_rnd + 2) * E * 45 + n_rnd * (V + O) * 100
+    in_bytes = V * 64 + O * 64 + E * (8 + 16 + 1) + O * K * 12 + V * O * 16 + 2 * (V + O)
+    out_bytes = V * 64 + O * 64 + E + 8 * (1 + R) + 4
+    return bound(in_bytes + out_bytes, flops)
+
+
+def k14_first_step(p):
+    """One iteration of one round of K14 on problem p (objects free, every
+    valid edge an inlier to start with, the first camera the gauge) against
+    one eager iteration with K4 + K7 from the same damping 1e-5, each step
+    (the f64 log of T_out T_in^-1) measured against the f64 step of the
+    plain schedule on the CPU in units of its 6-block's largest |entry|.
+    Raises unless K14's error is at most twice K4 + K7's (or 1e-4: K7's gate
+    at this damping, where the f32 step of a single-view problem moves by
+    ~3e-4 of its scale under another summation order), the inlier masks are
+    equal and each ran one iteration. Returns K14's error."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import ba
+
+    one = dict(iters_per_round=(1,), tracking_only=False, fix_first_cam=True,
+               init_with_outliers=True)
+    rk, itk = ba._ba_lm_cuda(p, **one)
+    re, ite = ba._optimize_eager(p, use_kernels=True, **one)
+    torch.cuda.synchronize()
+    p64 = ba.BAProblem(*[None if a is None else a.cpu().double() if a.is_floating_point()
+                         else a.cpu() for a in p])
+    s64 = _steps(ba._optimize_eager(p64, **one)[0], p64)
+    sk, se = _steps(rk, p), _steps(re, p)
+    s64 = tuple(a.to(sk[0].device) for a in s64)
+    ek, ee = max(k7_scaled_errors(sk, s64)), max(k7_scaled_errors(se, s64))
+    same = torch.equal(rk.inliers, re.inliers)
+    log(f"[kernel] K14 one iteration (V={p.uv.shape[0]}): scaled step errors against the f64 "
+        f"step K14 {ek:.3e}, eager K4 + K7 {ee:.3e} (gate: K14 <= max(2 x K4 + K7, 1e-4)); "
+        f"K14 against K4 + K7 {max(k7_scaled_errors(sk, se)):.3e}; max |d_obj| "
+        f"{s64[1].abs().max().item():.3e}; inliers equal {same}; iterations {itk.tolist()} / "
+        f"{ite}")
+    if not (ek <= max(2 * ee, 1e-4) and same and itk.tolist() == [1] and ite == [1]
+            and s64[1].abs().max().item() > 0):
+        raise AssertionError(f"K14's first iteration disagrees with K4 + K7: {ek} vs {ee}, {same}")
+    return ek
+
+
+def check_k14(dev, rng, objs):
+    """K14, the whole LM schedule in one launch. Gate: `k14_first_step` on
+    the engine's single-view problem (V = 16, objects 5 mm off). Timed on
+    the tracking problem (V = 1, every object fixed, the camera 0.3 mm off,
+    rounds (10, 10, 10, 10)): K14, the eager schedule with its plain
+    versions (plain ms) and with K4 + K7 (the schedule K14 replaced), device
+    time per call and per iteration."""
+    from suo_slam_tpu_torch.solvers import ba
+
+    err = k14_first_step(_ba_problem(dev, rng, objs))
+    pt = _ba_problem(dev, rng, objs, V=1, obj_noise=0.0, cam_noise=0.3)
+    trk = dict(iters_per_round=(10, 10, 10, 10), tracking_only=True, fix_first_cam=False)
+    _, it_t = ba._ba_lm_cuda(pt, **trk)
+    it_t = it_t.tolist()
+    ms = cuda_ms(lambda: ba._ba_lm_cuda(pt, **trk))
+    plain_ms = cuda_ms(lambda: ba._optimize_eager(pt, **trk), n=3, inner=2, warmup=1)
+    eager_ms = cuda_ms(lambda: ba._optimize_eager(pt, use_kernels=True, **trk), n=3, inner=2,
+                       warmup=1)
+    us, src = device_us(lambda: ba._ba_lm_cuda(pt, **trk), "ba_lm_kernel")
+    b = lm_bound(pt, it_t, True)
+    _report(f"K14 ba_lm (tracking V=1, iterations {it_t}, device {us:.3f} us by {src}, "
+            f"{us / max(1, sum(it_t)):.3f} us per iteration; the eager K4 + K7 schedule "
+            f"{eager_ms:.4f} ms)", err, "2x K4 + K7's scaled step error (one iteration)", ms,
+            plain_ms, None, b)
+    return dict(name="ba_lm", route="cuda", source="suo_slam_tpu_torch/csrc/ba_lm.cu",
+                replaces="suo_slam_tpu/solvers/ba.py:456", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+
+
 def _views(rng, objs, n):
     return [make_view(rng, objs) for _ in range(n)]
 
@@ -829,7 +938,8 @@ def profile_run(run, per_ms, label):
     kernels, its share of the unprofiled latency `per_ms`, the number of
     kernels, the PyTorch operations that hold the most device time, and the
     device time per launch of each of the port's kernels (without the host
-    time of its wrapper, which `cuda_ms` includes)."""
+    time of its wrapper, which `cuda_ms` includes). Returns the trace's key
+    averages, or None when the tracer lost the session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -842,7 +952,7 @@ def profile_run(run, per_ms, label):
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     if busy_ms <= 0:  # the tracer lost the session; the run itself is not repeated
         log(f"[profile] {label}: the trace holds no device time (not measured)")
-        return
+        return None
     ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
                   and e.self_device_time_total > 0),
                  key=lambda e: e.self_device_time_total, reverse=True)[:10]
@@ -858,6 +968,7 @@ def profile_run(run, per_ms, label):
         mine[name] = [round(sum(e.self_device_time_total for e in es) / max(n, 1), 3), n]
     log(f"[profile] {label}: the port's kernels, device us per launch and launches: "
         + json.dumps(mine))
+    return avg
 
 
 def phase_main_path(dev, rng, objs, net, seed, n_views=6):
@@ -875,8 +986,9 @@ def phase_main_path(dev, rng, objs, net, seed, n_views=6):
     counts = kernels.counts()
     log(f"[main] launches over {len(views)} views: {json.dumps(counts)}")
     missing = [k for k in SINGLE_VIEW_KERNELS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the single-view path: {missing}")
+    if missing or any(counts[k] for k in OFF_PATH_KERNELS):
+        raise AssertionError(f"kernels not launched on the single-view path: {missing}, or "
+                             f"K4 / K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     per_view_ms = statistics.median(times[1:]) * 1e3
     log(f"[main] per-view latency: median {per_view_ms:.2f} ms over {n_views} views "
         f"after 1 warm-up (all: {[round(t * 1e3, 2) for t in times]})")
@@ -1063,28 +1175,42 @@ class GtPriorInfer:
         return t(uv), t(cov), t(np.ones((ob, NK), np.float32))
 
 
-def _tracking_ba_ms(engine, dev, n=5):
-    """The tracking BA alone on the engine's last view row (all objects
-    fixed, rounds (10, 10, 10, 10)), host clock around a synchronized call."""
+def _tracking_arrays(engine):
+    """The tracking BA's problem on the engine's last view row (all objects
+    fixed), as numpy arrays."""
+    v = engine.view_slot[engine.view_ids[-1]]
+    row = lambda a: a[v:v + 1]
+    return dict(cam_T=row(engine.cam_T), obj_T=engine.obj_T, uv=row(engine.uv),
+                info=row(engine.info), model_kp=engine.model_kp, cam_k=row(engine.cam_k4),
+                valid=row(engine.valid), inliers=row(engine.inliers),
+                cam_active=np.ones((1,), bool), obj_active=engine.obj_active)
+
+
+def _ba_problem_of(arrays, device, f64=False):
     import torch
 
     from suo_slam_tpu_torch.solvers import ba
 
-    v = engine.view_slot[engine.view_ids[-1]]
-    t = lambda a: torch.tensor(np.asarray(a), device=dev)
-    problem = ba.BAProblem(
-        cam_T=t(engine.cam_T[v:v + 1]), obj_T=t(engine.obj_T), uv=t(engine.uv[v:v + 1]),
-        info=t(engine.info[v:v + 1]), model_kp=t(engine.model_kp),
-        cam_k=t(engine.cam_k4[v:v + 1]), valid=t(engine.valid[v:v + 1]),
-        inliers=t(engine.inliers[v:v + 1]), cam_active=t(np.ones((1,), bool)),
-        obj_active=t(engine.obj_active))
+    return ba.BAProblem(**{k: torch.tensor(
+        a.astype(np.float64) if f64 and a.dtype == np.float32 else a, device=device)
+        for k, a in arrays.items()})
+
+
+TRACKING = dict(iters_per_round=(10, 10, 10, 10), tracking_only=True, fix_first_cam=False)
+
+
+def _tracking_ba_ms(engine, dev, fn, n=5):
+    """`fn` (an `optimize`) on the tracking BA problem of the engine's last
+    view row, host clock around a synchronized call, median of n."""
+    import torch
+
+    problem = _ba_problem_of(_tracking_arrays(engine), dev)
     vals = []
     for _ in range(n + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            ba.optimize(problem, iters_per_round=(10, 10, 10, 10), tracking_only=True,
-                        fix_first_cam=False)
+            fn(problem, **TRACKING)
         torch.cuda.synchronize()
         vals.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(vals[1:])
@@ -1097,19 +1223,87 @@ def _add_ok(T_est, T_gt, objs, o):
     return float(np.linalg.norm(p_gt - p_es, axis=-1).mean()) < 0.1 * objs.diameter[o]
 
 
-def compare_global_ba(engine, dev):
-    """The SLAM path's global BA problem (V = 32, its poses moved ~0.2 mm
-    off the engine's, inside the chi2 inlier basin) through `ba.optimize` on
-    the card twice: with K7 and with the plain solve (K4 in both). Poses
-    within 1e-4 (rotation absolute; translation relative to its norm, at
-    least the 800 mm scene depth) and equal inlier masks, except edges
-    within 1% of the chi2 threshold, each printed with its chi2. The same
-    problem in f64 on the CPU (plain versions) is printed beside it as the
-    reference both f32 runs approximate."""
+def compare_ba(label, arrays, dev, act, **kw):
+    """One BA problem through K14 (`optimize` on the card), the eager
+    schedule with K4 + K7 and with the plain versions on the card, and the
+    plain eager schedule in f64 on the CPU. K14 against the eager plain run:
+    poses within 1e-4 (rotation absolute; translation relative to its norm,
+    at least the 800 mm scene depth) and equal inlier masks, except edges
+    within 1% of the chi2 threshold, each printed with its chi2; and no
+    farther from the f64 result than twice the farther of the two eager
+    runs, or 1e-5: f32 LM end states scatter that far around the f64 BA
+    under another summation order (an f32 residual uv - pi(.) of ~3e-3 NDC
+    keeps ~2e-5 of relative rounding, so the relative-gain exit at 1e-6
+    stops on noise; on the card the eager K4 + K7 run ended 2.1e-6 from the
+    f64 poses where the eager plain run ended 2.0e-8). Prints each run's
+    host ms, iterations per round (the eager runs leave a round's loop at
+    its `done` step) and K14's device time per call and per iteration."""
     import torch
 
     from suo_slam_tpu_torch.solvers import ba
 
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    pk = _ba_problem_of(arrays, dev)
+    ba._ba_lm_cuda(pk, **kw)  # warm
+    (rk, itk), ms_k = timed(lambda: ba._ba_lm_cuda(pk, **kw))
+    (re, ite), ms_e = timed(lambda: ba._optimize_eager(pk, use_kernels=True, **kw))
+    (rp, itp), ms_p = timed(lambda: ba._optimize_eager(pk, **kw))
+    with torch.inference_mode():
+        chi2 = ba._edge_chi2_plain(rk.cam_T, rk.obj_T, pk.uv, pk.info, pk.model_kp, pk.cam_k)
+        r64, it64 = ba._optimize_eager(_ba_problem_of(arrays, "cpu", f64=True), **kw)
+    ca, oa = act
+
+    def gap(r1, r2):
+        out = {}
+        for name, a, b, m in (("cam", r1.cam_T, r2.cam_T, ca), ("obj", r1.obj_T, r2.obj_T, oa)):
+            a = a.cpu().numpy()[m].astype(np.float64)
+            b = b.cpu().numpy()[m].astype(np.float64)
+            scale = np.maximum(np.linalg.norm(b[:, :3, 3], axis=-1), 800.0)
+            rel_t = np.abs(a[:, :3, 3] - b[:, :3, 3]).max(-1) / scale
+            out[name] = [float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max(initial=0.0)),
+                         float(rel_t.max(initial=0.0))]
+        return out
+
+    worst = lambda g: max(max(e) for e in g.values())
+    errs, g_k, g_p, g_e = gap(rk, rp), gap(rk, r64), gap(rp, r64), gap(re, r64)
+    flips = (rk.inliers != rp.inliers).nonzero().tolist()
+    fchi2 = [round(float(chi2[tuple(f)]), 4) for f in flips]
+    n64 = lambda r: int((r.inliers.cpu() != r64.inliers).sum())
+    log(f"[slam] {label}: K14 {ms_k:.2f} ms, eager K4 + K7 {ms_e:.2f} ms, eager plain "
+        f"{ms_p:.2f} ms; iterations per round K14 {itk.tolist()}, eager K4 + K7 {ite}, eager "
+        f"plain {itp}, f64 {it64}")
+    log(f"[slam] {label}: K14 vs the eager plain run: rotation / relative translation errors "
+        f"{json.dumps(errs)} (tol 1e-4); {int(rk.num_inliers)} inliers, {len(flips)} flipped "
+        f"edges (v, o, k) {flips[:8]} with chi2 {fchi2[:8]} (threshold 5.991); against the "
+        f"f64 BA: K14 {json.dumps(g_k)} and {n64(rk)} edges apart, eager plain "
+        f"{json.dumps(g_p)} and {n64(rp)} apart, eager K4 + K7 {json.dumps(g_e)}")
+    if worst(errs) > 1e-4:
+        raise AssertionError(f"{label}: K14 disagrees with the eager plain schedule: {errs}")
+    if any(abs(c - ba.CHI2_THRESH_2DOF) > 0.01 * ba.CHI2_THRESH_2DOF for c in fchi2):
+        raise AssertionError(f"{label}: an edge away from the threshold flipped: {fchi2}")
+    if worst(g_k) > max(2 * worst(g_p), 2 * worst(g_e), 1e-5):
+        raise AssertionError(f"{label}: K14 is farther from the f64 BA than the eager runs: "
+                             f"{g_k} vs {g_p}, {g_e}")
+    us, src = device_us(lambda: ba._ba_lm_cuda(pk, **kw), "ba_lm_kernel", n=3)
+    cyc = torch.zeros(len(ba.LM_PHASES), dtype=torch.int64, device=dev)
+    ba._ba_lm_cuda(pk, **kw, cycles=cyc)
+    cyc = cyc.tolist()
+    log(f"[slam] {label}: K14 device {us:.3f} us per call by {src}, "
+        f"{us / max(1, sum(itk.tolist())):.3f} us per iteration; SM cycles by phase "
+        + json.dumps(dict(zip(ba.LM_PHASES, cyc))) + f" ({sum(cyc)} in all)")
+    return ms_k, ms_e, ms_p
+
+
+def compare_global_ba(engine, dev):
+    """The SLAM path's global BA problem (V = 32, its poses moved ~0.2 mm
+    off the engine's, inside the chi2 inlier basin) through `compare_ba`."""
     rng = np.random.default_rng(9)
     cam_T = engine.cam_T.copy()
     obj_T = engine.obj_T.copy()
@@ -1119,46 +1313,19 @@ def compare_global_ba(engine, dev):
                   model_kp=engine.model_kp, cam_k=engine.cam_k4, valid=engine.valid,
                   inliers=engine.inliers, cam_active=engine.cam_active,
                   obj_active=engine.obj_active, cam_frozen=np.zeros(engine.V, bool))
+    return compare_ba(f"global BA (V={engine.V}, O={engine.O})", arrays, dev,
+                      (engine.cam_active, engine.obj_active))
 
-    def problem(device, f64=False):
-        return ba.BAProblem(**{k: torch.tensor(
-            a.astype(np.float64) if f64 and a.dtype == np.float32 else a, device=device)
-            for k, a in arrays.items()})
 
-    kernel_solve = ba._solve_normal_eq_schur_cuda
-    with torch.inference_mode():
-        pk = problem(dev)
-        rk = ba.optimize(pk)
-        ba._solve_normal_eq_schur_cuda = lambda *a: ba._solve_normal_eq_schur_plain(*a[:-1])
-        rp = ba.optimize(pk)
-        ba._solve_normal_eq_schur_cuda = kernel_solve
-        chi2 = ba._edge_chi2(rk.cam_T, rk.obj_T, pk.uv, pk.info, pk.model_kp, pk.cam_k)
-        r64 = ba.optimize(problem("cpu", f64=True))
-    ca, oa = engine.cam_active, engine.obj_active
-
-    def gap(r1, r2):
-        out = {}
-        for name, a, b, act in (("cam", r1.cam_T, r2.cam_T, ca), ("obj", r1.obj_T, r2.obj_T, oa)):
-            a = a.cpu().numpy()[act].astype(np.float64)
-            b = b.cpu().numpy()[act].astype(np.float64)
-            scale = np.maximum(np.linalg.norm(b[:, :3, 3], axis=-1), 800.0)
-            out[name] = [float(np.abs(a[:, :3, :3] - b[:, :3, :3]).max()),
-                         float((np.abs(a[:, :3, 3] - b[:, :3, 3]).max(-1) / scale).max())]
-        return out
-
-    errs = gap(rk, rp)
-    flips = (rk.inliers != rp.inliers).nonzero().tolist()
-    fchi2 = [round(float(chi2[tuple(f)]), 4) for f in flips]
-    n64 = lambda r: int((r.inliers.cpu() != r64.inliers).sum())
-    log(f"[slam] global BA with K7 vs the plain solve: rotation / relative translation errors "
-        f"{json.dumps(errs)} (tol 1e-4); {int(rk.num_inliers)} inliers, {len(flips)} flipped "
-        f"edges (v, o, k) {flips[:8]} with chi2 {fchi2[:8]} (threshold 5.991); against the "
-        f"f64 BA: K7 {json.dumps(gap(rk, r64))} and {n64(rk)} edges apart, plain "
-        f"{json.dumps(gap(rp, r64))} and {n64(rp)} apart")
-    if max(max(e) for e in errs.values()) > 1e-4:
-        raise AssertionError(f"global BA with K7 disagrees with the plain solve: {errs}")
-    if any(abs(c - ba.CHI2_THRESH_2DOF) > 0.01 * ba.CHI2_THRESH_2DOF for c in fchi2):
-        raise AssertionError(f"global BA: an edge away from the threshold flipped: {fchi2}")
+def compare_tracking_ba(engine, dev):
+    """The tracking BA's problem on the engine's last view row, its camera
+    moved ~0.2 mm, through `compare_ba`."""
+    arrays = _tracking_arrays(engine)
+    arrays["cam_T"] = arrays["cam_T"].copy()
+    arrays["cam_T"][0, :3, 3] += np.random.default_rng(10).normal(
+        scale=0.2, size=3).astype(np.float32)
+    return compare_ba("tracking BA (V=1)", arrays, dev,
+                      (np.ones((1,), bool), engine.obj_active), **TRACKING)
 
 
 def phase_slam(dev, rng, objs, net, seed, scene):
@@ -1194,18 +1361,28 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
     missing = [k for k, c in counts.items()
-               if c == 0 and k != "add_dists" and k not in INT8_KERNELS]
-    if missing:
-        raise AssertionError(f"kernels not launched on the SLAM path: {missing}")
+               if c == 0 and k != "add_dists" and k not in INT8_KERNELS + OFF_PATH_KERNELS]
+    if missing or any(counts[k] for k in OFF_PATH_KERNELS):
+        raise AssertionError(f"kernels not launched on the SLAM path: {missing}, or K4 / K7 "
+                             f"launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+    n_global = len(engine.opt_times)  # frames 10, 20 and the final collect_results
+    log(f"[slam] K14 launches: {counts['ba_lm']} = {counts['ba_lm'] - n_global} tracking BAs "
+        f"over {n_frames} frames + {n_global} global BAs; K4 {counts['ba_edges']}, K7 "
+        f"{counts['ba_schur']}")
     if engine.V != 32 or len(engine.opt_times) != 3:
         raise AssertionError(f"SLAM path: capacity {engine.V}, {len(engine.opt_times)} global BAs")
     per_frame_ms = statistics.median(times[1:]) * 1e3
     log(f"[slam] per-frame latency: median {per_frame_ms:.2f} ms over {n_frames - 1} frames "
         f"after 1 warm-up (all: {[round(t * 1e3, 2) for t in times]})")
+    from suo_slam_tpu_torch.solvers import ba
+
+    eager = lambda p, **kw: ba._optimize_eager(p, use_kernels=True, **kw)
     log(f"[slam] global BA ms (frames 10, 20, final): "
         f"{[round(t * 1e3, 2) for t in engine.opt_times]}; final collect_results "
-        f"{final_s * 1e3:.2f} ms; tracking BA alone {_tracking_ba_ms(engine, dev):.2f} ms; "
-        f"{inf.n_prior_calls} with-prior network calls")
+        f"{final_s * 1e3:.2f} ms; tracking BA alone: K14 "
+        f"{_tracking_ba_ms(engine, dev, ba.optimize):.2f} ms, the eager K4 + K7 schedule "
+        f"{_tracking_ba_ms(engine, dev, eager):.2f} ms; {inf.n_prior_calls} with-prior "
+        f"network calls")
     # the trajectory and the objects against the ground truth
     rot, trans, ok = [], [], []
     for i in range(n_frames):
@@ -1240,7 +1417,41 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     if not all(e <= 1e-3 for e in errs.values()):
         raise AssertionError(f"with-prior network path disagrees with the CPU: {errs}")
     compare_global_ba(engine, dev)
-    profile_run(lambda: frame(n_frames), per_frame_ms, "one SLAM frame")
+    compare_tracking_ba(engine, dev)
+    # the profiled frame: its launches (counted at launch) and the bound of
+    # its K8 / K9 calls, summed over their shapes
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    k89 = {"norm_relu": [0, 0.0], "upsample_add": [0, 0.0]}
+    k8, k9 = hg._norm_relu_cuda, hg._upsample_add_cuda
+
+    def spy_k8(x, inv, shift):
+        k89["norm_relu"][0] += 1
+        k89["norm_relu"][1] += bound(2 * x.numel() * x.element_size() + 2 * inv.numel() * 4,
+                                     3 * x.numel())[0]
+        return k8(x, inv, shift)
+
+    def spy_k9(up1, low):
+        k89["upsample_add"][0] += 1
+        k89["upsample_add"][1] += bound((2 * up1.numel() + low.numel()) * up1.element_size(),
+                                        up1.numel())[0]
+        return k9(up1, low)
+
+    hg._norm_relu_cuda, hg._upsample_add_cuda = spy_k8, spy_k9
+    before = kernels.counts()
+    try:
+        avg = profile_run(lambda: frame(n_frames), per_frame_ms, "one SLAM frame")
+    finally:
+        hg._norm_relu_cuda, hg._upsample_add_cuda = k8, k9
+    c = {k: v - before[k] for k, v in kernels.counts().items()}
+    log(f"[slam] the profiled frame's launches: {json.dumps({k: v for k, v in c.items() if v})}; "
+        f"K8 / K9 calls and the sum of their bounds in ms over the frame's shapes: "
+        f"{json.dumps({k: [n, round(b, 5)] for k, (n, b) in k89.items()})}")
+    if c["ba_lm"] != 1 or c["ba_edges"] or c["ba_schur"]:
+        raise AssertionError(f"the profiled frame: K14 {c['ba_lm']} (want 1 tracking BA), "
+                             f"K4 {c['ba_edges']}, K7 {c['ba_schur']} (want 0)")
+    if avg is not None and any("cholesky" in e.key for e in avg):
+        raise AssertionError("the profiled frame ran a cholesky on the main path")
     return counts
 
 
@@ -2385,7 +2596,7 @@ def main(argv=None):
     entries = [check_k1(dev, rng, objs), check_k2(dev, rng, net), check_k3(dev, rng, objs),
                check_k4(dev, rng, objs), check_k5(dev, rng), check_k6(dev, rng, objs),
                check_k7(dev, scene), check_k8(dev, rng, net, net16, crops), check_k9(dev, rng),
-               check_k10(dev, rng)]
+               check_k10(dev, rng), check_k14(dev, np.random.default_rng(args.seed + 14), objs)]
     phase_bf16_net(dev, rng, args.seed, net, net16, crops)
     phase_main_path(dev, rng, objs, net, args.seed, args.views)
     phase_solver_check(dev, rng, objs, args.seed, args.views)

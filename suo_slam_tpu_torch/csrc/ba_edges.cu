@@ -14,23 +14,24 @@
 //
 // Bound on this card: latency. At the main path's shapes (V = 16, O = 8,
 // K = 41) one launch reads ~0.2 MB (uv, info, cam_k, poses, model points)
-// and writes ~90 KB, ~0.1 us of bytes and ~4 MFLOP; it runs ~86 times per
-// view in the fixed-length LM schedule (H/g and the trial-step chi2 of 40
+// and writes ~90 KB, ~0.1 us of bytes and ~4 MFLOP, at ~86 launches per
+// view in the eager LM schedule (H/g and the trial-step chi2 of 40
 // iterations, plus 6 reclassifications), so launch latency sets its cost.
 // Design: one 128-thread block per (v, o), 128 blocks, no atomics, no
-// second pass.
+// second pass. The per-edge math lives in `ba_common.cuh`, shared with K7
+// and K14.
+//
+// Off the main path since K14 (`ba_lm.cu`) runs the whole LM schedule in
+// one launch; `solvers/ba.py` `_optimize_eager` still drives it, and
+// chip_smoke holds it to its plain version.
 
-#include <cuda_runtime.h>
-#include <cmath>
-#include <cstdint>
+#include "ba_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace suo_ba;
 
-__device__ __forceinline__ float clamp_iz(float z) {
-  return 1.f / (fabsf(z) < 1e-12f ? 1e-12f : z);
-}
+constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
 ba_edges_kernel(const float* __restrict__ cam_T, const float* __restrict__ obj_T,
@@ -53,56 +54,20 @@ ba_edges_kernel(const float* __restrict__ cam_T, const float* __restrict__ obj_T
   const float* Tc = cam_T + (long long)v * 16;
   const float* To = obj_T + (long long)o * 16;
   const float* ck = cam_k + (long long)vo * 4;
-  const float fx = ck[0], fy = ck[1], cx = ck[2], cy = ck[3];
 
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const long long e = (long long)vo * K + k;
-    const float* m = model_kp + ((long long)o * K + k) * 3;
-    float pG[3], pC[3];
-    for (int i = 0; i < 3; ++i)
-      pG[i] = To[i * 4 + 0] * m[0] + To[i * 4 + 1] * m[1] + To[i * 4 + 2] * m[2] + To[i * 4 + 3];
-    for (int i = 0; i < 3; ++i)
-      pC[i] = Tc[i * 4 + 0] * pG[0] + Tc[i * 4 + 1] * pG[1] + Tc[i * 4 + 2] * pG[2] + Tc[i * 4 + 3];
-    const float px = pC[0], py = pC[1], pz = pC[2];
-    const float iz = clamp_iz(pz);
-    const float ru = uv[e * 2 + 0] - (fx * px * iz + cx);
-    const float rv = uv[e * 2 + 1] - (fy * py * iz + cy);
-    const float w00 = info[e * 4 + 0], w01 = info[e * 4 + 1], w11 = info[e * 4 + 3];
-    const float chi2 = w00 * ru * ru + 2.f * w01 * ru * rv + w11 * rv * rv;
-    chi2_out[e] = chi2;
-    z_out[e] = pz;
+    const Edge ed = project_edge(Tc, To, model_kp + ((long long)o * K + k) * 3, ck,
+                                 uv + e * 2, info + e * 4);
+    chi2_out[e] = ed.chi2;
+    z_out[e] = ed.pz;
     if (!want_hg) continue;
 
-    float w_h = 1.f;
-    if (use_huber && !(chi2 <= huber_d * huber_d))
-      w_h = huber_d / sqrtf(isnan(chi2) ? chi2 : fmaxf(chi2, 1e-30f));
+    const float w_h = use_huber ? huber_weight(ed.chi2, huber_d, huber_d * huber_d) : 1.f;
     const float w = (inl[e] ? 1.f : 0.f) * w_h;
-
-    const float A = fx * iz;
-    const float B = -fx * px * iz * iz;
-    const float C = fy * iz;
-    const float D = -fy * py * iz * iz;
     float r0[12], r1[12];
-    // camera columns: -(Jproj @ [-hat(p_C) | I])
-    r0[0] = -B * py; r0[1] = B * px - A * pz; r0[2] = A * py;
-    r0[3] = -A;      r0[4] = 0.f;             r0[5] = -B;
-    r1[0] = C * pz - D * py; r1[1] = D * px; r1[2] = -C * px;
-    r1[3] = 0.f;             r1[4] = -C;     r1[5] = -D;
-    // object columns: M = Jproj @ R_cw, then -(M @ [-hat(p_G) | I])
-    float M0[3], M1[3];
-    for (int j = 0; j < 3; ++j) {
-      M0[j] = A * Tc[0 * 4 + j] + B * Tc[2 * 4 + j];
-      M1[j] = C * Tc[1 * 4 + j] + D * Tc[2 * 4 + j];
-    }
-    const float gx = pG[0], gy = pG[1], gz = pG[2];
-    r0[6] = M0[1] * gz - M0[2] * gy;
-    r0[7] = -(M0[0] * gz - M0[2] * gx);
-    r0[8] = M0[0] * gy - M0[1] * gx;
-    r0[9] = -M0[0]; r0[10] = -M0[1]; r0[11] = -M0[2];
-    r1[6] = M1[1] * gz - M1[2] * gy;
-    r1[7] = -(M1[0] * gz - M1[2] * gx);
-    r1[8] = M1[0] * gy - M1[1] * gx;
-    r1[9] = -M1[0]; r1[10] = -M1[1]; r1[11] = -M1[2];
+    edge_jacobian(Tc, ck, ed, r0, r1);
+    const float w00 = info[e * 4 + 0], w01 = info[e * 4 + 1], w11 = info[e * 4 + 3];
     const float v00 = w00 * w, v01 = w01 * w, v11 = w11 * w;
     for (int a = 0; a < 12; ++a) {
       J0[k * 12 + a] = r0[a];
@@ -110,8 +75,8 @@ ba_edges_kernel(const float* __restrict__ cam_T, const float* __restrict__ obj_T
       W0[k * 12 + a] = r0[a] * v00 + r1[a] * v01;
       W1[k * 12 + a] = r0[a] * v01 + r1[a] * v11;
     }
-    RU[k] = ru;
-    RV[k] = rv;
+    RU[k] = ed.ru;
+    RV[k] = ed.rv;
   }
   if (!want_hg) return;
   __syncthreads();

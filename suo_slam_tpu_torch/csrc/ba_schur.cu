@@ -35,70 +35,22 @@
 // (48^2 + 48) x V x 12 flops of reduction = ~1.3 MFLOP: far below one
 // launch either way. Design: no launch per 6x6 operation (the plain version
 // issues ~40 small PyTorch operations per solve), everything in registers
-// and shared memory, compiled with --fmad=false.
+// and shared memory, compiled with --fmad=false. The 6x6 algebra lives in
+// `ba_common.cuh`, shared with K4 and K14.
+//
+// Off the main path since K14 (`ba_lm.cu`) runs the whole LM schedule in
+// one launch; `solvers/ba.py` `_optimize_eager` still drives it, and
+// chip_smoke holds it to its plain version.
 
-#include <cuda_runtime.h>
-#include <cmath>
-#include <cstdint>
+#include "ba_common.cuh"
 
 namespace {
+
+using namespace suo_ba;
 
 constexpr int kCamThreads = 64;
 constexpr int kReduceThreads = 256;
 constexpr int kBackThreads = 32;
-
-// max(x, lo) that keeps NaN, like torch.clamp
-__device__ __forceinline__ float clampmin(float x, float lo) {
-  return isnan(x) ? x : fmaxf(x, lo);
-}
-
-// 6x6 lower Cholesky factor of sym(A) (row-major), unblocked as LAPACK's
-// potf2; a pivot that is not > 0 (or NaN) makes the whole factor NaN.
-__device__ void chol6(const float* A, float* L) {
-  float S[36];
-  for (int i = 0; i < 6; ++i)
-    for (int j = 0; j < 6; ++j) S[i * 6 + j] = 0.5f * (A[i * 6 + j] + A[j * 6 + i]);
-  bool ok = true;
-  for (int i = 0; i < 36; ++i) L[i] = 0.f;
-  for (int j = 0; j < 6 && ok; ++j) {
-    float d = S[j * 6 + j];
-    for (int k = 0; k < j; ++k) d -= L[j * 6 + k] * L[j * 6 + k];
-    if (!(d > 0.f)) { ok = false; break; }
-    const float ljj = sqrtf(d);
-    L[j * 6 + j] = ljj;
-    for (int i = j + 1; i < 6; ++i) {
-      float a = S[i * 6 + j];
-      for (int k = 0; k < j; ++k) a -= L[i * 6 + k] * L[j * 6 + k];
-      L[i * 6 + j] = a / ljj;
-    }
-  }
-  if (!ok)
-    for (int i = 0; i < 36; ++i) L[i] = nanf("");
-}
-
-// x = L^-T L^-1 b for a 6x6 lower factor L
-__device__ __forceinline__ void cho_solve6(const float* L, const float* b, float* x) {
-  float z[6];
-  for (int i = 0; i < 6; ++i) {
-    float a = b[i];
-    for (int k = 0; k < i; ++k) a -= L[i * 6 + k] * z[k];
-    z[i] = a / L[i * 6 + i];
-  }
-  for (int i = 5; i >= 0; --i) {
-    float a = z[i];
-    for (int k = i + 1; k < 6; ++k) a -= L[k * 6 + i] * x[k];
-    x[i] = a / L[i * 6 + i];
-  }
-}
-
-// damped (H + lam * max(diag, 1e-9) on the diagonal), then masked (H for a
-// free state, I for a frozen one): entry (i, j) of one 6x6 block
-__device__ __forceinline__ float damp_mask(const float* H, int i, int j, float lam,
-                                           float m) {
-  const float d = clampmin(H[i * 6 + i], 1e-9f);
-  const float hd = H[i * 6 + j] + lam * d * (i == j ? 1.f : 0.f);
-  return hd * m + (1.f - m) * (i == j ? 1.f : 0.f);
-}
 
 __global__ void __launch_bounds__(kCamThreads)
 ba_schur_kernel_cams(const float* __restrict__ Hcc, const float* __restrict__ Hoo,

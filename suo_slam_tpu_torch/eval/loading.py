@@ -4,8 +4,11 @@
 Port of `suo_slam_tpu/eval/loading.py`. A reference PyTorch checkpoint
 (`.pth.tar`) converts layer for layer (`train/torch_convert.py`) into
 `PkpNet(prior_mode="concat", transpose_heatmaps=True)`. The JAX package's own
-checkpoints are orbax directories, which need flax to read; the port reads
-them with the training slice (ROADMAP A12) and raises until then.
+checkpoints are flax msgpack files (`flax.serialization.to_bytes` of the
+params, batch statistics and optimizer state) with a `.meta.json` sidecar
+whose `args.norm` picks the architecture (`suo_slam_tpu/train/checkpoint.py`
+`save_checkpoint`); numpy can read them, and the port's reader comes with
+ROADMAP A18. Until then they raise.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ def load_eval_network(chkpt_path, bf16=True, norm="batch", no_network_cov=False)
         net.load_state_dict(from_jax_variables(variables))
         return net, model_epoch
     raise NotImplementedError(
-        f"{chkpt_path!r}: orbax checkpoints need flax; reading them comes with the "
-        "training slice: ROADMAP A12 (a reference .pth.tar loads now)")
+        f"{chkpt_path!r}: the JAX package's checkpoints (flax msgpack files with a "
+        ".meta.json sidecar) load with their reader, ROADMAP A18 (a reference "
+        ".pth.tar loads now)")
 
 
 def default_scales_path(chkpt_path):

@@ -4,7 +4,8 @@ Route: `nvcc` by hand into one shared library per source, each with a plain C
 interface, loaded with `ctypes`. Sources are compiled in parallel — one
 `nvcc` process per file, all started together — into `build/suo_kernels/`
 at the repository root (listed in `.gitignore`), once, at first use. A
-library newer than its source is reused.
+library newer than its source and than every shared header (`csrc/*.cuh`,
+which `ba_edges.cu`, `ba_schur.cu` and `ba_lm.cu` include) is reused.
 
 Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC --fmad=false`. `--fmad=false` keeps `a*b+c` as two rounded
@@ -59,6 +60,15 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def stale(src: Path, out: Path) -> bool:
+    """Whether `out`, the library of `src`, needs a build: it is missing, or
+    older than `src` or than any header (`*.cuh`) beside it."""
+    if not out.exists():
+        return True
+    built = out.stat().st_mtime
+    return any(p.stat().st_mtime > built for p in (src, *src.parent.glob("*.cuh")))
+
+
 def build_all() -> float:
     """Compile every stale `csrc/*.cu` in parallel and load all libraries.
     Returns the seconds spent. Raises with nvcc's output if one fails."""
@@ -68,7 +78,7 @@ def build_all() -> float:
         procs = {}
         for src in _sources():
             out = BUILD_DIR / f"lib{src.stem}.so"
-            if out.exists() and out.stat().st_mtime >= src.stat().st_mtime:
+            if not stale(src, out):
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]

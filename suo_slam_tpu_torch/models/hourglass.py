@@ -70,6 +70,7 @@ _NORM_RELU_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
 
 
 def _norm_relu_cuda(x: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    kcount.refuse_autograd("K8 norm_relu", x, inv, shift)
     _check_nhwc("K8 norm_relu", x)
     C = x.shape[1]
     if inv.shape != (C,) or shift.shape != (C,) or inv.dtype != torch.float32 \
@@ -108,6 +109,7 @@ _UPSAMPLE_ADD_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_
 
 
 def _upsample_add_cuda(up1: torch.Tensor, low: torch.Tensor) -> torch.Tensor:
+    kcount.refuse_autograd("K9 upsample_add", up1, low)
     _check_nhwc("K9 upsample_add", up1, low)
     N, C, H, W = up1.shape
     if tuple(low.shape) != (N, C, H // 2, W // 2) or H % 2 or W % 2:

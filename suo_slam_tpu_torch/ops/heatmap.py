@@ -116,6 +116,7 @@ _LOGIT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _heatmap_readout_cuda(logits: torch.Tensor, min_var: float):
+    kernels.refuse_autograd("K2 heatmap_readout", logits)
     if logits.dtype not in _LOGIT_DTYPES or logits.dim() != 4:
         raise ValueError(f"K2 takes [N,H,W,K] f32 or bf16 logits, got "
                          f"{tuple(logits.shape)} {logits.dtype}")

@@ -1,5 +1,5 @@
-"""Fixed-sparsity camera+object pose-graph bundle adjustment — kernel K4's
-home.
+"""Fixed-sparsity camera+object pose-graph bundle adjustment — kernel K14's
+home (and K4's and K7's).
 
 Port of `suo_slam_tpu/solvers/ba.py`: state cam_T [V, 4, 4] (T_GtoC) and
 obj_T [O, 4, 4] (T_OtoG), residuals r[v, o, k] = uv - pi(cam_k[v, o],
@@ -7,14 +7,18 @@ T_GtoC[v] T_OtoG[o] p[o, k]) weighted by 2x2 information, a Huber IRLS
 factor and the inlier mask; analytic left-se(3) Jacobians; rounds of LM with
 chi2 <= 5.991 reclassification between them and Huber on the first half.
 
-The per-(v, o) edge assembly (`_edge_planes_Hg`, `_edge_chi2`) is kernel K4
-and the camera-block part of the Schur solve (`_solve_normal_eq_schur`) is
-kernel K7 on CUDA tensors; CPU tensors take their plain versions. The
-objects' reduced 6O x 6O system stays on `torch.linalg.cholesky_ex` and
-triangular solves, as the JAX package left it to XLA. `_lm_while` is a
-fixed-length loop whose `done` flag lives on the device and freezes the state
-with `torch.where` — the same result as the JAX `while_loop`, with no host
-sync per iteration.
+`optimize` on CUDA tensors is one launch of kernel K14 (`csrc/ba_lm.cu`),
+which runs the whole schedule on the card with the early exit of the JAX
+`while_loop`; its wrapper `_ba_lm_cuda` reads shapes only, never a value.
+On CPU tensors it runs the plain version, `_optimize_eager`: the same
+schedule as eager PyTorch operations on the plain edge assembly
+(`_edge_planes_Hg_plain`, `_edge_chi2_plain`) and Schur solve
+(`_solve_normal_eq_schur_plain`), leaving each round's loop once `done` is
+set (one host read per iteration). `_optimize_eager(use_kernels=True)` runs
+that schedule on the card with kernels K4 (edge assembly) and K7 (the
+camera-block part of the Schur solve; the objects' reduced system on
+`torch.linalg.cholesky_ex`) in place of their plain versions: chip_smoke and
+the card tests hold K14 against both.
 """
 
 from __future__ import annotations
@@ -349,8 +353,18 @@ def _solve_normal_eq_schur(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam,
 
 
 def _make_lm_iteration(problem: BAProblem, tracking_only: bool,
-                       fix_first_cam: bool, huber_d: float):
-    """The shared LM step: one damped Schur solve + accept/reject."""
+                       fix_first_cam: bool, huber_d: float, use_kernels: bool):
+    """The shared LM step: one damped Schur solve + accept/reject; K4 and K7
+    (on CUDA tensors) with `use_kernels`, their plain versions without."""
+    if use_kernels:
+        edges_Hg = lambda *a, inl, use_huber: _edge_planes_Hg(
+            *a, inl=inl, use_huber=use_huber, huber_d=huber_d)
+        edge_chi2 = _edge_chi2
+        solve = _solve_normal_eq_schur
+    else:
+        edges_Hg = lambda *a, inl, use_huber: _edge_planes_Hg_plain(*a, inl, use_huber, huber_d)
+        edge_chi2 = _edge_chi2_plain
+        solve = lambda *a, objects_frozen: _solve_normal_eq_schur_plain(*a)
     V, O = problem.valid.shape[0], problem.valid.shape[1]
     dev = problem.uv.device
     cam_frozen = (problem.cam_frozen if problem.cam_frozen is not None
@@ -386,23 +400,22 @@ def _make_lm_iteration(problem: BAProblem, tracking_only: bool,
     def lm_iteration(state, use_huber):
         cam_T, obj_T, inl, lam = state
         cam_free, obj_free = vertex_masks(inl)
-        Hvo, gvo, chi2, _ = _edge_planes_Hg(
+        Hvo, gvo, chi2, _ = edges_Hg(
             cam_T, obj_T, problem.uv, problem.info, problem.model_kp,
-            problem.cam_k, inl=inl, use_huber=use_huber, huber_d=huber_d,
+            problem.cam_k, inl=inl, use_huber=use_huber,
         )
         Hcc = torch.sum(Hvo[..., :6, :6], dim=1)
         Hoo = torch.sum(Hvo[..., 6:, 6:], dim=0)
         Hco = Hvo[..., :6, 6:]
         gc = torch.sum(gvo[..., :6], dim=1)
         go = torch.sum(gvo[..., 6:], dim=0)
-        d_cam, d_obj, ok = _solve_normal_eq_schur(
-            Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam, objects_frozen=tracking_only
-        )
+        d_cam, d_obj, ok = solve(Hcc, Hoo, Hco, gc, go, cam_free, obj_free, lam,
+                                 objects_frozen=tracking_only)
         cam_T_new = lie.se3_exp(d_cam) @ cam_T
         obj_T_new = lie.se3_exp(d_obj) @ obj_T
         cost_old = robust_cost(chi2, inl, use_huber)
-        chi2_new = _edge_chi2(cam_T_new, obj_T_new, problem.uv, problem.info,
-                              problem.model_kp, problem.cam_k)
+        chi2_new = edge_chi2(cam_T_new, obj_T_new, problem.uv, problem.info,
+                             problem.model_kp, problem.cam_k)
         cost_new = robust_cost(chi2_new, inl, use_huber)
         accept = (ok & (cost_new < cost_old) & torch.isfinite(cam_T_new).all()
                   & torch.isfinite(obj_T_new).all())
@@ -419,20 +432,183 @@ def _make_lm_iteration(problem: BAProblem, tracking_only: bool,
 
 
 def _lm_while(lm_iteration, cam_T, obj_T, inl, lam, n_iters: int, use_huber):
-    """Up to n_iters LM iterations with the convergence exit of the JAX
-    `while_loop` (relative gain < CONVERGENCE_RTOL or lambda >= 1e6), run as
-    a fixed-length loop: once `done` (a device bool) is set the state is
-    frozen with `torch.where`, so no iteration reads a value on the host."""
-    done = torch.zeros((), dtype=torch.bool, device=cam_T.device)
-    for _ in range(n_iters):
-        (c_new, o_new, _, l_new), rel_gain = lm_iteration(
-            (cam_T, obj_T, inl, lam), use_huber)
-        cam_T = torch.where(done, cam_T, c_new)
-        obj_T = torch.where(done, obj_T, o_new)
-        lam = torch.where(done, lam, l_new)
-        done = done | ((rel_gain < CONVERGENCE_RTOL) & torch.isfinite(rel_gain)) | (
-            l_new >= 1e6)
-    return cam_T, obj_T, lam
+    """Up to n_iters LM iterations, leaving the loop once the JAX
+    `while_loop`'s exit holds (relative gain < CONVERGENCE_RTOL, or lambda
+    >= 1e6): one host read of that flag per iteration. Returns (cam_T,
+    obj_T, lam, the iterations run)."""
+    it = 0
+    while it < n_iters:
+        (cam_T, obj_T, _, lam), rel_gain = lm_iteration((cam_T, obj_T, inl, lam), use_huber)
+        it += 1
+        if bool(((rel_gain < CONVERGENCE_RTOL) & torch.isfinite(rel_gain)) | (lam >= 1e6)):
+            break
+    return cam_T, obj_T, lam, it
+
+
+def _optimize_eager(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
+                    tracking_only: bool = False, fix_first_cam: bool = True,
+                    init_with_outliers: bool = False, huber_delta: float = HUBER_DELTA,
+                    chi2_thresh: float = CHI2_THRESH_2DOF, use_kernels: bool = False):
+    """The robust LM schedule as eager PyTorch operations: K4 and K7 on CUDA
+    tensors with `use_kernels`, else the plain edge assembly and Schur solve
+    on any device. Returns (BAResult, the LM iterations each round ran; 0
+    for a round skipped below 4 inlier edges)."""
+    dtype, dev = problem.cam_T.dtype, problem.cam_T.device
+    act_vo = problem.cam_active[:, None] & problem.obj_active[None, :]
+    valid = problem.valid & act_vo[..., None]
+    edge_chi2 = _edge_chi2 if use_kernels else _edge_chi2_plain
+
+    def reclassify(cam_T, obj_T):
+        chi2 = edge_chi2(cam_T, obj_T, problem.uv, problem.info, problem.model_kp,
+                         problem.cam_k)
+        return valid & (chi2 <= chi2_thresh), chi2
+
+    chi2_0 = edge_chi2(problem.cam_T, problem.obj_T, problem.uv, problem.info,
+                       problem.model_kp, problem.cam_k)
+    inl = valid & ((chi2_0 <= chi2_thresh) | bool(init_with_outliers))
+    lm_iteration = _make_lm_iteration(problem, tracking_only, fix_first_cam,
+                                      float(huber_delta), use_kernels)
+    cam_T, obj_T = problem.cam_T, problem.obj_T
+    lam = torch.tensor(1e-5, dtype=dtype, device=dev)
+    half = max(1, len(iters_per_round) // 2)
+    iters = []
+    for rnd, n_iters in enumerate(iters_per_round):
+        # the JAX `lax.cond(enough, run_round, identity)`
+        if not bool(torch.sum(inl) >= 4):
+            iters.append(0)
+            continue
+        cam_T, obj_T, lam, it = _lm_while(lm_iteration, cam_T, obj_T, inl, lam, n_iters,
+                                          rnd <= half)
+        iters.append(it)
+        cam_T = _reorthonormalize(cam_T)
+        obj_T = _reorthonormalize(obj_T)
+        inl, _ = reclassify(cam_T, obj_T)
+
+    inl_final, chi2_final = reclassify(cam_T, obj_T)
+    return BAResult(
+        cam_T=cam_T, obj_T=obj_T, inliers=inl_final,
+        num_inliers=torch.sum(inl_final),
+        total_chi2=torch.sum(torch.where(inl_final, chi2_final, 0.0)),
+    ), iters
+
+
+# K14 ----------------------------------------------------------------------------
+LM_THREADS = 512                # one persistent block per call (`kThreads`)
+LM_SMEM_LIMIT = 227 * 1024      # shared memory one H100 block can hold
+LM_STATIC_SMEM = 1024           # kept free for the kernel's static reduction slots
+LM_MAX_ROUNDS = 32              # `kMaxRounds`
+_LM_PAIR = 96                   # H / g sums per (v, o) pair (`kPair`)
+
+
+class LmPlan(NamedTuple):
+    """K14's launch plan for one (V, O): its threads, dynamic shared memory
+    (the objects' reduced system when it fits, else 0 and the system lives
+    in the scratch), the scratch buffer's floats, and the CTAs per call
+    (one: no cluster)."""
+
+    threads: int
+    smem_bytes: int
+    scratch_floats: int
+    cluster: int
+
+
+def lm_sys_floats(O: int) -> int:
+    """Floats of the objects' reduced system (`lm_sys_floats`): S with a
+    row stride of 6O + 1, its right-hand side, the forward solve, the step
+    and the factor's diagonal."""
+    n = 6 * O
+    return n * (n + 1) + 4 * n
+
+
+def lm_scratch_floats(V: int, O: int) -> int:
+    """Floats of K14's scratch (`lm_layout` in `csrc/ba_lm.cu`, in its
+    order): trial poses, per-pair H / g sums, per-camera and per-object sums,
+    factors and scales, the scaled Hco blocks, X = Hcc_s^-1 [Hco_s | gc_s],
+    the reduced system, the steps and the free masks."""
+    n, P = 6 * O, V * O
+    return (V * 16 + O * 16 + P * _LM_PAIR + V * 27 + O * 27 + V * 36 + V * 6 + V * 6
+            + O * 6 + O * 36 + O * 6 + P * 36 + V * 6 * (n + 1) + lm_sys_floats(O)
+            + V * 6 + O * 6 + V + O)
+
+
+def plan_lm(V: int, O: int) -> LmPlan:
+    sys_bytes = 4 * lm_sys_floats(O)
+    smem = sys_bytes if sys_bytes <= LM_SMEM_LIMIT - LM_STATIC_SMEM else 0
+    return LmPlan(LM_THREADS, smem, lm_scratch_floats(V, O), 1)
+
+
+_LM_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+                + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+LM_PHASES = ("edges", "blocks", "columns", "reduce", "factor", "back", "trial", "round")
+_lm_scratch: dict = {}   # (device, V, O) -> the scratch of that shape
+_lm_rounds: dict = {}    # iters_per_round -> its ctypes int array
+
+
+def _ba_lm_cuda(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
+                tracking_only: bool = False, fix_first_cam: bool = True,
+                init_with_outliers: bool = False, huber_delta: float = HUBER_DELTA,
+                chi2_thresh: float = CHI2_THRESH_2DOF, cycles: torch.Tensor | None = None):
+    """K14: `optimize` in one launch. Returns (BAResult, the LM iterations
+    each round ran [R] int64 on the device). Reads shapes only; allocates
+    the outputs, and the scratch once per shape. With `cycles` (int64
+    [len(LM_PHASES)] on the device) the kernel writes there the SM clock
+    cycles each of its phases took."""
+    p = problem
+    V, O, K = p.valid.shape
+    floats = (p.cam_T, p.obj_T, p.uv, p.info, p.model_kp, p.cam_k)
+    masks = (p.valid, p.cam_active, p.obj_active)
+    frozen = tuple(m for m in (p.cam_frozen, p.obj_frozen) if m is not None)
+    if any(a.dtype != torch.float32 for a in floats):
+        raise ValueError("K14 runs in f32")
+    if any(m.dtype != torch.bool for m in masks + frozen):
+        raise ValueError("K14: the masks must be bool")
+    if (p.cam_T.shape != (V, 4, 4) or p.obj_T.shape != (O, 4, 4)
+            or p.uv.shape != (V, O, K, 2) or p.info.shape != (V, O, K, 2, 2)
+            or p.model_kp.shape != (O, K, 3) or p.cam_k.shape != (V, O, 4)
+            or p.cam_active.shape != (V,) or p.obj_active.shape != (O,)
+            or (p.cam_frozen is not None and p.cam_frozen.shape != (V,))
+            or (p.obj_frozen is not None and p.obj_frozen.shape != (O,))):
+        raise ValueError("K14: inconsistent BA problem shapes")
+    if len(iters_per_round) > LM_MAX_ROUNDS:
+        raise ValueError(f"K14 runs at most {LM_MAX_ROUNDS} rounds, got {len(iters_per_round)}")
+    dev = p.uv.device
+    if any(a.device != dev for a in floats + masks + frozen):
+        raise ValueError("K14 inputs must lie on one CUDA device")
+    plan = plan_lm(V, O)
+    key = (dev, V, O)
+    scratch = _lm_scratch.get(key)
+    if scratch is None:
+        scratch = _lm_scratch[key] = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                                                 device=dev)
+    rounds = tuple(int(n) for n in iters_per_round)
+    c_rounds = _lm_rounds.get(rounds)
+    if c_rounds is None:
+        c_rounds = _lm_rounds[rounds] = (ctypes.c_int * max(1, len(rounds)))(*rounds)
+    cam_out = torch.empty((V, 4, 4), dtype=torch.float32, device=dev)
+    obj_out = torch.empty((O, 4, 4), dtype=torch.float32, device=dev)
+    inl = torch.empty((V, O, K), dtype=torch.bool, device=dev)
+    ints = torch.empty((1 + len(rounds),), dtype=torch.int64, device=dev)
+    chi2 = torch.empty((), dtype=torch.float32, device=dev)
+    d = float(huber_delta)
+    fn = _build.entry("ba_lm", _LM_ARGTYPES)
+    err = fn(p.cam_T.contiguous().data_ptr(), p.obj_T.contiguous().data_ptr(),
+             p.uv.contiguous().data_ptr(), p.info.contiguous().data_ptr(),
+             p.model_kp.contiguous().data_ptr(), p.cam_k.contiguous().data_ptr(),
+             p.valid.contiguous().data_ptr(), p.cam_active.contiguous().data_ptr(),
+             p.obj_active.contiguous().data_ptr(),
+             None if p.cam_frozen is None else p.cam_frozen.contiguous().data_ptr(),
+             None if p.obj_frozen is None else p.obj_frozen.contiguous().data_ptr(),
+             V, O, K, c_rounds, len(rounds), int(bool(tracking_only)), int(bool(fix_first_cam)),
+             int(bool(init_with_outliers)), d, 2.0 * d, d ** 2, float(chi2_thresh),
+             cam_out.data_ptr(), obj_out.data_ptr(), inl.data_ptr(), ints.data_ptr(),
+             chi2.data_ptr(), scratch.data_ptr(), plan.scratch_floats, plan.smem_bytes,
+             None if cycles is None else cycles.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "K14 ba_lm")
+    kernels.count("ba_lm")
+    return BAResult(cam_T=cam_out, obj_T=obj_out, inliers=inl, num_inliers=ints[0],
+                    total_chi2=chi2), ints[1:]
 
 
 def optimize(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
@@ -440,41 +616,11 @@ def optimize(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
              init_with_outliers: bool = False, huber_delta: float = HUBER_DELTA,
              chi2_thresh: float = CHI2_THRESH_2DOF) -> BAResult:
     """The robust LM schedule with chi2 reclassification between rounds
-    (Huber on rounds 0..max(1, len // 2), as the JAX package pins it)."""
-    dtype, dev = problem.cam_T.dtype, problem.cam_T.device
-    act_vo = problem.cam_active[:, None] & problem.obj_active[None, :]
-    valid = problem.valid & act_vo[..., None]
-
-    def reclassify(cam_T, obj_T):
-        chi2 = _edge_chi2(cam_T, obj_T, problem.uv, problem.info,
-                          problem.model_kp, problem.cam_k)
-        return valid & (chi2 <= chi2_thresh), chi2
-
-    chi2_0 = _edge_chi2(problem.cam_T, problem.obj_T, problem.uv, problem.info,
-                        problem.model_kp, problem.cam_k)
-    inl = valid & ((chi2_0 <= chi2_thresh) | bool(init_with_outliers))
-    lm_iteration = _make_lm_iteration(problem, tracking_only, fix_first_cam,
-                                      float(huber_delta))
-    cam_T, obj_T = problem.cam_T, problem.obj_T
-    lam = torch.tensor(1e-5, dtype=dtype, device=dev)
-    half = max(1, len(iters_per_round) // 2)
-    for rnd, n_iters in enumerate(iters_per_round):
-        use_huber = rnd <= half
-        enough = torch.sum(inl) >= 4
-        c_r, o_r, l_r = _lm_while(lm_iteration, cam_T, obj_T, inl, lam,
-                                  n_iters, use_huber)
-        c_r = _reorthonormalize(c_r)
-        o_r = _reorthonormalize(o_r)
-        inl_r, _ = reclassify(c_r, o_r)
-        # the JAX `lax.cond(enough, run_round, identity)` as a device select
-        cam_T = torch.where(enough, c_r, cam_T)
-        obj_T = torch.where(enough, o_r, obj_T)
-        inl = torch.where(enough, inl_r, inl)
-        lam = torch.where(enough, l_r, lam)
-
-    inl_final, chi2_final = reclassify(cam_T, obj_T)
-    return BAResult(
-        cam_T=cam_T, obj_T=obj_T, inliers=inl_final,
-        num_inliers=torch.sum(inl_final),
-        total_chi2=torch.sum(torch.where(inl_final, chi2_final, 0.0)),
-    )
+    (Huber on rounds 0..max(1, len // 2), as the JAX package pins it): one
+    K14 launch on CUDA tensors, the plain eager schedule on CPU tensors."""
+    kw = dict(iters_per_round=iters_per_round, tracking_only=tracking_only,
+              fix_first_cam=fix_first_cam, init_with_outliers=init_with_outliers,
+              huber_delta=huber_delta, chi2_thresh=chi2_thresh)
+    if _device_of(problem.uv) == "cpu":
+        return _optimize_eager(problem, **kw)[0]
+    return _ba_lm_cuda(problem, **kw)[0]

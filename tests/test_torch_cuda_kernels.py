@@ -353,3 +353,119 @@ def test_k13_int8_pool_junction(dev):
         a = ik.int8_upsample_add(x, low, e_up, e_low)
         b = ik.int8_upsample_add_plain(x, low, e_up, e_low)
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def _lm_arrays(V, O, n_views, n_objs, seed, K=41):
+    """A pose graph at the engine's shapes, numpy only: n_views cameras on a
+    ~0.2 rad arc 600 mm from n_objs objects (16 of K keypoints each, in a
+    100 mm cube), NDC measurements with N(0, 0.003) noise and 5% outliers,
+    info 1e4 I, cameras after the first and the objects 1-2 mm off; the
+    rest of the V x O capacity inactive."""
+    rng = np.random.default_rng(seed)
+
+    def rot(axis, a):
+        c, s = np.cos(a), np.sin(a)
+        i, j = [(1, 2), (2, 0), (0, 1)][axis]
+        R = np.eye(3)
+        R[i, i] = R[j, j] = c
+        R[i, j], R[j, i] = -s, s
+        return R
+
+    obj_T = np.tile(np.eye(4), (O, 1, 1))
+    model_kp = np.zeros((O, K, 3))
+    valid_kp = np.zeros((O, K), bool)
+    for o in range(n_objs):
+        obj_T[o, :3, :3] = rot(0, rng.uniform(-3, 3)) @ rot(1, rng.uniform(-3, 3))
+        obj_T[o, :3, 3] = rng.uniform(-120, 120, 3) * [1, 1, 0.3] + [0, 0, 600]
+        ch = rng.choice(K, 16, replace=False)
+        valid_kp[o, ch] = True
+        model_kp[o, ch] = rng.uniform(-50, 50, (16, 3))
+    cam_T = np.tile(np.eye(4), (V, 1, 1))
+    for v in range(n_views):
+        a = 0.2 * v / max(n_views - 1, 1)
+        c = np.array([0, 0, 600.0])
+        cam_T[v, :3, :3] = rot(1, a)
+        cam_T[v, :3, 3] = c - rot(1, a) @ c + rng.normal(size=3)
+    uv = np.zeros((V, O, K, 2))
+    valid = np.zeros((V, O, K), bool)
+    for v in range(n_views):
+        for o in range(n_objs):
+            p = (cam_T[v] @ obj_T[o])[:3, :3] @ model_kp[o].T + (cam_T[v] @ obj_T[o])[:3, 3:]
+            uv[v, o] = 2.0 * (p[:2] / p[2]).T + rng.normal(scale=0.003, size=(K, 2))
+            valid[v, o] = valid_kp[o]
+    out = rng.uniform(size=(V, O, K)) < 0.05
+    uv[out] += rng.uniform(-0.3, 0.3, size=(int(out.sum()), 2))
+    cam_T[1:n_views, :3, 3] += rng.normal(scale=1.0, size=(n_views - 1, 3))
+    obj_T[:n_objs, :3, 3] += rng.normal(scale=2.0, size=(n_objs, 3))
+    cam_active = np.zeros(V, bool)
+    cam_active[:n_views] = True
+    obj_active = np.zeros(O, bool)
+    obj_active[:n_objs] = True
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)
+    cam_k = np.zeros((V, O, 4))
+    cam_k[..., :2] = 2.0
+    return dict(cam_T=f32(cam_T), obj_T=f32(obj_T), uv=f32(uv),
+                info=f32(np.broadcast_to(np.eye(2) * 1e4, (V, O, K, 2, 2))),
+                model_kp=f32(model_kp), cam_k=f32(cam_k), valid=valid, inliers=valid.copy(),
+                cam_active=cam_active, obj_active=obj_active)
+
+
+@pytest.mark.parametrize("V,O,n_views,n_objs", [(1, 8, 1, 8), (16, 8, 6, 8), (32, 8, 22, 8),
+                                                (128, 16, 70, 12)])
+def test_k14_ba_lm_matches_the_eager_schedule(dev, V, O, n_views, n_objs):
+    """K14 against the eager plain schedule on the card and f64 on the CPU
+    (chip_smoke's `compare_ba` gate), tracking and global, at the (V, O)
+    the engine's capacity growth reaches."""
+    import chip_smoke as cs
+
+    arrays = _lm_arrays(V, O, n_views, n_objs, seed=V + O)
+    act = (arrays["cam_active"], arrays["obj_active"])
+    cs.compare_ba(f"global V={V} O={O}", arrays, dev, act)
+    row = {k: (a[:1] if k in ("cam_T", "uv", "info", "cam_k", "valid", "inliers") else a)
+           for k, a in arrays.items()}
+    row["cam_active"] = np.ones(1, bool)
+    row["cam_T"] = row["cam_T"].copy()
+    row["cam_T"][0, :3, 3] += 0.5
+    cs.compare_ba(f"tracking O={O}", row, dev, (np.ones(1, bool), act[1]), **cs.TRACKING)
+
+
+def test_k14_first_iteration_matches_k4_k7(dev):
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(12)
+    assert cs.k14_first_step(cs._ba_problem(dev, rng, cs.Objects(rng))) <= 1e-3
+
+
+def test_k14_one_launch_per_optimize(dev):
+    """`optimize` on CUDA tensors: one K14 launch, no K4, no K7."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.solvers import ba
+
+    p = cs._ba_problem_of(_lm_arrays(16, 8, 6, 8, seed=3), dev)
+    ba.optimize(p)
+    kernels.reset_counts()
+    r = ba.optimize(p)
+    t = ba.optimize(p._replace(cam_T=p.cam_T[:1], uv=p.uv[:1], info=p.info[:1],
+                               cam_k=p.cam_k[:1], valid=p.valid[:1], inliers=p.inliers[:1],
+                               cam_active=p.cam_active[:1]), **cs.TRACKING)
+    torch.cuda.synchronize()
+    c = kernels.counts()
+    assert c["ba_lm"] == 2 and c["ba_edges"] == 0 and c["ba_schur"] == 0
+    assert torch.isfinite(r.cam_T).all() and torch.isfinite(t.cam_T).all()
+    assert int(r.num_inliers) > 0 and r.inliers.dtype == torch.bool
+
+
+def test_kernels_refuse_autograd(dev):
+    """C1: K2, K8 and K9 raise where autograd would record them (they have
+    no backward yet); the same forward runs under inference_mode."""
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+
+    torch.manual_seed(0)
+    net = PkpNet(n_stack=2, n_modules=1, features=8).to(dev)
+    x = torch.rand(2, 64, 64, 3, device=dev)
+    with pytest.raises(RuntimeError, match="ROADMAP B13"):
+        net(x)
+    with torch.inference_mode():
+        out = net(x)
+    assert torch.isfinite(out.uv).all()
