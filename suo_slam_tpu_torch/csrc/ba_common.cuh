@@ -1,10 +1,12 @@
 // Device math shared by the bundle-adjustment kernels K4 (`ba_edges.cu`),
 // K7 (`ba_schur.cu`) and K14 (`ba_lm.cu`): one edge's projection, residual
-// and chi2, its analytic 2x12 Jacobian, and the 6x6 block algebra of the
-// damped, Jacobi-scaled Schur solve. The three kernels include this one
-// header, so they agree by construction. Compiled with --fmad=false (see
-// `kernels/_build.py`): every a*b+c below is two rounded operations, as
-// PyTorch's separate elementwise kernels compute it in the plain versions.
+// and chi2, its analytic 2x12 Jacobian, the 6x6 block algebra of the
+// damped, Jacobi-scaled Schur solve, and the SE(3) exponential with its
+// left composition (which K15, `pnp_ransac.cu`, includes too). The kernels
+// include this one header, so they agree by construction. Compiled with
+// --fmad=false (see `kernels/_build.py`): every a*b+c below is two rounded
+// operations, as PyTorch's separate elementwise kernels compute it in the
+// plain versions.
 
 #pragma once
 
@@ -135,6 +137,44 @@ __device__ __forceinline__ float damp_mask(const float* H, int i, int j, float l
   const float d = clampmin(H[i * 6 + i], 1e-9f);
   const float hd = H[i * 6 + j] + lam * d * (i == j ? 1.f : 0.f);
   return hd * m + (1.f - m) * (i == j ? 1.f : 0.f);
+}
+
+// T <- se3_exp(d) @ T for one row-major 4x4 pose (the port's `core/lie.py`
+// `se3_exp`: Rodrigues with its small-angle Taylor branches, t = V(w) v):
+// K14's pose update and K15's (`pnp_ransac.cu`) Gauss-Newton step.
+__device__ inline void exp_compose(const float* d, const float* T, float* out) {
+  const float w0 = d[0], w1 = d[1], w2 = d[2];
+  const float theta2 = w0 * w0 + w1 * w1 + w2 * w2;
+  const float theta = sqrtf(clampmin(theta2, 0.f));
+  const bool small = theta2 < 1e-8f;
+  const float safe_t2 = small ? 1.f : theta2;
+  const float st = sinf(theta), ct = cosf(theta);
+  const float A = small ? 1.f - theta2 / 6.f : st / sqrtf(safe_t2);
+  const float B = small ? 0.5f - theta2 / 24.f : (1.f - ct) / safe_t2;
+  const float C = small ? (1.f / 6.f) - theta2 / 120.f : (theta - st) / (safe_t2 * sqrtf(safe_t2));
+  const float W[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
+  float WW[9];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      WW[i * 3 + j] = W[i * 3 + 0] * W[0 * 3 + j] + W[i * 3 + 1] * W[1 * 3 + j] +
+                      W[i * 3 + 2] * W[2 * 3 + j];
+  float E[16];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      const float I = i == j ? 1.f : 0.f;
+      E[i * 4 + j] = I + A * W[i * 3 + j] + B * WW[i * 3 + j];
+    }
+  for (int i = 0; i < 3; ++i) {
+    float Vr[3];
+    for (int j = 0; j < 3; ++j)
+      Vr[j] = (i == j ? 1.f : 0.f) + B * W[i * 3 + j] + C * WW[i * 3 + j];
+    E[i * 4 + 3] = Vr[0] * d[3] + Vr[1] * d[4] + Vr[2] * d[5];
+  }
+  E[12] = 0.f; E[13] = 0.f; E[14] = 0.f; E[15] = 1.f;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
+      out[i * 4 + j] = E[i * 4 + 0] * T[0 * 4 + j] + E[i * 4 + 1] * T[1 * 4 + j] +
+                       E[i * 4 + 2] * T[2 * 4 + j] + E[i * 4 + 3] * T[3 * 4 + j];
 }
 
 }  // namespace suo_ba

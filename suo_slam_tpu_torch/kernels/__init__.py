@@ -1,9 +1,9 @@
 """Launch counters and build entry for the port's hand-written kernels.
 
 Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
-K2 and K5 `ops/heatmap.py`, K3 `solvers/pnp.py`, K4 and K7 `solvers/ba.py`,
-K6 `slam/kernels.py`, K8 and K9 `models/hourglass.py`, K10 `eval/meter.py`,
-K11-K13 `models/int8_kernels.py`, K14 `solvers/ba.py`)
+K2 and K5 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
+`solvers/ba.py`, K6 `slam/kernels.py`, K8 and K9 `models/hourglass.py`, K10
+`eval/meter.py`, K11-K13 `models/int8_kernels.py`, K14 `solvers/ba.py`)
 and adds one to its counter here where — and only
 where — it launches its CUDA kernel.
 
@@ -35,6 +35,7 @@ LAUNCHES: dict[str, int] = {
     "int8_quant": 0,    # K12
     "int8_pool_junction": 0,  # K13 (max-pool and junction)
     "ba_lm": 0,         # K14
+    "pnp_ransac": 0,    # K15
 }
 
 

@@ -9,14 +9,14 @@ measurement buffers [V, O, K]; the numeric paths are the device programs of
 
 1. the non-symmetric group: frame inference (K1 crop -> K5 prior render ->
    PkpNet -> K2 readout) chained into `kernels.frontend_step` (filter ->
-   PnP with K3 -> information -> camera-pose RANSAC with K6), read back
-   once;
+   PnP RANSAC, one launch of K15 -> information -> camera-pose RANSAC with
+   K6), read back once;
 2. `kernels.tracking_tail`: the symmetric group's front end (dispatched,
    not yet read) is scattered into the device mirrors, then late init, the
-   re-init vote (K6) and the tracking BA (K4, K7) run on them; one combined
+   re-init vote (K6) and the tracking BA (K14) run on them; one combined
    read-back.
 
-Global BA (`optimize`, K4 + K7) runs every `global_opt_every` posed views
+Global BA (`optimize`, K14) runs every `global_opt_every` posed views
 (every view in SfM and single-view modes) over device mirrors of the bulk
 buffers (`_dev_buf`), which are updated row by row (`_sync_view_row`) and
 dropped when a capacity grows. Modes: SLAM (default), SfM (`sfm_mode`) and

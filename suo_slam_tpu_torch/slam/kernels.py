@@ -7,13 +7,14 @@ Port of `suo_slam_tpu/slam/kernels.py`:
   call; `has_prior=False` is the statically prior-free program; `int8=True`
   runs the s8-resident executor (K11-K13) with persisted or online-calibrated
   scales;
-- `frontend_step`: keypoint filter -> batched PnP (`pnp_frame`, K3) ->
-  information -> (optionally) camera-pose RANSAC, with no host round-trip
-  between the stages;
+- `frontend_step`: keypoint filter -> hypothesis sampler -> batched PnP
+  (`pnp_frame`: `pnp_ransac_batch`, one launch of K15) -> information ->
+  (optionally) camera-pose RANSAC, with no host round-trip between the
+  stages;
 - `chi2_counts` (kernel K6) under `camera_pose_ransac` and `reinit_counts`;
 - `tracking_tail`: the symmetric group's scatter into the device mirrors ->
-  late init -> re-init vote -> tracking BA (K4, K7), ending in the frame's
-  second host read-back.
+  late init -> re-init vote -> tracking BA (`ba.optimize`, one launch of
+  K14), ending in the frame's second host read-back.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Vectorized PnP RANSAC with Gauss-Newton refinement — kernel K3's home.
+"""Vectorized PnP RANSAC with Gauss-Newton refinement — kernels K3 and K15.
 
 Port of `suo_slam_tpu/solvers/pnp.py` over a leading object axis:
 
@@ -6,11 +6,16 @@ Port of `suo_slam_tpu/solvers/pnp.py` over a leading object axis:
      `idx [O, n_hyp, 4]`; `sample_hypothesis_indices` draws them as Gumbel
      top-4 on a `torch.Generator`, since torch cannot reproduce the
      `jax.random` stream),
-  2. every hypothesis solved by P4P and scored against every point —
-     `pnp_hypotheses`, kernel K3 on a CUDA tensor, its plain version on a
-     CPU tensor,
+  2. every hypothesis solved by P4P and scored against every point,
   3. the best hypothesis polished by two damped Gauss-Newton rounds with
-     inlier reselection, kept only if no inliers are lost (plain PyTorch).
+     inlier reselection, kept only if no inliers are lost.
+
+`pnp_ransac_batch` runs steps 2-3 as one launch of kernel K15
+(`csrc/pnp_ransac.cu`, one block per object) on CUDA tensors, and as
+`pnp_ransac_batch_plain` — plain PyTorch, step 2 by K3's plain version — on
+CPU tensors. `pnp_hypotheses` (step 2 alone: kernel K3, `csrc/pnp_hypotheses.cu`,
+on a CUDA tensor) stays as an entry point off the main path; K3 and K15 share
+its solver (`csrc/pnp_common.cuh`).
 
 3D points are centroid/scale preconditioned for f32; identity is returned on
 failure (fewer than 4 valid points, no hypothesis with 4 inliers, or a
@@ -43,12 +48,19 @@ class PnpResult(NamedTuple):
 
 def _precondition(x: torch.Tensor, mask: torch.Tensor):
     """Center + scale [..., N, 3] points to unit RMS over the valid set.
-    Returns (x', c [..., 3], s [...])."""
+    Returns (x', c [..., 3], s [...]).
+
+    The sums run in f64 and each statistic is rounded once to x's dtype: a
+    sum of a few dozen f32 terms is exact in f64, so c and s do not depend
+    on the order of the sums, and K15 (`csrc/pnp_ransac.cu`) computes them
+    bit for bit. An ulp of c or s moves a hypothesis's inlier count at the
+    threshold's edge and with it the argmax."""
     m = mask.to(x.dtype)[..., None]
-    n = torch.clamp(torch.sum(m, dim=(-2, -1)), min=1.0)
-    c = torch.sum(x * m, dim=-2) / n[..., None]
+    n = torch.clamp(torch.sum(m, dim=(-2, -1)), min=1.0).double()
+    c = (torch.sum((x * m).double(), dim=-2) / n[..., None]).to(x.dtype)
     xc = (x - c[..., None, :]) * m
-    s = torch.sqrt(torch.clamp(torch.sum(xc * xc, dim=(-2, -1)) / n, min=1e-12))
+    ss = torch.sum((xc * xc).double(), dim=(-2, -1)) / n
+    s = torch.sqrt(torch.clamp(ss, min=1e-12)).to(x.dtype)
     return (x - c[..., None, :]) / s[..., None, None], c, s
 
 
@@ -221,19 +233,20 @@ def pnp_hypotheses(xp, y, mask, idx, thr_sq: float):
     return _pnp_hypotheses_cuda(xp, y, mask, idx, thr_sq)
 
 
-def pnp_ransac_batch(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
-                     refine: bool = True) -> PnpResult:
-    """Robust PnP for a batch of objects from padded correspondences.
-
-    x [O, N, 3] model points, y [O, N, 2] pinhole-normalized image points,
-    mask [O, N] validity, idx [O, n_hyp, 4] hypothesis point indices."""
+def pnp_ransac_batch_plain(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+                           refine: bool = True, use_kernels: bool = False) -> PnpResult:
+    """Plain PyTorch K15: robust PnP for a batch of objects from padded
+    correspondences (see `pnp_ransac_batch`). The hypotheses run on K3's
+    plain version, or with `use_kernels` through `pnp_hypotheses` (K3 on a
+    CUDA tensor: the schedule K15 replaced, kept for comparison)."""
     dtype = x.dtype
     mask = mask.bool()
     feasible = mask.sum(-1) >= 4
     xp, c, s = _precondition(x, mask)
     thr_sq = float(threshold) ** 2
 
-    Ts, _, counts = pnp_hypotheses(xp, y, mask, idx, thr_sq)
+    hyp = pnp_hypotheses if use_kernels else pnp_hypotheses_plain
+    Ts, _, counts = hyp(xp, y, mask, idx, thr_sq)
     best = torch.argmax(counts, dim=-1)  # first maximum
     ar = torch.arange(x.shape[0], device=x.device)
     T_best = Ts[ar, best].to(dtype)
@@ -262,6 +275,60 @@ def pnp_ransac_batch(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
     inliers = inliers & success[:, None]
     return PnpResult(T=T_out, inliers=inliers,
                      num_inliers=torch.where(success, num, 0), success=success)
+
+
+_K15_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
+                 + [ctypes.c_void_p] * 5)
+K15_MAX_POINTS = 2048  # 24 B of shared memory per staged point; 64 bits of round weights per lane
+
+
+def _pnp_ransac_cuda(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+                     refine: bool = True) -> PnpResult:
+    """K15: `pnp_ransac_batch` in one launch (f32, N <= K15_MAX_POINTS).
+    Raises on what the kernel does not take; never falls back."""
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise ValueError(f"K15 runs in f32, got {x.dtype} / {y.dtype}")
+    O, N = mask.shape
+    H = idx.shape[1] if idx.dim() == 3 else 0
+    if (x.shape != (O, N, 3) or y.shape != (O, N, 2) or idx.shape != (O, H, 4)
+            or min(O, H) < 1):
+        raise ValueError(f"K15 shapes: x {tuple(x.shape)} y {tuple(y.shape)} "
+                         f"mask {tuple(mask.shape)} idx {tuple(idx.shape)}")
+    if N > K15_MAX_POINTS:
+        raise ValueError(f"K15 stages at most {K15_MAX_POINTS} points, got {N}")
+    dev = x.device
+    if dev.type != "cuda" or any(a.device != dev for a in (y, mask, idx)):
+        raise ValueError("K15 inputs must lie on one CUDA device")
+    xc, yc = x.contiguous(), y.contiguous()
+    # the engine's bool mask and int64 indices pass as they are: no conversion
+    mk = mask.bool().contiguous().view(torch.uint8)
+    ix = idx.long().contiguous()
+    T = torch.empty((O, 4, 4), dtype=torch.float32, device=dev)
+    inliers = torch.empty((O, N), dtype=torch.bool, device=dev)
+    num = torch.empty((O,), dtype=torch.int64, device=dev)
+    success = torch.empty((O,), dtype=torch.bool, device=dev)
+    fn = _build.entry("pnp_ransac", _K15_ARGTYPES)
+    err = fn(_build.ptr(xc), _build.ptr(yc), _build.ptr(mk), _build.ptr(ix), O, N, H,
+             float(threshold) ** 2, int(bool(refine)), _build.ptr(T), _build.ptr(inliers),
+             _build.ptr(num), _build.ptr(success), _build.stream())
+    _build.check(err, "K15 pnp_ransac")
+    kernels.count("pnp_ransac")
+    return PnpResult(T=T, inliers=inliers, num_inliers=num, success=success)
+
+
+def pnp_ransac_batch(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+                     refine: bool = True) -> PnpResult:
+    """Robust PnP for a batch of objects from padded correspondences.
+
+    x [O, N, 3] model points, y [O, N, 2] pinhole-normalized image points,
+    mask [O, N] validity, idx [O, n_hyp, 4] hypothesis point indices.
+    K15 (one launch) on CUDA tensors, `pnp_ransac_batch_plain` on CPU
+    tensors."""
+    if x.device.type == "cpu":
+        return pnp_ransac_batch_plain(x, y, mask, idx, threshold, refine)
+    if x.device.type != "cuda":
+        raise ValueError(f"pnp_ransac_batch: unsupported device {x.device}")
+    return _pnp_ransac_cuda(x, y, mask, idx, threshold, refine)
 
 
 def pnp_ransac(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,

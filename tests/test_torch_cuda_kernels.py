@@ -1,4 +1,4 @@
-"""Kernels K1-K13 against their plain PyTorch versions on the card.
+"""Kernels K1-K15 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -454,6 +454,37 @@ def test_k14_one_launch_per_optimize(dev):
     assert c["ba_lm"] == 2 and c["ba_edges"] == 0 and c["ba_schur"] == 0
     assert torch.isfinite(r.cam_T).all() and torch.isfinite(t.cam_T).all()
     assert int(r.num_inliers) > 0 and r.inliers.dtype == torch.bool
+
+
+def test_k15_pnp_ransac(dev):
+    """K15 against its plain version under chip_smoke's gate at the front
+    end's shapes and the backup pose's; `pnp_ransac_batch` and `pnp_ransac`
+    on CUDA tensors are one K15 launch each and no K3; f64, too many points
+    and an unknown shape raise instead of falling back."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.solvers import pnp
+
+    rng = np.random.default_rng(15)
+    x, y, mask, idx = cs.pnp_inputs(dev, rng)
+    cs.k15_gate("front end", x, y, mask, idx)
+    cs.k15_gate("front end, no refinement", x, y, mask, idx, refine=False)
+    cs.k15_gate("backup pose", *cs.backup_inputs(dev, rng))
+    kernels.reset_counts()
+    r = pnp.pnp_ransac_batch(x, y, mask, idx)
+    one = pnp.pnp_ransac(x[0], y[0], mask[0], idx[0])
+    torch.cuda.synchronize()
+    c = kernels.counts()
+    assert c["pnp_ransac"] == 2 and c["pnp_hypotheses"] == 0
+    assert r.success[:-2].all() and not r.success[-2:].any()
+    assert torch.equal(one.T, r.T[0]) and torch.equal(one.inliers, r.inliers[0])
+    with pytest.raises(ValueError, match="f32"):
+        pnp.pnp_ransac_batch(x.double(), y.double(), mask, idx)
+    big = pnp.K15_MAX_POINTS + 1
+    with pytest.raises(ValueError, match="at most"):
+        pnp.pnp_ransac_batch(torch.zeros(1, big, 3, device=dev), torch.zeros(1, big, 2, device=dev),
+                             torch.ones(1, big, dtype=torch.bool, device=dev), idx[:1])
+    assert kernels.counts()["pnp_ransac"] == 2
 
 
 def test_kernels_refuse_autograd(dev):
