@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port: the single-view frame, SLAM
-mode and the evaluation entry point of SUO-SLAM on one NVIDIA GPU, through the
-entry points a user calls.
+mode, the evaluation entry point, int8 serving and training of SUO-SLAM on
+one NVIDIA GPU, through the entry points a user calls.
 
     python3 chip_smoke.py
 
@@ -96,10 +96,27 @@ Phases (any failure raises and exits non-zero):
      int8=True)` to its end; a 6-frame SLAM run with
      `SlamConfig(int8_inference=True, int8_calib_frames=2)` under phase 6's
      ground-truth wrapper (the with-prior int8 program and K5);
-  9. the kernels JSON line (K1-K7's, K14's and K15's launches from the SLAM path,
-     K8-K10's from the evaluation phase, K11-K13's from the int8 phase's
-     evaluation and SLAM runs), the nvidia-smi line, and the last line
-     {"ok": true, "device": {...}}.
+  9. training: a `train_real` split (40 480x640 PNG views of 5-8 of the
+     eight objects, YCB-V's every-5th cut keeps 8) beside phase 7's test
+     split; K16-K19 against their plain versions at the train step's
+     full-width shapes (16 rows, 4 padded; f32 and bf16) with kernel,
+     device, plain and library times (F.batch_norm + relu forward and
+     backward; avg_pool2d; autograd of softmax + einsum) and bytes bounds;
+     one full-width train step (2 frames x 16 slots) with the kernels
+     against the same step on the plain versions, f32 and bf16 (loss and
+     terms, every gradient, the new statistics; gated by the step's own
+     sensitivity to 1e-6 input noise); the bf16 step's host and device ms,
+     kernels, busy share, peak memory and launches per step (K16 / K17 / K8
+     180, K9 / K18 8, K1 / K2 / K5 / K19 1); 30 steps overfitting one batch
+     (the loss falls); `python -m suo_slam_tpu_torch.train` in process, full
+     width and bf16, 2 epochs x 4 steps + 2 validation batches, its exact
+     launches, no plain version on a CUDA tensor, its checkpoints, and a
+     second run that auto-resumes at epoch 2; the trained checkpoint through
+     `Evaluator(nviews=1)`;
+ 10. the kernels JSON line (K1-K7's, K14's and K15's launches from the SLAM
+     path, K8-K10's from the evaluation phase, K11-K13's from the int8
+     phase's evaluation and SLAM runs, K16-K19's from the training CLI), the
+     nvidia-smi line, and the last line {"ok": true, "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package; its scenes are made
 with numpy from --seed.
@@ -108,6 +125,7 @@ with numpy from --seed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -129,6 +147,8 @@ SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm")
 OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur")
 EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
 INT8_KERNELS = ("int8_conv", "int8_quant", "int8_pool_junction")  # from the int8 phase
+TRAIN_KERNELS = ("bn_stats", "norm_relu_bwd", "upsample_add_bwd",  # from the training phase
+                 "heatmap_readout_bwd")
 
 
 # ----------------------------------------------------------------- helpers --
@@ -1543,8 +1563,8 @@ def phase_slam(dev, rng, objs, net, seed, scene):
                              f"pnp_ransac_batch calls over {n_frames} frames")
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
-    missing = [k for k, c in counts.items()
-               if c == 0 and k != "add_dists" and k not in INT8_KERNELS + OFF_PATH_KERNELS]
+    missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"
+               and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}, or K3 / K4 / "
                              f"K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
@@ -2769,6 +2789,582 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
     return entries, counts, k2_err
 
 
+# training phase ------------------------------------------------------------------
+TRAIN_VIEWS = 40  # YCB-V train_real keeps every 5th frame: 8 training frames
+TRAIN_N = 16  # rows of the kernel checks' tensors (the CLI's step has 2 x 16)
+# the train step's expected launches per forward (2 stacks x 2 modules x 256)
+NORMS_PER_FWD, JUNCTIONS_PER_FWD = 180, 8
+
+
+def write_train_split(root, objs, rng):
+    """`train_real` beside phase 7's test split: TRAIN_VIEWS 480x640 PNG views
+    with the YCB-V intrinsics, each a random 5-8 of the eight objects (so a
+    batch pads its object slots), on phase 7's camera orbit."""
+    import os
+
+    scene = SlamScene(rng, objs, TRAIN_VIEWS)
+    sdir = os.path.join(root, "train_real", "000000")
+    for d in ("rgb", "mask_visib"):
+        os.makedirs(os.path.join(sdir, d), exist_ok=True)
+    cams, gts, gt_infos = {}, {}, {}
+    for v in range(TRAIN_VIEWS):
+        T, bboxes, _ = scene.frame(v)
+        keep = np.sort(rng.choice(N_OBJ, int(rng.integers(5, N_OBJ + 1)), replace=False))
+        img = np.full((H_IMG, W_IMG, 3), 40, np.uint8)
+        gts[str(v)], gt_infos[str(v)] = [], []
+        for o in keep:
+            x1, y1, x2, y2 = (int(round(c)) for c in bboxes[o])
+            img[y1:y2, x1:x2] = (60 + 20 * o, 200 - 15 * o, 90 + 10 * o)
+            gts[str(v)].append({"obj_id": int(o) + 1,
+                                "cam_R_m2c": T[o, :3, :3].reshape(-1).tolist(),
+                                "cam_t_m2c": T[o, :3, 3].tolist()})
+            x1, y1, x2, y2 = (float(c) for c in bboxes[o])
+            gt_infos[str(v)].append({"bbox_obj": [x1, y1, x2 - x1, y2 - y1],
+                                     "bbox_visib": [x1, y1, x2 - x1, y2 - y1],
+                                     "visib_fract": 1.0, "px_count_visib": 1000})
+        write_png(os.path.join(sdir, "rgb", f"{v:06d}.png"), img)
+        cams[str(v)] = {"cam_K": YCBV_K.reshape(-1).tolist(), "depth_scale": 1.0}
+    for name, d in (("scene_camera", cams), ("scene_gt", gts), ("scene_gt_info", gt_infos)):
+        with open(os.path.join(sdir, f"{name}.json"), "w") as f:
+            json.dump(d, f)
+
+
+def _row_mask(dev):
+    """TRAIN_N rows with every fourth one a padded slot."""
+    import torch
+
+    return torch.arange(TRAIN_N, device=dev) % 4 != 3
+
+
+def check_k16_k17(dev, rng):
+    """K16 (masked batch statistics) and K17 (the norm + ReLU backward, with
+    the statistics' terms) at the train step's norm shapes, N = 16 rows of
+    which 4 padded, f32 and bf16: the stem norm (64 ch at 128x128), the
+    largest residual norm (256 ch at 64x64) and a bottleneck norm (128 ch at
+    64x64). Statistics within 1e-6 relative (f64 sums in another order),
+    K17's sums within 1e-5 of their scale, dx within 1e-5 of its largest
+    magnitude in f32 and 1 bf16 ulp of it in bf16. Times at the largest
+    shape; the library yardstick is F.batch_norm(training=True) + relu,
+    forward (K16 + K8's work) and backward (K17's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    mask = _row_mask(dev)
+    shapes = [(TRAIN_N, 64, 128, 128), (TRAIN_N, 256, 64, 64), (TRAIN_N, 128, 64, 64)]
+    err = {"stats": 0.0, "sums": 0.0, "dx f32": 0.0, "dx bf16": 0.0}
+    cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+    for shape in shapes:
+        C = shape[1]
+        x32 = cl((rng.normal(size=shape) * 1.5 + rng.normal(size=(1, C, 1, 1))).astype(np.float32))
+        dy32 = cl(rng.normal(size=shape).astype(np.float32))
+        for dt in (torch.float32, torch.bfloat16):
+            x, dy = x32.to(dt), dy32.to(dt)
+            mk, vk = hg._bn_stats_cuda(x, mask)
+            mp, vp = hg.bn_stats_plain(x, mask)
+            torch.cuda.synchronize()
+            err["stats"] = max(err["stats"], ((mk - mp).abs() / mp.abs().clamp(min=1e-3)).max().item(),
+                               ((vk - vp).abs() / vp.abs().clamp(min=1e-3)).max().item())
+            scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+            rstd = torch.rsqrt(vp + 1e-5)
+            inv = rstd * scale
+            shift = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev) * 0.3 - mp * inv
+            k = hg._norm_relu_bwd_cuda(x, dy, inv, shift, mp, rstd, mask)
+            p = hg.norm_relu_bwd_plain(x, dy, inv, shift, mp, rstd, mask)
+            torch.cuda.synchronize()
+            for a, b in zip(k[1:], p[1:]):
+                err["sums"] = max(err["sums"], (a - b).abs().max().item()
+                                  / max(b.abs().max().item(), 1.0))
+            key = "dx f32" if dt == torch.float32 else "dx bf16"
+            err[key] = max(err[key], (k[0].float() - p[0].float()).abs().max().item()
+                           / p[0].float().abs().max().item())
+    log(f"[train] K16 / K17 errors over {len(shapes)} shapes, f32 and bf16, 4 of 16 rows "
+        f"padded: " + json.dumps({k: f"{v:.3e}" for k, v in err.items()})
+        + " (tol: stats 1e-6 relative, sums 1e-5 of scale, dx f32 1e-5 of max, bf16 2^-8)")
+    if not (err["stats"] <= 1e-6 and err["sums"] <= 1e-5 and err["dx f32"] <= 1e-5
+            and err["dx bf16"] <= 2.0 ** -8):
+        raise AssertionError(f"K16 / K17 disagree with their plain versions: {err}")
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = cl((rng.normal(size=shapes[1]) * 1.5).astype(np.float32)).to(dt)
+        dy = cl(rng.normal(size=shapes[1]).astype(np.float32)).to(dt)
+        mp, vp = hg.bn_stats_plain(x, mask)
+        rstd = torch.rsqrt(vp + 1e-5)
+        inv, shift = rstd, -mp * rstd
+        w = torch.ones(256, device=dev, requires_grad=True)
+        bb = torch.zeros(256, device=dev, requires_grad=True)
+        xg = x.detach().requires_grad_(True)
+        y = torch.relu(F.batch_norm(xg, None, None, w, bb, training=True))
+        dyl = dy.contiguous()
+        k16 = lambda: hg._bn_stats_cuda(x, mask)
+        k17 = lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mp, rstd, mask)
+        lib16 = lambda: torch.relu(F.batch_norm(x, None, None, None, None, training=True))
+        lib17 = lambda: torch.autograd.grad(y, (xg, w, bb), dyl, retain_graph=True)
+        n = x.numel()
+        es = x.element_size()
+        res = {}
+        for label, fn, plain, lib, nbytes, ops in (
+                ("K16 bn_stats", k16, lambda: hg.bn_stats_plain(x, mask), lib16,
+                 n * es + 2 * 256 * 4, 3 * n),
+                ("K17 norm_relu_bwd", k17,
+                 lambda: hg.norm_relu_bwd_plain(x, dy, inv, shift, mp, rstd, mask), lib17,
+                 3 * n * es + 6 * 256 * 4, 12 * n)):
+            ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain, n=5, inner=2), cuda_ms(lib)
+            us, src = lib_device_us(fn)
+            b = bound(nbytes, ops)
+            _report(f"{label} ({name}, {list(x.shape)}, 4 of 16 rows padded, device {us:.3f} us "
+                    f"by {src})", err["stats"] if label.startswith("K16") else err[f"dx {name}"],
+                    "1e-6 rel" if label.startswith("K16") else
+                    ("1e-5 of max" if name == "f32" else "2^-8 of max"),
+                    ms, plain_ms, lib_ms, b, lib)
+            res[label] = (ms, plain_ms, lib_ms, b, us)
+        out[name] = res
+    entries = []
+    for label, kname, src, rep in (
+            ("K16 bn_stats", "bn_stats", "suo_slam_tpu_torch/csrc/bn_train.cu",
+             "suo_slam_tpu/models/hourglass.py:69"),
+            ("K17 norm_relu_bwd", "norm_relu_bwd", "suo_slam_tpu_torch/csrc/bn_train.cu",
+             "suo_slam_tpu/models/hourglass.py:88")):
+        ms, plain_ms, lib_ms, b, us = out["bf16"][label]
+        entries.append(dict(name=kname, route="cuda", source=src, replaces=rep,
+                            max_abs_err=err["stats"] if kname == "bn_stats" else err["dx bf16"],
+                            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+                            library_ms=lib_ms))
+    return entries
+
+
+def check_k18(dev, rng):
+    """K18 at each junction of the train step (up1 [16, 256, H, H] for H =
+    64, 32, 16, 8), f32 and bf16: equal to its plain version (same f32
+    additions in the same order, one rounding). Library: 4 x
+    F.avg_pool2d(dy, 2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+    err = 0.0
+    for H in (64, 32, 16, 8):
+        dy32 = cl(rng.normal(size=(TRAIN_N, 256, H, H)).astype(np.float32))
+        for dt in (torch.float32, torch.bfloat16):
+            dy = dy32.to(dt)
+            k, p = hg._upsample_add_bwd_cuda(dy), hg.upsample_add_bwd_plain(dy)
+            torch.cuda.synchronize()
+            err = max(err, (k.float() - p.float()).abs().max().item())
+    log(f"[train] K18 max abs err over 4 levels, f32 and bf16: {err:.3e} (tol 0)")
+    if err != 0.0:
+        raise AssertionError(f"K18 disagrees with its plain version: {err}")
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        dy = cl(rng.normal(size=(TRAIN_N, 256, 64, 64)).astype(np.float32)).to(dt)
+        fn = lambda: hg._upsample_add_bwd_cuda(dy)
+        lib = lambda: F.avg_pool2d(dy, 2) * 4
+        ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(lambda: hg.upsample_add_bwd_plain(dy)), cuda_ms(lib)
+        us, src = lib_device_us(fn)
+        b = bound(dy.numel() * dy.element_size() * 5 / 4, dy.numel())
+        _report(f"K18 upsample_add_bwd ({name}, dy {list(dy.shape)}, device {us:.3f} us by "
+                f"{src})", err, "0", ms, plain_ms, lib_ms, b, lib)
+        out[name] = (ms, plain_ms, lib_ms, b)
+    ms, plain_ms, lib_ms, b = out["bf16"]
+    return dict(name="upsample_add_bwd", route="cuda",
+                source="suo_slam_tpu_torch/csrc/upsample_add.cu",
+                replaces="suo_slam_tpu/models/hourglass.py:35", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+def check_k19(dev, rng):
+    """K19 on the readout's [16, 64, 64, 41] f32 logits (the head's NHWC
+    view of channels_last, and its transpose) against its plain version:
+    within 1e-4 of the largest gradient (f - E[f] cancels near a heatmap's
+    peak, and the two round the moments' sums in other orders). Library:
+    autograd of softmax + einsum."""
+    import torch
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    x = torch.from_numpy((rng.normal(size=(TRAIN_N, 41, 64, 64)) * 3).astype(np.float32)).to(
+        dev).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+         for s in ((TRAIN_N, 41, 2), (TRAIN_N, 41, 2, 2), (TRAIN_N, 41))]
+    err = 0.0
+    for view in (x, x.transpose(1, 2)):
+        k = hm._heatmap_readout_bwd_cuda(view, *g)
+        p = hm.heatmap_readout_bwd_plain(view, *g)
+        torch.cuda.synchronize()
+        if k.stride() != view.stride():
+            raise AssertionError("K19 did not write the logits' layout")
+        err = max(err, ((k - p).abs().max() / p.abs().max()).item())
+    log(f"[train] K19 max err, plain and transposed: {err:.3e} of the largest gradient (tol 1e-4)")
+    if err > 1e-4:
+        raise AssertionError(f"K19 disagrees with its plain version: {err}")
+    xg = x.detach().requires_grad_(True)
+    H, W = 64, 64
+    u, v = hm.ndc_grid(H, W, torch.float32, dev)
+    feats = torch.stack([u, v, u * u, v * v, u * v], -1).reshape(H * W, 5)
+    p = torch.softmax(xg.reshape(TRAIN_N, H * W, 41), 1)
+    m = torch.einsum("npk,pf->nkf", p, feats)
+    gm = torch.randn_like(m)
+    fn = lambda: hm._heatmap_readout_bwd_cuda(x, *g)
+    lib = lambda: torch.autograd.grad(m, xg, gm, retain_graph=True)
+    ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(lambda: hm.heatmap_readout_bwd_plain(x, *g)), \
+        cuda_ms(lib)
+    us, src = lib_device_us(fn)
+    b = bound(2 * x.numel() * 4 + TRAIN_N * 41 * 7 * 4, 40 * x.numel())
+    _report(f"K19 heatmap_readout_bwd (f32, {list(x.shape)}, device {us:.3f} us by {src})",
+            err, "1e-4 of max", ms, plain_ms, lib_ms, b, lib)
+    return dict(name="heatmap_readout_bwd", route="cuda",
+                source="suo_slam_tpu_torch/csrc/heatmap_readout.cu",
+                replaces="suo_slam_tpu/models/pkpnet.py:125", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper of the train step (K1, K2, K5, K8, K9, K16-K19)
+    takes its plain version on CUDA tensors for the duration; no kernel may
+    launch meanwhile (a call site the patches miss would raise here)."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import hourglass as hg
+    from suo_slam_tpu_torch.ops import heatmap as hm
+    from suo_slam_tpu_torch.ops import roi
+
+    patches = [(hg, "_norm_relu_fwd", hg.norm_relu_plain), (hg, "bn_stats", hg.bn_stats_plain),
+               (hg, "norm_relu_bwd", hg.norm_relu_bwd_plain),
+               (hg, "_upsample_add_fwd", hg.upsample_add_plain),
+               (hg, "upsample_add_bwd", hg.upsample_add_bwd_plain),
+               (hm, "_heatmap_readout_fwd", hm.heatmap_readout_plain),
+               (hm, "heatmap_readout_bwd", hm.heatmap_readout_bwd_plain),
+               (hm, "render_prior_heatmaps", hm.render_prior_heatmaps_plain),
+               (roi, "roi_crop_batch", roi.roi_crop_batch_plain)]
+    saved = [(m, k, getattr(m, k)) for m, k, _ in patches]
+    before = kernels.counts()
+    try:
+        for m, k, f in patches:
+            setattr(m, k, f)
+        yield
+        launched = {k: v - before[k] for k, v in kernels.counts().items() if v != before[k]}
+        if launched:
+            raise AssertionError(f"kernels launched while the plain versions ran: {launched}")
+    finally:
+        for m, k, f in saved:
+            setattr(m, k, f)
+
+
+@contextlib.contextmanager
+def plain_on_cuda_counter():
+    """Counts calls of the train path's plain versions on CUDA tensors (the
+    wrappers must launch their kernels there)."""
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+    from suo_slam_tpu_torch.ops import heatmap as hm
+    from suo_slam_tpu_torch.ops import roi
+
+    hits = {}
+    names = [(hg, "norm_relu_plain"), (hg, "bn_stats_plain"), (hg, "norm_relu_bwd_plain"),
+             (hg, "upsample_add_plain"), (hg, "upsample_add_bwd_plain"),
+             (hm, "heatmap_readout_plain"), (hm, "heatmap_readout_bwd_plain"),
+             (hm, "render_prior_heatmaps_plain"), (roi, "roi_crop_batch_plain")]
+    saved = [(m, k, getattr(m, k)) for m, k in names]
+
+    def wrap(k, f):
+        def g(*a, **kw):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                hits[k] = hits.get(k, 0) + 1
+            return f(*a, **kw)
+        return g
+
+    try:
+        for m, k, f in saved:
+            setattr(m, k, wrap(k, f))
+        yield hits
+    finally:
+        for m, k, f in saved:
+            setattr(m, k, f)
+
+
+def _first_batch(root, dev, seed, truncate_obj=16):
+    """The CLI's first training batch (2 frames, `gt+noise` boxes, priors),
+    padded to 16 object slots, on the card."""
+    import os
+
+    from suo_slam_tpu_torch.data.bop import BopDataset
+    from suo_slam_tpu_torch.data.loader import ConcatLoader
+    from suo_slam_tpu_torch.train import harness
+
+    ds = BopDataset(root, "train_real", bop_dset="ycbv", ignore_symmetry=False, no_aug=True,
+                    det_type="gt+noise", kp_config_root=os.path.join(root, "kp_configs"),
+                    seed=seed)
+    np_batch = next(iter(ConcatLoader([ds], 2, truncate_obj, seed=seed, workers=1).epoch()))
+    return harness.to_batch(np_batch, dev, o_pad=truncate_obj)
+
+
+def _step_record(dt, seed, batch, keep, dev):
+    """One full-width train step from seeded flax-style weights: loss, its
+    terms, every parameter gradient and the new running statistics."""
+    import torch
+
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.train import harness
+
+    net = PkpNet(n_stack=2, n_modules=2, features=256, dtype=dt).to(dev)
+    state = harness.init_state(net, seed=seed)
+    _, m = harness.make_train_step()(state, batch, 0.0, dropout_mask=keep)
+    torch.cuda.synchronize()
+    named = dict(net.named_parameters())
+    conv_bias = {k for k in named if k.endswith(".bias") and k[:-5] + ".weight" in named
+                 and k not in ("classifier.bias", "backbone.heads.1.bias")}
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                grads={k: p.grad.float().clone() for k, p in named.items() if k not in conv_bias},
+                stats={k: b.clone() for k, b in net.named_buffers()})
+
+
+def _distances(a, b):
+    import torch
+
+    terms = max(abs(a["metrics"][k] - v) / max(abs(v), 1e-3) for k, v in b["metrics"].items())
+    grad = max(((a["grads"][k] - b["grads"][k]).abs().max()
+                / b["grads"][k].abs().max().clamp(min=1e-30)).item() for k in b["grads"])
+    va = torch.cat([g.reshape(-1).double() for g in a["grads"].values()])
+    vb = torch.cat([g.reshape(-1).double() for g in b["grads"].values()])
+    cos = (va @ vb / va.norm() / vb.norm()).item()
+    stats = max(((a["stats"][k] - b["stats"][k]).abs().max()
+                 / b["stats"][k].abs().max().clamp(min=1.0)).item() for k in b["stats"])
+    return dict(terms=terms, grad=grad, cos=cos, stats=stats)
+
+
+# fixed gates of the full-width step, kernels against plain versions: the
+# forward's kernels reproduce their plain versions' rounding (K8, K9, K2 and
+# K1 / K5 exactly, K16 to f64 sums), so the loss, its terms and the
+# statistics are held to 1e-5; the gradients go through the
+# backward kernels' other summation orders, which the ill-conditioned step
+# (see tests/test_torch_train_step.py) amplifies, so they are held by the
+# whole gradient's cosine and, in f32, by each tensor within half its
+# largest magnitude (an all-zero or sign-flipped gradient is 1 or 2 away)
+STEP_GATES = {"f32": dict(terms=1e-5, stats=1e-5, cos=0.999, grad=0.5),
+              "bf16": dict(terms=1e-2, stats=2e-2, cos=0.99)}
+
+
+def train_step_parity(dev, seed, root):
+    """One full-width train step (2 x 16 crop slots, the CLI's first batch,
+    seeded flax-style weights, one dropout mask) with the kernels against the
+    same step with every wrapper on its plain version, in f32 and bf16, cuDNN
+    deterministic, within the fixed `STEP_GATES`: loss and terms (relative),
+    running statistics (against their scale), gradients (the whole
+    gradient's cosine; each tensor against its largest magnitude). bf16
+    rounds each activation to 2^-9 relative: its terms and statistics are
+    held to 1e-2 and 2e-2."""
+    import torch
+
+    batch = _first_batch(root, dev, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    keep = torch.rand((32, NK), generator=g, device=dev) < 0.5
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {}
+    try:
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            gate = STEP_GATES[name]
+            kern = _step_record(dt, seed, batch, keep, dev)
+            with plain_versions():
+                plain = _step_record(dt, seed, batch, keep, dev)
+            d = _distances(kern, plain)
+            log(f"[train] full-width step ({name}), kernels vs plain: "
+                + json.dumps({k: f"{v:.6e}" for k, v in d.items()})
+                + f" (gates {json.dumps(gate)}); loss {kern['metrics']['loss']:.6f}"
+                + f" (plain {plain['metrics']['loss']:.6f})")
+            ok = (d["terms"] <= gate["terms"] and d["stats"] <= gate["stats"]
+                  and d["cos"] >= gate["cos"] and d["grad"] <= gate.get("grad", np.inf))
+            finite = all(np.isfinite(v) for v in kern["metrics"].values())
+            if not (ok and finite):
+                raise AssertionError(f"train step ({name}): kernels vs plain {d}, gates {gate}")
+            out[name] = d
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    return out
+
+
+def step_timing(dev, seed, root):
+    """The bf16 full-width step's host ms (median of 5 synchronized steps),
+    device ms and kernels (torch.profiler over one step), busy share, peak
+    memory and launches per step."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.train import harness
+
+    batch = _first_batch(root, dev, seed)
+    net = PkpNet(dtype=torch.bfloat16).to(dev)
+    state = harness.init_state(net, seed=seed)
+    step = harness.make_train_step()
+    for _ in range(2):
+        state, _ = step(state, batch, 0.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    state, _ = step(state, batch, 0.0)
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in kernels.counts().items() if v}
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 0.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host = statistics.median(times)
+    # kernels only: a record_function range (Adam's `Optimizer.step`) also
+    # shows on the device's timeline, spanning kernels counted already
+    kern = lambda a: [e for e in a if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
+    avg = traced(lambda: step(state, batch, 0.0), lambda a: len(kern(a)) > 0, "train step")
+    if avg is None:
+        dev_ms, n_k = "not measured", "not measured"
+    else:
+        dev_ms = sum(e.self_device_time_total for e in kern(avg)) / 1e3
+        n_k = sum(e.count for e in kern(avg))
+        top = sorted(kern(avg), key=lambda e: -e.self_device_time_total)[:14]
+        log("[train] the step's device time by kernel (ms, launches): " + json.dumps(
+            [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count] for e in top]))
+    busy = dev_ms / host if isinstance(dev_ms, float) else "not measured"
+    log(f"[train] full-width bf16 step (2 frames x 16 slots, 256x256 crops): host {host:.2f} ms "
+        f"(median of 5: {[round(t, 2) for t in times]}), device {dev_ms} ms in {n_k} kernels, "
+        f"busy share {busy}, peak memory {peak:.2f} GiB; launches per step "
+        + json.dumps(per_step))
+    want = {"bn_stats": NORMS_PER_FWD, "norm_relu_bwd": NORMS_PER_FWD, "norm_relu": NORMS_PER_FWD,
+            "upsample_add": JUNCTIONS_PER_FWD, "upsample_add_bwd": JUNCTIONS_PER_FWD,
+            "heatmap_readout": 1, "heatmap_readout_bwd": 1, "roi_crop": 1, "prior_render": 1}
+    if any(per_step.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"launches per train step {per_step}, expected {want}")
+    return dict(host_ms=host, device_ms=dev_ms, kernels=n_k, busy=busy, peak_gib=peak)
+
+
+def overfit(dev, seed, root, steps=30):
+    """30 steps on one fixed batch (full width, bf16, epoch 0's weights):
+    the mean loss of the last 5 must fall below that of the first 5."""
+    import torch
+
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.train import harness
+
+    batch = _first_batch(root, dev, seed + 5)
+    state = harness.init_state(PkpNet(dtype=torch.bfloat16).to(dev), seed=seed + 5)
+    step = harness.make_train_step()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, batch, 0.0)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"[train] overfit of one batch, {steps} steps: loss {[round(x, 4) for x in losses]}; "
+        f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"overfit: the loss did not fall ({first} -> {last})")
+    return first, last
+
+
+def phase_train(dev, seed):
+    """Training on the card (the module docstring's phase 9). Returns the
+    K16-K19 entries and the launches of the CLI run."""
+    import io
+    import os
+    import re
+    import shutil
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.evaluate import Evaluator
+    from suo_slam_tpu_torch.train import __main__ as cli
+
+    base, root = _eval_root()
+    rng = np.random.default_rng(seed + 9)
+    t0 = time.perf_counter()
+    write_train_split(root, EvalObjects(np.random.default_rng(seed + 2)), rng)
+    log(f"[train] train_real split of {TRAIN_VIEWS} views written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    entries = check_k16_k17(dev, rng) + [check_k18(dev, rng), check_k19(dev, rng)]
+    train_step_parity(dev, seed, root)
+    step_timing(dev, seed, root)
+    overfit(dev, seed, root)
+
+    # the CLI, full width and bf16 (its defaults), from the repository's
+    # results directory contract, then its auto-resume
+    work = os.path.join(base, "train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    argv = ["--device", dev.type, "--dataset", "ycbv", "--data_split", "real", "--no_augmentations",
+            "--steps_per_epoch", "4", "--val_steps", "2", "--data_root", root,
+            "--kp_config_root", os.path.join(root, "kp_configs")]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        buf = io.StringIO()
+        kernels.reset_counts()
+        t1 = time.perf_counter()
+        with plain_on_cuda_counter() as hits, contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + ["--epochs", "2"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.counts()
+        text = buf.getvalue()
+        buf2 = io.StringIO()
+        with contextlib.redirect_stdout(buf2):
+            rc2 = cli.main(argv + ["--epochs", "3"])
+        text2 = buf2.getvalue()
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(work, "cli.log"), "w") as f:
+        f.write(text + "\n---- resume ----\n" + text2)
+    (outdir,) = [os.path.join(work, "results", d) for d in os.listdir(os.path.join(work, "results"))]
+    losses = [float(x) for x in re.findall(r"train loss ([-\d.eE+naninf]+)", text)]
+    files = sorted(os.listdir(outdir))
+    log(f"[train] CLI, 2 epochs x 4 steps + 2 val batches, full width bf16: rc {rc}, "
+        f"{wall:.2f} s; epoch train losses {losses}; files {files}")
+    for line in text.splitlines():
+        if line.startswith(("Epoch", "Training on", "Validating")):
+            log(f"[train]   {line.strip()}")
+    steps, vals = 8, 4
+    want = {"bn_stats": NORMS_PER_FWD * steps, "norm_relu_bwd": NORMS_PER_FWD * steps,
+            "upsample_add_bwd": JUNCTIONS_PER_FWD * steps, "heatmap_readout_bwd": steps,
+            "norm_relu": NORMS_PER_FWD * (steps + vals),
+            "upsample_add": JUNCTIONS_PER_FWD * (steps + vals),
+            "heatmap_readout": steps + vals, "roi_crop": steps + vals,
+            "prior_render": steps + vals}
+    got = {k: counts[k] for k in want}
+    log(f"[train] CLI launches: {json.dumps(got)} (want {json.dumps(want)}); plain versions "
+        f"on CUDA tensors: {json.dumps(hits)}")
+    need = {f"checkpoint-{e}{s}" for e in (0, 1) for s in ("", ".meta.json")} | {
+        "checkpoint-latest", "checkpoint-latest.meta.json", "params.txt"}
+    if rc != 0 or not need <= set(files) or len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"training CLI: rc {rc}, files {files}, losses {losses}:\n"
+                             f"{text[-3000:]}")
+    if got != want or hits:
+        raise AssertionError(f"training CLI launches {got} (want {want}), plain on CUDA {hits}")
+    if rc2 != 0 or "Auto-resuming from" not in text2 or "Epoch: 2 [" not in text2 \
+            or not os.path.isfile(os.path.join(outdir, "checkpoint-2")):
+        raise AssertionError(f"training CLI did not auto-resume at epoch 2:\n{text2[-3000:]}")
+    log("[train] second run: auto-resumed at epoch 2, wrote checkpoint-2")
+
+    # the trained checkpoint through the evaluation entry point
+    ck = os.path.join(outdir, "checkpoint-latest")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev = Evaluator("ycbv", root, ck, nviews=1, detection_type="gt", no_viz=True,
+                       kp_config_root=os.path.join(root, "kp_configs"), device=dev)
+        ev.model_path = os.path.join(base, "results_trained")
+        summary = ev.run()
+    if summary is None or ev.model_epoch != 2:
+        raise AssertionError(f"Evaluator on the trained checkpoint:\n{buf.getvalue()[-3000:]}")
+    log(f"[train] Evaluator(nviews=1) on {ck} (epoch {ev.model_epoch}): ran to its end, "
+        f"{ev.method_name()}")
+    return entries, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2803,10 +3399,12 @@ def main(argv=None):
     int8_entries, int8_counts, k2_bf16_err = phase_int8(dev, rng, args.seed, net, net16, crops,
                                                         objs, scene)
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], k2_bf16_err)
-    entries += int8_entries
+    train_entries, train_counts = phase_train(dev, args.seed)
+    entries += int8_entries + train_entries
     for e in entries:
         e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts
-                         if e["name"] in INT8_KERNELS else counts)[e["name"]]
+                         if e["name"] in INT8_KERNELS else train_counts
+                         if e["name"] in TRAIN_KERNELS else counts)[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

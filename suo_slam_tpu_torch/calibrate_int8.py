@@ -96,7 +96,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     split = args.split or ("test" if args.dataset == "ycbv" else "test_primesense")
     dataset = BopDataset(args.data_root, split, bop_dset=args.dataset, ignore_symmetry=True,
-                         kp_config_root=args.kp_config_root)
+                         kp_config_root=args.kp_config_root, seed=666)
     net, epoch = load_eval_network(args.checkpoint_path, bf16=args.bf16)
     net = net.to(dev).eval()
     print(f"calibrating over up to {args.n_frames} frames (checkpoint epoch {epoch}) ...")

@@ -1,5 +1,6 @@
 // K2 — heatmap readout: per-(crop, keypoint) spatial softmax + soft-argmax
-// mean and covariance, plus the mean-pooled logit for the validity head.
+// mean and covariance, plus the mean-pooled logit for the validity head; and
+// K19 — its backward.
 //
 // Replaces `suo_slam_tpu/ops/heatmap.py` `spatial_softmax` + `soft_argmax`
 // (what `models/pkpnet.py:127-133` calls) and `soft_argmax_from_logits`.
@@ -19,6 +20,22 @@
 // 64x64 f32) it must read 5.4 MB once: ~1.6 us at 3.35 TB/s; the outputs are
 // 8 KB. Design: one 256-thread block per plane (328 blocks over 132 SMs), the
 // second pass re-reads the 16 KB plane from L1/L2, warp-shuffle reductions.
+//
+// K19 `heatmap_readout_bwd`: the gradient of the logits from those of uv,
+// cov and pooled — what JAX derives for `spatial_softmax` -> `soft_argmax`
+// and the mean pool of `models/pkpnet.py:125-128`. With p the softmax, the
+// moments E[.] under p, f the derivative of the outputs in p,
+//   f = du u + dv v + Dcuu (u^2 - 2 E[u] u) + Dcvv (v^2 - 2 E[v] v)
+//       + Dcuv (u v - E[v] u - E[u] v),   Dcuv = dcov[0,1] + dcov[1,0],
+//   d logit = p (f - E[f]) + d pooled / (H W),
+// with E[f] = du E[u] + dv E[v] + Dcuu (E[u^2] - 2 E[u]^2)
+//       + Dcvv (E[v^2] - 2 E[v]^2) + Dcuv (E[uv] - 2 E[u] E[v]).
+// f32 throughout; the result rounds once to the logits' dtype and is written
+// with the strides the caller gives (the logits' own layout). The max and
+// the moments are recomputed from the logits, as K2 computes them. Bound:
+// bytes, the logits read once and their gradient written once (at the train
+// step's 32 x 41 planes of 64 x 64 f32: 21.5 MB, 6.4 us at 3.35 TB/s).
+// Design: K2's block per plane, a third pass that writes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,7 +142,120 @@ heatmap_readout_kernel(const T* __restrict__ logits, long long sn,
   }
 }
 
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+heatmap_readout_bwd_kernel(const T* __restrict__ logits, long long sn, long long sh,
+                           long long sw, long long sk, int H, int W, int K,
+                           const float* __restrict__ guv, const float* __restrict__ gcov,
+                           const float* __restrict__ gpool, T* __restrict__ dl, long long dn,
+                           long long dh, long long dw, long long dk) {
+  const int plane = blockIdx.x;  // n * K + k
+  const int n = plane / K, k = plane % K;
+  const T* base = logits + n * sn + k * sk;
+  T* dbase = dl + n * dn + k * dk;
+  const int P = H * W;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ float red[6][kWarps];
+
+  // pass 1: the softmax shift
+  float mx = -FLT_MAX;
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const int h = p / W, w = p % W;
+    mx = fmaxf(mx, to_f32(base[h * sh + w * sw]));
+  }
+  mx = warp_max(mx);
+  if (lane == 0) red[0][warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    float a = lane < kWarps ? red[0][lane] : -FLT_MAX;
+    a = warp_max(a);
+    if (lane == 0) red[0][0] = a;
+  }
+  __syncthreads();
+  const float shift = red[0][0];
+  __syncthreads();
+
+  // pass 2: the normalizer and the five moments
+  const float hw = 0.5f * (float)W, hh = 0.5f * (float)H;
+  float m[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const int h = p / W, w = p % W;
+    const float e = expf(shifted(to_f32(base[h * sh + w * sw]), shift, T()));
+    const float u = ((float)w + 0.5f) / hw - 1.f;
+    const float v = 1.f - ((float)h + 0.5f) / hh;
+    m[0] += e;
+    m[1] += e * u;
+    m[2] += e * v;
+    m[3] += e * (u * u);
+    m[4] += e * (v * v);
+    m[5] += e * (u * v);
+  }
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const float s = warp_sum(m[f]);
+    if (lane == 0) red[f][warp] = s;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float s[6];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) s[f] = warp_sum(lane < kWarps ? red[f][lane] : 0.f);
+    if (lane == 0) {
+#pragma unroll
+      for (int f = 0; f < 6; ++f) red[f][0] = s[f];
+    }
+  }
+  __syncthreads();
+  const float z = fmaxf(red[0][0], FLT_MIN);
+  const float eu = red[1][0] / z, ev = red[2][0] / z;
+  const float euu = red[3][0] / z, evv = red[4][0] / z, euv = red[5][0] / z;
+  const float du = guv[plane * 2], dv = guv[plane * 2 + 1];
+  const float dcuu = gcov[plane * 4], dcvv = gcov[plane * 4 + 3];
+  const float dcuv = gcov[plane * 4 + 1] + gcov[plane * 4 + 2];
+  const float ef = du * eu + dv * ev + dcuu * (euu - 2.f * eu * eu) +
+                   dcvv * (evv - 2.f * ev * ev) + dcuv * (euv - 2.f * eu * ev);
+  const float dpool = gpool[plane] / (float)P;
+
+  // pass 3: write p (f - E[f]) + d pooled / P
+  for (int p = threadIdx.x; p < P; p += kThreads) {
+    const int h = p / W, w = p % W;
+    const float e = expf(shifted(to_f32(base[h * sh + w * sw]), shift, T()));
+    const float u = ((float)w + 0.5f) / hw - 1.f;
+    const float v = 1.f - ((float)h + 0.5f) / hh;
+    const float f = du * u + dv * v + dcuu * (u * u - 2.f * eu * u) +
+                    dcvv * (v * v - 2.f * ev * v) + dcuv * (u * v - ev * u - eu * v);
+    dbase[h * dh + w * dw] = from_f32<T>((e / z) * (f - ef) + dpool);
+  }
+}
+
 }  // namespace
+
+// K19. logits and dl [N, H, W, K] with their own strides (elements); guv
+// [N, K, 2], gcov [N, K, 2, 2], gpool [N, K] f32 contiguous. dtype as K2's.
+extern "C" int suo_heatmap_readout_bwd(const void* logits, long long sn, long long sh,
+                                       long long sw, long long sk, int N, int H, int W, int K,
+                                       const void* guv, const void* gcov, const void* gpool,
+                                       void* dl, long long dn, long long dh, long long dw,
+                                       long long dk, int dtype, void* stream) {
+  if (N * K > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (dtype == 0)
+      heatmap_readout_bwd_kernel<float><<<N * K, kThreads, 0, s>>>(
+          (const float*)logits, sn, sh, sw, sk, H, W, K, (const float*)guv,
+          (const float*)gcov, (const float*)gpool, (float*)dl, dn, dh, dw, dk);
+    else
+      heatmap_readout_bwd_kernel<__nv_bfloat16><<<N * K, kThreads, 0, s>>>(
+          (const __nv_bfloat16*)logits, sn, sh, sw, sk, H, W, K, (const float*)guv,
+          (const float*)gcov, (const float*)gpool, (__nv_bfloat16*)dl, dn, dh, dw, dk);
+  }
+  return (int)cudaGetLastError();
+}
 
 // dtype: 0 = f32 logits, 1 = bf16 logits (strides in elements).
 extern "C" int suo_heatmap_readout(const void* logits, long long sn,

@@ -1,7 +1,8 @@
-"""BOP dataset reader: the evaluation surface of `BopDataset`.
+"""BOP dataset reader: per-frame samples for evaluation and training, and
+`collate`.
 
-Port of `suo_slam_tpu/data/bop.py` for evaluation (numpy, host side). Same
-on-disk contract: BOP scene dirs with `scene_camera.json` / `scene_gt.json` /
+Port of `suo_slam_tpu/data/bop.py` (numpy, host side). Same on-disk
+contract: BOP scene dirs with `scene_camera.json` / `scene_gt.json` /
 `scene_gt_info.json`, `kp_info/obj_XXXXXX_kp_info.json` keypoint labels,
 `kp_configs/<dset>_kp_config.csv`, YCB-V `keyframe.txt`, T-LESS
 `all_target_tless.json`. Keypoints live in fixed [41, 3] vocabulary-layout
@@ -9,19 +10,25 @@ arrays with a channel mask built once at init; `get_raw` projects them
 vectorized over the vocabulary. Images are read by `data/png.py` (the JAX
 package uses OpenCV).
 
-Evaluation reads test splits with ground-truth boxes and no prior
-(`get_raw(..., p_give_prior=0.0)`). The training side — augmentations, the
-background compositing of synthetic splits, box noise, random priors,
-`__getitem__` and `collate` — belongs to the training slice (ROADMAP A12);
-asking for it raises.
+Training samples draw, from a per-thread numpy `Generator`, in the JAX
+package's order: the `gt+noise` box jitter, then per object the
+give-prior coin, the random symmetry of a prior object and its noisy pose.
+numpy's streams are the same on both sides, so the same seed gives
+bit-equal samples (`sample_seeded`, the loader's per-item seeds). What the
+card's machine cannot read or run is refused, naming its ROADMAP item:
+augmentations (cv2 warps, PIL filters: A20), VOC background compositing
+(A21, when background images are found; without any the JAX package trains
+on with a warning, and so does this), pbr splits (JPEG: A22).
 
 Units follow BOP: translations and keypoints in mm.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -57,12 +64,15 @@ class Frame:
 
 
 class BopDataset:
-    """Indexes one test split of a BOP dataset and serves per-frame samples.
+    """Indexes one split of a BOP dataset and serves per-frame samples.
 
-    `ignore_symmetry` (True at evaluation) keeps the raw GT pose for the
-    keypoint projection; False picks the symmetry closest to the labeled
-    view pose. With no augmentation, box noise or prior, a sample involves
-    no random draw (the JAX package's `seed` has nothing to seed here).
+    Args mirror the JAX package's: `map_by` "view" (a sample is every object
+    of a frame), "obj" (one object) or "obj_<id>"; `det_type` "gt" or
+    "gt+noise" (sigma 20 px box noise); `mask_occluded` masks keypoints whose
+    depth disagrees with the depth map; `ignore_symmetry` (the default here,
+    as evaluation reads) keeps the raw GT pose for the keypoint projection,
+    False picks the symmetry closest to the labeled view pose (or, for an
+    object given a prior, a random one); `seed` the per-thread RNGs' base.
     """
 
     def __init__(
@@ -70,22 +80,83 @@ class BopDataset:
         data_root: str,
         split: str,
         bop_dset: str = "ycbv",
+        map_by: str = "view",
+        mask_occluded: bool = False,
         ignore_symmetry: bool = True,
+        no_aug: bool = False,
+        det_type: str = "gt",
         kp_config_root: str | None = None,
+        seed: int | None = None,
     ):
         assert bop_dset in ("ycbv", "tless")
-        if "train" in split or "synt" in split or "pbr" in split:
+        assert det_type in ("gt", "gt+noise")
+        if "pbr" in split:
             raise NotImplementedError(
-                f"split {split!r}: the training splits (augmentations, background "
-                "compositing) are not ported yet: ROADMAP A12")
+                f"split {split!r}: pbr frames are JPEG, and the port reads PNG only "
+                "(ROADMAP A22)")
+        self.no_aug = no_aug or "train" not in split
+        if not self.no_aug:
+            raise NotImplementedError(
+                "training augmentations (cv2 warps and PIL filters) are not ported "
+                "(ROADMAP A20): pass no_aug=True / --no_augmentations")
         self.data_root = data_root
         self.split = split
         self.bop_dset = bop_dset
+        self.map_by = map_by
+        self.mask_occluded = mask_occluded
         self.ignore_symmetry = ignore_symmetry
+        self.det_type = det_type
+        # per-thread RNGs (numpy Generators are not thread-safe; the threaded
+        # loader calls get_raw concurrently): seed + 7919 * thread index
+        self._seed = (int(np.random.SeedSequence().entropy % (2 ** 31))
+                      if seed is None else int(seed))
+        if seed is None:
+            print(f"BopDataset: seed=None -> generated base seed {self._seed}")
+        self._tls = threading.local()
+        self._thread_counter = itertools.count()
+        self.single_obj = int(map_by.split("_")[1]) if map_by.startswith("obj_") else None
         self.kp_cfg = kp_config.load_kp_config(bop_dset, kp_config_root)
         self._load_labeled_kp()
         self._load_symmetries()
+        self._refuse_backgrounds()
         self._index_scenes()
+
+    @property
+    def rng(self) -> np.random.Generator:
+        """The calling thread's RNG."""
+        r = getattr(self._tls, "rng", None)
+        if r is None:
+            r = np.random.default_rng(self._seed + 7919 * next(self._thread_counter))
+            self._tls.rng = r
+        return r
+
+    @rng.setter
+    def rng(self, value):
+        self._tls.rng = value
+
+    def reset_rng(self) -> None:
+        """Restart every per-thread stream from the base seed (the validation
+        epoch's identical draws). Only between epochs."""
+        self._tls = threading.local()
+        self._thread_counter = itertools.count()
+
+    def _refuse_backgrounds(self) -> None:
+        """Synthetic splits (and T-LESS primesense) composite VOC backgrounds
+        in the JAX package; with none on disk it trains on without them."""
+        if not ("synt" in self.split
+                or (self.bop_dset == "tless" and self.split == "train_primesense")):
+            return
+        bop_root = os.path.realpath(os.path.join(self.data_root, ".."))
+        bg_dir = os.environ.get("SUO_BG_IMAGES_DIR",
+                                os.path.join(bop_root, "VOCdevkit/VOC2012/JPEGImages"))
+        exts = (".jpg", ".jpeg", ".JPEG", ".png")
+        if os.path.isdir(bg_dir) and any(f.endswith(exts) for f in os.listdir(bg_dir)):
+            raise NotImplementedError(
+                f"background images found under {bg_dir}: VOC compositing is not ported "
+                "(ROADMAP A21)")
+        print(f"WARNING: no background images under {bg_dir} — training synthetic splits "
+              "without VOC compositing (download VOCtrainval_11-May-2012.tar or set "
+              "SUO_BG_IMAGES_DIR).")
 
     # ---------------------------------------------------------------- init --
     @property
@@ -129,7 +200,7 @@ class BopDataset:
         ]
 
     def _index_scenes(self):
-        min_visib = 0.1 if self.bop_dset == "tless" else -1.0
+        min_visib = 0.1 if ("train" in self.split or self.bop_dset == "tless") else -1.0
 
         keyframes = None
         self.targets = None
@@ -152,6 +223,8 @@ class BopDataset:
 
         self.data: dict[int, dict[int, Frame]] = {}
         self.view_index: list[tuple[int, int]] = []
+        self.object_index: list[tuple[int, int, int]] = []
+        frame_count = 0
 
         for scene_id_str in sorted(os.listdir(self.curr_root)):
             scene_dir = os.path.join(self.curr_root, scene_id_str)
@@ -170,12 +243,18 @@ class BopDataset:
                 view_id = int(view_id_str)
                 keep = True
                 obj_to_keep = None
+                # YCB-V train_real: every 5th frame
+                if self.bop_dset == "ycbv" and self.split == "train_real":
+                    keep = frame_count % 5 == 0
+                frame_count += 1
                 if keyframes is not None:
                     keep = (scene_id, view_id) in keyframes
                 elif self.targets is not None:
                     keep = view_id in self.targets.get(scene_id, {})
                     if keep:
                         obj_to_keep = self.targets[scene_id][view_id]
+                if self.single_obj is not None:
+                    obj_to_keep = [self.single_obj]
                 if not keep:
                     continue
 
@@ -206,6 +285,7 @@ class BopDataset:
                             scene_dir, "mask_visib", f"{view_id:06d}_{obj_idx:06d}.png"
                         ),
                     )
+                    self.object_index.append((scene_id, view_id, obj_id))
 
                 if frame.objects:
                     scene[view_id] = frame
@@ -215,7 +295,7 @@ class BopDataset:
 
     # ------------------------------------------------------------ iteration --
     def __len__(self):
-        return len(self.view_index)
+        return len(self.view_index) if self.map_by == "view" else len(self.object_index)
 
     def scene_ids(self):
         return list(self.data.keys())
@@ -239,6 +319,33 @@ class BopDataset:
             view_id, []
         )
 
+    def __getitem__(self, index):
+        if self.map_by == "view":
+            scene_id, view_id = self.view_index[index]
+            return self.get_all_obj(scene_id, view_id)
+        scene_id, view_id, obj_id = self.object_index[index]
+        return self.get_raw(scene_id, view_id, [obj_id])
+
+    def sample_seeded(self, index, seed):
+        """`self[index]` with the calling thread's RNG pinned to `seed`: the
+        sample's draws depend only on (index, seed)."""
+        self.rng = np.random.default_rng(seed)
+        return self[index]
+
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state.pop("_tls", None)
+        state.pop("_thread_counter", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._tls = threading.local()
+        self._thread_counter = itertools.count()
+
+    def get_all_obj(self, scene_id, view_id):
+        return self.get_raw(scene_id, view_id, self.obj_ids(scene_id, view_id))
+
     # ------------------------------------------------------------------- IO --
     def read_img(self, scene_id, view_id):
         path = os.path.join(self.curr_root, f"{scene_id:06d}", "rgb", f"{view_id:06d}.png")
@@ -256,14 +363,17 @@ class BopDataset:
         return np.squeeze(_imread(path, png.IMREAD_GRAYSCALE))
 
     # ------------------------------------------------------------- sampling --
-    def pick_symmetry_transform(self, obj_idx: int, T_OtoC: np.ndarray):
-        """The symmetry composition closest to the labeled view pose (host
-        numpy)."""
+    def pick_symmetry_transform(self, obj_idx: int, T_OtoC: np.ndarray, random: bool = False):
+        """The symmetry composition closest to the labeled view pose, or a
+        random one (host numpy)."""
         syms = self.symmetries[obj_idx]
         T = np.eye(4)
         T[:3, :] = T_OtoC[:3, :]
         if len(syms) == 1:
             return T, 0
+        if random:
+            i = int(self.rng.integers(len(syms)))
+            return T @ syms[i], i
         kp = self.kp_full[obj_idx][self.kp_full_mask[obj_idx]]
         ref = kp @ self.view_pose[obj_idx][:3, :3].T + self.view_pose[obj_idx][:3, 3]
         ref = ref - ref.mean(0)
@@ -273,30 +383,33 @@ class BopDataset:
         i = int(np.argmin(dists))
         return T @ syms[i], i
 
-    def get_raw(self, scene_id, view_id, obj_ids, p_give_prior: float = 0.5, img=None):
+    def get_raw(self, scene_id, view_id, obj_ids, p_give_prior: float = 0.5, img=None,
+                depth=None):
         """One frame with its objects, vocabulary-layout numpy arrays.
 
-        Evaluation form: `p_give_prior` must be 0 (no prior keypoints; the
-        random priors belong to training). Returns a dict (all numpy):
-          img [H, W, 3] f32 RGB in [0,1]; K [3,3]; bboxes [O,4] xyxy;
-          obj_ids [O]; poses [O,3,4] (raw GT); poses_sym [O,3,4] (the pose
-          used for the keypoint projection); K_kps [O,3,3] NDC-fixed K;
-          kp_uvs [O,41,2]; kp_masks [O,41]; model_kps [O,41,3];
-          kp_model_masks [O,41]; prior_uvs [O,41,2] and has_prior [O] (zero).
-        img: an optional pre-decoded BGR uint8 frame.
+        Returns a dict (all numpy): img [H, W, 3] f32 RGB in [0,1]; K [3,3];
+        bboxes [O,4] xyxy; obj_ids [O]; poses [O,3,4] (raw GT); poses_sym
+        [O,3,4] (the pose of the keypoint projection); K_kps [O,3,3]
+        NDC-fixed K; kp_uvs [O,41,2]; kp_masks [O,41]; model_kps [O,41,3];
+        kp_model_masks [O,41]; prior_uvs [O,41,2] (a noisy projection where
+        the p_give_prior coin fell, NDC of the box); has_prior [O].
+        img / depth: an optional pre-decoded BGR uint8 frame / mm depth map.
         """
-        if p_give_prior != 0.0:
-            raise NotImplementedError("random prior keypoints belong to training: ROADMAP A12")
         if img is None:
             img = self.read_img(scene_id, view_id)
         frame = self.data[scene_id][view_id]
         K = frame.K.copy()
+        if self.mask_occluded and depth is None:
+            depth = self.read_depth(scene_id, view_id)
 
         O = len(obj_ids)
         nk = kp_config.num_kp()
         bboxes = np.zeros((O, 4), np.float32)
         for i, obj_id in enumerate(obj_ids):
-            x, y, w, h = frame.objects[obj_id].bbox_xywh.astype(np.float32)
+            xywh = frame.objects[obj_id].bbox_xywh.astype(np.float32).copy()
+            if "+noise" in self.det_type:
+                xywh += self.rng.normal(scale=20, size=4).astype(np.float32)
+            x, y, w, h = xywh
             w, h = max(MIN_BOX_WH, w), max(MIN_BOX_WH, h)
             bboxes[i] = (x, y, x + w, y + h)
 
@@ -307,12 +420,15 @@ class BopDataset:
         kp_masks = np.zeros((O, nk), bool)
         model_kps = np.zeros((O, nk, 3), np.float32)
         kp_model_masks = np.zeros((O, nk), bool)
+        prior_uvs = np.zeros((O, nk, 2), np.float32)
+        has_prior = np.zeros((O,), bool)
 
         for i, obj_id in enumerate(obj_ids):
             oi = obj_id - 1
             T_OtoC = frame.objects[obj_id].pose
+            give_prior = bool(self.rng.random() < p_give_prior)
             if not self.ignore_symmetry:
-                T4, _ = self.pick_symmetry_transform(oi, T_OtoC)
+                T4, _ = self.pick_symmetry_transform(oi, T_OtoC, random=give_prior)
             else:
                 T4 = np.eye(4)
                 T4[:3, :] = T_OtoC[:3, :]
@@ -323,6 +439,13 @@ class BopDataset:
             uvz = p_cam @ K.T
             z = uvz[:, 2]
             uv_px = uvz[:, :2] / np.where(np.abs(z) < 1e-9, 1e-9, z)[:, None]
+
+            if self.mask_occluded and depth is not None:
+                ui = np.clip((uv_px[:, 0] + 0.5).astype(int), 0, depth.shape[1] - 1)
+                vi = np.clip((uv_px[:, 1] + 0.5).astype(int), 0, depth.shape[0] - 1)
+                depths_agree = np.abs(depth[vi, ui] - z) < 10.0  # mm
+            else:
+                depths_agree = np.ones((nk,), bool)
 
             x1, y1, x2, y2 = bboxes[i]
             w, h = x2 - x1, y2 - y1
@@ -336,9 +459,22 @@ class BopDataset:
             poses_sym[i] = T4[:3, :].astype(np.float32)
             K_kps[i] = K_i.astype(np.float32)
             kp_uvs[i] = np.where(ch_mask[:, None], uv_ndc, 0.0).astype(np.float32)
-            kp_masks[i] = ch_mask & in_bounds
+            kp_masks[i] = ch_mask & depths_agree & in_bounds
             model_kps[i] = np.where(ch_mask[:, None], kp3d, 0.0).astype(np.float32)
             kp_model_masks[i] = ch_mask
+
+            if give_prior:
+                # noisy prior from the perturbed GT: dT with ~5 deg rotation and
+                # (5, 5, 10) mm translation noise, left-multiplied
+                dT = np.eye(4)
+                dT[:3, :3] = _euler2R_np(self.rng.normal(scale=5, size=3))
+                dT[:3, 3] = self.rng.normal(scale=(5.0, 5.0, 10.0))
+                p_noisy = kp3d @ (dT @ T4)[:3, :3].T + (dT @ T4)[:3, 3]
+                uvw = p_noisy @ K_i.T
+                prior_uvs[i] = (
+                    uvw[:, :2] / np.where(np.abs(uvw[:, 2:3]) < 1e-9, 1e-9, uvw[:, 2:3])
+                ).astype(np.float32)
+                has_prior[i] = True
 
         return {
             "img": img.astype(np.float32)[..., ::-1] / 255.0,  # BGR->RGB, [0,1]
@@ -352,8 +488,8 @@ class BopDataset:
             "kp_masks": kp_masks,
             "model_kps": model_kps,
             "kp_model_masks": kp_model_masks,
-            "prior_uvs": np.zeros((O, nk, 2), np.float32),
-            "has_prior": np.zeros((O,), bool),
+            "prior_uvs": prior_uvs,
+            "has_prior": has_prior,
             "scene_id": scene_id,
             "view_id": view_id,
         }
@@ -378,3 +514,71 @@ def _fix_K_for_bbox_ndc_np(K, bbox):
     S[0, 2] -= 1.0
     S[1, 2] += 1.0
     return S @ T @ K
+
+
+def _euler2R_np(euler_deg):
+    g, b, a = np.deg2rad(np.asarray(euler_deg, np.float64))
+    ca, cb, cg = np.cos(a), np.cos(b), np.cos(g)
+    sa, sb, sg = np.sin(a), np.sin(b), np.sin(g)
+    return np.array(
+        [
+            [ca * cb, ca * sb * sg - sa * cg, ca * sb * cg + sa * sg],
+            [sa * cb, sa * sb * sg + ca * cg, sa * sb * cg - ca * sg],
+            [-sb, cb * sg, cb * cg],
+        ]
+    )
+
+
+def collate(samples: list[dict], truncate_obj: int | None = None, seed: int = 0):
+    """Pad a list of `get_raw` dicts to dense [B, O_max, ...] arrays.
+
+    Past `truncate_obj` objects a frame keeps a random sorted subset (from
+    `seed`); images pad to the batch's largest H and W. Returns the
+    `train.harness.Batch` fields plus the label extras (poses, K_kps,
+    model_kps, ...), numpy.
+    """
+    rng = np.random.default_rng(seed)
+    b = len(samples)
+    nk = kp_config.num_kp()
+    o_max = max(s["bboxes"].shape[0] for s in samples)
+    if truncate_obj is not None:
+        o_max = min(o_max, truncate_obj)
+    hmax = max(s["img"].shape[0] for s in samples)
+    wmax = max(s["img"].shape[1] for s in samples)
+
+    out = {
+        "images": np.zeros((b, hmax, wmax, 3), np.float32),
+        "boxes": np.zeros((b, o_max, 4), np.float32),
+        "obj_mask": np.zeros((b, o_max), bool),
+        "obj_ids": np.zeros((b, o_max), np.int32),
+        "prior_uv": np.zeros((b, o_max, nk, 2), np.float32),
+        "prior_mask": np.zeros((b, o_max, nk), bool),
+        "uv_gt": np.zeros((b, o_max, nk, 2), np.float32),
+        "kp_mask": np.zeros((b, o_max, nk), bool),
+        "poses": np.zeros((b, o_max, 3, 4), np.float32),
+        "K_kps": np.zeros((b, o_max, 3, 3), np.float32),
+        "model_kps": np.zeros((b, o_max, nk, 3), np.float32),
+        "kp_model_masks": np.zeros((b, o_max, nk), bool),
+        "K": np.zeros((b, 3, 3), np.float32),
+    }
+    for i, s in enumerate(samples):
+        o = s["bboxes"].shape[0]
+        keep = np.arange(o)
+        if o > o_max:
+            keep = np.sort(rng.choice(o, o_max, replace=False))
+        h, w = s["img"].shape[:2]
+        out["images"][i, :h, :w] = s["img"]
+        out["K"][i] = s["K"]
+        o = len(keep)
+        out["boxes"][i, :o] = s["bboxes"][keep]
+        out["obj_mask"][i, :o] = True
+        out["obj_ids"][i, :o] = s["obj_ids"][keep]
+        out["prior_uv"][i, :o] = s["prior_uvs"][keep]
+        out["prior_mask"][i, :o] = s["kp_model_masks"][keep] & s["has_prior"][keep, None]
+        out["uv_gt"][i, :o] = s["kp_uvs"][keep]
+        out["kp_mask"][i, :o] = s["kp_masks"][keep]
+        out["poses"][i, :o] = s["poses"][keep]
+        out["K_kps"][i, :o] = s["K_kps"][keep]
+        out["model_kps"][i, :o] = s["model_kps"][keep]
+        out["kp_model_masks"][i, :o] = s["kp_model_masks"][keep]
+    return out

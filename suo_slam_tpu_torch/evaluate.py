@@ -98,7 +98,7 @@ class Evaluator:
 
         self.dataset = BopDataset(
             data_root, split, bop_dset=dataset, ignore_symmetry=True,
-            kp_config_root=kp_config_root,
+            kp_config_root=kp_config_root, seed=666,
         )
         models_dir = os.path.join(data_root, models)
         if not os.path.isdir(models_dir):  # the eval-model dir is optional

@@ -1,16 +1,16 @@
 """Launch counters and build entry for the port's hand-written kernels.
 
 Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
-K2 and K5 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
-`solvers/ba.py`, K6 `slam/kernels.py`, K8 and K9 `models/hourglass.py`, K10
-`eval/meter.py`, K11-K13 `models/int8_kernels.py`, K14 `solvers/ba.py`)
-and adds one to its counter here where — and only
-where — it launches its CUDA kernel.
+K2, K5 and K19 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
+`solvers/ba.py`, K6 `slam/kernels.py`, K8, K9 and K16-K18
+`models/hourglass.py`, K10 `eval/meter.py`, K11-K13
+`models/int8_kernels.py`, K14 `solvers/ba.py`) and adds one to its counter
+here where — and only where — it launches its CUDA kernel.
 
-No kernel has a backward yet (ROADMAP B13): the wrappers of the kernels that
-a training step would reach (K2, K8, K9) call `refuse_autograd`, which
-raises where autograd would record the call instead of returning an output
-cut from the graph.
+The kernels a training step reaches have their backward as kernels too:
+K2's is K19, K8's K17 (with K16's batch statistics in train mode), K9's
+K18, each pair one `torch.autograd.Function` that the wrapper takes where
+`autograd_records` says autograd records the call.
 """
 
 from __future__ import annotations
@@ -36,6 +36,10 @@ LAUNCHES: dict[str, int] = {
     "int8_pool_junction": 0,  # K13 (max-pool and junction)
     "ba_lm": 0,         # K14
     "pnp_ransac": 0,    # K15
+    "bn_stats": 0,      # K16
+    "norm_relu_bwd": 0,  # K17
+    "upsample_add_bwd": 0,  # K18
+    "heatmap_readout_bwd": 0,  # K19
 }
 
 
@@ -52,16 +56,16 @@ def counts() -> dict[str, int]:
     return dict(LAUNCHES)
 
 
+def plain_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a plain version computes in where the JAX package computes
+    in f32: f32 for f32 and bf16 input, f64 for f64 input. The kernels take
+    f32 and bf16; f64 runs only through the plain versions, on the CPU, for
+    comparisons where f32 rounding would hide the result."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def autograd_records(*tensors) -> bool:
     """True where autograd would record a call on these inputs: grad mode
     on and an input that requires grad."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
-
-def refuse_autograd(what: str, *tensors) -> None:
-    """Raise where autograd would record a kernel call: the kernel writes a
-    fresh tensor with no `grad_fn`, which would cut the graph silently."""
-    if autograd_records(*tensors):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet (ROADMAP B13); call it under "
-            "torch.inference_mode() or torch.no_grad(), or on CPU tensors")

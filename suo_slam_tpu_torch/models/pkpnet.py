@@ -1,16 +1,22 @@
 """PkpNet: probabilistic keypoint network (uv + 2x2 covariance + validity).
 
-Port of `suo_slam_tpu/models/pkpnet.py` for inference. The public input is
+Port of `suo_slam_tpu/models/pkpnet.py`. The public input is
 the JAX package's NHWC crop batch [N, 256, 256, 3]; inside, the backbone runs
 NCHW with `channels_last` memory, so the head's logits are already laid out
 as the public NHWC heatmaps [N, H/4, W/4, K] and the readout (kernel K2,
 `ops/heatmap.heatmap_readout`) reads them through strides, without a copy.
 
-Validity head: mean-pooled raw logits -> ReLU -> Linear(K, K) -> sigmoid
-(dropout is inference-off). `prior_mode="post_stem"` injects the prior after
-the stem through a 1x1 projection; with no prior the projection contributes
-its bias only (what the JAX net computes on its all-zero prior).
-`prior_mode="concat"` concatenates the prior to the RGB input.
+Validity head: mean-pooled raw logits -> ReLU -> Dropout(0.5) -> Linear(K,
+K) -> sigmoid. Dropout acts in train mode only (`forward(..., train=True)`,
+which also takes the backbone's norms to their batch statistics over the
+rows `row_mask` marks): it keeps each value with probability 0.5 and
+doubles it, drawing from the `torch.Generator` it is given on the net's
+device, or applying a given keep mask `dropout_mask` [N, K] bool.
+
+`prior_mode="post_stem"` injects the prior after the stem through a 1x1
+projection; with no prior the projection contributes its bias only (what
+the JAX net computes on its all-zero prior). `prior_mode="concat"`
+concatenates the prior to the RGB input.
 
 `dtype` is the backbone's working dtype, f32 or bf16 (the JAX package's
 `PkpNet(dtype=...)`; `evaluate.py` runs bf16 by default): the crops and the
@@ -83,7 +89,8 @@ class PkpNet(nn.Module):
         return (input_hw[0] // 4, input_hw[1] // 4)
 
     def backbone_logits(self, images_roi: torch.Tensor,
-                        prior_kp: torch.Tensor | None = None) -> list:
+                        prior_kp: torch.Tensor | None = None, train: bool = False,
+                        row_mask: torch.Tensor | None = None) -> list:
         """Backbone only: NHWC crops (+ NHWC prior) -> n_stack NHWC logits."""
         n, h, w, c = images_roi.shape
         if c != 3:
@@ -95,7 +102,8 @@ class PkpNet(nn.Module):
             if tuple(prior_kp.shape[1:3]) != (h, w):
                 raise ValueError(f"concat prior must be {h}x{w}, got {tuple(prior_kp.shape)}")
             x = torch.cat([x, _nhwc_to_cl(prior_kp.to(x.dtype))], dim=1)
-            outs = self.backbone(x.contiguous(memory_format=torch.channels_last))
+            outs = self.backbone(x.contiguous(memory_format=torch.channels_last),
+                                 train=train, row_mask=row_mask)
         else:
             extra = None
             if prior_kp is not None:
@@ -103,22 +111,37 @@ class PkpNet(nn.Module):
                     raise ValueError(f"post_stem prior must be H/4 x W/4, got "
                                      f"{tuple(prior_kp.shape)}")
                 extra = _nhwc_to_cl(prior_kp.to(x.dtype))
-            outs = self.backbone(x, extra)
+            outs = self.backbone(x, extra, train=train, row_mask=row_mask)
         return [_nhwc(o) for o in outs]
 
-    def forward(self, images_roi: torch.Tensor,
-                prior_kp: torch.Tensor | None = None) -> PkpNetOutput:
+    def forward(self, images_roi: torch.Tensor, prior_kp: torch.Tensor | None = None,
+                train: bool = False, row_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None,
+                dropout_mask: torch.Tensor | None = None) -> PkpNetOutput:
         """images_roi [N, H, W, 3] NHWC; prior_kp NHWC at `prior_hw` or None
-        (no prior: the statically prior-free program)."""
-        outs = self.backbone_logits(images_roi, prior_kp)
-        return self.readout(outs[-1], tuple(outs[:-1]))
+        (no prior: the statically prior-free program). train: batch
+        statistics over the rows `row_mask` [N] bool marks real, and
+        dropout (see the module docstring)."""
+        outs = self.backbone_logits(images_roi, prior_kp, train, row_mask)
+        keep = None
+        if train:
+            keep = dropout_mask
+            if keep is None:
+                n, k = images_roi.shape[0], self.num_kp
+                keep = torch.rand((n, k), generator=generator, device=images_roi.device) < 0.5
+        return self.readout(outs[-1], tuple(outs[:-1]), keep)
 
-    def readout(self, raw: torch.Tensor, aux: tuple = ()) -> PkpNetOutput:
-        """Heatmap readout (K2) + validity head on NHWC final-stack logits."""
+    def readout(self, raw: torch.Tensor, aux: tuple = (),
+                dropout_keep: torch.Tensor | None = None) -> PkpNetOutput:
+        """Heatmap readout (K2) + validity head on NHWC final-stack logits;
+        `dropout_keep` [N, K] bool: dropout(0.5) with this keep mask."""
         if self.transpose_heatmaps:
             raw = raw.transpose(1, 2)
         uv, cov, pooled = hm.heatmap_readout(raw)
-        mask_logits = self.classifier(torch.relu(pooled))
+        y = torch.relu(pooled)
+        if dropout_keep is not None:  # flax Dropout: select(keep, y / 0.5, 0)
+            y = torch.where(dropout_keep, y / 0.5, torch.zeros((), device=y.device))
+        mask_logits = self.classifier(y)
         return PkpNetOutput(
             uv=uv,
             cov=cov if self.calc_cov else None,

@@ -34,19 +34,19 @@ def roi_crop_batch_plain(images, boxes, box_mask, out_hw=(256, 256)):
     """Plain PyTorch K1: separable hat-weight contractions (the JAX form).
 
     images [B, H, W, C] f32, boxes [B, O, 4] xyxy pixels, box_mask [B, O]
-    -> [B, O, out_h, out_w, C]."""
+    -> [B, O, out_h, out_w, C], in f32 (f64 for f64 images)."""
     oh, ow = out_hw
     H, W = images.shape[1], images.shape[2]
-    f32 = torch.float32
-    boxes = boxes.to(f32)
+    ft = kernels.plain_dtype(images.dtype)
+    boxes = boxes.to(ft)
     x1, y1, x2, y2 = boxes.unbind(-1)  # [B, O]
-    jw = torch.arange(ow, dtype=f32, device=boxes.device) + 0.5
-    ih = torch.arange(oh, dtype=f32, device=boxes.device) + 0.5
+    jw = torch.arange(ow, dtype=ft, device=boxes.device) + 0.5
+    ih = torch.arange(oh, dtype=ft, device=boxes.device) + 0.5
     xs = x1[..., None] + jw * (x2 - x1)[..., None] / ow  # [B, O, ow]
     ys = y1[..., None] + ih * (y2 - y1)[..., None] / oh  # [B, O, oh]
     wy = _hat_weights(ys, H)  # [B, O, oh, H]
     wx = _hat_weights(xs, W)  # [B, O, ow, W]
-    img = images.to(f32)
+    img = images.to(ft)
     rows = torch.einsum("boyh,bhwc->boywc", wy, img)
     out = torch.einsum("boxw,boywc->boyxc", wx, rows)
     return out * box_mask[..., None, None, None].to(out.dtype)

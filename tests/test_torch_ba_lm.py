@@ -11,8 +11,9 @@ schedule it replaced, on the CPU:
 - the wrapper's shape and scratch planner (`plan_lm`) at every (V, O) the
   engine's capacity growth reaches, against the layout in
   `csrc/ba_lm.cu`;
-- the predicate behind the kernels' refusal of autograd (K2, K8, K9);
-- the JAX checkpoint loader's message;
+- the predicate that takes K2, K8 and K9 to their autograd Functions
+  (backward kernels K19, K17, K18);
+- the JAX checkpoint loader's refusal of a GroupNorm checkpoint;
 - the header-aware staleness of a kernel build.
 """
 
@@ -229,16 +230,19 @@ def test_autograd_predicate():
         assert not kernels.autograd_records(x)
     with torch.inference_mode():
         assert not kernels.autograd_records(x)
-    with pytest.raises(RuntimeError, match="ROADMAP B13"):
-        kernels.refuse_autograd("K8 norm_relu", y, x)
-    kernels.refuse_autograd("K8 norm_relu", y)
+    assert not kernels.autograd_records(y)
 
 
-def test_jax_checkpoint_message_names_its_format_and_item():
+def test_jax_checkpoint_message_names_its_format_and_item(tmp_path):
+    """The JAX package's checkpoints (flax msgpack with a `.meta.json`
+    sidecar) load; a `norm="group"` one is refused, naming A18."""
     from suo_slam_tpu_torch.eval import loading
 
-    with pytest.raises(NotImplementedError, match="flax msgpack") as e:
-        loading.load_eval_network("results/checkpoint-3")
+    path = tmp_path / "checkpoint-3"
+    path.write_bytes(b"")
+    (tmp_path / "checkpoint-3.meta.json").write_text('{"epoch": 3, "args": {"norm": "group"}}')
+    with pytest.raises(NotImplementedError, match="norm='group'") as e:
+        loading.load_eval_network(str(path))
     assert "ROADMAP A18" in str(e.value) and "orbax" not in str(e.value)
     assert re.search(r"\*\*A18 ", (REPO / "ROADMAP.md").read_text())
     assert "orbax" not in loading.__doc__ and ".meta.json" in loading.__doc__

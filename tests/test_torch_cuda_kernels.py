@@ -1,4 +1,4 @@
-"""Kernels K1-K15 against their plain PyTorch versions on the card.
+"""Kernels K1-K19 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -488,15 +488,136 @@ def test_k15_pnp_ransac(dev):
 
 
 def test_kernels_refuse_autograd(dev):
-    """C1: K2, K8 and K9 raise where autograd would record them (they have
-    no backward yet); the same forward runs under inference_mode."""
+    """Gradients flow through K2, K8 and K9 (their backward kernels K19, K17
+    and K18): the full net under autograd on the card gives outputs with a
+    `grad_fn` and parameter gradients equal to the run with the plain
+    versions (the same autograd Functions, plain bodies): with fixed
+    statistics within 1e-4 of each tensor's largest magnitude; in train mode,
+    where this tiny net at random initialization amplifies rounding layer by
+    layer (tests/test_torch_train_step.py measures it against JAX), by the
+    whole gradient's cosine (>= 0.999), without the convolution biases a
+    batch norm removes (0 in exact arithmetic: rounding noise)."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import hourglass as hg
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.ops import heatmap as hm
 
+    torch.backends.cudnn.deterministic = True
     torch.manual_seed(0)
-    net = PkpNet(n_stack=2, n_modules=1, features=8).to(dev)
-    x = torch.rand(2, 64, 64, 3, device=dev)
-    with pytest.raises(RuntimeError, match="ROADMAP B13"):
-        net(x)
-    with torch.inference_mode():
-        out = net(x)
-    assert torch.isfinite(out.uv).all()
+    net = PkpNet(n_stack=2, n_modules=1, features=16).to(dev).to(
+        memory_format=torch.channels_last)
+    x = torch.rand(4, 64, 64, 3, device=dev)
+    mask = torch.tensor([True, True, True, False], device=dev)
+    keep = torch.rand(4, 41, device=dev) < 0.5
+
+    def grads(train):
+        net.zero_grad(set_to_none=True)
+        out = net(x, train=train, row_mask=mask, dropout_mask=keep if train else None)
+        assert out.uv.grad_fn is not None
+        (out.uv.square().sum() + out.cov.sum() + out.kp_mask_logits.sum()).backward()
+        return {k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None}
+
+    plain = {"_norm_relu_fwd": lambda a, b, c: hg.norm_relu_plain(a, b, c),
+             "bn_stats": hg.bn_stats_plain, "norm_relu_bwd": hg.norm_relu_bwd_plain,
+             "_upsample_add_fwd": hg.upsample_add_plain,
+             "upsample_add_bwd": hg.upsample_add_bwd_plain}
+    for train in (False, True):
+        state = {k: v.clone() for k, v in net.state_dict().items()}
+        kernels.reset_counts()
+        gk = grads(train)
+        c = kernels.counts()
+        assert c["norm_relu_bwd"] > 0 and c["upsample_add_bwd"] > 0
+        assert c["heatmap_readout_bwd"] == 1 and (c["bn_stats"] > 0) == train
+        net.load_state_dict(state)
+        saved = {k: getattr(hg, k) for k in plain}
+        saved_hm = (hm._heatmap_readout_fwd, hm.heatmap_readout_bwd)
+        try:
+            for k, f in plain.items():
+                setattr(hg, k, f)
+            hm._heatmap_readout_fwd = lambda l, mv: hm.heatmap_readout_plain(l, mv)
+            hm.heatmap_readout_bwd = hm.heatmap_readout_bwd_plain
+            gp = grads(train)
+        finally:
+            for k, f in saved.items():
+                setattr(hg, k, f)
+            hm._heatmap_readout_fwd, hm.heatmap_readout_bwd = saved_hm
+        assert set(gk) == set(gp)
+        if train:  # the whole gradient's direction, without the zero biases
+            keys = [k for k in gk if not (k.endswith(".bias") and k[:-5] + ".weight" in gk
+                                          and k not in ("classifier.bias",
+                                                        "backbone.heads.1.bias"))]
+            a = torch.cat([gk[k].reshape(-1).double() for k in keys])
+            b = torch.cat([gp[k].reshape(-1).double() for k in keys])
+            assert (a @ b / a.norm() / b.norm()).item() >= 0.999
+            continue
+        for k in gk:
+            scale = gp[k].abs().max().item()
+            if scale > 1e-6:
+                assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * scale, (train, k)
+
+
+def test_k16_k17_bn_train(dev):
+    """K16's statistics and K17's sums and dx against their plain versions,
+    f32 and bf16, with and without padded rows: statistics 1e-6 relative
+    (f64 sums in another order), sums 1e-5 of their scale, dx 1e-5 of its
+    largest magnitude (f32) or 1 bf16 ulp of it."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for shape in ((5, 64, 16, 16), (3, 256, 8, 8), (4, 96, 3, 5), (2, 300, 4, 4)):
+        N, C = shape[0], shape[1]
+        for dt in (torch.float32, torch.bfloat16):
+            x = (torch.randn(shape, device=dev, generator=g) * 2 + 1).to(dt).contiguous(
+                memory_format=torch.channels_last)
+            dy = torch.randn(shape, device=dev, generator=g).to(dt).contiguous(
+                memory_format=torch.channels_last)
+            for mask in (None, torch.arange(N, device=dev) % 3 != 1):
+                kernels.reset_counts()
+                mk, vk = hg._bn_stats_cuda(x, mask)
+                mp, vp = hg.bn_stats_plain(x, mask)
+                assert kernels.counts()["bn_stats"] == 1
+                assert torch.allclose(mk, mp, rtol=1e-6, atol=1e-7)
+                assert torch.allclose(vk, vp, rtol=1e-6, atol=1e-7)
+                scale = torch.rand(C, device=dev, generator=g) + 0.5
+                rstd = torch.rsqrt(vp + 1e-5)
+                inv = rstd * scale
+                shift = torch.randn(C, device=dev, generator=g) - mp * inv
+                for train in (True, False):
+                    args = (mp, rstd, mask) if train else ()
+                    k = hg._norm_relu_bwd_cuda(x, dy, inv, shift, *args)
+                    p = hg.norm_relu_bwd_plain(x, dy, inv, shift, *args)
+                    for a, b in zip(k[1:], p[1:]):
+                        assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1)
+                    tol = 1e-5 if dt == torch.float32 else 2.0 ** -8
+                    d = (k[0].float() - p[0].float()).abs().max().item()
+                    assert d <= tol * p[0].float().abs().max().item(), (shape, dt, train, d)
+                    assert k[0].is_contiguous(memory_format=torch.channels_last)
+
+
+def test_k18_upsample_add_bwd(dev):
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    for dt in (torch.float32, torch.bfloat16):
+        for H in (64, 8, 2):
+            dy = torch.randn(3, 40, H, H, device=dev).to(dt).contiguous(
+                memory_format=torch.channels_last)
+            assert torch.equal(hg._upsample_add_bwd_cuda(dy), hg.upsample_add_bwd_plain(dy))
+
+
+def test_k19_heatmap_readout_bwd(dev):
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    x = (torch.randn(3, 41, 64, 64, device=dev) * 3).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    gu, gc, gp = (torch.randn(3, 41, 2, device=dev), torch.randn(3, 41, 2, 2, device=dev),
+                  torch.randn(3, 41, device=dev))
+    for view in (x, x.transpose(1, 2)):
+        for dt in (torch.float32, torch.bfloat16):
+            v = view.to(dt)
+            k = hm._heatmap_readout_bwd_cuda(v, gu, gc, gp)
+            p = hm.heatmap_readout_bwd_plain(v, gu, gc, gp)
+            assert k.stride() == v.stride() and k.dtype == dt
+            # f - E[f] cancels near a peak; the two sum the moments in other orders
+            tol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+            assert (k.float() - p.float()).abs().max().item() <= tol * p.float().abs().max().item()

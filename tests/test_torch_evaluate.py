@@ -26,6 +26,7 @@ too) raise SystemExit naming ROADMAP items that exist; a reference
 CSV equals the JAX package's.
 """
 
+import json
 import os
 import re
 import subprocess
@@ -159,8 +160,13 @@ def test_unported_flags_raise_naming_roadmap_items(ycbv, flags):
     item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
     roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
     assert re.search(rf"\*\*{item}[ .]", roadmap), (item, str(e.value))
+    ck = os.path.join(ycbv, "group_net", "model_best")  # a GroupNorm net's checkpoint
+    os.makedirs(os.path.dirname(ck), exist_ok=True)
+    open(ck, "wb").close()
+    with open(ck + ".meta.json", "w") as f:
+        json.dump({"epoch": 0, "args": {"norm": "group"}}, f)
     with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        tloading.load_eval_network("results/model_best")
+        tloading.load_eval_network(ck)
 
 
 def _reference_state_dict(params, stats, n_stack=2, n_modules=2):
