@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: the single-view frame, SLAM
-mode, the evaluation entry point, int8 serving and training of SUO-SLAM on
-one NVIDIA GPU, through the entry points a user calls.
+mode, the evaluation entry point, int8 serving, training, and the quantized
+and GroupNorm networks of SUO-SLAM on one NVIDIA GPU, through the entry
+points a user calls.
 
     python3 chip_smoke.py
 
@@ -113,10 +114,32 @@ Phases (any failure raises and exits non-zero):
      launches, no plain version on a CUDA tensor, its checkpoints, and a
      second run that auto-resumes at epoch 2; the trained checkpoint through
      `Evaluator(nviews=1)`;
- 10. the kernels JSON line (K1-K7's, K14's and K15's launches from the SLAM
+ 10. the quantized and the GroupNorm nets at full width (2 x 2 x 256, 256x256
+     crops, seeded weights): `PkpNet(quant="int8")` in f32 and bf16 from the
+     float net's weights, calibrated by `quant.calibrate` on 4 batches of 8
+     crops; launches per prior-free forward (one K11 and one K12 per
+     QuantConv, cuDNN only for the 2 f32 heads, K8 180, K9 8); K11's f32
+     epilogue and K12's f32 mode bit-equal to their plain versions at every
+     distinct call of both forwards, timed beside `torch._int_mm`; the int8
+     net equal to its plain-version run on the card and its logits' relative
+     RMS and max uv gap to the f32 `quant="off"` net beside the CPU's on the
+     same crops; host and device ms per call of the int8 and float nets at 8
+     crops (turns), device ms at 128 crops. Then K20 / K21 against their
+     plain versions and against F.group_norm + relu and its autograd (the
+     library yardstick) at 8 x 256 x 64 x 64 and 16 x 128 x 128 x 128, f32
+     and bf16, with device times and bytes bounds; `Evaluator(nviews=1)` with
+     a full-width bf16 `norm="group"` net on phase 7's tree; 3 SLAM frames
+     under phase 6's ground-truth wrapper; one full-width group train step
+     with K20 / K21 against its plain run under `STEP_GATES`; `python -m
+     suo_slam_tpu_torch.train --norm group` in process, 1 epoch x 4 steps + 2
+     validation batches at phase 9's defaults, its exact launches and no plain
+     version on a CUDA tensor; its checkpoint through `Evaluator(nviews=1)`;
+ 11. the kernels JSON line (K1-K7's, K14's and K15's launches from the SLAM
      path, K8-K10's from the evaluation phase, K11-K13's from the int8
-     phase's evaluation and SLAM runs, K16-K19's from the training CLI), the
-     nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+     phase's evaluation and SLAM runs, K16-K19's from the training CLI, K11 /
+     K12's f32 modes from phase 10's 8-crop f32 forward, K20 / K21's from its
+     training CLI), the nvidia-smi line, and the last line {"ok": true,
+     "device": {...}}.
 
 The script imports nothing of JAX or of the JAX package; its scenes are made
 with numpy from --seed.
@@ -149,6 +172,8 @@ EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the e
 INT8_KERNELS = ("int8_conv", "int8_quant", "int8_pool_junction")  # from the int8 phase
 TRAIN_KERNELS = ("bn_stats", "norm_relu_bwd", "upsample_add_bwd",  # from the training phase
                  "heatmap_readout_bwd")
+QUANT_KERNELS = ("int8_conv_f32", "int8_quant_f32")  # K11 / K12's f32 modes (phase 10)
+GROUP_KERNELS = ("group_norm_relu", "group_norm_relu_bwd")  # K20 / K21 (phase 10's CLI)
 
 
 # ----------------------------------------------------------------- helpers --
@@ -244,17 +269,18 @@ def make_view(rng, objs: Objects):
     return img, T, bboxes, uv_gt
 
 
-def full_width_net(seed, dtype=None):
+def full_width_net(seed, dtype=None, norm="batch", quant="off"):
     """PkpNet at full width with seeded random weights and non-trivial
-    BatchNorm running statistics, in f32 (default) or `dtype`."""
+    BatchNorm running statistics (GroupNorm: scales and biases), in f32
+    (default) or `dtype`; `quant` its convolutions' kind."""
     import torch
 
-    from suo_slam_tpu_torch.models.hourglass import MaskedBatchNorm
+    from suo_slam_tpu_torch.models.hourglass import GroupNormRelu, MaskedBatchNorm
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
 
     torch.manual_seed(seed)
     net = PkpNet(n_stack=2, n_modules=2, features=256, prior_mode="post_stem",
-                 dtype=dtype or torch.float32)
+                 dtype=dtype or torch.float32, norm=norm, quant=quant)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for m in net.modules():
@@ -262,6 +288,8 @@ def full_width_net(seed, dtype=None):
                 c = m.mean.numel()
                 m.mean.copy_(torch.randn(c, generator=g) * 0.1)
                 m.var.copy_(torch.rand(c, generator=g) + 0.5)
+            if isinstance(m, (MaskedBatchNorm, GroupNormRelu)):
+                c = m.scale.numel()
                 m.scale.copy_(torch.rand(c, generator=g) * 0.4 + 0.8)
                 m.bias.copy_(torch.randn(c, generator=g) * 0.1)
     return net
@@ -1493,8 +1521,10 @@ def compare_ba(label, arrays, dev, act, **kw):
     cyc = torch.zeros(len(ba.LM_PHASES), dtype=torch.int64, device=dev)
     ba._ba_lm_cuda(pk, **kw, cycles=cyc)
     cyc = cyc.tolist()
+    b = lm_bound(pk, itk.tolist(), bool(kw.get("tracking_only")))
     log(f"[slam] {label}: K14 device {us:.3f} us per call by {src}, "
-        f"{us / max(1, sum(itk.tolist())):.3f} us per iteration; SM cycles by phase "
+        f"{us / max(1, sum(itk.tolist())):.3f} us per iteration, bound {b[0]:.7f} ms "
+        f"({b[1]}, this call's {sum(itk.tolist())} iterations); SM cycles by phase "
         + json.dumps(dict(zip(ba.LM_PHASES, cyc))) + f" ({sum(cyc)} in all)")
     return ms_k, ms_e, ms_p
 
@@ -1564,7 +1594,7 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
     missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"
-               and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS]
+               and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS + GROUP_KERNELS]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}, or K3 / K4 / "
                              f"K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
@@ -1795,26 +1825,32 @@ def check_k8(dev, rng, net32, net16, crops):
         f"{json.dumps(per_fwd)}")
     if any(v != {"norm_relu": 180, "upsample_add": 8} for v in per_fwd.values()):
         raise AssertionError(f"K8 / K9 launches per forward: {per_fwd}, expected 180 and 8")
-    # timed at the largest call, a residual's first norm at 64x64 x 256
+    # timed at the largest call, a residual's first norm at 64x64 x 256; the
+    # library yardstick is F.batch_norm(training=False) + relu on the same
+    # running statistics (K8's function: the affine of fixed statistics)
     x = torch.from_numpy(rng.normal(size=shapes[1]).astype(np.float32)).to(dev).contiguous(
         memory_format=torch.channels_last)
     inv = torch.ones(256, device=dev)
     shift = torch.zeros(256, device=dev)
+    rm, rv = torch.zeros(256, device=dev), torch.ones(256, device=dev)
     out = {}
     for name, xd in (("f32", x), ("bf16", x.to(torch.bfloat16))):
         ms = cuda_ms(lambda: hg._norm_relu_cuda(xd, inv, shift))
         plain_ms = cuda_ms(lambda: hg.norm_relu_plain(xd, inv, shift))
+        lib = lambda: torch.relu(torch.nn.functional.batch_norm(
+            xd, rm, rv, inv, shift, training=False, eps=1e-5))
+        lib_ms = cuda_ms(lib)
         us, src = device_us(lambda: hg._norm_relu_cuda(xd, inv, shift), "norm_relu_kernel")
         n = xd.numel()
         b = bound(2 * n * xd.element_size() + 2 * 256 * 4, n * 3)
-        out[name] = (ms, plain_ms, b)
+        out[name] = (ms, plain_ms, b, lib_ms)
         _report(f"K8 norm_relu ({name}, {list(xd.shape)}, device {us:.3f} us by {src})",
                 err32 if name == "f32" else ulps, "0" if name == "f32" else "1 bf16 ulp", ms,
-                plain_ms, None, b)
-    ms, plain_ms, b = out["bf16"]
+                plain_ms, lib_ms, b, lib)
+    ms, plain_ms, b, lib_ms = out["bf16"]
     return dict(name="norm_relu", route="cuda", source="suo_slam_tpu_torch/csrc/norm_relu.cu",
                 replaces="suo_slam_tpu/models/hourglass.py:88", max_abs_err=err32, ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
 
 
 def check_k9(dev, rng):
@@ -2210,7 +2246,9 @@ def _int8_traffic(name, a, kw):
         cout, kh, kw_, _ = qc.wq.shape
         Ho, Wo = ik.out_hw(x.shape[1], x.shape[2], qc)
         M = x.shape[0] * Ho * Wo
-        out_b = 1 if kw.get("out_s8", a[4] if len(a) > 4 else False) else 2
+        mode = ik.conv_mode(kw.get("out_s8", a[4] if len(a) > 4 else False),
+                            kw.get("f32_epilogue"))
+        out_b = {ik.MODE_S8: 1, ik.MODE_F32: 4}.get(mode, 2)
         return (x.numel() + qc.wq.numel() + M * cout * out_b + 8 * cout,
                 2.0 * M * cout * kh * kw_ * qc.cin)
     if name == "int8_quant":  # the prologue's operands, the input, the outputs
@@ -2246,7 +2284,8 @@ def _quant_mode(a, kw):
     raw, norm = a[1] is not None, len(a) > 2 and a[2] is not None
     out = "pair" if raw and norm else "raw" if raw else "norm"
     C = (x.q if isinstance(x, ik.Deq) else x).shape[-1]
-    return f"{src} {out}" + (" padded" if (kw.get("c_out") or C) != C else "")
+    return (f"{src} {out}" + (" padded" if (kw.get("c_out") or C) != C else "")
+            + (" f32 ops" if kw.get("f32_ops") else ""))
 
 
 def _int8_calls(run, traffic=None):
@@ -2264,7 +2303,8 @@ def _int8_calls(run, traffic=None):
         x = a[0]
         if name == "int8_conv":
             return (name, tuple(x.shape), tuple(a[1].wq.shape), a[1].stride,
-                    bool(kw.get("out_s8", a[4] if len(a) > 4 else False)))
+                    bool(kw.get("out_s8", a[4] if len(a) > 4 else False)),
+                    kw.get("f32_epilogue"))
         if name == "int8_quant":
             return (name, _quant_mode(a, kw), tuple((x.q if isinstance(x, ik.Deq) else x).shape))
         return (name, tuple(x.shape))
@@ -2323,9 +2363,11 @@ def _int_mm(x, qc, M):
 
 def check_k11(dev, calls, label="8 crops", stem=True, time_plain=True):
     """K11 at every distinct convolution of one forward (their real codes
-    and epilogue vectors) and, with `stem`, the concat stem's 7x7 stride-2
-    prior convolution: equal bf16 bits / s8 codes, each call's route from
-    `plan_conv`; times, device times, bounds (int8 operations or bytes) and
+    and epilogue vectors, in the calls' epilogue modes) and, with `stem`, the
+    concat stem's 7x7 stride-2 prior convolution: equal bf16 bits / s8 codes
+    / f32 values, each call's route from `plan_conv` (mma.sync for a
+    stride-2 stem, wgmma for every stride-1 convolution); times, device
+    times, bounds (int8 operations or bytes) and
     `torch._int_mm` on the same s8 GEMM (1x1: the activations as [M, Cin];
     3x3: an im2col of them, made before the clock), its wrapper and device
     time. Returns the JSON row (8 crops) and the per-shape numbers."""
@@ -2342,17 +2384,18 @@ def check_k11(dev, calls, label="8 crops", stem=True, time_plain=True):
                            dtype=torch.int32).to(torch.int8)
         xp[..., 41:] = 0  # as K12 writes the prior: 41 channels in 48-wide rows
         e1 = torch.full((64,), 1e-4, device=dev).to(torch.bfloat16).float()
-        convs.append((("int8_conv", tuple(xp.shape), tuple(qs.wq.shape), 2, False),
+        convs.append((("int8_conv", tuple(xp.shape), tuple(qs.wq.shape), 2, False, None),
                       ((xp, qs, e1, torch.zeros(64, device=dev), False), {})))
     rows, routes = [], {}
     for key, (a, kw) in convs:
         x, qc, e1, e2 = a[:4]
         out_s8 = kw.get("out_s8", a[4] if len(a) > 4 else False)
+        f32e = kw.get("f32_epilogue")
         cout, kh, kwd, cin_p = qc.wq.shape
         plan = ik.plan_conv(x.shape[0], x.shape[1], x.shape[2], cin_p, cout, kh, kwd,
-                            qc.stride, qc.pad)
-        k = ik._int8_conv_cuda(x, qc, e1, e2, out_s8)
-        p = ik.int8_conv_plain(x, qc, e1, e2, out_s8)
+                            qc.stride, qc.pad, ik.conv_mode(out_s8, f32e))
+        k = ik._int8_conv_cuda(x, qc, e1, e2, out_s8, f32e)
+        p = ik.int8_conv_plain(x, qc, e1, e2, out_s8, f32e)
         torch.cuda.synchronize()
         if not (k.dtype == p.dtype and torch.equal(k, p)):
             raise AssertionError(f"K11 disagrees with its plain version at {key} ({label}): "
@@ -2362,25 +2405,29 @@ def check_k11(dev, calls, label="8 crops", stem=True, time_plain=True):
         M = x.shape[0] * Ho * Wo
         b = bound(*_int8_traffic("int8_conv", a, kw), INT8_OPS_PER_S)
         routes[f"{kh}x{kwd} s{qc.stride} {list(x.shape)}"] = (plan.route, plan.tile)
-        rows.append((key, x, qc, e1, e2, out_s8, M, b))
+        rows.append((key, x, qc, e1, e2, out_s8, f32e, M, b))
     log(f"[kernel] K11 ({label}) routes and pixel tiles: " + json.dumps(
         {k: f"{r} {list(t)}" for k, (r, t) in routes.items()}))
-    if stem and routes.pop(next(k for k in routes if " s2 " in k))[0] != "mma_sync":
-        raise AssertionError("K11: the stride-2 stem convolution left its mma.sync route")
-    if any(r != "wgmma" for r, _ in routes.values()):
-        raise AssertionError(f"K11 ({label}): a stride-1 convolution is not on the wgmma route")
+    if stem and not any(" s2 " in k for k in routes):
+        raise AssertionError("K11: the concat stem's stride-2 convolution was not checked")
+    off = [k for k, (r, _) in routes.items() if r != ("mma_sync" if " s2 " in k else "wgmma")]
+    if off:
+        raise AssertionError(f"K11 ({label}): off their routes (mma.sync for stride 2, wgmma "
+                             f"for stride 1): {off}")
     # time one call of each distinct weight shape at its largest input
     best = {}
     for r in rows:
         wk = (r[0][2], r[0][3])
-        if wk not in best or r[6] > best[wk][6]:
+        if wk not in best or r[7] > best[wk][7]:
             best[wk] = r
     out = {}
-    for wk, (key, x, qc, e1, e2, out_s8, M, b) in sorted(best.items(), key=lambda t: -t[1][6]):
-        f = lambda: ik._int8_conv_cuda(x, qc, e1, e2, out_s8)
+    outs = {None: "", torch.float32: " (f32 epilogue)", torch.bfloat16: " (f32 epilogue)"}
+    for wk, (key, x, qc, e1, e2, out_s8, f32e, M, b) in sorted(best.items(),
+                                                                key=lambda t: -t[1][7]):
+        f = lambda: ik._int8_conv_cuda(x, qc, e1, e2, out_s8, f32e)
         ms = cuda_ms(f, n=10, inner=5)
-        plain_ms = (cuda_ms(lambda: ik.int8_conv_plain(x, qc, e1, e2, out_s8), n=3, inner=2,
-                            warmup=1) if time_plain else None)
+        plain_ms = (cuda_ms(lambda: ik.int8_conv_plain(x, qc, e1, e2, out_s8, f32e), n=3,
+                            inner=2, warmup=1) if time_plain else None)
         us, src = device_us(f, "int8_conv_kernel", n=5)
         cout, kh, kwd, cin_p = qc.wq.shape
         lib = _int_mm(x, qc, M)
@@ -2388,7 +2435,8 @@ def check_k11(dev, calls, label="8 crops", stem=True, time_plain=True):
         lib_us = lib_device_us(lib) if lib else (None, None)
         del lib
         name = (f"{kh}x{kwd} {x.shape[-1]}->{cout} s{qc.stride} on {list(x.shape)} "
-                f"{'s8' if out_s8 else 'bf16'} out")
+                f"{'s8' if out_s8 else 'f32' if f32e == torch.float32 else 'bf16'} out"
+                + outs[f32e])
         lib_txt = ("n/a" if lib_ms is None
                    else f"{lib_ms:.4f} ms, device {lib_us[0]:.3f} us by {lib_us[1]}")
         log(f"[kernel] K11 int8_conv ({label}, {name}): bit-equal | kernel {ms:.4f} ms, device "
@@ -3022,7 +3070,7 @@ def check_k19(dev, rng):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Every kernel wrapper of the train step (K1, K2, K5, K8, K9, K16-K19)
+    """Every kernel wrapper of the train step (K1, K2, K5, K8, K9, K16-K21)
     takes its plain version on CUDA tensors for the duration; no kernel may
     launch meanwhile (a call site the patches miss would raise here)."""
     from suo_slam_tpu_torch import kernels
@@ -3034,6 +3082,8 @@ def plain_versions():
                (hg, "norm_relu_bwd", hg.norm_relu_bwd_plain),
                (hg, "_upsample_add_fwd", hg.upsample_add_plain),
                (hg, "upsample_add_bwd", hg.upsample_add_bwd_plain),
+               (hg, "group_norm_relu", hg.group_norm_relu_plain),
+               (hg, "group_norm_relu_bwd", hg.group_norm_relu_bwd_plain),
                (hm, "_heatmap_readout_fwd", hm.heatmap_readout_plain),
                (hm, "heatmap_readout_bwd", hm.heatmap_readout_bwd_plain),
                (hm, "render_prior_heatmaps", hm.render_prior_heatmaps_plain),
@@ -3065,6 +3115,7 @@ def plain_on_cuda_counter():
     hits = {}
     names = [(hg, "norm_relu_plain"), (hg, "bn_stats_plain"), (hg, "norm_relu_bwd_plain"),
              (hg, "upsample_add_plain"), (hg, "upsample_add_bwd_plain"),
+             (hg, "group_norm_relu_plain"), (hg, "group_norm_relu_bwd_plain"),
              (hm, "heatmap_readout_plain"), (hm, "heatmap_readout_bwd_plain"),
              (hm, "render_prior_heatmaps_plain"), (roi, "roi_crop_batch_plain")]
     saved = [(m, k, getattr(m, k)) for m, k in names]
@@ -3101,7 +3152,7 @@ def _first_batch(root, dev, seed, truncate_obj=16):
     return harness.to_batch(np_batch, dev, o_pad=truncate_obj)
 
 
-def _step_record(dt, seed, batch, keep, dev):
+def _step_record(dt, seed, batch, keep, dev, norm="batch"):
     """One full-width train step from seeded flax-style weights: loss, its
     terms, every parameter gradient and the new running statistics."""
     import torch
@@ -3109,7 +3160,7 @@ def _step_record(dt, seed, batch, keep, dev):
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
     from suo_slam_tpu_torch.train import harness
 
-    net = PkpNet(n_stack=2, n_modules=2, features=256, dtype=dt).to(dev)
+    net = PkpNet(n_stack=2, n_modules=2, features=256, dtype=dt, norm=norm).to(dev)
     state = harness.init_state(net, seed=seed)
     _, m = harness.make_train_step()(state, batch, 0.0, dropout_mask=keep)
     torch.cuda.synchronize()
@@ -3130,8 +3181,9 @@ def _distances(a, b):
     va = torch.cat([g.reshape(-1).double() for g in a["grads"].values()])
     vb = torch.cat([g.reshape(-1).double() for g in b["grads"].values()])
     cos = (va @ vb / va.norm() / vb.norm()).item()
-    stats = max(((a["stats"][k] - b["stats"][k]).abs().max()
-                 / b["stats"][k].abs().max().clamp(min=1.0)).item() for k in b["stats"])
+    stats = max([((a["stats"][k] - b["stats"][k]).abs().max()
+                  / b["stats"][k].abs().max().clamp(min=1.0)).item() for k in b["stats"]],
+                default=0.0)
     return dict(terms=terms, grad=grad, cos=cos, stats=stats)
 
 
@@ -3147,7 +3199,7 @@ STEP_GATES = {"f32": dict(terms=1e-5, stats=1e-5, cos=0.999, grad=0.5),
               "bf16": dict(terms=1e-2, stats=2e-2, cos=0.99)}
 
 
-def train_step_parity(dev, seed, root):
+def train_step_parity(dev, seed, root, norm="batch"):
     """One full-width train step (2 x 16 crop slots, the CLI's first batch,
     seeded flax-style weights, one dropout mask) with the kernels against the
     same step with every wrapper on its plain version, in f32 and bf16, cuDNN
@@ -3167,11 +3219,11 @@ def train_step_parity(dev, seed, root):
     try:
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             gate = STEP_GATES[name]
-            kern = _step_record(dt, seed, batch, keep, dev)
+            kern = _step_record(dt, seed, batch, keep, dev, norm)
             with plain_versions():
-                plain = _step_record(dt, seed, batch, keep, dev)
+                plain = _step_record(dt, seed, batch, keep, dev, norm)
             d = _distances(kern, plain)
-            log(f"[train] full-width step ({name}), kernels vs plain: "
+            log(f"[train] full-width step ({name}, norm={norm}), kernels vs plain: "
                 + json.dumps({k: f"{v:.6e}" for k, v in d.items()})
                 + f" (gates {json.dumps(gate)}); loss {kern['metrics']['loss']:.6f}"
                 + f" (plain {plain['metrics']['loss']:.6f})")
@@ -3179,7 +3231,8 @@ def train_step_parity(dev, seed, root):
                   and d["cos"] >= gate["cos"] and d["grad"] <= gate.get("grad", np.inf))
             finite = all(np.isfinite(v) for v in kern["metrics"].values())
             if not (ok and finite):
-                raise AssertionError(f"train step ({name}): kernels vs plain {d}, gates {gate}")
+                raise AssertionError(f"train step ({name}, norm={norm}): kernels vs plain {d}, "
+                                     f"gates {gate}")
             out[name] = d
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
@@ -3365,6 +3418,403 @@ def phase_train(dev, seed):
     return entries, counts
 
 
+# quantized and GroupNorm nets -------------------------------------------------------
+QUANT_CALIB_BATCHES = 4
+
+
+def _conv_calls():
+    """A counter of `F.conv2d` calls (cuDNN's convolutions) for the
+    duration: `hourglass.float_conv` and `nn.Conv2d` call it through the
+    module attribute."""
+    import torch.nn.functional as F
+
+    class Counter:
+        n = 0
+
+    orig = F.conv2d
+
+    def counted(*a, **kw):
+        Counter.n += 1
+        return orig(*a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        F.conv2d = counted
+        try:
+            yield Counter
+        finally:
+            F.conv2d = orig
+
+    return ctx()
+
+
+def _rel_rms(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+
+def phase_quant(dev, seed, net32, net16, crops):
+    """The quantized PkpNet (`quant="int8"`, B12) at full width (the module
+    docstring's phase 10, first half). Returns the JSON entries of K11's and
+    K12's f32 modes and their launches in one 8-crop f32 forward."""
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+    from suo_slam_tpu_torch.models import quant
+
+    cl = torch.channels_last
+    t0 = time.perf_counter()
+    nets = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        n = full_width_net(seed, dt, quant="int8")  # the float weights, act_absmax 0
+        nets[name] = n.to(dev).eval().to(memory_format=cl)
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    batches = [torch.rand((N_OBJ, 256, 256, 3), device=dev, generator=g)
+               for _ in range(QUANT_CALIB_BATCHES)]
+    quant.calibrate(nets["f32"], batches)
+    nets["bf16"].load_state_dict(nets["f32"].state_dict())
+    torch.cuda.synchronize()
+    absmax = [float(m.act_absmax) for m in quant.quant_convs(nets["f32"])]
+    log(f"[quant] calibrate over {QUANT_CALIB_BATCHES} batches of {N_OBJ} crops: "
+        f"{len(absmax)} act_absmax, {sum(a == 0 for a in absmax)} zero (the prior projection, "
+        f"no prior given), range [{min(a for a in absmax if a > 0):.4f}, {max(absmax):.4f}]; "
+        f"{(time.perf_counter() - t0):.2f} s with the nets' set-up")
+    n_conv = len(quant.quant_convs(nets["f32"])) - 1  # the prior-free program skips one
+    per_fwd, run = {}, {}
+    for name, n in nets.items():
+        f = lambda n=n: n(crops)
+        with torch.inference_mode():
+            f()
+            torch.cuda.synchronize()
+            kernels.reset_counts()
+            with _conv_calls() as cc:
+                out = f()
+            torch.cuda.synchronize()
+        c = kernels.counts()
+        per_fwd[name] = {"K11": c["int8_conv"], "K12": c["int8_quant"], "cuDNN": cc.n,
+                         "K8": c["norm_relu"], "K9": c["upsample_add"]}
+        run[name] = (dict(int8_conv_f32=c["int8_conv"], int8_quant_f32=c["int8_quant"]), out)
+        if not torch.isfinite(out.uv).all() or not torch.isfinite(out.prob_logits).all():
+            raise AssertionError(f"quantized net ({name}): non-finite outputs")
+    log(f"[quant] launches per prior-free forward (8 crops, {n_conv} QuantConvs run): "
+        + json.dumps(per_fwd))
+    for name, c in per_fwd.items():
+        if (c["K11"], c["K12"], c["cuDNN"], c["K8"], c["K9"]) != (n_conv, n_conv, 2, 180, 8):
+            raise AssertionError(f"quantized net ({name}): launches per forward {c}, expected "
+                                 f"one K11 and one K12 per QuantConv and cuDNN for the 2 heads")
+    # K11's and K12's f32 modes bit-equal to their plain versions at every
+    # distinct call of both forwards
+    entries = []
+    for name, n in nets.items():
+        with torch.inference_mode():
+            calls = _int8_calls(lambda: n(crops))
+        k11, _ = check_k11(dev, calls, f"quant {name}, 8 crops", stem=False)
+        k12, _ = check_k12(dev, calls, f"quant {name}, 8 crops")
+        if name == "f32":
+            k11.update(name="int8_conv_f32", replaces="suo_slam_tpu/models/quant.py:89")
+            k12.update(name="int8_quant_f32", replaces="suo_slam_tpu/models/quant.py:84")
+            entries = [k11, k12]
+        del calls
+    # the whole net: kernels against their plain versions on the card; then
+    # against the float net, beside the CPU's gap on the same two crops
+    with torch.inference_mode():
+        o_plain = _with_plain_int8(lambda: nets["f32"](crops))
+        o_off = {"f32": net32(crops), "bf16": net16(crops)}
+    torch.cuda.synchronize()
+    o8 = run["f32"][1]
+    if not torch.equal(o8.prob_logits, o_plain.prob_logits):
+        raise AssertionError("quantized net: kernels and plain versions give other logits")
+    cpu_q = full_width_net(seed, quant="int8").eval()
+    cpu_q.load_state_dict(nets["f32"].state_dict())
+    cpu_off = full_width_net(seed).eval()
+    c2 = crops[:2].cpu()
+    with torch.inference_mode():
+        oc_q, oc_off = cpu_q(c2), cpu_off(c2)
+    gaps = {}
+    for name in nets:
+        o = run[name][1]
+        gaps[name] = {"logits rel RMS": _rel_rms(o.prob_logits, o_off["f32"].prob_logits),
+                      "uv max": (o.uv - o_off["f32"].uv).abs().max().item(),
+                      "2 crops logits rel RMS": _rel_rms(o.prob_logits[:2],
+                                                         o_off["f32"].prob_logits[:2]),
+                      "2 crops uv max": (o.uv[:2] - o_off["f32"].uv[:2]).abs().max().item()}
+    cpu_gap = {"logits rel RMS": _rel_rms(oc_q.prob_logits, oc_off.prob_logits),
+               "uv max": (oc_q.uv - oc_off.uv).abs().max().item()}
+    log("[quant] int8 nets (8 crops) against the f32 quant='off' net on the card: "
+        + json.dumps({k: {a: round(b, 6) for a, b in v.items()} for k, v in gaps.items()})
+        + "; the CPU's int8 f32 net on crops 0-1: "
+        + json.dumps({a: round(b, 6) for a, b in cpu_gap.items()})
+        + f"; card int8 logits equal to its plain-version run: True")
+    g32 = gaps["f32"]
+    if not (g32["2 crops logits rel RMS"] <= max(1.5 * cpu_gap["logits rel RMS"], 1e-3)
+            and g32["logits rel RMS"] <= 0.03):
+        raise AssertionError(f"quantized f32 net on the card farther from f32 than the CPU's: "
+                             f"{g32} vs {cpu_gap}")
+
+    # host and device ms per call, 8 crops (turns Q F F Q), then 128 crops
+    def wall_ms(f, reps=10):
+        vals = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.inference_mode():
+                f()
+            torch.cuda.synchronize()
+            vals.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(vals[1:])
+
+    def calls_of(x):
+        def mk(n):
+            def f():
+                with torch.inference_mode():
+                    return n(x)
+            return f
+        return {"int8 f32": mk(nets["f32"]), "int8 bf16": mk(nets["bf16"]),
+                "f32": mk(net32), "bf16": mk(net16)}
+
+    fs = calls_of(crops)
+    t = {}
+    for turn in ("int8 f32", "f32", "f32", "int8 f32", "int8 bf16", "bf16", "bf16",
+                 "int8 bf16"):
+        t.setdefault(turn, []).append(wall_ms(fs[turn]))
+    log("[quant] full-width net host ms per call (8 crops, prior-free, median of 10, in "
+        "turns): " + json.dumps({k: [round(x, 3) for x in v] for k, v in t.items()})
+        + "; device ms per call: " + json.dumps(_net_device_ms(fs, N_OBJ)))
+    g = torch.Generator(device=dev).manual_seed(seed + 129)
+    c128 = torch.rand((128, 256, 256, 3), device=dev, generator=g)
+    f128 = calls_of(c128)
+    kernels.reset_counts()
+    f128["int8 f32"]()
+    torch.cuda.synchronize()
+    c = kernels.counts()
+    log(f"[quant 128] launches per prior-free f32 forward (128 crops): K11 {c['int8_conv']}, "
+        f"K12 {c['int8_quant']}; device ms per call: "
+        + json.dumps(_net_device_ms({k: f128[k] for k in ("int8 f32", "int8 bf16", "f32")},
+                                    128, calls=2)))
+    if (c["int8_conv"], c["int8_quant"]) != (n_conv, n_conv):
+        raise AssertionError(f"quantized net at 128 crops: launches {c}")
+    del c128, f128
+    torch.cuda.empty_cache()
+    return entries, run["f32"][0]
+
+
+def check_k20_k21(dev, rng):
+    """K20 and K21 against their plain versions at the GroupNorm net's
+    shapes, 8 x 256 x 64 x 64 (a residual's first norm at 8 crops) and 16 x
+    128 x 128 x 128 (a pre-residual's at 16 slots), f32 and bf16:
+    statistics 1e-6 relative (f64 sums in another order), y and dx within
+    1e-5 of their largest magnitude (f32) or 2^-8 (bf16), dscale / dbias 1e-5
+    of their scale; against F.group_norm + relu and its autograd (the
+    library yardstick) within 1e-4 of the largest magnitude (f32). Kernel,
+    device, plain and library times and bytes bounds (x read, y written;
+    x, dy read, dx written)."""
+    import torch
+    import torch.nn.functional as F
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+    err = {"stats": 0.0, "y f32": 0.0, "y bf16": 0.0, "dx f32": 0.0, "dx bf16": 0.0,
+           "sums": 0.0, "library f32": 0.0}
+    res, entries = {}, []
+    for shape in ((N_OBJ, 256, 64, 64), (16, 128, 128, 128)):
+        C = shape[1]
+        G = hg.num_groups(C)
+        x32 = cl((rng.normal(size=shape) * 1.5 + 0.3).astype(np.float32))
+        dy32 = cl(rng.normal(size=shape).astype(np.float32))
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+        bias = torch.from_numpy((rng.normal(size=C) * 0.2).astype(np.float32)).to(dev)
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x, dy = x32.to(dt), dy32.to(dt)
+            yk, mk, rk = hg._group_norm_relu_cuda(x, scale, bias, G)
+            yp, mp, rp = hg.group_norm_relu_plain(x, scale, bias, G)
+            k = hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp)
+            p = hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp)
+            torch.cuda.synchronize()
+            rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                                / b.float().abs().max().clamp(min=1e-30)).item()
+            err["stats"] = max(err["stats"], rel(mk, mp), rel(rk, rp))
+            err[f"y {name}"] = max(err[f"y {name}"], rel(yk, yp))
+            err[f"dx {name}"] = max(err[f"dx {name}"], rel(k[0], p[0]))
+            err["sums"] = max(err["sums"], *(((a - b).abs().max() / b.abs().max().clamp(min=1.0))
+                                             .item() for a, b in zip(k[1:], p[1:])))
+            # (F.group_norm on the card takes its affine in the input's dtype)
+            xg = x.detach().clone().requires_grad_(True)
+            w = scale.detach().to(dt).requires_grad_(True)
+            bb = bias.detach().to(dt).requires_grad_(True)
+            ylib = torch.relu(F.group_norm(xg, G, w, bb, hg.GN_EPS))
+            if dt == torch.float32:
+                glib = torch.autograd.grad(ylib, (xg, w, bb), dy, retain_graph=True)
+                err["library f32"] = max(err["library f32"], rel(yk, ylib.detach()),
+                                         rel(k[0], glib[0]), rel(k[1], glib[1]),
+                                         rel(k[2], glib[2]))
+            n, es = x.numel(), x.element_size()
+            timing = {}
+            for label, fn, plain, lib, nbytes, ops in (
+                    ("K20 group_norm_relu", lambda: hg._group_norm_relu_cuda(x, scale, bias, G),
+                     lambda: hg.group_norm_relu_plain(x, scale, bias, G),
+                     lambda: torch.relu(F.group_norm(x, G, w, bb, hg.GN_EPS)),
+                     2 * n * es + 2 * C * 4, 8 * n),
+                    ("K21 group_norm_relu_bwd",
+                     lambda: hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp),
+                     lambda: hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp),
+                     lambda: torch.autograd.grad(ylib, (xg, w, bb), dy, retain_graph=True),
+                     3 * n * es + 2 * C * 4, 12 * n)):
+                ms, plain_ms = cuda_ms(fn), cuda_ms(plain, n=5, inner=2)
+                lib_ms = cuda_ms(lib)
+                us, src = device_us(fn, "gn_", per_call=3 if label.startswith("K20") else 4)
+                b = bound(nbytes, ops)
+                _report(f"{label} ({name}, {list(x.shape)}, {G} groups, device {us:.3f} us "
+                        f"by {src})", err[f"{'y' if label.startswith('K20') else 'dx'} {name}"],
+                        "1e-5 of max" if name == "f32" else "2^-8 of max", ms, plain_ms,
+                        lib_ms, b, lib)
+                timing[label] = (ms, plain_ms, lib_ms, b, us)
+            res[(shape, name)] = timing
+            del x, dy, xg, ylib
+    log("[group] K20 / K21 errors over 2 shapes, f32 and bf16: "
+        + json.dumps({k: f"{v:.3e}" for k, v in err.items()})
+        + " (tol: stats 1e-6, y / dx f32 1e-5 of max, bf16 2^-8, sums 1e-5 of scale, "
+          "library f32 1e-4 of max)")
+    if not (err["stats"] <= 1e-6 and err["y f32"] <= 1e-5 and err["dx f32"] <= 1e-5
+            and err["y bf16"] <= 2.0 ** -8 and err["dx bf16"] <= 2.0 ** -8
+            and err["sums"] <= 1e-5 and err["library f32"] <= 1e-4):
+        raise AssertionError(f"K20 / K21 disagree with their plain versions or the library: "
+                             f"{err}")
+    timing = res[((N_OBJ, 256, 64, 64), "bf16")]
+    for kname, label, key in (("group_norm_relu", "K20 group_norm_relu", "y bf16"),
+                              ("group_norm_relu_bwd", "K21 group_norm_relu_bwd", "dx bf16")):
+        ms, plain_ms, lib_ms, b, _ = timing[label]
+        entries.append(dict(name=kname, route="cuda",
+                            source="suo_slam_tpu_torch/csrc/group_norm.cu",
+                            replaces="suo_slam_tpu/models/hourglass.py:104",
+                            max_abs_err=err[key], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                            bound_by=b[1], library_ms=lib_ms))
+    return entries
+
+
+def phase_group(dev, seed, objs, scene):
+    """The GroupNorm PkpNet (`norm="group"`, A18) at full width (the module
+    docstring's phase 10, second half). Returns K20 / K21's JSON entries and
+    the launches of the training CLI's run."""
+    import io
+    import os
+    import re
+    import shutil
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.evaluate import Evaluator
+    from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
+    from suo_slam_tpu_torch.train import __main__ as cli
+
+    rng = np.random.default_rng(seed + 20)
+    entries = check_k20_k21(dev, rng)
+    base, root = _eval_root()
+    kp_root = os.path.join(root, "kp_configs")
+    netg16 = full_width_net(seed, torch.bfloat16, norm="group").to(dev).eval().to(
+        memory_format=torch.channels_last)
+    # the evaluation entry point, single view, bf16
+    kernels.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ev = Evaluator("ycbv", root, "", nviews=1, detection_type="gt", no_viz=True,
+                       kp_config_root=kp_root, device=dev, net=netg16)
+        ev.model_path = os.path.join(base, "results_group")
+        summary = ev.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = kernels.counts()
+    if summary is None or c["group_norm_relu"] == 0 or c["norm_relu"]:
+        raise AssertionError(f"Evaluator with the group net: K20 {c['group_norm_relu']}, K8 "
+                             f"{c['norm_relu']}:\n{buf.getvalue()[-3000:]}")
+    log(f"[group] Evaluator(nviews=1) with the full-width bf16 group net: {ev.method_name()} ran "
+        f"to its end, {wall / EVAL_VIEWS * 1e3:.2f} ms per view over {EVAL_VIEWS} views; "
+        f"launches " + json.dumps({k: v for k, v in c.items() if v}))
+    # 3 SLAM frames (the ground-truth wrapper of phase 6 over the group net)
+    engine = ObjectSlam(SlamConfig(), mesh_db=objs, net=netg16, device=dev)
+    inf = GtPriorInfer(engine._infer, dev, seed)
+    engine._infer = inf
+    img = np.random.default_rng(seed + 21).uniform(0, 1, (H_IMG, W_IMG, 3)).astype(np.float32)
+    ids = np.arange(1, N_OBJ + 1)
+    times = []
+    kernels.reset_counts()
+    for i in range(3):
+        T_OtoC, bboxes, uv_gt = scene.frame(i)
+        inf.set_frame(bboxes, uv_gt)
+        t1 = time.perf_counter()
+        engine.process_view(i, img, YCBV_K, ids, bboxes, objs.model_kps, objs.masks, objs.masks)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    results = engine.collect_results(final=True)
+    c = kernels.counts()
+    ok = [p is not None and np.isfinite(p).all() and _add_ok(p, scene.frame(i)[0][o], objs, o)
+          for i in range(3) for o in range(N_OBJ)
+          for p in [results[i]["poses"].get(o + 1, {}).get("T_OtoC")]]
+    log(f"[group] SLAM, 3 frames with the group net: ms per frame "
+        f"{[round(x, 2) for x in times]}; ADD < 0.1 d for {float(np.mean(ok)):.3f} of "
+        f"{len(ok)} poses; launches " + json.dumps({k: v for k, v in c.items() if v}))
+    if c["group_norm_relu"] == 0 or c["norm_relu"] or float(np.mean(ok)) < 0.9:
+        raise AssertionError("group SLAM run: no K20 launch, a K8 launch or poses off")
+    del engine, inf
+    # one full-width train step with K20 / K21 against its plain run
+    train_step_parity(dev, seed, root, norm="group")
+    # the training CLI with --norm group, then its checkpoint through Evaluator
+    work = os.path.join(base, "train_cli_group")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    argv = ["--device", dev.type, "--dataset", "ycbv", "--data_split", "real", "--norm", "group",
+            "--no_augmentations", "--steps_per_epoch", "4", "--val_steps", "2", "--epochs", "1",
+            "--data_root", root, "--kp_config_root", kp_root]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        buf = io.StringIO()
+        kernels.reset_counts()
+        t1 = time.perf_counter()
+        with plain_on_cuda_counter() as hits, contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.counts()
+    finally:
+        os.chdir(cwd)
+    text = buf.getvalue()
+    with open(os.path.join(work, "cli.log"), "w") as f:
+        f.write(text)
+    (outdir,) = [os.path.join(work, "results", d) for d in os.listdir(os.path.join(work, "results"))]
+    losses = [float(x) for x in re.findall(r"train loss ([-\d.eE+naninf]+)", text)]
+    steps, vals = 4, 2
+    want = {"group_norm_relu": NORMS_PER_FWD * (steps + vals),
+            "group_norm_relu_bwd": NORMS_PER_FWD * steps, "norm_relu": 0, "bn_stats": 0,
+            "norm_relu_bwd": 0, "upsample_add": JUNCTIONS_PER_FWD * (steps + vals),
+            "upsample_add_bwd": JUNCTIONS_PER_FWD * steps}
+    got = {k: counts[k] for k in want}
+    log(f"[group] CLI --norm group, 1 epoch x 4 steps + 2 val batches, full width bf16: rc {rc}, "
+        f"{wall:.2f} s; train losses {losses}; launches {json.dumps(got)} (want "
+        f"{json.dumps(want)}); plain versions on CUDA tensors: {json.dumps(hits)}")
+    if rc != 0 or len(losses) != 1 or not np.isfinite(losses).all() or got != want or hits:
+        raise AssertionError(f"training CLI --norm group: rc {rc}, losses {losses}, launches "
+                             f"{got}, plain on CUDA {hits}:\n{text[-3000:]}")
+    ck = os.path.join(outdir, "checkpoint-latest")
+    buf = io.StringIO()
+    kernels.reset_counts()
+    with contextlib.redirect_stdout(buf):
+        ev = Evaluator("ycbv", root, ck, nviews=1, detection_type="gt", no_viz=True,
+                       kp_config_root=kp_root, device=dev)
+        ev.model_path = os.path.join(base, "results_group_trained")
+        summary = ev.run()
+    loaded = ev.object_slam._infer.net
+    if (summary is None or ev.model_epoch != 0 or loaded.norm != "group"
+            or kernels.counts()["group_norm_relu"] == 0):
+        raise AssertionError(f"Evaluator on the group checkpoint:\n{buf.getvalue()[-3000:]}")
+    log(f"[group] Evaluator(nviews=1) on {ck} (epoch {ev.model_epoch}, norm {loaded.norm}): "
+        f"ran to its end, {ev.method_name()}")
+    return entries, counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3400,11 +3850,15 @@ def main(argv=None):
                                                         objs, scene)
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], k2_bf16_err)
     train_entries, train_counts = phase_train(dev, args.seed)
-    entries += int8_entries + train_entries
+    quant_entries, quant_counts = phase_quant(dev, args.seed, net, net16, crops)
+    group_entries, group_counts = phase_group(dev, args.seed, objs, scene)
+    entries += int8_entries + train_entries + quant_entries + group_entries
     for e in entries:
         e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts
                          if e["name"] in INT8_KERNELS else train_counts
-                         if e["name"] in TRAIN_KERNELS else counts)[e["name"]]
+                         if e["name"] in TRAIN_KERNELS else quant_counts
+                         if e["name"] in QUANT_KERNELS else group_counts
+                         if e["name"] in GROUP_KERNELS else counts)[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -24,6 +24,11 @@ import sys
 from argparse import ArgumentParser
 
 
+NORM_HELP = ("Backbone normalization. Default 'batch' matches the reference's BatchNorm and is "
+             "required by the int8 inference path (--int8 folds BN into conv epilogues); "
+             "'group' is a sync-free batch-independent alternative.")
+
+
 def _env_int(name, default):
     return int(os.environ.get(name, default))
 
@@ -61,7 +66,7 @@ def get_train_args(argv_override=None):
                         help="bfloat16 compute in the backbone (the default).")
     parser.add_argument("--no_bf16", dest="bf16", action="store_false")
     parser.add_argument("--norm", default="batch", choices=["group", "batch"],
-                        help="Backbone normalization (only 'batch' is ported).")
+                        help=NORM_HELP)
     parser.add_argument("--workers", "-j", type=int, default=_env_int("SUO_WORKERS", 4))
     parser.add_argument("--loader", default="thread", choices=["thread", "process"],
                         help="Worker tier of the train loader (thread only is ported).")
@@ -109,7 +114,7 @@ def get_args(argv_override=None):
                         help="bfloat16 compute in the backbone (the default).")
     parser.add_argument("--no_bf16", dest="bf16", action="store_false")
     parser.add_argument("--norm", default="batch", choices=["group", "batch"],
-                        help="Backbone normalization (only 'batch' is ported).")
+                        help=NORM_HELP)
     parser.add_argument("--nviews", type=int, default=-1,
                         help="1 = single-view PnP, N>1 = SfM per frame, -1 = full SLAM.")
     parser.add_argument("--no_viz", action="store_true")

@@ -98,6 +98,9 @@ def main(argv=None):
     dataset = BopDataset(args.data_root, split, bop_dset=args.dataset, ignore_symmetry=True,
                          kp_config_root=args.kp_config_root, seed=666)
     net, epoch = load_eval_network(args.checkpoint_path, bf16=args.bf16)
+    if net.norm != "batch":
+        raise SystemExit(f"int8 calibration requires a norm='batch' checkpoint; got "
+                         f"norm={net.norm!r}")
     net = net.to(dev).eval()
     print(f"calibrating over up to {args.n_frames} frames (checkpoint epoch {epoch}) ...")
     scales, n_frames, n_crops = calibrate_dataset(

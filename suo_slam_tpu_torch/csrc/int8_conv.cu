@@ -1,5 +1,6 @@
 // K11 — the int8 engine's convolution: s8 x s8 -> exact s32 sums, rounded once
-// to bf16, then the engine's folded epilogue in bf16.
+// to bf16, then the engine's folded epilogue in bf16; or, for the quantized
+// PkpNet's convolutions, the same sums through an f32 epilogue.
 //
 // Replaces `suo_slam_tpu/models/int8_forward.py` `_Int8Engine._conv_i8`
 // (`:254-271`, XLA's s8 convolution with `preferred_element_type=bf16`) and
@@ -15,6 +16,15 @@
 // roundings, see `bmul2`); the s32 -> bf16 conversion rounds once, to
 // nearest even (`acc_f32`). s32 sums are exact in any order, so the result
 // is bit-equal to the plain version whatever the tiling.
+//
+// The f32 epilogue (modes 2 and 3) replaces the int8 branch of
+// `suo_slam_tpu/models/quant.py` `Conv` (`:82-96`), after its quantize (K12):
+//   z = f32(y) * e1[co] + e2[co]   (e1 = s_x * s_w, e2 = the bias)
+// each step rounded in f32 (`__int2float_rn`, `__fmul_rn`, `__fadd_rn`: XLA
+// on the CPU rounds the product and the sum on their own), then one cast to
+// the output: f32 (mode 2) or bf16 (mode 3). The modes, `mode` below: 0 the
+// engine's bf16 epilogue written as bf16 (`conv_raw`), 1 written as s8 codes
+// (`conv_nrq`), 2 and 3 the f32 epilogue.
 //
 // Layout: activations NHWC [N, H, W, Cin_p] s8 with Cin_p % 16 == 0 (K12
 // writes the prior's and the heads' 41 channels 48 wide); weights [Cout, KH,
@@ -102,12 +112,19 @@ __device__ __forceinline__ float acc_f32(int v) {
   return rz;
 }
 
-// the folded epilogue of one accumulator (route 0), as bf16 bits or an s8 code
-__device__ __forceinline__ float epilogue(int acc, float e1, float e2, bool out_s8) {
+// the f32 epilogue of one accumulator (modes 2, 3): f32(acc) * e1 + e2
+__device__ __forceinline__ float epilogue_f32(int acc, float e1, float e2) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), e1), e2);
+}
+
+// the folded epilogue of one accumulator (route 0): bf16 bits or an s8 code
+// (modes 0, 1), or the f32 epilogue's value (modes 2, 3)
+__device__ __forceinline__ float epilogue(int acc, float e1, float e2, int mode) {
+  if (mode >= 2) return epilogue_f32(acc, e1, e2);
   const float y = bf16r(acc_f32(acc));
   float z = bf16r(__fmul_rn(y, e1));
   z = bf16r(__fadd_rn(z, e2));
-  if (out_s8) z = fminf(rintf(fmaxf(z, 0.f)), 127.f);
+  if (mode == 1) z = fminf(rintf(fmaxf(z, 0.f)), 127.f);
   return z;
 }
 
@@ -160,17 +177,25 @@ struct WgArgs {
   const float* e1;
   const float* e2;
   void* out;
-  int N, H, W, Cout, KH, KW, pad, out_s8;
+  int N, H, W, Cout, KH, KW, pad, mode;
   int Nt, Ht, Wt, n_chunks, stages;
   int tiles_w, tiles_h, n_cols, n_tiles;  // pixel tiles along W and H; N tiles; all tiles
 };
 
+// bytes of an output value of a mode, and of its row of the output tile in
+// shared memory (s8 rows take the bf16 size)
+__host__ __device__ inline int out_bytes(int mode) { return mode == 1 ? 1 : mode == 2 ? 4 : 2; }
+__host__ __device__ inline int tile_bytes(int mode) { return mode == 2 ? 4 : 2; }
+// bytes of e1 / e2 per column: a bf16 each (pairs), or an f32 each (f32 epilogue)
+__host__ __device__ inline int e_bytes(int mode) { return mode >= 2 ? 8 : 4; }
+
 // dynamic shared memory of the wgmma route (the planner's formula:
-// `int8_kernels.plan_conv`): 1 KB of alignment, the ring, the output tile
-// (bf16 pitch), the barriers, e1 / e2 and the rows' output offsets
-inline size_t wg_smem(int stages, int bn, int cbox, int n_cols) {
-  return 1024 + (size_t)stages * (kRows + bn) * cbox + (size_t)kRows * (2 * bn + 16) +
-         16 * (size_t)stages + 4 * (size_t)n_cols * bn + 8 * kRows;
+// `int8_kernels.wg_smem`): 1 KB of alignment, the ring, the output tile,
+// the barriers, e1 / e2 and the rows' output offsets
+inline size_t wg_smem(int stages, int bn, int cbox, int n_cols, int mode) {
+  return 1024 + (size_t)stages * (kRows + bn) * cbox +
+         (size_t)kRows * (tile_bytes(mode) * bn + 16) + 16 * (size_t)stages +
+         (size_t)e_bytes(mode) * n_cols * bn + 8 * kRows;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -281,12 +306,14 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // NT: 64-column N chunks of the N tile (bn = 64 NT); KS: 32-byte K steps
-// of a stage (cbox = 32 KS bytes of input channels). Persistent: block b
+// of a stage (cbox = 32 KS bytes of input channels); kF32E: the f32
+// epilogue (modes 2, 3; its own instances, so the engine's bf16 ones keep
+// their registers). Persistent: block b
 // takes the tiles b, b + gridDim.x, ... (the N tiles of one pixel tile are
 // neighbours, so they read its activations from L2), the producer running
 // ahead across tiles, so that the next tile's loads overlap this one's
 // epilogue, and the other block on the SM computes while this one stores.
-template <int NT, int KS>
+template <int NT, int KS, bool kF32E>
 __global__ void __launch_bounds__(kThreads1, 2)
 int8_conv_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
                        const __grid_constant__ CUtensorMap wmap, WgArgs a) {
@@ -296,16 +323,21 @@ int8_conv_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int S = a.stages;
-  const int osz = a.out_s8 ? 1 : 2;
+  constexpr bool f32e = kF32E;                        // the f32 epilogue
+  const int osz = out_bytes(a.mode);
   const int pitch = bn * osz + 16;                    // output tile row, padded
   uint8_t* As = smem;                                 // S x [128][cbox]
   uint8_t* Bs = As + S * a_bytes;                     // S x [bn][cbox]
-  uint8_t* ot = Bs + S * b_bytes;                     // [128][pitch] (bf16 size)
-  uint64_t* full = reinterpret_cast<uint64_t*>(ot + kRows * (2 * bn + 16));
+  uint8_t* ot = Bs + S * b_bytes;                     // [128][pitch]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ot + kRows * (tile_bytes(a.mode) * bn + 16));
   uint64_t* empty = full + S;
-  unsigned* e1p = reinterpret_cast<unsigned*>(empty + S);  // [n_cols * bn / 2] bf16x2
-  unsigned* e2p = e1p + a.n_cols * bn / 2;
-  long long* row_off = reinterpret_cast<long long*>(e2p + a.n_cols * bn / 2);  // -1: no pixel
+  // e1 / e2: [n_cols * bn / 2] bf16x2 pairs each, or [n_cols * bn] f32 each
+  const int e_words = a.n_cols * bn * e_bytes(a.mode) / 8;
+  unsigned* e1p = reinterpret_cast<unsigned*>(empty + S);
+  unsigned* e2p = e1p + e_words;
+  const float* e1f = reinterpret_cast<const float*>(e1p);
+  const float* e2f = reinterpret_cast<const float*>(e2p);
+  long long* row_off = reinterpret_cast<long long*>(e2p + e_words);  // -1: no pixel
 
   const int tid = threadIdx.x;
   const int rows = a.Nt * a.Ht * a.Wt;
@@ -317,10 +349,15 @@ int8_conv_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < a.n_cols * bn / 2; i += kThreads1) {  // columns 2 i, 2 i + 1
-    const int c = 2 * i;
-    e1p[i] = pack_rn(c < a.Cout ? a.e1[c] : 0.f, c + 1 < a.Cout ? a.e1[c + 1] : 0.f);
-    e2p[i] = pack_rn(c < a.Cout ? a.e2[c] : 0.f, c + 1 < a.Cout ? a.e2[c + 1] : 0.f);
+  for (int i = tid; i < e_words; i += kThreads1) {
+    if (f32e) {  // column i
+      e1p[i] = __float_as_uint(i < a.Cout ? a.e1[i] : 0.f);
+      e2p[i] = __float_as_uint(i < a.Cout ? a.e2[i] : 0.f);
+    } else {  // columns 2 i, 2 i + 1
+      const int c = 2 * i;
+      e1p[i] = pack_rn(c < a.Cout ? a.e1[c] : 0.f, c + 1 < a.Cout ? a.e1[c + 1] : 0.f);
+      e2p[i] = pack_rn(c < a.Cout ? a.e2[c] : 0.f, c + 1 < a.Cout ? a.e2[c + 1] : 0.f);
+    }
   }
   __syncthreads();
   // the warp's role, warp-uniform by construction: 0 / 1 consumer
@@ -407,9 +444,19 @@ int8_conv_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
       for (int i = 0; i < 32; i += 2) {  // columns col, col + 1 of one row
         const int col = 64 * j + 8 * (i >> 2) + 2 * (lane & 3);
         const int row = 64 * g + 16 * wi + (lane >> 2) + 8 * ((i >> 1) & 1);
+        if constexpr (f32e) {
+          const int c = co0 + col;
+          const float z0 = epilogue_f32(acc[j][i], e1f[c], e2f[c]);
+          const float z1 = epilogue_f32(acc[j][i + 1], e1f[c + 1], e2f[c + 1]);
+          if (a.mode == 2)
+            *reinterpret_cast<float2*>(ot + row * pitch + 4 * col) = make_float2(z0, z1);
+          else
+            *reinterpret_cast<unsigned*>(ot + row * pitch + 2 * col) = pack_rn(z0, z1);
+          continue;
+        }
         const int pc = (co0 + col) >> 1;
         const unsigned z = epilogue2(acc[j][i], acc[j][i + 1], e1p[pc], e2p[pc]);
-        if (a.out_s8)
+        if (a.mode == 1)
           *reinterpret_cast<uint16_t*>(ot + row * pitch + col) = (uint16_t)__byte_perm(
               code_relu(lo_f(z)), code_relu(hi_f(z)), 0x0040);
         else
@@ -431,6 +478,8 @@ int8_conv_kernel_wgmma(const __grid_constant__ CUtensorMap xmap,
       const uint8_t* src = ot + row * pitch + k * unit;
       if (vec)
         *reinterpret_cast<uint4*>(out + o + k * 16) = *reinterpret_cast<const uint4*>(src);
+      else if (osz == 4)
+        *reinterpret_cast<uint32_t*>(out + o + k * 4) = *reinterpret_cast<const uint32_t*>(src);
       else if (osz == 2)
         *reinterpret_cast<uint16_t*>(out + o + k * 2) = *reinterpret_cast<const uint16_t*>(src);
       else
@@ -509,19 +558,29 @@ bool tensor_map(CUtensorMap* out, const void* ptr, int rank, const uint64_t* dim
   return true;
 }
 
-template <int NT, int KS>
+template <int NT, int KS, bool kF32E>
 int launch_wgmma(const CUtensorMap& xm, const CUtensorMap& wm, const WgArgs& a, int blocks,
                  size_t smem, cudaStream_t st) {
   static bool set = false;  // the attribute is raised once per instance
   if (!set) {
-    cudaError_t e = cudaFuncSetAttribute(int8_conv_kernel_wgmma<NT, KS>,
+    cudaError_t e = cudaFuncSetAttribute(int8_conv_kernel_wgmma<NT, KS, kF32E>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemBudget);
     if (e != cudaSuccess) return (int)e;
     set = true;
   }
-  int8_conv_kernel_wgmma<NT, KS><<<blocks, kThreads1, smem, st>>>(xm, wm, a);
+  int8_conv_kernel_wgmma<NT, KS, kF32E><<<blocks, kThreads1, smem, st>>>(xm, wm, a);
   return 0;
+}
+
+template <bool kF32E>
+int launch_wgmma_tile(const CUtensorMap& xm, const CUtensorMap& wm, const WgArgs& a, int bn,
+                      int cbox, int blocks, size_t smem, cudaStream_t st) {
+  if (bn == 64)
+    return cbox == 64 ? launch_wgmma<1, 2, kF32E>(xm, wm, a, blocks, smem, st)
+                      : launch_wgmma<1, 4, kF32E>(xm, wm, a, blocks, smem, st);
+  return cbox == 64 ? launch_wgmma<2, 2, kF32E>(xm, wm, a, blocks, smem, st)
+                    : launch_wgmma<2, 4, kF32E>(xm, wm, a, blocks, smem, st);
 }
 
 // SMs of the current device (cached per device)
@@ -550,7 +609,7 @@ struct ConvArgs {
   const float* e1;
   const float* e2;
   void* out;
-  int N, H, W, Cin, Cout, KH, KW, stride, pad, Ho, Wo, out_s8;
+  int N, H, W, Cin, Cout, KH, KW, stride, pad, Ho, Wo, mode;
 };
 
 __device__ __forceinline__ void mma_s8(int* d, const unsigned* a, const unsigned* b) {
@@ -675,10 +734,12 @@ __global__ void __launch_bounds__(kThreads0) int8_conv_kernel_mma(ConvArgs a) {
         const long long m = m0 + wm * 32 + mi * 16 + g + (k >> 1) * 8;
         const int co = n0 + wn * 32 + ni * 8 + 2 * t + (k & 1);
         if (m >= M || co >= a.Cout) continue;
-        const float z = epilogue(acc[mi][ni][k], a.e1[co], a.e2[co], a.out_s8);
+        const float z = epilogue(acc[mi][ni][k], a.e1[co], a.e2[co], a.mode);
         const long long o = m * a.Cout + co;
-        if (a.out_s8)
+        if (a.mode == 1)
           reinterpret_cast<int8_t*>(a.out)[o] = (int8_t)(int)z;
+        else if (a.mode == 2)
+          reinterpret_cast<float*>(a.out)[o] = z;
         else
           reinterpret_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(z);
       }
@@ -689,8 +750,9 @@ __global__ void __launch_bounds__(kThreads0) int8_conv_kernel_mma(ConvArgs a) {
 }  // namespace
 
 // x [N, H, W, Cin] s8 (Cin % 16 == 0, 16-byte aligned), w [Cout, KH, KW, Cin]
-// s8, e1 / e2 [Cout] f32 holding bf16 values, out [N, Ho, Wo, Cout] s8
-// (out_s8 = 1) or bf16. The plan comes from `int8_kernels.plan_conv`: route 1
+// s8, e1 / e2 [Cout] f32 (holding bf16 values in modes 0 and 1), out [N, Ho,
+// Wo, Cout]: bf16 (mode 0, the engine's epilogue; mode 3, the f32 epilogue
+// cast), s8 (mode 1) or f32 (mode 2, the f32 epilogue). The plan comes from `int8_kernels.plan_conv`: route 1
 // (wgmma; stride 1, Ho = H, Wo = W, Cout <= 512) with the pixel tile
 // Nt x Ht x Wt, the channel box cbox (64 or 128 bytes), the N tile bn (64 or
 // 128) and the ring's stages (2-8); route 0 (mma.sync) ignores them. Returns a
@@ -699,15 +761,16 @@ __global__ void __launch_bounds__(kThreads0) int8_conv_kernel_mma(ConvArgs a) {
 // cudaGetLastError() after the launch.
 extern "C" int suo_int8_conv(const void* x, const void* w, const void* e1, const void* e2,
                              void* out, int N, int H, int W, int Cin, int Cout, int KH,
-                             int KW, int stride, int pad, int Ho, int Wo, int out_s8, int route,
+                             int KW, int stride, int pad, int Ho, int Wo, int mode, int route,
                              int Nt, int Ht, int Wt, int cbox, int bn, int stages,
                              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long M = (long long)N * Ho * Wo;
   if (M <= 0 || Cout <= 0) return (int)cudaGetLastError();
+  if (mode < 0 || mode > 3) return (int)cudaErrorInvalidValue;
   if (route == 0) {
     ConvArgs a{(const int8_t*)x, (const int8_t*)w, (const float*)e1, (const float*)e2, out,
-               N, H, W, Cin, Cout, KH, KW, stride, pad, Ho, Wo, out_s8};
+               N, H, W, Cin, Cout, KH, KW, stride, pad, Ho, Wo, mode};
     dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((Cout + kBN - 1) / kBN));
     int8_conv_kernel_mma<<<grid, kThreads0, 0, st>>>(a);
     return (int)cudaGetLastError();
@@ -719,7 +782,7 @@ extern "C" int suo_int8_conv(const void* x, const void* w, const void* e1, const
       stages > kMaxStages)  // (one stage would deadlock: a stage is released
                             // only once the next one has arrived)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wg_smem(stages, bn, cbox, n_cols);
+  const size_t smem = wg_smem(stages, bn, cbox, n_cols, mode);
   if (smem > (size_t)kSmemBudget) return (int)cudaErrorInvalidValue;
   const uint64_t xd[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)N};
   const uint64_t xs[3] = {(uint64_t)Cin, (uint64_t)W * Cin, (uint64_t)H * W * Cin};
@@ -733,18 +796,13 @@ extern "C" int suo_int8_conv(const void* x, const void* w, const void* e1, const
   const int tiles_w = (W + Wt - 1) / Wt, tiles_h = (H + Ht - 1) / Ht;
   const long long tiles = (long long)((N + Nt - 1) / Nt) * tiles_h * tiles_w * n_cols;
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  WgArgs a{(const float*)e1, (const float*)e2, out, N, H, W, Cout, KH, KW, pad, out_s8,
+  WgArgs a{(const float*)e1, (const float*)e2, out, N, H, W, Cout, KH, KW, pad, mode,
            Nt, Ht, Wt, (Cin + cbox - 1) / cbox, stages, tiles_w, tiles_h, n_cols, (int)tiles};
   // persistent: two blocks on each SM (the planner keeps the shared memory
   // and the registers within that), none beyond the tiles
   const int blocks = (int)std::min<long long>(tiles, 2LL * sm_count());
-  int e;
-  if (bn == 64)
-    e = cbox == 64 ? launch_wgmma<1, 2>(xm, wm, a, blocks, smem, st)
-                   : launch_wgmma<1, 4>(xm, wm, a, blocks, smem, st);
-  else
-    e = cbox == 64 ? launch_wgmma<2, 2>(xm, wm, a, blocks, smem, st)
-                   : launch_wgmma<2, 4>(xm, wm, a, blocks, smem, st);
+  const int e = mode >= 2 ? launch_wgmma_tile<true>(xm, wm, a, bn, cbox, blocks, smem, st)
+                          : launch_wgmma_tile<false>(xm, wm, a, bn, cbox, blocks, smem, st);
   if (e != 0) return e;
   return (int)cudaGetLastError();
 }

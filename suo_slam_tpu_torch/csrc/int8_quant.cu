@@ -37,6 +37,15 @@
 // Rows whose width is not a multiple of 16 (the prior's 41 f32 channels, the
 // heads' 41 bf16 logits) load element by element; their stores stay 16 bytes
 // wide when Cp allows.
+//
+// f32 operations (`f32_ops`): the raw codes of the quantized PkpNet's
+// convolution inputs, `suo_slam_tpu/models/quant.py` `Conv` (`:84-87`):
+//   out_raw[p, c] = clip(rint(RN_f32(f32(x) / div[c])), -127, 127)
+// with div the per-tensor f32 s_x broadcast over C: a bf16 input is widened
+// to f32 (exactly) and takes the f32 path (`code_div`) instead of the bf16
+// chain; an f32 input computes so anyway. No prologue in this mode. The
+// outputs stay Cp wide and zero beyond C, as K11 reads them (the stem's 3
+// channels in 16-byte rows).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,12 +173,13 @@ struct Packed {
 
 // One pass: kVec when C == Cp, C % 16 == 0 and every pointer is 16-byte
 // aligned (one vector per 16 channels, no tail). T float computes in f32,
-// bf16 and s8 in bf16 (pairs of channels in bf16x2). kU vectors per pass,
-// all their loads issued before any arithmetic; three blocks on an SM (at
-// most 85 registers) keep more of them in flight than two did.
-template <typename T, bool kVec, int kU>
+// bf16 and s8 in bf16 (pairs of channels in bf16x2), bf16 with kF32 in f32.
+// kU vectors per pass, all their loads issued before any arithmetic; three
+// blocks on an SM (at most 85 registers) keep more of them in flight than
+// two did.
+template <typename T, bool kVec, int kU, bool kF32 = false>
 __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  constexpr bool kBf16 = !std::is_same<T, float>::value && !kF32;
   // Per-channel vectors, laid out so that a warp's reads are conflict-free
   // (its lanes hold consecutive 16-channel vectors v; a [C] layout puts them
   // 64 bytes apart, 4- to 16-way conflicts): for channel c = 16 v + k, dr at
@@ -278,7 +288,11 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int k = 4 * wq + i;
-            const float xv = __uint_as_float(xw[q].w[k]);
+            float xv;
+            if constexpr (std::is_same<T, float>::value)
+              xv = __uint_as_float(xw[q].w[k]);
+            else  // a bf16 widened to f32
+              xv = (k & 1) ? hi_f(xw[q].w[k >> 1]) : lo_f(xw[q].w[k >> 1]);
             if (has_raw) {
               const float2 d = dr[k * nv + v];
               rc[i] = code_div(xv, d.x, d.y);
@@ -317,22 +331,22 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
   }
 }
 
-template <typename T, bool kVec, int kU>
+template <typename T, bool kVec, int kU, bool kF32>
 void launch_u(const QuantArgs& a, cudaStream_t s) {
   const long long total = a.P * ((a.Cp + 15) / 16);
   long long blocks = (total + kThreads * kU - 1) / (kThreads * kU);
   if (blocks > 132LL * 16) blocks = 132LL * 16;
   const size_t smem = 288 * (size_t)((a.C + 15) / 16);  // dr + (mc or the bf16 pairs)
-  int8_quant_kernel<T, kVec, kU><<<(unsigned)blocks, kThreads, smem, s>>>(a);
+  int8_quant_kernel<T, kVec, kU, kF32><<<(unsigned)blocks, kThreads, smem, s>>>(a);
 }
 
-template <typename T>
+template <typename T, bool kF32 = false>
 int launch(const QuantArgs& a, bool vec, cudaStream_t s) {
   if (a.P * ((a.Cp + 15) / 16) <= 0) return 0;
   if (vec)
-    launch_u<T, true, 2>(a, s);
+    launch_u<T, true, 2, kF32>(a, s);
   else
-    launch_u<T, false, 1>(a, s);
+    launch_u<T, false, 1, kF32>(a, s);
   return 0;
 }
 
@@ -342,13 +356,16 @@ int launch(const QuantArgs& a, bool vec, cudaStream_t s) {
 // prologue: s1 [C] (dequantize x, which must then be s8), x2 [P, C] s8 with
 // s2 [C], add [P, C] bf16, addv [C]; each may be null. div [C] (raw output)
 // and m, cc [C] (normalised output) are f32 arrays; out_raw / out_norm
-// ([P, Cp] s8) may be null to skip that output. Returns cudaErrorInvalidValue
-// for C > 1024 or Cp < C, else cudaGetLastError() after the launch.
+// ([P, Cp] s8) may be null to skip that output. f32_ops: a bf16 input
+// computes in f32 (no prologue then). Returns cudaErrorInvalidValue for
+// C > 1024, Cp < C or a prologue with f32_ops, else cudaGetLastError() after
+// the launch.
 extern "C" int suo_int8_quant(const void* x, int xdtype, const void* s1, const void* x2,
                               const void* s2, const void* add, const void* addv, long long P,
                               int C, int Cp, const void* div, const void* m, const void* cc,
-                              void* out_raw, void* out_norm, void* stream) {
+                              void* out_raw, void* out_norm, int f32_ops, void* stream) {
   if (C <= 0 || C > kMaxC || Cp < C) return (int)cudaErrorInvalidValue;
+  if (f32_ops && (xdtype == 2 || s1 || x2 || s2 || add || addv)) return (int)cudaErrorInvalidValue;
   QuantArgs a{x, (const int8_t*)x2, (const __nv_bfloat16*)add,
               {(const float*)s1, (const float*)s2, (const float*)addv, (const float*)div,
                (const float*)m, (const float*)cc},
@@ -359,6 +376,7 @@ extern "C" int suo_int8_quant(const void* x, int xdtype, const void* s1, const v
                    al(out_norm);
   cudaStream_t s = (cudaStream_t)stream;
   if (xdtype == 0) launch<float>(a, vec, s);
+  else if (xdtype == 1 && f32_ops) launch<__nv_bfloat16, true>(a, vec, s);
   else if (xdtype == 1) launch<__nv_bfloat16>(a, vec, s);
   else launch<int8_t>(a, vec, s);
   return (int)cudaGetLastError();

@@ -6,10 +6,11 @@ Port of `suo_slam_tpu/eval/loading.py`. A reference PyTorch checkpoint
 `PkpNet(prior_mode="concat", transpose_heatmaps=True)`. The JAX package's own
 checkpoints — and the port's training CLI's, the same format — are flax
 msgpack files (the params, batch statistics and optimizer state) with a
-`.meta.json` sidecar whose `args.norm` picks the architecture
-(`train/checkpoint.py`): a `norm="batch"` one loads through
-`load_model_only`, the net's structure read from its tree; a `norm="group"`
-one raises (GroupNorm is not ported: ROADMAP A18).
+`.meta.json` sidecar whose `args.norm` records the architecture
+(`train/checkpoint.py`); they load through `load_model_only`, the net's
+structure — stacks, width, prior mode, BatchNorm or GroupNorm — read from
+the tree. The checkpoint's norm wins over the `norm` argument, announced, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,21 +32,20 @@ def load_eval_network(chkpt_path, bf16=True, norm="batch", no_network_cov=False)
         variables, model_epoch, _ = load_torch_checkpoint(chkpt_path)
         # the reference net: concat prior mode (no post-stem projection)
         net = PkpNet(
-            **backbone_config(variables), calc_cov=not no_network_cov, norm="batch",
+            **backbone_config(variables), calc_cov=not no_network_cov,
             transpose_heatmaps=True, dtype=torch.bfloat16 if bf16 else torch.float32,
         )
         net.load_state_dict(from_jax_variables(variables))
         return net, model_epoch
-    from ..train.checkpoint import load_model_only, peek_checkpoint_args
+    from ..train.checkpoint import load_model_only
 
     # the architecture recorded at train time wins over the flag
-    ck_norm = peek_checkpoint_args(chkpt_path).get("norm", norm)
-    if ck_norm != "batch":
-        raise NotImplementedError(
-            f"{chkpt_path!r} was trained with norm={ck_norm!r}: the GroupNorm net is not "
-            "ported yet (ROADMAP A18); norm='batch' checkpoints load")
     variables, model_epoch, _ = load_model_only(chkpt_path)
-    net = PkpNet(**backbone_config(variables), calc_cov=not no_network_cov, norm="batch",
+    cfg = backbone_config(variables)
+    if cfg["norm"] != norm:
+        print(f"[load_eval_network] checkpoint was trained with norm={cfg['norm']!r}; "
+              f"overriding norm={norm!r}")
+    net = PkpNet(**cfg, calc_cov=not no_network_cov,
                  dtype=torch.bfloat16 if bf16 else torch.float32)
     net.load_state_dict(from_jax_variables(variables))
     return net, model_epoch

@@ -115,7 +115,7 @@ class Evaluator:
                 net, self.model_epoch = load_eval_network(
                     chkpt_path, bf16=bf16, norm=norm, no_network_cov=no_network_cov,
                 )
-            scales_path = self._int8_scales_path(int8, net, norm, chkpt_path, int8_scales)
+            scales_path = self._int8_scales_path(int8, net, chkpt_path, int8_scales)
             cfg = SlamConfig(
                 sfm_mode=nviews > 1,
                 single_view_mode=nviews == 1,
@@ -162,18 +162,19 @@ class Evaluator:
             )
 
     @staticmethod
-    def _int8_scales_path(int8, net, norm, chkpt_path, int8_scales):
+    def _int8_scales_path(int8, net, chkpt_path, int8_scales):
         """The scales sidecar an int8 run serves with: `int8_scales`, else
         the checkpoint's own (`default_scales_path`), else None (online
         calibration, announced). SystemExit without a norm='batch' network
-        or when an explicit `int8_scales` is missing."""
+        (the net's own norm: a checkpoint's wins over the flag) or when an
+        explicit `int8_scales` is missing."""
         if not int8:
             return None
-        if net is None or norm != "batch":
+        if net is None or net.norm != "batch":
             raise SystemExit(
                 "--int8 requires a norm='batch' network (the int8 executor folds "
                 "BatchNorm into its convolution epilogues); got "
-                + ("no network (--debug_gt_kp)" if net is None else f"norm={norm!r}"))
+                + ("no network (--debug_gt_kp)" if net is None else f"norm={net.norm!r}"))
         from .eval.loading import default_scales_path
 
         cand = int8_scales or default_scales_path(chkpt_path)

@@ -4,13 +4,16 @@ Each kernel wrapper lives beside its plain PyTorch version (K1 `ops/roi.py`,
 K2, K5 and K19 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
 `solvers/ba.py`, K6 `slam/kernels.py`, K8, K9 and K16-K18
 `models/hourglass.py`, K10 `eval/meter.py`, K11-K13
-`models/int8_kernels.py`, K14 `solvers/ba.py`) and adds one to its counter
-here where — and only where — it launches its CUDA kernel.
+`models/int8_kernels.py`, K14 `solvers/ba.py`, K20 and K21
+`models/hourglass.py`) and adds one to its counter here where — and only
+where — it launches its CUDA kernel (once per call, where a call runs
+several kernels).
 
 The kernels a training step reaches have their backward as kernels too:
 K2's is K19, K8's K17 (with K16's batch statistics in train mode), K9's
-K18, each pair one `torch.autograd.Function` that the wrapper takes where
-`autograd_records` says autograd records the call.
+K18, the GroupNorm net's K20's K21, each pair one `torch.autograd.Function`
+that the wrapper takes where `autograd_records` says autograd records the
+call.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ LAUNCHES: dict[str, int] = {
     "norm_relu_bwd": 0,  # K17
     "upsample_add_bwd": 0,  # K18
     "heatmap_readout_bwd": 0,  # K19
+    "group_norm_relu": 0,  # K20
+    "group_norm_relu_bwd": 0,  # K21
 }
 
 

@@ -6,8 +6,9 @@ interface, loaded with `ctypes`. Sources are compiled in parallel — one
 at the repository root (listed in `.gitignore`), once, at first use. A
 library newer than its source and than every shared header (`csrc/*.cuh`:
 `ba_common.cuh`, which `ba_edges.cu`, `ba_schur.cu`, `ba_lm.cu` and
-`pnp_ransac.cu` include, and `pnp_common.cuh`, which `pnp_hypotheses.cu` and
-`pnp_ransac.cu` include) is reused.
+`pnp_ransac.cu` include, `pnp_common.cuh`, which `pnp_hypotheses.cu` and
+`pnp_ransac.cu` include, and `channel_vec.cuh`, which `bn_train.cu` and
+`group_norm.cu` include) is reused.
 
 Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC --fmad=false`. `--fmad=false` keeps `a*b+c` as two rounded

@@ -36,13 +36,23 @@ tensors (B4, B13):
 - K9 `upsample_add` (`csrc/upsample_add.cu`): the hourglass junction
   up1 + nearest2x(low), without materialising the upsampled tensor;
 - K18 `upsample_add_bwd` (`csrc/upsample_add.cu`): low's gradient, the 2x2
-  sums of the output's (up1's is the output's itself).
+  sums of the output's (up1's is the output's itself);
+- K20 `group_norm_relu` (`csrc/group_norm.cu`): the GroupNorm net's
+  (`norm="group"`) norm + ReLU, per-sample group statistics and the affine
+  in one call; K21 `group_norm_relu_bwd` its backward through the
+  statistics, with the scale's and bias's gradients.
 Each forward with its backward is one `torch.autograd.Function`, taken where
 autograd records the call. All take NHWC memory (NCHW `channels_last`) and
 raise on another layout. On CPU tensors they run their plain versions,
-which the kernels match exactly (K16 and K17 up to the order of f64 sums).
-The max-pools and the convolutions keep torch's autograd, as the JAX
-package left them to XLA.
+which the kernels match exactly (K16, K17, K20 and K21 up to the order of
+f64 sums). The max-pools and the convolutions keep torch's autograd, as the
+JAX package left them to XLA.
+
+The net's kinds of norm and convolution are chosen at construction, as the
+JAX package's `norm` and `conv_cls`: `norm="batch"` builds `MaskedBatchNorm`
+everywhere, `"group"` `GroupNormRelu`; `conv_cls` builds every convolution
+but the heads (`nn.Conv2d`, or the quantized net's `models/quant.QuantConv`),
+which stay `nn.Conv2d` in f32.
 
 `models/convert.py` maps the flax auto-names (`Conv_k`, `Norm_k`,
 `Residual_k`, `Hourglass_k`), which follow the flax module's call order, onto
@@ -423,6 +433,196 @@ class _UpsampleAdd(torch.autograd.Function):
         return dy, upsample_add_bwd(dy)
 
 
+# K20 ---------------------------------------------------------------------------
+GN_EPS = 1e-6  # flax GroupNorm's epsilon
+
+
+def num_groups(channels: int, groups: int = 32) -> int:
+    """The JAX `Norm(kind="group")`'s group count: min(groups, C), lowered
+    until it divides C."""
+    g = min(groups, channels)
+    while channels % g:
+        g -= 1
+    return g
+
+
+def _group_c(t: torch.Tensor, cpg: int) -> torch.Tensor:
+    """[N, G] per-group values -> [N, C, 1, 1] per channel."""
+    return t.repeat_interleave(cpg, dim=1)[:, :, None, None]
+
+
+def group_norm_relu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                          eps: float = GN_EPS):
+    """Plain K20: (y, mean, rstd). Per sample and group of C / groups
+    channels, f64 sums of x and x^2 give mean = sum / M and var = max(sum2
+    / M - mean^2, 0), rstd = 1 / sqrt(var + eps), rounded once to f32 [N, G]
+    (f64 for f64 x); y = relu(cast((x - mean) * (rstd * scale[c]) +
+    bias[c])) with each operation in f32, flax GroupNorm's order, channels_last."""
+    N, C, H, W = x.shape
+    cpg = C // groups
+    f = kcount.plain_dtype(x.dtype)
+    xd = x.to(torch.float64).reshape(N, groups, cpg * H * W)
+    M = cpg * H * W
+    mean = xd.sum(2) / M
+    var = torch.clamp((xd * xd).sum(2) / M - mean * mean, min=0.0)
+    rstd = torch.rsqrt(var + eps)
+    mean, rstd = mean.to(f), rstd.to(f)
+    mul = _group_c(rstd, cpg) * scale.to(f)[None, :, None, None]
+    z = (x.to(f) - _group_c(mean, cpg)) * mul + bias.to(f)[None, :, None, None]
+    y = torch.relu(z.to(x.dtype)).contiguous(memory_format=_CL)
+    return y, mean, rstd
+
+
+_GN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_double]
+                + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _gn_vectors(name: str, x: torch.Tensor, *vs: torch.Tensor) -> list:
+    C = x.shape[1]
+    vs = [v.contiguous() for v in vs]
+    if any(v.dtype != torch.float32 or v.device != x.device for v in vs):
+        raise ValueError(f"{name}: scale, bias, mean and rstd must be f32 on x's device")
+    if any(v.shape != (C,) for v in vs[:2]):
+        raise ValueError(f"{name}: scale and bias must be [{C}]")
+    return vs
+
+
+def _gn_part(x: torch.Tensor, *ptrs) -> torch.Tensor:
+    """K20 / K21's f64 scratch: [N, spans, C, 2] partials (the spans depend
+    on the vector width the pointers allow)."""
+    N, C, H, W = x.shape
+    fn = _build.entry("group_norm", [ctypes.c_longlong] + [ctypes.c_int] * 2
+                      + [ctypes.c_void_p] * 3, "suo_group_norm_spans")
+    spans = fn(H * W, C, _DTYPES[x.dtype], *(None if t is None else _build.ptr(t) for t in ptrs))
+    return torch.empty((N, spans, C, 2), dtype=torch.float64, device=x.device)
+
+
+def _group_norm_relu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                          eps: float = GN_EPS):
+    _check_nhwc("K20 group_norm_relu", x)
+    N, C, H, W = x.shape
+    if C % groups:
+        raise ValueError(f"K20 group_norm_relu: {groups} groups do not divide {C} channels")
+    scale, bias = _gn_vectors("K20 group_norm_relu", x, scale, bias)
+    y = torch.empty_like(x, memory_format=_CL)
+    mean = torch.empty((N, groups), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    part = _gn_part(x, x, y, None)
+    fn = _build.entry("group_norm", _GN_ARGTYPES, "suo_group_norm_relu")
+    err = fn(_build.ptr(x), _build.ptr(scale), _build.ptr(bias), N, H * W, C, groups, eps,
+             _build.ptr(part), _build.ptr(mean), _build.ptr(rstd), _build.ptr(y),
+             _DTYPES[x.dtype], _build.stream())
+    _build.check(err, "K20 group_norm_relu")
+    kcount.count("group_norm_relu")
+    return y, mean, rstd
+
+
+def group_norm_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                    eps: float = GN_EPS):
+    """GroupNorm + ReLU with its statistics (see `group_norm_relu_plain`):
+    K20 on CUDA tensors, the plain version on CPU tensors. x must be
+    channels_last."""
+    if x.device.type == "cpu":
+        _check_nhwc("group_norm_relu", x, plain=True)
+        return group_norm_relu_plain(x, scale, bias, groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_relu: unsupported device {x.device}")
+    return _group_norm_relu_cuda(x, scale, bias, groups, eps)
+
+
+# K21 ---------------------------------------------------------------------------
+def group_norm_relu_bwd_plain(x, dy, scale, bias, mean, rstd):
+    """Plain K21: (dx, dscale, dbias) of y = relu(cast((x - mean) * mul +
+    bias)), mul = rstd * scale, through the statistics. With g = dy * [y >
+    0], xc = x - mean and h = scale g in f32 (f64 for f64 x), per sample and
+    group (f64 sums over its M values): hbar = sum(h) / M and Q = rstd^3 *
+    sum(h xc) / M, dx = rstd (h - hbar) - xc Q cast to x's dtype
+    (channels_last; 0 in a group of one value, as autodiff's); dbias =
+    sum g, dscale = sum over n of rstd * sum g xc (f64 sums)."""
+    N, C, H, W = x.shape
+    groups = mean.shape[1]
+    cpg = C // groups
+    f = kcount.plain_dtype(x.dtype)
+    sc = scale.to(f)
+    mul = _group_c(rstd, cpg) * sc[None, :, None, None]
+    xc = x.to(f) - _group_c(mean, cpg)
+    on = (xc * mul + bias.to(f)[None, :, None, None]).to(x.dtype) > 0
+    g = torch.where(on, dy.to(f), torch.zeros((), dtype=f, device=x.device))
+    s_g = g.to(torch.float64).sum((2, 3))                                   # [N, C]
+    s_gc = (g.to(torch.float64) * xc.to(torch.float64)).sum((2, 3))
+    r = rstd.to(torch.float64)
+    dbias = s_g.sum(0)
+    dscale = (s_gc * r.repeat_interleave(cpg, dim=1)).sum(0)
+    sd = sc.to(torch.float64)
+    A = (s_g * sd).reshape(N, groups, cpg).sum(2)
+    B = (s_gc * sd).reshape(N, groups, cpg).sum(2)
+    M = cpg * H * W
+    hbar, Q = (A / M).to(f), (r * r * r * B / M).to(f)
+    h = sc[None, :, None, None] * g
+    dx = _group_c(rstd, cpg) * (h - _group_c(hbar, cpg)) - xc * _group_c(Q, cpg)
+    return dx.to(x.dtype).contiguous(memory_format=_CL), dscale.to(f), dbias.to(f)
+
+
+_GN_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int]
+                    + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
+
+
+def _group_norm_relu_bwd_cuda(x, dy, scale, bias, mean, rstd):
+    _check_nhwc("K21 group_norm_relu_bwd", x, dy)
+    N, C, H, W = x.shape
+    groups = mean.shape[1]
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("K21 group_norm_relu_bwd: dy must match x's shape and dtype")
+    if mean.shape != (N, groups) or rstd.shape != (N, groups) or C % groups:
+        raise ValueError(f"K21 group_norm_relu_bwd: mean and rstd must be [{N}, G], G | {C}")
+    scale, bias, mean, rstd = _gn_vectors("K21 group_norm_relu_bwd", x, scale, bias, mean, rstd)
+    dx = torch.empty_like(x, memory_format=_CL)
+    part = _gn_part(x, x, dy, dx)
+    dev = x.device
+    sums = torch.empty((N, C, 2), dtype=torch.float64, device=dev)
+    coef = torch.empty((N, groups, 2), dtype=torch.float32, device=dev)
+    dscale = torch.empty(C, dtype=torch.float32, device=dev)
+    dbias = torch.empty_like(dscale)
+    fn = _build.entry("group_norm", _GN_BWD_ARGTYPES, "suo_group_norm_relu_bwd")
+    err = fn(*(_build.ptr(t) for t in (x, dy, scale, bias, mean, rstd)), N, H * W, C, groups,
+             *(_build.ptr(t) for t in (part, sums, coef, dscale, dbias, dx)),
+             _DTYPES[x.dtype], _build.stream())
+    _build.check(err, "K21 group_norm_relu_bwd")
+    kcount.count("group_norm_relu_bwd")
+    return dx, dscale, dbias
+
+
+def group_norm_relu_bwd(x, dy, scale, bias, mean, rstd):
+    """The backward of the GroupNorm + ReLU (see `group_norm_relu_bwd_plain`):
+    K21 on CUDA tensors, the plain version on CPU tensors. dy is made
+    channels_last."""
+    dy = dy.contiguous(memory_format=_CL)
+    if x.device.type == "cpu":
+        _check_nhwc("group_norm_relu_bwd", x, dy, plain=True)
+        return group_norm_relu_bwd_plain(x, dy, scale, bias, mean, rstd)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_relu_bwd: unsupported device {x.device}")
+    return _group_norm_relu_bwd_cuda(x, dy, scale, bias, mean, rstd)
+
+
+class _GroupNormRelu(torch.autograd.Function):
+    """K20 forward, K21 backward (through the statistics)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps):
+        y, mean, rstd = group_norm_relu(x, scale, bias, groups, eps)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        dx, dscale, dbias = group_norm_relu_bwd(x, dy, scale, bias, mean, rstd)
+        return dx, dscale, dbias, None, None
+
+
 # modules -----------------------------------------------------------------------
 def _weights_key(*ts: torch.Tensor) -> tuple:
     """Identifies the current values of some parameters: their storage and
@@ -454,11 +654,19 @@ def _cache_key(*ts: torch.Tensor) -> tuple:
 
 
 def conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`m` applied in x's dtype: parameters stay f32 and are cast when x is
-    bf16 — in the autograd graph while it records the parameters, otherwise
-    once per weight update, cached on the module."""
-    if x.dtype == m.weight.dtype:
+    """`m` applied in x's dtype (see `float_conv`); a convolution of another
+    kind (`models/quant.QuantConv`) runs its own forward."""
+    if type(m) is not nn.Conv2d:
         return m(x)
+    return float_conv(m, x)
+
+
+def float_conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`m`'s convolution in x's dtype: parameters stay f32 and are cast when
+    x is bf16 — in the autograd graph while it records the parameters,
+    otherwise once per weight update, cached on the module."""
+    if x.dtype == m.weight.dtype:
+        return F.conv2d(x, m.weight, m.bias, m.stride, m.padding)
     if _in_graph(m.weight, m.bias):
         return F.conv2d(x, m.weight.to(x.dtype, memory_format=_CL), m.bias.to(x.dtype),
                         m.stride, m.padding)
@@ -517,21 +725,55 @@ class MaskedBatchNorm(nn.Module):
         return y
 
 
+class GroupNormRelu(nn.Module):
+    """GroupNorm with the ReLU that follows every norm of this net: flax's
+    `GroupNorm(num_groups=g, epsilon=1e-6)` on f32(x) with g =
+    `num_groups(C)`, cast back, then `nn.relu` (the JAX `Norm(kind="group")`).
+    Its statistics are each sample's, in train mode and at inference alike,
+    so `train` and `row_mask` change nothing (they are taken for
+    `MaskedBatchNorm`'s signature). K20 on the card; backward K21."""
+
+    def __init__(self, channels: int, eps: float = GN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.groups = num_groups(channels)
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                row_mask: torch.Tensor | None = None) -> torch.Tensor:
+        if kcount.autograd_records(x, self.scale, self.bias):
+            return _GroupNormRelu.apply(x, self.scale, self.bias, self.groups, self.eps)
+        return group_norm_relu(x, self.scale, self.bias, self.groups, self.eps)[0]
+
+
+NORMS = {"batch": MaskedBatchNorm, "group": GroupNormRelu}
+
+
+def norm_cls(norm: str):
+    """The module class of a `norm` kind."""
+    if norm not in NORMS:
+        raise ValueError(f"unknown norm kind {norm!r}")
+    return NORMS[norm]
+
+
 class Residual(nn.Module):
     """Pre-activation bottleneck: norm-relu -> 1x1 (c/2) -> norm-relu ->
     3x3 (c/2) -> norm-relu -> 1x1 (c), with a 1x1 projection skip when the
     channel counts differ."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, norm: str = "batch",
+                 conv_cls=nn.Conv2d):
         super().__init__()
         mid = features // 2
-        self.norm0 = MaskedBatchNorm(in_features)
-        self.conv0 = nn.Conv2d(in_features, mid, 1)
-        self.norm1 = MaskedBatchNorm(mid)
-        self.conv1 = nn.Conv2d(mid, mid, 3, padding=1)
-        self.norm2 = MaskedBatchNorm(mid)
-        self.conv2 = nn.Conv2d(mid, features, 1)
-        self.skip = (nn.Conv2d(in_features, features, 1)
+        nc = norm_cls(norm)
+        self.norm0 = nc(in_features)
+        self.conv0 = conv_cls(in_features, mid, 1)
+        self.norm1 = nc(mid)
+        self.conv1 = conv_cls(mid, mid, 3, padding=1)
+        self.norm2 = nc(mid)
+        self.conv2 = conv_cls(mid, features, 1)
+        self.skip = (conv_cls(in_features, features, 1)
                      if in_features != features else None)
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -547,14 +789,16 @@ class Residual(nn.Module):
 class Hourglass(nn.Module):
     """Recursive hourglass of depth `n`."""
 
-    def __init__(self, n: int, n_modules: int, features: int):
+    def __init__(self, n: int, n_modules: int, features: int, norm: str = "batch",
+                 conv_cls=nn.Conv2d):
         super().__init__()
         res = lambda: nn.ModuleList(
-            Residual(features, features) for _ in range(n_modules)
+            Residual(features, features, norm, conv_cls) for _ in range(n_modules)
         )
         self.up1 = res()
         self.low1 = res()
-        self.low2 = Hourglass(n - 1, n_modules, features) if n > 1 else res()
+        self.low2 = (Hourglass(n - 1, n_modules, features, norm, conv_cls) if n > 1
+                     else res())
         self.low3 = res()
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -581,46 +825,49 @@ class HourglassNet(nn.Module):
     `with_extra`: the post-stem 1x1 projection of an [N, C_e, H/4, W/4]
     conditioning input (the prior keypoint heatmaps). `forward(x, extra=None)`
     with the projection present adds only its bias — exactly the JAX
-    package's output on an all-zero prior, with the matmul skipped."""
+    package's output on an all-zero prior, with the matmul skipped (the
+    quantized projection too: zero codes give a zero sum).
+    `norm` ("batch" or "group") and `conv_cls` (the class of every
+    convolution but the f32 heads) follow the JAX `HourglassNet`."""
 
     def __init__(self, in_features: int = 3 + 41, num_output: int = 41,
                  n_stack: int = 2, n_modules: int = 2, features: int = 256,
                  depth: int = 4, with_extra: bool = False, extra_features: int = 41,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm: str = "batch",
+                 conv_cls=nn.Conv2d):
         super().__init__()
         if dtype not in _DTYPES and dtype != torch.float64:
             raise ValueError(f"working dtype must be f32 or bf16 (f64 on the CPU), got {dtype}")
         self.dtype = dtype
         self.n_stack = n_stack
         self.depth = depth
-        self.stem = nn.Conv2d(in_features, 64, 7, stride=2, padding=3)
-        self.stem_norm = MaskedBatchNorm(64)
-        self.pre = nn.ModuleList([
-            Residual(64, 128), Residual(128, 128), Residual(128, features)
-        ])
-        self.extra_proj = (nn.Conv2d(extra_features, features, 1)
+        self.norm = norm
+        nc = norm_cls(norm)
+        res = lambda cin, cout: Residual(cin, cout, norm, conv_cls)
+        self.stem = conv_cls(in_features, 64, 7, stride=2, padding=3)
+        self.stem_norm = nc(64)
+        self.pre = nn.ModuleList([res(64, 128), res(128, 128), res(128, features)])
+        self.extra_proj = (conv_cls(extra_features, features, 1)
                            if with_extra else None)
         self.hgs = nn.ModuleList(
-            Hourglass(depth, n_modules, features) for _ in range(n_stack)
+            Hourglass(depth, n_modules, features, norm, conv_cls) for _ in range(n_stack)
         )
         self.lls = nn.ModuleList(
-            nn.ModuleList(Residual(features, features) for _ in range(n_modules))
+            nn.ModuleList(res(features, features) for _ in range(n_modules))
             for _ in range(n_stack)
         )
         self.ll_convs = nn.ModuleList(
-            nn.Conv2d(features, features, 1) for _ in range(n_stack)
+            conv_cls(features, features, 1) for _ in range(n_stack)
         )
-        self.ll_norms = nn.ModuleList(
-            MaskedBatchNorm(features) for _ in range(n_stack)
-        )
+        self.ll_norms = nn.ModuleList(nc(features) for _ in range(n_stack))
         self.heads = nn.ModuleList(
             nn.Conv2d(features, num_output, 1) for _ in range(n_stack)
         )
         self.ll_merges = nn.ModuleList(
-            nn.Conv2d(features, features, 1) for _ in range(n_stack - 1)
+            conv_cls(features, features, 1) for _ in range(n_stack - 1)
         )
         self.out_merges = nn.ModuleList(
-            nn.Conv2d(num_output, features, 1) for _ in range(n_stack - 1)
+            conv_cls(num_output, features, 1) for _ in range(n_stack - 1)
         )
 
     def forward(self, x: torch.Tensor, extra: torch.Tensor | None = None, train: bool = False,

@@ -8,14 +8,19 @@ product, sum and quotient as XLA does on the CPU:
 - K11 `int8_conv` (`csrc/int8_conv.cu`): s8 x s8 convolution with exact s32
   sums, rounded once to bf16, then z = bf16(bf16(y * e1) + e2) per output
   channel, written as bf16 (`conv_raw`) or as s8 codes
-  clip(rint(max(z, 0))) (`conv_nrq`); `plan_conv` picks its route (`wgmma`
-  fed by a TMA ring in persistent blocks for every stride-1 convolution,
-  `mma.sync` for the stride-2 stem), tiles and ring on the host;
+  clip(rint(max(z, 0))) (`conv_nrq`); or, for the quantized PkpNet's
+  `QuantConv` (`models/quant.py`), the f32 epilogue z = f32(y) * e1 + e2
+  (e1 = s_x * s_w, e2 = the bias) cast once to f32 or bf16
+  (`f32_epilogue`); `plan_conv` picks its route (`wgmma` fed by a TMA ring
+  in persistent blocks for every stride-1 convolution, `mma.sync` for the
+  stride-2 stems), tiles and ring on the host;
 - K12 `int8_quant` (`csrc/int8_quant.cu`): the quantize family — raw codes
   clip(rint(x / div)), normalised codes clip(rint(max(x * m + c, 0))), or
   both in one pass (`quant`, `nrq`, `quant_pair`), on f32, bf16 or s8 input,
   or on the prologue bf16(q1 * s1) [+ bf16(q2 * s2)] [+ t] of s8 operands
   (`Deq`): JAX's dequantize-and-add before a quantize, formed in the pass;
+  with `f32_ops`, a bf16 input's raw codes in f32 operations (`QuantConv`
+  widens its input to f32 before the division);
 - K13 `int8_maxpool` / `int8_upsample_add` (`csrc/int8_pool_junction.cu`):
   the s8 2x2 max-pool and the junction bf16(up1 * e_up) + bf16(low * e_low)
   with `low` upsampled 2x through indices.
@@ -91,12 +96,18 @@ def s32_to_bf16(y: torch.Tensor) -> torch.Tensor:
 
 
 def int8_conv_plain(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tensor,
-                    out_s8: bool) -> torch.Tensor:
+                    out_s8: bool = False, f32_epilogue: torch.dtype | None = None
+                    ) -> torch.Tensor:
     """Plain K11 on NHWC s8 codes x [N, H, W, Cin]: the convolution in f64,
-    then the epilogue in bf16 operations."""
+    then the epilogue in bf16 operations; with `f32_epilogue` (f32 or bf16)
+    the f32 epilogue f32(y) * e1 + e2, each operation rounded in f32, cast
+    to that dtype."""
     w = qc.wq[..., : x.shape[-1]].permute(0, 3, 1, 2).to(torch.float64)
     y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64), w, None, qc.stride, qc.pad)
-    yb = s32_to_bf16(torch.round(y).permute(0, 2, 3, 1))
+    y = torch.round(y).permute(0, 2, 3, 1)
+    if f32_epilogue is not None:  # (an exact integer: one rounding to f32, as from s32)
+        return (y.to(torch.float32) * e1 + e2).to(f32_epilogue).contiguous()
+    yb = s32_to_bf16(y)
     z = yb * e1.to(torch.bfloat16) + e2.to(torch.bfloat16)
     if not out_s8:
         return z.contiguous()
@@ -126,13 +137,30 @@ class ConvPlan(NamedTuple):
     stages: int
 
 
-def wg_smem(stages: int, bn: int, cbox: int, n_cols: int) -> int:
+# K11's epilogue modes (`mode` in `csrc/int8_conv.cu`): the engine's bf16
+# epilogue written as bf16 or as s8 codes; the f32 epilogue written as f32 or
+# cast to bf16
+MODE_BF16, MODE_S8, MODE_F32, MODE_F32_TO_BF16 = range(4)
+
+
+def conv_mode(out_s8: bool, f32_epilogue: torch.dtype | None) -> int:
+    if f32_epilogue is None:
+        return MODE_S8 if out_s8 else MODE_BF16
+    if out_s8 or f32_epilogue not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K11: the f32 epilogue writes f32 or bf16, got out_s8={out_s8}, "
+                         f"{f32_epilogue}")
+    return MODE_F32 if f32_epilogue == torch.float32 else MODE_F32_TO_BF16
+
+
+def wg_smem(stages: int, bn: int, cbox: int, n_cols: int, mode: int = MODE_BF16) -> int:
     """Dynamic shared memory of K11's wgmma route (`wg_smem` in
-    `csrc/int8_conv.cu`): alignment, the ring, the output tile at the bf16
-    pitch, the barriers, e1 / e2 for every N tile (bf16x2 pairs), the rows'
-    offsets."""
-    return (1024 + stages * (WG_ROWS + bn) * cbox + WG_ROWS * (2 * bn + 16) + 16 * stages
-            + 4 * n_cols * bn + 8 * WG_ROWS)
+    `csrc/int8_conv.cu`): alignment, the ring, the output tile (f32 rows in
+    MODE_F32, else at the bf16 pitch), the barriers, e1 / e2 for every N
+    tile (bf16x2 pairs, or f32 for the f32 epilogue), the rows' offsets."""
+    tile = 4 if mode == MODE_F32 else 2
+    e = 8 if mode >= MODE_F32 else 4
+    return (1024 + stages * (WG_ROWS + bn) * cbox + WG_ROWS * (tile * bn + 16) + 16 * stages
+            + e * n_cols * bn + 8 * WG_ROWS)
 
 
 def wg_smem_stage(bn: int, cbox: int) -> int:
@@ -143,7 +171,7 @@ def wg_smem_stage(bn: int, cbox: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan_conv(N: int, H: int, W: int, cin_p: int, cout: int, kh: int, kw: int, stride: int,
-              pad: int) -> ConvPlan:
+              pad: int, mode: int = MODE_BF16) -> ConvPlan:
     """K11's host-side plan for an NHWC [N, H, W, cin_p] s8 input. Every
     stride-1 "SAME" convolution with cout <= WG_MAX_COUT takes the wgmma
     route: the pixel tile is whole rows of the image (Wt = W up to 128),
@@ -151,10 +179,11 @@ def plan_conv(N: int, H: int, W: int, cin_p: int, cout: int, kh: int, kw: int, s
     per tap holds the tile's inputs at every hourglass level (8 x 4 x 4 at
     4x4, 1 x 2 x 64 at 64x64, 1 x 1 x 128 at 128x128); N tiles of 64 or 128
     columns (Cout 256: two, on neighbouring tiles); a channel box of 128
-    bytes where cin_p is a multiple of 128, else 64 (cin_p 48: the box's
-    tail is TMA's zero fill; on the card 128-byte boxes in a ring of 2
-    beat 64-byte ones in a ring of 4); the ring as deep as two blocks on an
-    SM allow (at most WG_MAX_STAGES)."""
+    bytes where cin_p is a multiple of 128 and a ring of two such stages
+    fits beside the epilogue `mode`'s output tile, else 64 (cin_p 48: the
+    box's tail is TMA's zero fill; on the card 128-byte boxes in a ring of
+    2 beat 64-byte ones in a ring of 4); the ring as deep as two blocks on
+    an SM allow (at most WG_MAX_STAGES)."""
     cdiv = lambda a, b: -(-a // b)
     ho, wo = (H + 2 * pad - kh) // stride + 1, (W + 2 * pad - kw) // stride + 1
     if (stride == 1 and (ho, wo) == (H, W) and cin_p % CIN_ALIGN == 0
@@ -164,13 +193,13 @@ def plan_conv(N: int, H: int, W: int, cin_p: int, cout: int, kh: int, kw: int, s
         nt = min(N, max(1, WG_ROWS // (wt * ht)))
         bn = min(128, 64 * cdiv(cout, 64))
         n_cols = cdiv(cout, bn)
-        fits = lambda cb: (WG_SMEM - wg_smem(0, bn, cb, n_cols)) // wg_smem_stage(bn, cb)
+        fits = lambda cb: (WG_SMEM - wg_smem(0, bn, cb, n_cols, mode)) // wg_smem_stage(bn, cb)
         cbox = 128 if cin_p % 128 == 0 and fits(128) >= 2 else 64
         stages = min(WG_MAX_STAGES, fits(cbox))
         if stages >= 2:  # (a ring of one stage would deadlock)
             grid = (cdiv(N, nt) * cdiv(H, ht) * cdiv(W, wt), n_cols)
             return ConvPlan("wgmma", (nt, ht, wt), cbox, bn, grid,
-                            wg_smem(stages, bn, cbox, n_cols), stages)
+                            wg_smem(stages, bn, cbox, n_cols, mode), stages)
     return ConvPlan("mma_sync", (0, 0, 0), 0, 0, (cdiv(N * ho * wo, 128), cdiv(cout, 64)), 0, 0)
 
 
@@ -179,9 +208,11 @@ _CONV_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 
 
 def _int8_conv_cuda(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tensor,
-                    out_s8: bool) -> torch.Tensor:
+                    out_s8: bool = False, f32_epilogue: torch.dtype | None = None
+                    ) -> torch.Tensor:
     name = "K11 int8_conv"
     dev = x.device
+    mode = conv_mode(out_s8, f32_epilogue)
     _check(name, x.dtype == torch.int8 and x.dim() == 4 and x.is_contiguous(),
            f"expected contiguous NHWC s8 codes, got {tuple(x.shape)} {x.dtype}")
     N, H, W, cin = x.shape
@@ -194,12 +225,12 @@ def _int8_conv_cuda(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tens
         x = F.pad(x, (0, cin_p - cin))
     e1, e2 = _vec(name, e1, Cout, dev), _vec(name, e2, Cout, dev)
     Ho, Wo = out_hw(H, W, qc)
-    out = torch.empty((N, Ho, Wo, Cout), dtype=torch.int8 if out_s8 else torch.bfloat16,
-                      device=dev)
-    plan = plan_conv(N, H, W, cin_p, Cout, KH, KW, qc.stride, qc.pad)
+    dtype = {MODE_S8: torch.int8, MODE_F32: torch.float32}.get(mode, torch.bfloat16)
+    out = torch.empty((N, Ho, Wo, Cout), dtype=dtype, device=dev)
+    plan = plan_conv(N, H, W, cin_p, Cout, KH, KW, qc.stride, qc.pad, mode)
     fn = _build.entry("int8_conv", _CONV_ARGTYPES)
     err = fn(_build.ptr(x), _build.ptr(qc.wq), _build.ptr(e1), _build.ptr(e2), _build.ptr(out),
-             N, H, W, cin_p, Cout, KH, KW, qc.stride, qc.pad, Ho, Wo, int(out_s8),
+             N, H, W, cin_p, Cout, KH, KW, qc.stride, qc.pad, Ho, Wo, mode,
              _ROUTES[plan.route], *plan.tile, plan.cbox, plan.bn, plan.stages, _build.stream())
     _build.check(err, name)
     kcount.count("int8_conv")
@@ -207,15 +238,17 @@ def _int8_conv_cuda(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tens
 
 
 def int8_conv(x: torch.Tensor, qc: QConv, e1: torch.Tensor, e2: torch.Tensor,
-              out_s8: bool) -> torch.Tensor:
+              out_s8: bool = False, f32_epilogue: torch.dtype | None = None) -> torch.Tensor:
     """s8 convolution with the folded epilogue (see `int8_conv_plain`): K11
     on CUDA tensors, the plain version on CPU tensors. Returns NHWC bf16
-    (out_s8=False) or s8 codes."""
+    (out_s8=False) or s8 codes; with `f32_epilogue`, the f32 epilogue's
+    result in that dtype."""
     if x.device.type == "cpu":
-        return int8_conv_plain(x, qc, e1, e2, out_s8)
+        conv_mode(out_s8, f32_epilogue)
+        return int8_conv_plain(x, qc, e1, e2, out_s8, f32_epilogue)
     if x.device.type != "cuda":
         raise ValueError(f"int8_conv: unsupported device {x.device}")
-    return _int8_conv_cuda(x, qc, e1, e2, out_s8)
+    return _int8_conv_cuda(x, qc, e1, e2, out_s8, f32_epilogue)
 
 
 # K12 ---------------------------------------------------------------------------
@@ -262,14 +295,17 @@ def prologue_plain(x, x2: Deq | None = None, add: torch.Tensor | None = None) ->
 
 def int8_quant_plain(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                      c: torch.Tensor | None = None, *, x2: Deq | None = None,
-                     add: torch.Tensor | None = None, c_out: int | None = None):
+                     add: torch.Tensor | None = None, c_out: int | None = None,
+                     f32_ops: bool = False):
     """Plain K12 on an NHWC input (f32, bf16, s8 codes, or the prologue
     `prologue_plain(x, x2, add)`): (raw codes clip(rint(x / div)) or None,
     normalised codes clip(rint(max(x * m + c, 0))) or None), each operation
-    in the op dtype; both outputs c_out (default C) channels wide, zero
-    beyond C."""
+    in the op dtype (f32 with `f32_ops`, for f32 or bf16 x alone); both
+    outputs c_out (default C) channels wide, zero beyond C."""
+    if f32_ops and (isinstance(x, Deq) or x.dtype == torch.int8):
+        raise ValueError("int8_quant: f32_ops takes an f32 or bf16 input, no prologue")
     xd = prologue_plain(x, x2, add)
-    dt = op_dtype(xd)
+    dt = torch.float32 if f32_ops else op_dtype(xd)
     xd = xd.to(dt)
     C = xd.shape[-1]
     c_out = C if c_out is None else c_out
@@ -286,12 +322,14 @@ def int8_quant_plain(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
 
 
 _QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6)
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_void_p])
 
 
 def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                      c: torch.Tensor | None = None, *, x2: Deq | None = None,
-                     add: torch.Tensor | None = None, c_out: int | None = None):
+                     add: torch.Tensor | None = None, c_out: int | None = None,
+                     f32_ops: bool = False):
     name = "K12 int8_quant"
     null = ctypes.c_void_p(None)
     p_s1 = p_x2 = p_s2 = p_add = p_addv = null
@@ -324,6 +362,8 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
         _check(name, xq.dtype in _QUANT_DTYPES and xq.is_contiguous() and xq.dim() >= 1,
                f"expected a contiguous f32, bf16 or s8 tensor, got {xq.dtype}")
         _check(name, div is None or xq.dtype != torch.int8, "s8 codes take no raw output")
+    _check(name, not f32_ops or (p_s1.value is None and xq.dtype != torch.int8),
+           "f32_ops takes an f32 or bf16 input, no prologue")
     dev = xq.device
     _check(name, div is not None or m is not None, "no output requested")
     C = xq.shape[-1]
@@ -342,7 +382,8 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
         p_m, p_c, p_norm = _build.ptr(m), _build.ptr(c), _build.ptr(norm)
     fn = _build.entry("int8_quant", _QUANT_ARGTYPES)
     err = fn(_build.ptr(xq), _QUANT_DTYPES[xq.dtype], p_s1, p_x2, p_s2, p_add, p_addv,
-             xq.numel() // C, C, c_out, p_div, p_m, p_c, p_raw, p_norm, _build.stream())
+             xq.numel() // C, C, c_out, p_div, p_m, p_c, p_raw, p_norm, int(f32_ops),
+             _build.stream())
     _build.check(err, name)
     kcount.count("int8_quant")
     return raw, norm
@@ -350,15 +391,16 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
 
 def int8_quant(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                c: torch.Tensor | None = None, *, x2: Deq | None = None,
-               add: torch.Tensor | None = None, c_out: int | None = None):
+               add: torch.Tensor | None = None, c_out: int | None = None,
+               f32_ops: bool = False):
     """The quantize family with its prologue (see `int8_quant_plain`): K12
     on CUDA tensors, the plain version on CPU tensors."""
     d = (x.q if isinstance(x, Deq) else x).device
     if d.type == "cpu":
-        return int8_quant_plain(x, div, m, c, x2=x2, add=add, c_out=c_out)
+        return int8_quant_plain(x, div, m, c, x2=x2, add=add, c_out=c_out, f32_ops=f32_ops)
     if d.type != "cuda":
         raise ValueError(f"int8_quant: unsupported device {d}")
-    return _int8_quant_cuda(x, div, m, c, x2=x2, add=add, c_out=c_out)
+    return _int8_quant_cuda(x, div, m, c, x2=x2, add=add, c_out=c_out, f32_ops=f32_ops)
 
 
 # K13 ---------------------------------------------------------------------------

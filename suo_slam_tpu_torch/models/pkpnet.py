@@ -22,9 +22,17 @@ concatenates the prior to the RGB input.
 `PkpNet(dtype=...)`; `evaluate.py` runs bf16 by default): the crops and the
 prior are cast to it inside the backbone, whose heads return f32 logits, so
 the readout and the validity head stay f32 (`models/hourglass.py`).
+
+`norm`: "batch" (masked BatchNorm, K8 / K16 / K17) or "group" (GroupNorm,
+K20 / K21). `quant`: "off", or "calib" / "int8", every convolution but the
+heads a `models/quant.QuantConv` in that mode (K12 and K11 in int8 mode;
+`quant.calibrate` fills the scales); the quantized modes are inference-only.
+The constructor takes every argument of the JAX `PkpNet`.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 from typing import NamedTuple
 
@@ -33,6 +41,7 @@ from torch import nn
 
 from ..kp import config as kp_config
 from ..ops import heatmap as hm
+from . import quant as q
 from .hourglass import HourglassNet
 
 
@@ -57,14 +66,15 @@ class PkpNet(nn.Module):
     def __init__(self, num_kp: int = kp_config.num_kp(), calc_cov: bool = True,
                  n_stack: int = 2, n_modules: int = 2, features: int = 256,
                  norm: str = "batch", prior_mode: str = "post_stem",
-                 transpose_heatmaps: bool = False, dtype: torch.dtype = torch.float32):
+                 transpose_heatmaps: bool = False, dtype: torch.dtype = torch.float32,
+                 quant: str = "off"):
         super().__init__()
-        if norm != "batch":
-            raise NotImplementedError(
-                f"norm={norm!r}: only the BatchNorm net is ported"
-            )
         if prior_mode not in ("post_stem", "concat"):
             raise ValueError(f"unknown prior_mode {prior_mode!r}")
+        if quant != "off" and quant not in q.MODES:
+            raise ValueError(f"unknown quant mode {quant!r}")
+        self.norm = norm
+        self.quant = quant
         self.num_kp = num_kp
         self.calc_cov = calc_cov
         self.prior_mode = prior_mode
@@ -73,7 +83,8 @@ class PkpNet(nn.Module):
             in_features=3 + (num_kp if prior_mode == "concat" else 0),
             num_output=num_kp, n_stack=n_stack, n_modules=n_modules,
             features=features, with_extra=prior_mode == "post_stem",
-            extra_features=num_kp, dtype=dtype,
+            extra_features=num_kp, dtype=dtype, norm=norm,
+            conv_cls=nn.Conv2d if quant == "off" else partial(q.QuantConv, mode=quant),
         )
         self.classifier = nn.Linear(num_kp, num_kp)
 
@@ -95,6 +106,8 @@ class PkpNet(nn.Module):
         n, h, w, c = images_roi.shape
         if c != 3:
             raise ValueError(f"expected an RGB ROI batch, got {tuple(images_roi.shape)}")
+        if train and self.quant != "off":
+            raise ValueError("quantized modes are inference-only")
         x = _nhwc_to_cl(images_roi)
         if self.prior_mode == "concat":
             if prior_kp is None:

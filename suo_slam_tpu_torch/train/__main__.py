@@ -13,8 +13,8 @@ losses (annealed MLE + variance + BCE), `--pretrain`, the epoch loop with
 print steps and at the epoch's end.
 
 Refused, naming the ROADMAP item: `--use_cache` (A24), `--loader process`
-(A23), `-u` / `--no_network_cov` training (A25), `--norm group` (A18), more
-than one visible card (A15); the datasets refuse augmentations (A20), VOC
+(A23), `-u` / `--no_network_cov` training (A25), more than one visible card
+(A15); the datasets refuse augmentations (A20), VOC
 backgrounds (A21) and pbr splits (A22). The per-epoch prediction dump is
 A11: one line says so.
 
@@ -67,7 +67,6 @@ def _refuse(args, dev) -> None:
                                   "(ROADMAP A23)"),
         (args.no_network_cov, "-u / --no_network_cov training (the L2 + heatmap-variance "
                               "loss) is not ported (ROADMAP A25)"),
-        (args.norm != "batch", "--norm group: the GroupNorm net is not ported (ROADMAP A18)"),
         (dev.type == "cuda" and torch.cuda.device_count() > 1,
          "more than one card is visible: data-parallel training is not ported (ROADMAP A15); "
          "set CUDA_VISIBLE_DEVICES to one card"),

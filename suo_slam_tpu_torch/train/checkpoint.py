@@ -5,7 +5,8 @@ Port of `suo_slam_tpu/train/checkpoint.py`: results directories
 `checkpoint-<epoch>`, `checkpoint-latest` and `model_best`, each the flax
 msgpack bytes (`train/msgpack.py`) of
 
-    {"params", "batch_stats": the flax variables tree (`models/convert.py`),
+    {"params", "batch_stats": the flax variables tree (`models/convert.py`;
+     "batch_stats" is {} for a norm="group" net, as the JAX package writes it),
      "opt_state": optax adam's state {"0": {count, mu, nu}, "1": {}},
      "step": int32, "rng": uint32[2] (the dropout key), "epoch": int64,
      "best_val", "best_train": float64, "args_json": the CLI's arguments}
@@ -62,7 +63,7 @@ def save_checkpoint(outdir: str, state, epoch: int, args: dict, best_val: float,
     variables = convert.to_jax_variables(state.net)
     payload = {  # the JAX package's key order
         "params": variables["params"],
-        "batch_stats": variables["batch_stats"],
+        "batch_stats": variables.get("batch_stats", {}),
         "opt_state": convert.adam_to_optax(state.net, state.optimizer),
         "step": np.asarray(state.step, np.int32),
         "rng": np.asarray(state.rng, np.uint32),

@@ -13,7 +13,8 @@ schedule it replaced, on the CPU:
   `csrc/ba_lm.cu`;
 - the predicate that takes K2, K8 and K9 to their autograd Functions
   (backward kernels K19, K17, K18);
-- the JAX checkpoint loader's refusal of a GroupNorm checkpoint;
+- the JAX checkpoint loader on a GroupNorm checkpoint (it builds the
+  GroupNorm net the tree holds, whatever the norm flag says);
 - the header-aware staleness of a kernel build.
 """
 
@@ -235,16 +236,21 @@ def test_autograd_predicate():
 
 def test_jax_checkpoint_message_names_its_format_and_item(tmp_path):
     """The JAX package's checkpoints (flax msgpack with a `.meta.json`
-    sidecar) load; a `norm="group"` one is refused, naming A18."""
+    sidecar) load; a `norm="group"` one as the GroupNorm net (ROADMAP A18,
+    done), its tree winning over the norm flag."""
     from suo_slam_tpu_torch.eval import loading
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.train import checkpoint as tck
+    from suo_slam_tpu_torch.train import harness as th
 
-    path = tmp_path / "checkpoint-3"
-    path.write_bytes(b"")
-    (tmp_path / "checkpoint-3.meta.json").write_text('{"epoch": 3, "args": {"norm": "group"}}')
-    with pytest.raises(NotImplementedError, match="norm='group'") as e:
-        loading.load_eval_network(str(path))
-    assert "ROADMAP A18" in str(e.value) and "orbax" not in str(e.value)
-    assert re.search(r"\*\*A18 ", (REPO / "ROADMAP.md").read_text())
+    net = PkpNet(n_stack=1, n_modules=1, features=16, norm="group")
+    tck.save_checkpoint(str(tmp_path), th.TrainState(net, th.make_optimizer(net.parameters())),
+                        3, {"norm": "group"}, 1.0)
+    loaded, epoch = loading.load_eval_network(str(tmp_path / "checkpoint-3"), norm="batch")
+    assert epoch == 3 and loaded.norm == "group"
+    for k, v in net.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+    assert re.search(r"A18", (REPO / "ROADMAP.md").read_text())
     assert "orbax" not in loading.__doc__ and ".meta.json" in loading.__doc__
 
 

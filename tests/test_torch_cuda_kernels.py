@@ -1,4 +1,4 @@
-"""Kernels K1-K19 against their plain PyTorch versions on the card.
+"""Kernels K1-K21 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -621,3 +621,93 @@ def test_k19_heatmap_readout_bwd(dev):
             # f - E[f] cancels near a peak; the two sum the moments in other orders
             tol = 1e-4 if dt == torch.float32 else 2.0 ** -7
             assert (k.float() - p.float()).abs().max().item() <= tol * p.float().abs().max().item()
+
+
+def test_k11_f32_epilogue(dev):
+    """K11's f32 epilogue (the quantized PkpNet's `QuantConv`): f32 or bf16
+    results equal to the plain version's bits on both routes (the 7x7
+    stride-2 stem on 3 channels padded to 16, stride-1 1x1 and 3x3 at the
+    hourglass widths, Cin 41 padded to 48, a partial pixel tile)."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases = [(3, 64, 7, 2, 64, 2), (256, 128, 1, 1, 64, 2), (128, 128, 3, 1, 32, 3),
+             (128, 256, 1, 1, 8, 4), (41, 256, 1, 1, 16, 2), (64, 64, 3, 1, 5, 2),
+             (256, 256, 1, 1, 4, 8)]
+    routes = set()
+    for cin, cout, k, stride, hw, n in cases:
+        qc = _qconv(dev, cin, cout, k, stride)
+        x = torch.randint(-127, 128, (n, hw, hw, ik.padded(cin)), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.int8)
+        x[..., cin:] = 0  # as K12 writes the codes
+        e1 = torch.rand(cout, device=dev, generator=g) * 1e-4
+        e2 = torch.randn(cout, device=dev, generator=g) * 0.1
+        for dt in (torch.float32, torch.bfloat16):
+            mode = ik.conv_mode(False, dt)
+            routes.add(ik.plan_conv(n, hw, hw, x.shape[-1], cout, k, k, stride, k // 2,
+                                    mode).route)
+            a = ik.int8_conv(x, qc, e1, e2, f32_epilogue=dt)
+            b = ik.int8_conv_plain(x, qc, e1, e2, f32_epilogue=dt)
+            torch.cuda.synchronize()
+            assert a.dtype == b.dtype == dt and torch.equal(a, b), (cin, cout, k, hw, dt)
+    assert routes == {"wgmma", "mma_sync"}
+
+
+def test_k12_f32_ops(dev):
+    """K12's f32 mode: codes of a bf16 input (and of f32) computed in f32,
+    clip(rint(f32(x) / s_x)), equal to the plain version's, written 16 wide
+    for the stem's 3 channels and 48 wide for 41; a prologue is refused."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    for C, shape in ((3, (4, 64, 64)), (41, (2, 16, 16)), (128, (3, 32, 32)), (256, (2, 8, 8))):
+        x32 = torch.randn(shape + (C,), device=dev, generator=g) * 3
+        s_x = torch.full((C,), 7.3 / 127, device=dev)
+        for x in (x32, x32.to(torch.bfloat16)):
+            a, _ = ik.int8_quant(x, s_x, c_out=ik.padded(C), f32_ops=True)
+            b, _ = ik.int8_quant_plain(x, s_x, c_out=ik.padded(C), f32_ops=True)
+            torch.cuda.synchronize()
+            assert a.shape[-1] == ik.padded(C) and torch.equal(a, b), (C, x.dtype)
+            assert not a[..., C:].any()
+    q = torch.zeros(2, 4, 4, 16, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        ik.int8_quant(ik.Deq(q, torch.ones(16, device=dev)), torch.ones(16, device=dev),
+                      f32_ops=True)
+
+
+def test_k20_k21_group_norm(dev):
+    """K20 (y, mean, rstd) and K21 (dx, dscale, dbias) against their plain
+    versions, f32 and bf16, at group sizes 1 to 8 and unvectorized channel
+    counts: statistics 1e-6 relative (f64 sums in another order), y and dx
+    within 1e-5 of their largest magnitude (f32) or 1 bf16 ulp of it, the
+    parameter gradients within 1e-5 of their scale."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    for shape in ((4, 256, 16, 16), (3, 128, 32, 32), (2, 64, 9, 7), (3, 16, 4, 4),
+                  (2, 36, 5, 5)):
+        N, C = shape[:2]
+        G = hg.num_groups(C)
+        for dt in (torch.float32, torch.bfloat16):
+            cl = lambda t: t.to(dt).contiguous(memory_format=torch.channels_last)
+            x = cl(torch.randn(shape, device=dev, generator=g) * 2 + 0.5)
+            dy = cl(torch.randn(shape, device=dev, generator=g))
+            scale = torch.rand(C, device=dev, generator=g) + 0.5
+            bias = torch.randn(C, device=dev, generator=g) * 0.2
+            kernels.reset_counts()
+            yk, mk, rk = hg._group_norm_relu_cuda(x, scale, bias, G)
+            yp, mp, rp = hg.group_norm_relu_plain(x, scale, bias, G)
+            assert kernels.counts()["group_norm_relu"] == 1
+            assert torch.allclose(mk, mp, rtol=1e-6, atol=1e-7)
+            assert torch.allclose(rk, rp, rtol=1e-6, atol=0)
+            tol = 1e-5 if dt == torch.float32 else 2.0 ** -8
+            assert (yk.float() - yp.float()).abs().max().item() <= tol * yp.float().abs().max().item()
+            assert yk.is_contiguous(memory_format=torch.channels_last)
+            k = hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp)
+            p = hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp)
+            assert kernels.counts()["group_norm_relu_bwd"] == 1
+            for a, b in zip(k[1:], p[1:]):
+                assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1)
+            d = (k[0].float() - p[0].float()).abs().max().item()
+            assert d <= tol * p[0].float().abs().max().item(), (shape, dt, d)

@@ -121,10 +121,10 @@ def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
         tbop.BopDataset(root, "train_synt", no_aug=True, **kw)
     msgs.append(str(e.value))
     base = ["--device", "cpu", "--data_root", root, "--no_augmentations"]
-    for flags in (["--use_cache"], ["--loader", "process"], ["-u"], ["--norm", "group"]):
-        with pytest.raises(SystemExit) as e:                                   # A24 A23 A25 A18
+    for flags in (["--use_cache"], ["--loader", "process"], ["-u"]):
+        with pytest.raises(SystemExit) as e:                                   # A24 A23 A25
             cli.main(base + flags)
         msgs.append(str(e.value))
     items = [re.search(r"ROADMAP (A\d+)", m).group(1) for m in msgs]
-    assert items == ["A20", "A22", "A21", "A24", "A23", "A25", "A18"]
+    assert items == ["A20", "A22", "A21", "A24", "A23", "A25"]
     assert all(_roadmap_has(i) for i in items), items
