@@ -23,7 +23,15 @@ Phases (any failure raises and exits non-zero):
      yardsticks' device time from torch.profiler beside them) and each
      kernel's bound on an H100 (bytes at 3.35 TB/s or f32 operations at
      67 TFLOP/s, counted from this run's inputs); K8 and K9's launches per
-     forward of the full-width net; then the full-width net in bf16 against
+     forward of the full-width net; K1's device time on each of its paths
+     (generic, the earlier kernel, and strip: bit-equal), its call in turns with
+     `grid_sample`'s and its wrapper's host time step by step (`[host] K1
+     wrapper`, beside the bare ctypes call); K15's SM cycles by phase for
+     the current and the serial design at the front end's and the backup
+     pose's shapes, both designs' device times; ptxas's registers and stack
+     frame of K1's, K3's and K15's kernels; K8's wrapper call at a
+     SLAM-frame shape (`[host] K8 wrapper`); each beside the earlier
+     designs' times (`EARLIER_US`); then the full-width net in bf16 against
      the same net in f32 on the card (uv within the bf16 error the CPU shows
      for the same crops), both nets' ms per call on the host clock (with K8 /
      K9 and with their plain versions) and their device ms per call;
@@ -65,8 +73,9 @@ Phases (any failure raises and exits non-zero):
      schedule) and global BA ms, launches per frame, and a torch.profiler
      summary of one frame with its launches (K14 1, K15 one per
      `pnp_ransac_batch` call, K3, K4 and K7 0, no cholesky), its kernel
-     count and device ms beside those before K15, and the sum of its K8 / K9 calls'
-     bounds;
+     count and device ms beside those before K15, K1's and K15's device time
+     per launch beside the earlier designs', and the sum of its K8 / K9
+     calls' bounds;
   7. the evaluation entry point: a BOP tree written here (one scene of 12
      480x640 views with the YCB-V intrinsics, 8 objects with keypoint
      configs and 6000-point PLY models, PNGs from this script's own writer)
@@ -165,6 +174,13 @@ H_IMG, W_IMG = 480, 640
 YCBV_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0.0, 1.0]])
 N_OBJ = 8
 NK = 41
+# the previous designs of K1 and K15 on an H100 80GB HBM3 at 700 W (chip_smoke's
+# run before their redesign; K1's earlier kernel is the generic path, K15's
+# the serial design, both still measured here): K1's call and its device
+# time per launch in the profiled SLAM frame; K15's device time at phase 3's
+# shape and per launch in the frame; the targets beside them
+EARLIER_US = {"K1 call": 30.70, "K1 frame": 6.464, "K15 phase 3": 54.167, "K15 frame": 67.402}
+TARGET_US = {"K1 device": 5.18, "K15 phase 3": 35.0, "K15 frame": 40.0}
 SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm")
 # K3, K4, K7: checked in phase 3, off the main path (K15 and K14 replaced them)
 OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur")
@@ -338,6 +354,20 @@ def phase_build():
     return secs
 
 
+def ptxas_kernels(stem, names):
+    """`-Xptxas -v`'s lines for each kernel of csrc/<stem>.cu among `names`
+    (registers, stack frame, spills), from the build's log."""
+    from suo_slam_tpu_torch.kernels import _build
+
+    out, cur = {}, None
+    for line in _build.build_log.get(stem, "").splitlines():
+        if "Compiling entry function" in line or "Function properties for" in line:
+            cur = next((n for n in sorted(names, key=len, reverse=True) if n in line), None)
+        elif cur and ("stack frame" in line or "registers" in line):
+            out.setdefault(cur, []).append(line.replace("ptxas info    :", "").strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def _report(name, err, tol, ms, plain_ms, lib_ms, b, lib_fn=None):
     """One kernel line; with `lib_fn`, the library yardstick's device time
     too (`lib_device_us`: its wrapper-free time beside `lib_ms`)."""
@@ -350,7 +380,100 @@ def _report(name, err, tol, ms, plain_ms, lib_ms, b, lib_fn=None):
         f" | plain {plain_ms:.4f} ms | library {lib} | bound {b[0]:.5f} ms ({b[1]})")
 
 
+def host_ns(fns, n=1000, reps=5):
+    """Host nanoseconds per call of each function in the dict `fns`, on the
+    host clock (`perf_counter_ns`), no sync inside a loop: n calls of each
+    in `reps` runs of n / reps back-to-back calls, the functions in turns
+    (so a drift of the shared host's load spreads over all of them), the
+    median run of each."""
+    import torch
+
+    for f in fns.values():
+        f()
+    torch.cuda.synchronize()
+    runs = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, f in fns.items():
+            t0 = time.perf_counter_ns()
+            for _ in range(n // reps):
+                f()
+            runs[k].append((time.perf_counter_ns() - t0) / (n // reps))
+            torch.cuda.synchronize()
+    return {k: round(statistics.median(v)) for k, v in runs.items()}
+
+
+def k1_wrapper_breakdown(imgs, boxes, mask, out_hw=(256, 256)):
+    """K1's wrapper step by step: host ns per call of each step over 1,000
+    calls (`host_ns`). The steps of the earlier wrapper (a uint8 copy of the
+    mask, `torch.empty`, `c_void_p` objects, a `current_stream()` object per
+    call) beside the current one's, the whole current wrapper, and the bare
+    ctypes call with its pointers, sizes and stream prepared once: the
+    floor a Python wrapper over ctypes cannot go below. Returns the dict."""
+    import ctypes
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.kernels import _build
+    from suo_slam_tpu_torch.ops import roi
+
+    dev = imgs.device
+    B, H, W, C = imgs.shape
+    O = boxes.shape[1]
+    oh, ow = out_hw
+    f32 = torch.float32
+    out = torch.empty((B, O, oh, ow, C), dtype=f32, device=dev)
+    fn = _build.entry("roi_crop", roi._ARGTYPES)
+    plan = roi.plan_crop(B * O, oh, ow, C)
+    args = (imgs.data_ptr(), boxes.data_ptr(), mask.data_ptr(), out.data_ptr(), B, O, H, W, C,
+            oh, ow, plan.path, _build.stream(imgs.get_device()))
+    earlier = {
+        "checks (device objects)": lambda: (
+            imgs.dtype != f32 or imgs.dim() != 4,
+            boxes.shape != (B, boxes.shape[1], 4) or mask.shape != boxes.shape[:2],
+            boxes.device != dev or mask.device != dev),
+        "images.contiguous()": lambda: imgs.contiguous(),
+        "boxes.to(f32).contiguous()": lambda: boxes.to(f32).contiguous(),
+        "mask.to(uint8): a copy launch": lambda: mask.to(torch.uint8).contiguous(),
+        "torch.empty(dtype, device)": lambda: torch.empty((B, O, oh, ow, C), dtype=f32, device=dev),
+        "4 x c_void_p(data_ptr())": lambda: [ctypes.c_void_p(t.data_ptr())
+                                             for t in (imgs, boxes, mask, out)],
+        "c_void_p(current_stream().cuda_stream)": lambda: ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream),
+    }
+    current = {
+        "checks (get_device)": lambda: (
+            imgs.dtype != f32 or imgs.dim() != 4, boxes.shape != (B, O, 4),
+            mask.shape != (B, O), imgs.get_device() != boxes.get_device()),
+        "is_contiguous / dtype tests": lambda: (
+            imgs.is_contiguous(), boxes.dtype == f32 and boxes.is_contiguous(),
+            mask.dtype == torch.bool and mask.is_contiguous()),
+        "new_empty": lambda: imgs.new_empty((B, O, oh, ow, C)),
+        "4 x data_ptr()": lambda: [t.data_ptr() for t in (imgs, boxes, mask, out)],
+        "raw stream (_build.stream)": lambda: _build.stream(imgs.get_device()),
+        "plan_crop (cached)": lambda: roi.plan_crop(B * O, oh, ow, C, True, None),
+        "entry": lambda: _build.entry("roi_crop", roi._ARGTYPES),
+        "check + count": lambda: (_build.check(0, "K1"), kernels.count("roi_crop")),
+    }
+    cdll = getattr(ctypes.CDLL(str(_build.BUILD_DIR / "libroi_crop.so")), "suo_roi_crop")
+    cdll.restype, cdll.argtypes = ctypes.c_int, roi._ARGTYPES
+    vp = [ctypes.c_void_p(a) for a in args]
+    earlier["CDLL call (c_void_p objects)"] = lambda: cdll(*vp[:4], *args[4:12], vp[12])
+    ends = {"bare ctypes call (floor)": lambda: fn(*args),
+            "whole wrapper": lambda: roi._roi_crop_cuda(imgs, boxes, mask, out_hw)}
+    ns = host_ns({**earlier, **current, **ends})
+    res = {"earlier": {k: ns[k] for k in earlier}, "current": {k: ns[k] for k in current},
+           **{k: ns[k] for k in ends}}
+    log("[host] K1 wrapper, host ns per call over 1,000 calls: " + json.dumps(res))
+    return res
+
+
 def check_k1(dev, rng, objs):
+    """K1 at the frame's shape (8 boxes of a 480x640x3 f32 frame into
+    8x256x256x3): the plan's path against the plain version; every path
+    bit-equal to the generic one, with its device time; the call time in
+    turns with `grid_sample`'s (K1, library, library, K1); the wrapper's
+    host breakdown; ptxas's lines for its kernels."""
     import torch
     import torch.nn.functional as F
 
@@ -367,7 +490,19 @@ def check_k1(dev, rng, objs):
     tol = 1e-5  # the same two f32 taps; the plain version sums them in matmuls
     if not err <= tol:
         raise AssertionError(f"K1 disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: roi._roi_crop_cuda(imgs, boxes, mask, (256, 256)))
+    plan = roi.plan_crop(N_OBJ, 256, 256, 3)
+    dev_us = {}
+    for name, path in (("generic", roi.GENERIC), ("strip", roi.STRIP)):
+        f = lambda: roi._roi_crop_cuda(imgs, boxes, mask, (256, 256), path=path)
+        if not torch.equal(f(), out_k):
+            raise AssertionError(f"K1's {name} path differs from the {plan.path} path")
+        us, src = device_us(f, "roi_crop", n=20)
+        dev_us[name] = round(us, 3)
+    log(f"[kernel] K1 device us per launch by path (bit-equal outputs; {src}): "
+        f"{json.dumps(dev_us)}; the plan takes path {plan.path} {plan.grid} x {plan.block}; "
+        f"target <= {TARGET_US['K1 device']} us; the earlier kernel (the generic path) in the "
+        f"SLAM frame on an H100 80GB HBM3, 700 W: {EARLIER_US['K1 frame']} us")
+    log(f"[build] K1 ptxas: {json.dumps(ptxas_kernels('roi_crop', ['roi_crop_kernel', 'roi_crop_kernel_strip']))}")
     plain_ms = cuda_ms(lambda: roi.roi_crop_batch_plain(imgs, boxes, mask, (256, 256)))
     # library yardstick: grid_sample (bilinear, border padding) on the same boxes
     j = (torch.arange(256, device=dev, dtype=torch.float32) + 0.5) / 256
@@ -383,7 +518,16 @@ def check_k1(dev, rng, objs):
         return F.grid_sample(nchw, grid, mode="bilinear", padding_mode="border",
                              align_corners=False)
 
-    lib_ms = cuda_ms(lib)
+    kern = lambda: roi._roi_crop_cuda(imgs, boxes, mask, (256, 256))
+    turns = [cuda_ms(kern), cuda_ms(lib), cuda_ms(lib), cuda_ms(kern)]
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    host = k1_wrapper_breakdown(imgs, boxes, mask)
+    floor_ms = host["bare ctypes call (floor)"] / 1e6
+    log(f"[host] K1 call {ms:.4f} ms against grid_sample's {lib_ms:.4f} ms (turns K1, library, "
+        f"library, K1: {[round(t, 4) for t in turns]}); the bare ctypes call {floor_ms:.4f} ms; "
+        f"target: <= the library's, or within 0.002 ms of the bare call where that is above "
+        f"the library's; the earlier wrapper on an H100 80GB HBM3, 700 W: "
+        f"{EARLIER_US['K1 call'] / 1e3:.4f} ms")
     x1 = bboxes[:, 0].clip(0, W_IMG)
     x2 = bboxes[:, 2].clip(0, W_IMG)
     y1 = bboxes[:, 1].clip(0, H_IMG)
@@ -391,7 +535,8 @@ def check_k1(dev, rng, objs):
     read = min(float(np.sum((x2 - x1 + 2) * (y2 - y1 + 2))), H_IMG * W_IMG) * 3 * 4
     n_out = N_OBJ * 256 * 256
     b = bound(n_out * 3 * 4 + read + bboxes.nbytes + N_OBJ, n_out * 54)
-    _report("K1 roi_crop", err, tol, ms, plain_ms, lib_ms, b, lib)
+    _report(f"K1 roi_crop (strip path, device {dev_us['strip']:.3f} us)", err, tol, ms, plain_ms,
+            lib_ms, b, lib)
     return dict(name="roi_crop", route="cuda", source="suo_slam_tpu_torch/csrc/roi_crop.cu",
                 replaces="suo_slam_tpu/ops/roi.py:84", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
@@ -928,7 +1073,8 @@ def pnp_inputs(dev, rng, O=N_OBJ, N=NK, n_hyp=64):
     """A PnP batch at the front end's shapes: O objects of N model points in
     a 100 mm cube 700-900 mm away, their normalized image points with
     N(0, 3e-4) noise (~0.3 px, the NDC noise of the SLAM phase), 80% valid,
-    5 gross outliers each (0.02-0.1 off); object O-2 has 3 valid points and
+    5 gross outliers each (0.02-0.1 off; N // 2 below 10 points); object O-2
+    has 3 valid points (none below 13 points) and
     object O-1 every point at one place (every hypothesis fails).
     Returns x, y, mask and the sampler's idx on dev."""
     import torch
@@ -941,7 +1087,8 @@ def pnp_inputs(dev, rng, O=N_OBJ, N=NK, n_hyp=64):
         p = x[o] @ random_rotation(rng).T + [rng.uniform(-200, 200), rng.uniform(-150, 150),
                                              rng.uniform(700, 900)]
         y[o] = p[:, :2] / p[:, 2:] + rng.normal(scale=3e-4, size=(N, 2))
-    y[:, :5] += rng.uniform(0.02, 0.1, (O, 5, 2)) * rng.choice([-1, 1], (O, 5, 2))
+    k = min(5, N // 2)
+    y[:, :k] += rng.uniform(0.02, 0.1, (O, k, 2)) * rng.choice([-1, 1], (O, k, 2))
     mask = rng.uniform(size=(O, N)) < 0.8
     mask[O - 2] = False
     mask[O - 2, 10:13] = True
@@ -1007,6 +1154,26 @@ def k15_gate(label, x, y, mask, idx, refine=True):
     return max(rot, rel), flips
 
 
+def k15_clocks(label, x, y, mask, idx, **kw):
+    """K15's SM clock cycles per phase (`pnp.PNP_PHASES`, thread 0 of each
+    block) on one call after a warm one: the slowest block's row and the
+    mean over the blocks. Returns the slowest row."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import pnp
+
+    cyc = torch.zeros((mask.shape[0], len(pnp.PNP_PHASES)), dtype=torch.int64, device=x.device)
+    for _ in range(2):
+        pnp._pnp_ransac_cuda(x, y, mask, idx, cycles=cyc, **kw)
+    rows = cyc.cpu()
+    slow = rows[int(rows.sum(1).argmax())].tolist()
+    mean = rows.double().mean(0).tolist()
+    log(f"[kernel] {label}: SM cycles by phase, slowest block "
+        + json.dumps(dict(zip(pnp.PNP_PHASES, slow))) + f" ({sum(slow)} in all), mean over "
+        f"{rows.shape[0]} blocks " + json.dumps({k: round(v) for k, v in zip(pnp.PNP_PHASES, mean)}))
+    return slow
+
+
 def k15_bound(O, N, H, n_refined):
     """K15's bound for one call: each input read once (x, y, mask, the int64
     indices), each output written once, against the f32 operations this
@@ -1027,15 +1194,24 @@ def check_k15(dev, rng):
     """K15, the whole of `pnp_ransac_batch` in one launch, under `k15_gate`
     at the front end's shapes (with and without refinement) and the backup
     pose's; timed against the schedule it replaced (K3 + the eager tail)
-    and the plain version on the card, with its device time per call."""
+    and the plain version on the card, with its device time per call; the
+    earlier serial design beside it (device time, SM cycles by phase at
+    both shapes); ptxas's lines for both kernels."""
     from suo_slam_tpu_torch.solvers import pnp
 
     x, y, mask, idx = pnp_inputs(dev, rng)
     O, N = mask.shape
     H = idx.shape[1]
+    backup = backup_inputs(dev, rng)
     errs = [k15_gate(f"K15 (O={O}, N={N}, n_hyp={H})", x, y, mask, idx)[0],
             k15_gate("K15 without refinement", x, y, mask, idx, refine=False)[0],
-            k15_gate("K15 backup pose (O=1, N=8, n_hyp=128)", *backup_inputs(dev, rng))[0]]
+            k15_gate("K15 backup pose (O=1, N=8, n_hyp=128)", *backup)[0]]
+    for serial in (False, True):
+        design = "serial design" if serial else "current design"
+        k15_clocks(f"K15 {design} (O={O}, N={N}, n_hyp={H})", x, y, mask, idx, serial=serial)
+        k15_clocks(f"K15 {design}, backup pose", *backup, serial=serial)
+    log(f"[build] K15 ptxas: {json.dumps(ptxas_kernels('pnp_ransac', ['pnp_ransac_kernel', 'pnp_ransac_serial_kernel']))}")
+    log(f"[build] K3 ptxas: {json.dumps(ptxas_kernels('pnp_hypotheses', ['pnp_hypotheses_kernel']))}")
     n_ref = int(pnp._pnp_ransac_cuda(x, y, mask, idx).success.sum())
     ms = cuda_ms(lambda: pnp._pnp_ransac_cuda(x, y, mask, idx))
     eager = lambda: pnp.pnp_ransac_batch_plain(x, y, mask, idx, use_kernels=True)
@@ -1043,7 +1219,12 @@ def check_k15(dev, rng):
     plain_ms = cuda_ms(lambda: pnp.pnp_ransac_batch_plain(x, y, mask, idx), n=3, inner=2,
                        warmup=1)
     us, src = device_us(lambda: pnp._pnp_ransac_cuda(x, y, mask, idx), "pnp_ransac_kernel")
+    sus, ssrc = device_us(lambda: pnp._pnp_ransac_cuda(x, y, mask, idx, serial=True),
+                          "pnp_ransac_serial_kernel")
     eus, esrc = lib_device_us(eager, n=2)
+    log(f"[kernel] K15 device us per call (O={O}, N={N}, n_hyp={H}): current design {us:.3f} by "
+        f"{src}, serial design {sus:.3f} by {ssrc}; target <= {TARGET_US['K15 phase 3']}; the "
+        f"earlier kernel on an H100 80GB HBM3, 700 W: {EARLIER_US['K15 phase 3']}")
     b = k15_bound(O, N, H, n_ref)
     _report(f"K15 pnp_ransac (O={O}, N={N}, n_hyp={H}, {n_ref} refined; device {us:.3f} us by "
             f"{src}; the K3 + eager-tail schedule {eager_ms:.4f} ms, device {eus:.3f} us by "
@@ -1697,6 +1878,14 @@ def phase_slam(dev, rng, objs, net, seed, scene):
             f"80GB HBM3 at 700 W: 9,034 kernels, 33.00 ms)")
         if any("cholesky" in e.key for e in avg):
             raise AssertionError("the profiled frame ran a cholesky on the main path")
+        per = {}
+        for name in ("roi_crop", "pnp_ransac"):
+            es = [e for e in kern if f"{name}_kernel" in e.key]
+            per[name] = sum(e.self_device_time_total for e in es) / max(1, sum(e.count for e in es))
+        log(f"[slam] the profiled frame: K1 {per['roi_crop']:.3f} us and K15 "
+            f"{per['pnp_ransac']:.3f} us per launch (targets <= {TARGET_US['K1 device']} and <= "
+            f"{TARGET_US['K15 frame']}; the earlier kernels on an H100 80GB HBM3, 700 W: "
+            f"{EARLIER_US['K1 frame']} and {EARLIER_US['K15 frame']})")
     return counts
 
 
@@ -1847,6 +2036,13 @@ def check_k8(dev, rng, net32, net16, crops):
         _report(f"K8 norm_relu ({name}, {list(xd.shape)}, device {us:.3f} us by {src})",
                 err32 if name == "f32" else ulps, "0" if name == "f32" else "1 bf16 ulp", ms,
                 plain_ms, lib_ms, b, lib)
+    # the wrapper's cost at one of the frame's small calls (a 4x4 hourglass
+    # level, 8 crops), where the host time of the call dominates
+    xs = x[:, :, :4, :4].contiguous(memory_format=torch.channels_last)
+    us, src = device_us(lambda: hg._norm_relu_cuda(xs, inv, shift), "norm_relu_kernel")
+    log(f"[host] K8 wrapper at a SLAM-frame call ({list(xs.shape)} f32): call "
+        f"{cuda_ms(lambda: hg._norm_relu_cuda(xs, inv, shift)):.4f} ms, device {us:.3f} us by "
+        f"{src}, host {host_ns({'k8': lambda: hg._norm_relu_cuda(xs, inv, shift)})['k8']} ns")
     ms, plain_ms, b, lib_ms = out["bf16"]
     return dict(name="norm_relu", route="cuda", source="suo_slam_tpu_torch/csrc/norm_relu.cu",
                 replaces="suo_slam_tpu/models/hourglass.py:88", max_abs_err=err32, ms=ms,

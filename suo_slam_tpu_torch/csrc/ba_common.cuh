@@ -142,39 +142,68 @@ __device__ __forceinline__ float damp_mask(const float* H, int i, int j, float l
 // T <- se3_exp(d) @ T for one row-major 4x4 pose (the port's `core/lie.py`
 // `se3_exp`: Rodrigues with its small-angle Taylor branches, t = V(w) v):
 // K14's pose update and K15's (`pnp_ransac.cu`) Gauss-Newton step.
+// a * b + c: two roundings, as the plain version's separate multiply and add
+// (with --fmad=false), or with kFused one fused multiply-add, for callers
+// whose result is held to its outcome rather than its bits (K15's
+// Gauss-Newton, where fewer instructions make a shorter step)
+template <bool kFused>
+__device__ __forceinline__ float mad(float a, float b, float c) {
+  return kFused ? __fmaf_rn(a, b, c) : a * b + c;
+}
+
+template <bool kFused = false>
 __device__ inline void exp_compose(const float* d, const float* T, float* out) {
   const float w0 = d[0], w1 = d[1], w2 = d[2];
-  const float theta2 = w0 * w0 + w1 * w1 + w2 * w2;
+  const float theta2 = mad<kFused>(w2, w2, mad<kFused>(w0, w0, w1 * w1));
   const float theta = sqrtf(clampmin(theta2, 0.f));
-  const bool small = theta2 < 1e-8f;
-  const float safe_t2 = small ? 1.f : theta2;
-  const float st = sinf(theta), ct = cosf(theta);
-  const float A = small ? 1.f - theta2 / 6.f : st / sqrtf(safe_t2);
-  const float B = small ? 0.5f - theta2 / 24.f : (1.f - ct) / safe_t2;
-  const float C = small ? (1.f / 6.f) - theta2 / 120.f : (theta - st) / (safe_t2 * sqrtf(safe_t2));
+  // the small-angle series or the closed form, whichever the plain version's
+  // `where` keeps: a branch, so the other side is not computed
+  float A, B, C;
+  if (theta2 < 1e-8f) {
+    A = 1.f - theta2 / 6.f;
+    B = 0.5f - theta2 / 24.f;
+    C = (1.f / 6.f) - theta2 / 120.f;
+  } else {
+    float st, ct;
+    sincosf(theta, &st, &ct);  // sinf's and cosf's values, one range reduction
+    A = st / sqrtf(theta2);
+    B = (1.f - ct) / theta2;
+    C = (theta - st) / (theta2 * sqrtf(theta2));
+  }
   const float W[9] = {0.f, -w2, w1, w2, 0.f, -w0, -w1, w0, 0.f};
   float WW[9];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      WW[i * 3 + j] = W[i * 3 + 0] * W[0 * 3 + j] + W[i * 3 + 1] * W[1 * 3 + j] +
-                      W[i * 3 + 2] * W[2 * 3 + j];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)  // (W_i0 W_0j + W_i1 W_1j) + W_i2 W_2j
+      WW[i * 3 + j] = mad<kFused>(W[i * 3 + 2], W[2 * 3 + j],
+                                  mad<kFused>(W[i * 3 + 0], W[0 * 3 + j],
+                                              W[i * 3 + 1] * W[1 * 3 + j]));
   float E[16];
+#pragma unroll
   for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {  // (I + A W) + B WW
       const float I = i == j ? 1.f : 0.f;
-      E[i * 4 + j] = I + A * W[i * 3 + j] + B * WW[i * 3 + j];
+      E[i * 4 + j] = mad<kFused>(B, WW[i * 3 + j], mad<kFused>(A, W[i * 3 + j], I));
     }
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     float Vr[3];
-    for (int j = 0; j < 3; ++j)
-      Vr[j] = (i == j ? 1.f : 0.f) + B * W[i * 3 + j] + C * WW[i * 3 + j];
-    E[i * 4 + 3] = Vr[0] * d[3] + Vr[1] * d[4] + Vr[2] * d[5];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)  // (I + B W) + C WW
+      Vr[j] = mad<kFused>(C, WW[i * 3 + j], mad<kFused>(B, W[i * 3 + j], i == j ? 1.f : 0.f));
+    E[i * 4 + 3] = mad<kFused>(Vr[2], d[5], mad<kFused>(Vr[0], d[3], Vr[1] * d[4]));
   }
   E[12] = 0.f; E[13] = 0.f; E[14] = 0.f; E[15] = 1.f;
+#pragma unroll
   for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j)
-      out[i * 4 + j] = E[i * 4 + 0] * T[0 * 4 + j] + E[i * 4 + 1] * T[1 * 4 + j] +
-                       E[i * 4 + 2] * T[2 * 4 + j] + E[i * 4 + 3] * T[3 * 4 + j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)  // ((E_i0 T_0j + E_i1 T_1j) + E_i2 T_2j) + E_i3 T_3j
+      out[i * 4 + j] = mad<kFused>(E[i * 4 + 3], T[3 * 4 + j],
+                                   mad<kFused>(E[i * 4 + 2], T[2 * 4 + j],
+                                               mad<kFused>(E[i * 4 + 0], T[0 * 4 + j],
+                                                           E[i * 4 + 1] * T[1 * 4 + j])));
 }
 
 }  // namespace suo_ba

@@ -1,7 +1,8 @@
 // Device math shared by the PnP kernels K3 (`pnp_hypotheses.cu`) and K15
-// (`pnp_ransac.cu`): LambdaTwist P3P on 3 points, its disambiguation by a 4th
-// and the inlier count of the resulting pose — one RANSAC hypothesis, solved
-// as scalar code by one thread. It mirrors `solvers/p3p.py` operation by
+// (`pnp_ransac.cu`): LambdaTwist P3P on 3 points and its disambiguation by a
+// 4th (`solve_pose`, scalar code for one thread), and the inlier test of a
+// pose (`is_inlier`, `count_inliers`) — the two halves of one RANSAC
+// hypothesis. It mirrors `solvers/p3p.py` operation by
 // operation (same Newton trip counts, same guards, same failure contract:
 // identity pose and ok = false). The two kernels include this one header, so
 // they compute the same hypotheses by construction. Compiled with
@@ -67,10 +68,33 @@ __device__ inline float cubick(float b, float c, float d) {
   const float dh = (3.f * r0_mono + 2.f * b) * r0_mono + c;
   r0_mono = fabsf(dh) < 1e-4f ? r0_mono + 1.f : r0_mono;
   float r = has_stat ? r0_stat : r0_mono;
+  // kCubicIters Newton steps r <- r - f(r) / f'(r). A step is a function of
+  // r alone, so once an iterate repeats bit for bit — the step returns to
+  // the iterate m <= 4 steps back (a fixed point, or a cycle near a double
+  // root) — the sequence is periodic from there, every later iterate is
+  // known, and the loop ends with the value the full trip count gives
+  // (`p3p._cubick`'s).
+  float h1 = r, h2 = r, h3 = r;  // the iterates 1, 2 and 3 steps before r
   for (int it = 0; it < kCubicIters; ++it) {
     const float fx = ((r + b) * r + c) * r + d;
     const float fpx = nz((3.f * r + 2.f * b) * r + c);
-    r = r - fx / fpx;
+    const float next = r - fx / fpx;
+    const int nb = __float_as_int(next);
+    // period m from iterate it + 1 - m: the last iterate is the one (m - 1)
+    // - (kCubicIters - (it + 1 - m)) % m steps before r
+    int m = 0;
+    if (nb == __float_as_int(r)) m = 1;
+    else if (it >= 1 && nb == __float_as_int(h1)) m = 2;
+    else if (it >= 2 && nb == __float_as_int(h2)) m = 3;
+    else if (it >= 3 && nb == __float_as_int(h3)) m = 4;
+    if (m) {
+      const int back = (m - 1) - (kCubicIters - (it + 1 - m)) % m;
+      return back == 0 ? r : back == 1 ? h1 : back == 2 ? h2 : h3;
+    }
+    h3 = h2;
+    h2 = h1;
+    h1 = r;
+    r = next;
   }
   return r;
 }
@@ -122,22 +146,61 @@ __device__ __forceinline__ void eigvec(float e, float A00, float A02, float A11,
   out[2] = rnorm;
 }
 
-// P3P for rows y[3][3] (bearings) and x[3][3]: 4 candidate (R, t, ok).
-__device__ inline void p3p(const float y[3][3], const float x[3][3], float Rs[4][9],
-                           float ts[4][3], bool valid[4]) {
+// The squared reprojection error of the 4th point (xq, yq) under candidate
+// (R, t), or +inf where the candidate is not good: invalid, the point behind
+// the camera, R^T R off the identity by 1e-2 or more, or a non-finite error
+// (`p3p.p4p`'s disambiguation).
+__device__ __forceinline__ float fourth_point_err(const float R[9], const float t[3], bool valid,
+                                                  const float* xq, const float* yq) {
+  float xr[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    xr[i] = R[i * 3 + 0] * xq[0] + R[i * 3 + 1] * xq[1] + R[i * 3 + 2] * xq[2] + t[i];
+  const bool z_ok = xr[2] > 0.f;
+  const float iz = 1.f / nz(xr[2]);
+  const float du = xr[0] * iz - yq[0];
+  const float dv = xr[1] * iz - yq[1];
+  const float e = du * du + dv * dv;
+  float dev = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float rtr = R[0 * 3 + i] * R[0 * 3 + j] + R[1 * 3 + i] * R[1 * 3 + j] + R[2 * 3 + i] * R[2 * 3 + j];
+      dev = fmaxf(dev, fabsf(rtr - (i == j ? 1.f : 0.f)));
+    }
+  }
+  const bool good = valid && z_ok && (dev < 1e-2f) && isfinite(e);
+  return good ? e : INFINITY;
+}
+
+// What P3P's four candidates share (`p3p.p3p` up to the candidates): the
+// bearings, the squared distances and cosines, the root of the cubic, the
+// eigenvectors and v of the degenerate conic, and the inverse of the model
+// triangle's frame.
+struct P3pPrefix {
   float y1[3], y2[3], y3[3];
+  float a12, a13, a23, b12, b13, b23;
+  float v1[3], v2[3], v;
+  float Xinv[3][3];
+};
+
+// P3P's shared part for rows y[3][3] (bearings) and x[3][3].
+__device__ inline void p3p_prefix(const float y[3][3], const float x[3][3], P3pPrefix& P) {
   {
     const float n1 = sqrtf(dot3(y[0], y[0]));
     const float n2 = sqrtf(dot3(y[1], y[1]));
     const float n3 = sqrtf(dot3(y[2], y[2]));
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
-      y1[k] = y[0][k] / n1; y2[k] = y[1][k] / n2; y3[k] = y[2][k] / n3;
+      P.y1[k] = y[0][k] / n1; P.y2[k] = y[1][k] / n2; P.y3[k] = y[2][k] / n3;
     }
   }
-  const float b12 = -2.f * dot3(y1, y2);
-  const float b13 = -2.f * dot3(y1, y3);
-  const float b23 = -2.f * dot3(y2, y3);
+  const float b12 = -2.f * dot3(P.y1, P.y2);
+  const float b13 = -2.f * dot3(P.y1, P.y3);
+  const float b23 = -2.f * dot3(P.y2, P.y3);
   float d12[3], d13[3], d23[3], d12xd13[3];
+#pragma unroll
   for (int k = 0; k < 3; ++k) {
     d12[k] = x[0][k] - x[1][k];
     d13[k] = x[0][k] - x[2][k];
@@ -172,42 +235,14 @@ __device__ inline void p3p(const float y[3][3], const float x[3][3], float Rs[4]
   float e1, e2;
   bool eok;
   root2real(eb, ec, e1, e2, eok);
-  if (fabsf(e1) < fabsf(e2)) { const float t = e1; e1 = e2; e2 = t; }
+  if (fabsf(e1) < fabsf(e2)) { const float t_ = e1; e1 = e2; e2 = t_; }
   const float mx0011 = -A00 * A11;
   const float prec_0 = A01 * A12 - A02 * A11;
   const float prec_1 = A01 * A02 - A00 * A12;
-  float v1[3], v2[3];
-  eigvec(e1, A00, A02, A11, A12, mx0011, x01_sq, prec_0, prec_1, v1);
-  eigvec(e2, A00, A02, A11, A12, mx0011, x01_sq, prec_0, prec_1, v2);
+  eigvec(e1, A00, A02, A11, A12, mx0011, x01_sq, prec_0, prec_1, P.v1);
+  eigvec(e2, A00, A02, A11, A12, mx0011, x01_sq, prec_0, prec_1, P.v2);
   const float L0 = nz(e1);
-  const float v = sqrtf(clamp0(-e2 / L0));
-
-  // 4 lambda candidates: two signs of v, two quadratic roots each
-  float Ls[4][3];
-  bool oks[4];
-  for (int sgn = 0; sgn < 2; ++sgn) {
-    const float s = sgn == 0 ? v : -v;
-    const float w2 = 1.f / nz(s * v2[0] - v1[0]);
-    const float w0 = (v1[1] - s * v2[1]) * w2;
-    const float w1 = (v1[2] - s * v2[2]) * w2;
-    const float a = 1.f / nz((a13 - a12) * w1 * w1 - a12 * b13 * w1 - a12);
-    const float b = (a13 * b12 * w1 - a12 * b13 * w0 - 2.f * w0 * w1 * (a12 - a13)) * a;
-    const float c = ((a13 - a12) * w0 * w0 + a13 * b12 * w0 + a13) * a;
-    float tau[2];
-    bool real;
-    root2real(b, c, tau[0], tau[1], real);
-    for (int r = 0; r < 2; ++r) {
-      const bool tau_ok = tau[r] > 0.f;
-      const float ts_ = tau_ok ? tau[r] : 1.f;
-      const float d_ = a23 / (ts_ * (b23 + ts_) + 1.f);
-      const float l2 = sqrtf(clamp0(d_));
-      const float l3 = ts_ * l2;
-      const float l1 = w0 * l2 + w1 * l3;
-      const int q = sgn * 2 + r;
-      Ls[q][0] = l1; Ls[q][1] = l2; Ls[q][2] = l3;
-      oks[q] = real && tau_ok && (d_ > 0.f) && (l1 >= 0.f);
-    }
-  }
+  P.v = sqrtf(clamp0(-e2 / L0));
 
   // closed-form inverse of X = [d12 | d13 | d12xd13] (columns)
   const float Xr[3][3] = {{d12[0], d13[0], d12xd13[0]},
@@ -218,115 +253,158 @@ __device__ inline void p3p(const float y[3][3], const float x[3][3], float Rs[4]
   cross3(Xr[2], Xr[0], c1);
   cross3(Xr[0], Xr[1], c2);
   const float idet = 1.f / nz(dot3(Xr[0], c0));
-  float Xinv[3][3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
-    Xinv[i][0] = c0[i] * idet; Xinv[i][1] = c1[i] * idet; Xinv[i][2] = c2[i] * idet;
+    P.Xinv[i][0] = c0[i] * idet; P.Xinv[i][1] = c1[i] * idet; P.Xinv[i][2] = c2[i] * idet;
   }
-
-  for (int q = 0; q < 4; ++q) {
-    float l1 = Ls[q][0], l2 = Ls[q][1], l3 = Ls[q][2];
-    refine_L(l1, l2, l3, a12, a13, a23, b12, b13, b23);
-    float ry1[3], ry2[3], ry3[3], yd1[3], yd2[3], yd1xd2[3];
-    for (int k = 0; k < 3; ++k) {
-      ry1[k] = y1[k] * l1; ry2[k] = y2[k] * l2; ry3[k] = y3[k] * l3;
-      yd1[k] = ry1[k] - ry2[k]; yd2[k] = ry1[k] - ry3[k];
-    }
-    cross3(yd1, yd2, yd1xd2);
-    const float Yr[3][3] = {{yd1[0], yd2[0], yd1xd2[0]},
-                            {yd1[1], yd2[1], yd1xd2[1]},
-                            {yd1[2], yd2[2], yd1xd2[2]}};
-    float R[9], t[3];
-    bool finite = true;
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        R[i * 3 + j] = Yr[i][0] * Xinv[0][j] + Yr[i][1] * Xinv[1][j] + Yr[i][2] * Xinv[2][j];
-        finite = finite && isfinite(R[i * 3 + j]);
-      }
-    }
-    for (int i = 0; i < 3; ++i) {
-      t[i] = ry1[i] - (R[i * 3 + 0] * x[0][0] + R[i * 3 + 1] * x[0][1] + R[i * 3 + 2] * x[0][2]);
-      finite = finite && isfinite(t[i]);
-    }
-    const bool ok = oks[q] && finite;
-    for (int k = 0; k < 9; ++k) Rs[q][k] = ok ? R[k] : ((k % 4 == 0) ? 1.f : 0.f);
-    for (int k = 0; k < 3; ++k) ts[q][k] = ok ? t[k] : 0.f;
-    valid[q] = ok;
-  }
+  P.a12 = a12; P.a13 = a13; P.a23 = a23;
+  P.b12 = b12; P.b13 = b13; P.b23 = b23;
 }
 
-// One RANSAC hypothesis against the staged points sx [N, 3] (preconditioned),
-// sy [N, 2] and smk [N] (1 valid, 0 not): P3P on points id[0..2], the
-// candidate that best reprojects point id[3] (in front of the camera, a
-// rotation to 1e-2, a finite error), then the pose's inlier count (squared
-// normalized reprojection error under thr_sq, z > 0, valid). Writes R
-// (row-major 3x3) and t — identity and 0 where it failed — and ok; returns
-// the count, or -1 where it failed. An index outside [0, N) fails the
-// hypothesis rather than reading outside the staged points.
-__device__ inline int solve_hypothesis(const float* sx, const float* sy, const float* smk,
-                                       int N, const int id[4], float thr_sq, float R[9],
-                                       float t[3], bool& ok) {
-  if (min(min(id[0], id[1]), min(id[2], id[3])) < 0 ||
-      max(max(id[0], id[1]), max(id[2], id[3])) >= N) {
-    for (int k = 0; k < 9; ++k) R[k] = (k % 4 == 0) ? 1.f : 0.f;
-    for (int k = 0; k < 3; ++k) t[k] = 0.f;
-    ok = false;
-    return -1;
+// P3P candidate q = 2 sgn + r (`p3p.p3p`'s order: the sign of v, then the
+// quadratic's root): its lambdas, refined, and the pose they give (R
+// row-major, t). Returns the 4th point's error under it (`fourth_point_err`:
+// +inf where the candidate is not good).
+__device__ inline float p3p_candidate(const P3pPrefix& P, const float x0[3], int sgn, int r,
+                                      const float* xq, const float* yq, float R[9],
+                                      float t[3]) {
+  const float a12 = P.a12, a13 = P.a13, a23 = P.a23;
+  const float b12 = P.b12, b13 = P.b13, b23 = P.b23;
+  const float s = sgn == 0 ? P.v : -P.v;
+  const float w2 = 1.f / nz(s * P.v2[0] - P.v1[0]);
+  const float w0 = (P.v1[1] - s * P.v2[1]) * w2;
+  const float w1 = (P.v1[2] - s * P.v2[2]) * w2;
+  const float a = 1.f / nz((a13 - a12) * w1 * w1 - a12 * b13 * w1 - a12);
+  const float b = (a13 * b12 * w1 - a12 * b13 * w0 - 2.f * w0 * w1 * (a12 - a13)) * a;
+  const float c = ((a13 - a12) * w0 * w0 + a13 * b12 * w0 + a13) * a;
+  float tau0, tau1;
+  bool real;
+  root2real(b, c, tau0, tau1, real);
+  const float tau = r == 0 ? tau0 : tau1;
+  const bool tau_ok = tau > 0.f;
+  const float ts_ = tau_ok ? tau : 1.f;
+  const float d_ = a23 / (ts_ * (b23 + ts_) + 1.f);
+  float l2 = sqrtf(clamp0(d_));
+  float l3 = ts_ * l2;
+  float l1 = w0 * l2 + w1 * l3;
+  const bool ok_l = real && tau_ok && (d_ > 0.f) && (l1 >= 0.f);
+  refine_L(l1, l2, l3, a12, a13, a23, b12, b13, b23);
+  float ry1[3], ry2[3], ry3[3], yd1[3], yd2[3], yd1xd2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ry1[k] = P.y1[k] * l1; ry2[k] = P.y2[k] * l2; ry3[k] = P.y3[k] * l3;
+    yd1[k] = ry1[k] - ry2[k]; yd2[k] = ry1[k] - ry3[k];
   }
-  float yb[3][3], xb[3][3];
-  for (int r = 0; r < 3; ++r) {
-    yb[r][0] = sy[id[r] * 2 + 0];
-    yb[r][1] = sy[id[r] * 2 + 1];
-    yb[r][2] = 1.f;
-    for (int k = 0; k < 3; ++k) xb[r][k] = sx[id[r] * 3 + k];
-  }
-  float Rs[4][9], ts[4][3];
-  bool valid[4];
-  p3p(yb, xb, Rs, ts, valid);
-
-  // disambiguate by the 4th point
-  const float* xq = sx + id[3] * 3;
-  const float* yq = sy + id[3] * 2;
-  int best = 0;
-  float best_err = INFINITY;
-  for (int q = 0; q < 4; ++q) {
-    const float* Rq = Rs[q];
-    float xr[3];
-    for (int i = 0; i < 3; ++i)
-      xr[i] = Rq[i * 3 + 0] * xq[0] + Rq[i * 3 + 1] * xq[1] + Rq[i * 3 + 2] * xq[2] + ts[q][i];
-    const bool z_ok = xr[2] > 0.f;
-    const float iz = 1.f / nz(xr[2]);
-    const float du = xr[0] * iz - yq[0];
-    const float dv = xr[1] * iz - yq[1];
-    const float e = du * du + dv * dv;
-    float dev = 0.f;
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) {
-        const float rtr = Rq[0 * 3 + i] * Rq[0 * 3 + j] + Rq[1 * 3 + i] * Rq[1 * 3 + j] + Rq[2 * 3 + i] * Rq[2 * 3 + j];
-        dev = fmaxf(dev, fabsf(rtr - (i == j ? 1.f : 0.f)));
-      }
+  cross3(yd1, yd2, yd1xd2);
+  const float Yr[3][3] = {{yd1[0], yd2[0], yd1xd2[0]},
+                          {yd1[1], yd2[1], yd1xd2[1]},
+                          {yd1[2], yd2[2], yd1xd2[2]}};
+  bool finite = true;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      R[i * 3 + j] = Yr[i][0] * P.Xinv[0][j] + Yr[i][1] * P.Xinv[1][j] + Yr[i][2] * P.Xinv[2][j];
+      finite = finite && isfinite(R[i * 3 + j]);
     }
-    const bool good = valid[q] && z_ok && (dev < 1e-2f) && isfinite(e);
-    const float err = good ? e : INFINITY;
-    if (err < best_err) { best_err = err; best = q; }
   }
-  ok = isfinite(best_err);
-  for (int k = 0; k < 9; ++k) R[k] = ok ? Rs[best][k] : ((k % 4 == 0) ? 1.f : 0.f);
-  for (int k = 0; k < 3; ++k) t[k] = ok ? ts[best][k] : 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    t[i] = ry1[i] - (R[i * 3 + 0] * x0[0] + R[i * 3 + 1] * x0[1] + R[i * 3 + 2] * x0[2]);
+    finite = finite && isfinite(t[i]);
+  }
+  return fourth_point_err(R, t, ok_l && finite, xq, yq);
+}
 
-  // inliers: squared normalized reprojection error under thr, z > 0
-  int cnt = 0;
-  for (int n = 0; n < N; ++n) {
-    const float* xn = sx + n * 3;
-    const float px = xn[0] * R[0] + xn[1] * R[1] + xn[2] * R[2] + t[0];
-    const float py = xn[0] * R[3] + xn[1] * R[4] + xn[2] * R[5] + t[1];
-    const float pz = xn[0] * R[6] + xn[1] * R[7] + xn[2] * R[8] + t[2];
-    const float iz = 1.f / nz(pz);
-    const float du = px * iz - sy[n * 2 + 0];
-    const float dv = py * iz - sy[n * 2 + 1];
-    const float err = pz > 0.f ? du * du + dv * dv : INFINITY;
-    cnt += (err < thr_sq && smk[n] != 0.f) ? 1 : 0;
+// P4P: P3P for rows y[3][3] (bearings) and x[3][3], its 4 candidates
+// disambiguated by the 4th point (xq, yq), each scored as soon as it is
+// solved; a strictly smaller error replaces the best (the first minimum, as
+// torch.argmin). Unrolled, with every array indexed by constants: nothing
+// lives in local memory. Writes the best (R, t) — identity and 0 where none
+// is good — and returns whether one is.
+__device__ inline bool p4p(const float y[3][3], const float x[3][3], const float* xq,
+                           const float* yq, float R[9], float t[3]) {
+  P3pPrefix P;
+  p3p_prefix(y, x, P);
+  float best_err = INFINITY;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) R[k] = (k % 4 == 0) ? 1.f : 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    float Rq[9], tq[3];
+    const float err = p3p_candidate(P, x[0], q >> 1, q & 1, xq, yq, Rq, tq);
+    if (err < best_err) {
+      best_err = err;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) R[k] = Rq[k];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) t[k] = tq[k];
+    }
   }
-  return ok ? cnt : -1;
+  return isfinite(best_err);
+}
+
+// The rows of hypothesis id[0..3] from the staged points sx [N, 3] and sy
+// [N, 2]: bearings y (z = 1) and model points x of points id[0..2]; false
+// (and nothing read) where an index lies outside [0, N).
+__device__ __forceinline__ bool gather_rows(const float* sx, const float* sy, int N,
+                                            const int id[4], float y[3][3], float x[3][3]) {
+  if (min(min(id[0], id[1]), min(id[2], id[3])) < 0 ||
+      max(max(id[0], id[1]), max(id[2], id[3])) >= N)
+    return false;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    y[r][0] = sy[id[r] * 2 + 0];
+    y[r][1] = sy[id[r] * 2 + 1];
+    y[r][2] = 1.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) x[r][k] = sx[id[r] * 3 + k];
+  }
+  return true;
+}
+
+// P3P's pose for one RANSAC hypothesis against the staged points sx [N, 3]
+// (preconditioned) and sy [N, 2]: `p4p` on points id[0..3]. Writes R
+// (row-major 3x3) and t — identity and 0 where it failed — and returns ok.
+// An index outside [0, N) fails the hypothesis rather than reading outside
+// the staged points.
+__device__ inline bool solve_pose(const float* sx, const float* sy, int N, const int id[4],
+                                  float R[9], float t[3]) {
+  float yb[3][3], xb[3][3];
+  if (!gather_rows(sx, sy, N, id, yb, xb)) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R[k] = (k % 4 == 0) ? 1.f : 0.f;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t[k] = 0.f;
+    return false;
+  }
+  return p4p(yb, xb, sx + id[3] * 3, sy + id[3] * 2, R, t);
+}
+
+// Whether staged point n is an inlier of pose (R, t): its squared
+// normalized reprojection error under thr_sq, z > 0, valid (smk[n] != 0).
+__device__ __forceinline__ bool is_inlier(const float* sx, const float* sy, const float* smk,
+                                          int n, const float R[9], const float t[3],
+                                          float thr_sq) {
+  const float* xn = sx + n * 3;
+  const float px = xn[0] * R[0] + xn[1] * R[1] + xn[2] * R[2] + t[0];
+  const float py = xn[0] * R[3] + xn[1] * R[4] + xn[2] * R[5] + t[1];
+  const float pz = xn[0] * R[6] + xn[1] * R[7] + xn[2] * R[8] + t[2];
+  const float iz = 1.f / nz(pz);
+  const float du = px * iz - sy[n * 2 + 0];
+  const float dv = py * iz - sy[n * 2 + 1];
+  const float err = pz > 0.f ? du * du + dv * dv : INFINITY;
+  return err < thr_sq && smk[n] != 0.f;
+}
+
+// The inlier count of pose (R, t) over all N staged points, one after another.
+__device__ inline int count_inliers(const float* sx, const float* sy, const float* smk, int N,
+                                    const float R[9], const float t[3], float thr_sq) {
+  int cnt = 0;
+  for (int n = 0; n < N; ++n) cnt += is_inlier(sx, sy, smk, n, R, t, thr_sq) ? 1 : 0;
+  return cnt;
 }
 
 }  // namespace suo_pnp

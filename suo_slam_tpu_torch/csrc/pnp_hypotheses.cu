@@ -7,10 +7,11 @@
 // programs; here one thread owns one (object, hypothesis) and runs the
 // solver as scalar code in registers, mirroring `solvers/p3p.py` operation
 // by operation (same Newton trip counts, same guards, same failure contract:
-// identity pose and ok = 0). The solver and the count are one hypothesis of
-// `pnp_common.cuh`, which K15 (`pnp_ransac.cu`, the whole of
-// `pnp_ransac_batch` in one launch) shares; since K15 took the main path, K3
-// stays as the `pnp_hypotheses` entry point beside its plain version.
+// identity pose and ok = 0). The solver and the count are the two halves of
+// a hypothesis in `pnp_common.cuh` (`solve_pose`, `count_inliers`), which
+// K15 (`pnp_ransac.cu`, the whole of `pnp_ransac_batch` in one launch)
+// shares; since K15 took the main path, K3 stays as the `pnp_hypotheses`
+// entry point beside its plain version.
 //
 // Bound on this card: latency. At the main path's shapes (O = 8 objects,
 // n_hyp = 64, N = 41 points) the whole input is 8 x 41 x 24 B = 8 KB and the
@@ -47,8 +48,8 @@ __global__ void pnp_hypotheses_kernel(const float* __restrict__ xp,
     const int* ip = idx + ((long long)o * H + h) * 4;
     const int id[4] = {ip[0], ip[1], ip[2], ip[3]};
     float R[9], t[3];
-    bool ok;
-    const int cnt = suo_pnp::solve_hypothesis(sx, sy, smk, N, id, thr_sq, R, t, ok);
+    const bool ok = suo_pnp::solve_pose(sx, sy, N, id, R, t);
+    const int cnt = ok ? suo_pnp::count_inliers(sx, sy, smk, N, R, t, thr_sq) : -1;
     float* To = T_out + ((long long)o * H + h) * 16;
     for (int i = 0; i < 3; ++i) {
       for (int j = 0; j < 3; ++j) To[i * 4 + j] = R[i * 3 + j];

@@ -16,9 +16,12 @@ operations, as PyTorch's separate elementwise kernels compute it in the plain
 versions, so a kernel and its plain version agree to the last bits where
 they run the same arithmetic in the same order.
 
-Every C entry point returns `cudaGetLastError()` after its launch; `check`
-raises on a non-zero code. Pointers cross as `ctypes.c_void_p` and the
-stream as `torch.cuda.current_stream().cuda_stream`.
+Libraries load as `ctypes.PyDLL`: an entry point only enqueues work, so the
+call keeps the GIL rather than releasing and retaking it. Every C entry
+point returns `cudaGetLastError()` after its launch; `check`
+raises on a non-zero code. Pointers and the stream cross as plain ints
+(`ptr`, `stream`) through `ctypes.c_void_p` argtypes, which every entry point
+declares (`entry`): ctypes passes them as full 64-bit pointers.
 """
 
 from __future__ import annotations
@@ -39,8 +42,8 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
-_entries: dict[str, object] = {}
+_libs: dict[str, ctypes.PyDLL] = {}
+_entries: dict[tuple, object] = {}
 build_log: dict[str, str] = {}  # source stem -> nvcc's output (ptxas -v)
 
 
@@ -102,7 +105,9 @@ def build_all() -> float:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         for src in _sources():
             if src.stem not in _libs:
-                _libs[src.stem] = ctypes.CDLL(str(BUILD_DIR / f"lib{src.stem}.so"))
+                # PyDLL: the call keeps the GIL (an entry point only enqueues a
+                # launch), which saves its release and reacquisition per call
+                _libs[src.stem] = ctypes.PyDLL(str(BUILD_DIR / f"lib{src.stem}.so"))
         return time.perf_counter() - t0
 
 
@@ -110,15 +115,14 @@ def entry(stem: str, argtypes: list, symbol: str | None = None):
     """The C entry point `symbol` (default `suo_<stem>`) of `csrc/<stem>.cu`
     (building every kernel on first use), typed once with `argtypes` and an
     int (cudaError_t) return."""
-    symbol = symbol or f"suo_{stem}"
-    fn = _entries.get(symbol)
+    fn = _entries.get((stem, symbol))  # the per-call path: one dict lookup
     if fn is None:
         if stem not in _libs:
             build_all()
-        fn = getattr(_libs[stem], symbol)
+        fn = getattr(_libs[stem], symbol or f"suo_{stem}")
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        _entries[symbol] = fn
+        _entries[(stem, symbol)] = fn
     return fn
 
 
@@ -131,11 +135,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err} on {name}")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """A tensor's device address as a plain int, for a `ctypes.c_void_p`
+    argtype: ctypes converts it to a full 64-bit pointer (an entry point
+    without argtypes would raise on it rather than cut it)."""
+    return t.data_ptr()
 
 
-def stream() -> ctypes.c_void_p:
+def stream(device: int | None = None) -> int:
+    """PyTorch's current CUDA stream on `device` (an index; default the
+    current device), as a plain int for a `ctypes.c_void_p` argtype: the raw
+    stream query, no Stream object per call."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if device is None:
+        device = torch._C._cuda_getDevice()
+    return torch._C._cuda_getCurrentRawStream(device)

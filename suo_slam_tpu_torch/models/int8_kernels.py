@@ -331,8 +331,7 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                      add: torch.Tensor | None = None, c_out: int | None = None,
                      f32_ops: bool = False):
     name = "K12 int8_quant"
-    null = ctypes.c_void_p(None)
-    p_s1 = p_x2 = p_s2 = p_add = p_addv = null
+    p_s1 = p_x2 = p_s2 = p_add = p_addv = None  # a null pointer where unused
     if isinstance(x, Deq):
         xq = x.q
         _check(name, xq.dtype == torch.int8 and xq.is_contiguous(),
@@ -362,7 +361,7 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
         _check(name, xq.dtype in _QUANT_DTYPES and xq.is_contiguous() and xq.dim() >= 1,
                f"expected a contiguous f32, bf16 or s8 tensor, got {xq.dtype}")
         _check(name, div is None or xq.dtype != torch.int8, "s8 codes take no raw output")
-    _check(name, not f32_ops or (p_s1.value is None and xq.dtype != torch.int8),
+    _check(name, not f32_ops or (p_s1 is None and xq.dtype != torch.int8),
            "f32_ops takes an f32 or bf16 input, no prologue")
     dev = xq.device
     _check(name, div is not None or m is not None, "no output requested")
@@ -371,7 +370,7 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
     _check(name, 0 < C <= QUANT_MAX_C and c_out >= C, f"C = {C}, c_out = {c_out}")
     shape = tuple(xq.shape[:-1]) + (c_out,)
     raw = norm = None
-    p_div = p_m = p_c = p_raw = p_norm = null
+    p_div = p_m = p_c = p_raw = p_norm = None
     if div is not None:
         raw = torch.empty(shape, dtype=torch.int8, device=dev)
         div = _vec(name, div, C, dev)

@@ -25,6 +25,7 @@ non-finite solve).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -277,15 +278,64 @@ def pnp_ransac_batch_plain(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD
                      num_inliers=torch.where(success, num, 0), success=success)
 
 
-_K15_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int]
-                 + [ctypes.c_void_p] * 5)
-K15_MAX_POINTS = 2048  # 24 B of shared memory per staged point; 64 bits of round weights per lane
+K15_MAX_POINTS = 2048  # 36 B of shared memory per staged point; 64 bits of round weights per lane
+# K15's phases, in the order of its `cycles` rows (`csrc/pnp_ransac.cu` `Phase`)
+PNP_PHASES = ("stage", "p3p_prefix", "p3p", "counts", "argmax", "gn_sums", "gn_solve", "accept",
+              "final")
+K15_THREADS = 256         # kThreads
+K15_POSE_FLOATS = 12      # kPoseFloats: R and t of a hypothesis in shared memory
+K15_P3P_LANES = 4         # at most a lane per P3P candidate (kept per hypothesis for its count)
+K15_STATIC_SMEM = 4 * (5 + 2 * 2 * 32 + 2 * 32 * 33 + 2)  # s_cs, s_red, s_part, s_cnt3
+SMEM_PER_BLOCK = 232448   # an H100 block's shared memory
+
+
+class RansacPlan(NamedTuple):
+    """K15's launch geometry (`csrc/pnp_ransac.cu` `pnp_ransac_kernel`, one
+    block of `threads` per object): a group of `lanes` lanes per hypothesis,
+    threads / lanes hypotheses a round over `rounds` rounds (h = round *
+    threads / lanes + thread / lanes). Lane q0 of a group solves P3P's
+    candidates q0, q0 + lanes, ..., then counts the hypothesis's inliers
+    over points n = q0 + lanes * k. `shared_bytes`: the dynamic shared
+    memory (points preconditioned and as given, poses, counts)."""
+    threads: int
+    lanes: int
+    rounds: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def plan_ransac(n_hyp: int, N: int) -> RansacPlan:
+    """K15's plan for n_hyp hypotheses over N points: as many lanes per
+    hypothesis (at most one per P3P candidate) as one round over every
+    hypothesis allows. Raises on what it cannot take."""
+    if n_hyp < 1 or N < 0:
+        raise ValueError(f"K15 needs a hypothesis and N >= 0, got n_hyp {n_hyp}, N {N}")
+    if N > K15_MAX_POINTS:
+        raise ValueError(f"K15 stages at most {K15_MAX_POINTS} points, got {N}")
+    lanes = K15_P3P_LANES
+    while lanes > 1 and n_hyp * lanes > K15_THREADS:
+        lanes //= 2
+    shared = 4 * (9 * N + (K15_POSE_FLOATS + 1) * n_hyp)
+    if shared + K15_STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f"K15 holds at most {SMEM_PER_BLOCK} bytes of shared memory a block: "
+                         f"{n_hyp} hypotheses over {N} points need {shared + K15_STATIC_SMEM}")
+    return RansacPlan(K15_THREADS, lanes, -(-n_hyp // (K15_THREADS // lanes)), shared)
+
+
+_K15_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+_K15_SERIAL_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                        + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6)
 
 
 def _pnp_ransac_cuda(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
-                     refine: bool = True) -> PnpResult:
-    """K15: `pnp_ransac_batch` in one launch (f32, N <= K15_MAX_POINTS).
-    Raises on what the kernel does not take; never falls back."""
+                     refine: bool = True, cycles: torch.Tensor | None = None,
+                     serial: bool = False) -> PnpResult:
+    """K15: `pnp_ransac_batch` in one launch (f32, N <= K15_MAX_POINTS), on
+    `plan_ransac`'s geometry. With `cycles` (int64 [O, len(PNP_PHASES)] on
+    the card) each block adds its SM clock cycles per phase there; `serial`
+    launches the earlier design (`pnp_ransac_serial_kernel`), kept for
+    comparison. Raises on what the kernel does not take; never falls back."""
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError(f"K15 runs in f32, got {x.dtype} / {y.dtype}")
     O, N = mask.shape
@@ -294,8 +344,7 @@ def _pnp_ransac_cuda(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
             or min(O, H) < 1):
         raise ValueError(f"K15 shapes: x {tuple(x.shape)} y {tuple(y.shape)} "
                          f"mask {tuple(mask.shape)} idx {tuple(idx.shape)}")
-    if N > K15_MAX_POINTS:
-        raise ValueError(f"K15 stages at most {K15_MAX_POINTS} points, got {N}")
+    plan = plan_ransac(H, N)
     dev = x.device
     if dev.type != "cuda" or any(a.device != dev for a in (y, mask, idx)):
         raise ValueError("K15 inputs must lie on one CUDA device")
@@ -307,10 +356,19 @@ def _pnp_ransac_cuda(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
     inliers = torch.empty((O, N), dtype=torch.bool, device=dev)
     num = torch.empty((O,), dtype=torch.int64, device=dev)
     success = torch.empty((O,), dtype=torch.bool, device=dev)
-    fn = _build.entry("pnp_ransac", _K15_ARGTYPES)
-    err = fn(_build.ptr(xc), _build.ptr(yc), _build.ptr(mk), _build.ptr(ix), O, N, H,
-             float(threshold) ** 2, int(bool(refine)), _build.ptr(T), _build.ptr(inliers),
-             _build.ptr(num), _build.ptr(success), _build.stream())
+    if cycles is not None and (cycles.shape != (O, len(PNP_PHASES)) or cycles.dtype != torch.int64
+                               or cycles.device != dev):
+        raise ValueError(f"K15 cycles: int64 [{O}, {len(PNP_PHASES)}] on {dev}")
+    p = _build.ptr
+    ins = (p(xc), p(yc), p(mk), p(ix), O, N, H, float(threshold) ** 2, int(bool(refine)))
+    outs = (p(T), p(inliers), p(num), p(success), None if cycles is None else p(cycles),
+            _build.stream())
+    if serial:
+        fn = _build.entry("pnp_ransac", _K15_SERIAL_ARGTYPES, "suo_pnp_ransac_serial")
+        err = fn(*ins, *outs)
+    else:
+        fn = _build.entry("pnp_ransac", _K15_ARGTYPES)
+        err = fn(*ins, plan.lanes.bit_length() - 1, plan.shared_bytes, *outs)
     _build.check(err, "K15 pnp_ransac")
     kernels.count("pnp_ransac")
     return PnpResult(T=T, inliers=inliers, num_inliers=num, success=success)

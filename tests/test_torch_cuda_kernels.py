@@ -42,6 +42,68 @@ def test_k1_roi_crop(dev):
     assert not k[1, 1].any()
 
 
+@pytest.mark.parametrize("ow", [255, 256, 257])
+@pytest.mark.parametrize("C", [1, 3, 4])
+def test_k1_roi_crop_ragged_shapes(dev, ow, C):
+    """K1 on every path its plan allows, against its plain version within
+    1e-5 (the same two f32 taps) and bit-equal across paths, at ragged widths
+    and channel counts, with masked slots, boxes off the image, NaN / +-inf
+    coordinates and misaligned boxes. The plain version runs on the CPU
+    here: on the card PyTorch divides by the Python scalar `ow` through its
+    reciprocal, which moves a bin centre by an ulp (1e-5 px at 150 px) away
+    from the true division that K1, JAX and the CPU compute."""
+    from suo_slam_tpu_torch.ops import roi
+
+    rng = np.random.default_rng(ow * 10 + C)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 120, 160, C)).astype(np.float32)).to(dev)
+    inf, nan = float("inf"), float("nan")
+    boxes = torch.tensor([[[4.0, 6.0, 150.5, 100.25], [-30.0, -12.0, 20.0, 15.0],
+                           [nan, 3.0, 20.0, 30.0], [140.0, 100.0, 400.0, 300.0]],
+                          [[0.0, -inf, inf, 40.0], [10.0, 10.0, 10.0, 10.0],
+                           [33.0, 5.0, 12.0, 40.0], [-inf, nan, 1e30, -1e30]]], device=dev)
+    mask = torch.tensor([[True, True, True, False], [True, False, True, True]], device=dev)
+    p = roi.roi_crop_batch_plain(img.cpu(), boxes.cpu(), mask.cpu(), (37, ow)).to(dev)
+    paths = (roi.GENERIC, roi.STRIP) if C == 3 and ow % 4 == 0 else (roi.GENERIC,)
+    outs = [roi._roi_crop_cuda(img, boxes, mask, (37, ow), path=q) for q in paths]
+    assert (roi.roi_crop_batch(img, boxes, mask, (37, ow)) - p).abs().max().item() <= 1e-5
+    # boxes 4 bytes off a 16-byte boundary (the vector paths read a box as
+    # one 16-byte load: the wrapper realigns them)
+    odd = torch.empty(1 + boxes.numel(), device=dev)[1:].view(boxes.shape).copy_(boxes)
+    assert odd.data_ptr() % 16 == 4
+    outs.append(roi._roi_crop_cuda(img, odd, mask, (37, ow)))
+    for k in outs:
+        assert (k - p).abs().max().item() <= 1e-5
+        assert torch.equal(k, outs[0])
+        assert not k[0, 3].any() and not k[1, 1].any()
+
+
+def test_k1_one_launch_per_call(dev):
+    """The K1 wrapper makes exactly one kernel launch per call (no copy of
+    the mask or the boxes), by torch.profiler's kernel count, on the main
+    path's shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from suo_slam_tpu_torch.ops import roi
+
+    img = torch.rand(1, 480, 640, 3, device=dev)
+    boxes = torch.tensor([[[100.0 + 40 * o, 80.0, 260.0 + 40 * o, 240.0] for o in range(8)]],
+                         device=dev)
+    mask = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    roi.roi_crop_batch(img, boxes, mask)
+    torch.cuda.synchronize()
+    for attempt in range(3):  # the tracer now and then loses a short session
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                roi.roi_crop_batch(img, boxes, mask)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if kern:
+            break
+    assert sum(e.count for e in kern) == 5
+    assert all("roi_crop" in e.key for e in kern)
+
+
 def test_k2_heatmap_readout(dev):
     from suo_slam_tpu_torch.ops import heatmap as hm
 
@@ -485,6 +547,30 @@ def test_k15_pnp_ransac(dev):
         pnp.pnp_ransac_batch(torch.zeros(1, big, 3, device=dev), torch.zeros(1, big, 2, device=dev),
                              torch.ones(1, big, dtype=torch.bool, device=dev), idx[:1])
     assert kernels.counts()["pnp_ransac"] == 2
+
+
+@pytest.mark.parametrize("n_hyp", [1, 31, 64, 65, 128])
+@pytest.mark.parametrize("N", [4, 8, 41, 2048])
+def test_k15_pnp_ransac_shapes(dev, n_hyp, N):
+    """K15 at ragged hypothesis and point counts (an object with fewer than
+    4 valid points and one whose points coincide among them): without
+    refinement the chosen hypothesis (its rotation, copied verbatim), the
+    inliers and their counts equal the plain version's exactly; with it,
+    `k15_gate`'s outcome holds. The earlier serial design agrees too."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch.solvers import pnp
+
+    rng = np.random.default_rng(n_hyp * 7 + N)
+    x, y, mask, idx = cs.pnp_inputs(dev, rng, O=6, N=N, n_hyp=n_hyp)
+    assert int(mask[4].sum()) < 4
+    for serial in (False, True):
+        rk = pnp._pnp_ransac_cuda(x, y, mask, idx, refine=False, serial=serial)
+        rp = pnp.pnp_ransac_batch_plain(x, y, mask, idx, refine=False)
+        assert torch.equal(rk.success, rp.success)
+        assert torch.equal(rk.inliers, rp.inliers)
+        assert torch.equal(rk.num_inliers, rp.num_inliers)
+        assert torch.equal(rk.T[:, :3, :3], rp.T[:, :3, :3])
+    cs.k15_gate(f"K15 n_hyp={n_hyp} N={N}", x, y, mask, idx)
 
 
 def test_kernels_refuse_autograd(dev):

@@ -215,22 +215,28 @@ def _functions(src):
 def test_k3_and_k15_share_one_hypothesis_body():
     """K3 and K15 compile the same P3P / P4P / count code: the device
     functions live in `pnp_common.cuh` alone, K3 and K15 include it and call
-    its `solve_hypothesis`; `exp_compose` lives in `ba_common.cuh` alone,
-    shared by K14 and K15; the trip counts and constants mirror Python's."""
+    its parts of a hypothesis (K3 `solve_pose` and `count_inliers`; K15 the
+    candidates one by one and the per-point `is_inlier`); `exp_compose`
+    lives in `ba_common.cuh` alone, shared by K14 and K15 (K15 in its fused
+    form); the trip counts and constants mirror Python's."""
     common = (CSRC / "pnp_common.cuh").read_text()
     k3 = (CSRC / "pnp_hypotheses.cu").read_text()
     k15 = (CSRC / "pnp_ransac.cu").read_text()
     ba_common = (CSRC / "ba_common.cuh").read_text()
     k14 = (CSRC / "ba_lm.cu").read_text()
     shared = {"nz", "clamp0", "dot3", "cross3", "root2real", "cubick", "residuals",
-              "refine_L", "eigvec", "p3p", "solve_hypothesis"}
+              "refine_L", "eigvec", "fourth_point_err", "p3p_prefix", "p3p_candidate", "p4p",
+              "gather_rows", "solve_pose", "is_inlier", "count_inliers"}
     assert shared <= _functions(common)
     assert not shared & (_functions(k3) | _functions(k15))
-    for src in (k3, k15):
-        assert '#include "pnp_common.cuh"' in src and "suo_pnp::solve_hypothesis(" in src
+    assert '#include "pnp_common.cuh"' in k3 and '#include "pnp_common.cuh"' in k15
+    assert "suo_pnp::solve_pose(" in k3 and "suo_pnp::count_inliers(" in k3
+    # K15's current design splits P3P's candidates over lanes; its serial design calls p4p
+    for call in ("gather_rows(", "p3p_prefix(", "p3p_candidate(", "is_inlier(", "solve_pose("):
+        assert f"suo_pnp::{call}" in k15
     assert "exp_compose" in _functions(ba_common)
     assert "exp_compose" not in _functions(k14) | _functions(k15)
-    assert '#include "ba_common.cuh"' in k15 and "suo_ba::exp_compose(" in k15
+    assert '#include "ba_common.cuh"' in k15 and "suo_ba::exp_compose<true>(" in k15
     consts = dict(re.findall(r"constexpr (?:int|float) (k\w+) = ([\w.\-+]+?)f?;", common + k15))
     assert int(consts["kCubicIters"]) == tp3p.CUBIC_ITERS
     assert int(consts["kRefineIters"]) == tp3p.REFINE_ITERS
