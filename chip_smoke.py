@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: the single-view frame, SLAM
-mode, the evaluation entry point, int8 serving, training, and the quantized
-and GroupNorm networks of SUO-SLAM on one NVIDIA GPU, through the entry
-points a user calls.
+mode, the evaluation entry point, int8 serving, training, the quantized
+and GroupNorm networks and the throughput evaluation modes of SUO-SLAM on
+one NVIDIA GPU, through the entry points a user calls.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,11 @@ Phases (any failure raises and exits non-zero):
      wrapper`, beside the bare ctypes call); K15's SM cycles by phase for
      the current and the serial design at the front end's and the backup
      pose's shapes, both designs' device times; ptxas's registers and stack
-     frame of K1's, K3's and K15's kernels; K8's wrapper call at a
+     frame of K1's, K3's and K15's kernels; K22 (the PnP sampler's top-4)
+     equal to its plain version on the same CUDA draws at the front end's
+     [8, 64, 41] (a row with 2 valid points) and the backup pose's
+     [1, 128, 328], beside `torch.topk` on the masked draws and the
+     sampler's whole call (`torch.rand` + K22); K8's wrapper call at a
      SLAM-frame shape (`[host] K8 wrapper`); each beside the earlier
      designs' times (`EARLIER_US`); then the full-width net in bf16 against
      the same net in f32 on the card (uv within the bf16 error the CPU shows
@@ -40,8 +44,9 @@ Phases (any failure raises and exits non-zero):
      statistics) in `ObjectSlam(single_view_mode=True)` over synthetic
      480x640 views with 8 objects each, `reset()` before every view as
      `evaluate.py --nviews 1` does: per-view latency and per-stage times;
-     the launch counters of K1, K2, K14 and K15 must rise (K15 exactly once
-     per view: one per `pnp_ransac_batch` call), K3's, K4's and K7's stay 0;
+     the launch counters of K1, K2, K14, K15 and K22 must rise (K15 and K22
+     exactly once per view: one per `pnp_ransac_batch` call, and no plain
+     sampler on the card), K3's, K4's and K7's stay 0;
      the stage times split the front end into its sampler,
      `pnp_ransac_batch` and the rest;
      the prior-free network path is
@@ -143,8 +148,23 @@ Phases (any failure raises and exits non-zero):
      suo_slam_tpu_torch.train --norm group` in process, 1 epoch x 4 steps + 2
      validation batches at phase 9's defaults, its exact launches and no plain
      version on a CUDA tensor; its checkpoint through `Evaluator(nviews=1)`;
- 11. the kernels JSON line (K1-K7's, K14's and K15's launches from the SLAM
-     path, K8-K10's from the evaluation phase, K11-K13's from the int8
+ 11. throughput evaluation: a BOP tree of 4 scenes x 16 views x 8 objects
+     (480x640, the full-width net), every network call wrapped by
+     `GtGuided` (ground-truth keypoints + 0.02 x the net's uv: the net runs
+     and moves the poses, PnP succeeds); the 128-crop batched call (16 views
+     x 8 objects) against the per-frame call on each view's crops (int8: equal
+     uv on every crop; bf16 within the bf16 net's gap to f32 on the same
+     crops), its ms and crops/s in bf16, int8 and f32; then `Evaluator`
+     legs, each with its launches, ms per view and multi-frame call shapes,
+     every sampler call through K22: `--nviews 1` sequential and `--batched`
+     (4 calls of 128 crops) in bf16 (AUC within 1 point, the same CSV rows)
+     and int8 on phase 8's sidecar (CSV equal byte for byte); `--nviews -1`
+     sequential and `--pipeline_scenes 4` (rounds of 4 x 8 crops, with
+     priors and K5) in int8 (CSV equal) and bf16 (AUC of ADD(-S) > 80 and
+     100% camera poses, all four SLAM legs); SfM `--nviews 2` sequential and
+     `--pipeline_scenes 3` in int8 (CSV equal);
+ 12. the kernels JSON line (K1-K7's, K14's, K15's and K22's launches from the
+     SLAM path, K8-K10's from the evaluation phase, K11-K13's from the int8
      phase's evaluation and SLAM runs, K16-K19's from the training CLI, K11 /
      K12's f32 modes from phase 10's 8-crop f32 forward, K20 / K21's from its
      training CLI), the nvidia-smi line, and the last line {"ok": true,
@@ -181,7 +201,7 @@ NK = 41
 # shape and per launch in the frame; the targets beside them
 EARLIER_US = {"K1 call": 30.70, "K1 frame": 6.464, "K15 phase 3": 54.167, "K15 frame": 67.402}
 TARGET_US = {"K1 device": 5.18, "K15 phase 3": 35.0, "K15 frame": 40.0}
-SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm")
+SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm", "pnp_sample")
 # K3, K4, K7: checked in phase 3, off the main path (K15 and K14 replaced them)
 OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur")
 EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
@@ -1235,6 +1255,87 @@ def check_k15(dev, rng):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
 
 
+def k22_inputs(dev, rng, O, H, N, p_valid=0.8):
+    """K22's inputs at a main-path shape: the sampler's uniform draws
+    u [O, H, N] (`torch.rand` on the card) and a mask of p_valid valid
+    points; with O > 1, object 1 has 2 valid points (its rows end in
+    exhausted picks)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    u = torch.rand((O, H, N), generator=gen, device=dev)
+    mask = torch.from_numpy(rng.uniform(size=(O, N)) < p_valid).to(dev)
+    if O > 1:
+        mask[1] = False
+        mask[1, [5, 17]] = True
+    return u, mask
+
+
+def check_k22(dev, rng):
+    """K22, the PnP sampler's top-4 (B14), against its plain version on the
+    same CUDA draws and mask, for exact equality, at the front end's shape
+    [8, 64, 41] (80% valid, a row with 2 valid points) and the backup pose's
+    [1, 128, 328]; its call, device time, the plain version, the sampler's
+    whole call (`torch.rand` + K22) and `torch.topk` on the masked draws
+    (the library yardstick: the same picks up to ties, timed only)."""
+    import torch
+
+    from suo_slam_tpu_torch.slam.engine import TorchGumbelSampler
+    from suo_slam_tpu_torch.solvers import pnp
+
+    res = {}
+    for label, (O, H, N) in (("front end", (N_OBJ, 64, NK)), ("backup pose", (1, 128, 8 * NK))):
+        u, mask = k22_inputs(dev, rng, O, H, N)
+        k = pnp._hypothesis_indices_cuda(u, mask)
+        p = pnp.hypothesis_indices_plain(u, mask)
+        torch.cuda.synchronize()
+        diff = int((k != p).sum())
+        log(f"[kernel] K22 {label} [{O}, {H}, {N}]: {diff} of {k.numel()} indices differ from "
+            f"the plain version (exact); exhausted picks {int((k == 0).sum())}")
+        if diff or k.dtype != torch.int64:
+            raise AssertionError(f"K22 {label}: {diff} indices differ from the plain version")
+        ms = cuda_ms(lambda: pnp._hypothesis_indices_cuda(u, mask))
+        plain_ms = cuda_ms(lambda: pnp.hypothesis_indices_plain(u, mask))
+        lib = lambda: torch.topk(u.masked_fill(~mask[:, None, :], -torch.inf), 4, dim=-1)
+        lib_ms = cuda_ms(lib)
+        us, src = device_us(lambda: pnp._hypothesis_indices_cuda(u, mask), "pnp_sample_kernel")
+        sampler = TorchGumbelSampler(0, dev)
+        call_ms = cuda_ms(lambda: sampler(mask, H))
+        # each input read once (u f32, the mask), the int64 indices written
+        # once; a few comparisons per value and round
+        b = bound(O * H * N * 4 + O * N + O * H * 4 * 8, O * H * N * 4 * 2)
+        _report(f"K22 pnp_sample ({label} [{O}, {H}, {N}]; device {us:.3f} us by {src}; the "
+                f"sampler's call, torch.rand + K22, {call_ms:.4f} ms)", 0.0, "exact", ms,
+                plain_ms, lib_ms, b, lib_fn=lib)
+        res[label] = (ms, plain_ms, lib_ms, b)
+    ms, plain_ms, lib_ms, b = res["front end"]
+    return dict(name="pnp_sample", route="cuda", source="suo_slam_tpu_torch/csrc/pnp_sample.cu",
+                replaces="suo_slam_tpu/solvers/pnp.py:171", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+
+class PlainSamplerCalls:
+    """Counts the calls of the sampler's plain version
+    (`pnp.hypothesis_indices_plain`) on CUDA tensors while installed: on the
+    card every sampler call must go through K22."""
+
+    def __init__(self):
+        from suo_slam_tpu_torch.solvers import pnp
+
+        self.pnp, self.fn, self.n = pnp, pnp.hypothesis_indices_plain, 0
+
+    def __enter__(self):
+        def spy(u, mask):
+            self.n += int(u.device.type == "cuda")
+            return self.fn(u, mask)
+
+        self.pnp.hypothesis_indices_plain = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.pnp.hypothesis_indices_plain = self.fn
+
+
 class PnpCalls:
     """Counts the calls of `pnp.pnp_ransac_batch` (the front ends' and,
     through `pnp_ransac`, the backup pose's) while installed."""
@@ -1384,11 +1485,14 @@ def phase_main_path(dev, rng, objs, net, seed, n_views=6):
                         device=dev)
     views = _views(rng, objs, n_views + 1)
     kernels.reset_counts()
-    with PnpCalls() as calls:
+    with PnpCalls() as calls, PlainSamplerCalls() as plain:
         times, results = _drive(engine, objs, views)
     counts = kernels.counts()
     log(f"[main] launches over {len(views)} views: {json.dumps(counts)}; "
-        f"{calls.n} pnp_ransac_batch calls")
+        f"{calls.n} pnp_ransac_batch calls; {plain.n} plain sampler calls on the card")
+    if counts["pnp_sample"] != calls.n or plain.n:
+        raise AssertionError(f"K22: {counts['pnp_sample']} launches for {calls.n} PnP calls, "
+                             f"{plain.n} plain sampler calls on the card (want one each, none)")
     missing = [k for k in SINGLE_VIEW_KERNELS if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the single-view path: {missing}, or "
@@ -1760,7 +1864,7 @@ def phase_slam(dev, rng, objs, net, seed, scene):
         return time.perf_counter() - t0
 
     kernels.reset_counts()
-    with PnpCalls() as calls:
+    with PnpCalls() as calls, PlainSamplerCalls() as plain:
         times = [frame(i) for i in range(n_frames)]
     t0 = time.perf_counter()
     results = engine.collect_results(final=True)
@@ -1772,6 +1876,10 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     if counts["pnp_ransac"] != calls.n or calls.n < 2 * n_frames:
         raise AssertionError(f"K15: {counts['pnp_ransac']} launches for {calls.n} "
                              f"pnp_ransac_batch calls over {n_frames} frames")
+    # one sampler draw (K22) before each PnP call, the backup pose's too
+    if counts["pnp_sample"] != calls.n or plain.n:
+        raise AssertionError(f"K22: {counts['pnp_sample']} launches for {calls.n} PnP calls, "
+                             f"{plain.n} plain sampler calls on the card")
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
     missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"
@@ -1866,9 +1974,10 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     if c["ba_lm"] != 1 or any(c[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"the profiled frame: K14 {c['ba_lm']} (want 1 tracking BA), "
                              f"K3 / K4 / K7 {[c[k] for k in OFF_PATH_KERNELS]} (want 0)")
-    if not c["pnp_ransac"] == calls.n >= 2:
-        raise AssertionError(f"the profiled frame: K15 {c['pnp_ransac']} launches for "
-                             f"{calls.n} pnp_ransac_batch calls (want one each, two or more)")
+    if not c["pnp_ransac"] == c["pnp_sample"] == calls.n >= 2:
+        raise AssertionError(f"the profiled frame: K15 {c['pnp_ransac']}, K22 "
+                             f"{c['pnp_sample']} launches for {calls.n} pnp_ransac_batch calls "
+                             f"(want one each, two or more)")
     if avg is not None:
         from torch.autograd import DeviceType
 
@@ -2287,10 +2396,11 @@ class EvalObjects:
         self.is_symmetric[[0, 3, 6]] = True
 
 
-def write_bop_tree(root, objs, scene):
+def write_bop_tree(root, objs, scenes, n_views=EVAL_VIEWS):
     """One YCB-V-layout BOP dataset under `root`: models_bop-compat (binary
-    PLYs + models_info.json), kp_info, kp_configs, test/000000 with rgb,
-    depth and mask PNGs and the scene JSONs, keyframe.txt."""
+    PLYs + models_info.json), kp_info, kp_configs, one test scene per
+    `SlamScene` of `scenes` (test/000000, test/000001, ...: n_views views
+    each, rgb, depth and mask PNGs and the scene JSONs), keyframe.txt."""
     import os
     import shutil
 
@@ -2322,11 +2432,22 @@ def write_bop_tree(root, objs, scene):
                 "has_bar_code\n")
         for o, (c, *fl) in enumerate(EVAL_CONFIGS):
             f.write(f"obj_{o + 1},{c},{','.join(map(str, fl))}\n")
-    sdir = os.path.join(root, "test", "000000")
+    keyframes = []
+    for si, scene in enumerate(scenes):
+        keyframes += _write_bop_scene(os.path.join(root, "test", f"{si:06d}"), si, scene,
+                                      n_views)
+    with open(os.path.join(root, "keyframe.txt"), "w") as f:
+        f.write("\n".join(keyframes) + "\n")
+
+
+def _write_bop_scene(sdir, si, scene, n_views):
+    """Scene si of `write_bop_tree` under sdir; returns its keyframe lines."""
+    import os
+
     for d in ("rgb", "depth", "mask_visib"):
         os.makedirs(os.path.join(sdir, d))
     cams, gts, gt_infos, keyframes = {}, {}, {}, []
-    for v in range(EVAL_VIEWS):
+    for v in range(n_views):
         T, bboxes, _ = scene.frame(v)
         img = np.full((H_IMG, W_IMG, 3), 40, np.uint8)
         depth = np.zeros((H_IMG, W_IMG), np.uint16)
@@ -2349,12 +2470,11 @@ def write_bop_tree(root, objs, scene):
         cams[str(v)] = {"cam_K": YCBV_K.reshape(-1).tolist(), "depth_scale": 1.0,
                         "cam_R_w2c": scene.cams[v, :3, :3].reshape(-1).tolist(),
                         "cam_t_w2c": scene.cams[v, :3, 3].tolist()}
-        keyframes.append(f"000000/{v:06d}")
+        keyframes.append(f"{si:06d}/{v:06d}")
     for name, d in (("scene_camera", cams), ("scene_gt", gts), ("scene_gt_info", gt_infos)):
         with open(os.path.join(sdir, f"{name}.json"), "w") as f:
             json.dump(d, f)
-    with open(os.path.join(root, "keyframe.txt"), "w") as f:
-        f.write("\n".join(keyframes) + "\n")
+    return keyframes
 
 
 def phase_evaluate(dev, seed, net16):
@@ -2376,7 +2496,7 @@ def phase_evaluate(dev, seed, net16):
     base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_eval")
     root = os.path.join(base, "bop_datasets", "ycbv")
     t0 = time.perf_counter()
-    write_bop_tree(root, objs, scene)
+    write_bop_tree(root, objs, [scene])
     log(f"[eval] BOP tree of {EVAL_VIEWS} views x {N_OBJ} objects written in "
         f"{time.perf_counter() - t0:.2f} s")
     kernels.reset_counts()
@@ -2416,7 +2536,8 @@ def phase_evaluate(dev, seed, net16):
     if not (auc > 80.0 and cam == 100.0):
         raise AssertionError(f"evaluation (SLAM, GT keypoints): AUC {auc}, camera poses {cam}%")
     missing = [k for k in ("norm_relu", "upsample_add", "add_dists", "roi_crop",
-                           "heatmap_readout", "pnp_ransac", "ba_lm") if counts[k] == 0]
+                           "heatmap_readout", "pnp_ransac", "ba_lm", "pnp_sample")
+               if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the evaluation path: {missing}, or "
                              f"K3 / K4 / K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
@@ -4011,6 +4132,249 @@ def phase_group(dev, seed, objs, scene):
     return entries, counts
 
 
+# throughput evaluation phase ----------------------------------------------------
+THROUGHPUT_SCENES, THROUGHPUT_VIEWS = 4, 16  # the phase's BOP tree (x 8 objects): a scene
+# fills one window of the batched mode (its default, 16 views x 8 = 128 crops)
+GUIDE_EPS, GUIDE_SIGMA = 0.02, 0.005  # GtGuided: uv = ground truth + eps x the net's uv
+
+
+class GtGuided:
+    """The throughput phase's network calls: every call the evaluation
+    builds (`make_frame_inference`, `make_multi_frame_inference` and, through
+    it, `make_batch_inference`) runs the full-width net, then returns each
+    box's ground-truth keypoints (looked up by the box in the BOP tree) plus
+    GUIDE_EPS x the net's own uv, covariance GUIDE_SIGMA^2 I and validity 1
+    (padded boxes: zeros). Random weights would pose nothing; this way PnP,
+    camera RANSAC, the priors and BA do real work, as in phase 6, and every
+    bit of the net's uv still moves the poses. Records the multi-frame calls'
+    (G, O, with prior) while installed."""
+
+    def __init__(self, root, dev):
+        import os
+
+        import torch
+
+        from suo_slam_tpu_torch.data.bop import BopDataset
+
+        ds = BopDataset(root, "test", bop_dset="ycbv", ignore_symmetry=True,
+                        kp_config_root=os.path.join(root, "kp_configs"), seed=666)
+        self.table = {}
+        for sc in ds.scene_ids():
+            for v in ds.view_ids(sc):
+                smp = ds.get_raw(sc, v, ds.obj_ids(sc, v), p_give_prior=0.0)
+                for b, uv in zip(smp["bboxes"], smp["kp_uvs"]):
+                    self.table[tuple(np.asarray(b, np.float32).tolist())] = uv
+        self.cov = torch.eye(2, device=dev) * GUIDE_SIGMA ** 2
+        self.multi_calls = []
+
+    def wrap(self, fn, multi):
+        import torch
+
+        def guided(*a, **kw):
+            uv, _, m = fn(*a, **kw)
+            if multi:
+                self.multi_calls.append((int(uv.shape[0]), int(uv.shape[1]),
+                                         bool(kw.get("has_prior", True))))
+            bx = torch.as_tensor(a[1]).cpu().numpy().astype(np.float32)
+            gt = np.zeros(tuple(uv.shape), np.float32)
+            for i in np.ndindex(bx.shape[:-1]):
+                row = self.table.get(tuple(bx[i].tolist()))
+                if row is not None:
+                    gt[i] = row
+            return (torch.from_numpy(gt).to(uv.device) + GUIDE_EPS * uv,
+                    self.cov.expand(tuple(uv.shape[:-1]) + (2, 2)).clone(), torch.ones_like(m))
+
+        for k in ("supports_no_prior", "int8_state", "net"):
+            if hasattr(fn, k):
+                setattr(guided, k, getattr(fn, k))
+        return guided
+
+    @contextlib.contextmanager
+    def installed(self):
+        from suo_slam_tpu_torch.slam import kernels as sk
+
+        orig = sk.make_frame_inference, sk.make_multi_frame_inference
+        sk.make_frame_inference = lambda *a, **kw: self.wrap(orig[0](*a, **kw), False)
+        sk.make_multi_frame_inference = lambda *a, **kw: self.wrap(orig[1](*a, **kw), True)
+        try:
+            yield self
+        finally:
+            sk.make_frame_inference, sk.make_multi_frame_inference = orig
+
+
+def _throughput_leg(label, root, base, dev, guide, n_items, **kw):
+    """One `Evaluator` run of the throughput phase: its summary, CSV text,
+    wall seconds, ms per view (per keyframe in SfM), launches and the
+    multi-frame calls' shapes; every sampler call through K22."""
+    import io
+    import os
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.evaluate import Evaluator
+
+    buf = io.StringIO()
+    kernels.reset_counts()
+    guide.multi_calls.clear()
+    with contextlib.redirect_stdout(buf), PlainSamplerCalls() as plain:
+        ev = Evaluator("ycbv", root, "", detection_type="gt", no_viz=True,
+                       kp_config_root=os.path.join(root, "kp_configs"), device=dev, **kw)
+        ev.model_path = os.path.join(base, "results", label)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = ev.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    if summary is None:
+        raise AssertionError(f"throughput leg {label} failed:\n{text[-3000:]}")
+    counts = {k: v for k, v in kernels.counts().items() if v}
+    outdir = os.path.join(ev.model_path, ev.method_name())
+    csv = open(os.path.join(outdir, ev.method_name() + ".csv")).read()
+    shapes = {}
+    for c in guide.multi_calls:
+        shapes[str(c)] = shapes.get(str(c), 0) + 1
+    auc = 100 * summary["ours"]["AUC of ADD(-S)"]
+    log(f"[throughput] {label}: AUC of ADD(-S) {auc:.2f}, camera poses "
+        f"{summary.get('cam_pose_pct')}%, {len(csv.splitlines())} CSV rows; {wall:.2f} s = "
+        f"{wall / n_items * 1e3:.2f} ms per {'keyframe' if kw.get('nviews') == 2 else 'view'}; "
+        f"multi-frame calls (G, O, with prior): {json.dumps(shapes)}; {plain.n} plain sampler "
+        f"calls on the card; launches {json.dumps(counts)}")
+    if plain.n or not all(counts.get(k) for k in ("pnp_sample", "pnp_ransac", "roi_crop",
+                                                   "heatmap_readout")):
+        raise AssertionError(f"throughput leg {label}: a kernel of the path did not launch, or "
+                             f"{plain.n} plain sampler calls on the card: {counts}")
+    return dict(summary=summary, csv=csv, auc=auc, wall=wall, counts=counts, shapes=shapes)
+
+
+def phase_throughput(dev, seed, net32, net16):
+    """The throughput evaluation modes on the card (the module docstring's
+    phase 11). Returns the batched dispatch's device numbers."""
+    import os
+
+    import torch
+
+    from suo_slam_tpu_torch.models import int8_forward as i8
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    rng = np.random.default_rng(seed + 11)
+    objs = EvalObjects(rng)
+    scenes = []
+    while len(scenes) < THROUGHPUT_SCENES:  # redraw a scene whose objects leave a frame
+        try:
+            scene = SlamScene(rng, objs, THROUGHPUT_VIEWS)
+            [scene.frame(v) for v in range(THROUGHPUT_VIEWS)]
+            scenes.append(scene)
+        except AssertionError:
+            continue
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_throughput")
+    root = os.path.join(base, "bop_datasets", "ycbv")
+    t0 = time.perf_counter()
+    write_bop_tree(root, objs, scenes, THROUGHPUT_VIEWS)
+    guide = GtGuided(root, dev)
+    side = os.path.join(_eval_root()[0], "int8_scales.npz")  # phase 8's calibrate_int8 sidecar
+    n_views = THROUGHPUT_SCENES * THROUGHPUT_VIEWS
+    log(f"[throughput] BOP tree of {THROUGHPUT_SCENES} scenes x {THROUGHPUT_VIEWS} views x {N_OBJ} "
+        f"objects written and its ground truth read in {time.perf_counter() - t0:.2f} s; int8 "
+        f"sidecar {side}; {smi_line()}")
+
+    # the batched dispatch alone: one window of 16 views x 8 objects = 128
+    # crops against the per-frame program on each view's 8 crops
+    imgs = torch.from_numpy(rng.uniform(0, 1, (16, H_IMG, W_IMG, 3)).astype(np.float32)).to(dev)
+    boxes = torch.from_numpy(np.stack([scenes[0].frame(v)[1] for v in range(16)])).to(dev)
+    valid = torch.ones((16, N_OBJ), dtype=torch.bool, device=dev)
+    scales = i8.load_scales(side)
+    direct = {}
+    for name, net, kw in (("bf16", net16, {}), ("int8", net16, dict(int8=True, int8_scales=scales)),
+                          ("f32", net32, {})):
+        tb = sk.make_batch_inference(net, device=dev, **kw)
+        tf = sk.make_frame_inference(net, device=dev, **kw)
+        ob = tb(imgs, boxes, valid)
+        of = [tf(imgs[i], boxes[i], valid[i], has_prior=False) for i in range(16)]
+        uv_f = torch.stack([o[0] for o in of])
+        ms = cuda_ms(lambda: tb(imgs, boxes, valid), n=3, inner=2, warmup=1)
+        direct[name] = dict(uv_b=ob[0], uv_f=uv_f, ms=ms,
+                            equal=int((ob[0] == uv_f).all(-1).all(-1).sum()))
+    torch.cuda.synchronize()
+    gap = lambda a, b: (a - b).abs().max().item()
+    bf16_gate = gap(direct["bf16"]["uv_f"], direct["f32"]["uv_f"])
+    bf16_err = gap(direct["bf16"]["uv_b"], direct["bf16"]["uv_f"])
+    log("[throughput] the 128-crop batched call (16 views x 8 objects, prior-free) against the "
+        "per-frame call on each view's 8 crops: " + json.dumps({
+            k: {"ms per call": round(v["ms"], 3), "crops/s": round(128 / v["ms"] * 1e3, 1),
+                "crops with equal uv": f"{v['equal']} of 128",
+                "max uv diff": gap(v["uv_b"], v["uv_f"])} for k, v in direct.items()})
+        + f"; bf16 gate: the bf16 net's per-frame uv gap to the f32 net on the same crops, "
+        f"{bf16_gate:.4f}")
+    if direct["int8"]["equal"] != 128:
+        raise AssertionError("int8: the 128-crop batched call's uv differs from the per-frame "
+                             f"call's on {128 - direct['int8']['equal']} crops")
+    if not bf16_err <= bf16_gate:
+        raise AssertionError(f"bf16: batched uv {bf16_err:.4f} from the per-frame call's, "
+                             f"beyond the bf16 error {bf16_gate:.4f}")
+    del direct, imgs
+
+    legs = {}
+    with guide.installed():
+        for label, n_items, kw in (
+                ("single view bf16", n_views, dict(nviews=1, net=net16)),
+                ("single view bf16 batched", n_views, dict(nviews=1, net=net16, batched=True)),
+                ("single view int8", n_views, dict(nviews=1, net=net16, int8=True,
+                                                   int8_scales=side)),
+                ("single view int8 batched", n_views, dict(nviews=1, net=net16, int8=True,
+                                                           int8_scales=side, batched=True)),
+                ("SLAM int8", n_views, dict(nviews=-1, net=net16, int8=True, int8_scales=side)),
+                ("SLAM int8 pipelined", n_views, dict(nviews=-1, net=net16, int8=True,
+                                                      int8_scales=side,
+                                                      pipeline_scenes=THROUGHPUT_SCENES)),
+                ("SLAM bf16", n_views, dict(nviews=-1, net=net16)),
+                ("SLAM bf16 pipelined", n_views, dict(nviews=-1, net=net16,
+                                                      pipeline_scenes=THROUGHPUT_SCENES)),
+                ("SfM int8", n_views, dict(nviews=2, net=net16, int8=True, int8_scales=side)),
+                ("SfM int8 pipelined", n_views, dict(nviews=2, net=net16, int8=True,
+                                                     int8_scales=side, pipeline_scenes=3))):
+            legs[label] = _throughput_leg(label, root, base, dev, guide, n_items, **kw)
+
+    fails = []
+    for seq in ("single view int8", "SLAM int8", "SfM int8"):
+        thr = seq + (" batched" if seq.startswith("single") else " pipelined")
+        same = legs[seq]["csv"] == legs[thr]["csv"]
+        log(f"[throughput] {thr} against {seq}: CSV equal byte for byte: {same}; "
+            f"{legs[thr]['wall'] / n_views * 1e3:.2f} against {legs[seq]['wall'] / n_views * 1e3:.2f}"
+            f" ms per {'keyframe' if seq.startswith('SfM') else 'view'}")
+        if not same or not legs[seq]["csv"]:
+            fails.append(f"{thr}: the CSV differs from the sequential sweep's (or is empty)")
+    a, b = legs["single view bf16"], legs["single view bf16 batched"]
+    keys = lambda csv: [ln.split(",")[:4] for ln in csv.splitlines()]
+    log(f"[throughput] single view bf16 batched: AUC {b['auc']:.2f} against {a['auc']:.2f} "
+        f"sequential (gate 1.0 point), equal CSV keys {keys(a['csv']) == keys(b['csv'])}; "
+        f"{b['wall'] / n_views * 1e3:.2f} against {a['wall'] / n_views * 1e3:.2f} ms per view")
+    if abs(a["auc"] - b["auc"]) > 1.0 or keys(a["csv"]) != keys(b["csv"]):
+        fails.append("single view bf16 batched: AUC or CSV rows differ from the sequential sweep")
+    for label in ("SLAM bf16", "SLAM bf16 pipelined", "SLAM int8", "SLAM int8 pipelined"):
+        leg = legs[label]
+        if not (leg["auc"] > 80.0 and leg["summary"].get("cam_pose_pct") == 100.0):
+            fails.append(f"{label}: AUC {leg['auc']:.2f}, camera poses "
+                         f"{leg['summary'].get('cam_pose_pct')}% (want > 80, 100)")
+    for label in ("SLAM bf16 pipelined", "SLAM int8 pipelined"):
+        shapes = legs[label]["shapes"]
+        if not any(k.startswith(f"({THROUGHPUT_SCENES}, 8, ") for k in shapes) or not any(
+                k.endswith("True)") for k in shapes) or not legs[label]["counts"].get("prior_render"):
+            fails.append(f"{label}: no {THROUGHPUT_SCENES} x 8 round, no round with priors, or no K5")
+    for label in ("single view bf16 batched", "single view int8 batched"):
+        if legs[label]["shapes"].get("(16, 8, False)", 0) != n_views // 16:
+            fails.append(f"{label}: not {n_views // 16} calls of 16 x 8 = 128 crops: "
+                         f"{legs[label]['shapes']}")
+    for label, leg in legs.items():
+        need = INT8_KERNELS if "int8" in label else ("norm_relu", "upsample_add")
+        if not all(leg["counts"].get(k) for k in need + ("ba_lm",)):
+            fails.append(f"{label}: {need + ('ba_lm',)} not all launched: {leg['counts']}")
+    if fails:
+        raise AssertionError("throughput evaluation: " + "; ".join(fails))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4036,7 +4400,8 @@ def main(argv=None):
                check_k4(dev, rng, objs), check_k5(dev, rng), check_k6(dev, rng, objs),
                check_k7(dev, scene), check_k8(dev, rng, net, net16, crops), check_k9(dev, rng),
                check_k10(dev, rng), check_k14(dev, np.random.default_rng(args.seed + 14), objs),
-               check_k15(dev, np.random.default_rng(args.seed + 15))]
+               check_k15(dev, np.random.default_rng(args.seed + 15)),
+               check_k22(dev, np.random.default_rng(args.seed + 22))]
     phase_bf16_net(dev, rng, args.seed, net, net16, crops)
     phase_main_path(dev, rng, objs, net, args.seed, args.views)
     phase_solver_check(dev, rng, objs, args.seed, args.views)
@@ -4048,6 +4413,7 @@ def main(argv=None):
     train_entries, train_counts = phase_train(dev, args.seed)
     quant_entries, quant_counts = phase_quant(dev, args.seed, net, net16, crops)
     group_entries, group_counts = phase_group(dev, args.seed, objs, scene)
+    phase_throughput(dev, args.seed, net, net16)
     entries += int8_entries + train_entries + quant_entries + group_entries
     for e in entries:
         e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts

@@ -8,9 +8,10 @@ defaults (bf16 network on, saved detections, `--nviews -1` SLAM, data root
 the plain PyTorch version of every kernel). `--int8` serves the network
 with the s8-resident executor on the scales sidecar of `--int8_scales` (or
 the one beside the checkpoint, `calibrate_int8`), else with online
-calibration. The flags of the paths not ported yet are accepted, so that a
-JAX command line parses, and the `Evaluator` refuses them; `--eval_window`
-and `--int8_online_ok` only qualify those paths. Training: the `train` mode's
+calibration. `--batched` (with `--eval_window`) and `--pipeline_scenes`
+(with `--int8_online_ok`) run the throughput modes. The visualization flags
+are accepted, so that a JAX command line parses, and the `Evaluator`
+refuses them (not ported yet). Training: the `train` mode's
 flags and defaults (YCB-V: batch 2, 30 epochs, `real+synt`; T-LESS: batch
 16, 1000 epochs, `primesense`; the `SUO_WORKERS`, `SUO_BATCH_SIZE` and
 `SUO_TRUNCATE_OBJ` overrides), plus `--device`; the training CLI refuses
@@ -129,19 +130,24 @@ def get_args(argv_override=None):
                         help="Identity edge information in BA for a run with manual "
                              "information (RANSAC and re-init keep 1/sigma^2).")
     parser.add_argument("--batched", action="store_true",
-                        help="Single-view throughput mode (not ported yet).")
+                        help="Single-view throughput mode (--nviews 1, a real network): "
+                             "the network runs a window of views per call; the results "
+                             "equal the sequential sweep's.")
     parser.add_argument("--eval_window", type=int, default=16,
                         help="Views per precompute window for --batched.")
     parser.add_argument("--pipeline_scenes", type=int, default=0,
-                        help="Scene-pipelined throughput mode (not ported yet); 0/1 "
-                             "disables.")
+                        help="Pipelined throughput mode: K scenes (--nviews -1) or K SfM "
+                             "keyframes (--nviews N>1) on K worker threads, one network "
+                             "call per round; 0/1 disables, ignored with --nviews 1, "
+                             "exclusive with --batched.")
     parser.add_argument("--int8", action="store_true",
                         help="int8-resident network inference (norm='batch' nets).")
     parser.add_argument("--int8_scales", default=None,
                         help="int8 activation-scales sidecar (default: the one beside "
                              "the checkpoint if present, else online calibration).")
     parser.add_argument("--int8_online_ok", action="store_true",
-                        help="Accept online calibration under --pipeline_scenes "
-                             "(not ported yet).")
+                        help="Accept online int8 calibration under --pipeline_scenes "
+                             "(its output may differ from the sequential sweep's); "
+                             "without it, --int8 --pipeline_scenes needs a sidecar.")
     _common(parser)
     return _finish(parser, argv_override)

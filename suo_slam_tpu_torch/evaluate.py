@@ -14,11 +14,19 @@ the card (`--device cpu` runs the plain PyTorch versions).
 `--int8` serves the network with the s8-resident executor: its scales come
 from `--int8_scales`, else from the sidecar beside the checkpoint
 (`python -m suo_slam_tpu_torch.calibrate_int8` writes it), else from online
-calibration over the first frames. Not ported yet, and refused with
-SystemExit naming their ROADMAP items: visualization (viz is on unless
-`--no_viz`; `--viz_cov`, `--do_viz_extra`, `--show_viz`), the throughput
-modes `--batched` and `--pipeline_scenes`, and `--int8_online_ok`, which
-only qualifies the latter.
+calibration over the first frames.
+
+Two throughput modes give the same results as the sequential sweep:
+`--nviews 1 --batched` computes the network for a window of `--eval_window`
+views (16 x 8 crops) in one call (`eval/batched.py`); `--pipeline_scenes K`
+runs K scenes (`--nviews -1`) or K SfM keyframe re-solves (`--nviews N>1`)
+on K worker threads, each with its own engine, and serves their frames'
+network calls as one call per round (`eval/pipeline.py`). `--int8
+--pipeline_scenes` needs a scales sidecar (online calibration would see
+other crops than the sequential sweep) unless `--int8_online_ok` accepts
+the difference. Not ported yet, and refused with SystemExit naming its
+ROADMAP item: visualization (viz is on unless `--no_viz`; `--viz_cov`,
+`--do_viz_extra`, `--show_viz`).
 """
 
 from __future__ import annotations
@@ -41,7 +49,6 @@ TLESS_CLASSES = {i + 1: str(i + 1) for i in range(30)}
 
 
 def refuse_unported(no_viz=True, viz_cov=False, do_viz_extra=False, show_viz=False,
-                    batched=False, pipeline_scenes=0, int8_online_ok=False,
                     debug_saved_only=False):
     """SystemExit for a flag whose path is not ported yet, naming its
     ROADMAP item."""
@@ -52,20 +59,15 @@ def refuse_unported(no_viz=True, viz_cov=False, do_viz_extra=False, show_viz=Fal
     if viz:
         raise SystemExit(f"{', '.join(viz)}: visualization is not ported yet: ROADMAP A11 "
                          "(pass --no_viz)")
-    if batched or int(pipeline_scenes) > 1:
-        flag = "--batched" if batched else "--pipeline_scenes"
-        raise SystemExit(f"{flag}: the throughput evaluation modes are not ported yet: "
-                         "ROADMAP A13")
-    if int8_online_ok:
-        raise SystemExit("--int8_online_ok qualifies --pipeline_scenes, which is not "
-                         "ported yet: ROADMAP A13")
 
 
 class Evaluator:
-    """The sequential evaluation sweep. Library callers may pass a prebuilt
+    """The evaluation sweep: sequential, or one of the throughput modes
+    (`batched`, `pipeline_scenes`). Library callers may pass a prebuilt
     `net` (a `models.pkpnet.PkpNet` with its weights, in the dtype it should
     run in) instead of a checkpoint, and a `hyp_sampler` factory for the
-    engine's random draws (`slam.engine.ObjectSlam`)."""
+    engine's random draws (`slam.engine.ObjectSlam`; the pipelined sweep
+    hands it to every engine it builds)."""
 
     def __init__(self, dataset, data_root, chkpt_path, nviews=1,
                  no_network_cov=False, detection_type="saved", debug_gt_kp=False,
@@ -73,16 +75,33 @@ class Evaluator:
                  debug_saved_only=False, give_all_prior=False,
                  kp_config_root=None, bf16=True, norm="batch", int8=False,
                  int8_scales=None, ref_manual_info=False, viz_cov=False,
-                 do_viz_extra=False, show_viz=False, batched=False, pipeline_scenes=0,
-                 int8_online_ok=False, device="cuda", net=None, hyp_sampler=None):
+                 do_viz_extra=False, show_viz=False, batched=False, eval_window=16,
+                 pipeline_scenes=0, int8_online_ok=False, device="cuda", net=None,
+                 hyp_sampler=None):
         from ._device import resolve_device
         from .data.bop import BopDataset
         from .data.mesh import load_mesh_db
         from .slam.engine import ObjectSlam, SlamConfig
 
-        refuse_unported(no_viz, viz_cov, do_viz_extra, show_viz, batched,
-                        pipeline_scenes, int8_online_ok, debug_saved_only)
+        self.pipeline_scenes = 0 if debug_saved_only else int(pipeline_scenes)
+        if self.pipeline_scenes > 1 and nviews == 1:
+            # single-view mode has its own throughput path; ignoring (instead
+            # of refusing) keeps one flag set valid for a sweep that mixes
+            # --nviews 1 and -1 legs
+            print("[evaluate] --pipeline_scenes has no effect with --nviews 1 (use "
+                  "--batched for the single-view throughput mode); ignoring")
+            self.pipeline_scenes = 0
+        if self.pipeline_scenes > 1:
+            if batched:
+                raise SystemExit("--pipeline_scenes is exclusive with --batched")
+            if not no_viz:
+                raise SystemExit("--pipeline_scenes is a throughput mode; viz needs the "
+                                 "sequential path (drop --pipeline_scenes or keep --no_viz)")
+        refuse_unported(no_viz, viz_cov, do_viz_extra, show_viz, debug_saved_only)
         self.device = resolve_device(device)
+        self._hyp_sampler = hyp_sampler
+        self.batched_runner = None
+        self._pipe = None
         self.model_path = os.path.dirname(chkpt_path) if chkpt_path else "results"
         # per-dataset settings
         kp_var_thresh, bbox_thresh = 0.2, 0.9
@@ -131,10 +150,52 @@ class Evaluator:
                 int8_inference=int8,
                 int8_scales_path=scales_path,
             )
-            self.object_slam = ObjectSlam(
-                cfg, mesh_db=self.mesh_db, net=None if debug_gt_kp else net,
-                hyp_sampler=hyp_sampler, device=self.device,
-            )
+            if self.pipeline_scenes > 1:
+                if int8 and not scales_path:
+                    # online calibration sees other crops in the pipelined
+                    # sweep (one frame of K scenes) than in the sequential
+                    # one (one scene's first frames), so the two would give
+                    # different CSVs; a persisted sidecar makes them equal
+                    if not int8_online_ok:
+                        raise SystemExit(
+                            "--int8 --pipeline_scenes without a scales sidecar: online "
+                            "calibration is mode-dependent (pipelined calibrates on a "
+                            "multi-scene batch, sequential on one scene's first frames), so "
+                            "results would differ from the sequential sweep. Persist a "
+                            "sidecar first:\n  python -m suo_slam_tpu_torch.calibrate_int8 "
+                            f"--checkpoint_path {chkpt_path} --dataset {dataset}\n"
+                            "or pass --int8_online_ok to accept mode-dependent output.")
+                    print("[evaluate] --int8_online_ok: pipelined online calibration "
+                          "accepted — outputs may differ from the sequential sweep")
+                # the engines are built per work item in _run_pipelined
+                self._pipe = {"cfg": cfg, "net": None if debug_gt_kp else net, "int8": int8,
+                              "scales_path": scales_path}
+            elif batched:
+                if nviews != 1 or debug_gt_kp or net is None:
+                    raise SystemExit("--batched requires --nviews 1 with a real network "
+                                     "(no --debug_gt_kp)")
+                from .eval.batched import BatchedSingleViewRunner
+                from .slam import kernels as slam_kernels
+
+                batch_scales = None
+                if scales_path:
+                    from .models.int8_forward import load_scales
+
+                    batch_scales = load_scales(scales_path)
+                batch_fn = slam_kernels.make_batch_inference(
+                    net, cfg.input_hw, device=self.device, int8=int8,
+                    int8_scales=batch_scales)
+                self.batched_runner = BatchedSingleViewRunner(
+                    batch_fn, self._view_inputs, window=eval_window,
+                    obj_slots=cfg.obj_capacity, bbox_inflate=cfg.bbox_inflate)
+                self.object_slam = ObjectSlam(
+                    cfg, mesh_db=self.mesh_db, infer_fn=self.batched_runner.infer_fn,
+                    hyp_sampler=hyp_sampler, device=self.device)
+            else:
+                self.object_slam = ObjectSlam(
+                    cfg, mesh_db=self.mesh_db, net=None if debug_gt_kp else net,
+                    hyp_sampler=hyp_sampler, device=self.device,
+                )
         self.nviews = nviews
         self.detection_type = detection_type
         self.debug_gt_kp = debug_gt_kp
@@ -234,8 +295,13 @@ class Evaluator:
             print(f"Writing eval results to {outdir}")
 
         scene_ids = self.dataset.scene_ids()
+        if self._pipe is not None:
+            num, num_cam_poses_found = self._run_pipelined(scene_ids, csv_lines)
+            scene_ids = []  # the sequential loop below is subsumed
         for i, scene_id in enumerate(scene_ids):
             view_ids = self.dataset.view_ids(scene_id)
+            if self.batched_runner is not None:
+                self.batched_runner.set_plan(scene_id, view_ids)
             if not self.debug_saved_only and self.nviews < 0:
                 self.object_slam.reset()
             scene_results = []
@@ -294,11 +360,11 @@ class Evaluator:
                 if self.do_add:
                     f.write(self.meter.pprint_objs_str(gt_obj_map))
                 if num > 0:
-                    hz = self.object_slam.tracking_hz()
+                    hz = self._tracking_hz()
                     lines = [
                         f"NOTE: {100 * num_cam_poses_found / num:.1f}% of camera poses found!",
                         f"TIMING: Tracking {hz:.2f} Hz",
-                        f"Average keypoint stdev: {self.object_slam.avg_kp_std():.5f}",
+                        f"Average keypoint stdev: {self._avg_kp_std():.5f}",
                     ]
                     for s in lines:
                         print(s)
@@ -349,7 +415,9 @@ class Evaluator:
         return num, num_cam
 
     def _sample_sfm_views(self, view_ids, j):
-        """Extra views for keyframe j's SfM re-solve."""
+        """Extra views for keyframe j's SfM re-solve. The one source of the
+        `self.rng` draws: the sequential loop and the pipelined sweep's work
+        items call it in the same order, so both draw the same view sets."""
         others = view_ids[:j] + view_ids[j + 1 :]
         return list(self.rng.choice(
             others, size=min(self.nviews - 1, len(others)), replace=False
@@ -389,10 +457,15 @@ class Evaluator:
             )
         return np.asarray(obj_ids, np.int64), np.asarray(bboxes), sample
 
-    def _feed_view(self, engine, scene_id, view_id_k, first_for_gt_cam=-1):
-        """Load one view's detections and feed `engine.process_view`;
-        False when the view has no usable detections."""
-        inputs = self._view_inputs(scene_id, view_id_k)
+    _MISSING = object()
+
+    def _feed_view(self, engine, scene_id, view_id_k, first_for_gt_cam=-1, inputs=_MISSING):
+        """Load one view's detections (or take `inputs`, the batched runner's
+        entry) and feed `engine.process_view`; False when the view has no
+        usable detections. The sequential sweep and the pipelined workers
+        share it."""
+        if inputs is self._MISSING:
+            inputs = self._view_inputs(scene_id, view_id_k)
         if inputs is None:
             print(f"WARNING no detections for scene {scene_id} view {view_id_k}")
             return False
@@ -421,10 +494,153 @@ class Evaluator:
         else:
             assert len(views_to_proc) == 1
         for view_id_k in views_to_proc:
+            view_id_k = int(view_id_k)
+            inputs = self._MISSING
+            if self.batched_runner is not None:
+                # the windowed path: get() runs the network for the next
+                # window on a miss and arms infer_fn for this view
+                ent = self.batched_runner.get(scene_id, view_id_k)
+                inputs = None if ent is None else (ent["obj_ids"], ent["bboxes"], ent["sample"])
             first = -1 if self.nviews < 0 else int(views_to_proc[0])
-            self._feed_view(self.object_slam, scene_id, int(view_id_k),
-                            first_for_gt_cam=first)
+            self._feed_view(self.object_slam, scene_id, view_id_k, first_for_gt_cam=first,
+                            inputs=inputs)
         return self.object_slam.collect_results(last_only=self.nviews < 0)
+
+    def _run_pipelined(self, scene_ids, csv_lines):
+        """The pipelined sweep (`--pipeline_scenes K`): K worker threads each
+        drive a fresh engine over an independent problem — a whole scene
+        (`--nviews -1`) or one keyframe's N-view re-solve (SfM) — and a
+        `BatchingInferServer` turns their concurrent network calls into one
+        multi-frame call (`eval/pipeline.py`). A fresh engine seeds its
+        sampler as the sequential sweep's engine after its reset, so both
+        draw the same. Scoring runs here, on the calling thread, in scene
+        and view order. Returns (views scored, camera poses found)."""
+        import threading
+
+        from .eval.pipeline import BatchingInferServer, ScenePool
+        from .slam import kernels as slam_kernels
+        from .slam.engine import ObjectSlam
+
+        # work items; SfM's extra-view draws come from self.rng here, on the
+        # calling thread, in the sequential sweep's order
+        if self.nviews < 0:
+            items = [("scene", scene_id, None) for scene_id in scene_ids]
+        else:
+            items = []
+            for scene_id in scene_ids:
+                view_ids = self.dataset.view_ids(scene_id)
+                for j, view_id in enumerate(view_ids):
+                    views = [int(view_id)] + [int(v) for v in self._sample_sfm_views(view_ids, j)]
+                    items.append(("kf", scene_id, (int(view_id), views)))
+
+        pipe = self._pipe
+        K = min(self.pipeline_scenes, len(items))
+        server = None
+        if pipe["net"] is not None:
+            scales = None
+            if pipe["scales_path"]:
+                from .models.int8_forward import load_scales
+
+                scales = load_scales(pipe["scales_path"])
+            multi_fn = slam_kernels.make_multi_frame_inference(
+                pipe["net"], pipe["cfg"].input_hw, device=self.device, int8=pipe["int8"],
+                int8_scales=scales)
+            server = BatchingInferServer(multi_fn, K)
+        kind = "scenes" if self.nviews < 0 else "SfM keyframes"
+        print(f"Pipelining {len(items)} {kind} over {K} workers"
+              + (" (batched network calls)" if server else ""))
+        warmed = threading.Event()
+
+        def run_item(cid, item):
+            _, scene_id, payload = item
+            eng = ObjectSlam(pipe["cfg"], mesh_db=self.mesh_db,
+                             infer_fn=None if server is None else server.client(cid),
+                             hyp_sampler=self._hyp_sampler, device=self.device)
+            # the sequential sweep's timing warm-up leaves out the run's first
+            # 6 views (one long-lived engine); a fresh engine per item would
+            # leave out 6 views of every item, so every engine after the
+            # first starts warm
+            if warmed.is_set():
+                eng.all_time_num_views = 6
+            else:
+                warmed.set()
+            stats = lambda: {"track_times": list(eng.track_times), "std_sum": eng.avg_std_sum,
+                             "std_n": eng.avg_std_n}
+            if self.nviews < 0:
+                scene_results = []
+                for view_id in self.dataset.view_ids(scene_id):
+                    view_id = int(view_id)
+                    gt_obj_ids = self.dataset.obj_ids(scene_id, view_id)
+                    self._feed_view(eng, scene_id, view_id)
+                    if len(eng.collect_results(last_only=True)) == 0:
+                        continue
+                    scene_results.append((view_id, None, gt_obj_ids))
+                return {"scene_results": scene_results,
+                        "final": eng.collect_results(final=True), **stats()}
+            # an SfM keyframe: a fresh engine is the sequential sweep's reset
+            view_id, views = payload
+            for v in views:
+                self._feed_view(eng, scene_id, v, first_for_gt_cam=views[0])
+            results = eng.collect_results(last_only=False)
+            if len(results) == 0:
+                return {"kf": None, **stats()}
+            return {"kf": (view_id, results[view_id]["poses"],
+                           self.dataset.obj_ids(scene_id, view_id)), **stats()}
+
+        # results are keyed by (kind, scene, keyframe): the SfM payload holds
+        # a list, which cannot key a dict
+        keyed = [(it[0], it[1], it[2] if it[0] == "scene" else it[2][0]) for it in items]
+        by_key = dict(zip(keyed, items))
+        results = ScenePool(server, K).run(keyed, lambda cid, key: run_item(cid, by_key[key]))
+
+        num = num_cam = 0
+        self._pipe_stats = {"track_times": [], "std_sum": 0.0, "std_n": 0}
+
+        def absorb(r):
+            self._pipe_stats["track_times"].extend(r["track_times"])
+            self._pipe_stats["std_sum"] += r["std_sum"]
+            self._pipe_stats["std_n"] += r["std_n"]
+
+        do_saved = self.do_add and self.saved_detections is not None
+        for scene_id in scene_ids:
+            if self.nviews < 0:
+                r = results.get(("scene", scene_id, None))
+                if r is None:
+                    continue
+                absorb(r)
+                scene_results, final = r["scene_results"], r["final"]
+            else:
+                scene_results, final = [], None
+                for view_id in self.dataset.view_ids(scene_id):
+                    r = results.get(("kf", scene_id, int(view_id)))
+                    if r is None:
+                        continue
+                    absorb(r)
+                    if r["kf"] is not None:
+                        scene_results.append(r["kf"])
+            if do_saved:
+                # the sequential loop reaches the saved-detection update only
+                # for views whose results were not empty: these
+                for view_id, _, gt_obj_ids in scene_results:
+                    self._update_saved_det_meter(scene_id, view_id, gt_obj_ids)
+            n, nc = self._score_scene(scene_id, scene_results, final, csv_lines)
+            num += n
+            num_cam += nc
+        return num, num_cam
+
+    def _tracking_hz(self):
+        if self.object_slam is not None:
+            return self.object_slam.tracking_hz()
+        # the pipelined frames' times include the waits at the server's
+        # barrier; "Eval took" is the sweep's throughput
+        tt = self._pipe_stats["track_times"]
+        return 0.0 if not tt else 1.0 / (sum(tt) / len(tt))
+
+    def _avg_kp_std(self):
+        if self.object_slam is not None:
+            return self.object_slam.avg_kp_std()
+        s, n = self._pipe_stats["std_sum"], self._pipe_stats["std_n"]
+        return 0.0 if n == 0 else s / n
 
 
 def main(argv=None):
@@ -448,7 +664,7 @@ def main(argv=None):
         int8=args.int8, int8_scales=args.int8_scales,
         ref_manual_info=args.ref_manual_info,
         viz_cov=args.viz_cov, do_viz_extra=args.do_viz_extra,
-        show_viz=args.show_viz, batched=args.batched,
+        show_viz=args.show_viz, batched=args.batched, eval_window=args.eval_window,
         pipeline_scenes=args.pipeline_scenes, int8_online_ok=args.int8_online_ok,
         device=args.device,
     ).run()

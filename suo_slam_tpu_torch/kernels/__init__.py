@@ -5,9 +5,11 @@ K2, K5 and K19 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
 `solvers/ba.py`, K6 `slam/kernels.py`, K8, K9 and K16-K18
 `models/hourglass.py`, K10 `eval/meter.py`, K11-K13
 `models/int8_kernels.py`, K14 `solvers/ba.py`, K20 and K21
-`models/hourglass.py`) and adds one to its counter here where — and only
-where — it launches its CUDA kernel (once per call, where a call runs
-several kernels).
+`models/hourglass.py`, K22 `solvers/pnp.py`) and adds one to its counter
+here where — and only where — it launches its CUDA kernel (once per call,
+where a call runs several kernels). `count` takes a lock: the pipelined
+evaluation launches from several worker threads, and `+= 1` on a dict entry
+is a read-modify-write that two threads could interleave and lose.
 
 The kernels a training step reaches have their backward as kernels too:
 K2's is K19, K8's K17 (with K16's batch statistics in train mode), K9's
@@ -17,6 +19,8 @@ call.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -45,16 +49,20 @@ LAUNCHES: dict[str, int] = {
     "heatmap_readout_bwd": 0,  # K19
     "group_norm_relu": 0,  # K20
     "group_norm_relu_bwd": 0,  # K21
+    "pnp_sample": 0,    # K22
 }
+_count_lock = threading.Lock()
 
 
 def count(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def counts() -> dict[str, int]:

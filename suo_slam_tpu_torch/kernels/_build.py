@@ -16,6 +16,15 @@ operations, as PyTorch's separate elementwise kernels compute it in the plain
 versions, so a kernel and its plain version agree to the last bits where
 they run the same arithmetic in the same order.
 
+Building, loading and typing an entry point happen under one re-entrant lock
+(`_lock`): the pipelined evaluation's worker threads can reach a first launch
+together in a fresh process, and must not run two sets of `nvcc` into one
+`build/suo_kernels/` or type one entry point twice. The per-call path
+(`entry` on a typed entry point) takes no lock. `stream()` is PyTorch's
+current stream of the calling thread; a thread that set none (every worker
+thread) gets the device's default stream, the one PyTorch's own operations
+in that thread run on, so a launch stays ordered after the tensors it reads.
+
 Libraries load as `ctypes.PyDLL`: an entry point only enqueues work, so the
 call keeps the GIL rather than releasing and retaking it. Every C entry
 point returns `cudaGetLastError()` after its launch; `check`
@@ -41,7 +50,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.RLock()  # build_all, and entry's first lookup around it
 _libs: dict[str, ctypes.PyDLL] = {}
 _entries: dict[tuple, object] = {}
 build_log: dict[str, str] = {}  # source stem -> nvcc's output (ptxas -v)
@@ -117,12 +126,15 @@ def entry(stem: str, argtypes: list, symbol: str | None = None):
     int (cudaError_t) return."""
     fn = _entries.get((stem, symbol))  # the per-call path: one dict lookup
     if fn is None:
-        if stem not in _libs:
-            build_all()
-        fn = getattr(_libs[stem], symbol or f"suo_{stem}")
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _entries[(stem, symbol)] = fn
+        with _lock:
+            fn = _entries.get((stem, symbol))
+            if fn is None:
+                if stem not in _libs:
+                    build_all()
+                fn = getattr(_libs[stem], symbol or f"suo_{stem}")
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+                _entries[(stem, symbol)] = fn
     return fn
 
 

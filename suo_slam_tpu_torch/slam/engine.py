@@ -139,9 +139,11 @@ class SlamConfig:
 class TorchGumbelSampler:
     """The engine's random draws on one `torch.Generator` seeded from
     `SlamConfig.seed` (re-made at every `ObjectSlam.reset()`): the RANSAC
-    hypotheses by Gumbel top-4 — `sampler(keep [O, K], n_hyp)` draws a
-    group's [O, n_hyp, 4] indices, `sampler.single(mask [N], n_hyp)` one
-    point set's [n_hyp, 4] (the backup camera pose) — and
+    hypotheses by Gumbel top-4 (`pnp.sample_hypothesis_indices`: one
+    `torch.rand` and one launch of K22 a call on the card) —
+    `sampler(keep [O, K], n_hyp)` draws a group's [O, n_hyp, 4] indices,
+    `sampler.single(mask [N], n_hyp)` one point set's [n_hyp, 4] (the backup
+    camera pose) — and
     `sampler.noise(shape, std)`, debug_gt_kp's keypoint noise (f32 numpy)."""
 
     def __init__(self, seed: int, device: torch.device):

@@ -7,6 +7,9 @@ Port of `suo_slam_tpu/slam/kernels.py`:
   call; `has_prior=False` is the statically prior-free program; `int8=True`
   runs the s8-resident executor (K11-K13) with persisted or online-calibrated
   scales;
+- `make_multi_frame_inference` / `make_batch_inference`: the same over G
+  frames in one call (the throughput evaluation modes), with and without
+  priors;
 - `frontend_step`: keypoint filter -> hypothesis sampler -> batched PnP
   (`pnp_frame`: `pnp_ransac_batch`, one launch of K15) -> information ->
   (optionally) camera-pose RANSAC, with no host round-trip between the
@@ -426,4 +429,115 @@ def make_frame_inference(net, input_hw=(256, 256), device="cuda", int8=False,
     fn.int8_state = state
     fn.supports_no_prior = True
     fn.net = net
+    return fn
+
+
+def make_batch_inference(net, input_hw=(256, 256), device="cuda", int8=False,
+                         int8_scales=None):
+    """The multi-view prior-free network call of the batched single-view
+    evaluation (`evaluate.py --nviews 1 --batched`, `eval/batched.py`): a
+    window of G views' crops in one call, as the statically prior-free
+    program (single-view mode never feeds priors).
+
+    Returns fn(imgs [G, H, W, 3], boxes [G, O, 4], valid [G, O]) ->
+    (uv [G, O, K, 2], cov [G, O, K, 2, 2] | None, mask_prob [G, O, K]), on
+    the device. With persisted int8 scales the per-crop outputs equal the
+    per-frame program's (`make_frame_inference`) bit for bit: the int8
+    executor has no term across the batch. Without, the scales come from
+    the first call's crops with the worst-case all-ones prior. The
+    prior-free special case of `make_multi_frame_inference`.
+    """
+    multi = make_multi_frame_inference(net, input_hw, device=device, int8=int8,
+                                       int8_scales=int8_scales)
+
+    def fn(imgs, boxes, valid):
+        return multi(imgs, boxes, valid, has_prior=False)
+
+    if hasattr(multi, "int8_state"):
+        fn.int8_state = multi.int8_state
+    return fn
+
+
+def make_multi_frame_inference(net, input_hw=(256, 256), device="cuda", int8=False,
+                               int8_scales=None):
+    """The multi-frame network call with priors of the scene-pipelined
+    evaluation (`evaluate.py --pipeline_scenes K`, `eval/pipeline.py`): one
+    frame from each of G concurrently running engines in one call — K1 crops
+    the G images x O boxes in one launch, K5 renders the [G*O] prior
+    heatmaps, and the net (f32 / bf16, or with `int8` the s8-resident
+    executor, K11-K13) runs the flattened [G*O] crop batch.
+
+    Returns fn(imgs [G, H, W, 3], boxes [G, O, 4], valid [G, O], prior_uv
+    [G, O, K, 2], prior_valid [G, O, K], has_prior=True) -> (uv
+    [G, O, K, 2], cov [G, O, K, 2, 2] | None, mask_prob [G, O, K]), on the
+    device; inputs may be numpy arrays or tensors. has_prior=False runs the
+    statically prior-free program (the prior arguments may then be None),
+    whose rows equal the with-prior program's on a zero prior (the port keeps
+    the prior projection's bias there, `make_frame_inference`). Scales as
+    `make_batch_inference`: `int8_scales` (a persisted sidecar), else
+    `int8_forward.calibrate` on the first call's crops with the worst-case
+    all-ones prior. The int8 fn carries `int8_state` ("scales", "vq").
+    """
+    dev = resolve_device(device)
+    net = net.to(dev).eval().to(memory_format=torch.channels_last)
+    input_hw = tuple(input_hw)
+    phw = net.prior_hw(input_hw)
+    f32 = torch.float32
+
+    def crop(imgs, boxes, valid):
+        crops = roi_ops.roi_crop_batch(
+            torch.as_tensor(imgs).to(dev, f32), torch.as_tensor(boxes).to(dev, f32),
+            torch.as_tensor(valid).to(dev), input_hw)
+        return crops.reshape((-1,) + crops.shape[2:])  # [G*O, h, w, 3]
+
+    def render(prior_uv, prior_valid):
+        prior_uv = torch.as_tensor(prior_uv).to(dev, f32)
+        nk = prior_uv.shape[-2]
+        return hm.render_prior_heatmaps(
+            prior_uv.reshape(-1, nk, 2), torch.as_tensor(prior_valid).to(dev).reshape(-1, nk),
+            hw=phw, sigma_px=hm.prior_sigma_for(phw))  # [G*O, ph, pw, K]
+
+    def unflatten(out, g, o):
+        rows = lambda a: None if a is None else a.reshape((g, o) + a.shape[1:])
+        return rows(out.uv), rows(out.cov), rows(out.kp_mask)
+
+    if not int8:
+
+        @torch.inference_mode()
+        def fn(imgs, boxes, valid, prior_uv=None, prior_valid=None, has_prior=True):
+            g, o = boxes.shape[:2]
+            crops = crop(imgs, boxes, valid)
+            out = net(crops, render(prior_uv, prior_valid) if has_prior else None)
+            return unflatten(out, g, o)
+
+        fn.supports_no_prior = True
+        return fn
+
+    from ..models import int8_forward as i8
+
+    apply_p = i8.make_int8_apply(net)
+    apply_np = i8.make_int8_apply(net, no_prior=True)
+    state = {}
+    if int8_scales is not None:
+        state["scales"] = tuple(torch.as_tensor(s, dtype=f32).cpu() for s in int8_scales)
+
+    @torch.inference_mode()
+    def fn(imgs, boxes, valid, prior_uv=None, prior_valid=None, has_prior=True):
+        g, o = boxes.shape[:2]
+        crops = crop(imgs, boxes, valid)
+        if "scales" not in state:
+            n, k = crops.shape[0], net.num_kp
+            full = render(torch.zeros((n, k, 2), device=dev),
+                          torch.ones((n, k), dtype=torch.bool, device=dev))
+            state["scales"] = i8.calibrate(net, [crops], [full])
+        if "vq" not in state:
+            state["vq"] = i8.quantize_weights(net)
+        if has_prior:
+            out = apply_p(state["vq"], state["scales"], crops, render(prior_uv, prior_valid))
+        else:
+            out = apply_np(state["vq"], state["scales"], crops)
+        return unflatten(out, g, o)
+
+    fn.int8_state = state
+    fn.supports_no_prior = True
     return fn

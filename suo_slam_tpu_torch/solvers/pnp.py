@@ -1,11 +1,13 @@
-"""Vectorized PnP RANSAC with Gauss-Newton refinement — kernels K3 and K15.
+"""Vectorized PnP RANSAC with Gauss-Newton refinement — kernels K3, K15 and
+K22.
 
 Port of `suo_slam_tpu/solvers/pnp.py` over a leading object axis:
 
   1. a fixed batch of n_hyp 4-point hypotheses per object (explicit
      `idx [O, n_hyp, 4]`; `sample_hypothesis_indices` draws them as Gumbel
      top-4 on a `torch.Generator`, since torch cannot reproduce the
-     `jax.random` stream),
+     `jax.random` stream: one `torch.rand` and, on a CUDA tensor, one
+     launch of kernel K22, `csrc/pnp_sample.cu`),
   2. every hypothesis solved by P4P and scored against every point,
   3. the best hypothesis polished by two damped Gauss-Newton rounds with
      inlier reselection, kept only if no inliers are lost.
@@ -158,21 +160,75 @@ def _gn_refine(T0, x, y, w, iters: int = REFINE_GN_ITERS):
 
 def sample_hypothesis_indices(mask: torch.Tensor, n_hyp: int,
                               generator: torch.Generator | None = None):
-    """[O, n_hyp, 4] indices of valid points by Gumbel top-4.
+    """[O, n_hyp, 4] int64 indices of valid points by Gumbel top-4: one
+    `torch.rand` draw u [O, n_hyp, N] on `generator`, ranked by
+    `hypothesis_indices` (kernel K22 on a CUDA mask).
 
     Same contract as the JAX sampler: distinct indices while at least 4
-    points are valid; exhausted rows return index 0 (all scores -inf), which
+    points are valid; exhausted picks return index 0 (all scores -inf), which
     `pnp_ransac_batch` tolerates because it gates on n_valid >= 4."""
     O, n = mask.shape
     u = torch.rand((O, n_hyp, n), generator=generator, device=mask.device)
-    gumbel = -torch.log(-torch.log(u))
-    scores = torch.where(mask[:, None, :], gumbel, -torch.inf)
+    return hypothesis_indices(u, mask)
+
+
+def hypothesis_indices_plain(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch K22: u [O, n_hyp, N] uniform draws, mask [O, N] ->
+    [O, n_hyp, 4] int64, the 4 valid points of largest u per row in order.
+
+    The JAX sampler ranks Gumbel scores -log(-log(u)); that map is strictly
+    increasing, so ranking u itself picks the same ordered sets with no
+    transcendental (and K22 equals this bit for bit). Masked points and picks
+    already taken score -inf, not a sentinel such as -1: once a row's valid
+    points are exhausted every score is -inf and argmax ties to index 0, the
+    JAX contract, where a finite sentinel would pick a masked point. Ties go
+    to the lowest index."""
+    scores = torch.where(mask[:, None, :].bool(), u, -torch.inf)
     idxs = []
     for _ in range(4):
         i = torch.argmax(scores, dim=-1)
         idxs.append(i)
         scores = scores.scatter(-1, i[..., None], -torch.inf)
     return torch.stack(idxs, dim=-1)
+
+
+K22_MAX_POINTS = 2048  # K15_MAX_POINTS; 64 values a lane in registers (`csrc/pnp_sample.cu`)
+_K22_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+
+
+def _hypothesis_indices_cuda(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """K22 (`csrc/pnp_sample.cu`, one warp per row): f32 u, 1 <= N <=
+    K22_MAX_POINTS. Raises on what the kernel does not take."""
+    O, N = mask.shape
+    H = u.shape[1] if u.dim() == 3 else 0
+    if u.shape != (O, H, N):
+        raise ValueError(f"K22 shapes: u {tuple(u.shape)} mask {tuple(mask.shape)}")
+    if u.dtype != torch.float32:
+        raise ValueError(f"K22 ranks f32 draws, got {u.dtype}")
+    if not 1 <= N <= K22_MAX_POINTS:
+        raise ValueError(f"K22 takes 1 to {K22_MAX_POINTS} points, got {N}")
+    dev = u.device
+    if dev.type != "cuda" or mask.device != dev:
+        raise ValueError("K22 inputs must lie on one CUDA device")
+    uc = u.contiguous()
+    mk = mask.bool().contiguous().view(torch.uint8)
+    out = torch.empty((O, H, 4), dtype=torch.int64, device=dev)
+    fn = _build.entry("pnp_sample", _K22_ARGTYPES)
+    err = fn(_build.ptr(uc), _build.ptr(mk), O, H, N, _build.ptr(out), _build.stream())
+    _build.check(err, "K22 pnp_sample")
+    kernels.count("pnp_sample")
+    return out
+
+
+def hypothesis_indices(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rank the draws u [O, n_hyp, N] into [O, n_hyp, 4] hypothesis indices
+    (see `hypothesis_indices_plain`): K22 on CUDA tensors, the plain version
+    on CPU tensors."""
+    if u.device.type == "cpu":
+        return hypothesis_indices_plain(u, mask)
+    if u.device.type != "cuda":
+        raise ValueError(f"hypothesis_indices: unsupported device {u.device}")
+    return _hypothesis_indices_cuda(u, mask)
 
 
 def pnp_hypotheses_plain(xp, y, mask, idx, thr_sq):

@@ -1,4 +1,4 @@
-"""Kernels K1-K21 against their plain PyTorch versions on the card.
+"""Kernels K1-K22 against their plain PyTorch versions on the card.
 
 Marked `cuda`: they skip where no CUDA device exists (a CUDA kernel has no
 CPU mode). On a machine with an H100:
@@ -571,6 +571,51 @@ def test_k15_pnp_ransac_shapes(dev, n_hyp, N):
         assert torch.equal(rk.num_inliers, rp.num_inliers)
         assert torch.equal(rk.T[:, :3, :3], rp.T[:, :3, :3])
     cs.k15_gate(f"K15 n_hyp={n_hyp} N={N}", x, y, mask, idx)
+
+
+@pytest.mark.parametrize("O,H,N", [(8, 64, 41), (1, 128, 328), (3, 5, 7), (2, 33, 1024),
+                                   (1, 1, 1), (4, 16, 97), (2, 31, 2048)])
+def test_k22_pnp_sample(dev, O, H, N):
+    """K22 equals its plain version on the same CUDA draws exactly: ties
+    (lowest index), a row with 2 valid points, one with none (index 0 for
+    every exhausted pick), every per-lane width up to 2048 points (K15's
+    limit)."""
+    from suo_slam_tpu_torch.solvers import pnp
+
+    g = torch.Generator(device=dev).manual_seed(O * 1000 + N)
+    u = torch.rand((O, H, N), generator=g, device=dev)
+    if N > 3:
+        u[..., 3] = u[..., 1]
+    mask = torch.rand((O, N), generator=g, device=dev) < 0.8
+    mask[0] = False
+    mask[0, :min(2, N)] = True
+    if O > 1:
+        mask[1] = False
+    k = pnp._hypothesis_indices_cuda(u, mask)
+    p = pnp.hypothesis_indices_plain(u, mask)
+    torch.cuda.synchronize()
+    assert k.dtype == torch.int64 and torch.equal(k, p)
+    assert (k[0, :, min(2, N):] == 0).all()
+
+
+def test_k22_one_launch_per_sampler_call(dev, monkeypatch):
+    """The engine's sampler on a CUDA mask: one K22 launch a call (the
+    group's and the backup pose's `single`), never the plain version."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.slam.engine import TorchGumbelSampler
+    from suo_slam_tpu_torch.solvers import pnp
+
+    plain = []
+    monkeypatch.setattr(pnp, "hypothesis_indices_plain", lambda *a: plain.append(a))
+    sampler = TorchGumbelSampler(0, dev)
+    mask = torch.rand((8, 41), device=dev) < 0.8
+    kernels.reset_counts()
+    idx = sampler(mask, 64)
+    one = sampler.single(mask.flatten(), 128)
+    torch.cuda.synchronize()
+    assert kernels.counts()["pnp_sample"] == 2 and not plain
+    assert idx.shape == (8, 64, 4) and one.shape == (128, 4) and idx.dtype == torch.int64
+    assert bool(torch.gather(mask, 1, idx.flatten(1)).all())
 
 
 def test_kernels_refuse_autograd(dev):

@@ -20,8 +20,9 @@ scene has no edge at the gate, so the two engines' f32 differences (~0.02 mm
 after tracking) cannot choose different branches.
 
 Also: one subprocess run of `python -m suo_slam_tpu_torch.evaluate --device
-cpu`; the flags whose paths are not ported (`--batched` beside `--int8`
-too) raise SystemExit naming ROADMAP items that exist; a reference
+cpu`; the flags whose paths are not ported (visualization) raise SystemExit
+naming ROADMAP items that exist, and the throughput modes refuse what the
+JAX package refuses, with its messages; a reference
 `.pth.tar` loads through the port's converter; the VSD scoring of a T-LESS
 CSV equals the JAX package's.
 """
@@ -143,22 +144,28 @@ def test_cli_runs_on_the_cpu(ycbv, tmp_path):
     assert len(rows) == 12 and all(len(r.split(",")) == 7 for r in rows)
 
 
-@pytest.mark.parametrize("flags", [
-    dict(no_viz=False), dict(viz_cov=True), dict(do_viz_extra=True), dict(show_viz=True),
-    dict(batched=True), dict(pipeline_scenes=2), dict(int8=True, batched=True),
-    dict(int8_online_ok=True),
-])
-def test_unported_flags_raise_naming_roadmap_items(ycbv, flags):
-    kw = dict(no_viz=True, **{k: v for k, v in flags.items() if k != "no_viz"})
-    if "no_viz" in flags:
-        kw["no_viz"] = flags["no_viz"]
+@pytest.mark.parametrize("flags,nviews,message", [
+    (dict(no_viz=False), 1, "ROADMAP A11"), (dict(viz_cov=True), 1, "ROADMAP A11"),
+    (dict(do_viz_extra=True), 1, "ROADMAP A11"), (dict(show_viz=True), 1, "ROADMAP A11"),
+    # the throughput modes (ROADMAP A13, ported) refuse as the JAX package does
+    (dict(batched=True), 1, "--batched requires --nviews 1 with a real network"),
+    (dict(pipeline_scenes=2, batched=True), -1, "--pipeline_scenes is exclusive with --batched"),
+    (dict(int8=True, batched=True), 1, "--int8 requires a norm='batch' network"),
+    (dict(pipeline_scenes=2, no_viz=False), -1, "viz needs the sequential path"),
+], ids=[f"flags{i}" for i in range(8)])
+def test_unported_flags_raise_naming_roadmap_items(ycbv, flags, nviews, message):
+    """The flags whose paths are not ported raise naming their ROADMAP item;
+    the throughput modes' own refusals carry the JAX package's messages."""
+    kw = {"no_viz": True, **flags}
     with pytest.raises(SystemExit) as e:
-        port_evaluate.Evaluator("ycbv", ycbv, "", nviews=1, detection_type="gt",
+        port_evaluate.Evaluator("ycbv", ycbv, "", nviews=nviews, detection_type="gt",
                                 debug_gt_kp=True, device="cpu",
                                 kp_config_root=os.path.join(ycbv, "kp_configs"), **kw)
-    item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
-    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
-    assert re.search(rf"\*\*{item}[ .]", roadmap), (item, str(e.value))
+    assert message in str(e.value), str(e.value)
+    if "ROADMAP" in message:
+        item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
+        roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
+        assert re.search(rf"\*\*{item}[ .]", roadmap), (item, str(e.value))
     # a GroupNorm net's checkpoint loads (ROADMAP A18 is done); --int8 then
     # raises, as in the JAX package: the int8 executor folds BatchNorm
     ck = os.path.join(ycbv, "group_net", "model_best")

@@ -82,8 +82,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 def test_slam_mode_raises_naming_its_roadmap_item():
     """SLAM, SfM, debug_gt_kp and int8 runs construct (int8 serving, B5, is
     ported: an int8 engine builds its s8 program and refuses a run with
-    neither scales nor calibration frames); the throughput modes that stay
-    owed raise in the CLI naming a ROADMAP entry that exists."""
+    neither scales nor calibration frames); the paths that stay owed (the
+    visualization flags) raise in the CLI naming a ROADMAP entry that
+    exists."""
     import re
 
     from suo_slam_tpu_torch.evaluate import refuse_unported
@@ -101,7 +102,7 @@ def test_slam_mode_raises_naming_its_roadmap_item():
         ObjectSlam(SlamConfig(int8_inference=True, int8_calib_frames=0), net=net,
                    device="cpu")
     roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
-    for kw in ("batched", "int8_online_ok"):
+    for kw in ("viz_cov", "show_viz"):
         with pytest.raises(SystemExit, match="ROADMAP") as e:
             refuse_unported(**{kw: True})
         item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)

@@ -735,8 +735,13 @@ def test_cli_int8_refusals(tmp_path, post_stem):
     with pytest.raises(SystemExit, match="--int8_scales not found"):
         port_evaluate.Evaluator("ycbv", str(root), "", int8=True, net=net,
                                 int8_scales=str(tmp_path / "missing.npz"), **kw)
-    with pytest.raises(SystemExit, match="ROADMAP A13"):
-        port_evaluate.Evaluator("ycbv", str(root), "", int8=True, batched=True, net=net, **kw)
+    # the batched mode (ported) refuses as the JAX package does outside
+    # --nviews 1, and serves int8 inside it
+    with pytest.raises(SystemExit, match="--batched requires --nviews 1"):
+        port_evaluate.Evaluator("ycbv", str(root), "", int8=True, batched=True, net=net,
+                                **{**kw, "nviews": -1})
+    ev = port_evaluate.Evaluator("ycbv", str(root), "", int8=True, batched=True, net=net, **kw)
+    assert ev.batched_runner is not None and ev.batched_runner._fn.int8_state == {}
     with pytest.raises(SystemExit, match="norm='batch' network"):
         port_evaluate.Evaluator("ycbv", str(root), "", int8=True, debug_gt_kp=True, **kw)
     # no sidecar: online calibration, announced
