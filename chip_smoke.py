@@ -34,7 +34,15 @@ Phases (any failure raises and exits non-zero):
      [8, 64, 41] (a row with 2 valid points) and the backup pose's
      [1, 128, 328], beside `torch.topk` on the masked draws and the
      sampler's whole call (`torch.rand` + K22); K8's wrapper call at a
-     SLAM-frame shape (`[host] K8 wrapper`); each beside the earlier
+     SLAM-frame shape (`[host] K8 wrapper`); K2 on both paths (dense: a
+     thread-block cluster per crop, the main path's; strided: the earlier
+     design) on the net's f32 logits in both transpose_heatmaps orders and
+     on 128 crops of bf16 logits, with device times, kernels per call and
+     batch invariance (a crop's outputs in a 128-crop call equal its
+     single-crop call's bits); K10 on both designs (one launch over the
+     resident point table; the earlier two kernels) at B = 1, 8 and 96 (one
+     scored scene of phase 7), per-point equal to its plain version and a
+     pose's results equal across B; each beside the earlier
      designs' times (`EARLIER_US`); then the full-width net in bf16 against
      the same net in f32 on the card (uv within the bf16 error the CPU shows
      for the same crops), both nets' ms per call on the host clock (with K8 /
@@ -89,7 +97,8 @@ Phases (any failure raises and exits non-zero):
      and 100% of camera poses; `Evaluator(nviews=1)` with the full-width
      bf16 net (seeded random weights, passed as `net=`) must run to its end
      and write summary.txt and the BOP CSV. Per-view latency and the K8-K10
-     counts of the phase;
+     counts of the phase; each leg launches K10 once (one meter call per
+     scored scene);
   8. int8 serving: the full-width net's s8-resident program
      (`models/int8_forward.py`) calibrated on the card; K11 (every distinct
      convolution shape of the forward, with its real codes and its route —
@@ -156,7 +165,8 @@ Phases (any failure raises and exits non-zero):
      uv on every crop; bf16 within the bf16 net's gap to f32 on the same
      crops), its ms and crops/s in bf16, int8 and f32; then `Evaluator`
      legs, each with its launches, ms per view and multi-frame call shapes,
-     every sampler call through K22: `--nviews 1` sequential and `--batched`
+     every sampler call through K22 and one K10 launch per scene: `--nviews
+     1` sequential and `--batched`
      (4 calls of 128 crops) in bf16 (AUC within 1 point, the same CSV rows)
      and int8 on phase 8's sidecar (CSV equal byte for byte); `--nviews -1`
      sequential and `--pipeline_scenes 4` (rounds of 4 x 8 crops, with
@@ -194,13 +204,18 @@ H_IMG, W_IMG = 480, 640
 YCBV_K = np.array([[1066.778, 0.0, 312.9869], [0.0, 1067.487, 241.3109], [0.0, 0.0, 1.0]])
 N_OBJ = 8
 NK = 41
-# the previous designs of K1 and K15 on an H100 80GB HBM3 at 700 W (chip_smoke's
-# run before their redesign; K1's earlier kernel is the generic path, K15's
-# the serial design, both still measured here): K1's call and its device
-# time per launch in the profiled SLAM frame; K15's device time at phase 3's
-# shape and per launch in the frame; the targets beside them
-EARLIER_US = {"K1 call": 30.70, "K1 frame": 6.464, "K15 phase 3": 54.167, "K15 frame": 67.402}
-TARGET_US = {"K1 device": 5.18, "K15 phase 3": 35.0, "K15 frame": 40.0}
+# the previous designs of K1, K15, K2 and K10 on an H100 80GB HBM3 at 700 W
+# (chip_smoke's run before their redesign; K1's earlier kernel is the generic
+# path, K15's the serial design, K2's the strided path, K10's the two-pass
+# design, all still measured here): K1's call and its device time per launch
+# in the profiled SLAM frame; K15's device time at phase 3's shape and per
+# launch in the frame; K2's device time at 8 x 64 x 64 x 41 (f32 logits of
+# the net, bf16 of the int8 net); K10's per call at P = 4096; the targets
+# beside them
+EARLIER_US = {"K1 call": 30.70, "K1 frame": 6.464, "K15 phase 3": 54.167, "K15 frame": 67.402,
+              "K2 f32": 18.512, "K2 bf16": 16.970, "K10 B=1": 22.103, "K10 B=8": 59.225}
+TARGET_US = {"K1 device": 5.18, "K15 phase 3": 35.0, "K15 frame": 40.0,
+             "K2 f32": 6.0, "K2 bf16": 4.0, "K10 B=1": 8.0, "K10 B=8": 35.0}
 SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm", "pnp_sample")
 # K3, K4, K7: checked in phase 3, off the main path (K15 and K14 replaced them)
 OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur")
@@ -562,7 +577,103 @@ def check_k1(dev, rng, objs):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
 
 
+def launches_per_call(fn, n=3):
+    """CUDA kernels per call of fn: the kernel nodes of a CUDA graph that
+    captures n calls (memory copies and fills left out), counted by
+    `cuGraphGetNodes` and `cuGraphNodeGetType` of libcuda. Unlike a profiler
+    trace, the capture holds every launch. fn runs once on the capture's
+    stream first, so one-time work (a build, a scratch allocation) is done."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    for name in ("cuGraphGetNodes", "cuGraphNodeGetType"):
+        getattr(cu, name).restype = ctypes.c_int
+
+    def ok(res, what):
+        if res != 0:
+            raise RuntimeError(f"{what} failed with CUresult {res}")
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(n):
+            fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(graph, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    ok(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for i in range(count.value):
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    g.reset()
+    return kernels / n
+
+
+def k2_paths(label, x, n_bytes):
+    """K2 on logits x through both paths — dense (a cluster per crop, the
+    main path's) and strided (the earlier design) — against the plain
+    version within 1e-5 (f32 moments summed in another order): errors,
+    wrapper ms, device us per call and kernels per call of each. Returns
+    {path name: (err, ms, us)}."""
+    import torch
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    tol = 1e-5
+    p = hm.heatmap_readout_plain(x, 1e-6)
+    out = {}
+    for path, name, key in ((hm.DENSE, "dense", "heatmap_readout_kernel_dense"),
+                            (hm.STRIDED, "strided (earlier)", "heatmap_readout_kernel<")):
+        f = lambda: hm._heatmap_readout_cuda(x, 1e-6, path=path)
+        k = f()
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(k, p))
+        if not err <= tol:
+            raise AssertionError(f"K2 {label} ({name} path) disagrees with its plain version: "
+                                 f"{err}")
+        ms = cuda_ms(f)
+        us, src = device_us(f, key)
+        per = launches_per_call(f)
+        if per != 1:
+            raise AssertionError(f"K2 {label}: the {name} path made {per} launches per call")
+        out[name] = (err, ms, us)
+        log(f"[kernel] K2 {label} {name} path: max_abs_err {err:.3e} (tol {tol:.0e}) | call "
+            f"{ms:.4f} ms | device {us:.3f} us by {src} | {per} kernels per call | "
+            f"{n_bytes / (us * 1e-6) / 1e12:.3f} TB/s of the logits")
+    return out
+
+
+def k2_batch_invariance(x, label, crops=(0, 1, 57, 127)):
+    """The dense path's outputs for crops of a batch equal the single-crop
+    call's bit for bit."""
+    import torch
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    big = hm._heatmap_readout_cuda(x, 1e-6)
+    bad = [i for i in crops if not all(
+        torch.equal(a[i:i + 1], b) for a, b in zip(big, hm._heatmap_readout_cuda(x[i:i + 1], 1e-6)))]
+    log(f"[kernel] K2 {label}: crops {list(crops)} of {x.shape[0]} equal to single-crop calls "
+        f"bit for bit: {not bad}")
+    if bad:
+        raise AssertionError(f"K2 {label}: crops {bad} differ from their single-crop calls")
+
+
 def check_k2(dev, rng, net):
+    """K2 on the full-width net's f32 logits (8 crops, the head's channels_last
+    layout, both transpose_heatmaps orders) and on 128 crops of bf16 logits
+    in the same layout (the batched path's shape), on both paths, beside the
+    earlier design's time (`EARLIER_US`); batch invariance at 128 crops."""
     import torch
 
     from suo_slam_tpu_torch.ops import heatmap as hm
@@ -573,15 +684,16 @@ def check_k2(dev, rng, net):
     with torch.inference_mode():
         raw = net.backbone_logits(crops)[-1]
     assert raw.shape == (N_OBJ, 64, 64, NK)
-    uv_k, cov_k, pool_k = hm._heatmap_readout_cuda(raw, 1e-6)
-    uv_p, cov_p, pool_p = hm.heatmap_readout_plain(raw, 1e-6)
-    torch.cuda.synchronize()
-    err = max((uv_k - uv_p).abs().max().item(), (cov_k - cov_p).abs().max().item(),
-              (pool_k - pool_p).abs().max().item())
+    plan = hm.plan_readout(raw.shape, raw.stride(), 4, raw.data_ptr())
+    log(f"[kernel] K2 plan of the head's logits: {plan}")
+    if plan.path != hm.DENSE:
+        raise AssertionError(f"K2 does not take the head's logits on its dense path: {plan}")
     tol = 1e-5  # f32 moments over 4096 pixels, summed in another order
-    if not err <= tol:
-        raise AssertionError(f"K2 disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: hm._heatmap_readout_cuda(raw, 1e-6))
+    n = raw.numel()
+    paths = k2_paths(f"f32 {list(raw.shape)}", raw, n_bytes=n * 4)
+    k2_paths(f"f32 {list(raw.shape)} transposed", raw.transpose(1, 2), n_bytes=n * 4)
+    err, ms, us = paths["dense"]
+    err = max(err, paths["strided (earlier)"][0])
     plain_ms = cuda_ms(lambda: hm.heatmap_readout_plain(raw, 1e-6))
     u, v = hm.ndc_grid(64, 64, torch.float32, dev)
     feats = torch.stack([u, v, u * u, v * v, u * v], -1).reshape(4096, 5)
@@ -591,9 +703,21 @@ def check_k2(dev, rng, net):
         return torch.einsum("npk,pf->nkf", torch.softmax(flat, dim=1), feats)
 
     lib_ms = cuda_ms(lib)
-    n = raw.numel()
     b = bound(n * 4 + N_OBJ * NK * (2 + 4 + 1) * 4, n * 24)
-    _report("K2 heatmap_readout", err, tol, ms, plain_ms, lib_ms, b, lib)
+    _report(f"K2 heatmap_readout (f32 {list(raw.shape)}, dense path, device {us:.3f} us; "
+            f"target <= {TARGET_US['K2 f32']}, the earlier design {EARLIER_US['K2 f32']} us)",
+            err, tol, ms, plain_ms, lib_ms, b, lib)
+    # the batched path's shape: 128 crops of bf16 logits in the head's layout
+    g = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    x = (torch.randn(128, NK, 64, 64, device=dev, generator=g) * 4).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    big = k2_paths(f"bf16 {list(x.shape)}", x, n_bytes=x.numel() * 2)
+    bb = bound(x.numel() * 2 + 128 * NK * 7 * 4, x.numel() * 24)
+    log(f"[kernel] K2 bf16 {list(x.shape)}: bound {bb[0]:.5f} ms ({bb[1]}); dense "
+        f"{big['dense'][2]:.3f} us, strided (earlier) {big['strided (earlier)'][2]:.3f} us")
+    k2_batch_invariance(x, f"bf16 {list(x.shape)}")
+    k2_batch_invariance(raw, f"f32 {list(raw.shape)}", crops=range(N_OBJ))
+    del x
     return dict(name="heatmap_readout", route="cuda",
                 source="suo_slam_tpu_torch/csrc/heatmap_readout.cu",
                 replaces="suo_slam_tpu/ops/heatmap.py:56", max_abs_err=err, ms=ms,
@@ -2198,21 +2322,26 @@ def check_k9(dev, rng):
 
 
 def check_k10(dev, rng):
-    """K10 at P = 4096 (the MeshDb subsample), B = 1 (one object per meter
-    update, as the evaluation calls it) and B = 8: per-point distances equal
-    to the plain version's, means within 1e-6 relative."""
+    """K10 at P = 4096 (the MeshDb subsample) on a resident table of 8 clouds
+    read through an object index per pose: B = 1 and 8, and B = 96 (one call
+    per scored scene: phase 7's 12 views x 8 objects, the main path's shape),
+    on the current design (one launch) and the earlier one (two kernels, on
+    the gathered clouds): per-point distances equal to the plain version's,
+    means within 1e-6 relative, a pose's results the same bits in any batch.
+    Bound: 9 f32 instructions a pair at half the 67 TFLOP/s (an FMA counts
+    two there; with --fmad=false every instruction is one operation)."""
     import torch
 
     from suo_slam_tpu_torch.core import lie
     from suo_slam_tpu_torch.eval import meter
 
-    P = 4096
+    P, R = 4096, N_OBJ
+    table = torch.from_numpy(rng.uniform(-50, 50, (R, P, 3)).astype(np.float32)).to(dev)
+    cnt = torch.full((R,), P, dtype=torch.int32, device=dev)
+    cnt[1:] = torch.from_numpy(rng.integers(P // 2, P, R - 1).astype(np.int32)).to(dev)
     res = {}
-    for B in (1, 8):
-        pts = torch.from_numpy(rng.uniform(-50, 50, (B, P, 3)).astype(np.float32)).to(dev)
-        n = torch.full((B,), P, dtype=torch.int32, device=dev)
-        if B > 1:
-            n[1:] = torch.from_numpy(rng.integers(P // 2, P, B - 1).astype(np.int32)).to(dev)
+    for B in (1, 8, 96):
+        obj = torch.from_numpy((np.arange(B) % R).astype(np.int32)).to(dev)
         Tg = torch.from_numpy(np.stack([np.eye(4)] * B).astype(np.float32)).to(dev)
         Tg[:, :3, :3] = torch.from_numpy(np.stack([random_rotation(rng) for _ in range(B)])
                                          .astype(np.float32)).to(dev)
@@ -2220,35 +2349,55 @@ def check_k10(dev, rng):
         w = rng.normal(size=(B, 6)) * np.array([0.01] * 3 + [0.0] * 3)
         dT = lie.se3_exp(torch.from_numpy(w.astype(np.float32)).to(dev))
         dT[:, :3, 3] = torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32) * 3).to(dev)
-        Tp = dT @ Tg
-        k = meter._add_dists_cuda(pts, n, Tp, Tg, per_point=True)
-        p = meter.add_dists_plain(pts, n, Tp, Tg, per_point=True)
+        Tp = (dT @ Tg).contiguous()
+        pts, n = table[obj.long()], cnt[obj.long()]  # the earlier design's gathered clouds
+        f = lambda: meter._add_dists_cuda(table, cnt, Tp, Tg, obj)
+        f2 = lambda: meter._add_dists_cuda(pts, n, Tp, Tg, two_pass=True)
+        plain = lambda: meter.add_dists_plain(table, cnt, Tp, Tg, obj=obj)
+        k = meter._add_dists_cuda(table, cnt, Tp, Tg, obj, per_point=True)
+        k2 = meter._add_dists_cuda(pts, n, Tp, Tg, per_point=True, two_pass=True)
+        p = meter.add_dists_plain(table, cnt, Tp, Tg, per_point=True, obj=obj)
+        pm, pd = torch.stack(p[:2]), torch.stack(p[2:])
+        one = {i: meter._add_dists_cuda(table, cnt, Tp[i:i + 1], Tg[i:i + 1], obj[i:i + 1],
+                                        per_point=True) for i in sorted({0, B - 1})}
         torch.cuda.synchronize()
-        pt_equal = torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
-        rel = max(((a - b).abs() / b.abs()).max().item() for a, b in zip(k[:2], p[:2]))
+        pt_equal = all(torch.equal(d, pd) for _, d in (k, k2))
+        rel = max(((m - pm).abs() / pm.abs()).max().item() for m, _ in (k, k2))
+        across = all(torch.equal(k[0][:, i:i + 1], m1) and torch.equal(k[1][:, i:i + 1], d1)
+                     for i, (m1, d1) in one.items())
         log(f"[kernel] K10 B={B}: per-point distances equal {pt_equal}, means rel err "
-            f"{rel:.3e} (tol 1e-6); ADD {k[0][:4].tolist()}, ADD-S {k[1][:4].tolist()}")
-        if not (pt_equal and rel <= 1e-6):
-            raise AssertionError(f"K10 disagrees with its plain version (B={B}): {rel}")
-        ms = cuda_ms(lambda: meter._add_dists_cuda(pts, n, Tp, Tg))
-        plain_ms = cuda_ms(lambda: meter.add_dists_plain(pts, n, Tp, Tg), n=5, inner=2)
+            f"{rel:.3e} (tol 1e-6), a pose's results equal across B {across}; ADD "
+            f"{k[0][0, :4].tolist()}, ADD-S {k[0][1, :4].tolist()}")
+        if not (pt_equal and rel <= 1e-6 and across):
+            raise AssertionError(f"K10 disagrees with its plain version or across B (B={B}): "
+                                 f"{rel}")
+        ms, ms2 = cuda_ms(f), cuda_ms(f2)
+        plain_ms = cuda_ms(plain, n=5, inner=2 if B <= 8 else 1)
 
         def lib():  # the ADD-S minimum by cdist
-            R, t = Tg[:, :3, :3], Tg[:, :3, 3]
-            g = pts @ R.transpose(1, 2) + t[:, None]
+            R_, t = Tg[:, :3, :3], Tg[:, :3, 3]
+            g = pts @ R_.transpose(1, 2) + t[:, None]
             q = pts @ Tp[:, :3, :3].transpose(1, 2) + Tp[:, None, :3, 3]
             return torch.cdist(g, q).amin(-1)
 
-        lib_ms = cuda_ms(lib)
-        us, src = device_us(lambda: meter._add_dists_cuda(pts, n, Tp, Tg), "add_dists_",
-                            per_call=2)
+        lib_ms = cuda_ms(lib, n=5, inner=2)
+        us, src = device_us(f, "add_dists_kernel")
+        us2, src2 = device_us(f2, "add_dists_", per_call=2)
+        per, per2 = launches_per_call(f), launches_per_call(f2)
+        if (per, per2) != (1, 2):
+            raise AssertionError(f"K10 (B={B}) made {per} launches per call, its two-kernel "
+                                 f"design {per2}")
         pairs = float((n.double() ** 2).sum())
-        b = bound(pts.numel() * 4 + B * (2 * 64 + 4 + 8), pairs * 9)
+        rows = len(set(obj.tolist()))  # the table's clouds this call reads
+        b = bound(rows * P * 12 + B * (2 * 64 + 4 + 8), pairs * 9, F32_FLOP_PER_S / 2)
         res[B] = (rel, ms, plain_ms, lib_ms, b)
-        _report(f"K10 add_dists (B={B}, P={P}, device {us:.3f} us per call of 2 kernels by "
-                f"{src})",
+        log(f"[kernel] K10 B={B}: plan {meter.plan_add_dists(B, P)}; {per} kernels per call; "
+            f"device {us:.3f} us by {src} (target <= {TARGET_US.get(f'K10 B={B}', 'none')}); "
+            f"the earlier design: call {ms2:.4f} ms, device {us2:.3f} us by {src2} per call of "
+            f"2 kernels (its run before this design {EARLIER_US.get(f'K10 B={B}', 'n/a')} us)")
+        _report(f"K10 add_dists (B={B}, P={P}, device {us:.3f} us by {src})",
                 rel, "1e-6 relative; per-point equal", ms, plain_ms, lib_ms, b, lib)
-    rel, ms, plain_ms, lib_ms, b = res[1]
+    rel, ms, plain_ms, lib_ms, b = res[96]
     return dict(name="add_dists", route="cuda", source="suo_slam_tpu_torch/csrc/add_dists.cu",
                 replaces="suo_slam_tpu/eval/meter.py:83", max_abs_err=rel, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
@@ -2503,6 +2652,7 @@ def phase_evaluate(dev, seed, net16):
     out = {}
     for leg, kw in (("slam", dict(nviews=-1, debug_gt_kp=True)),
                     ("single_view_bf16", dict(nviews=1, net=net16))):
+        k10_before = kernels.counts()["add_dists"]
         ev = Evaluator("ycbv", root, "", detection_type="gt", no_viz=True,
                        kp_config_root=os.path.join(root, "kp_configs"), device=dev, **kw)
         ev.model_path = os.path.join(base, "results")
@@ -2521,13 +2671,19 @@ def phase_evaluate(dev, seed, net16):
         if not (os.path.isfile(os.path.join(outdir, "summary.txt")) and os.path.isfile(csv_path)):
             raise AssertionError(f"evaluation leg {leg}: summary.txt or the CSV is missing")
         rows = open(csv_path).read().splitlines()
+        k10 = kernels.counts()["add_dists"] - k10_before
+        # one scene: one K10 launch where any pose was scored (a CSV row is one)
+        if k10 != 1 and (rows or k10 > 1):
+            raise AssertionError(f"evaluation leg {leg}: {k10} K10 launches for one scored "
+                                 f"scene ({len(rows)} CSV rows)")
         auc = float(re.search(r"AUC of ADD\(-S\): ([\d.]+)", text).group(1))
         cam = summary.get("cam_pose_pct")
         log(f"[eval] {leg}: {ev.method_name()}: AUC of ADD(-S) {auc:.1f}, ADD "
             f"{100 * summary['ours']['AUC of ADD']:.2f}, ADD-S "
             f"{100 * summary['ours']['AUC of ADD-S']:.2f}, camera poses found {cam}%, "
             f"{len(rows)} CSV rows; {wall:.2f} s for {EVAL_VIEWS} views = "
-            f"{wall / EVAL_VIEWS * 1e3:.2f} ms per view (loading, engine and meter), tracking "
+            f"{wall / EVAL_VIEWS * 1e3:.2f} ms per view (loading, engine and meter), {k10} K10 "
+            f"launch(es) for the scene, tracking "
             f"{ev.object_slam.tracking_hz():.2f} Hz")
         out[leg] = (auc, cam, wall)
     counts = kernels.counts()
@@ -2851,25 +3007,20 @@ def check_k13(dev, calls):
 
 
 def check_k2_bf16(dev, raw16):
-    """K2 on the int8 net's bf16 logits against its plain version."""
-    import torch
-
+    """K2 on the int8 net's bf16 logits against its plain version, on both
+    paths (the int8 head's contiguous NHWC logits take the dense path)."""
     from suo_slam_tpu_torch.ops import heatmap as hm
 
-    k = hm._heatmap_readout_cuda(raw16, 1e-6)
-    p = hm.heatmap_readout_plain(raw16, 1e-6)
-    torch.cuda.synchronize()
-    err = max((a - b).abs().max().item() for a, b in zip(k, p))
-    ms = cuda_ms(lambda: hm._heatmap_readout_cuda(raw16, 1e-6))
+    paths = k2_paths(f"bf16 int8-net logits {list(raw16.shape)}", raw16,
+                     n_bytes=raw16.numel() * 2)
+    err, ms, us = paths["dense"]
     plain_ms = cuda_ms(lambda: hm.heatmap_readout_plain(raw16, 1e-6))
-    us, src = device_us(lambda: hm._heatmap_readout_cuda(raw16, 1e-6), "heatmap_readout_kernel")
     n = raw16.numel()
     b = bound(n * 2 + N_OBJ * NK * 7 * 4, n * 24)
-    _report(f"K2 heatmap_readout (bf16 logits {list(raw16.shape)}, device {us:.3f} us by {src})",
-            err, 1e-5, ms, plain_ms, None, b)
-    if not err <= 1e-5:
-        raise AssertionError(f"K2 on bf16 logits disagrees with its plain version: {err}")
-    return err
+    _report(f"K2 heatmap_readout (bf16 logits {list(raw16.shape)}, dense path, device "
+            f"{us:.3f} us; target <= {TARGET_US['K2 bf16']}, the earlier design "
+            f"{EARLIER_US['K2 bf16']} us)", err, 1e-5, ms, plain_ms, None, b)
+    return max(err, paths["strided (earlier)"][0])
 
 
 def _with_plain_int8(fn):
@@ -4245,6 +4396,9 @@ def _throughput_leg(label, root, base, dev, guide, n_items, **kw):
                                                    "heatmap_readout")):
         raise AssertionError(f"throughput leg {label}: a kernel of the path did not launch, or "
                              f"{plain.n} plain sampler calls on the card: {counts}")
+    if counts.get("add_dists") != THROUGHPUT_SCENES:  # one meter call per scored scene
+        raise AssertionError(f"throughput leg {label}: {counts.get('add_dists')} K10 launches "
+                             f"for {THROUGHPUT_SCENES} scenes")
     return dict(summary=summary, csv=csv, auc=auc, wall=wall, counts=counts, shapes=shapes)
 
 

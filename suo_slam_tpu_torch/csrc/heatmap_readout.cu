@@ -4,22 +4,46 @@
 //
 // Replaces `suo_slam_tpu/ops/heatmap.py` `spatial_softmax` + `soft_argmax`
 // (what `models/pkpnet.py:127-133` calls) and `soft_argmax_from_logits`.
-// On the TPU the moments are one [N*K, HW] x [HW, 6] MXU contraction; here a
-// block owns one (n, k) plane and reduces it twice (max, then the six
-// exp-weighted moments 1, u, v, u^2, v^2, uv), all in f32:
+// On the TPU the moments are one [N*K, HW] x [HW, 6] MXU contraction. Here,
+// per (n, k) plane, in f32: the max, then the six exp-weighted moments
+// 1, u, v, u^2, v^2, uv:
 //   uv  = (E[u], E[v]),  cov = E[pp^T] - uv uv^T + min_var * I,
 //   pooled = mean of the raw logits (the validity head's input).
-// The plane is read with the strides the caller passes, so the NCHW /
-// channels_last head output and the transpose_heatmaps view need no copy.
 // Logits are f32 or bf16 (the int8 engine's head, `int8_forward.py:526-543`):
 // for bf16 the shifted logit l - max rounds to bf16 before the f32 exp, as
-// JAX subtracts in the logits' dtype (`ops/heatmap.py:84-85`); the moments
-// and the pooled mean stay f32.
+// JAX subtracts in the logits' dtype (`ops/heatmap.py:84-85`), so the true
+// per-plane max comes first (no online rescaling); the moments and the
+// pooled mean stay f32.
 //
-// Bound on this card: bytes. At the main path's shapes (8 x 41 planes of
-// 64x64 f32) it must read 5.4 MB once: ~1.6 us at 3.35 TB/s; the outputs are
-// 8 KB. Design: one 256-thread block per plane (328 blocks over 132 SMs), the
-// second pass re-reads the 16 KB plane from L1/L2, warp-shuffle reductions.
+// Bound on this card: bytes. At the main path's shapes (8 x 64 x 64 x 41
+// f32) it must read 5.4 MB once: ~1.6 us at 3.35 TB/s; the outputs are 8 KB.
+//
+// Dense path (`heatmap_readout_kernel_dense`; `ops/heatmap.py`
+// `plan_readout` picks it): the head's logits are NHWC views of a
+// channels_last tensor, K = 41 innermost, and a crop's [H, W, K] slab (or
+// [W, H, K] under transpose_heatmaps) is one contiguous block. A thread-block cluster of
+// kCluster CTAs owns a crop; each CTA copies a strip of `rows` storage rows
+// into shared memory by TMA bulk copies (one per row, each on its own
+// mbarrier: coalesced, device memory read once), and its threads take one
+// channel each over a stride of positions (thread t: channel t % K), so a
+// warp reads consecutive shared-memory words. Pass 1 takes each channel's
+// max and sum over the strip as the rows land; each CTA pushes its partials
+// into the shared memory of the CTAs that need them (distributed shared
+// memory: stores only, no remote load waits), and after a cluster barrier
+// every CTA combines them in rank order. Pass 2 forms the moments from
+// shared memory, factored by storage row (per row: sum e, sum e c,
+// sum e c^2 over the row's inner coordinate c; the row's own coordinate
+// multiplies them once); the CTAs push their partials to rank 0, which
+// combines them in rank order after a second barrier and writes the
+// outputs. The threads' partials are summed over (quantity, channel) pairs
+// in parallel. Every sum runs in a
+// fixed order that depends on the crop alone, so a crop's outputs are the
+// same bits in any batch.
+//
+// Strided path (`heatmap_readout_kernel`, the earlier design; any strides):
+// one 256-thread block per plane, two reads of it. On the channels_last
+// head output neighbouring threads read values K x 4 bytes apart, one
+// 32-byte sector each (8x the useful bytes in f32).
 //
 // K19 `heatmap_readout_bwd`: the gradient of the logits from those of uv,
 // cov and pooled — what JAX derives for `spatial_softmax` -> `soft_argmax`
@@ -35,11 +59,14 @@
 // the moments are recomputed from the logits, as K2 computes them. Bound:
 // bytes, the logits read once and their gradient written once (at the train
 // step's 32 x 41 planes of 64 x 64 f32: 21.5 MB, 6.4 us at 3.35 TB/s).
-// Design: K2's block per plane, a third pass that writes.
+// Design: the strided path's block per plane, a third pass that writes.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
 #include <cfloat>
+#include <cstdint>
 
 namespace {
 
@@ -234,6 +261,264 @@ heatmap_readout_bwd_kernel(const T* __restrict__ logits, long long sn, long long
   }
 }
 
+// ---- the dense path ------------------------------------------------------------
+namespace cg = cooperative_groups;
+
+constexpr int kMaxDenseThreads = 1024;
+constexpr int kMaxStripRows = 32;  // storage rows of a CTA's strip (one mbarrier each)
+constexpr int kMaxK = 64;          // channels
+constexpr int kCluster = 8;        // CTAs per crop (the portable cluster size)
+constexpr int kPer = 8;            // inner positions of a row per thread
+
+struct DenseArgs {
+  const void* logits;
+  long long sn;     // elements between crops
+  int A, Bd, K;     // a crop in storage order [A, Bd, K]
+  int transposed;   // 0: A = H, Bd = W; 1: A = W, Bd = H (transpose_heatmaps)
+  int rows;         // storage rows of each CTA's strip
+  int J;            // threads per channel: J * kPer = Bd
+  int strip_bytes;  // the strip's space (at least the moments' scratch), 16-byte multiple
+  float min_var;
+  float* uv;
+  float* cov;
+  float* pooled;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// this CTA's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A thread takes kPer inner positions of a row (b = j + q J, q < kPer), an
+// exact count, so the loops unroll with no idle slot
+template <typename T>
+__global__ void __launch_bounds__(kMaxDenseThreads, 1)
+heatmap_readout_kernel_dense(DenseArgs a) {
+  // dynamic: the strip, whose space holds the per-thread moments after pass
+  // 2 (6 x blockDim floats); then what the other CTAs push: the moments'
+  // partials (at rank 0) [cluster][6][K], the maxima [cluster][K] and the
+  // sums (at rank 0) [cluster][K]
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* strip = reinterpret_cast<T*>(smem_raw);
+  float* red2 = reinterpret_cast<float*>(smem_raw);  // [6][blockDim]
+  __shared__ __align__(8) uint64_t bars[kMaxStripRows];
+  __shared__ float red1[2][kMaxDenseThreads];
+  __shared__ float gmax[kMaxK];
+  __shared__ float ca[kMaxStripRows];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float* rmom = reinterpret_cast<float*>(smem_raw + a.strip_bytes);
+  float* rmax = rmom + kCluster * 6 * a.K;
+  float* rsum = rmax + kCluster * a.K;
+  const int n = blockIdx.x / kCluster;
+  const int K = a.K, Bd = a.Bd, A = a.A;
+  const int a0 = rank * a.rows;
+  const int nrows = max(0, min(a.rows, A - a0));
+  const int row_elems = Bd * K;
+  const T* src = static_cast<const T*>(a.logits) + n * a.sn + (long long)a0 * row_elems;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int J = a.J;  // threads per channel
+  const int j = t / K, k = t - j * K;
+  const bool active = j < J;
+
+  if (t < nrows) {  // thread r: row r's barrier and copy
+    mbar_init(&bars[t], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every CTA of the cluster must have started before another writes into
+  // its shared memory: arrive now, wait just before the first push
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  __syncthreads();
+  if (t < nrows) {
+    const uint32_t row_bytes = (uint32_t)(row_elems * sizeof(T));
+    mbar_expect_tx(&bars[t], row_bytes);
+    bulk_load(strip + (long long)t * row_elems, src + (long long)t * row_elems, row_bytes,
+              &bars[t]);
+  }
+  // the NDC coordinates (pixel centres; v up) while the rows land: c_a of
+  // the strip's rows, c_b of the thread's inner positions b = j + q J
+  const float hb = 0.5f * (float)Bd, ha = 0.5f * (float)A;
+  for (int r = t; r < nrows; r += nt) {
+    const float x = (float)(a0 + r) + 0.5f;
+    ca[r] = a.transposed ? x / ha - 1.f : 1.f - x / ha;
+  }
+  float cb[kPer], cb2[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const float x = (float)(j + q * J) + 0.5f;
+    cb[q] = a.transposed ? 1.f - x / hb : x / hb - 1.f;
+    cb2[q] = cb[q] * cb[q];
+  }
+
+  // pass 1: each channel's max (softmax shift) and sum (pooled mean)
+  float mx = -FLT_MAX, sm = 0.f;
+  for (int r = 0; r < nrows; ++r) {
+    mbar_wait(&bars[r], 0);
+    if (active) {
+      const T* row = strip + r * row_elems + j * K + k;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const float x = to_f32(row[q * J * K]);
+        mx = fmaxf(mx, x);
+        sm += x;
+      }
+    }
+  }
+  red1[0][t] = mx;
+  red1[1][t] = sm;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (t < 2 * K) {  // (quantity, channel): over the channel's threads in order, then pushed
+    const int f = t / K, c = t - f * K;
+    float v = red1[f][c];
+    for (int q = 1; q < J; ++q) v = f ? v + red1[1][q * K + c] : fmaxf(v, red1[0][q * K + c]);
+    if (f == 0) {
+      for (int d = 0; d < kCluster; ++d) cluster.map_shared_rank(rmax + rank * K + c, d)[0] = v;
+    } else {
+      cluster.map_shared_rank(rsum + rank * K + c, 0)[0] = v;
+    }
+  }
+  cluster.sync();
+  if (t < K) {
+    float m = rmax[t];
+    for (int c = 1; c < kCluster; ++c) m = fmaxf(m, rmax[c * K + t]);
+    gmax[t] = m;
+    if (rank == 0) {
+      float s = rsum[t];
+      for (int c = 1; c < kCluster; ++c) s += rsum[c * K + t];
+      a.pooled[n * K + t] = s / (float)(A * Bd);
+    }
+  }
+  __syncthreads();
+
+  // pass 2: the moments, per storage row (coordinate c_a) over its inner
+  // coordinate c_b: M0 = sum e, A1 = sum e c_a, B1 = sum e c_b,
+  // AA = sum e c_a^2, BB = sum e c_b^2, AB = sum e c_a c_b
+  float m0 = 0.f, a1 = 0.f, b1 = 0.f, aa = 0.f, bb = 0.f, ab = 0.f;
+  if (active) {
+    const float shift = gmax[k];
+    for (int r = 0; r < nrows; ++r) {
+      const T* row = strip + r * row_elems + j * K + k;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const float e = expf(shifted(to_f32(row[q * J * K]), shift, T()));
+        s0 += e;
+        s1 += e * cb[q];
+        s2 += e * cb2[q];
+      }
+      const float c = ca[r];
+      m0 += s0;
+      a1 += c * s0;
+      b1 += s1;
+      aa += (c * c) * s0;
+      bb += s2;
+      ab += c * s1;
+    }
+  }
+  __syncthreads();  // the strip is read; its space takes the per-thread moments
+  red2[0 * nt + t] = m0;
+  red2[1 * nt + t] = a1;
+  red2[2 * nt + t] = b1;
+  red2[3 * nt + t] = aa;
+  red2[4 * nt + t] = bb;
+  red2[5 * nt + t] = ab;
+  __syncthreads();
+  if (t < 6 * K) {  // (moment, channel) over the channel's threads in order, pushed to rank 0
+    const int f = t / K, c = t - f * K;
+    const float* rf = red2 + f * nt + c;
+    float v = rf[0];
+    for (int q = 1; q < J; ++q) v += rf[q * K];
+    cluster.map_shared_rank(rmom + (rank * 6 + f) * K + c, 0)[0] = v;
+  }
+  cluster.sync();
+  if (rank == 0 && t < K) {
+    float s[6];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      s[f] = rmom[f * K + t];
+      for (int c = 1; c < kCluster; ++c) s[f] += rmom[(c * 6 + f) * K + t];
+    }
+    // storage moments -> (u, v): u is the inner coordinate unless transposed
+    const float su = a.transposed ? s[1] : s[2], sv = a.transposed ? s[2] : s[1];
+    const float suu = a.transposed ? s[3] : s[4], svv = a.transposed ? s[4] : s[3];
+    const float z = fmaxf(s[0], FLT_MIN);
+    const float eu = su / z, ev = sv / z;
+    const float euu = suu / z, evv = svv / z, euv = s[5] / z;
+    const int plane = n * K + t;
+    a.uv[plane * 2 + 0] = eu;
+    a.uv[plane * 2 + 1] = ev;
+    const float cuv = euv - eu * ev;
+    a.cov[plane * 4 + 0] = euu - eu * eu + a.min_var;
+    a.cov[plane * 4 + 1] = cuv;
+    a.cov[plane * 4 + 2] = cuv;
+    a.cov[plane * 4 + 3] = evv - ev * ev + a.min_var;
+  }
+  // no CTA touches another's shared memory after the last cluster barrier
+}
+
+template <typename T>
+int launch_dense(const DenseArgs& a, int N, int threads, size_t smem, cudaStream_t st) {
+  static size_t raised = 0;  // the dynamic shared memory allowed so far
+  auto kern = heatmap_readout_kernel_dense<T>;
+  if (smem > raised) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    raised = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)N * (unsigned)kCluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, a);
+}
+
 }  // namespace
 
 // K19. logits and dl [N, H, W, K] with their own strides (elements); guv
@@ -273,6 +558,33 @@ extern "C" int suo_heatmap_readout(const void* logits, long long sn,
       heatmap_readout_kernel<__nv_bfloat16><<<N * K, kThreads, 0, s>>>(
           (const __nv_bfloat16*)logits, sn, sh, sw, sk, H, W, K, min_var, (float*)uv,
           (float*)cov, (float*)pooled);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The dense path: a crop's [A, Bd, K] slab contiguous (storage order), crops
+// `sn` elements apart, kCluster CTAs of ceil(A / kCluster) storage rows; the
+// alignment and sizes this entry assumes are checked by `ops/heatmap.py`
+// `plan_readout`. dtype as above.
+extern "C" int suo_heatmap_readout_dense(const void* logits, long long sn, int N, int A, int Bd,
+                                         int K, int transposed, float min_var, void* uv,
+                                         void* cov, void* pooled, int dtype, void* stream) {
+  if (N * K > 0) {
+    const int rows = (A + kCluster - 1) / kCluster;
+    const int J = Bd / kPer;
+    const int threads = (J * K + 31) / 32 * 32;
+    if (K > kMaxK || rows > kMaxStripRows || J * kPer != Bd || threads > kMaxDenseThreads ||
+        threads < 6 * K)
+      return (int)cudaErrorInvalidValue;
+    size_t strip = (size_t)rows * Bd * K * (dtype == 0 ? 4 : 2);
+    if (strip < (size_t)6 * threads * 4) strip = (size_t)6 * threads * 4;
+    const size_t smem = strip + (size_t)kCluster * K * 8 * 4;  // + rmom, rmax, rsum
+    DenseArgs a{logits, sn, A, Bd, K, transposed, rows, J, (int)strip, min_var,
+                (float*)uv, (float*)cov, (float*)pooled};
+    cudaStream_t s = (cudaStream_t)stream;
+    const int e = dtype == 0 ? launch_dense<float>(a, N, threads, smem, s)
+                             : launch_dense<__nv_bfloat16>(a, N, threads, smem, s);
+    if (e != 0) return e;
   }
   return (int)cudaGetLastError();
 }

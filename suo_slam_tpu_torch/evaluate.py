@@ -305,6 +305,7 @@ class Evaluator:
             if not self.debug_saved_only and self.nviews < 0:
                 self.object_slam.reset()
             scene_results = []
+            saved_views = []  # views whose saved detections are scored
             for j, view_id in enumerate(view_ids):
                 print(
                     f"Running scene [{i + 1}/{len(scene_ids)}] "
@@ -325,8 +326,10 @@ class Evaluator:
                     scene_results.append((view_id, pred_poses, gt_obj_ids))
 
                 if self.do_add and self.saved_detections is not None:
-                    self._update_saved_det_meter(scene_id, view_id, gt_obj_ids)
+                    saved_views.append((view_id, gt_obj_ids))
 
+            if saved_views:
+                self._update_saved_det_meter(scene_id, saved_views)
             if self.debug_saved_only:
                 continue
             # score the whole scene with the final optimized state
@@ -382,16 +385,17 @@ class Evaluator:
         return summary
 
     def _score_scene(self, scene_id, scene_results, final_results, csv_lines):
-        """Score one finished scene (meter updates + BOP CSV lines); returns
-        (n_views_scored, n_cam_poses_found)."""
+        """Score one finished scene (one meter update over all its views'
+        objects + BOP CSV lines); returns (n_views_scored, n_cam_poses_found)."""
         num = num_cam = 0
+        entries = []  # (obj_id, predicted pose, gt pose) in order; None: no detection
         for view_id, pred_poses, gt_obj_ids in scene_results:
             num += 1
             if self.nviews < 0:
                 if view_id not in final_results:
                     if self.do_add:
                         for obj_id in gt_obj_ids:
-                            self.meter.update_no_det([obj_id])
+                            entries.append((obj_id, None, None))
                     continue
                 num_cam += 1
                 pred_poses = final_results[view_id]["poses"]
@@ -400,7 +404,7 @@ class Evaluator:
                 if r is not None and r["T_OtoC"] is not None:
                     gt_pose = self.dataset.get_obj_pose(scene_id, view_id, obj_id)
                     if self.do_add:
-                        self.meter.update([obj_id], [r["T_OtoC"]], [gt_pose])
+                        entries.append((obj_id, r["T_OtoC"], gt_pose))
                     R, t = r["T_OtoC"][:3, :3], r["T_OtoC"][:3, 3]
                     arr2str = lambda x: " ".join(
                         str(e) for e in np.asarray(x).reshape(-1).tolist()
@@ -411,7 +415,9 @@ class Evaluator:
                             f"{arr2str(R)},{arr2str(t)},-1\n"
                         )
                 else:
-                    self.meter.update_no_det([obj_id])
+                    entries.append((obj_id, None, None))
+        if entries:
+            self.meter.update(*zip(*entries))
         return num, num_cam
 
     def _sample_sfm_views(self, view_ids, j):
@@ -423,18 +429,21 @@ class Evaluator:
             others, size=min(self.nviews - 1, len(others)), replace=False
         ))
 
-    def _update_saved_det_meter(self, scene_id, view_id, gt_obj_ids):
-        for gt_obj_id in gt_obj_ids:
-            sd = self.saved_detections_map.get(scene_id, {}).get(view_id, {})
-            if gt_obj_id in sd:
-                idx = sd[gt_obj_id]
-                self.saved_det_meter.update(
-                    [gt_obj_id],
-                    [self.saved_detections["poses"][idx]],
-                    [self.dataset.get_obj_pose(scene_id, view_id, gt_obj_id)],
-                )
-            else:
-                self.saved_det_meter.update_no_det([gt_obj_id])
+    def _update_saved_det_meter(self, scene_id, views):
+        """Score the saved detections of a scene's views [(view_id,
+        gt_obj_ids)] with one meter update."""
+        entries = []  # (obj_id, saved pose, gt pose); None: no saved detection
+        sd_scene = self.saved_detections_map.get(scene_id, {})
+        for view_id, gt_obj_ids in views:
+            sd = sd_scene.get(view_id, {})
+            for gt_obj_id in gt_obj_ids:
+                if gt_obj_id in sd:
+                    entries.append((gt_obj_id, self.saved_detections["poses"][sd[gt_obj_id]],
+                                    self.dataset.get_obj_pose(scene_id, view_id, gt_obj_id)))
+                else:
+                    entries.append((gt_obj_id, None, None))
+        if entries:
+            self.saved_det_meter.update(*zip(*entries))
 
     def _view_inputs(self, scene_id, view_id):
         """Per-view detections + sample: (obj_ids [N], bboxes [N, 4],
@@ -621,8 +630,8 @@ class Evaluator:
             if do_saved:
                 # the sequential loop reaches the saved-detection update only
                 # for views whose results were not empty: these
-                for view_id, _, gt_obj_ids in scene_results:
-                    self._update_saved_det_meter(scene_id, view_id, gt_obj_ids)
+                self._update_saved_det_meter(
+                    scene_id, [(view_id, gt_obj_ids) for view_id, _, gt_obj_ids in scene_results])
             n, nc = self._score_scene(scene_id, scene_results, final, csv_lines)
             num += n
             num_cam += nc

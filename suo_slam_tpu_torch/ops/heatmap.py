@@ -12,7 +12,10 @@ softmax over H x W, the f32 moments (1, u, v, u^2, v^2, uv) -> uv and
 cov = E[pp^T] - mu mu^T + min_var I, and the mean-pooled raw logit for the
 validity head. Logits are f32, or bf16 from the int8 engine: then the shift
 l - max rounds to bf16 before the f32 exp, as JAX subtracts in the logits'
-dtype, and the pooled mean is taken in f32 (`int8_forward.py:535`).
+dtype, and the pooled mean is taken in f32 (`int8_forward.py:535`). On the
+card `plan_readout` sends the head's channels-last logits (a contiguous
+slab per crop) to K2's dense path, a thread-block cluster per crop, and any
+other strides to its strided path.
 Where autograd records the readout (training), it is one
 `torch.autograd.Function` whose backward is K19: the logits' gradient from
 those of uv, cov and pooled (the gradient of the JAX net's train-time
@@ -26,6 +29,7 @@ version; a CUDA tensor launches `csrc/heatmap_readout.cu` /
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -128,12 +132,82 @@ def heatmap_readout_plain(logits: torch.Tensor, min_var: float = 1e-6):
     return uv, cov, torch.mean(logits.to(kernels.plain_dtype(logits.dtype)), dim=(1, 2))
 
 
+# K2's paths and the dense path's geometry; mirror `csrc/heatmap_readout.cu`
+DENSE, STRIDED = 0, 1
+READOUT_MAX_THREADS = 1024  # kMaxDenseThreads
+READOUT_CLUSTER = 8         # kCluster: CTAs per crop (the portable cluster size)
+READOUT_PER = 8             # kPer: inner positions of a row per thread
+READOUT_MAX_ROWS = 32       # kMaxStripRows
+READOUT_MAX_K = 64          # kMaxK
+READOUT_STRIP_BYTES = 160 * 1024  # dynamic shared memory of a CTA's strip, at most
+
+
+class ReadoutPlan(NamedTuple):
+    path: int          # DENSE or STRIDED
+    transposed: bool   # dense: storage [W, H, K] (transpose_heatmaps) rather than [H, W, K]
+    A: int             # dense: outer storage extent (H, or W when transposed)
+    Bd: int            # dense: inner storage extent
+    rows: int          # dense: storage rows per CTA
+    threads: int       # dense: threads of a CTA
+    smem: int          # dense: dynamic shared memory of a CTA (strip, exchange buffers)
+
+
+def plan_readout(shape, strides, elem_size: int, data_ptr: int,
+                 path: int | None = None) -> ReadoutPlan:
+    """K2's launch for [N, H, W, K] logits with these strides (elements).
+    The dense path takes a crop whose [H, W, K] slab — or [W, H, K], the
+    transpose_heatmaps view — is contiguous with K innermost, 16-byte aligned
+    rows and crops (TMA bulk copies), K <= READOUT_MAX_K, an inner extent
+    that READOUT_PER divides into Bd / READOUT_PER threads a channel, at most
+    READOUT_MAX_THREADS a CTA and at least 6 K (the moments' reduction), and
+    a strip of ceil(outer / READOUT_CLUSTER) rows that fits READOUT_MAX_ROWS
+    and READOUT_STRIP_BYTES; anything else takes the strided path (`path`
+    forces one, or raises where the dense path cannot take the shape)."""
+    N, H, W, K = shape
+    sn, sh, sw, sk = strides
+    strided = ReadoutPlan(STRIDED, False, 0, 0, 0, 0, 0)
+    natural = sk == 1 and sw == K and sh == W * K
+    transposed = not natural and sk == 1 and sh == K and sw == H * K
+    why = None
+    if not (natural or transposed):
+        why = f"strides {tuple(strides)} are not a dense channels-last crop"
+    else:
+        A, Bd = (W, H) if transposed else (H, W)
+        rows = -(-A // READOUT_CLUSTER)
+        row_bytes = Bd * K * elem_size
+        threads = -(-(Bd // READOUT_PER) * K // 32) * 32
+        if K > READOUT_MAX_K or rows > READOUT_MAX_ROWS:
+            why = f"K = {K} or {rows} rows a CTA exceed the dense limits"
+        elif Bd % READOUT_PER or not 6 * K <= threads <= READOUT_MAX_THREADS:
+            why = f"no split of the inner extent {Bd} over threads for K = {K}"
+        elif rows * row_bytes > READOUT_STRIP_BYTES:
+            why = f"a strip of {rows * row_bytes} bytes exceeds {READOUT_STRIP_BYTES}"
+        elif row_bytes % 16 or data_ptr % 16 or (N > 1 and (sn * elem_size) % 16):
+            why = "rows or crops are not 16-byte aligned"
+    if why is None:
+        plan = ReadoutPlan(DENSE, transposed, A, Bd, rows, threads,
+                           max(rows * row_bytes, 6 * threads * 4) + READOUT_CLUSTER * K * 8 * 4)
+    else:
+        plan = strided
+    if path is None or path == plan.path:
+        return plan
+    if path == STRIDED:
+        return strided
+    if path == DENSE:
+        raise ValueError(f"K2's dense path cannot take {tuple(shape)}: {why}")
+    raise ValueError(f"K2 has no path {path}")
+
+
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
              + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+_DENSE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
 _LOGIT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _heatmap_readout_cuda(logits: torch.Tensor, min_var: float):
+def _heatmap_readout_cuda(logits: torch.Tensor, min_var: float, path: int | None = None):
+    """K2, one launch on the path `plan_readout` picks (`path` forces one:
+    STRIDED is the earlier design, kept for comparisons)."""
     if logits.dtype not in _LOGIT_DTYPES or logits.dim() != 4:
         raise ValueError(f"K2 takes [N,H,W,K] f32 or bf16 logits, got "
                          f"{tuple(logits.shape)} {logits.dtype}")
@@ -143,10 +217,18 @@ def _heatmap_readout_cuda(logits: torch.Tensor, min_var: float):
     uv = torch.empty((N, K, 2), dtype=torch.float32, device=dev)
     cov = torch.empty((N, K, 2, 2), dtype=torch.float32, device=dev)
     pooled = torch.empty((N, K), dtype=torch.float32, device=dev)
-    fn = _build.entry("heatmap_readout", _ARGTYPES)
-    err = fn(_build.ptr(logits), sn, sh, sw, sk, N, H, W, K, float(min_var),
-             _build.ptr(uv), _build.ptr(cov), _build.ptr(pooled),
-             _LOGIT_DTYPES[logits.dtype], _build.stream())
+    plan = plan_readout(logits.shape, logits.stride(), logits.element_size(),
+                        logits.data_ptr(), path)
+    dt = _LOGIT_DTYPES[logits.dtype]
+    if plan.path == DENSE:
+        fn = _build.entry("heatmap_readout", _DENSE_ARGTYPES, "suo_heatmap_readout_dense")
+        err = fn(_build.ptr(logits), sn, N, plan.A, plan.Bd, K, int(plan.transposed),
+                 float(min_var), _build.ptr(uv), _build.ptr(cov), _build.ptr(pooled), dt,
+                 _build.stream())
+    else:
+        fn = _build.entry("heatmap_readout", _ARGTYPES)
+        err = fn(_build.ptr(logits), sn, sh, sw, sk, N, H, W, K, float(min_var),
+                 _build.ptr(uv), _build.ptr(cov), _build.ptr(pooled), dt, _build.stream())
     _build.check(err, "K2 heatmap_readout")
     kernels.count("heatmap_readout")
     return uv, cov, pooled

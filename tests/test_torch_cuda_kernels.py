@@ -104,14 +104,47 @@ def test_k1_one_launch_per_call(dev):
     assert all("roi_crop" in e.key for e in kern)
 
 
-def test_k2_heatmap_readout(dev):
+def _head_logits(dev, n, dtype, seed, scale=1.0):
+    """[n, 64, 64, 41] logits in the head's layout: an NHWC view of a
+    channels_last NCHW tensor."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(n, 41, 64, 64, device=dev, generator=g) * scale).to(dtype).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("n", [3, 8, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_heatmap_readout(dev, n, dtype):
+    """Both paths of K2 (dense: a cluster per crop; strided: the earlier
+    design) within 1e-5 of the plain version, in both transpose_heatmaps
+    orders; the wrapper picks the dense path for the head's layout."""
     from suo_slam_tpu_torch.ops import heatmap as hm
 
-    x = torch.randn(3, 41, 64, 64, device=dev).contiguous(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    x = _head_logits(dev, n, dtype, n, scale=4.0 if dtype == torch.bfloat16 else 1.0)
     for view in (x, x.transpose(1, 2)):
-        for a, b in zip(hm.heatmap_readout(view), hm.heatmap_readout_plain(view)):
-            assert (a - b).abs().max().item() <= 1e-5
+        assert hm.plan_readout(view.shape, view.stride(), view.element_size(),
+                               view.data_ptr()).path == hm.DENSE
+        p = hm.heatmap_readout_plain(view)
+        for path in (None, hm.DENSE, hm.STRIDED):
+            k = hm._heatmap_readout_cuda(view, 1e-6, path=path) if path is not None else \
+                hm.heatmap_readout(view)
+            for a, b in zip(k, p):
+                assert a.dtype == torch.float32 and (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_batch_invariance(dev, dtype):
+    """K2's dense path: every crop's outputs from a 128-crop call equal the
+    single-crop call's bit for bit (a crop's sums run in an order that
+    depends on the crop alone), in both orders."""
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    x = _head_logits(dev, 128, dtype, 11, scale=4.0)
+    for view in (x, x.transpose(1, 2)):
+        big = hm.heatmap_readout(view)
+        for i in (0, 1, 57, 127):
+            one = hm.heatmap_readout(view[i:i + 1])
+            assert all(torch.equal(a[i:i + 1], b) for a, b in zip(big, one)), i
 
 
 def test_k3_pnp_hypotheses(dev):
@@ -270,37 +303,104 @@ def test_k9_upsample_add(dev):
             assert k.dtype == dt and torch.equal(k, p)
 
 
-def test_k10_add_dists(dev):
-    """Per-point distances equal to the plain version's, means within 1e-6
-    relative; padded rows, n = 0 and P not a multiple of the tiles."""
+def _k10_problem(dev, g, n_obj, P, B):
+    """A table of n_obj clouds of P padded points (the first full, one empty),
+    B poses reading rows of it, ground truth and a perturbed prediction."""
     from suo_slam_tpu_torch.core import lie
+
+    pts = (torch.rand(n_obj, P, 3, device=dev, generator=g) - 0.5) * 100
+    n = torch.randint(1, P + 1, (n_obj,), device=dev, generator=g).to(torch.int32)
+    n[0] = P
+    if n_obj > 1:
+        n[1] = 0
+    obj = torch.randint(0, n_obj, (B,), device=dev, generator=g).to(torch.int32)
+    obj[0] = 0
+    if B > 1:
+        obj[1] = min(1, n_obj - 1)
+    Tg = lie.se3_exp(torch.randn(B, 6, device=dev, generator=g) * 0.3)
+    Tg[:, 2, 3] += 800.0
+    Tp = lie.se3_exp(torch.randn(B, 6, device=dev, generator=g) * 0.01) @ Tg
+    return pts, n, obj, Tp.contiguous(), Tg.contiguous()
+
+
+@pytest.mark.parametrize("P", [700, 4096])
+@pytest.mark.parametrize("B", [1, 5, 128])
+def test_k10_add_dists(dev, B, P):
+    """Per-point distances equal to the plain version's and means within
+    1e-6 relative, on both designs (the earlier one on gathered clouds, as
+    the current one without a table); a pose's results are the same bits
+    whatever the batch it is scored in; padded rows and n = 0."""
     from suo_slam_tpu_torch.eval import meter
 
-    g = torch.Generator(device=dev).manual_seed(7)
-    for B, P in ((1, 4096), (5, 700)):
-        pts = (torch.rand(B, P, 3, device=dev, generator=g) - 0.5) * 100
-        n = torch.randint(1, P + 1, (B,), device=dev, generator=g).to(torch.int32)
-        n[0] = P
-        if B > 1:
-            n[1] = 0
-        Tg = lie.se3_exp(torch.randn(B, 6, device=dev, generator=g) * 0.3)
-        Tg[:, 2, 3] += 800.0
-        Tp = lie.se3_exp(torch.randn(B, 6, device=dev, generator=g) * 0.01) @ Tg
-        k = meter._add_dists_cuda(pts, n, Tp, Tg, per_point=True)
-        p = meter.add_dists_plain(pts, n, Tp, Tg, per_point=True)
-        assert torch.equal(k[2], p[2]) and torch.equal(k[3], p[3])
-        for a, b in zip(k[:2], p[:2]):
-            assert float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) <= 1e-6
+    g = torch.Generator(device=dev).manual_seed(7 + B + P)
+    pts, n, obj, Tp, Tg = _k10_problem(dev, g, 6, P, B)
+    means, d = meter._add_dists_cuda(pts, n, Tp, Tg, obj, per_point=True)
+    p = meter.add_dists_plain(pts, n, Tp, Tg, per_point=True, obj=obj)
+    pm, pd = torch.stack(p[:2]), torch.stack(p[2:])
+    assert torch.equal(d, pd)
+    assert float(((means - pm).abs() / pm.abs().clamp(min=1e-30)).max()) <= 1e-6
+    if B > 1:
+        assert means[0, 1] == means[1, 1] == 0.0  # n = 0
+    for i in sorted({0, 1, B // 2, B - 1}):
+        m1, d1 = meter._add_dists_cuda(pts, n, Tp[i:i + 1], Tg[i:i + 1], obj[i:i + 1],
+                                       per_point=True)
+        assert torch.equal(means[:, i:i + 1], m1) and torch.equal(d[:, i:i + 1], d1), i
+    if B * P <= 128 * 700:  # the earlier design on the gathered clouds
+        o = obj.long()
+        m2, d2 = meter._add_dists_cuda(pts[o], n[o], Tp, Tg, per_point=True, two_pass=True)
+        assert torch.equal(d2, pd)
+        assert float(((m2 - pm).abs() / pm.abs().clamp(min=1e-30)).max()) <= 1e-6
+        # the current design without a table (pose b on cloud b): the same bits
+        m3, d3 = meter._add_dists_cuda(pts[o], n[o], Tp, Tg, per_point=True)
+        assert torch.equal(m3, means) and torch.equal(d3, d)
+
+
+def _cuda_kernels(fn, calls):
+    """The CUDA kernels (by name and count) of `calls` calls of fn, from
+    torch.profiler (retaken where the tracer lost the session)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):  # the tracer now and then loses a short session
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and "emcpy" not in e.key}
+        if kern:
+            return kern
+    return kern
+
+
+def test_k2_k10_one_launch_per_call(dev):
+    """K2's wrapper (both paths) and K10's (the current design, inputs of the
+    types it takes) make one kernel launch per call, by torch.profiler's
+    kernel count."""
+    from suo_slam_tpu_torch.eval import meter
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    x = _head_logits(dev, 8, torch.float32, 3)
+    for path, name in ((hm.DENSE, "heatmap_readout_kernel_dense"),
+                       (hm.STRIDED, "heatmap_readout_kernel<")):
+        kern = _cuda_kernels(lambda: hm._heatmap_readout_cuda(x, 1e-6, path=path), 5)
+        assert sum(kern.values()) == 5 and all(name in k for k in kern), kern
+    g = torch.Generator(device=dev).manual_seed(5)
+    pts, n, obj, Tp, Tg = _k10_problem(dev, g, 8, 4096, 96)
+    kern = _cuda_kernels(lambda: meter._add_dists_cuda(pts, n, Tp, Tg, obj), 5)
+    assert sum(kern.values()) == 5 and all("add_dists_kernel" in k for k in kern), kern
 
 
 def test_k2_heatmap_readout_bf16(dev):
-    """bf16 logits (the int8 engine's head): the shift rounds to bf16 in both."""
+    """bf16 logits (the int8 engine's head): the shift rounds to bf16 in both;
+    a contiguous NHWC tensor (the int8 head's own layout) and a view the
+    dense path cannot take."""
     from suo_slam_tpu_torch.ops import heatmap as hm
 
-    g = torch.Generator(device=dev).manual_seed(8)
-    x = (torch.randn(3, 41, 64, 64, device=dev, generator=g) * 4).to(torch.bfloat16).contiguous(
-        memory_format=torch.channels_last).permute(0, 2, 3, 1)
-    for view in (x, x.transpose(1, 2)):
+    x = _head_logits(dev, 3, torch.bfloat16, 8, scale=4.0)
+    for view in (x.contiguous(), x[:, 1:], x.transpose(1, 2).contiguous()):
         for a, b in zip(hm.heatmap_readout(view), hm.heatmap_readout_plain(view)):
             assert a.dtype == torch.float32 and (a - b).abs().max().item() <= 1e-5
 
