@@ -13,9 +13,16 @@ Phases (any failure raises and exits non-zero):
      `wgmma`) instructions in K11's SASS, where the toolkit has cuobjdump;
   3. kernels: K1-K10, K14 and K15 against their plain PyTorch versions on the
      same CUDA inputs at the main paths' shapes, with the stated tolerances
-     (K14, the whole LM schedule of `ba.optimize` in one launch: one
-     iteration against one eager iteration with K4 + K7, which stay off the
-     main path; K15, the whole of `pnp_ransac_batch` in one launch: its
+     (K14, the whole LM schedule of `ba.optimize` in one launch, in both
+     designs — the cluster design, the main path's: the global BA on a
+     thread-block cluster, the tracking BA on one CTA; and the earlier
+     one-block design: one iteration against one eager iteration with K4 +
+     K7, which stay off the main path, then `compare_ba` on the tracking
+     (V = 1), single-view (V = 16) and global V = 32 / O = 8, V = 64 / O = 8
+     and V = 128 / O = 16 problems, each design's device time per call and
+     per iteration and SM cycles by phase, the cluster design repeating bit
+     for bit, one kernel node per `optimize` and a captured call replaying
+     equal; K15, the whole of `pnp_ransac_batch` in one launch: its
      outcome at the front end's shapes and the backup pose's, and its time
      against the K3 + eager-tail schedule it replaced, K3 now off the main
      path too); kernel,
@@ -80,8 +87,9 @@ Phases (any failure raises and exits non-zero):
      poses); the camera trajectory error
      and ADD < 0.1 d for >= 90% of the (frame, object) poses; the
      with-prior program against the CPU for two crops (1e-3); the global
-     (V = 32) and tracking BA problems through K14, the eager schedule with
-     K4 + K7 and with the plain versions, and f64 on the CPU (`compare_ba`).
+     (V = 32) and tracking BA problems through both designs of K14, the
+     eager schedule with K4 + K7 and with the plain versions, and f64 on the
+     CPU (`compare_ba`).
      Prints per-frame latency, tracking (K14 and the eager K4 + K7
      schedule) and global BA ms, launches per frame, and a torch.profiler
      summary of one frame with its launches (K14 1, K15 one per
@@ -1116,6 +1124,61 @@ def check_k7(dev, scene):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
 
 
+def lm_arrays(V, O, n_views, n_objs, seed, K=41):
+    """A pose graph at the engine's shapes, numpy only: n_views cameras on a
+    ~0.2 rad arc 600 mm from n_objs objects (16 of K keypoints each, in a
+    100 mm cube), NDC measurements with N(0, 0.003) noise and 5% outliers,
+    info 1e4 I, cameras after the first and the objects 1-2 mm off; the
+    rest of the V x O capacity inactive."""
+    rng = np.random.default_rng(seed)
+
+    def rot(axis, a):
+        c, s = np.cos(a), np.sin(a)
+        i, j = [(1, 2), (2, 0), (0, 1)][axis]
+        R = np.eye(3)
+        R[i, i] = R[j, j] = c
+        R[i, j], R[j, i] = -s, s
+        return R
+
+    obj_T = np.tile(np.eye(4), (O, 1, 1))
+    model_kp = np.zeros((O, K, 3))
+    valid_kp = np.zeros((O, K), bool)
+    for o in range(n_objs):
+        obj_T[o, :3, :3] = rot(0, rng.uniform(-3, 3)) @ rot(1, rng.uniform(-3, 3))
+        obj_T[o, :3, 3] = rng.uniform(-120, 120, 3) * [1, 1, 0.3] + [0, 0, 600]
+        ch = rng.choice(K, 16, replace=False)
+        valid_kp[o, ch] = True
+        model_kp[o, ch] = rng.uniform(-50, 50, (16, 3))
+    cam_T = np.tile(np.eye(4), (V, 1, 1))
+    for v in range(n_views):
+        a = 0.2 * v / max(n_views - 1, 1)
+        c = np.array([0, 0, 600.0])
+        cam_T[v, :3, :3] = rot(1, a)
+        cam_T[v, :3, 3] = c - rot(1, a) @ c + rng.normal(size=3)
+    uv = np.zeros((V, O, K, 2))
+    valid = np.zeros((V, O, K), bool)
+    for v in range(n_views):
+        for o in range(n_objs):
+            p = (cam_T[v] @ obj_T[o])[:3, :3] @ model_kp[o].T + (cam_T[v] @ obj_T[o])[:3, 3:]
+            uv[v, o] = 2.0 * (p[:2] / p[2]).T + rng.normal(scale=0.003, size=(K, 2))
+            valid[v, o] = valid_kp[o]
+    out = rng.uniform(size=(V, O, K)) < 0.05
+    uv[out] += rng.uniform(-0.3, 0.3, size=(int(out.sum()), 2))
+    cam_T[1:n_views, :3, 3] += rng.normal(scale=1.0, size=(n_views - 1, 3))
+    obj_T[:n_objs, :3, 3] += rng.normal(scale=2.0, size=(n_objs, 3))
+    cam_active = np.zeros(V, bool)
+    cam_active[:n_views] = True
+    obj_active = np.zeros(O, bool)
+    obj_active[:n_objs] = True
+    f32 = lambda a: np.ascontiguousarray(a, np.float32)
+    cam_k = np.zeros((V, O, 4))
+    cam_k[..., :2] = 2.0
+    return dict(cam_T=f32(cam_T), obj_T=f32(obj_T), uv=f32(uv),
+                info=f32(np.broadcast_to(np.eye(2) * 1e4, (V, O, K, 2, 2))),
+                model_kp=f32(model_kp), cam_k=f32(cam_k), valid=valid, inliers=valid.copy(),
+                cam_active=cam_active, obj_active=obj_active)
+
+
 def _steps(r, p):
     """The f64 left steps log(T_out T_in^-1) of a BA result's cameras and
     objects against its problem's poses."""
@@ -1147,23 +1210,23 @@ def lm_bound(p, iters, tracking):
     return bound(in_bytes + out_bytes, flops)
 
 
-def k14_first_step(p):
-    """One iteration of one round of K14 on problem p (objects free, every
-    valid edge an inlier to start with, the first camera the gauge) against
-    one eager iteration with K4 + K7 from the same damping 1e-5, each step
-    (the f64 log of T_out T_in^-1) measured against the f64 step of the
-    plain schedule on the CPU in units of its 6-block's largest |entry|.
-    Raises unless K14's error is at most twice K4 + K7's (or 1e-4: K7's gate
-    at this damping, where the f32 step of a single-view problem moves by
-    ~3e-4 of its scale under another summation order), the inlier masks are
-    equal and each ran one iteration. Returns K14's error."""
+def k14_first_step(p, design="cluster"):
+    """One iteration of one round of K14 (`design`) on problem p (objects
+    free, every valid edge an inlier to start with, the first camera the
+    gauge) against one eager iteration with K4 + K7 from the same damping
+    1e-5, each step (the f64 log of T_out T_in^-1) measured against the f64
+    step of the plain schedule on the CPU in units of its 6-block's largest
+    |entry|. Raises unless K14's error is at most twice K4 + K7's (or 1e-4:
+    K7's gate at this damping, where the f32 step of a single-view problem
+    moves by ~3e-4 of its scale under another summation order), the inlier
+    masks are equal and each ran one iteration. Returns K14's error."""
     import torch
 
     from suo_slam_tpu_torch.solvers import ba
 
     one = dict(iters_per_round=(1,), tracking_only=False, fix_first_cam=True,
                init_with_outliers=True)
-    rk, itk = ba._ba_lm_cuda(p, **one)
+    rk, itk = ba._ba_lm_cuda(p, design=design, **one)
     re, ite = ba._optimize_eager(p, use_kernels=True, **one)
     torch.cuda.synchronize()
     p64 = ba.BAProblem(*[None if a is None else a.cpu().double() if a.is_floating_point()
@@ -1173,41 +1236,112 @@ def k14_first_step(p):
     s64 = tuple(a.to(sk[0].device) for a in s64)
     ek, ee = max(k7_scaled_errors(sk, s64)), max(k7_scaled_errors(se, s64))
     same = torch.equal(rk.inliers, re.inliers)
-    log(f"[kernel] K14 one iteration (V={p.uv.shape[0]}): scaled step errors against the f64 "
-        f"step K14 {ek:.3e}, eager K4 + K7 {ee:.3e} (gate: K14 <= max(2 x K4 + K7, 1e-4)); "
-        f"K14 against K4 + K7 {max(k7_scaled_errors(sk, se)):.3e}; max |d_obj| "
+    log(f"[kernel] K14 ({design} design) one iteration (V={p.uv.shape[0]}): scaled step errors "
+        f"against the f64 step K14 {ek:.3e}, eager K4 + K7 {ee:.3e} (gate: K14 <= max(2 x K4 + "
+        f"K7, 1e-4)); K14 against K4 + K7 {max(k7_scaled_errors(sk, se)):.3e}; max |d_obj| "
         f"{s64[1].abs().max().item():.3e}; inliers equal {same}; iterations {itk.tolist()} / "
         f"{ite}")
     if not (ek <= max(2 * ee, 1e-4) and same and itk.tolist() == [1] and ite == [1]
             and s64[1].abs().max().item() > 0):
-        raise AssertionError(f"K14's first iteration disagrees with K4 + K7: {ek} vs {ee}, {same}")
+        raise AssertionError(f"K14 ({design})'s first iteration disagrees with K4 + K7: {ek} vs "
+                             f"{ee}, {same}")
     return ek
 
 
-def check_k14(dev, rng, objs):
-    """K14, the whole LM schedule in one launch. Gate: `k14_first_step` on
-    the engine's single-view problem (V = 16, objects 5 mm off). Timed on
-    the tracking problem (V = 1, every object fixed, the camera 0.3 mm off,
-    rounds (10, 10, 10, 10)): K14, the eager schedule with its plain
-    versions (plain ms) and with K4 + K7 (the schedule K14 replaced), device
-    time per call and per iteration."""
+def lm_kernel_name(design, tracking):
+    """The profiler's name of the K14 kernel a design launches."""
+    if design == "block":
+        return "ba_lm_kernel"
+    return "ba_lm_track_kernel" if tracking else "ba_lm_cluster_kernel"
+
+
+def _arrays_of(p):
+    return {k: v.cpu().numpy() for k, v in p._asdict().items() if v is not None}
+
+
+def k14_capture_check(p, kw):
+    """K14 (the cluster design) through `ba.optimize` on problem p: one
+    kernel node per call in a CUDA graph, and a captured call replayed
+    equal bit for bit to the eager call (it allocates nothing and reads
+    no host value)."""
+    import torch
+
     from suo_slam_tpu_torch.solvers import ba
 
-    err = k14_first_step(_ba_problem(dev, rng, objs))
+    per_call = launches_per_call(lambda: ba.optimize(p, **kw))
+    eager = ba.optimize(p, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ba.optimize(p, **kw)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        cap = ba.optimize(p, **kw)
+    g.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(eager, cap))
+    g.reset()
+    return per_call, same
+
+
+def check_k14(dev, rng, objs):
+    """K14, the whole LM schedule in one launch, both designs: the cluster
+    design (the main path) and the earlier one-block design. Gates:
+    `k14_first_step` of each on the engine's single-view problem (V = 16,
+    objects 5 mm off), then `compare_ba` on five problems — tracking (V = 1,
+    every object fixed, the camera 0.3 mm off, rounds (10, 10, 10, 10)),
+    single view (V = 16, one active view, the engine's single-view rounds),
+    and the global pose graphs V = 32 / O = 8, V = 64 / O = 8 and V = 128 /
+    O = 16 (`lm_arrays`) — each design against the eager schedules and f64,
+    the cluster design repeating bit for bit; one kernel node per
+    `optimize` in a CUDA graph and a captured call equal to the eager one.
+    Prints each design's device time per call and per iteration and its
+    SM cycles by phase. Timed for the kernels line on the tracking problem:
+    K14, the eager schedule with its plain versions (plain ms) and with K4
+    + K7 (the schedule K14 replaced)."""
+    from suo_slam_tpu_torch.solvers import ba
+
+    p1 = _ba_problem(dev, rng, objs)
+    errs = {d: k14_first_step(p1, design=d) for d in ba.LM_DESIGNS}
+    err = errs["cluster"]
     pt = _ba_problem(dev, rng, objs, V=1, obj_noise=0.0, cam_noise=0.3)
-    trk = dict(iters_per_round=(10, 10, 10, 10), tracking_only=True, fix_first_cam=False)
-    _, it_t = ba._ba_lm_cuda(pt, **trk)
-    it_t = it_t.tolist()
+    # the single-view BA as the engine runs it: objects from PnP, inside the
+    # chi2 inlier basin (0.2 mm off), the engine's single-view rounds
+    ps = _ba_problem(dev, rng, objs, obj_noise=0.2)
+    single = dict(iters_per_round=(10, 10, 10, 10))
+    problems = [("tracking V=1 O=8", _arrays_of(pt), TRACKING),
+                ("single view V=16 O=8", _arrays_of(ps), single)]
+    for V, O, nv, no in ((32, 8, 22, 8), (64, 8, 44, 8), (128, 16, 70, 12)):
+        problems.append((f"global V={V} O={O}", lm_arrays(V, O, nv, no, seed=V + O), {}))
+    summary = {}
+    for label, arrays, kw in problems:
+        summary[label] = compare_ba(label, arrays, dev,
+                                    (arrays["cam_active"], arrays["obj_active"]), **kw)
+    for label, res in summary.items():
+        c, b = res["cluster"], res["block"]
+        log(f"[kernel] K14 {label}: cluster design {c['us']:.3f} us per call, "
+            f"{c['us_it']:.3f} per iteration ({sum(c['iters'])} iterations); block design "
+            f"{b['us']:.3f} us, {b['us_it']:.3f} per iteration ({sum(b['iters'])}); per "
+            f"iteration {b['us_it'] / c['us_it']:.2f}x")
+    for label, p, kw in (("tracking V=1", pt, TRACKING), ("single view V=16", ps, single)):
+        per_call, same = k14_capture_check(p, kw)
+        log(f"[kernel] K14 {label}: {per_call:g} kernel nodes per optimize in a CUDA graph; "
+            f"a captured call replays equal to the eager call: {same}")
+        if per_call != 1 or not same:
+            raise AssertionError(f"K14 {label}: {per_call} kernels per call, replay equal {same}")
+    trk = TRACKING
+    it_t = summary["tracking V=1 O=8"]["cluster"]["iters"]
+    us = summary["tracking V=1 O=8"]["cluster"]["us"]
     ms = cuda_ms(lambda: ba._ba_lm_cuda(pt, **trk))
     plain_ms = cuda_ms(lambda: ba._optimize_eager(pt, **trk), n=3, inner=2, warmup=1)
     eager_ms = cuda_ms(lambda: ba._optimize_eager(pt, use_kernels=True, **trk), n=3, inner=2,
                        warmup=1)
-    us, src = device_us(lambda: ba._ba_lm_cuda(pt, **trk), "ba_lm_kernel")
     b = lm_bound(pt, it_t, True)
-    _report(f"K14 ba_lm (tracking V=1, iterations {it_t}, device {us:.3f} us by {src}, "
+    _report(f"K14 ba_lm (tracking V=1, iterations {it_t}, device {us:.3f} us, "
             f"{us / max(1, sum(it_t)):.3f} us per iteration; the eager K4 + K7 schedule "
-            f"{eager_ms:.4f} ms)", err, "2x K4 + K7's scaled step error (one iteration)", ms,
-            plain_ms, None, b)
+            f"{eager_ms:.4f} ms; first-step errors by design {json.dumps(errs)})", err,
+            "2x K4 + K7's scaled step error (one iteration)", ms, plain_ms, None, b)
     return dict(name="ba_lm", route="cuda", source="suo_slam_tpu_torch/csrc/ba_lm.cu",
                 replaces="suo_slam_tpu/solvers/ba.py:456", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
@@ -1858,21 +1992,26 @@ def _add_ok(T_est, T_gt, objs, o):
     return float(np.linalg.norm(p_gt - p_es, axis=-1).mean()) < 0.1 * objs.diameter[o]
 
 
-def compare_ba(label, arrays, dev, act, **kw):
-    """One BA problem through K14 (`optimize` on the card), the eager
-    schedule with K4 + K7 and with the plain versions on the card, and the
-    plain eager schedule in f64 on the CPU. K14 against the eager plain run:
-    poses within 1e-4 (rotation absolute; translation relative to its norm,
-    at least the 800 mm scene depth) and equal inlier masks, except edges
-    within 1% of the chi2 threshold, each printed with its chi2; and no
-    farther from the f64 result than twice the farther of the two eager
-    runs, or 1e-5: f32 LM end states scatter that far around the f64 BA
-    under another summation order (an f32 residual uv - pi(.) of ~3e-3 NDC
-    keeps ~2e-5 of relative rounding, so the relative-gain exit at 1e-6
-    stops on noise; on the card the eager K4 + K7 run ended 2.1e-6 from the
-    f64 poses where the eager plain run ended 2.0e-8). Prints each run's
-    host ms, iterations per round (the eager runs leave a round's loop at
-    its `done` step) and K14's device time per call and per iteration."""
+def compare_ba(label, arrays, dev, act, designs=None, **kw):
+    """One BA problem through each design of K14 (`_ba_lm_cuda`; the
+    cluster design is `optimize` on the card), the eager schedule with K4 +
+    K7 and with the plain versions on the card, and the plain eager
+    schedule in f64 on the CPU. The cluster design (`optimize`'s) against
+    the eager plain run: poses within 1e-4 (rotation absolute; translation
+    relative to its norm, at least the 800 mm scene depth) and equal inlier
+    masks, except edges within 1% of the chi2 threshold, each printed with
+    its chi2; and no farther from the f64 result than twice the farther of
+    the two eager runs, or 1e-5: f32 LM end states scatter that far around
+    the f64 BA under another summation order (an f32 residual uv - pi(.) of
+    ~3e-3 NDC keeps ~2e-5 of relative rounding, so the relative-gain exit
+    at 1e-6 stops on noise; on the card the eager K4 + K7 run ended 2.1e-6
+    from the f64 poses where the eager plain run ended 2.0e-8); and it must
+    repeat bit for bit (poses, inliers, counts, iterations). The block
+    design's errors and distances are printed beside it. Prints
+    each run's host ms and iterations per round (the eager runs leave a
+    round's loop at its `done` step) and each design's device time per call
+    and per iteration and SM cycles by phase. Returns {design: {ms, iters,
+    us, us_it, cycles}}."""
     import torch
 
     from suo_slam_tpu_torch.solvers import ba
@@ -1886,12 +2025,10 @@ def compare_ba(label, arrays, dev, act, **kw):
         return out, (time.perf_counter() - t0) * 1e3
 
     pk = _ba_problem_of(arrays, dev)
-    ba._ba_lm_cuda(pk, **kw)  # warm
-    (rk, itk), ms_k = timed(lambda: ba._ba_lm_cuda(pk, **kw))
+    tracking = bool(kw.get("tracking_only"))
     (re, ite), ms_e = timed(lambda: ba._optimize_eager(pk, use_kernels=True, **kw))
     (rp, itp), ms_p = timed(lambda: ba._optimize_eager(pk, **kw))
     with torch.inference_mode():
-        chi2 = ba._edge_chi2_plain(rk.cam_T, rk.obj_T, pk.uv, pk.info, pk.model_kp, pk.cam_k)
         r64, it64 = ba._optimize_eager(_ba_problem_of(arrays, "cpu", f64=True), **kw)
     ca, oa = act
 
@@ -1907,35 +2044,57 @@ def compare_ba(label, arrays, dev, act, **kw):
         return out
 
     worst = lambda g: max(max(e) for e in g.values())
-    errs, g_k, g_p, g_e = gap(rk, rp), gap(rk, r64), gap(rp, r64), gap(re, r64)
-    flips = (rk.inliers != rp.inliers).nonzero().tolist()
-    fchi2 = [round(float(chi2[tuple(f)]), 4) for f in flips]
     n64 = lambda r: int((r.inliers.cpu() != r64.inliers).sum())
-    log(f"[slam] {label}: K14 {ms_k:.2f} ms, eager K4 + K7 {ms_e:.2f} ms, eager plain "
-        f"{ms_p:.2f} ms; iterations per round K14 {itk.tolist()}, eager K4 + K7 {ite}, eager "
-        f"plain {itp}, f64 {it64}")
-    log(f"[slam] {label}: K14 vs the eager plain run: rotation / relative translation errors "
-        f"{json.dumps(errs)} (tol 1e-4); {int(rk.num_inliers)} inliers, {len(flips)} flipped "
-        f"edges (v, o, k) {flips[:8]} with chi2 {fchi2[:8]} (threshold 5.991); against the "
-        f"f64 BA: K14 {json.dumps(g_k)} and {n64(rk)} edges apart, eager plain "
-        f"{json.dumps(g_p)} and {n64(rp)} apart, eager K4 + K7 {json.dumps(g_e)}")
-    if worst(errs) > 1e-4:
-        raise AssertionError(f"{label}: K14 disagrees with the eager plain schedule: {errs}")
-    if any(abs(c - ba.CHI2_THRESH_2DOF) > 0.01 * ba.CHI2_THRESH_2DOF for c in fchi2):
-        raise AssertionError(f"{label}: an edge away from the threshold flipped: {fchi2}")
-    if worst(g_k) > max(2 * worst(g_p), 2 * worst(g_e), 1e-5):
-        raise AssertionError(f"{label}: K14 is farther from the f64 BA than the eager runs: "
-                             f"{g_k} vs {g_p}, {g_e}")
-    us, src = device_us(lambda: ba._ba_lm_cuda(pk, **kw), "ba_lm_kernel", n=3)
-    cyc = torch.zeros(len(ba.LM_PHASES), dtype=torch.int64, device=dev)
-    ba._ba_lm_cuda(pk, **kw, cycles=cyc)
-    cyc = cyc.tolist()
-    b = lm_bound(pk, itk.tolist(), bool(kw.get("tracking_only")))
-    log(f"[slam] {label}: K14 device {us:.3f} us per call by {src}, "
-        f"{us / max(1, sum(itk.tolist())):.3f} us per iteration, bound {b[0]:.7f} ms "
-        f"({b[1]}, this call's {sum(itk.tolist())} iterations); SM cycles by phase "
-        + json.dumps(dict(zip(ba.LM_PHASES, cyc))) + f" ({sum(cyc)} in all)")
-    return ms_k, ms_e, ms_p
+    g_p, g_e = gap(rp, r64), gap(re, r64)
+    log(f"[slam] {label}: eager K4 + K7 {ms_e:.2f} ms, eager plain {ms_p:.2f} ms; iterations "
+        f"per round eager K4 + K7 {ite}, eager plain {itp}, f64 {it64}; against the f64 BA: "
+        f"eager plain {json.dumps(g_p)} and {n64(rp)} edges apart, eager K4 + K7 "
+        f"{json.dumps(g_e)}")
+    out = {}
+    for design in designs or ba.LM_DESIGNS:
+        run = lambda: ba._ba_lm_cuda(pk, design=design, **kw)
+        first = run()
+        (rk, itk), ms_k = timed(run)
+        with torch.inference_mode():
+            chi2 = ba._edge_chi2_plain(rk.cam_T, rk.obj_T, pk.uv, pk.info, pk.model_kp, pk.cam_k)
+        errs, g_k = gap(rk, rp), gap(rk, r64)
+        flips = (rk.inliers != rp.inliers).nonzero().tolist()
+        fchi2 = [round(float(chi2[tuple(f)]), 4) for f in flips]
+        repeat = all(torch.equal(a, b) for a, b in zip(first[0], rk)) and torch.equal(first[1], itk)
+        log(f"[slam] {label}: K14 {design} design {ms_k:.2f} ms, iterations per round "
+            f"{itk.tolist()}; vs the eager plain run: rotation / relative translation errors "
+            f"{json.dumps(errs)} (tol 1e-4); {int(rk.num_inliers)} inliers, {len(flips)} flipped "
+            f"edges (v, o, k) {flips[:8]} with chi2 {fchi2[:8]} (threshold 5.991); against the "
+            f"f64 BA {json.dumps(g_k)} and {n64(rk)} edges apart; two calls bit-equal {repeat}")
+        # the gates hold the main path's design; the earlier design is
+        # printed beside it (its end state scatters ~3e-5 around the f64 BA
+        # on some problems, as an f32 state does: see `ba_lm.cu`)
+        gated = design == "cluster"
+        if gated and worst(errs) > 1e-4:
+            raise AssertionError(f"{label}: K14 ({design}) disagrees with the eager plain "
+                                 f"schedule: {errs}")
+        if gated and any(abs(c - ba.CHI2_THRESH_2DOF) > 0.01 * ba.CHI2_THRESH_2DOF
+                         for c in fchi2):
+            raise AssertionError(f"{label}: K14 ({design}): an edge away from the threshold "
+                                 f"flipped: {fchi2}")
+        if gated and worst(g_k) > max(2 * worst(g_p), 2 * worst(g_e), 1e-5):
+            raise AssertionError(f"{label}: K14 ({design}) is farther from the f64 BA than the "
+                                 f"eager runs: {g_k} vs {g_p}, {g_e}")
+        if gated and not repeat:
+            raise AssertionError(f"{label}: two calls of K14's cluster design differ")
+        us, src = device_us(run, lm_kernel_name(design, tracking), n=3)
+        cyc = torch.zeros(len(ba.LM_PHASES), dtype=torch.int64, device=dev)
+        ba._ba_lm_cuda(pk, design=design, **kw, cycles=cyc)
+        cyc = cyc.tolist()
+        n_it = sum(itk.tolist())
+        b = lm_bound(pk, itk.tolist(), tracking)
+        log(f"[slam] {label}: K14 {design} design device {us:.3f} us per call by {src}, "
+            f"{us / max(1, n_it):.3f} us per iteration, bound {b[0]:.7f} ms ({b[1]}, this "
+            f"call's {n_it} iterations); SM cycles by phase "
+            + json.dumps(dict(zip(ba.LM_PHASES, cyc))) + f" ({sum(cyc)} in all)")
+        out[design] = dict(ms=ms_k, iters=itk.tolist(), us=us, us_it=us / max(1, n_it),
+                           cycles=cyc)
+    return out
 
 
 def compare_global_ba(engine, dev):

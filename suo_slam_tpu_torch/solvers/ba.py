@@ -9,7 +9,11 @@ chi2 <= 5.991 reclassification between them and Huber on the first half.
 
 `optimize` on CUDA tensors is one launch of kernel K14 (`csrc/ba_lm.cu`),
 which runs the whole schedule on the card with the early exit of the JAX
-`while_loop`; its wrapper `_ba_lm_cuda` reads shapes only, never a value.
+`while_loop`: the global BA on a thread-block cluster (each CTA owns a
+share of the cameras; sums cross CTAs in rank order through distributed
+shared memory), the tracking BA on one CTA. Its wrapper `_ba_lm_cuda`
+reads shapes only, never a value; `design="block"` launches the earlier
+one-block design, which chip_smoke and the card tests time beside it.
 On CPU tensors it runs the plain version, `_optimize_eager`: the same
 schedule as eager PyTorch operations on the plain edge assembly
 (`_edge_planes_Hg_plain`, `_edge_chi2_plain`) and Schur solve
@@ -493,18 +497,23 @@ def _optimize_eager(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
 
 
 # K14 ----------------------------------------------------------------------------
-LM_THREADS = 512                # one persistent block per call (`kThreads`)
+LM_DESIGNS = ("cluster", "block")  # the redesign (the main path), the earlier one-block design
+LM_THREADS = 512                # the block design: one persistent block per call (`kThreads`)
 LM_SMEM_LIMIT = 227 * 1024      # shared memory one H100 block can hold
-LM_STATIC_SMEM = 1024           # kept free for the kernel's static reduction slots
+LM_STATIC_SMEM = 1024           # kept free for the block design's static reduction slots
 LM_MAX_ROUNDS = 32              # `kMaxRounds`
 _LM_PAIR = 96                   # H / g sums per (v, o) pair (`kPair`)
+LM_CLUSTER_THREADS = 256        # the cluster design: a CTA of the global path (`kCThreads`)
+LM_TRACK_THREADS = 512          # its tracking path's one CTA (`kTThreads`)
+LM_MAX_CLUSTER = 16             # CTAs a cluster at most (`kMaxCluster`; above 8 non-portable)
+LM_SMEM_FLOATS = 56832          # dynamic shared memory a CTA claims at most (`kSmemFloats`)
+_LM_TCAM = 128                  # floats per camera on the tracking path (`kTCam`)
 
 
 class LmPlan(NamedTuple):
-    """K14's launch plan for one (V, O): its threads, dynamic shared memory
-    (the objects' reduced system when it fits, else 0 and the system lives
-    in the scratch), the scratch buffer's floats, and the CTAs per call
-    (one: no cluster)."""
+    """K14's launch plan for one problem: threads per CTA, dynamic shared
+    memory per CTA, the scratch buffer's floats and the CTAs per call (the
+    cluster's size; 1 on the tracking path and in the block design)."""
 
     threads: int
     smem_bytes: int
@@ -513,48 +522,133 @@ class LmPlan(NamedTuple):
 
 
 def lm_sys_floats(O: int) -> int:
-    """Floats of the objects' reduced system (`lm_sys_floats`): S with a
-    row stride of 6O + 1, its right-hand side, the forward solve, the step
-    and the factor's diagonal."""
+    """Floats of the block design's reduced system (`lm_sys_floats`): S
+    with a row stride of 6O + 1, its right-hand side, the forward solve,
+    the step and the factor's diagonal."""
     n = 6 * O
     return n * (n + 1) + 4 * n
 
 
 def lm_scratch_floats(V: int, O: int) -> int:
-    """Floats of K14's scratch (`lm_layout` in `csrc/ba_lm.cu`, in its
-    order): trial poses, per-pair H / g sums, per-camera and per-object sums,
-    factors and scales, the scaled Hco blocks, X = Hcc_s^-1 [Hco_s | gc_s],
-    the reduced system, the steps and the free masks."""
+    """Floats of the block design's scratch (`lm_layout` in `csrc/ba_lm.cu`,
+    in its order): trial poses, per-pair H / g sums, per-camera and
+    per-object sums, factors and scales, the scaled Hco blocks, X =
+    Hcc_s^-1 [Hco_s | gc_s], the reduced system, the steps and the free
+    masks."""
     n, P = 6 * O, V * O
     return (V * 16 + O * 16 + P * _LM_PAIR + V * 27 + O * 27 + V * 36 + V * 6 + V * 6
             + O * 6 + O * 36 + O * 6 + P * 36 + V * 6 * (n + 1) + lm_sys_floats(O)
             + V * 6 + O * 6 + V + O)
 
 
-def plan_lm(V: int, O: int) -> LmPlan:
-    sys_bytes = 4 * lm_sys_floats(O)
-    smem = sys_bytes if sys_bytes <= LM_SMEM_LIMIT - LM_STATIC_SMEM else 0
-    return LmPlan(LM_THREADS, smem, lm_scratch_floats(V, O), 1)
+def lm_cluster_size(V: int, max_cluster: int = LM_MAX_CLUSTER) -> int:
+    """CTAs of the global path's cluster: at most `max_cluster`, each
+    owning ceil(V / CTAs) cameras in rank order and none owning none."""
+    per = -(-V // min(V, max_cluster))
+    return -(-V // per)
+
+
+def lm_cluster_layout(V: int, O: int, G: int):
+    """The global path's per-CTA buffers (`cl_layout` in `csrc/ba_lm.cu`, in
+    its order): [(in shared memory, offset, floats)], the shared floats and
+    the scratch floats of one CTA. Each buffer claims shared memory in turn
+    and goes to the CTA's slice of the scratch once the budget is spent."""
+    n = 6 * O
+    C, cpr, rpr = n + 1, -(-V // G), -(-n // G)
+    sizes = [8 * G, 2 * G * (4 + O + O % 2), 2 * cpr * 16, 2 * O * 16, 4 * cpr * 16, 4 * O * 16,
+             cpr * 83, O * 83 + 9 * n + 6, 2 * cpr * O, n * C, cpr * O * _LM_PAIR,
+             cpr * O * 36, cpr * 6 * C, G * O * 27, G * rpr * C]
+    out, s, g = [], 0, 0
+    for size in sizes:
+        size = -(-size // 4) * 4
+        if s + size <= LM_SMEM_FLOATS:
+            out.append((True, s, size))
+            s += size
+        else:
+            out.append((False, g, size))
+            g += size
+    return out, s, g
+
+
+def lm_tracking_fixed_floats(O: int) -> int:
+    """The tracking path's shared floats before its per-camera block
+    (`tr_fixed_floats`): the objects' poses in f32 and f64 and each warp's
+    f64 copy of its camera pose."""
+    return 48 * O + 64 * (LM_TRACK_THREADS // 32)
+
+
+def lm_tracking_cams_in_smem(V: int, O: int) -> bool:
+    """Whether the tracking path's per-camera block fits shared memory beside
+    the rest (`tr_cams_in_smem`), else it lives in the scratch."""
+    return lm_tracking_fixed_floats(O) + V * _LM_TCAM <= LM_SMEM_FLOATS
+
+
+def plan_lm(V: int, O: int, *, tracking: bool = False, design: str = "cluster",
+            max_cluster: int = LM_MAX_CLUSTER) -> LmPlan:
+    """K14's plan for a (V, O) problem: the block design's one block, the
+    tracking path's one CTA, or the global path's cluster of at most
+    `max_cluster` CTAs (the card's limit, `_lm_cluster_cap`)."""
+    if design == "block":
+        sys_bytes = 4 * lm_sys_floats(O)
+        smem = sys_bytes if sys_bytes <= LM_SMEM_LIMIT - LM_STATIC_SMEM else 0
+        return LmPlan(LM_THREADS, smem, lm_scratch_floats(V, O), 1)
+    if tracking:
+        cams = V * _LM_TCAM
+        inside = lm_tracking_cams_in_smem(V, O)
+        return LmPlan(LM_TRACK_THREADS, 4 * (lm_tracking_fixed_floats(O) + (cams if inside else 0)),
+                      max(1, 0 if inside else cams), 1)
+    G = lm_cluster_size(V, max_cluster)
+    _, s, g = lm_cluster_layout(V, O, G)
+    return LmPlan(LM_CLUSTER_THREADS, 4 * s, max(1, G * g), G)
 
 
 _LM_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
                 + [ctypes.c_int] * 3 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 6
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-LM_PHASES = ("edges", "blocks", "columns", "reduce", "factor", "back", "trial", "round")
-_lm_scratch: dict = {}   # (device, V, O) -> the scratch of that shape
+_LM_CLUSTER_ARGTYPES = (_LM_ARGTYPES[:-3] + [ctypes.c_int, ctypes.c_int]
+                        + [ctypes.c_void_p, ctypes.c_void_p])
+# SM clock cycles by phase (`NPhase`; the block design's `Phase` fills the
+# first eight and leaves "sync", the cluster barriers' waits, as it was)
+LM_PHASES = ("edges", "blocks", "columns", "reduce", "factor", "back", "trial", "round", "sync")
+_lm_scratch: dict = {}   # (device, V, O, design, tracking) -> the scratch of that plan
 _lm_rounds: dict = {}    # iters_per_round -> its ctypes int array
+_lm_caps: dict = {}      # device -> the largest cluster of the global path it takes
+
+
+def _lm_cluster_cap(dev) -> int:
+    """The largest cluster this card co-schedules for the global path
+    (`suo_ba_lm_max_cluster`: cudaOccupancyMaxPotentialClusterSize at the
+    whole shared-memory budget), at most LM_MAX_CLUSTER; asked once per
+    device."""
+    cap = _lm_caps.get(dev)
+    if cap is None:
+        fn = _build.entry("ba_lm", [ctypes.POINTER(ctypes.c_int)], "suo_ba_lm_max_cluster")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _build.check(fn(ctypes.byref(out)), "K14 ba_lm (cluster size)")
+        if out.value < 1:
+            raise RuntimeError("K14: this card co-schedules no cluster of the global path")
+        cap = _lm_caps[dev] = min(LM_MAX_CLUSTER, out.value)
+    return cap
 
 
 def _ba_lm_cuda(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
                 tracking_only: bool = False, fix_first_cam: bool = True,
                 init_with_outliers: bool = False, huber_delta: float = HUBER_DELTA,
-                chi2_thresh: float = CHI2_THRESH_2DOF, cycles: torch.Tensor | None = None):
+                chi2_thresh: float = CHI2_THRESH_2DOF, cycles: torch.Tensor | None = None,
+                design: str = "cluster"):
     """K14: `optimize` in one launch. Returns (BAResult, the LM iterations
     each round ran [R] int64 on the device). Reads shapes only; allocates
-    the outputs, and the scratch once per shape. With `cycles` (int64
+    the outputs, and the scratch once per plan. `design`: "cluster" (the
+    main path: the global BA on a thread-block cluster, the tracking BA on
+    one CTA with its working set in shared memory) or "block" (the earlier
+    design, one persistent block over an L2 scratch; chip_smoke and the card
+    tests time it beside the other). With `cycles` (int64 zeros
     [len(LM_PHASES)] on the device) the kernel writes there the SM clock
     cycles each of its phases took."""
     p = problem
+    if design not in LM_DESIGNS:
+        raise ValueError(f"K14: unknown design {design!r}, not one of {LM_DESIGNS}")
     V, O, K = p.valid.shape
     floats = (p.cam_T, p.obj_T, p.uv, p.info, p.model_kp, p.cam_k)
     masks = (p.valid, p.cam_active, p.obj_active)
@@ -575,8 +669,12 @@ def _ba_lm_cuda(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
     dev = p.uv.device
     if any(a.device != dev for a in floats + masks + frozen):
         raise ValueError("K14 inputs must lie on one CUDA device")
-    plan = plan_lm(V, O)
-    key = (dev, V, O)
+    tracking = bool(tracking_only)
+    if design == "cluster":
+        plan = plan_lm(V, O, tracking=tracking, max_cluster=1 if tracking else _lm_cluster_cap(dev))
+    else:
+        plan = plan_lm(V, O, design="block")
+    key = (dev, V, O, design, tracking)
     scratch = _lm_scratch.get(key)
     if scratch is None:
         scratch = _lm_scratch[key] = torch.empty(plan.scratch_floats, dtype=torch.float32,
@@ -591,20 +689,25 @@ def _ba_lm_cuda(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
     ints = torch.empty((1 + len(rounds),), dtype=torch.int64, device=dev)
     chi2 = torch.empty((), dtype=torch.float32, device=dev)
     d = float(huber_delta)
-    fn = _build.entry("ba_lm", _LM_ARGTYPES)
-    err = fn(p.cam_T.contiguous().data_ptr(), p.obj_T.contiguous().data_ptr(),
-             p.uv.contiguous().data_ptr(), p.info.contiguous().data_ptr(),
-             p.model_kp.contiguous().data_ptr(), p.cam_k.contiguous().data_ptr(),
-             p.valid.contiguous().data_ptr(), p.cam_active.contiguous().data_ptr(),
-             p.obj_active.contiguous().data_ptr(),
-             None if p.cam_frozen is None else p.cam_frozen.contiguous().data_ptr(),
-             None if p.obj_frozen is None else p.obj_frozen.contiguous().data_ptr(),
-             V, O, K, c_rounds, len(rounds), int(bool(tracking_only)), int(bool(fix_first_cam)),
-             int(bool(init_with_outliers)), d, 2.0 * d, d ** 2, float(chi2_thresh),
-             cam_out.data_ptr(), obj_out.data_ptr(), inl.data_ptr(), ints.data_ptr(),
-             chi2.data_ptr(), scratch.data_ptr(), plan.scratch_floats, plan.smem_bytes,
-             None if cycles is None else cycles.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    args = (p.cam_T.contiguous().data_ptr(), p.obj_T.contiguous().data_ptr(),
+            p.uv.contiguous().data_ptr(), p.info.contiguous().data_ptr(),
+            p.model_kp.contiguous().data_ptr(), p.cam_k.contiguous().data_ptr(),
+            p.valid.contiguous().data_ptr(), p.cam_active.contiguous().data_ptr(),
+            p.obj_active.contiguous().data_ptr(),
+            None if p.cam_frozen is None else p.cam_frozen.contiguous().data_ptr(),
+            None if p.obj_frozen is None else p.obj_frozen.contiguous().data_ptr(),
+            V, O, K, c_rounds, len(rounds), int(tracking), int(bool(fix_first_cam)),
+            int(bool(init_with_outliers)), d, 2.0 * d, d ** 2, float(chi2_thresh),
+            cam_out.data_ptr(), obj_out.data_ptr(), inl.data_ptr(), ints.data_ptr(),
+            chi2.data_ptr(), scratch.data_ptr(), plan.scratch_floats)
+    tail = (None if cycles is None else cycles.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if design == "cluster":
+        fn = _build.entry("ba_lm", _LM_CLUSTER_ARGTYPES, "suo_ba_lm_cluster")
+        err = fn(*args, plan.cluster, plan.smem_bytes, *tail)
+    else:
+        fn = _build.entry("ba_lm", _LM_ARGTYPES)
+        err = fn(*args, plan.smem_bytes, *tail)
     _build.check(err, "K14 ba_lm")
     kernels.count("ba_lm")
     return BAResult(cam_T=cam_out, obj_T=obj_out, inliers=inl, num_inliers=ints[0],

@@ -9,8 +9,8 @@ schedule it replaced, on the CPU:
   package's own `_lm_while`), and scripted LM iterations leave both loops
   at the same step;
 - the wrapper's shape and scratch planner (`plan_lm`) at every (V, O) the
-  engine's capacity growth reaches, against the layout in
-  `csrc/ba_lm.cu`;
+  engine's capacity growth reaches, against the layouts of both designs in
+  `csrc/ba_lm.cu`, and its refusals (both designs, an unknown design);
 - the predicate that takes K2, K8 and K9 to their autograd Functions
   (backward kernels K19, K17, K18);
 - the JAX checkpoint loader on a GroupNorm checkpoint (it builds the
@@ -175,12 +175,14 @@ def test_lm_while_exit_matches_jax_while_loop(name):
     assert it == {"converges": 5, "damping_cap": 3, "never": 10, "nan_gain": 3}[name]
 
 
-def _layout_from_source():
-    """`lm_layout`'s `take(...)` sizes and `lm_sys_floats` from the CUDA
-    source, as Python expressions of V and O."""
+def _layout_from_source(fn="inline Layout lm_layout(", end="L.total = off;"):
+    """A layout function's `take(...)` sizes in the CUDA source (the block
+    design's `lm_layout`, or the cluster design's `cl_layout`), and
+    `lm_sys_floats` and the `constexpr int` constants, as Python
+    expressions."""
     src = (REPO / "suo_slam_tpu_torch/csrc/ba_lm.cu").read_text()
-    body = src[src.index("inline Layout lm_layout("):src.index("L.total = off;")]
-    sizes = re.findall(r"L\.\w+ = take\((.*)\);", body)
+    body = src[src.index(fn):src.index(end, src.index(fn))]
+    sizes = re.findall(r"take\((.*?)\);", body)
     sys_expr = re.search(r"lm_sys_floats\(long long n\) \{ return (.*); \}", src).group(1)
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     return sizes, sys_expr, consts
@@ -188,6 +190,10 @@ def _layout_from_source():
 
 @pytest.mark.parametrize("O", [8, 16, 32])
 def test_planner_mirrors_the_kernel_layout(O):
+    """Both designs' plans against the layouts in `csrc/ba_lm.cu`: the
+    block design's scratch (`lm_layout`) and the cluster design's per-CTA
+    buffers (`cl_layout`: each claims shared memory while the budget
+    lasts, the rest goes to the CTA's slice of the scratch)."""
     sizes, sys_expr, consts = _layout_from_source()
     assert consts["kThreads"] == tba.LM_THREADS and consts["kPair"] == tba._LM_PAIR
     assert consts["kMaxRounds"] == tba.LM_MAX_ROUNDS
@@ -196,7 +202,7 @@ def test_planner_mirrors_the_kernel_layout(O):
         env = dict(consts, V=V, O=O, n=n, C=n + 1, P=V * O,
                    lm_sys_floats=lambda m: eval(sys_expr, {}, {"n": m}))
         total = sum(eval(e, {}, env) for e in sizes)
-        plan = tba.plan_lm(V, O)
+        plan = tba.plan_lm(V, O, design="block")
         assert plan.scratch_floats == total == tba.lm_scratch_floats(V, O)
         assert plan.threads == 512 and plan.cluster == 1
         sys_bytes = 4 * tba.lm_sys_floats(O)
@@ -209,18 +215,44 @@ def test_planner_mirrors_the_kernel_layout(O):
         # an L2-resident scratch at the SLAM path's shapes (50 MB L2)
         if V <= 64:
             assert 4 * plan.scratch_floats < 50e6
+    # the cluster design: cl_layout's claims, in order, under the budget
+    csizes, _, _ = _layout_from_source("inline CLayout cl_layout(", "L.smem_floats = s;")
+    assert consts["kCThreads"] == tba.LM_CLUSTER_THREADS
+    assert consts["kTThreads"] == tba.LM_TRACK_THREADS
+    assert consts["kMaxCluster"] == tba.LM_MAX_CLUSTER
+    assert consts["kSmemFloats"] == tba.LM_SMEM_FLOATS and consts["kTCam"] == tba._LM_TCAM
+    for V in (1, 16, 32, 64, 128, 256):
+        G = tba.lm_cluster_size(V)
+        n = 6 * O
+        env = dict(consts, V=V, O=O, G=G, n=n, C=n + 1, cpr=-(-V // G), rpr=-(-n // G))
+        want = [-(-eval(e, {}, env) // 4) * 4 for e in csizes]
+        layout, s, g = tba.lm_cluster_layout(V, O, G)
+        assert [f for _, _, f in layout] == want
+        used = 0
+        for inside, off, f in layout:
+            assert inside == (used + f <= tba.LM_SMEM_FLOATS)
+            if inside:
+                assert off == used
+                used += f
+        assert used == s and g == sum(f for inside, _, f in layout if not inside)
+        plan = tba.plan_lm(V, O)
+        assert plan == tba.LmPlan(tba.LM_CLUSTER_THREADS, 4 * s, max(1, G * g), G)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     p = _to_torch(_tracking_problem(), np.float32)
-    with pytest.raises(ValueError, match="f32"):
-        tba._ba_lm_cuda(p._replace(uv=p.uv.double()), **TRACKING)
-    with pytest.raises(ValueError, match="bool"):
-        tba._ba_lm_cuda(p._replace(valid=p.valid.to(torch.uint8)), **TRACKING)
-    with pytest.raises(ValueError, match="shapes"):
-        tba._ba_lm_cuda(p._replace(cam_k=p.cam_k[..., :3]), **TRACKING)
-    with pytest.raises(ValueError, match="rounds"):
-        tba._ba_lm_cuda(p, iters_per_round=(1,) * 33)
+    for design in tba.LM_DESIGNS:
+        with pytest.raises(ValueError, match="f32"):
+            tba._ba_lm_cuda(p._replace(uv=p.uv.double()), design=design, **TRACKING)
+        with pytest.raises(ValueError, match="bool"):
+            tba._ba_lm_cuda(p._replace(valid=p.valid.to(torch.uint8)), design=design,
+                            **TRACKING)
+        with pytest.raises(ValueError, match="shapes"):
+            tba._ba_lm_cuda(p._replace(cam_k=p.cam_k[..., :3]), design=design, **TRACKING)
+        with pytest.raises(ValueError, match="rounds"):
+            tba._ba_lm_cuda(p, iters_per_round=(1,) * 33, design=design)
+    with pytest.raises(ValueError, match="design"):
+        tba._ba_lm_cuda(p, design="serial", **TRACKING)
 
 
 def test_autograd_predicate():

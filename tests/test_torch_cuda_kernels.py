@@ -518,84 +518,85 @@ def test_k13_int8_pool_junction(dev):
 
 
 def _lm_arrays(V, O, n_views, n_objs, seed, K=41):
-    """A pose graph at the engine's shapes, numpy only: n_views cameras on a
-    ~0.2 rad arc 600 mm from n_objs objects (16 of K keypoints each, in a
-    100 mm cube), NDC measurements with N(0, 0.003) noise and 5% outliers,
-    info 1e4 I, cameras after the first and the objects 1-2 mm off; the
-    rest of the V x O capacity inactive."""
-    rng = np.random.default_rng(seed)
+    import chip_smoke as cs
 
-    def rot(axis, a):
-        c, s = np.cos(a), np.sin(a)
-        i, j = [(1, 2), (2, 0), (0, 1)][axis]
-        R = np.eye(3)
-        R[i, i] = R[j, j] = c
-        R[i, j], R[j, i] = -s, s
-        return R
-
-    obj_T = np.tile(np.eye(4), (O, 1, 1))
-    model_kp = np.zeros((O, K, 3))
-    valid_kp = np.zeros((O, K), bool)
-    for o in range(n_objs):
-        obj_T[o, :3, :3] = rot(0, rng.uniform(-3, 3)) @ rot(1, rng.uniform(-3, 3))
-        obj_T[o, :3, 3] = rng.uniform(-120, 120, 3) * [1, 1, 0.3] + [0, 0, 600]
-        ch = rng.choice(K, 16, replace=False)
-        valid_kp[o, ch] = True
-        model_kp[o, ch] = rng.uniform(-50, 50, (16, 3))
-    cam_T = np.tile(np.eye(4), (V, 1, 1))
-    for v in range(n_views):
-        a = 0.2 * v / max(n_views - 1, 1)
-        c = np.array([0, 0, 600.0])
-        cam_T[v, :3, :3] = rot(1, a)
-        cam_T[v, :3, 3] = c - rot(1, a) @ c + rng.normal(size=3)
-    uv = np.zeros((V, O, K, 2))
-    valid = np.zeros((V, O, K), bool)
-    for v in range(n_views):
-        for o in range(n_objs):
-            p = (cam_T[v] @ obj_T[o])[:3, :3] @ model_kp[o].T + (cam_T[v] @ obj_T[o])[:3, 3:]
-            uv[v, o] = 2.0 * (p[:2] / p[2]).T + rng.normal(scale=0.003, size=(K, 2))
-            valid[v, o] = valid_kp[o]
-    out = rng.uniform(size=(V, O, K)) < 0.05
-    uv[out] += rng.uniform(-0.3, 0.3, size=(int(out.sum()), 2))
-    cam_T[1:n_views, :3, 3] += rng.normal(scale=1.0, size=(n_views - 1, 3))
-    obj_T[:n_objs, :3, 3] += rng.normal(scale=2.0, size=(n_objs, 3))
-    cam_active = np.zeros(V, bool)
-    cam_active[:n_views] = True
-    obj_active = np.zeros(O, bool)
-    obj_active[:n_objs] = True
-    f32 = lambda a: np.ascontiguousarray(a, np.float32)
-    cam_k = np.zeros((V, O, 4))
-    cam_k[..., :2] = 2.0
-    return dict(cam_T=f32(cam_T), obj_T=f32(obj_T), uv=f32(uv),
-                info=f32(np.broadcast_to(np.eye(2) * 1e4, (V, O, K, 2, 2))),
-                model_kp=f32(model_kp), cam_k=f32(cam_k), valid=valid, inliers=valid.copy(),
-                cam_active=cam_active, obj_active=obj_active)
+    return cs.lm_arrays(V, O, n_views, n_objs, seed, K)
 
 
 @pytest.mark.parametrize("V,O,n_views,n_objs", [(1, 8, 1, 8), (16, 8, 6, 8), (32, 8, 22, 8),
-                                                (128, 16, 70, 12)])
+                                                (128, 16, 70, 12), (8, 40, 6, 30)])
 def test_k14_ba_lm_matches_the_eager_schedule(dev, V, O, n_views, n_objs):
     """K14 against the eager plain schedule on the card and f64 on the CPU
-    (chip_smoke's `compare_ba` gate), tracking and global, at the (V, O)
-    the engine's capacity growth reaches."""
+    (chip_smoke's `compare_ba` gate on the cluster design, which also
+    repeats bit for bit; the block design beside it), tracking and global,
+    at the (V, O) the engine's capacity growth reaches, and at O = 40, whose
+    reduced system and exchange buffers outgrow a CTA's shared memory (the
+    cluster design's scratch path)."""
     import chip_smoke as cs
+    from suo_slam_tpu_torch.solvers import ba
 
+    designs = ba.LM_DESIGNS
+    if O == 40:
+        layout, _, _ = ba.lm_cluster_layout(V, O, ba.lm_cluster_size(V))
+        assert not all(inside for inside, _, _ in layout)
+        # the O = 40 case is about the cluster design's scratch path (the
+        # block design runs this problem in ~40 ms)
+        designs = ("cluster",)
     arrays = _lm_arrays(V, O, n_views, n_objs, seed=V + O)
     act = (arrays["cam_active"], arrays["obj_active"])
-    cs.compare_ba(f"global V={V} O={O}", arrays, dev, act)
+    cs.compare_ba(f"global V={V} O={O}", arrays, dev, act, designs=designs)
     row = {k: (a[:1] if k in ("cam_T", "uv", "info", "cam_k", "valid", "inliers") else a)
            for k, a in arrays.items()}
     row["cam_active"] = np.ones(1, bool)
     row["cam_T"] = row["cam_T"].copy()
     row["cam_T"][0, :3, 3] += 0.5
-    cs.compare_ba(f"tracking O={O}", row, dev, (np.ones(1, bool), act[1]), **cs.TRACKING)
+    cs.compare_ba(f"tracking O={O}", row, dev, (np.ones(1, bool), act[1]), designs=designs,
+                  **cs.TRACKING)
 
 
-def test_k14_first_iteration_matches_k4_k7(dev):
+@pytest.mark.parametrize("design", ["cluster", "block"])
+def test_k14_first_iteration_matches_k4_k7(dev, design):
     import chip_smoke as cs
 
     rng = np.random.default_rng(12)
-    assert cs.k14_first_step(cs._ba_problem(dev, rng, cs.Objects(rng))) <= 1e-3
+    assert cs.k14_first_step(cs._ba_problem(dev, rng, cs.Objects(rng)), design=design) <= 1e-3
+
+
+@pytest.mark.parametrize("tracking", [False, True])
+def test_k14_cluster_design_repeats_bit_for_bit(dev, tracking):
+    """Two calls of the cluster design on one problem: equal poses, inliers,
+    counts, chi2 and iterations, bit for bit (every cross-CTA sum in rank
+    order), on a capacity that takes a cluster of 16 with cameras of
+    several ranks active."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch.solvers import ba
+
+    arrays = _lm_arrays(64, 8, 44, 8, seed=7)
+    p = cs._ba_problem_of(arrays, dev)
+    kw = dict(cs.TRACKING) if tracking else {}
+    if tracking:
+        p = p._replace(cam_T=p.cam_T[:4], uv=p.uv[:4], info=p.info[:4], cam_k=p.cam_k[:4],
+                       valid=p.valid[:4], inliers=p.inliers[:4], cam_active=p.cam_active[:4])
+    runs = [ba._ba_lm_cuda(p, **kw) for _ in range(3)]
+    torch.cuda.synchronize()
+    for r, it in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][0], r))
+        assert torch.equal(runs[0][1], it)
+    assert int(runs[0][0].num_inliers) > 0
+
+
+def test_k14_captured_optimize_replays_equal(dev):
+    """`ba.optimize` (the cluster design: a cluster launch on the global
+    path) captured in a CUDA graph and replayed equals the eager call bit
+    for bit, global and tracking; one kernel node per call."""
+    import chip_smoke as cs
+
+    p = cs._ba_problem_of(_lm_arrays(32, 8, 22, 8, seed=40), dev)
+    t = p._replace(cam_T=p.cam_T[:1], uv=p.uv[:1], info=p.info[:1], cam_k=p.cam_k[:1],
+                   valid=p.valid[:1], inliers=p.inliers[:1], cam_active=p.cam_active[:1])
+    for prob, kw in ((p, {}), (t, cs.TRACKING)):
+        per_call, same = cs.k14_capture_check(prob, kw)
+        assert per_call == 1 and same
 
 
 def test_k14_one_launch_per_optimize(dev):
