@@ -23,9 +23,14 @@ Phases (any failure raises and exits non-zero):
      per iteration and SM cycles by phase, the cluster design repeating bit
      for bit, one kernel node per `optimize` and a captured call replaying
      equal; K15, the whole of `pnp_ransac_batch` in one launch: its
-     outcome at the front end's shapes and the backup pose's, and its time
-     against the K3 + eager-tail schedule it replaced, K3 now off the main
-     path too); kernel,
+     outcome at the front end's shapes and the backup pose's, its draws mode
+     (the main path's: it ranks the sampler's `torch.rand` itself) bit-equal
+     to K15 on K22's indices of the same draws at both shapes, both modes'
+     device times, and its time against the K3 + eager-tail schedule it
+     replaced, K3 now off the main path too; K6's three modes exact against
+     their plain versions: the bare counts, the fused camera RANSAC (six
+     cases: pose bits, count, ok, best slot) and the fused re-init vote,
+     each beside the chain of the earlier front end it replaced); kernel,
      plain and library times (median of CUDA-event timings; the library
      yardsticks' device time from torch.profiler beside them) and each
      kernel's bound on an H100 (bytes at 3.35 TB/s or f32 operations at
@@ -35,12 +40,14 @@ Phases (any failure raises and exits non-zero):
      `grid_sample`'s and its wrapper's host time step by step (`[host] K1
      wrapper`, beside the bare ctypes call); K15's SM cycles by phase for
      the current and the serial design at the front end's and the backup
-     pose's shapes, both designs' device times; ptxas's registers and stack
+     pose's shapes (and the draws mode's, with its rank phase), both
+     designs' device times; ptxas's registers and stack
      frame of K1's, K3's and K15's kernels; K22 (the PnP sampler's top-4)
      equal to its plain version on the same CUDA draws at the front end's
      [8, 64, 41] (a row with 2 valid points) and the backup pose's
-     [1, 128, 328], beside `torch.topk` on the masked draws and the
-     sampler's whole call (`torch.rand` + K22); K8's wrapper call at a
+     [1, 128, 328], beside `torch.topk` on the masked draws and the index
+     sampler's whole call (`torch.rand` + K22; K22 is off the main path);
+     K8's wrapper call at a
      SLAM-frame shape (`[host] K8 wrapper`); K2 on both paths (dense: a
      thread-block cluster per crop, the main path's; strided: the earlier
      design) on the net's f32 logits in both transpose_heatmaps orders and
@@ -59,11 +66,13 @@ Phases (any failure raises and exits non-zero):
      statistics) in `ObjectSlam(single_view_mode=True)` over synthetic
      480x640 views with 8 objects each, `reset()` before every view as
      `evaluate.py --nviews 1` does: per-view latency and per-stage times;
-     the launch counters of K1, K2, K14, K15 and K22 must rise (K15 and K22
-     exactly once per view: one per `pnp_ransac_batch` call, and no plain
-     sampler on the card), K3's, K4's and K7's stay 0;
-     the stage times split the front end into its sampler,
-     `pnp_ransac_batch` and the rest;
+     the launch counters of K1, K2, K14 and K15 must rise (K15 exactly once
+     per view: one per `pnp_ransac_batch` call, which ranks the sampler's
+     draws, and no plain sampler on the card), K3's, K4's, K7's and K22's
+     stay 0; the stage times split the front end into its sampler (one
+     `torch.rand`), `pnp_ransac_batch` and the rest, and time the SLAM
+     front end's camera RANSAC and the tail's re-init vote (one K6 launch
+     each) alone;
      the prior-free network path is
      held against the same net on the CPU for two crops; one more view runs
      under torch.profiler;
@@ -81,10 +90,12 @@ Phases (any failure raises and exits non-zero):
      init, the priors, re-init and both BAs do real work, as trained
      weights would. The view capacity grows 16 -> 32, global BA runs at
      frames 10 and 20 and in `collect_results(final=True)`. Every counter
-     K1, K2, K5, K6, K14 and K15 must rise and K3's, K4's and K7's stay 0
-     (K14: one launch per tracking BA and per global BA; K15: one per
+     K1, K2, K5, K6, K14 and K15 must rise and K3's, K4's, K7's and K22's
+     stay 0 (K14: one launch per tracking BA and per global BA; K15: one per
      `pnp_ransac_batch` call, two front ends a frame and the backup camera
-     poses); the camera trajectory error
+     poses; K6: one per camera RANSAC and per re-init vote); every frame's
+     two dispatch chains (`frontend_step`, `tracking_tail`) run under
+     `torch.cuda.set_sync_debug_mode("error")`; the camera trajectory error
      and ADD < 0.1 d for >= 90% of the (frame, object) poses; the
      with-prior program against the CPU for two crops (1e-3); the global
      (V = 32) and tracking BA problems through both designs of K14, the
@@ -93,7 +104,8 @@ Phases (any failure raises and exits non-zero):
      Prints per-frame latency, tracking (K14 and the eager K4 + K7
      schedule) and global BA ms, launches per frame, and a torch.profiler
      summary of one frame with its launches (K14 1, K15 one per
-     `pnp_ransac_batch` call, K3, K4 and K7 0, no cholesky), its kernel
+     `pnp_ransac_batch` call, K6 one per camera RANSAC and re-init vote,
+     K3, K4, K7 and K22 0, no cholesky), its kernel
      count and device ms beside those before K15, K1's and K15's device time
      per launch beside the earlier designs', and the sum of its K8 / K9
      calls' bounds;
@@ -173,7 +185,8 @@ Phases (any failure raises and exits non-zero):
      uv on every crop; bf16 within the bf16 net's gap to f32 on the same
      crops), its ms and crops/s in bf16, int8 and f32; then `Evaluator`
      legs, each with its launches, ms per view and multi-frame call shapes,
-     every sampler call through K22 and one K10 launch per scene: `--nviews
+     every sampler's draws ranked in K15 (no K22) and one K10 launch per
+     scene: `--nviews
      1` sequential and `--batched`
      (4 calls of 128 crops) in bf16 (AUC within 1 point, the same CSV rows)
      and int8 on phase 8's sidecar (CSV equal byte for byte); `--nviews -1`
@@ -182,7 +195,7 @@ Phases (any failure raises and exits non-zero):
      100% camera poses, all four SLAM legs); SfM `--nviews 2` sequential and
      `--pipeline_scenes 3` in int8 (CSV equal);
  12. the kernels JSON line (K1-K7's, K14's, K15's and K22's launches from the
-     SLAM path, K8-K10's from the evaluation phase, K11-K13's from the int8
+     SLAM path, K22's 0 there, K8-K10's from the evaluation phase, K11-K13's from the int8
      phase's evaluation and SLAM runs, K16-K19's from the training CLI, K11 /
      K12's f32 modes from phase 10's 8-crop f32 forward, K20 / K21's from its
      training CLI), the nvidia-smi line, and the last line {"ok": true,
@@ -223,16 +236,21 @@ NK = 41
 EARLIER_US = {"K1 call": 30.70, "K1 frame": 6.464, "K15 phase 3": 54.167, "K15 frame": 67.402,
               "K2 f32": 18.512, "K2 bf16": 16.970, "K10 B=1": 22.103, "K10 B=8": 59.225}
 TARGET_US = {"K1 device": 5.18, "K15 phase 3": 35.0, "K15 frame": 40.0,
-             "K2 f32": 6.0, "K2 bf16": 4.0, "K10 B=1": 8.0, "K10 B=8": 35.0}
-SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm", "pnp_sample")
-# K3, K4, K7: checked in phase 3, off the main path (K15 and K14 replaced them)
-OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur")
+             "K2 f32": 6.0, "K2 bf16": 4.0, "K10 B=1": 8.0, "K10 B=8": 35.0,
+             "K6 camera": 6.0, "K6 reinit": 6.0, "K15 draws over idx": 3.5}
+SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm")
+# K3, K4, K7, K22: checked in phase 3, off the main path (K15 and K14 replaced
+# them; K15 ranks the sampler's draws itself)
+OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur", "pnp_sample")
 EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
 INT8_KERNELS = ("int8_conv", "int8_quant", "int8_pool_junction")  # from the int8 phase
 TRAIN_KERNELS = ("bn_stats", "norm_relu_bwd", "upsample_add_bwd",  # from the training phase
                  "heatmap_readout_bwd")
 QUANT_KERNELS = ("int8_conv_f32", "int8_quant_f32")  # K11 / K12's f32 modes (phase 10)
 GROUP_KERNELS = ("group_norm_relu", "group_norm_relu_bwd")  # K20 / K21 (phase 10's CLI)
+# counters whose launches run kernels not named <counter>_kernel (K6's fused modes)
+KERNEL_KEYS = {"chi2_counts": ("chi2_counts_kernel", "camera_ransac_kernel",
+                               "reinit_votes_kernel")}
 
 
 # ----------------------------------------------------------------- helpers --
@@ -957,16 +975,202 @@ def _k6_inputs(dev, rng, objs, S, M):
             torch.from_numpy(np.ascontiguousarray(mask)).to(dev), t(k4))
 
 
+# camera-RANSAC cases of K6's fused mode (`camera_ransac_inputs`); "map 64"
+# and "map 128" take 4 rounds of 16 and 128 rounds of 1 hypothesis
+# (`camera_ransac_hyps`)
+CAM_CASES = ("seeded", "padded", "tie", "no inlier", "no candidate", "unmet", "map 64",
+             "map 128")
+
+
+def _frame_rows(rng, objs, T_OtoC, sigma=0.005):
+    """One view's detections of the 8 objects under T_OtoC [8, 4, 4] (mm):
+    each object's box-fixed intrinsics k4 (from the projected keypoints'
+    box, `_fix_K_np`) and its NDC keypoints under them + N(0, sigma)."""
+    from suo_slam_tpu_torch.slam.engine import _fix_K_np
+
+    k4 = np.zeros((N_OBJ, 4), np.float32)
+    uv = np.zeros((N_OBJ, NK, 2))
+    for o in range(N_OBJ):
+        p = objs.model_kps[o] @ T_OtoC[o, :3, :3].T + T_OtoC[o, :3, 3]
+        px = p @ YCBV_K.T
+        px = px[:, :2] / px[:, 2:]
+        m = objs.masks[o]
+        bb = np.concatenate([px[m].min(0) - 10, px[m].max(0) + 10])
+        K = _fix_K_np(YCBV_K, bb)
+        k4[o] = (K[0, 0], K[1, 1], K[0, 2], K[1, 2])
+        uv[o] = k4[o, :2] * p[:, :2] / p[:, 2:] + k4[o, 2:]
+    return uv + rng.normal(scale=sigma, size=uv.shape), k4
+
+
+def _jitter(rng, T, rot, trans):
+    """T [..., 4, 4] moved by a random rotation of ~rot rad and translation
+    of ~trans mm on the left."""
+    from scipy.spatial.transform import Rotation
+
+    out = np.array(T, np.float64)
+    for i in np.ndindex(out.shape[:-2]):
+        J = np.eye(4)
+        J[:3, :3] = Rotation.from_rotvec(rng.normal(scale=rot, size=3)).as_matrix()
+        J[:3, 3] = rng.normal(scale=trans, size=3)
+        out[i] = J @ out[i]
+    return out
+
+
+def camera_ransac_inputs(dev, rng, objs, case="seeded"):
+    """K6's camera-RANSAC inputs at the SLAM path's shapes (ob = 8 group
+    rows, O = 8 map slots, K = 41): the map T_OtoG of a view seen from a
+    camera T_GtoC, each map pose and each row's PnP pose off by a little
+    (hypotheses from ~all inliers to few), the rows in a shuffled slot
+    order, info (1/0.005^2) I, 90% of the model's keypoints kept, one
+    failed PnP and one inactive object. `case` (CAM_CASES): "padded" 6 rows
+    + 2 pads (slot O); "tie" two slots with equal hypotheses, the best, the
+    higher slot's row first; "no inlier" a row that keeps no keypoint;
+    "no candidate" every PnP failed; "unmet" min_num_inliers above any
+    count; "map <O>" the seeded rows and map copied O / 8 times into O
+    slots and as many rows in a shuffled order, each copy's map poses
+    jittered further (a hypothesis a slot, each scored on every copy).
+    Returns (the arguments of `camera_ransac` up to model_kp_full,
+    min_num_inliers)."""
+    import torch
+
+    _, T_OtoC, _, _ = make_view(rng, objs)
+    C = _jitter(rng, np.eye(4), 0.05, 50.0)                 # T_GtoC
+    T_map = np.linalg.inv(C) @ T_OtoC                        # T_OtoG, true
+    T_pnp = _jitter(rng, T_OtoC, 1e-5, 0.02)
+    # the map's error grows with a random rank: hypotheses from best to worst
+    s = 1.0 + rng.permutation(N_OBJ)
+    if case == "tie":  # slots 1 and 2 exact, the others well off
+        s = np.where(np.isin(np.arange(N_OBJ), [1, 2]), 0.0, 10.0 + s)
+        T_pnp[[1, 2]] = T_OtoC[[1, 2]]
+    T_map = np.stack([_jitter(rng, T_map[j], 2e-5 * s[j], 0.05 * s[j]) for j in range(N_OBJ)])
+    uv, k4 = _frame_rows(rng, objs, T_OtoC)
+    keep = objs.masks & (rng.uniform(size=(N_OBJ, NK)) < 0.9)
+    pnp_ok = np.ones(N_OBJ, bool)
+    pnp_ok[5] = False
+    active = np.ones(N_OBJ, bool)
+    active[6] = False
+    slots = rng.permutation(N_OBJ)                          # row i -> slot slots[i]
+    min_inl = 4
+    if case == "tie":  # slots 1 and 2 share one pose: equal hypotheses
+        T_map[2] = T_map[1]
+        T_pnp[2] = T_pnp[1]
+        slots = np.array([2, 1] + [s for s in slots if s not in (1, 2)])
+    elif case == "padded":
+        slots[6:] = N_OBJ
+    elif case == "no inlier":
+        keep[0] = False
+    elif case == "no candidate":
+        pnp_ok[:] = False
+    elif case == "unmet":
+        min_inl = 10_000
+    # row i carries slot slots[i]'s object (a pad row: slot 0's, dropped)
+    src = np.where(slots < N_OBJ, slots, 0)
+    rows = [a[src] for a in (T_pnp, pnp_ok, uv, keep, k4)]
+    model_kp = objs.model_kps
+    if case.startswith("map "):
+        R = int(case[4:]) // N_OBJ
+        T_map = np.concatenate([T_map] + [np.stack([_jitter(rng, T, 1e-4 * c, 0.5 * c)
+                                                    for T in T_map]) for c in range(1, R)])
+        active, model_kp = np.tile(active, R), np.tile(model_kp, (R, 1, 1))
+        perm = rng.permutation(R * N_OBJ)
+        slots = np.concatenate([slots + N_OBJ * c for c in range(R)])[perm]
+        rows = [np.concatenate([a] * R)[perm] for a in rows]
+    T_rows, ok_rows, uv_rows, keep_rows, k4_rows = rows
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    info = np.broadcast_to(np.eye(2) / 0.005 ** 2, keep_rows.shape + (2, 2))
+    args = (t(T_rows), t(ok_rows, torch.bool), t(uv_rows), t(info), t(keep_rows, torch.bool),
+            t(k4_rows), t(slots, torch.int64), t(T_map), t(active, torch.bool), t(model_kp))
+    return args, min_inl
+
+
+def reinit_inputs(dev, rng, objs, n=16, V=32):
+    """K6's re-init inputs at the SLAM path's window (n = 16 view slots of
+    V = 32 mirror rows, the 15-view window padded, `engine._fused_tail`):
+    the map's true T_OtoG, this frame's PnP poses (3 objects off by 20 mm)
+    and the estimates (3 others off by 20 mm), n cameras around the first,
+    their rows of the mirrors holding the detections, 85% of the keypoints
+    valid; the last view and one more invalid."""
+    import torch
+
+    _, T_OtoC, _, _ = make_view(rng, objs)
+    cams = _jitter(rng, np.tile(np.eye(4), (n, 1, 1)), 0.02, 20.0)
+    cs = rng.choice(V, n, replace=False)
+    uv_m = np.zeros((V, N_OBJ, NK, 2))
+    k4_m = np.zeros((V, N_OBJ, 4), np.float32)
+    for m in range(n):
+        uv_m[cs[m]], k4_m[cs[m]] = _frame_rows(rng, objs, cams[m] @ T_OtoC)
+    valid_m = objs.masks[None] & (rng.uniform(size=(V, N_OBJ, NK)) < 0.85)
+    info_m = np.broadcast_to(np.eye(2) / 0.005 ** 2, (V, N_OBJ, NK, 2, 2))
+    T_pnp, T_est = T_OtoC.copy(), T_OtoC.copy()
+    T_pnp[[0, 2, 4], :3, 3] += 20.0
+    T_est[[1, 3, 5], :3, 3] += 20.0
+    cam_valid = np.ones(n, bool)
+    cam_valid[[n - 1, n // 2]] = False
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+    return (t(T_pnp), t(T_est), t(cams), t(cam_valid, torch.bool), t(objs.model_kps), t(uv_m),
+            t(info_m), t(valid_m, torch.bool), t(k4_m), t(cs, torch.int64))
+
+
+def k6_camera_bound(args):
+    """K6's camera-RANSAC bound from this run's inputs: each input read once
+    and the outputs written once, against the f32 operations the data needs:
+    the O inverses and hypotheses (~130 each), the O x O compositions (84
+    each) and ~45 per edge each candidate hypothesis scores (the kept
+    keypoints of every candidate object)."""
+    T_pnp, pnp_ok, uv, info, keep, k4, slots, obj_T, active, model_kp = [a.cpu() for a in args]
+    ob, K = keep.shape
+    O = obj_T.shape[0]
+    row = {int(s): i for i, s in enumerate(slots.tolist()) if s < O}
+    cand = [j for j in range(O) if j in row and bool(pnp_ok[row[j]]) and bool(active[j])]
+    edges = len(cand) * sum(int(keep[row[o]].sum()) for o in cand)
+    nbytes = ob * (64 + 1 + K * (8 + 16 + 1) + 16 + 8) + O * (64 + 1 + K * 12) + 64 + 4 + 1 + 8
+    return bound(nbytes, O * 130 + O * O * 84 + edges * 45)
+
+
+def k6_reinit_bound(args):
+    """K6's re-init bound: the n views' slots, cameras and rows of the
+    mirrors read once, the [2, O] counts written once; the 2 x n x O pose
+    compositions and ~45 operations per edge of a valid view, for both
+    pose sets."""
+    T_pnp, _, cam_T, cam_valid, _, _, _, valid_m, _, cs = [a.cpu() for a in args]
+    n, (V, O, K) = cs.shape[0], valid_m.shape
+    edges = int(valid_m[cs][cam_valid].sum())
+    nbytes = n * (8 + 64 + 1) + 2 * O * 64 + O * K * 12 + n * O * (K * (8 + 16 + 1) + 16) + 8 * O
+    return bound(nbytes, 2 * O * n * 84 + 2 * edges * 45)
+
+
+def k6_clocks(label, fn, phases, rows=1):
+    """A fused K6 mode's SM clock cycles by phase (thread 0; `fn(cycles)`
+    launches it) on one call after a warm one: with several blocks, the
+    slowest block's row and the mean over the blocks."""
+    import torch
+
+    cyc = torch.zeros((rows, len(phases)), dtype=torch.int64, device="cuda")
+    fn(cyc if rows > 1 else cyc[0])
+    cyc.zero_()
+    fn(cyc if rows > 1 else cyc[0])
+    r = cyc.cpu()
+    slow = r[int(r.sum(1).argmax())].tolist()
+    log(f"[kernel] {label}: SM cycles by phase, slowest block "
+        + json.dumps(dict(zip(phases, slow))) + f" ({sum(slow)} in all)"
+        + ("" if rows == 1 else ", mean over " + str(rows) + " blocks " + json.dumps(
+            {k: round(v) for k, v in zip(phases, r.double().mean(0).tolist())})))
+
+
 def check_k6(dev, rng, objs):
+    """K6's three modes against their plain versions on the card, exactly:
+    the first design's bare counts (camera RANSAC's H = 8 sets, re-init's
+    2 x 15 views); the fused camera RANSAC over `CAM_CASES` (the pose's
+    bits, the count, ok and the best slot; the tie to the lower slot); the
+    fused re-init vote at the SLAM window. Each timed (call, plain version,
+    device us) beside the chain it replaced (the [O] scatters, the
+    compositions and the bare K6, the earlier schedule), with its bound."""
     import torch
 
     from suo_slam_tpu_torch.slam import kernels as sk
 
-    # camera RANSAC: H = 8 hypotheses x 8 objects x 41 keypoints of one
-    # frame; re-init: the PnP and map poses over the 15-view window
     cases = {"ransac": (_k6_inputs(dev, rng, objs, N_OBJ, 1), False),
              "reinit": (_k6_inputs(dev, rng, objs, 30, 15), True)}
-    res = {}
     for name, (args, per_obj) in cases.items():
         ck = sk._chi2_counts_cuda(*args, 5.991, per_obj)
         cp = sk.chi2_counts_plain(*args, 5.991, per_obj)
@@ -984,12 +1188,95 @@ def check_k6(dev, rng, objs):
         # the residual and chi2 (11), the tests and the sum
         b = bound(S * O * 64 + O * K * 12 + M * O * K * (8 + 16 + 1) + M * O * 16
                   + (S // M if per_obj else S) * (O if per_obj else 1) * 4, S * O * K * 45)
-        res[name] = (ms, plain_ms, b)
-        _report(f"K6 chi2_counts ({name})", 0.0, "exact", ms, plain_ms, None, b)
-    ms, plain_ms, b = res["ransac"]
+        us, src = device_us(lambda: sk._chi2_counts_cuda(*args, 5.991, per_obj),
+                            "chi2_counts_kernel")
+        _report(f"K6 chi2_counts (first design, {name}; device {us:.3f} us by {src})", 0.0,
+                "exact", ms, plain_ms, None, b)
+
+    bits = lambda a: a.view(torch.int32) if a.dtype == torch.float32 else a
+    res = {}
+    for case in CAM_CASES:
+        args, mi = camera_ransac_inputs(dev, rng, objs, case)
+        k = sk._camera_ransac_cuda(*args, mi)
+        p = sk.camera_ransac_plain(*args, mi)
+        torch.cuda.synchronize()
+        same = all(torch.equal(bits(a), bits(b)) for a, b in zip(k, p))
+        T, count, ok, best = (a.cpu() for a in k)
+        want = {"tie": bool(ok) and int(best) == 1, "no candidate": not ok and int(count) == -1,
+                "unmet": not ok}.get(case, bool(ok))
+        O, ob, K = args[7].shape[0], args[4].shape[0], NK
+        log(f"[kernel] K6 camera RANSAC ({case}; O={O}, ob={ob}, "
+            f"{sk.camera_ransac_hyps(O, ob, K)} hypotheses a round): count {int(count)}, best "
+            f"slot {int(best)}, ok {bool(ok)}; {'equal to' if same else 'DIFFERS from'} its "
+            f"plain twin (T bits, count, ok, best)")
+        if not (same and want and (bool(ok) or torch.equal(T, torch.eye(4)))):
+            raise AssertionError(f"K6 camera RANSAC ({case}): kernel {k}, twin {p}")
+        if case == "seeded":
+            res["camera"] = args, mi
+    args, mi = res["camera"]
+    T_pnp, pnp_ok, uv, info, keep, k4, slots, obj_T, active, model_kp = args
+
+    def earlier():  # the earlier chain: [O] scatters, compositions, bare K6, the selection
+        rows = lambda src, fill: sk._scatter_rows(torch.full((N_OBJ,) + src.shape[1:], fill,
+                                                             dtype=src.dtype, device=dev),
+                                                  slots, src)
+        T_row = sk._scatter_rows(torch.eye(4, device=dev).repeat(N_OBJ, 1, 1), slots, T_pnp)
+        cand = rows(pnp_ok, False) & active
+        inl = rows(keep, False)
+        T_hyp = sk.compose_plain(T_row, sk.invert_se3_plain(obj_T))
+        counts = sk._chi2_counts_cuda(sk.compose_plain(T_hyp[:, None], obj_T[None]), model_kp,
+                                      rows(uv, 0.0)[None], rows(info, 0.0)[None],
+                                      (inl & (inl.any(-1) & cand)[:, None])[None],
+                                      rows(k4, 0.0)[None], sk.CHI2_THRESH_2DOF, False)
+        return sk._select(counts, cand, T_hyp, mi)[:3]
+
+    e = earlier()
+    k = sk._camera_ransac_cuda(*args, mi)
+    if not all(torch.equal(a, b) for a, b in zip(e, k[:3])):
+        raise AssertionError(f"K6 camera RANSAC: the earlier chain {e} against {k}")
+    ms = cuda_ms(lambda: sk._camera_ransac_cuda(*args, mi))
+    plain_ms = cuda_ms(lambda: sk.camera_ransac_plain(*args, mi))
+    e_ms = cuda_ms(earlier)
+    us, src = device_us(lambda: sk._camera_ransac_cuda(*args, mi), "camera_ransac_kernel")
+    k6_clocks("K6 camera RANSAC", lambda c: sk._camera_ransac_cuda(*args, mi, cycles=c),
+              sk.K6_CAM_PHASES)
+    b_cam = k6_camera_bound(args)
+    _report(f"K6 camera_ransac (fused, ob={slots.shape[0]}, O={N_OBJ}, K={NK}; device "
+            f"{us:.3f} us by {src}, target <= {TARGET_US['K6 camera']}; the earlier chain of "
+            f"scatters + compositions + bare K6 {e_ms:.4f} ms)", 0.0, "exact", ms, plain_ms,
+            None, b_cam)
+    cam_ms, cam_plain_ms = ms, plain_ms
+
+    args = reinit_inputs(dev, rng, objs)
+    k = sk._reinit_votes_cuda(*args)
+    p = sk.reinit_votes_plain(*args)
+    T_pnp, T_est, cam_T, cam_valid, model_kp, uv_m, info_m, valid_m, k4_m, cs = args
+
+    def earlier_reinit():  # the earlier chain: gathers, two bmm, a cat, the mask, bare K6
+        T = torch.cat([cam_T[:, None] @ T_pnp[None], cam_T[:, None] @ T_est[None]])
+        return sk._chi2_counts_cuda(T, model_kp, uv_m[cs], info_m[cs],
+                                    valid_m[cs] & cam_valid[:, None, None], k4_m[cs], 5.991,
+                                    True)
+
+    e = earlier_reinit()
+    torch.cuda.synchronize()
+    log(f"[kernel] K6 re-init (fused, n={cs.shape[0]} of V={valid_m.shape[0]} views): counts "
+        f"pnp {k[0].tolist()}, est {k[1].tolist()}; twin pnp {p[0].tolist()}, est "
+        f"{p[1].tolist()}; the earlier chain {e.tolist()}")
+    if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+        raise AssertionError("K6 re-init counts differ from the plain twin")
+    ms = cuda_ms(lambda: sk._reinit_votes_cuda(*args))
+    plain_ms = cuda_ms(lambda: sk.reinit_votes_plain(*args))
+    e_ms = cuda_ms(earlier_reinit)
+    us, src = device_us(lambda: sk._reinit_votes_cuda(*args), "reinit_votes_kernel")
+    k6_clocks("K6 re-init", lambda c: sk._reinit_votes_cuda(*args, cycles=c),
+              sk.K6_REINIT_PHASES, rows=2 * N_OBJ)
+    _report(f"K6 reinit_votes (fused; device {us:.3f} us by {src}, target <= "
+            f"{TARGET_US['K6 reinit']}; the earlier chain of gathers + bmm + bare K6 "
+            f"{e_ms:.4f} ms)", 0.0, "exact", ms, plain_ms, None, k6_reinit_bound(args))
     return dict(name="chi2_counts", route="cuda", source="suo_slam_tpu_torch/csrc/chi2_counts.cu",
-                replaces="suo_slam_tpu/slam/kernels.py:116", max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+                replaces="suo_slam_tpu/slam/kernels.py:138", max_abs_err=0.0, ms=cam_ms,
+                plain_ms=cam_plain_ms, bound_ms=b_cam[0], bound_by=b_cam[1], library_ms=None)
 
 
 def k7_scaled_errors(k, p):
@@ -1347,14 +1634,15 @@ def check_k14(dev, rng, objs):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
 
 
-def pnp_inputs(dev, rng, O=N_OBJ, N=NK, n_hyp=64):
+def pnp_inputs(dev, rng, O=N_OBJ, N=NK, n_hyp=64, draws=False):
     """A PnP batch at the front end's shapes: O objects of N model points in
     a 100 mm cube 700-900 mm away, their normalized image points with
     N(0, 3e-4) noise (~0.3 px, the NDC noise of the SLAM phase), 80% valid,
     5 gross outliers each (0.02-0.1 off; N // 2 below 10 points); object O-2
     has 3 valid points (none below 13 points) and
     object O-1 every point at one place (every hypothesis fails).
-    Returns x, y, mask and the sampler's idx on dev."""
+    Returns x, y, mask and the sampler's idx on dev (with `draws`, the
+    `pnp.Draws` those indices rank: the same generator and draw)."""
     import torch
 
     from suo_slam_tpu_torch.solvers import pnp
@@ -1374,13 +1662,15 @@ def pnp_inputs(dev, rng, O=N_OBJ, N=NK, n_hyp=64):
     t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
     mk = t(mask, torch.bool)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    return t(x), t(y), mk, pnp.sample_hypothesis_indices(mk, n_hyp, gen)
+    sample = pnp.sample_draws if draws else pnp.sample_hypothesis_indices
+    return t(x), t(y), mk, sample(mk, n_hyp, gen)
 
 
-def backup_inputs(dev, rng):
+def backup_inputs(dev, rng, draws=False):
     """The backup camera pose's PnP (`engine._backup_estimate_camera_pose`):
     one set of 8 mapped object centres (+-300 mm, the camera 1 m away), their
-    bbox centroids with N(0, 3e-4) noise, one 0.05 off, 128 hypotheses."""
+    bbox centroids with N(0, 3e-4) noise, one 0.05 off, 128 hypotheses (as
+    indices, or with `draws` the `pnp.Draws` they rank)."""
     import torch
 
     from suo_slam_tpu_torch.solvers import pnp
@@ -1392,7 +1682,8 @@ def backup_inputs(dev, rng):
     t = lambda a: torch.from_numpy(a[None].astype(np.float32)).to(dev)
     mask = torch.ones((1, 8), dtype=torch.bool, device=dev)
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
-    return t(x), t(y), mask, pnp.sample_hypothesis_indices(mask, pnp.DEFAULT_HYPOTHESES, gen)
+    sample = pnp.sample_draws if draws else pnp.sample_hypothesis_indices
+    return t(x), t(y), mask, sample(mask, pnp.DEFAULT_HYPOTHESES, gen)
 
 
 def k15_gate(label, x, y, mask, idx, refine=True):
@@ -1452,9 +1743,10 @@ def k15_clocks(label, x, y, mask, idx, **kw):
     return slow
 
 
-def k15_bound(O, N, H, n_refined):
+def k15_bound(O, N, H, n_refined, draws=False):
     """K15's bound for one call: each input read once (x, y, mask, the int64
-    indices), each output written once, against the f32 operations this
+    indices or, with `draws`, the f32 draws, ranked at ~4 comparisons a
+    value), each output written once, against the f32 operations this
     run's data needs: every hypothesis as K3 counts it (~2,800 for P3P /
     P4P, ~18 per point of counting), the preconditioning (~12 per point),
     and for each of the n_refined objects that refine 2 rounds of a
@@ -1462,25 +1754,53 @@ def k15_bound(O, N, H, n_refined):
     point: projection, Jacobian, 27 weighted H / g sums, the cost and the
     trial cost; ~400 for the 6x6 solve and the exponential), the keep
     gate's count, then the final pass (~25 per point)."""
-    flops = (O * H * (2800 + 18 * N) + O * N * (12 + 25)
+    flops = (O * H * (2800 + 18 * N + (4 * N if draws else 0)) + O * N * (12 + 25)
              + n_refined * (2 * (25 * N + 8 * (194 * N + 400)) + 25 * N))
-    nbytes = O * N * (12 + 8 + 1) + O * H * 4 * 8 + O * (64 + N + 8 + 1)
+    nbytes = O * N * (12 + 8 + 1) + O * H * (N * 4 if draws else 4 * 8) + O * (64 + N + 8 + 1)
     return bound(nbytes, flops)
+
+
+def k15_draws_equal(label, x, y, mask, d):
+    """K15's draws mode against K15 on K22's indices of the same draws:
+    pose bits, inliers, counts and success equal, with and without
+    refinement (the same hypotheses, so the same arithmetic)."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import pnp
+
+    idx = pnp._hypothesis_indices_cuda(d.u, mask)
+    for refine in (True, False):
+        rd = pnp._pnp_ransac_cuda(x, y, mask, d, refine=refine)
+        ri = pnp._pnp_ransac_cuda(x, y, mask, idx, refine=refine)
+        torch.cuda.synchronize()
+        same = [torch.equal(rd.T.view(torch.int32), ri.T.view(torch.int32)),
+                torch.equal(rd.inliers, ri.inliers), torch.equal(rd.num_inliers, ri.num_inliers),
+                torch.equal(rd.success, ri.success)]
+        log(f"[kernel] K15 draws mode ({label}, refine {refine}): pose bits, inliers, counts, "
+            f"success equal to K15 on K22's indices: {same}; success {rd.success.int().tolist()}")
+        if not all(same):
+            raise AssertionError(f"K15 draws mode ({label}) differs from K15 on K22's indices")
+    return idx
 
 
 def check_k15(dev, rng):
     """K15, the whole of `pnp_ransac_batch` in one launch, under `k15_gate`
     at the front end's shapes (with and without refinement) and the backup
-    pose's; timed against the schedule it replaced (K3 + the eager tail)
-    and the plain version on the card, with its device time per call; the
-    earlier serial design beside it (device time, SM cycles by phase at
-    both shapes); ptxas's lines for both kernels."""
+    pose's; its draws mode (the main path's: the sampler's `torch.rand`
+    ranked in the kernel) bit-equal to K15 on K22's indices of the same
+    draws at both shapes; timed against the schedule it replaced (K3 + the
+    eager tail) and the plain version on the card, with its device time per
+    call in both modes; the earlier serial design beside it (device time,
+    SM cycles by phase at both shapes, the draws mode's with its rank
+    phase); ptxas's lines for both kernels."""
     from suo_slam_tpu_torch.solvers import pnp
 
-    x, y, mask, idx = pnp_inputs(dev, rng)
+    x, y, mask, d = pnp_inputs(dev, rng, draws=True)
+    idx = k15_draws_equal("front end", x, y, mask, d)
     O, N = mask.shape
     H = idx.shape[1]
-    backup = backup_inputs(dev, rng)
+    bx, by, bmask, bd = backup_inputs(dev, rng, draws=True)
+    backup = (bx, by, bmask, k15_draws_equal("backup pose", bx, by, bmask, bd))
     errs = [k15_gate(f"K15 (O={O}, N={N}, n_hyp={H})", x, y, mask, idx)[0],
             k15_gate("K15 without refinement", x, y, mask, idx, refine=False)[0],
             k15_gate("K15 backup pose (O=1, N=8, n_hyp=128)", *backup)[0]]
@@ -1488,7 +1808,9 @@ def check_k15(dev, rng):
         design = "serial design" if serial else "current design"
         k15_clocks(f"K15 {design} (O={O}, N={N}, n_hyp={H})", x, y, mask, idx, serial=serial)
         k15_clocks(f"K15 {design}, backup pose", *backup, serial=serial)
-    log(f"[build] K15 ptxas: {json.dumps(ptxas_kernels('pnp_ransac', ['pnp_ransac_kernel', 'pnp_ransac_serial_kernel']))}")
+    k15_clocks(f"K15 draws mode (O={O}, N={N}, n_hyp={H})", x, y, mask, d)
+    k15_clocks("K15 draws mode, backup pose", bx, by, bmask, bd)
+    log(f"[build] K15 ptxas: {json.dumps(ptxas_kernels('pnp_ransac', ['pnp_ransac_kernelILb0', 'pnp_ransac_kernelILb1', 'pnp_ransac_serial_kernel']))}")
     log(f"[build] K3 ptxas: {json.dumps(ptxas_kernels('pnp_hypotheses', ['pnp_hypotheses_kernel']))}")
     n_ref = int(pnp._pnp_ransac_cuda(x, y, mask, idx).success.sum())
     ms = cuda_ms(lambda: pnp._pnp_ransac_cuda(x, y, mask, idx))
@@ -1497,6 +1819,14 @@ def check_k15(dev, rng):
     plain_ms = cuda_ms(lambda: pnp.pnp_ransac_batch_plain(x, y, mask, idx), n=3, inner=2,
                        warmup=1)
     us, src = device_us(lambda: pnp._pnp_ransac_cuda(x, y, mask, idx), "pnp_ransac_kernel")
+    dus, dsrc = device_us(lambda: pnp._pnp_ransac_cuda(x, y, mask, d), "pnp_ransac_kernel")
+    d_ms = cuda_ms(lambda: pnp._pnp_ransac_cuda(x, y, mask, d))
+    bius, _ = device_us(lambda: pnp._pnp_ransac_cuda(*backup), "pnp_ransac_kernel")
+    bdus, _ = device_us(lambda: pnp._pnp_ransac_cuda(bx, by, bmask, bd), "pnp_ransac_kernel")
+    log(f"[kernel] K15 draws mode device us per call: front end {dus:.3f} by {dsrc} against "
+        f"{us:.3f} on indices (+{dus - us:.3f}; target <= +{TARGET_US['K15 draws over idx']}), "
+        f"call {d_ms:.4f} ms; backup pose {bdus:.3f} against {bius:.3f} (+{bdus - bius:.3f}); "
+        f"what it replaced: K22 + K15 on indices")
     sus, ssrc = device_us(lambda: pnp._pnp_ransac_cuda(x, y, mask, idx, serial=True),
                           "pnp_ransac_serial_kernel")
     eus, esrc = lib_device_us(eager, n=2)
@@ -1508,9 +1838,16 @@ def check_k15(dev, rng):
             f"{src}; the K3 + eager-tail schedule {eager_ms:.4f} ms, device {eus:.3f} us by "
             f"{esrc})", max(errs), "1e-4 (pose; inliers equal but at the threshold's edge)",
             ms, plain_ms, None, b)
+    # the main path's call: the draws mode, against the plain version that ranks them too
+    d_plain_ms = cuda_ms(lambda: pnp.pnp_ransac_batch_plain(x, y, mask, d), n=3, inner=2,
+                         warmup=1)
+    bd_ = k15_bound(O, N, H, n_ref, draws=True)
+    _report(f"K15 pnp_ransac, draws mode (O={O}, N={N}, n_hyp={H}; device {dus:.3f} us by "
+            f"{dsrc})", max(errs), "bit-equal to K15 on K22's indices; 1e-4 against the plain "
+            f"version", d_ms, d_plain_ms, None, bd_)
     return dict(name="pnp_ransac", route="cuda", source="suo_slam_tpu_torch/csrc/pnp_ransac.cu",
-                replaces="suo_slam_tpu/solvers/pnp.py:200", max_abs_err=max(errs), ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+                replaces="suo_slam_tpu/solvers/pnp.py:200", max_abs_err=max(errs), ms=d_ms,
+                plain_ms=d_plain_ms, bound_ms=bd_[0], bound_by=bd_[1], library_ms=None)
 
 
 def k22_inputs(dev, rng, O, H, N, p_valid=0.8):
@@ -1530,12 +1867,14 @@ def k22_inputs(dev, rng, O, H, N, p_valid=0.8):
 
 
 def check_k22(dev, rng):
-    """K22, the PnP sampler's top-4 (B14), against its plain version on the
-    same CUDA draws and mask, for exact equality, at the front end's shape
-    [8, 64, 41] (80% valid, a row with 2 valid points) and the backup pose's
-    [1, 128, 328]; its call, device time, the plain version, the sampler's
-    whole call (`torch.rand` + K22) and `torch.topk` on the masked draws
-    (the library yardstick: the same picks up to ties, timed only)."""
+    """K22, the PnP sampler's top-4 (B14; off the main path since K15 ranks
+    the draws itself), against its plain version on the same CUDA draws and
+    mask, for exact equality, at the front end's shape [8, 64, 41] (80%
+    valid, a row with 2 valid points) and the backup pose's [1, 128, 328];
+    its call, device time, the plain version, the index sampler's whole
+    call (`torch.rand` + K22), the engine's sampler (`torch.rand` alone) and
+    `torch.topk` on the masked draws (the library yardstick: the same picks
+    up to ties, timed only)."""
     import torch
 
     from suo_slam_tpu_torch.slam.engine import TorchGumbelSampler
@@ -1558,13 +1897,15 @@ def check_k22(dev, rng):
         lib_ms = cuda_ms(lib)
         us, src = device_us(lambda: pnp._hypothesis_indices_cuda(u, mask), "pnp_sample_kernel")
         sampler = TorchGumbelSampler(0, dev)
-        call_ms = cuda_ms(lambda: sampler(mask, H))
+        call_ms = cuda_ms(lambda: pnp.sample_hypothesis_indices(mask, H, sampler.gen))
+        draws_ms = cuda_ms(lambda: sampler(mask, H))
         # each input read once (u f32, the mask), the int64 indices written
         # once; a few comparisons per value and round
         b = bound(O * H * N * 4 + O * N + O * H * 4 * 8, O * H * N * 4 * 2)
         _report(f"K22 pnp_sample ({label} [{O}, {H}, {N}]; device {us:.3f} us by {src}; the "
-                f"sampler's call, torch.rand + K22, {call_ms:.4f} ms)", 0.0, "exact", ms,
-                plain_ms, lib_ms, b, lib_fn=lib)
+                f"index sampler's call, torch.rand + K22, {call_ms:.4f} ms; the engine's "
+                f"sampler, torch.rand alone (its draws go to K15), {draws_ms:.4f} ms)", 0.0,
+                "exact", ms, plain_ms, lib_ms, b, lib_fn=lib)
         res[label] = (ms, plain_ms, lib_ms, b)
     ms, plain_ms, lib_ms, b = res["front end"]
     return dict(name="pnp_sample", route="cuda", source="suo_slam_tpu_torch/csrc/pnp_sample.cu",
@@ -1573,9 +1914,10 @@ def check_k22(dev, rng):
 
 
 class PlainSamplerCalls:
-    """Counts the calls of the sampler's plain version
+    """Counts the calls of the sampler's plain ranking
     (`pnp.hypothesis_indices_plain`) on CUDA tensors while installed: on the
-    card every sampler call must go through K22."""
+    card the main path's draws are ranked inside K15 (and an index sampler's
+    by K22), never by the plain version."""
 
     def __init__(self):
         from suo_slam_tpu_torch.solvers import pnp
@@ -1592,6 +1934,70 @@ class PlainSamplerCalls:
 
     def __exit__(self, *exc):
         self.pnp.hypothesis_indices_plain = self.fn
+
+
+class K6Calls:
+    """Counts the calls of `slam.kernels.camera_ransac` (the front end's
+    camera RANSAC) and `reinit_votes` (the tail's re-init vote) while
+    installed: on the card each is one K6 launch."""
+
+    NAMES = ("camera_ransac", "reinit_votes")
+
+    def __init__(self):
+        from suo_slam_tpu_torch.slam import kernels as sk
+
+        self.sk, self.fns, self.n = sk, {k: getattr(sk, k) for k in self.NAMES}, {}
+
+    def __enter__(self):
+        for k, f in self.fns.items():
+            self.n[k] = 0
+
+            def spy(*a, _k=k, _f=f, **kw):
+                self.n[_k] += 1
+                return _f(*a, **kw)
+
+            setattr(self.sk, k, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.fns.items():
+            setattr(self.sk, k, f)
+
+
+class SyncChecked:
+    """While installed, the frame's two dispatch chains —
+    `slam.kernels.frontend_step` (each group's front end, camera RANSAC
+    included) and `tracking_tail` — run under
+    `torch.cuda.set_sync_debug_mode("error")`: a host sync inside either
+    raises. The engine's two read-backs follow the chains' returns, outside.
+    Counts the chains it checked."""
+
+    NAMES = ("frontend_step", "tracking_tail")
+
+    def __init__(self):
+        from suo_slam_tpu_torch.slam import kernels as sk
+
+        self.sk, self.fns, self.n = sk, {k: getattr(sk, k) for k in self.NAMES}, 0
+
+    def __enter__(self):
+        import torch
+
+        for k, f in self.fns.items():
+            def checked(*a, _f=f, **kw):
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return _f(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+                    self.n += 1
+
+            setattr(self.sk, k, checked)
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self.fns.items():
+            setattr(self.sk, k, f)
 
 
 class PnpCalls:
@@ -1613,6 +2019,112 @@ class PnpCalls:
 
     def __exit__(self, *exc):
         self.pnp.pnp_ransac_batch = self.fn
+
+
+def k15_frame_probe(run_frame, first, net, dev, n_frames=4, reps=5):
+    """K15 in the SLAM frame against K15 alone, to find what the frame adds
+    to the draws mode. (1) `run_frame(first + i)` for n_frames more frames
+    with K15's SM clock cycles by phase (`pnp.PNP_PHASES`, the slowest
+    block) on every launch, into buffers made before the frames; the last
+    frame's inputs kept. (2) Each kept call replayed in the draws mode and
+    on K22's indices of the same draws, under four conditions: "warm" (just
+    after the same call), "after the net" (the frame's network forward
+    first, as in the frame; K22 then runs after it, as in the parent's
+    frame), "code warm" (the forward, then one call on the call's first
+    object: the same kernel, plan and mode, one block) and "data warm" (the
+    forward, then a read of every input). Each: the median over `reps` of
+    the slowest block's cycles by phase, and device us per launch where K15
+    is the condition's only launch. (3) The host time of dispatching the
+    sampler and the PnP call in both modes (K22 + K15 on indices against
+    K15 on the draws), without a sync. Logs; returns nothing."""
+    import torch
+
+    from suo_slam_tpu_torch.solvers import pnp
+
+    P = len(pnp.PNP_PHASES)
+    pool = torch.zeros((8 * n_frames, 64, P), dtype=torch.int64, device=dev)
+    real, seen = pnp._pnp_ransac_cuda, []
+
+    def spy(x, y, mask, hyp, *a, **kw):
+        cyc = pool[len(seen), :mask.shape[0]]
+        seen.append(((x, y, mask, hyp), cyc))
+        return real(x, y, mask, hyp, *a, cycles=cyc, **kw)
+
+    pnp._pnp_ransac_cuda = spy
+    try:
+        per_frame = []
+        for i in range(n_frames):
+            n0 = len(seen)
+            run_frame(first + i)
+            per_frame.append(len(seen) - n0)
+    finally:
+        pnp._pnp_ransac_cuda = real
+    torch.cuda.synchronize()
+    slowest = lambda c: c[int(c.sum(1).argmax())].tolist()
+    med = lambda rows: [int(statistics.median(r[k] for r in rows)) for k in range(P)]
+    names = lambda row: json.dumps(dict(zip(pnp.PNP_PHASES, row))) + f" ({sum(row)} in all)"
+    by_shape = {}
+    for (_, _, _, hyp), cyc in seen:
+        shape = tuple((hyp.u if isinstance(hyp, pnp.Draws) else hyp).shape)
+        by_shape.setdefault(shape, []).append(slowest(cyc.cpu()))
+    for shape, rows in by_shape.items():
+        log(f"[k15-frame] in the frame, K15 {list(shape)} ({len(rows)} launches over "
+            f"{n_frames} frames, {per_frame} a frame): SM cycles by phase, the slowest block, "
+            f"median " + names(med(rows)))
+    crops = torch.rand((N_OBJ, 256, 256, 3), device=dev)
+    kept = [args for args, _ in seen[len(seen) - per_frame[-1]:]]
+
+    def forward():
+        with torch.inference_mode():
+            net(crops, None)
+
+    for x, y, mask, d in kept:
+        if not isinstance(d, pnp.Draws):
+            raise AssertionError("the SLAM frame's K15 ran on indices, not the sampler's draws")
+        idx = pnp._hypothesis_indices_cuda(d.u, mask)
+        ins = (x, y, mask, d.u)
+        O, H, N = d.u.shape
+        cyc = torch.zeros((O, P), dtype=torch.int64, device=dev)
+        cyc1 = torch.zeros((1, P), dtype=torch.int64, device=dev)
+        for mode in ("draws", "indices"):
+            hyp = d if mode == "draws" else idx
+            one = pnp.Draws(d.u[:1]) if mode == "draws" else idx[:1]
+
+            def k22(mode=mode):  # the parent's frame ran K22 between the net and K15
+                if mode == "indices":
+                    pnp._hypothesis_indices_cuda(d.u, mask)
+
+            preludes = {
+                "warm": lambda: real(x, y, mask, hyp),
+                "after the net": lambda: (forward(), k22()),
+                "code warm": lambda: (forward(), k22(),
+                                      real(x[:1], y[:1], mask[:1], one, cycles=cyc1)),
+                "data warm": lambda: (forward(), k22(), [a.sum() for a in ins]),
+            }
+            for cond, pre in preludes.items():
+                rows = []
+                for _ in range(reps):
+                    cyc.zero_()
+                    pre()
+                    real(x, y, mask, hyp, cycles=cyc)
+                    torch.cuda.synchronize()
+                    rows.append(slowest(cyc.cpu()))
+                us = ""
+                if cond == "warm":  # back to back: every launch is a measured one
+                    us = device_us(lambda: real(x, y, mask, hyp), "pnp_ransac_kernel", n=reps)
+                elif cond != "code warm":  # the only K15 launch of the condition
+                    us = device_us(lambda: (pre(), real(x, y, mask, hyp)), "pnp_ransac_kernel",
+                                   n=reps)
+                us = f"device {us[0]:.3f} us by {us[1]}; " if us else ""
+                log(f"[k15-frame] replayed {mode} [{O}, {H}, {N}], {cond}: {us}SM cycles by "
+                    f"phase " + names(med(rows)))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ns = host_ns({"draws": lambda: pnp.pnp_ransac_batch(x, y, mask,
+                                                            pnp.sample_draws(mask, H, gen)),
+                      "indices": lambda: pnp.pnp_ransac_batch(
+                          x, y, mask, pnp.sample_hypothesis_indices(mask, H, gen))}, n=200)
+        log(f"[k15-frame] host ns a sampler + PnP dispatch [{O}, {H}, {N}]: {json.dumps(ns)} "
+            f"(the draws save {ns['indices'] - ns['draws']} ns a call)")
 
 
 def _views(rng, objs, n):
@@ -1678,18 +2190,30 @@ def stage_times(engine, objs, view, dev, n=5):
     mm = torch.from_numpy(objs.masks).to(dev)
     diam = torch.from_numpy(objs.diameter).to(dev)
     c = engine.cfg
-    # the front end (`frontend_step`, read back) and, alone, its sampler and
-    # its PnP (`pnp_ransac_batch`: K15) on the same inputs; "frontend_rest"
-    # is the rest: the keypoint filter, information and the read-back
+    # the front end (`frontend_step`, read back) and, alone, its sampler (the
+    # draws: one `torch.rand`) and its PnP (`pnp_ransac_batch`: K15, which
+    # ranks them) on the same inputs; "frontend_rest" is the rest: the
+    # keypoint filter, information and the read-back
     keep = sk.filter_keypoints(o.uv, o.cov, o.kp_mask, mm, c.bbox_thresh, c.kp_var_thresh,
                                c.mask_thresh)
-    idx = timed("sampler", lambda: engine._sampler(keep, c.pnp_hypotheses))
+    hyp = timed("sampler", lambda: engine._sampler(keep, c.pnp_hypotheses))
     y = (o.uv - k4[:, None, 2:]) / k4[:, None, :2]
-    timed("pnp_ransac_batch", lambda: pnp.pnp_ransac_batch(mk, y, keep, idx))
-    timed("frontend_step", lambda: {k: v.cpu() for k, v in sk.frontend_step(
-        o.uv, o.cov, o.kp_mask, mk, mm, k4, diam, engine._sampler, c.manual_kp_std,
-        c.bbox_thresh, c.kp_var_thresh, c.mask_thresh, c.pnp_hypotheses).items()})
+    timed("pnp_ransac_batch", lambda: pnp.pnp_ransac_batch(mk, y, keep, hyp))
+    fs_args = (o.uv, o.cov, o.kp_mask, mk, mm, k4, diam, engine._sampler, c.manual_kp_std,
+               c.bbox_thresh, c.kp_var_thresh, c.mask_thresh, c.pnp_hypotheses)
+    timed("frontend_step", lambda: {k: v.cpu() for k, v in sk.frontend_step(*fs_args).items()})
     out["frontend_rest"] = out["frontend_step"] - out["sampler"] - out["pnp_ransac_batch"]
+    # the SLAM front end's slots branch (`camera_ransac`, one K6 launch) on
+    # this view's rows against a map of their own PnP poses (the camera at
+    # the identity), and the tail's re-init vote (`reinit_votes`, one K6
+    # launch) at the SLAM window
+    f = sk.frontend_step(*fs_args)
+    ones = torch.ones((N_OBJ,), dtype=torch.bool, device=dev)
+    timed("camera_ransac", lambda: sk.camera_ransac(
+        f["T_pnp"], f["pnp_ok"], f["uv"], f["info"], f["keep"], k4,
+        torch.arange(N_OBJ, device=dev), f["T_pnp"], ones, mk))
+    rargs = reinit_inputs(dev, np.random.default_rng(0), objs)
+    timed("reinit", lambda: sk.reinit_votes(*rargs))
     timed("ba", engine.optimize)
     return out
 
@@ -1724,7 +2248,8 @@ def profile_run(run, per_ms, label):
         {e.key: [round(e.self_device_time_total / 1e3, 3), e.count] for e in ops}))
     mine = {}
     for name in kernels.LAUNCHES:  # csrc kernels are named <counter name>_kernel*
-        es = [e for e in kern if f"{name}_kernel" in e.key]
+        keys = KERNEL_KEYS.get(name, (f"{name}_kernel",))
+        es = [e for e in kern if any(k in e.key for k in keys)]
         n = sum(e.count for e in es)
         mine[name] = [round(sum(e.self_device_time_total for e in es) / max(n, 1), 3), n]
     log(f"[profile] {label}: the port's kernels, device us per launch and launches: "
@@ -1748,13 +2273,12 @@ def phase_main_path(dev, rng, objs, net, seed, n_views=6):
     counts = kernels.counts()
     log(f"[main] launches over {len(views)} views: {json.dumps(counts)}; "
         f"{calls.n} pnp_ransac_batch calls; {plain.n} plain sampler calls on the card")
-    if counts["pnp_sample"] != calls.n or plain.n:
-        raise AssertionError(f"K22: {counts['pnp_sample']} launches for {calls.n} PnP calls, "
-                             f"{plain.n} plain sampler calls on the card (want one each, none)")
+    if plain.n:  # K15 ranks the draws: no K22, no plain ranking
+        raise AssertionError(f"{plain.n} plain sampler calls on the card (want none)")
     missing = [k for k in SINGLE_VIEW_KERNELS if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the single-view path: {missing}, or "
-                             f"K3 / K4 / K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K3 / K4 / K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     if not counts["pnp_ransac"] == calls.n == len(views):
         raise AssertionError(f"K15: {counts['pnp_ransac']} launches for {calls.n} "
                              f"pnp_ransac_batch calls over {len(views)} views (want one each)")
@@ -2147,7 +2671,8 @@ def phase_slam(dev, rng, objs, net, seed, scene):
         return time.perf_counter() - t0
 
     kernels.reset_counts()
-    with PnpCalls() as calls, PlainSamplerCalls() as plain:
+    with PnpCalls() as calls, PlainSamplerCalls() as plain, K6Calls() as k6, \
+            SyncChecked() as synced:
         times = [frame(i) for i in range(n_frames)]
     t0 = time.perf_counter()
     results = engine.collect_results(final=True)
@@ -2155,21 +2680,27 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     final_s = time.perf_counter() - t0
     counts = kernels.counts()
     log(f"[slam] launches over {n_frames} frames + the final BA: {json.dumps(counts)}; "
-        f"{calls.n} pnp_ransac_batch calls")
+        f"{calls.n} pnp_ransac_batch calls, {json.dumps(k6.n)} camera RANSACs / re-init "
+        f"votes; {synced.n} dispatch chains under set_sync_debug_mode('error')")
     if counts["pnp_ransac"] != calls.n or calls.n < 2 * n_frames:
         raise AssertionError(f"K15: {counts['pnp_ransac']} launches for {calls.n} "
                              f"pnp_ransac_batch calls over {n_frames} frames")
-    # one sampler draw (K22) before each PnP call, the backup pose's too
-    if counts["pnp_sample"] != calls.n or plain.n:
-        raise AssertionError(f"K22: {counts['pnp_sample']} launches for {calls.n} PnP calls, "
-                             f"{plain.n} plain sampler calls on the card")
+    # the sampler's draws go to K15 as they are: no K22, no plain ranking
+    if counts["pnp_sample"] or plain.n:
+        raise AssertionError(f"K22: {counts['pnp_sample']} launches, {plain.n} plain sampler "
+                             f"calls on the card (want none)")
+    if counts["chi2_counts"] != sum(k6.n.values()) or min(k6.n.values()) < n_frames // 2:
+        raise AssertionError(f"K6: {counts['chi2_counts']} launches for {json.dumps(k6.n)} "
+                             f"camera RANSACs / re-init votes (want one each)")
+    if synced.n < 2 * n_frames:
+        raise AssertionError(f"only {synced.n} dispatch chains ran under the sync check")
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
     missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"
                and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS + GROUP_KERNELS]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}, or K3 / K4 / "
-                             f"K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     n_global = len(engine.opt_times)  # frames 10, 20 and the final collect_results
     log(f"[slam] K14 launches: {counts['ba_lm']} = {counts['ba_lm'] - n_global} tracking BAs "
         f"over {n_frames} frames + {n_global} global BAs; K4 {counts['ba_edges']}, K7 "
@@ -2245,22 +2776,23 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     hg._norm_relu_cuda, hg._upsample_add_cuda = spy_k8, spy_k9
     before = kernels.counts()
     try:
-        with PnpCalls() as calls:
+        with PnpCalls() as calls, K6Calls() as k6:
             avg = profile_run(lambda: frame(n_frames), per_frame_ms, "one SLAM frame")
     finally:
         hg._norm_relu_cuda, hg._upsample_add_cuda = k8, k9
     c = {k: v - before[k] for k, v in kernels.counts().items()}
     log(f"[slam] the profiled frame's launches: {json.dumps({k: v for k, v in c.items() if v})}; "
-        f"{calls.n} pnp_ransac_batch calls; K8 / K9 calls and the sum of their bounds in ms "
+        f"{calls.n} pnp_ransac_batch calls, {json.dumps(k6.n)} camera RANSACs / re-init "
+        f"votes; K8 / K9 calls and the sum of their bounds in ms "
         f"over the frame's shapes: "
         f"{json.dumps({k: [n, round(b, 5)] for k, (n, b) in k89.items()})}")
     if c["ba_lm"] != 1 or any(c[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"the profiled frame: K14 {c['ba_lm']} (want 1 tracking BA), "
-                             f"K3 / K4 / K7 {[c[k] for k in OFF_PATH_KERNELS]} (want 0)")
-    if not c["pnp_ransac"] == c["pnp_sample"] == calls.n >= 2:
-        raise AssertionError(f"the profiled frame: K15 {c['pnp_ransac']}, K22 "
-                             f"{c['pnp_sample']} launches for {calls.n} pnp_ransac_batch calls "
-                             f"(want one each, two or more)")
+                             f"K3 / K4 / K7 / K22 {[c[k] for k in OFF_PATH_KERNELS]} (want 0)")
+    if not (c["pnp_ransac"] == calls.n >= 2 and c["chi2_counts"] == sum(k6.n.values()) >= 1):
+        raise AssertionError(f"the profiled frame: K15 {c['pnp_ransac']} launches for "
+                             f"{calls.n} pnp_ransac_batch calls (want one each, two or more), "
+                             f"K6 {c['chi2_counts']} for {json.dumps(k6.n)} (want one each)")
     if avg is not None:
         from torch.autograd import DeviceType
 
@@ -2278,6 +2810,14 @@ def phase_slam(dev, rng, objs, net, seed, scene):
             f"{per['pnp_ransac']:.3f} us per launch (targets <= {TARGET_US['K1 device']} and <= "
             f"{TARGET_US['K15 frame']}; the earlier kernels on an H100 80GB HBM3, 700 W: "
             f"{EARLIER_US['K1 frame']} and {EARLIER_US['K15 frame']})")
+
+    def again(i):  # the profiled frame's view once more, as view i
+        _, bboxes, uv_gt = scene.frame(n_frames)
+        inf.set_frame(bboxes, uv_gt)
+        engine.process_view(i, img, YCBV_K, ids, bboxes, objs.model_kps, objs.masks, objs.masks)
+        torch.cuda.synchronize()
+
+    k15_frame_probe(again, n_frames + 1, fn.net, dev)
     return counts
 
 
@@ -2851,11 +3391,11 @@ def phase_evaluate(dev, seed, net16):
     if not (auc > 80.0 and cam == 100.0):
         raise AssertionError(f"evaluation (SLAM, GT keypoints): AUC {auc}, camera poses {cam}%")
     missing = [k for k in ("norm_relu", "upsample_add", "add_dists", "roi_crop",
-                           "heatmap_readout", "pnp_ransac", "ba_lm", "pnp_sample")
+                           "heatmap_readout", "pnp_ransac", "ba_lm", "chi2_counts")
                if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the evaluation path: {missing}, or "
-                             f"K3 / K4 / K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K3 / K4 / K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     return counts
 
 
@@ -3460,7 +4000,7 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
                                           "pnp_ransac") if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the int8 path: {missing}, or K3 / K4 / "
-                             f"K7 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     return entries, counts, k2_err
 
 
@@ -4515,7 +5055,7 @@ class GtGuided:
 def _throughput_leg(label, root, base, dev, guide, n_items, **kw):
     """One `Evaluator` run of the throughput phase: its summary, CSV text,
     wall seconds, ms per view (per keyframe in SfM), launches and the
-    multi-frame calls' shapes; every sampler call through K22."""
+    multi-frame calls' shapes; every sampler's draws ranked in K15 (no K22)."""
     import io
     import os
 
@@ -4551,10 +5091,10 @@ def _throughput_leg(label, root, base, dev, guide, n_items, **kw):
         f"{wall / n_items * 1e3:.2f} ms per {'keyframe' if kw.get('nviews') == 2 else 'view'}; "
         f"multi-frame calls (G, O, with prior): {json.dumps(shapes)}; {plain.n} plain sampler "
         f"calls on the card; launches {json.dumps(counts)}")
-    if plain.n or not all(counts.get(k) for k in ("pnp_sample", "pnp_ransac", "roi_crop",
-                                                   "heatmap_readout")):
-        raise AssertionError(f"throughput leg {label}: a kernel of the path did not launch, or "
-                             f"{plain.n} plain sampler calls on the card: {counts}")
+    if plain.n or counts.get("pnp_sample") or not all(
+            counts.get(k) for k in ("pnp_ransac", "roi_crop", "heatmap_readout")):
+        raise AssertionError(f"throughput leg {label}: a kernel of the path did not launch, K22 "
+                             f"launched, or {plain.n} plain sampler calls on the card: {counts}")
     if counts.get("add_dists") != THROUGHPUT_SCENES:  # one meter call per scored scene
         raise AssertionError(f"throughput leg {label}: {counts.get('add_dists')} K10 launches "
                              f"for {THROUGHPUT_SCENES} scenes")

@@ -9,7 +9,11 @@
 // (`:110`) with `_solve6_spd` (`:96`), the refine block (`:248-262`) and the
 // tail (`:264-271`), which the TPU runs as one jitted program. The port's
 // eager form (`solvers/pnp.py` `pnp_ransac_batch_plain` with K3) issued
-// ~2,900 small PyTorch launches per call after K3.
+// ~2,900 small PyTorch launches per call after K3. In its draws mode it
+// also ranks the sampler's draws into the hypotheses' indices, the work of
+// `_sample_hypothesis_indices` (`:171-195`) after its Gumbel draw (K22's
+// work, `csrc/pnp_sample.cu`, which stays off the main path): the main path
+// hands over `torch.rand`'s u and no index ever reaches memory.
 //
 // Bound on this card: latency. At the main path's shapes (O = 8 objects,
 // n_hyp = 64, N = 41 points) the inputs are ~12 KB and the work ~2 MFLOP of
@@ -26,6 +30,9 @@
 //     and the RMS scale in f64, rounding each once: `_precondition`'s values
 //     bit for bit, whatever the order, so the hypotheses, their counts and
 //     the argmax are the plain version's;
+//   - (a') in the draws mode, each group of L lanes (below) ranks its
+//     hypothesis's row of u in one pass (`rank_draws`); else it reads the
+//     row's 4 indices;
 //   - (b, c) a group of L lanes per hypothesis (4 where the hypotheses fit
 //     one round, as at n_hyp = 64), inside one warp: each lane runs P3P's
 //     shared part (`pnp_common.cuh` `p3p_prefix`, K3's code) and its own
@@ -94,7 +101,7 @@ constexpr unsigned kFull = 0xffffffffu;
 // The phases whose SM clock cycles `cycles` holds, a row of kPhases per
 // block (thread 0's view; `solvers/pnp.py` PNP_PHASES names them).
 enum Phase {
-  kStage, kP3pPrefix, kP3p, kCounts, kArgmax, kGnSums, kGnSolve, kAccept, kFinal, kPhases
+  kStage, kRank, kP3pPrefix, kP3p, kCounts, kArgmax, kGnSums, kGnSolve, kAccept, kFinal, kPhases
 };
 
 struct PhaseClock {
@@ -485,10 +492,75 @@ __device__ __forceinline__ unsigned long long gn_round(float* T, const float* sx
   return inl;
 }
 
+// (a') The draws mode: hypothesis h's 4 point indices from its row ur of the
+// draws u, as `hypothesis_indices_plain` picks them: the 4 points of largest
+// u among the valid ones (smk), ties to the lower index. On the group's L =
+// 2^lshift lanes: lane q0 keeps the top 4 of its points n = q0 + L k in
+// registers, a sorted list (one pass over the row, read once, from L2, in
+// batches of kRankBatch loads in flight together; a later point displaces
+// an equal value only by exceeding it, its index being higher); then 4
+// rounds take the best head of the group by shuffles
+// (u descending, index ascending) and the lane that held it drops it. Once
+// the row's valid points are exhausted every pick is 0 (the JAX contract:
+// all scores -inf, the argmax ties to index 0). Draws are finite (uniform in
+// [0, 1)). Every lane of the warp calls this (the shuffles); a lane of a
+// group past the last hypothesis (active false) holds an empty list.
+constexpr int kRankBatch = 8;  // draws a lane loads before it ranks them
+
+__device__ __forceinline__ void rank_draws(const float* __restrict__ ur, const float* smk, int N,
+                                           int q0, int lshift, bool active, int* id) {
+  const int L = 1 << lshift;
+  float v0 = -INFINITY, v1 = -INFINITY, v2 = -INFINITY, v3 = -INFINITY;
+  int i0 = INT_MAX, i1 = INT_MAX, i2 = INT_MAX, i3 = INT_MAX;
+  if (active) {
+#pragma unroll 1
+    for (int n0 = q0; n0 < N; n0 += kRankBatch * L) {
+      float u[kRankBatch];  // a batch of loads in flight together, then the inserts
+#pragma unroll
+      for (int b = 0; b < kRankBatch; ++b) {
+        const int n = n0 + b * L;
+        u[b] = (n < N && smk[n] != 0.f) ? __ldg(ur + n) : -INFINITY;
+      }
+#pragma unroll
+      for (int b = 0; b < kRankBatch; ++b) {
+        const float v = u[b];
+        if (v > v3) {  // insert, then bubble up past strictly smaller values
+          v3 = v; i3 = n0 + b * L;
+          if (v3 > v2) { const float a = v2; const int c = i2; v2 = v3; i2 = i3; v3 = a; i3 = c; }
+          if (v2 > v1) { const float a = v1; const int c = i1; v1 = v2; i1 = i2; v2 = a; i2 = c; }
+          if (v1 > v0) { const float a = v0; const int c = i0; v0 = v1; i0 = i1; v1 = a; i1 = c; }
+        }
+      }
+    }
+  }
+  bool done = false;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float bv = v0;
+    int bi = i0;
+    for (int off = 1; off < L; off <<= 1) {
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+    }
+    done = done || bi == INT_MAX;  // no valid point left in the row
+    id[r] = done ? 0 : bi;
+    if (!done && bi == i0) {  // the lane that held the pick drops it
+      v0 = v1; i0 = i1; v1 = v2; i1 = i2; v2 = v3; i2 = i3; v3 = -INFINITY; i3 = INT_MAX;
+    }
+  }
+}
+
+// One instance a mode (kDraws: the draws mode), so the rank code sits only
+// in the draws instance: compiled into one kernel with both modes, the
+// index mode ran slower after the network's forward (chip_smoke's
+// `k15_frame_probe`: its Gauss-Newton phases colder), the same warm.
+template <bool kDraws>
 __global__ void __launch_bounds__(kThreads, 1)
 pnp_ransac_kernel(const float* __restrict__ x, const float* __restrict__ yn,
-                  const uint8_t* __restrict__ mask, const long long* __restrict__ idx, int N,
-                  int H, float thr_sq, int refine, int lshift, float* __restrict__ T_out,
+                  const uint8_t* __restrict__ mask, const long long* __restrict__ idx,
+                  const float* __restrict__ u, int N, int H, float thr_sq, int refine,
+                  int lshift, float* __restrict__ T_out,
                   uint8_t* __restrict__ inl_out, long long* __restrict__ num_out,
                   uint8_t* __restrict__ succ_out, long long* __restrict__ cycles) {
   extern __shared__ float sm[];
@@ -527,11 +599,18 @@ pnp_ransac_kernel(const float* __restrict__ x, const float* __restrict__ yn,
       float R[9] = {1.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0.f, 0.f, 1.f}, t[3] = {0.f, 0.f, 0.f};
       float best = INFINITY;
       int bq = q0;
-      if (h < H) {
+      int id[4] = {-1, -1, -1, -1};
+      if (kDraws) {  // every lane: the group ranks its row together
+        rank_draws(u + ((long long)o * H + min(h, H - 1)) * N, smk, N, q0, lshift, h < H, id);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) id[k] = id[k] < N ? id[k] : -1;  // N = 0: no point
+      } else if (h < H) {
         const long long* ip = idx + ((long long)o * H + h) * 4;
-        int id[4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) id[k] = (ip[k] < 0 || ip[k] >= N) ? -1 : (int)ip[k];
+      }
+      clk.mark(kRank);
+      if (h < H) {
         float yb[3][3], xb[3][3];
         if (suo_pnp::gather_rows(sx, sy, N, id, yb, xb)) {
           suo_pnp::P3pPrefix P;
@@ -722,6 +801,7 @@ __global__ void pnp_ransac_serial_kernel(const float* __restrict__ x,
     const long long* ip = idx + ((long long)o * H + h) * 4;
     int id[4];
     for (int k = 0; k < 4; ++k) id[k] = (ip[k] < 0 || ip[k] >= N) ? -1 : (int)ip[k];
+    clk.mark(kRank);
     float R[9], t[3];
     const bool ok = suo_pnp::solve_pose(sx, sy, N, id, R, t);
     clk.mark(kP3p);
@@ -793,19 +873,21 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 }  // namespace
 
-// lshift: log2 of the lanes per hypothesis; shmem the dynamic shared memory
-// (both from `solvers/pnp.py` `plan_ransac`)
+// hypotheses: idx (int64 [O, H, 4]) or, where idx is null, the draws u
+// (f32 [O, H, N]); lshift: log2 of the lanes per hypothesis; shmem the
+// dynamic shared memory (both from `solvers/pnp.py` `plan_ransac`)
 extern "C" int suo_pnp_ransac(const void* x, const void* yn, const void* mask, const void* idx,
-                              int O, int N, int H, float thr_sq, int refine, int lshift,
-                              int shmem, void* T_out, void* inl_out, void* num_out,
+                              const void* u, int O, int N, int H, float thr_sq, int refine,
+                              int lshift, int shmem, void* T_out, void* inl_out, void* num_out,
                               void* succ_out, void* cycles, void* stream) {
   if (O > 0 && H > 0) {
-    const cudaError_t e = allow_smem(pnp_ransac_kernel, (size_t)shmem);
+    const auto kernel = idx ? pnp_ransac_kernel<false> : pnp_ransac_kernel<true>;
+    const cudaError_t e = allow_smem(kernel, (size_t)shmem);
     if (e != cudaSuccess) return (int)e;
-    pnp_ransac_kernel<<<O, kThreads, shmem, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)yn, (const uint8_t*)mask, (const long long*)idx, N, H,
-        thr_sq, refine, lshift, (float*)T_out, (uint8_t*)inl_out, (long long*)num_out,
-        (uint8_t*)succ_out, (long long*)cycles);
+    kernel<<<O, kThreads, shmem, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)yn, (const uint8_t*)mask, (const long long*)idx,
+        (const float*)u, N, H, thr_sq, refine, lshift, (float*)T_out, (uint8_t*)inl_out,
+        (long long*)num_out, (uint8_t*)succ_out, (long long*)cycles);
   }
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,9 @@ measurement buffers [V, O, K]; the numeric paths are the device programs of
 
 1. the non-symmetric group: frame inference (K1 crop -> K5 prior render ->
    PkpNet -> K2 readout) chained into `kernels.frontend_step` (filter ->
-   PnP RANSAC, one launch of K15 -> information -> camera-pose RANSAC with
-   K6), read back once;
+   the sampler's draws -> PnP RANSAC, one launch of K15, which ranks the
+   draws -> information -> camera-pose RANSAC, one launch of K6), read back
+   once;
 2. `kernels.tracking_tail`: the symmetric group's front end (dispatched,
    not yet read) is scattered into the device mirrors, then late init, the
    re-init vote (K6) and the tracking BA (K14) run on them; one combined
@@ -139,22 +140,22 @@ class SlamConfig:
 class TorchGumbelSampler:
     """The engine's random draws on one `torch.Generator` seeded from
     `SlamConfig.seed` (re-made at every `ObjectSlam.reset()`): the RANSAC
-    hypotheses by Gumbel top-4 (`pnp.sample_hypothesis_indices`: one
-    `torch.rand` and one launch of K22 a call on the card) —
-    `sampler(keep [O, K], n_hyp)` draws a group's [O, n_hyp, 4] indices,
-    `sampler.single(mask [N], n_hyp)` one point set's [n_hyp, 4] (the backup
-    camera pose) — and
-    `sampler.noise(shape, std)`, debug_gt_kp's keypoint noise (f32 numpy)."""
+    hypotheses by Gumbel top-4 as their draws (`pnp.sample_draws`: one
+    `torch.rand` a call, which K15 ranks itself on the card) —
+    `sampler(keep [O, K], n_hyp)` draws a group's `pnp.Draws` u
+    [O, n_hyp, K], `sampler.single(mask [N], n_hyp)` one point set's
+    u [n_hyp, N] (the backup camera pose) — and `sampler.noise(shape,
+    std)`, debug_gt_kp's keypoint noise (f32 numpy)."""
 
     def __init__(self, seed: int, device: torch.device):
         self.gen = torch.Generator(device=device)
         self.gen.manual_seed(int(seed))
 
-    def __call__(self, mask: torch.Tensor, n_hyp: int) -> torch.Tensor:
-        return pnp_mod.sample_hypothesis_indices(mask, n_hyp, self.gen)
+    def __call__(self, mask: torch.Tensor, n_hyp: int) -> pnp_mod.Draws:
+        return pnp_mod.sample_draws(mask, n_hyp, self.gen)
 
-    def single(self, mask: torch.Tensor, n_hyp: int) -> torch.Tensor:
-        return pnp_mod.sample_hypothesis_indices(mask[None], n_hyp, self.gen)[0]
+    def single(self, mask: torch.Tensor, n_hyp: int) -> pnp_mod.Draws:
+        return pnp_mod.Draws(pnp_mod.sample_draws(mask[None], n_hyp, self.gen).u[0])
 
     def noise(self, shape, std: float) -> np.ndarray:
         z = torch.randn(tuple(shape), generator=self.gen, device=self.gen.device)
@@ -183,9 +184,11 @@ class ObjectSlam:
         mask_prob)`, which overrides net.
 
         hyp_sampler: factory `seed -> sampler` called at every `reset()`;
-        `sampler(keep [O, K], n_hyp) -> idx [O, n_hyp, 4]` draws a group's
-        PnP RANSAC hypotheses, `sampler.single(mask [N], n_hyp) ->
-        idx [n_hyp, 4]` the backup camera pose's and, with debug_gt_kp,
+        `sampler(keep [O, K], n_hyp)` draws a group's PnP RANSAC
+        hypotheses, `sampler.single(mask [N], n_hyp)` the backup camera
+        pose's — either as `pnp.Draws` (u [O, n_hyp, K] / [n_hyp, N],
+        ranked under the mask by the PnP itself) or as indices
+        [O, n_hyp, 4] / [n_hyp, 4] — and, with debug_gt_kp,
         `sampler.noise(shape, std)` the keypoint noise (f32 numpy), each
         in the engine's order of draws. Default: `TorchGumbelSampler`.
         With `config.debug_gt_kp` neither net nor infer_fn is needed.
@@ -634,9 +637,9 @@ class ObjectSlam:
             uv1 = np.concatenate([np.stack(centroids), np.ones((len(centroids), 1))], -1)
             y = (uv1 @ np.linalg.inv(K).T)[:, :2]
             mask = torch.ones((len(centroids),), dtype=torch.bool, device=self.device)
-            idx = self._sampler.single(mask, pnp_mod.DEFAULT_HYPOTHESES)
+            hyp = self._sampler.single(mask, pnp_mod.DEFAULT_HYPOTHESES)
             res = pnp_mod.pnp_ransac(self._up(np.stack(centers), torch.float32),
-                                     self._up(y, torch.float32), mask, idx)
+                                     self._up(y, torch.float32), mask, hyp)
             if bool(res.success):
                 T = res.T.cpu().numpy()
         if T is None:

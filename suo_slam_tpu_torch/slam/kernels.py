@@ -10,14 +10,19 @@ Port of `suo_slam_tpu/slam/kernels.py`:
 - `make_multi_frame_inference` / `make_batch_inference`: the same over G
   frames in one call (the throughput evaluation modes), with and without
   priors;
-- `frontend_step`: keypoint filter -> hypothesis sampler -> batched PnP
-  (`pnp_frame`: `pnp_ransac_batch`, one launch of K15) -> information ->
-  (optionally) camera-pose RANSAC, with no host round-trip between the
+- `frontend_step`: keypoint filter -> hypothesis sampler (the draws) ->
+  batched PnP (`pnp_frame`: `pnp_ransac_batch`, one launch of K15, which
+  ranks the draws itself) -> information -> (optionally) camera-pose RANSAC
+  (`camera_ransac`, one launch of K6), with no host round-trip between the
   stages;
-- `chi2_counts` (kernel K6) under `camera_pose_ransac` and `reinit_counts`;
+- kernel K6 (`csrc/chi2_counts.cu`): `camera_ransac` (also under the
+  JAX-shaped `camera_pose_ransac`) and `reinit_votes` (under
+  `reinit_counts`), each one launch with a plain twin for CPU tensors; the
+  first design's bare counts (`_chi2_counts_cuda`, `chi2_counts_plain`)
+  stay for comparison;
 - `tracking_tail`: the symmetric group's scatter into the device mirrors ->
-  late init -> re-init vote -> tracking BA (`ba.optimize`, one launch of
-  K14), ending in the frame's second host read-back.
+  late init -> re-init vote (`reinit_votes`) -> tracking BA (`ba.optimize`,
+  one launch of K14), ending in the frame's second host read-back.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ def info_from_cov(cov: torch.Tensor) -> torch.Tensor:
 
 def manual_info(shape, manual_kp_std: float, dtype=torch.float32, device=None):
     """Isotropic information I / sigma^2 for the no-network-cov path."""
-    s2 = torch.tensor(manual_kp_std, dtype=dtype, device=device) ** 2
+    # a fill, not `torch.tensor`: no blocking host-to-device copy
+    s2 = torch.full((), manual_kp_std, dtype=dtype, device=device) ** 2
     eye = torch.eye(2, dtype=dtype, device=device) / s2
     return eye.expand(tuple(shape) + (2, 2))
 
@@ -71,13 +77,13 @@ def filter_keypoints(uv, cov, mask_prob, model_mask, bbox_thresh: float = 0.9,
     return keep
 
 
-def pnp_frame(model_kps, uv, kp_mask, cam_k4, diameters, idx):
+def pnp_frame(model_kps, uv, kp_mask, cam_k4, diameters, hyp):
     """Batched per-object PnP with the acceptance gates: success, >= 4
-    inliers and t_z > 0.5 * diameter. idx [O, n_hyp, 4] are the hypothesis
-    point indices. Returns (T_OtoC [O, 4, 4], ok [O]); failed slots hold
-    identity."""
+    inliers and t_z > 0.5 * diameter. hyp: the hypotheses, `pnp.Draws` or
+    indices [O, n_hyp, 4] (`pnp_ransac_batch`). Returns (T_OtoC [O, 4, 4],
+    ok [O]); failed slots hold identity."""
     y_norm = (uv - cam_k4[:, None, 2:]) / cam_k4[:, None, :2]
-    res = pnp_mod.pnp_ransac_batch(model_kps, y_norm, kp_mask, idx)
+    res = pnp_mod.pnp_ransac_batch(model_kps, y_norm, kp_mask, hyp)
     ok = res.success & (res.num_inliers >= 4) & (res.T[:, 2, 3] > 0.5 * diameters)
     eye = torch.eye(4, dtype=res.T.dtype, device=res.T.device)
     return torch.where(ok[:, None, None], res.T, eye), ok
@@ -113,6 +119,11 @@ def chi2_counts_plain(T_OtoC, model_kp, uv, info, mask, cam_k4,
     return good.reshape(S, O * K).sum(-1).to(torch.int32)
 
 
+K6_THREADS = 128       # kThreads: a block per count (`chi2_counts_kernel`)
+K6_CAM_THREADS = 512   # kCamThreads: the camera-RANSAC block (`camera_ransac_kernel`)
+K6_CAM_HYPS = 16       # kCamHyps: camera hypotheses a round at most
+K6_REINIT_THREADS = 256  # kReinitThreads: a re-init block (`reinit_votes_kernel`)
+K6_REINIT_CHUNK = 32   # kReinitChunk: re-init views staged at a time
 _CHI2_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
                   + [ctypes.c_void_p] * 2)
 
@@ -144,40 +155,281 @@ def _chi2_counts_cuda(T_OtoC, model_kp, uv, info, mask, cam_k4, chi2_thresh,
     return out.reshape(S // M, O) if per_object else out
 
 
-def chi2_counts(T_OtoC, model_kp, uv, info, mask, cam_k4,
-                chi2_thresh: float = CHI2_THRESH_2DOF, per_object: bool = False):
-    """Masked chi2 inlier counts (see `chi2_counts_plain`): K6 on CUDA
-    tensors, the plain version on CPU tensors."""
-    if uv.device.type == "cpu":
-        return chi2_counts_plain(T_OtoC, model_kp, uv, info, mask, cam_k4,
-                                 chi2_thresh, per_object)
-    if uv.device.type != "cuda":
-        raise ValueError(f"chi2_counts: unsupported device {uv.device}")
-    return _chi2_counts_cuda(T_OtoC, model_kp, uv, info, mask, cam_k4, chi2_thresh,
-                             per_object)
+def invert_se3_plain(T):
+    """[..., 4, 4] SE(3) inverse [R^T, -R^T t; 0 0 0 1] in K6's written
+    order: t'_i = -((R_0i t_0 + R_1i t_1) + R_2i t_2), each product and sum
+    rounded on its own (`csrc/chi2_counts.cu`'s hypotheses, built with
+    --fmad=false, compute the same bits; `lie.invert_SE3`'s `@` has no
+    defined summation order)."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    ti = -(R[..., 0, :] * t[..., 0, None] + R[..., 1, :] * t[..., 1, None]
+           + R[..., 2, :] * t[..., 2, None])
+    return lie.make_T(R.transpose(-1, -2), ti)
+
+
+def compose_plain(A, B):
+    """[..., 4, 4] products A B (broadcast) in K6's written order:
+    C_ij = ((A_i0 B_0j + A_i1 B_1j) + A_i2 B_2j) + A_i3 B_3j."""
+    C = A[..., :, 0, None] * B[..., None, 0, :]
+    for k in range(1, 4):
+        C = C + A[..., :, k, None] * B[..., None, k, :]
+    return C
+
+
+def _select(counts, cand, T_hyp, min_num_inliers):
+    """The RANSAC tail without a host read: non-candidates score -1, the
+    first maximum wins, and below min_num_inliers the pose is the identity.
+    Returns (T_GtoC [4, 4], best count, ok, best)."""
+    counts = torch.where(cand, counts, -1)
+    best = torch.argmax(counts)  # first maximum
+    best_count = counts.gather(0, best[None])[0]
+    ok = best_count >= min_num_inliers
+    eye = torch.eye(4, dtype=T_hyp.dtype, device=T_hyp.device)
+    return torch.where(ok, T_hyp.index_select(0, best[None])[0], eye), best_count, ok, best
 
 
 def camera_pose_ransac(T_pnp, pnp_ok, T_obj, obj_ok, model_kp, uv, info, inliers,
                        cam_k4, min_num_inliers: int = 4):
-    """RANSAC over per-object camera-pose hypotheses. Hypothesis j is
-    T_GtoC = T_pnp[j] inv(T_obj[j]); each is scored (K6) against every
-    object's inlier keypoints of this frame; an object whose detection has
-    no inlier does not score. T_pnp [O, 4, 4], pnp_ok [O], T_obj [O, 4, 4]
-    (T_OtoG), obj_ok [O], model_kp [O, K, 3], uv [O, K, 2],
-    info [O, K, 2, 2], inliers [O, K], cam_k4 [O, 4].
-    Returns (T_GtoC [4, 4], best count, ok), all on the device."""
-    cand = pnp_ok & obj_ok
-    T_hyp = T_pnp @ lie.invert_SE3(T_obj)                 # [H=O, 4, 4]
-    T_OtoC_hyp = T_hyp[:, None] @ T_obj[None, :]          # [H, O, 4, 4]
-    score_mask = inliers & (torch.any(inliers, -1) & cand)[:, None]
-    counts = chi2_counts(T_OtoC_hyp, model_kp, uv[None], info[None], score_mask[None],
-                         cam_k4[None])                    # [H]
-    counts = torch.where(cand, counts, -1)
-    best = torch.argmax(counts)  # first maximum
-    best_count = counts[best]
-    ok = best_count >= min_num_inliers
-    eye = torch.eye(4, dtype=T_hyp.dtype, device=T_hyp.device)
-    return torch.where(ok, T_hyp[best], eye), best_count, ok
+    """RANSAC over per-object camera-pose hypotheses, JAX's signature.
+    Hypothesis j is T_GtoC = T_pnp[j] inv(T_obj[j]); each is scored
+    against every object's inlier keypoints of this frame; an object whose
+    detection has no inlier does not score. T_pnp [O, 4, 4], pnp_ok [O],
+    T_obj [O, 4, 4] (T_OtoG), obj_ok [O], model_kp [O, K, 3], uv [O, K, 2],
+    info [O, K, 2, 2], inliers [O, K], cam_k4 [O, 4]: `camera_ransac` with
+    row j in slot j (one K6 launch on CUDA tensors). Returns (T_GtoC
+    [4, 4], best count, ok), all on the device."""
+    slots = torch.arange(T_obj.shape[0], device=T_obj.device)
+    return camera_ransac(T_pnp, pnp_ok, uv, info, inliers, cam_k4, slots, T_obj, obj_ok,
+                         model_kp, min_num_inliers)[:3]
+
+
+def camera_ransac_plain(T_pnp, pnp_ok, uv, info, keep, cam_k4, slots, obj_T, obj_active,
+                        model_kp_full, min_num_inliers: int = 4,
+                        chi2_thresh: float = CHI2_THRESH_2DOF):
+    """Plain PyTorch twin of K6's camera-RANSAC mode (`camera_ransac`): the
+    group's rows T_pnp [ob, 4, 4], pnp_ok [ob], uv [ob, K, 2],
+    info [ob, K, 2, 2], keep [ob, K], cam_k4 [ob, 4] belong to map slots
+    slots [ob] (distinct, apart from the pad O, which is dropped); the map
+    holds obj_T [O, 4, 4], obj_active [O], model_kp_full [O, K, 3]. Slot j
+    without a row has no PnP pose (identity, not ok) and no keypoints.
+    Hypothesis j = T_row[j] inv(obj_T[j]), a candidate where the row's PnP
+    is ok and the object active; it scores every candidate object's kept
+    edges (`chi2_counts_plain`: the kernel's arithmetic); the first maximum
+    in slot order wins if it reaches min_num_inliers, else the identity.
+    Compositions by `compose_plain` / `invert_se3_plain`, so the kernel
+    equals this twin bit for bit. Returns (T_GtoC [4, 4], best count
+    (int32), ok, best slot), all on the device."""
+    O, ob = obj_T.shape[0], slots.shape[0]
+    dev = obj_T.device
+    # the row of each slot, ob where none: index_put of distinct slots
+    row = torch.full((O + 1,), ob, dtype=torch.long, device=dev)
+    row[slots.long()] = torch.arange(ob, device=dev)
+    row = row[:O]
+    ext = lambda a, fill: torch.cat([a, torch.full_like(a[:1], fill)])[row]
+    eye = torch.eye(4, dtype=T_pnp.dtype, device=dev)
+    T_row = torch.cat([T_pnp, eye[None]])[row]
+    cand = ext(pnp_ok.bool(), False) & obj_active.bool()
+    T_hyp = compose_plain(T_row, invert_se3_plain(obj_T))        # [H=O, 4, 4]
+    T_OtoC_hyp = compose_plain(T_hyp[:, None], obj_T[None, :])   # [H, O, 4, 4]
+    mask = ext(keep.bool(), False) & cand[:, None]
+    counts = chi2_counts_plain(T_OtoC_hyp, model_kp_full, ext(uv, 0.0)[None],
+                               ext(info, 0.0)[None], mask[None], ext(cam_k4, 0.0)[None],
+                               chi2_thresh)
+    return _select(counts, cand, T_hyp, min_num_inliers)
+
+
+_CAM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p] * 6)
+# the fused modes' phases, in the order of their `cycles` (`csrc/chi2_counts.cu`)
+K6_CAM_PHASES = ("stage", "hypotheses", "compose", "count", "select")
+K6_REINIT_PHASES = ("poses", "rows", "count", "reduce")
+
+
+def _check_cycles(cycles, shape, dev):
+    if cycles is not None and (tuple(cycles.shape) != shape or cycles.dtype != torch.int64
+                               or cycles.device != dev):
+        raise ValueError(f"K6 cycles: int64 zeros {list(shape)} on {dev}")
+
+
+def camera_ransac_smem(O: int, ob: int, K: int, hr: int | None = None) -> int:
+    """K6's camera-RANSAC shared memory (`csrc/chi2_counts.cu`
+    `camera_ransac_kernel`, its layout): the staged inputs (the map's poses
+    and keypoints, the group's rows), the O hypotheses and a round's
+    object-to-camera poses (12 floats each, hr hypotheses a round, by
+    default min(O, K6_CAM_HYPS)), the slots' and rows' ints and the warps'
+    partial counts of a round, the keep bytes."""
+    hr = min(O, K6_CAM_HYPS) if hr is None else hr
+    floats = 32 * O + 3 * O * K + ob * (16 + 6 * K + 4) + 12 * hr * O
+    return 4 * (floats + 4 * O + 2 * ob + K6_CAM_THREADS // 32 * K6_CAM_HYPS) + ob * K
+
+
+def camera_ransac_hyps(O: int, ob: int, K: int) -> int:
+    """Hypotheses a round of K6's camera RANSAC: the most, up to
+    min(O, K6_CAM_HYPS), whose shared memory fits one block; 0 when not
+    even one does. The round's poses grow as O times this, the rest of the
+    layout as O + ob: at K = 41 every group of a map of up to 128 slots
+    fits (16 hypotheses a round up to O = 64, and at O = 128 for groups of
+    up to 32 rows; one a round at O = ob = 128), and at O = 256 groups of
+    up to 32 rows; larger maps raise (`_camera_ransac_cuda`)."""
+    for hr in range(min(O, K6_CAM_HYPS), 0, -1):
+        if camera_ransac_smem(O, ob, K, hr) <= pnp_mod.SMEM_PER_BLOCK:
+            return hr
+    return 0
+
+
+def _camera_ransac_cuda(T_pnp, pnp_ok, uv, info, keep, cam_k4, slots, obj_T, obj_active,
+                        model_kp_full, min_num_inliers=4, chi2_thresh=CHI2_THRESH_2DOF,
+                        cycles=None):
+    """K6's camera-RANSAC mode: `camera_ransac_plain` in one launch of one
+    block. Reads shapes only (no host value); raises on what the kernel
+    does not take. With `cycles` (int64 zeros [len(K6_CAM_PHASES)] on the
+    card) the kernel adds thread 0's SM clock cycles per phase there."""
+    ob, K = keep.shape
+    O = obj_T.shape[0]
+    if (T_pnp.shape != (ob, 4, 4) or pnp_ok.shape != (ob,) or uv.shape != (ob, K, 2)
+            or info.shape != (ob, K, 2, 2) or cam_k4.shape != (ob, 4) or slots.shape != (ob,)
+            or obj_T.shape != (O, 4, 4) or obj_active.shape != (O,)
+            or model_kp_full.shape != (O, K, 3) or min(O, ob, K) < 1):
+        raise ValueError("K6: inconsistent camera-RANSAC shapes")
+    fs = (T_pnp, uv, info, cam_k4, obj_T, model_kp_full)
+    if any(a.dtype != torch.float32 for a in fs):
+        raise ValueError("K6 runs in f32")
+    hr = camera_ransac_hyps(O, ob, K)
+    if hr == 0:
+        raise ValueError(f"K6 camera RANSAC holds at most {pnp_mod.SMEM_PER_BLOCK} bytes of "
+                         f"shared memory: {O} objects, {ob} rows of {K} keypoints need "
+                         f"{camera_ransac_smem(O, ob, K, 1)}")
+    smem = camera_ransac_smem(O, ob, K, hr)
+    dev = obj_T.device
+    if dev.type != "cuda" or any(a.device != dev for a in fs + (pnp_ok, keep, slots, obj_active)):
+        raise ValueError("K6 inputs must lie on one CUDA device")
+    _check_cycles(cycles, (len(K6_CAM_PHASES),), dev)
+    # every argument bound to a name until the launch (a temporary's memory
+    # could be handed to the next one before the kernel reads it); the
+    # engine's bool masks and int64 slots pass as they are
+    c = [a.contiguous() for a in fs]
+    ok8, keep8, act8 = (m.bool().contiguous().view(torch.uint8)
+                        for m in (pnp_ok, keep, obj_active))
+    sl = slots.long().contiguous()
+    T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    ok = torch.empty((), dtype=torch.bool, device=dev)
+    best = torch.empty((), dtype=torch.int64, device=dev)
+    p = _build.ptr
+    fn = _build.entry("chi2_counts", _CAM_ARGTYPES, "suo_camera_ransac")
+    err = fn(p(c[0]), p(ok8), p(c[1]), p(c[2]), p(keep8), p(c[3]), p(sl), ob, p(c[4]),
+             p(act8), p(c[5]), O, K, float(chi2_thresh), int(min_num_inliers), hr, smem,
+             p(T_out), p(count), p(ok), p(best), None if cycles is None else p(cycles),
+             _build.stream())
+    _build.check(err, "K6 camera_ransac")
+    kcount.count("chi2_counts")
+    return T_out, count, ok, best
+
+
+def camera_ransac(T_pnp, pnp_ok, uv, info, keep, cam_k4, slots, obj_T, obj_active,
+                  model_kp_full, min_num_inliers: int = 4,
+                  chi2_thresh: float = CHI2_THRESH_2DOF):
+    """Camera-pose RANSAC of one group's front-end rows against the map
+    (see `camera_ransac_plain`): one launch of K6 on CUDA tensors, the plain
+    twin on CPU tensors. Returns (T_GtoC, best count, ok, best slot)."""
+    args = (T_pnp, pnp_ok, uv, info, keep, cam_k4, slots, obj_T, obj_active, model_kp_full,
+            min_num_inliers, chi2_thresh)
+    if obj_T.device.type == "cpu":
+        return camera_ransac_plain(*args)
+    if obj_T.device.type != "cuda":
+        raise ValueError(f"camera_ransac: unsupported device {obj_T.device}")
+    return _camera_ransac_cuda(*args)
+
+
+def reinit_votes_plain(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv_m, info_m,
+                       valid_m, cam_k4_m, cs, chi2_thresh: float = CHI2_THRESH_2DOF):
+    """Plain PyTorch twin of K6's re-init mode (`reinit_votes`): the chi2
+    inlier counts per object of this frame's PnP poses and of the map
+    estimates, T_pnp_OtoG / T_est_OtoG [O, 4, 4], over the views cs [n] of
+    the mirrors uv_m [V, O, K, 2], info_m [V, O, K, 2, 2], valid_m
+    [V, O, K] (detected keypoints, not inlier gated) and cam_k4_m
+    [V, O, 4], seen from cam_T [n, 4, 4] (`compose_plain`: the kernel's
+    order); a view with cam_valid [n] false does not count.
+    Returns (count_pnp [O], count_est [O]), int32."""
+    cs = cs.long()
+    mask = valid_m[cs] & cam_valid.bool()[:, None, None]
+    T = torch.cat([compose_plain(cam_T[:, None], T_pnp_OtoG[None]),
+                   compose_plain(cam_T[:, None], T_est_OtoG[None])])   # [2n, O, 4, 4]
+    counts = chi2_counts_plain(T, model_kp, uv_m[cs], info_m[cs], mask, cam_k4_m[cs],
+                               chi2_thresh, per_object=True)          # [2, O]
+    return counts[0], counts[1]
+
+
+_REINIT_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                    + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+
+
+def reinit_smem(K: int) -> int:
+    """K6's re-init shared memory (`reinit_votes_kernel`, its layout): for a
+    chunk of K6_REINIT_CHUNK views their information, intrinsics,
+    measurements and composed poses, the object's keypoints, the views'
+    rows and the edge masks."""
+    c = K6_REINIT_CHUNK
+    return 4 * (3 * K + c * (12 + 4 + 6 * K) + c) + c * K
+
+
+def _reinit_votes_cuda(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv_m, info_m,
+                       valid_m, cam_k4_m, cs, chi2_thresh=CHI2_THRESH_2DOF, cycles=None):
+    """K6's re-init mode: `reinit_votes_plain` in one launch (a block per
+    (pose set, object)). Reads shapes only; raises on what the kernel does
+    not take. With `cycles` (int64 zeros [2 O, len(K6_REINIT_PHASES)] on
+    the card) each block adds its thread 0's SM clock cycles per phase to
+    its row."""
+    V, O, K = valid_m.shape
+    n = cs.shape[0]
+    if (T_pnp_OtoG.shape != (O, 4, 4) or T_est_OtoG.shape != (O, 4, 4)
+            or cam_T.shape != (n, 4, 4) or cam_valid.shape != (n,)
+            or model_kp.shape != (O, K, 3) or uv_m.shape != (V, O, K, 2)
+            or info_m.shape != (V, O, K, 2, 2) or cam_k4_m.shape != (V, O, 4)
+            or min(O, n, K) < 1):
+        raise ValueError("K6: inconsistent re-init shapes")
+    fs = (T_pnp_OtoG, T_est_OtoG, cam_T, model_kp, uv_m, info_m, cam_k4_m)
+    if any(a.dtype != torch.float32 for a in fs):
+        raise ValueError("K6 runs in f32")
+    smem = reinit_smem(K)
+    if smem > pnp_mod.SMEM_PER_BLOCK:
+        raise ValueError(f"K6 re-init holds at most {pnp_mod.SMEM_PER_BLOCK} bytes of shared "
+                         f"memory: {K} keypoints need {smem}")
+    dev = valid_m.device
+    if dev.type != "cuda" or any(a.device != dev for a in fs + (cam_valid, valid_m, cs)):
+        raise ValueError("K6 inputs must lie on one CUDA device")
+    _check_cycles(cycles, (2 * O, len(K6_REINIT_PHASES)), dev)
+    # bound to names until the launch; cp.async reads info and cam_k4 rows
+    # of 16 bytes and uv rows of 8: a tensor that does not start on 16
+    # bytes is copied to one that does
+    c = [a.contiguous() for a in fs]
+    c = [a if a.data_ptr() % 16 == 0 else a.clone() for a in c]
+    cv8, val8 = (m.bool().contiguous().view(torch.uint8) for m in (cam_valid, valid_m))
+    cs64 = cs.long().contiguous()
+    out = torch.empty((2, O), dtype=torch.int32, device=dev)
+    p = _build.ptr
+    fn = _build.entry("chi2_counts", _REINIT_ARGTYPES, "suo_reinit_votes")
+    err = fn(p(c[0]), p(c[1]), p(c[2]), p(cv8), p(c[3]), p(c[4]), p(c[5]), p(val8), p(c[6]),
+             p(cs64), V, O, K, n, float(chi2_thresh), smem, p(out),
+             None if cycles is None else p(cycles), _build.stream())
+    _build.check(err, "K6 reinit_votes")
+    kcount.count("chi2_counts")
+    return out[0], out[1]
+
+
+def reinit_votes(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv_m, info_m, valid_m,
+                 cam_k4_m, cs, chi2_thresh: float = CHI2_THRESH_2DOF):
+    """The re-init vote's counts over the views cs of the device mirrors
+    (see `reinit_votes_plain`): one launch of K6 on CUDA tensors, the plain
+    twin on CPU tensors."""
+    args = (T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv_m, info_m, valid_m,
+            cam_k4_m, cs, chi2_thresh)
+    if valid_m.device.type == "cpu":
+        return reinit_votes_plain(*args)
+    if valid_m.device.type != "cuda":
+        raise ValueError(f"reinit_votes: unsupported device {valid_m.device}")
+    return _reinit_votes_cuda(*args)
 
 
 def reinit_counts(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv, info,
@@ -186,12 +438,11 @@ def reinit_counts(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv, info,
     of the map estimates, per object: T_pnp_OtoG / T_est_OtoG [O, 4, 4],
     cam_T [N, 4, 4], cam_valid [N], model_kp [O, K, 3], uv [N, O, K, 2],
     info [N, O, K, 2, 2], valid [N, O, K] (detected keypoints, not inlier
-    gated), cam_k4 [N, O, 4]. Both pose sets share one K6 launch.
-    Returns (count_pnp [O], count_est [O])."""
-    mask = valid & cam_valid[:, None, None]
-    T = torch.cat([cam_T[:, None] @ T_pnp_OtoG[None], cam_T[:, None] @ T_est_OtoG[None]])
-    counts = chi2_counts(T, model_kp, uv, info, mask, cam_k4, per_object=True)  # [2, O]
-    return counts[0], counts[1]
+    gated), cam_k4 [N, O, 4]: `reinit_votes` over views 0..N-1 (one K6
+    launch on the card). Returns (count_pnp [O], count_est [O])."""
+    cs = torch.arange(valid.shape[0], device=valid.device)
+    return reinit_votes(T_pnp_OtoG, T_est_OtoG, cam_T, cam_valid, model_kp, uv, info, valid,
+                        cam_k4, cs)
 
 
 def _scatter_rows(dst, idx, src):
@@ -209,10 +460,12 @@ def frontend_step(uv, cov, mask_prob, model_kps, model_masks, cam_k4, diams,
                   min_num_inliers: int = 4, keep_in=None):
     """Fused per-group front end: keypoint filter -> PnP -> information ->
     (when `slots`/`obj_T`/`obj_active`/`model_kp_full` are given) camera-pose
-    RANSAC. `hyp_sampler(keep [O, K], n_hyp) -> idx [O, n_hyp, 4]` draws the
-    RANSAC hypotheses. For camera RANSAC the frame's results are scattered
-    into slot-indexed [O] rows (slots [ob], a padded slot = O is dropped) and
-    scored against the map poses obj_T [O, 4, 4]. `keep_in` [O, K]
+    RANSAC. `hyp_sampler(keep [O, K], n_hyp)` draws the RANSAC hypotheses:
+    `pnp.Draws` [O, n_hyp, N] (ranked under keep by K15 itself) or
+    indices [O, n_hyp, 4] (`pnp_ransac_batch`). For camera RANSAC
+    (`camera_ransac`) the group's rows belong to map slots (slots [ob],
+    distinct, a padded slot = O is dropped) and are scored against the map
+    poses obj_T [O, 4, 4]. `keep_in` [O, K]
     (debug_gt_kp: the dataset's keypoint masks) replaces the filter.
     Returns a dict of small per-frame tensors that the caller reads back in
     one transfer."""
@@ -221,8 +474,7 @@ def frontend_step(uv, cov, mask_prob, model_kps, model_masks, cam_k4, diams,
     else:
         keep = filter_keypoints(uv, cov, mask_prob, model_masks,
                                 bbox_thresh, kp_var_thresh, mask_thresh)
-    idx = hyp_sampler(keep, n_hyp)
-    T_pnp, pnp_ok = pnp_frame(model_kps, uv, keep, cam_k4, diams, idx)
+    T_pnp, pnp_ok = pnp_frame(model_kps, uv, keep, cam_k4, diams, hyp_sampler(keep, n_hyp))
     if cov is not None:
         info = info_from_cov(cov)
         var = torch.stack([cov[..., 0, 0], cov[..., 1, 1]], -1)
@@ -239,18 +491,9 @@ def frontend_step(uv, cov, mask_prob, model_kps, model_masks, cam_k4, diams,
         "std_sum": std_sum, "std_cnt": std_cnt,
     }
     if slots is not None:
-        O, K = obj_T.shape[0], uv.shape[1]
-        dt, dev = uv.dtype, uv.device
-        rows = lambda shape, src, dtype=dt: _scatter_rows(
-            torch.zeros((O,) + shape, dtype=dtype, device=dev), slots, src)
-        T_row = _scatter_rows(torch.eye(4, dtype=dt, device=dev).repeat(O, 1, 1),
-                              slots, T_pnp)
-        ok_row = rows((), pnp_ok, torch.bool)
-        T_cam, cam_count, cam_ok = camera_pose_ransac(
-            T_row, ok_row, obj_T, obj_active & ok_row, model_kp_full,
-            rows((K, 2), uv), rows((K, 2, 2), info), rows((K,), keep, torch.bool),
-            rows((4,), cam_k4), min_num_inliers,
-        )
+        T_cam, cam_count, cam_ok, _ = camera_ransac(
+            T_pnp, pnp_ok, uv, info, keep, cam_k4, slots, obj_T, obj_active, model_kp_full,
+            min_num_inliers)
         out.update({"T_cam": T_cam, "cam_count": cam_count, "cam_ok": cam_ok})
     return out
 
@@ -300,10 +543,9 @@ def tracking_tail(uv_m, info_m, valid_m, inliers_m, cam_k4_m, model_kp_m, v: int
         T_pnp_G = torch.where(reinit["cand_sel"][:, None, None], reinit["T_pnp_G"],
                               T_GtoC_inv[None] @ T_pnp_row)
         sel = reinit["cand_sel"] | (ok_row & obj_active)
-        cs = reinit["cs"]
-        n_pnp, n_est = reinit_counts(
+        n_pnp, n_est = reinit_votes(
             T_pnp_G, obj_T, reinit["cam_T_w"], reinit["cam_valid"], model_kp_m,
-            uv_m[cs], info_m[cs], valid_m[cs], cam_k4_m[cs],
+            uv_m, info_m, valid_m, cam_k4_m, reinit["cs"],
         )
         reinit_cond = sel & (n_pnp >= 3) & (n_pnp > 3 * n_est)
         obj_T = torch.where(reinit_cond[:, None, None], T_pnp_G, obj_T)

@@ -3,19 +3,22 @@ K22.
 
 Port of `suo_slam_tpu/solvers/pnp.py` over a leading object axis:
 
-  1. a fixed batch of n_hyp 4-point hypotheses per object (explicit
-     `idx [O, n_hyp, 4]`; `sample_hypothesis_indices` draws them as Gumbel
-     top-4 on a `torch.Generator`, since torch cannot reproduce the
-     `jax.random` stream: one `torch.rand` and, on a CUDA tensor, one
-     launch of kernel K22, `csrc/pnp_sample.cu`),
+  1. a fixed batch of n_hyp 4-point hypotheses per object, as Gumbel top-4
+     on a `torch.Generator` (torch cannot reproduce the `jax.random`
+     stream): the hypotheses reach `pnp_ransac_batch` either as the draws
+     (`Draws`: `sample_draws`, one `torch.rand` [O, n_hyp, N]; K15 ranks
+     them itself) or as explicit indices `idx [O, n_hyp, 4]`
+     (`sample_hypothesis_indices`: the same draws ranked by
+     `hypothesis_indices`, on a CUDA tensor one launch of kernel K22,
+     `csrc/pnp_sample.cu`, off the main path; or any injected sampler's),
   2. every hypothesis solved by P4P and scored against every point,
   3. the best hypothesis polished by two damped Gauss-Newton rounds with
      inlier reselection, kept only if no inliers are lost.
 
-`pnp_ransac_batch` runs steps 2-3 as one launch of kernel K15
-(`csrc/pnp_ransac.cu`, one block per object) on CUDA tensors, and as
-`pnp_ransac_batch_plain` — plain PyTorch, step 2 by K3's plain version — on
-CPU tensors. `pnp_hypotheses` (step 2 alone: kernel K3, `csrc/pnp_hypotheses.cu`,
+`pnp_ransac_batch` runs steps 2-3 — with draws, the ranking of step 1 too —
+as one launch of kernel K15 (`csrc/pnp_ransac.cu`, one block per object) on
+CUDA tensors, and as `pnp_ransac_batch_plain` — plain PyTorch, step 2 by K3's
+plain version, draws ranked by `hypothesis_indices_plain` — on CPU tensors. `pnp_hypotheses` (step 2 alone: kernel K3, `csrc/pnp_hypotheses.cu`,
 on a CUDA tensor) stays as an entry point off the main path; K3 and K15 share
 its solver (`csrc/pnp_common.cuh`).
 
@@ -40,6 +43,16 @@ from . import p3p as p3p_mod
 DEFAULT_HYPOTHESES = 128
 DEFAULT_THRESHOLD = 1e-3
 REFINE_GN_ITERS = 8
+
+
+class Draws(NamedTuple):
+    """A sampler's hypotheses as its draws: u [O, n_hyp, N] (or [n_hyp, N]
+    for `pnp_ransac`), f32 uniform in [0, 1) as `torch.rand` gives them.
+    Hypothesis h of object o is the 4 points of largest u[o, h] among those
+    valid under the PnP call's mask (`hypothesis_indices_plain`): the ranking
+    happens inside `pnp_ransac_batch` (in K15 on the card), so the sampler
+    must draw for the mask that call gets."""
+    u: torch.Tensor
 
 
 class PnpResult(NamedTuple):
@@ -158,18 +171,24 @@ def _gn_refine(T0, x, y, w, iters: int = REFINE_GN_ITERS):
     return T
 
 
+def sample_draws(mask: torch.Tensor, n_hyp: int,
+                 generator: torch.Generator | None = None) -> Draws:
+    """The Gumbel top-4 sampler's draws for mask [O, N]: one `torch.rand`
+    u [O, n_hyp, N] on `generator` (on the mask's device)."""
+    O, n = mask.shape
+    return Draws(torch.rand((O, n_hyp, n), generator=generator, device=mask.device))
+
+
 def sample_hypothesis_indices(mask: torch.Tensor, n_hyp: int,
                               generator: torch.Generator | None = None):
-    """[O, n_hyp, 4] int64 indices of valid points by Gumbel top-4: one
-    `torch.rand` draw u [O, n_hyp, N] on `generator`, ranked by
-    `hypothesis_indices` (kernel K22 on a CUDA mask).
+    """[O, n_hyp, 4] int64 indices of valid points by Gumbel top-4: the draws
+    of `sample_draws`, ranked by `hypothesis_indices` (kernel K22 on a CUDA
+    mask).
 
     Same contract as the JAX sampler: distinct indices while at least 4
     points are valid; exhausted picks return index 0 (all scores -inf), which
     `pnp_ransac_batch` tolerates because it gates on n_valid >= 4."""
-    O, n = mask.shape
-    u = torch.rand((O, n_hyp, n), generator=generator, device=mask.device)
-    return hypothesis_indices(u, mask)
+    return hypothesis_indices(sample_draws(mask, n_hyp, generator).u, mask)
 
 
 def hypothesis_indices_plain(u: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -290,14 +309,16 @@ def pnp_hypotheses(xp, y, mask, idx, thr_sq: float):
     return _pnp_hypotheses_cuda(xp, y, mask, idx, thr_sq)
 
 
-def pnp_ransac_batch_plain(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+def pnp_ransac_batch_plain(x, y, mask, hyp, threshold: float = DEFAULT_THRESHOLD,
                            refine: bool = True, use_kernels: bool = False) -> PnpResult:
     """Plain PyTorch K15: robust PnP for a batch of objects from padded
-    correspondences (see `pnp_ransac_batch`). The hypotheses run on K3's
-    plain version, or with `use_kernels` through `pnp_hypotheses` (K3 on a
-    CUDA tensor: the schedule K15 replaced, kept for comparison)."""
+    correspondences (see `pnp_ransac_batch`). `Draws` are ranked by
+    `hypothesis_indices_plain`. The hypotheses run on K3's plain version, or
+    with `use_kernels` through `pnp_hypotheses` (K3 on a CUDA tensor: the
+    schedule K15 replaced, kept for comparison)."""
     dtype = x.dtype
     mask = mask.bool()
+    idx = hypothesis_indices_plain(hyp.u, mask) if isinstance(hyp, Draws) else hyp
     feasible = mask.sum(-1) >= 4
     xp, c, s = _precondition(x, mask)
     thr_sq = float(threshold) ** 2
@@ -336,8 +357,9 @@ def pnp_ransac_batch_plain(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD
 
 K15_MAX_POINTS = 2048  # 36 B of shared memory per staged point; 64 bits of round weights per lane
 # K15's phases, in the order of its `cycles` rows (`csrc/pnp_ransac.cu` `Phase`)
-PNP_PHASES = ("stage", "p3p_prefix", "p3p", "counts", "argmax", "gn_sums", "gn_solve", "accept",
-              "final")
+# ("rank": a hypothesis's 4 indices, ranked from the draws or read)
+PNP_PHASES = ("stage", "rank", "p3p_prefix", "p3p", "counts", "argmax", "gn_sums", "gn_solve",
+              "accept", "final")
 K15_THREADS = 256         # kThreads
 K15_POSE_FLOATS = 12      # kPoseFloats: R and t of a hypothesis in shared memory
 K15_P3P_LANES = 4         # at most a lane per P3P candidate (kept per hypothesis for its count)
@@ -378,36 +400,45 @@ def plan_ransac(n_hyp: int, N: int) -> RansacPlan:
     return RansacPlan(K15_THREADS, lanes, -(-n_hyp // (K15_THREADS // lanes)), shared)
 
 
-_K15_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float]
+_K15_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float]
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
 _K15_SERIAL_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                         + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 6)
 
 
-def _pnp_ransac_cuda(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+def _pnp_ransac_cuda(x, y, mask, hyp, threshold: float = DEFAULT_THRESHOLD,
                      refine: bool = True, cycles: torch.Tensor | None = None,
                      serial: bool = False) -> PnpResult:
     """K15: `pnp_ransac_batch` in one launch (f32, N <= K15_MAX_POINTS), on
-    `plan_ransac`'s geometry. With `cycles` (int64 [O, len(PNP_PHASES)] on
-    the card) each block adds its SM clock cycles per phase there; `serial`
-    launches the earlier design (`pnp_ransac_serial_kernel`), kept for
-    comparison. Raises on what the kernel does not take; never falls back."""
+    `plan_ransac`'s geometry. hyp: `Draws` (the draws mode: each hypothesis
+    group ranks its row of u under the mask, `hypothesis_indices_plain`'s
+    picks) or int64 indices [O, n_hyp, 4]. With `cycles` (int64
+    [O, len(PNP_PHASES)] on the card) each block adds its SM clock cycles
+    per phase there; `serial` launches the earlier design
+    (`pnp_ransac_serial_kernel`, indices only), kept for comparison. Raises
+    on what the kernel does not take; never falls back."""
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise ValueError(f"K15 runs in f32, got {x.dtype} / {y.dtype}")
     O, N = mask.shape
-    H = idx.shape[1] if idx.dim() == 3 else 0
-    if (x.shape != (O, N, 3) or y.shape != (O, N, 2) or idx.shape != (O, H, 4)
-            or min(O, H) < 1):
+    draws = isinstance(hyp, Draws)
+    h = hyp.u if draws else hyp
+    H = h.shape[1] if h.dim() == 3 else 0
+    if (x.shape != (O, N, 3) or y.shape != (O, N, 2)
+            or h.shape != ((O, H, N) if draws else (O, H, 4)) or min(O, H) < 1):
         raise ValueError(f"K15 shapes: x {tuple(x.shape)} y {tuple(y.shape)} "
-                         f"mask {tuple(mask.shape)} idx {tuple(idx.shape)}")
+                         f"mask {tuple(mask.shape)} {'u' if draws else 'idx'} {tuple(h.shape)}")
+    if draws and (h.dtype != torch.float32 or serial):
+        raise ValueError(f"K15 ranks f32 draws in its current design, got {h.dtype}"
+                         f"{' (serial)' if serial else ''}")
     plan = plan_ransac(H, N)
     dev = x.device
-    if dev.type != "cuda" or any(a.device != dev for a in (y, mask, idx)):
+    if dev.type != "cuda" or any(a.device != dev for a in (y, mask, h)):
         raise ValueError("K15 inputs must lie on one CUDA device")
     xc, yc = x.contiguous(), y.contiguous()
-    # the engine's bool mask and int64 indices pass as they are: no conversion
+    # the engine's bool mask, int64 indices and f32 draws pass as they are:
+    # no conversion (each bound to a name until the launch)
     mk = mask.bool().contiguous().view(torch.uint8)
-    ix = idx.long().contiguous()
+    hc = h.contiguous() if draws else h.long().contiguous()
     T = torch.empty((O, 4, 4), dtype=torch.float32, device=dev)
     inliers = torch.empty((O, N), dtype=torch.bool, device=dev)
     num = torch.empty((O,), dtype=torch.int64, device=dev)
@@ -416,41 +447,46 @@ def _pnp_ransac_cuda(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
                                or cycles.device != dev):
         raise ValueError(f"K15 cycles: int64 [{O}, {len(PNP_PHASES)}] on {dev}")
     p = _build.ptr
-    ins = (p(xc), p(yc), p(mk), p(ix), O, N, H, float(threshold) ** 2, int(bool(refine)))
+    ix, u = (None, p(hc)) if draws else (p(hc), None)
+    rest = (O, N, H, float(threshold) ** 2, int(bool(refine)))
     outs = (p(T), p(inliers), p(num), p(success), None if cycles is None else p(cycles),
             _build.stream())
     if serial:
         fn = _build.entry("pnp_ransac", _K15_SERIAL_ARGTYPES, "suo_pnp_ransac_serial")
-        err = fn(*ins, *outs)
+        err = fn(p(xc), p(yc), p(mk), ix, *rest, *outs)
     else:
         fn = _build.entry("pnp_ransac", _K15_ARGTYPES)
-        err = fn(*ins, plan.lanes.bit_length() - 1, plan.shared_bytes, *outs)
+        err = fn(p(xc), p(yc), p(mk), ix, u, *rest, plan.lanes.bit_length() - 1,
+                 plan.shared_bytes, *outs)
     _build.check(err, "K15 pnp_ransac")
     kernels.count("pnp_ransac")
     return PnpResult(T=T, inliers=inliers, num_inliers=num, success=success)
 
 
-def pnp_ransac_batch(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+def pnp_ransac_batch(x, y, mask, hyp, threshold: float = DEFAULT_THRESHOLD,
                      refine: bool = True) -> PnpResult:
     """Robust PnP for a batch of objects from padded correspondences.
 
     x [O, N, 3] model points, y [O, N, 2] pinhole-normalized image points,
-    mask [O, N] validity, idx [O, n_hyp, 4] hypothesis point indices.
-    K15 (one launch) on CUDA tensors, `pnp_ransac_batch_plain` on CPU
-    tensors."""
+    mask [O, N] validity; hyp the hypotheses: `Draws` u [O, n_hyp, N]
+    (ranked under mask, `hypothesis_indices_plain`) or point indices
+    idx [O, n_hyp, 4]. K15 (one launch, either input) on CUDA tensors,
+    `pnp_ransac_batch_plain` on CPU tensors."""
     if x.device.type == "cpu":
-        return pnp_ransac_batch_plain(x, y, mask, idx, threshold, refine)
+        return pnp_ransac_batch_plain(x, y, mask, hyp, threshold, refine)
     if x.device.type != "cuda":
         raise ValueError(f"pnp_ransac_batch: unsupported device {x.device}")
-    return _pnp_ransac_cuda(x, y, mask, idx, threshold, refine)
+    return _pnp_ransac_cuda(x, y, mask, hyp, threshold, refine)
 
 
-def pnp_ransac(x, y, mask, idx, threshold: float = DEFAULT_THRESHOLD,
+def pnp_ransac(x, y, mask, hyp, threshold: float = DEFAULT_THRESHOLD,
                refine: bool = True) -> PnpResult:
-    """Robust PnP of one point set: x [N, 3], y [N, 2], mask [N] and
-    idx [n_hyp, 4] hypothesis indices (the JAX `pnp_ransac` draws
-    DEFAULT_HYPOTHESES = 128 from one whole key). `pnp_ransac_batch` with a
-    batch of one; the result's fields drop the batch axis."""
-    r = pnp_ransac_batch(x[None], y[None], mask[None], idx[None], threshold, refine)
+    """Robust PnP of one point set: x [N, 3], y [N, 2], mask [N] and the
+    hypotheses, `Draws` u [n_hyp, N] or indices idx [n_hyp, 4] (the JAX
+    `pnp_ransac` draws DEFAULT_HYPOTHESES = 128 from one whole key).
+    `pnp_ransac_batch` with a batch of one; the result's fields drop the
+    batch axis."""
+    hyp = Draws(hyp.u[None]) if isinstance(hyp, Draws) else hyp[None]
+    r = pnp_ransac_batch(x[None], y[None], mask[None], hyp, threshold, refine)
     return PnpResult(T=r.T[0], inliers=r.inliers[0], num_inliers=r.num_inliers[0],
                      success=r.success[0])

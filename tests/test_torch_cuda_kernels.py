@@ -233,7 +233,7 @@ def test_k6_chi2_counts(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     for S, M, per_object in ((8, 1, False), (30, 15, True)):
         args = _ransac_problem(dev, g, S, M)
-        k = sk.chi2_counts(*args, per_object=per_object)
+        k = sk._chi2_counts_cuda(*args, sk.CHI2_THRESH_2DOF, per_object)
         p = sk.chi2_counts_plain(*args, per_object=per_object)
         assert torch.equal(k, p)
         assert 0 < int(k.min()) and int(k.max()) < args[4].sum()
@@ -700,23 +700,158 @@ def test_k22_pnp_sample(dev, O, H, N):
 
 
 def test_k22_one_launch_per_sampler_call(dev, monkeypatch):
-    """The engine's sampler on a CUDA mask: one K22 launch a call (the
-    group's and the backup pose's `single`), never the plain version."""
+    """The index sampler (`pnp.sample_hypothesis_indices`, off the main
+    path) on a CUDA mask: one K22 launch a call, never the plain version."""
     from suo_slam_tpu_torch import kernels
-    from suo_slam_tpu_torch.slam.engine import TorchGumbelSampler
     from suo_slam_tpu_torch.solvers import pnp
 
     plain = []
     monkeypatch.setattr(pnp, "hypothesis_indices_plain", lambda *a: plain.append(a))
-    sampler = TorchGumbelSampler(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
     mask = torch.rand((8, 41), device=dev) < 0.8
     kernels.reset_counts()
-    idx = sampler(mask, 64)
-    one = sampler.single(mask.flatten(), 128)
+    idx = pnp.sample_hypothesis_indices(mask, 64, gen)
+    one = pnp.sample_hypothesis_indices(mask.flatten()[None], 128, gen)[0]
     torch.cuda.synchronize()
     assert kernels.counts()["pnp_sample"] == 2 and not plain
     assert idx.shape == (8, 64, 4) and one.shape == (128, 4) and idx.dtype == torch.int64
     assert bool(torch.gather(mask, 1, idx.flatten(1)).all())
+
+
+def test_default_sampler_launches_no_k22(dev, monkeypatch):
+    """The engine's default sampler draws `pnp.Draws` (one `torch.rand`, the
+    index sampler's draw on the same generator) and launches nothing; the
+    group's and the backup pose's PnP on them are one K15 launch each, no
+    K22 and no plain ranking, bit-equal to K15 on the index sampler's
+    indices from a generator at the same seed."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.slam.engine import TorchGumbelSampler
+    from suo_slam_tpu_torch.solvers import pnp
+
+    import chip_smoke as cs
+
+    x, y, mask, _ = cs.pnp_inputs(dev, np.random.default_rng(3))
+    plain = []
+    rank = pnp.hypothesis_indices_plain
+    monkeypatch.setattr(pnp, "hypothesis_indices_plain", lambda *a: plain.append(a) or rank(*a))
+    kernels.reset_counts()
+    sampler = TorchGumbelSampler(7, dev)
+    d = sampler(mask, 64)
+    one = sampler.single(mask[0], 128)
+    assert isinstance(d, pnp.Draws) and d.u.shape == (8, 64, 41) and one.u.shape == (128, 41)
+    assert sum(kernels.counts().values()) == 0
+    r = pnp.pnp_ransac_batch(x, y, mask, d)
+    r1 = pnp.pnp_ransac(x[0], y[0], mask[0], one)
+    torch.cuda.synchronize()
+    c = kernels.counts()
+    assert c["pnp_ransac"] == 2 and c["pnp_sample"] == 0 and not plain
+    gen = torch.Generator(device=dev).manual_seed(7)
+    idx = pnp.sample_hypothesis_indices(mask, 64, gen)
+    idx1 = pnp.sample_hypothesis_indices(mask[:1], 128, gen)[0]
+    ri = pnp.pnp_ransac_batch(x, y, mask, idx)
+    ri1 = pnp.pnp_ransac(x[0], y[0], mask[0], idx1)
+    for a, b in ((r, ri), (r1, ri1)):
+        assert torch.equal(a.T.view(torch.int32), b.T.view(torch.int32))
+        assert torch.equal(a.inliers, b.inliers) and torch.equal(a.success, b.success)
+        assert torch.equal(a.num_inliers, b.num_inliers)
+
+
+@pytest.mark.parametrize("n_hyp,N", [(64, 41), (128, 8), (31, 4), (65, 97), (1, 1),
+                                     (128, 328), (64, 2048)])
+def test_k15_draws_mode_equals_k15_on_k22_indices(dev, n_hyp, N):
+    """K15's draws mode (it ranks the `torch.rand` draws itself, the main
+    path's input) against K15 on K22's indices of the same draws: pose bits,
+    inliers, counts and success equal, with and without refinement, at the
+    front end's [8, 64, 41], the backup pose's [1, 128, 8] (`backup_inputs`)
+    and ragged shapes (rows of 3 and 0 valid points among them: exhausted
+    picks). f64 draws and the serial design raise."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch.solvers import pnp
+
+    rng = np.random.default_rng(n_hyp * 31 + N)
+    if (n_hyp, N) == (128, 8):
+        x, y, mask, d = cs.backup_inputs(dev, rng, draws=True)
+    else:
+        x, y, mask, d = cs.pnp_inputs(dev, rng, O=8 if N == 41 else 6, N=N, n_hyp=n_hyp,
+                                      draws=True)
+    cs.k15_draws_equal(f"n_hyp={n_hyp} N={N}", x, y, mask, d)
+    with pytest.raises(ValueError, match="f32 draws"):
+        pnp._pnp_ransac_cuda(x, y, mask, pnp.Draws(d.u.double()))
+    with pytest.raises(ValueError, match="serial"):
+        pnp._pnp_ransac_cuda(x, y, mask, d, serial=True)
+
+
+@pytest.mark.parametrize("case", ["seeded", "padded", "tie", "no inlier", "no candidate",
+                                  "unmet", "map 64", "map 128"])
+def test_k6_camera_ransac_fused(dev, case):
+    """K6's camera-RANSAC mode (`camera_ransac`, the front end's slots
+    branch) in one launch, bit-equal to its plain twin on the card: the
+    pose's bits, the count, ok and the best slot (`chip_smoke`'s cases: a
+    padded group, a tie to the lower slot, a row with no inlier, no
+    candidate, min_num_inliers unmet, maps of 64 and 128 slots: several
+    rounds of hypotheses, and one a round); `camera_pose_ransac` on the
+    scattered rows is one launch too, equal."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    objs = cs.Objects(np.random.default_rng(0))
+    args, mi = cs.camera_ransac_inputs(dev, np.random.default_rng(len(case)), objs, case)
+    kernels.reset_counts()
+    k = sk.camera_ransac(*args, mi)
+    torch.cuda.synchronize()
+    assert kernels.counts()["chi2_counts"] == 1 and sum(kernels.counts().values()) == 1
+    p = sk.camera_ransac_plain(*args, mi)
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    for a, b in zip(k[1:], p[1:]):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if case == "tie":
+        assert bool(k[2]) and int(k[3]) == 1
+    if case in ("no candidate", "unmet"):
+        assert not bool(k[2]) and torch.equal(k[0], torch.eye(4, device=dev))
+    T_pnp, pnp_ok, uv, info, keep, k4, slots, obj_T, active, model_kp = args
+    O = obj_T.shape[0]
+
+    def rows(src, fill):
+        out = torch.full((O + 1,) + src.shape[1:], fill, dtype=src.dtype, device=dev)
+        out[slots] = src
+        return out[:O]
+
+    T_row = rows(T_pnp, 0.0)
+    T_row[~rows(torch.ones_like(pnp_ok), False)] = torch.eye(4, device=dev)
+    ok_row = rows(pnp_ok, False)
+    kernels.reset_counts()
+    j = sk.camera_pose_ransac(T_row, ok_row, obj_T, active & ok_row, model_kp, rows(uv, 0.0),
+                              rows(info, 0.0), rows(keep, False), rows(k4, 0.0), mi)
+    torch.cuda.synchronize()
+    assert kernels.counts()["chi2_counts"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(j, k[:3]))
+
+
+def test_k6_reinit_votes_fused(dev):
+    """K6's re-init mode (`reinit_votes`, the tail's vote over the views cs
+    of the device mirrors) in one launch, equal to its plain twin on the
+    card (two invalid views among 16 of 32 rows); `reinit_counts` on CUDA
+    tensors is one launch too."""
+    import chip_smoke as cs
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    objs = cs.Objects(np.random.default_rng(0))
+    args = cs.reinit_inputs(dev, np.random.default_rng(1), objs)
+    kernels.reset_counts()
+    k = sk.reinit_votes(*args)
+    torch.cuda.synchronize()
+    assert kernels.counts()["chi2_counts"] == 1
+    p = sk.reinit_votes_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]) and k[0].dtype == torch.int32
+    assert (k[0][[0, 2, 4]] < k[1][[0, 2, 4]]).all() and (k[0][[1, 3, 5]] > k[1][[1, 3, 5]]).all()
+    T_pnp, T_est, cam_T, cam_valid, model_kp, uv_m, info_m, valid_m, k4_m, cs_ = args
+    r = sk.reinit_counts(T_pnp, T_est, cam_T, cam_valid, model_kp, uv_m[cs_], info_m[cs_],
+                         valid_m[cs_], k4_m[cs_])
+    torch.cuda.synchronize()
+    assert kernels.counts()["chi2_counts"] == 2
+    assert torch.equal(r[0], k[0]) and torch.equal(r[1], k[1])
 
 
 def test_kernels_refuse_autograd(dev):
