@@ -143,15 +143,25 @@ Phases (any failure raises and exits non-zero):
   9. training: a `train_real` split (40 480x640 PNG views of 5-8 of the
      eight objects, YCB-V's every-5th cut keeps 8) beside phase 7's test
      split; K16-K19 against their plain versions at the train step's
-     full-width shapes (16 rows, 4 padded; f32 and bf16) with kernel,
+     full-width shapes (32 rows, 8 padded; f32 and bf16) with kernel,
      device, plain and library times (F.batch_norm + relu forward and
-     backward; avg_pool2d; autograd of softmax + einsum) and bytes bounds;
-     one full-width train step (2 frames x 16 slots) with the kernels
+     backward; avg_pool2d; autograd of softmax + einsum), L2-cold device
+     times (`cuda_ms_cold`) and bytes bounds; K16 / K17 in both designs
+     (fused, the main path: one cooperative launch a call; split, the
+     first design): equal to their plain versions, the fused K16's affine
+     and running averages and K17's scale gradient bit-equal to the eager
+     ops they replace, repeated calls bit-equal, kernels a call by a
+     captured graph's nodes, L2-cold times in turns at [32, 256, 64, 64],
+     SM cycles by phase (`bn_clocks`), and both designs at every norm
+     shape of the step (`bn_step_shapes`); one full-width train step (2
+     frames x 16 slots) with the kernels
      against the same step on the plain versions, f32 and bf16 (loss and
      terms, every gradient, the new statistics; gated by the step's own
      sensitivity to 1e-6 input noise); the bf16 step's host and device ms,
-     kernels, busy share, peak memory and launches per step (K16 / K17 / K8
-     180, K9 / K18 8, K1 / K2 / K5 / K19 1); 30 steps overfitting one batch
+     kernels, K16 / K17's device ms, busy share, peak memory and launches
+     per step (K16 / K17 / K8 180, K9 / K18 8, K1 / K2 / K5 / K19 1;
+     `--step-only` runs this alone, to compare two checkouts in turns); 30
+     steps overfitting one batch
      (the loss falls); `python -m suo_slam_tpu_torch.train` in process, full
      width and bf16, 2 epochs x 4 steps + 2 validation batches, its exact
      launches, no plain version on a CUDA tensor, its checkpoints, and a
@@ -285,6 +295,64 @@ def cuda_ms(fn, n=20, inner=10, warmup=3):
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
     return statistics.median(times)
+
+
+_L2_FLUSH = {}
+SPIN_CYCLES = 600_000  # ~0.3 ms of `torch.cuda._sleep` at the H100's SM clock
+
+
+def cuda_ms_cold(fn, n=15, warmup=2):
+    """Device milliseconds of one call of `fn` that finds its inputs in
+    device memory, not in the 50 MB L2 (as a train step's backward finds the
+    activations its forward saved): before each call a read of 128 MB
+    leaves the L2 holding only clean lines of its own, then a spin kernel
+    (`torch.cuda._sleep`) keeps the device busy while the host enqueues the
+    call, so the CUDA events around it time the device alone; the median
+    of n."""
+    import torch
+
+    buf = _L2_FLUSH.get("buf")
+    if buf is None:
+        buf = _L2_FLUSH["buf"] = torch.zeros(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        buf.sum()
+        torch.cuda._sleep(SPIN_CYCLES)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def launch_us(n=200):
+    """The device microseconds one more launch costs on a stream: a CUDA
+    graph of n empty kernels (`torch.cuda._sleep(0)`) replayed between CUDA
+    events, per kernel — the host's enqueue out of the loop."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(n):
+            torch.cuda._sleep(0)
+    g.replay()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    g.replay()
+    e.record()
+    e.synchronize()
+    g.reset()
+    return 1e3 * s.elapsed_time(e) / n
 
 
 def bound(nbytes: float, flops: float, ops_per_s: float = F32_FLOP_PER_S):
@@ -3008,9 +3076,11 @@ def check_k9(dev, rng):
         ms = cuda_ms(lambda: hg._upsample_add_cuda(a, b))
         plain_ms = cuda_ms(lambda: hg.upsample_add_plain(a, b))
         us, src = device_us(lambda: hg._upsample_add_cuda(a, b), "upsample_add_kernel")
+        cold = 1e3 * cuda_ms_cold(lambda: hg._upsample_add_cuda(a, b))
         bnd = bound((2 * a.numel() + b.numel()) * a.element_size(), a.numel())
         out[name] = (ms, plain_ms, bnd)
-        _report(f"K9 upsample_add ({name}, up1 {list(a.shape)}, device {us:.3f} us by {src})",
+        _report(f"K9 upsample_add ({name}, up1 {list(a.shape)}, device {us:.3f} us by {src} "
+                f"with warm inputs, {cold:.3f} us L2-cold)",
                 err, "0",
                 ms, plain_ms, None, bnd)
     ms, plain_ms, b = out["bf16"]
@@ -4006,7 +4076,7 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
 
 # training phase ------------------------------------------------------------------
 TRAIN_VIEWS = 40  # YCB-V train_real keeps every 5th frame: 8 training frames
-TRAIN_N = 16  # rows of the kernel checks' tensors (the CLI's step has 2 x 16)
+TRAIN_N = 32  # rows of the kernel checks' tensors: the CLI's step, 2 frames x 16 slots
 # the train step's expected launches per forward (2 stacks x 2 modules x 256)
 NORMS_PER_FWD, JUNCTIONS_PER_FWD = 180, 8
 
@@ -4045,95 +4115,224 @@ def write_train_split(root, objs, rng):
 
 
 def _row_mask(dev):
-    """TRAIN_N rows with every fourth one a padded slot."""
+    """TRAIN_N rows with every fourth one a padded slot (8 of 32)."""
     import torch
 
     return torch.arange(TRAIN_N, device=dev) % 4 != 3
 
 
+def bn_clocks(label, fn, phases, rows):
+    """SM clock cycles by phase of one L2-cold call (`fn(cycles)` launches
+    the clocked instance; thread 0 of each block): the mean over the blocks
+    that ran each phase, and the largest block's total."""
+    import torch
+
+    cyc = torch.zeros((rows, len(phases)), dtype=torch.int64, device="cuda")
+    fn(cyc)
+    cyc.zero_()
+    buf = _L2_FLUSH["buf"]
+    buf.sum()
+    fn(cyc)
+    r = cyc.cpu().double()
+    mean = {k: round((r[:, i].sum() / max(int((r[:, i] > 0).sum()), 1)).item())
+            for i, k in enumerate(phases)}
+    log(f"[train] {label}: SM cycles by phase, mean over the blocks that ran it "
+        + json.dumps(mean) + f"; the slowest block {int(r.sum(1).max())} in all")
+    return mean
+
+
+def bn_kernel_of(name: str):
+    """"K16" or "K17" for a kernel of `csrc/bn_train.cu` in a profiler
+    trace (both designs: the fused kernels, and the split design's partial
+    pass by its mode, finalizes and dx pass), None for any other."""
+    import re
+
+    if "bn_stats_fused_kernel" in name or "stats_finalize_kernel" in name:
+        return "K16"
+    if "bn_bwd_fused_kernel" in name or "bwd_finalize_kernel" in name \
+            or re.search(r"(^|[^_\w])dx_kernel<", name):
+        return "K17"
+    m = re.search(r"(^|[^_\w])partial_kernel<[^,]+,\s*\d+,\s*(\d)", name)
+    if m:
+        return "K16" if m.group(2) == "0" else "K17"
+    return None
+
+
 def check_k16_k17(dev, rng):
     """K16 (masked batch statistics) and K17 (the norm + ReLU backward, with
-    the statistics' terms) at the train step's norm shapes, N = 16 rows of
-    which 4 padded, f32 and bf16: the stem norm (64 ch at 128x128), the
-    largest residual norm (256 ch at 64x64) and a bottleneck norm (128 ch at
-    64x64). Statistics within 1e-6 relative (f64 sums in another order),
-    K17's sums within 1e-5 of their scale, dx within 1e-5 of its largest
-    magnitude in f32 and 1 bf16 ulp of it in bf16. Times at the largest
-    shape; the library yardstick is F.batch_norm(training=True) + relu,
-    forward (K16 + K8's work) and backward (K17's)."""
+    the statistics' terms) at the train step's norm shapes, N = 32 rows of
+    which 8 padded, f32 and bf16, both designs: the stem norm (64 ch at
+    128x128), the largest residual norm (256 ch at 64x64), a bottleneck norm
+    (128 ch at 64x64) and two of the smallest (256 ch at 8x8, 128 ch at
+    4x4). Statistics within 1e-6 relative (f64 sums in another order), K17's
+    sums within 1e-5 of their scale, dx within 1e-5 of its largest magnitude
+    in f32 and 1 bf16 ulp of it in bf16. The fused design (the main path)
+    exactly: its K16 affine and running averages and its K17 scale gradient
+    equal to the eager ops they replace, every output equal when a call is
+    repeated, one kernel a call. Times at the largest shape with the L2
+    flushed (`cuda_ms_cold`), the designs in turns (split, fused, fused,
+    split), and SM cycles by phase of both; the library yardstick is
+    F.batch_norm(training=True) + relu, forward (K16 + K8's work) and
+    backward (K17's)."""
     import torch
     import torch.nn.functional as F
 
     from suo_slam_tpu_torch.models import hourglass as hg
 
-    mask = _row_mask(dev)
-    shapes = [(TRAIN_N, 64, 128, 128), (TRAIN_N, 256, 64, 64), (TRAIN_N, 128, 64, 64)]
-    err = {"stats": 0.0, "sums": 0.0, "dx f32": 0.0, "dx bf16": 0.0}
+    mask = _row_mask(dev).to(torch.uint8)  # as the net passes it
+    shapes = [(TRAIN_N, 64, 128, 128), (TRAIN_N, 256, 64, 64), (TRAIN_N, 128, 64, 64),
+              (TRAIN_N, 256, 8, 8), (TRAIN_N, 128, 4, 4)]
+    err = {d: {"stats": 0.0, "sums": 0.0, "dx f32": 0.0, "dx bf16": 0.0} for d in hg.DESIGNS}
+    exact = {"K16 affine": True, "K16 running": True, "K17 dscale": True, "repeat": True}
     cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+    same = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b))
     for shape in shapes:
         C = shape[1]
         x32 = cl((rng.normal(size=shape) * 1.5 + rng.normal(size=(1, C, 1, 1))).astype(np.float32))
         dy32 = cl(rng.normal(size=shape).astype(np.float32))
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev) * 0.3
         for dt in (torch.float32, torch.bfloat16):
             x, dy = x32.to(dt), dy32.to(dt)
-            mk, vk = hg._bn_stats_cuda(x, mask)
             mp, vp = hg.bn_stats_plain(x, mask)
-            torch.cuda.synchronize()
-            err["stats"] = max(err["stats"], ((mk - mp).abs() / mp.abs().clamp(min=1e-3)).max().item(),
-                               ((vk - vp).abs() / vp.abs().clamp(min=1e-3)).max().item())
-            scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
             rstd = torch.rsqrt(vp + 1e-5)
             inv = rstd * scale
-            shift = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev) * 0.3 - mp * inv
-            k = hg._norm_relu_bwd_cuda(x, dy, inv, shift, mp, rstd, mask)
+            shift = bias - mp * inv
             p = hg.norm_relu_bwd_plain(x, dy, inv, shift, mp, rstd, mask)
-            torch.cuda.synchronize()
-            for a, b in zip(k[1:], p[1:]):
-                err["sums"] = max(err["sums"], (a - b).abs().max().item()
-                                  / max(b.abs().max().item(), 1.0))
-            key = "dx f32" if dt == torch.float32 else "dx bf16"
-            err[key] = max(err[key], (k[0].float() - p[0].float()).abs().max().item()
-                           / p[0].float().abs().max().item())
-    log(f"[train] K16 / K17 errors over {len(shapes)} shapes, f32 and bf16, 4 of 16 rows "
-        f"padded: " + json.dumps({k: f"{v:.3e}" for k, v in err.items()})
-        + " (tol: stats 1e-6 relative, sums 1e-5 of scale, dx f32 1e-5 of max, bf16 2^-8)")
-    if not (err["stats"] <= 1e-6 and err["sums"] <= 1e-5 and err["dx f32"] <= 1e-5
-            and err["dx bf16"] <= 2.0 ** -8):
-        raise AssertionError(f"K16 / K17 disagree with their plain versions: {err}")
+            pf = hg.norm_relu_bwd_plain(x, dy, inv, shift)
+            for design in hg.DESIGNS:
+                e = err[design]
+                mk, vk = hg._bn_stats_cuda(x, mask, design=design)
+                torch.cuda.synchronize()
+                rel = lambda a, b: ((a - b).abs() / b.abs().clamp(min=1e-3)).max().item()
+                e["stats"] = max(e["stats"], rel(mk, mp), rel(vk, vp))
+                key = "dx f32" if dt == torch.float32 else "dx bf16"
+                for kw, ref in ((dict(mean=mp, rstd=rstd, row_mask=mask), p), ({}, pf)):
+                    k = hg._norm_relu_bwd_cuda(x, dy, inv, shift, design=design, **kw)
+                    torch.cuda.synchronize()
+                    for a, b in zip(k[1:], ref[1:]):
+                        e["sums"] = max(e["sums"], (a - b).abs().max().item()
+                                        / max(b.abs().max().item(), 1.0))
+                    e[key] = max(e[key], (k[0].float() - ref[0].float()).abs().max().item()
+                                 / ref[0].float().abs().max().item())
+                    if design == "fused":
+                        exact["K17 dscale"] &= torch.equal(k[3], k[2] * rstd if kw else k[2])
+                        again = hg._norm_relu_bwd_cuda(x, dy, inv, shift, **kw)
+                        exact["repeat"] &= same(k, again)
+                if design == "fused":
+                    rm = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev)
+                    rv = torch.from_numpy(rng.uniform(0.5, 2.0, C).astype(np.float32)).to(dev)
+                    rm0, rv0 = rm.clone(), rv.clone()
+                    out = hg._bn_train_stats_cuda(x, mask, scale, bias, 1e-5, rm, rv, 0.9)
+                    m2, v2, rs2, iv2, sh2 = out
+                    exact["repeat"] &= torch.equal(m2, mk) and torch.equal(v2, vk)
+                    r_e = torch.rsqrt(vk + 1e-5)
+                    i_e = r_e * scale
+                    exact["K16 affine"] &= (torch.equal(rs2, r_e) and torch.equal(iv2, i_e)
+                                            and torch.equal(sh2, bias - mk * i_e))
+                    exact["K16 running"] &= (torch.equal(rm, rm0 * 0.9 + mk * (1 - 0.9))
+                                             and torch.equal(rv, rv0 * 0.9 + vk * (1 - 0.9)))
+                    exact["repeat"] &= same(out, hg._bn_train_stats_cuda(x, mask, scale, bias,
+                                                                         1e-5, rm0, rv0, 0.9))
+    for design in hg.DESIGNS:
+        log(f"[train] K16 / K17 ({design} design) errors over {len(shapes)} shapes, f32 and "
+            f"bf16, 8 of 32 rows padded, K17 in both modes: "
+            + json.dumps({k: f"{v:.3e}" for k, v in err[design].items()})
+            + " (tol: stats 1e-6 relative, sums 1e-5 of scale, dx f32 1e-5 of max, bf16 2^-8)")
+    log(f"[train] fused K16 / K17 bit-equal to the eager ops they replace and across "
+        f"repeated calls: {json.dumps(exact)}")
+    for design, e in err.items():
+        if not (e["stats"] <= 1e-6 and e["sums"] <= 1e-5 and e["dx f32"] <= 1e-5
+                and e["dx bf16"] <= 2.0 ** -8):
+            raise AssertionError(f"K16 / K17 ({design}) disagree with their plain versions: {e}")
+    if not all(exact.values()):
+        raise AssertionError(f"fused K16 / K17 not bit-equal: {exact}")
+
+    # kernels a call, by the nodes of a captured graph
+    big = shapes[1]
+    x = cl((rng.normal(size=big) * 1.5).astype(np.float32)).to(torch.bfloat16)
+    dy = cl(rng.normal(size=big).astype(np.float32)).to(torch.bfloat16)
+    C = big[1]
+    one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    rm, rv = zero.clone(), one.clone()
+    mean, _, rstd, inv, shift = hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9)
+    per_call = {}
+    for label, fn in (
+            ("K16 fused", lambda: hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9)),
+            ("K17 fused train", lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd,
+                                                               mask)),
+            ("K17 fused fixed", lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift)),
+            ("K16 split", lambda: hg._bn_stats_cuda(x, mask, design="split")),
+            ("K17 split train", lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd,
+                                                               mask, design="split"))):
+        per_call[label] = launches_per_call(fn)
+    log(f"[train] K16 / K17 kernels per call (captured graph, bf16 {list(big)}): "
+        + json.dumps(per_call))
+    if any(per_call[k] != 1 for k in ("K16 fused", "K17 fused train", "K17 fused fixed")):
+        raise AssertionError(f"fused K16 / K17 launch more than one kernel a call: {per_call}")
+    if any(w[0].any().item() for w in hg._bn_work.values()):
+        raise AssertionError("a fused launch left its grid-barrier counters non-zero")
+
+    # times at the largest shape, L2 flushed, the designs in turns; clocks
+    lu = launch_us()
+    log(f"[train] an empty kernel in a replayed graph: {lu:.3f} us of device time (a launch's "
+        f"cost, against the grid barriers' SM cycles below)")
     out = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        x = cl((rng.normal(size=shapes[1]) * 1.5).astype(np.float32)).to(dt)
-        dy = cl(rng.normal(size=shapes[1]).astype(np.float32)).to(dt)
+        x = cl((rng.normal(size=big) * 1.5).astype(np.float32)).to(dt)
+        dy = cl(rng.normal(size=big).astype(np.float32)).to(dt)
         mp, vp = hg.bn_stats_plain(x, mask)
         rstd = torch.rsqrt(vp + 1e-5)
         inv, shift = rstd, -mp * rstd
-        w = torch.ones(256, device=dev, requires_grad=True)
-        bb = torch.zeros(256, device=dev, requires_grad=True)
+        w = torch.ones(C, device=dev, requires_grad=True)
+        bb = torch.zeros(C, device=dev, requires_grad=True)
         xg = x.detach().requires_grad_(True)
         y = torch.relu(F.batch_norm(xg, None, None, w, bb, training=True))
         dyl = dy.contiguous()
-        k16 = lambda: hg._bn_stats_cuda(x, mask)
-        k17 = lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mp, rstd, mask)
+        rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+        k16 = {"fused": lambda: hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9),
+               "split": lambda: hg._bn_stats_cuda(x, mask, design="split")}
+        k17 = {d: (lambda d=d: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mp, rstd, mask,
+                                                      design=d)) for d in hg.DESIGNS}
         lib16 = lambda: torch.relu(F.batch_norm(x, None, None, None, None, training=True))
         lib17 = lambda: torch.autograd.grad(y, (xg, w, bb), dyl, retain_graph=True)
         n = x.numel()
         es = x.element_size()
+        real = int(mask.sum().item()) * n // big[0]
         res = {}
-        for label, fn, plain, lib, nbytes, ops in (
+        for label, fns, plain, lib, nbytes, ops in (
                 ("K16 bn_stats", k16, lambda: hg.bn_stats_plain(x, mask), lib16,
-                 n * es + 2 * 256 * 4, 3 * n),
+                 real * es + 11 * C * 4, 3 * real),
                 ("K17 norm_relu_bwd", k17,
                  lambda: hg.norm_relu_bwd_plain(x, dy, inv, shift, mp, rstd, mask), lib17,
-                 3 * n * es + 6 * 256 * 4, 12 * n)):
-            ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain, n=5, inner=2), cuda_ms(lib)
-            us, src = lib_device_us(fn)
+                 3 * n * es + 7 * C * 4, 12 * n)):
+            cold = {d: [] for d in hg.DESIGNS}
+            for d in ("split", "fused", "fused", "split"):
+                cold[d].append(1e3 * cuda_ms_cold(fns[d]))
+            ms, plain_ms, lib_ms = cuda_ms(fns["fused"]), cuda_ms(plain, n=5, inner=2), \
+                cuda_ms(lib)
+            lib_cold = 1e3 * cuda_ms_cold(lib)
             b = bound(nbytes, ops)
-            _report(f"{label} ({name}, {list(x.shape)}, 4 of 16 rows padded, device {us:.3f} us "
-                    f"by {src})", err["stats"] if label.startswith("K16") else err[f"dx {name}"],
+            _report(f"{label} ({name}, {list(x.shape)}, 8 of 32 rows padded; L2-cold device us, "
+                    f"in turns: fused {[round(v, 3) for v in cold['fused']]}, split "
+                    f"{[round(v, 3) for v in cold['split']]}, library {lib_cold:.3f})",
+                    err["fused"]["stats" if label.startswith("K16") else f"dx {name}"],
                     "1e-6 rel" if label.startswith("K16") else
                     ("1e-5 of max" if name == "f32" else "2^-8 of max"),
                     ms, plain_ms, lib_ms, b, lib)
-            res[label] = (ms, plain_ms, lib_ms, b, us)
+            res[label] = (ms, plain_ms, lib_ms, b, statistics.mean(cold["fused"]),
+                          statistics.mean(cold["split"]))
+        kc = lambda d: (lambda cyc: hg._bn_stats_cuda(x, mask, design=d, cycles=cyc))
+        bc = lambda d: (lambda cyc: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mp, rstd, mask,
+                                                           design=d, cycles=cyc))
+        it = x.element_size()
+        plan16 = hg.plan_bn("stats", big[0], big[2] * big[3], C, it, True, hg._multiprocessors(dev))
+        plan17 = hg.plan_bn("bwd", big[0], big[2] * big[3], C, it, True, hg._multiprocessors(dev))
+        rows_split = max(hg.plan_split(big[0], big[2] * big[3], C, it, True), -(-C // 32))
+        for d, rows16, rows17 in (("fused", plan16.grid, plan17.grid),
+                                  ("split", rows_split, rows_split)):
+            bn_clocks(f"K16 {d} ({name}, {list(big)})", kc(d), hg.BN_STATS_PHASES, rows16)
+            bn_clocks(f"K17 {d} ({name}, {list(big)})", bc(d), hg.BN_BWD_PHASES, rows17)
         out[name] = res
     entries = []
     for label, kname, src, rep in (
@@ -4141,16 +4340,81 @@ def check_k16_k17(dev, rng):
              "suo_slam_tpu/models/hourglass.py:69"),
             ("K17 norm_relu_bwd", "norm_relu_bwd", "suo_slam_tpu_torch/csrc/bn_train.cu",
              "suo_slam_tpu/models/hourglass.py:88")):
-        ms, plain_ms, lib_ms, b, us = out["bf16"][label]
+        ms, plain_ms, lib_ms, b, _, _ = out["bf16"][label]
+        e = err["fused"]
         entries.append(dict(name=kname, route="cuda", source=src, replaces=rep,
-                            max_abs_err=err["stats"] if kname == "bn_stats" else err["dx bf16"],
+                            max_abs_err=e["stats"] if kname == "bn_stats" else e["dx bf16"],
                             ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
                             library_ms=lib_ms))
     return entries
 
 
+def bn_step_shapes(dev, rng):
+    """K16 and K17 at every norm shape of the bf16 train step (one train-mode
+    forward of the full-width net on 32 crops, 8 padded, records them): one
+    L2-cold call of each design per shape, and the sums over the step's 180
+    calls of each — where a step's K16 / K17 time goes."""
+    import collections
+
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+
+    mask = _row_mask(dev).to(torch.uint8)
+    net = PkpNet(dtype=torch.bfloat16).to(dev)
+    shapes = collections.Counter()
+    real = hg.bn_train_stats
+
+    def spy(x, *a, **kw):
+        shapes[tuple(x.shape)] += 1
+        return real(x, *a, **kw)
+
+    crops = torch.from_numpy(rng.uniform(0, 1, (TRAIN_N, 256, 256, 3)).astype(np.float32)).to(dev)
+    hg.bn_train_stats = spy
+    try:
+        with torch.no_grad():
+            net(crops, train=True, row_mask=mask.bool())
+    finally:
+        hg.bn_train_stats = real
+    cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+    rows, tot = [], collections.Counter()
+    for shape, n in sorted(shapes.items(), key=lambda kv: -kv[0][2]):
+        C = shape[1]
+        x = cl(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+        dy = cl(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+        one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        rm, rv = zero.clone(), one.clone()
+        mean, _, rstd, inv, shift = hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9)
+        t = {"K16 fused": lambda: hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9),
+             "K16 split": lambda: hg._bn_stats_cuda(x, mask, design="split"),
+             "K17 fused": lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd, mask),
+             "K17 split": lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd, mask,
+                                                         design="split")}
+        us = {k: 1e3 * cuda_ms_cold(f, n=7) for k, f in t.items()}
+        for k, v in us.items():
+            tot[k] += n * v
+        rows.append([list(shape), n] + [round(us[k], 2) for k in t])
+        if shape in ((TRAIN_N, 128, 64, 64), (TRAIN_N, 128, 16, 16), (TRAIN_N, 128, 4, 4)):
+            it = x.element_size()
+            for kind, fn, phases in (
+                    ("stats", lambda cyc: hg._bn_stats_cuda(x, mask, cycles=cyc),
+                     hg.BN_STATS_PHASES),
+                    ("bwd", lambda cyc: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd, mask,
+                                                               cycles=cyc), hg.BN_BWD_PHASES)):
+                plan = hg.plan_bn(kind, shape[0], shape[2] * shape[3], C, it, True,
+                                  hg._multiprocessors(dev))
+                bn_clocks(f"{'K16' if kind == 'stats' else 'K17'} fused ({list(shape)}, grid "
+                          f"{plan.grid})", fn, phases, plan.grid)
+    log("[train] K16 / K17 by norm shape of the bf16 step (shape, calls, L2-cold device us a "
+        "call: K16 fused, K16 split, K17 fused, K17 split): " + json.dumps(rows))
+    log("[train] ... summed over the step's calls (ms): "
+        + json.dumps({k: round(v / 1e3, 3) for k, v in tot.items()}))
+    return tot
+
+
 def check_k18(dev, rng):
-    """K18 at each junction of the train step (up1 [16, 256, H, H] for H =
+    """K18 at each junction of the train step (up1 [32, 256, H, H] for H =
     64, 32, 16, 8), f32 and bf16: equal to its plain version (same f32
     additions in the same order, one rounding). Library: 4 x
     F.avg_pool2d(dy, 2)."""
@@ -4178,9 +4442,11 @@ def check_k18(dev, rng):
         lib = lambda: F.avg_pool2d(dy, 2) * 4
         ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(lambda: hg.upsample_add_bwd_plain(dy)), cuda_ms(lib)
         us, src = lib_device_us(fn)
+        cold, lib_cold = 1e3 * cuda_ms_cold(fn), 1e3 * cuda_ms_cold(lib)
         b = bound(dy.numel() * dy.element_size() * 5 / 4, dy.numel())
         _report(f"K18 upsample_add_bwd ({name}, dy {list(dy.shape)}, device {us:.3f} us by "
-                f"{src})", err, "0", ms, plain_ms, lib_ms, b, lib)
+                f"{src} with warm inputs, {cold:.3f} us L2-cold; library {lib_cold:.3f} us "
+                f"L2-cold)", err, "0", ms, plain_ms, lib_ms, b, lib)
         out[name] = (ms, plain_ms, lib_ms, b)
     ms, plain_ms, lib_ms, b = out["bf16"]
     return dict(name="upsample_add_bwd", route="cuda",
@@ -4190,7 +4456,7 @@ def check_k18(dev, rng):
 
 
 def check_k19(dev, rng):
-    """K19 on the readout's [16, 64, 64, 41] f32 logits (the head's NHWC
+    """K19 on the readout's [32, 64, 64, 41] f32 logits (the head's NHWC
     view of channels_last, and its transpose) against its plain version:
     within 1e-4 of the largest gradient (f - E[f] cancels near a heatmap's
     peak, and the two round the moments' sums in other orders). Library:
@@ -4226,8 +4492,10 @@ def check_k19(dev, rng):
     ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(lambda: hm.heatmap_readout_bwd_plain(x, *g)), \
         cuda_ms(lib)
     us, src = lib_device_us(fn)
+    cold, lib_cold = 1e3 * cuda_ms_cold(fn), 1e3 * cuda_ms_cold(lib)
     b = bound(2 * x.numel() * 4 + TRAIN_N * 41 * 7 * 4, 40 * x.numel())
-    _report(f"K19 heatmap_readout_bwd (f32, {list(x.shape)}, device {us:.3f} us by {src})",
+    _report(f"K19 heatmap_readout_bwd (f32, {list(x.shape)}, device {us:.3f} us by {src} with "
+            f"warm inputs, {cold:.3f} us L2-cold; library {lib_cold:.3f} us L2-cold)",
             err, "1e-4 of max", ms, plain_ms, lib_ms, b, lib)
     return dict(name="heatmap_readout_bwd", route="cuda",
                 source="suo_slam_tpu_torch/csrc/heatmap_readout.cu",
@@ -4245,7 +4513,8 @@ def plain_versions():
     from suo_slam_tpu_torch.ops import heatmap as hm
     from suo_slam_tpu_torch.ops import roi
 
-    patches = [(hg, "_norm_relu_fwd", hg.norm_relu_plain), (hg, "bn_stats", hg.bn_stats_plain),
+    patches = [(hg, "_norm_relu_fwd", hg.norm_relu_plain),
+               (hg, "bn_train_stats", hg.bn_train_stats_plain),
                (hg, "norm_relu_bwd", hg.norm_relu_bwd_plain),
                (hg, "_upsample_add_fwd", hg.upsample_add_plain),
                (hg, "upsample_add_bwd", hg.upsample_add_bwd_plain),
@@ -4280,7 +4549,7 @@ def plain_on_cuda_counter():
     from suo_slam_tpu_torch.ops import roi
 
     hits = {}
-    names = [(hg, "norm_relu_plain"), (hg, "bn_stats_plain"), (hg, "norm_relu_bwd_plain"),
+    names = [(hg, "norm_relu_plain"), (hg, "bn_train_stats_plain"), (hg, "norm_relu_bwd_plain"),
              (hg, "upsample_add_plain"), (hg, "upsample_add_bwd_plain"),
              (hg, "group_norm_relu_plain"), (hg, "group_norm_relu_bwd_plain"),
              (hm, "heatmap_readout_plain"), (hm, "heatmap_readout_bwd_plain"),
@@ -4442,14 +4711,22 @@ def step_timing(dev, seed, root):
     kern = lambda a: [e for e in a if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)]
     avg = traced(lambda: step(state, batch, 0.0), lambda a: len(kern(a)) > 0, "train step")
+    bn = {"K16": [0.0, 0], "K17": [0.0, 0]}
     if avg is None:
-        dev_ms, n_k = "not measured", "not measured"
+        dev_ms, n_k, bn = "not measured", "not measured", "not measured"
     else:
         dev_ms = sum(e.self_device_time_total for e in kern(avg)) / 1e3
         n_k = sum(e.count for e in kern(avg))
         top = sorted(kern(avg), key=lambda e: -e.self_device_time_total)[:14]
         log("[train] the step's device time by kernel (ms, launches): " + json.dumps(
             [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count] for e in top]))
+        for e in kern(avg):
+            k = bn_kernel_of(e.key)
+            if k is not None:
+                bn[k][0] += e.self_device_time_total / 1e3
+                bn[k][1] += e.count
+        log("[train] the step's K16 / K17 kernels (device ms, kernels): " + json.dumps(bn)
+            + f"; together {bn['K16'][0] + bn['K17'][0]:.3f} ms")
     busy = dev_ms / host if isinstance(dev_ms, float) else "not measured"
     log(f"[train] full-width bf16 step (2 frames x 16 slots, 256x256 crops): host {host:.2f} ms "
         f"(median of 5: {[round(t, 2) for t in times]}), device {dev_ms} ms in {n_k} kernels, "
@@ -4460,7 +4737,21 @@ def step_timing(dev, seed, root):
             "heatmap_readout": 1, "heatmap_readout_bwd": 1, "roi_crop": 1, "prior_render": 1}
     if any(per_step.get(k) != v for k, v in want.items()):
         raise AssertionError(f"launches per train step {per_step}, expected {want}")
-    return dict(host_ms=host, device_ms=dev_ms, kernels=n_k, busy=busy, peak_gib=peak)
+    return dict(host_ms=host, device_ms=dev_ms, kernels=n_k, busy=busy, peak_gib=peak,
+                bn_train=bn, host_runs=times)
+
+
+def phase_step_only(dev, seed):
+    """`--step-only`: phase 9's train-step timing alone (`step_timing` on
+    phase 7's and 9's trees), against whichever package sits beside this
+    script — run in two checkouts in turns, it compares them in one call."""
+    base, root = _eval_root()
+    rng = np.random.default_rng(seed + 2)
+    objs = EvalObjects(rng)
+    write_bop_tree(root, objs, [SlamScene(rng, objs, EVAL_VIEWS)])
+    write_train_split(root, EvalObjects(np.random.default_rng(seed + 2)),
+                      np.random.default_rng(seed + 9))
+    return step_timing(dev, seed, root)
 
 
 def overfit(dev, seed, root, steps=30):
@@ -4508,6 +4799,7 @@ def phase_train(dev, seed):
     log(f"[train] train_real split of {TRAIN_VIEWS} views written in "
         f"{time.perf_counter() - t0:.2f} s")
     entries = check_k16_k17(dev, rng) + [check_k18(dev, rng), check_k19(dev, rng)]
+    bn_step_shapes(dev, rng)
     train_step_parity(dev, seed, root)
     step_timing(dev, seed, root)
     overfit(dev, seed, root)
@@ -5233,6 +5525,8 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--views", type=int, default=6)
     ap.add_argument("--frames", type=int, default=22)
+    ap.add_argument("--step-only", action="store_true",
+                    help="build, then time the full-width bf16 train step only")
     args = ap.parse_args(argv)
 
     import torch
@@ -5240,6 +5534,11 @@ def main(argv=None):
     t_start = time.perf_counter()
     dev = phase_card()
     phase_build()
+    if args.step_only:
+        r = phase_step_only(dev, args.seed)
+        log(smi_line())
+        log(json.dumps({"step": r}))
+        return 0
     rng = np.random.default_rng(args.seed)
     objs = Objects(rng)
     net = full_width_net(args.seed)

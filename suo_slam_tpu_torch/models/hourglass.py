@@ -30,9 +30,11 @@ tensors (B4, B13):
   statistics: computed once per module in f32 and cached until the weights
   change; train mode: from K16's batch statistics);
 - K16 `bn_stats` (`csrc/bn_train.cu`): the masked batch mean and biased
-  variance of train mode;
+  variance of train mode, with the norm's rstd / inv / shift and the running
+  averages' update (one launch: `bn_train_stats`);
 - K17 `norm_relu_bwd` (`csrc/bn_train.cu`): the backward of the norm + ReLU,
-  through the batch statistics in train mode, with fixed ones otherwise;
+  through the batch statistics in train mode (with the scale's gradient),
+  with fixed ones otherwise (one launch);
 - K9 `upsample_add` (`csrc/upsample_add.cu`): the hourglass junction
   up1 + nearest2x(low), without materialising the upsampled tensor;
 - K18 `upsample_add_bwd` (`csrc/upsample_add.cu`): low's gradient, the 2x2
@@ -45,8 +47,12 @@ Each forward with its backward is one `torch.autograd.Function`, taken where
 autograd records the call. All take NHWC memory (NCHW `channels_last`) and
 raise on another layout. On CPU tensors they run their plain versions,
 which the kernels match exactly (K16, K17, K20 and K21 up to the order of
-f64 sums). The max-pools and the convolutions keep torch's autograd, as the
-JAX package left them to XLA.
+their sums; K16's affine and running averages and K17's scale gradient bit
+for bit). K16 and K17 have two designs (`design=`): "fused", the main path,
+one cooperative launch of a persistent grid per call (`plan_bn`, scratch and
+grid-barrier counters in a per-stream workspace, `_bn_workspace`), and
+"split", the first design, kept for comparison. The max-pools and the
+convolutions keep torch's autograd, as the JAX package left them to XLA.
 
 The net's kinds of norm and convolution are chosen at construction, as the
 JAX package's `norm` and `conv_cls`: `norm="batch"` builds `MaskedBatchNorm`
@@ -62,6 +68,9 @@ these submodules.
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -135,31 +144,165 @@ def norm_relu(x: torch.Tensor, inv: torch.Tensor, shift: torch.Tensor) -> torch.
     return _norm_relu_fwd(x, inv, shift)
 
 
-# K16 ---------------------------------------------------------------------------
+# K16 / K17: plans, workspace ---------------------------------------------------
+# `csrc/bn_train.cu`'s constants: the fused design's CTA and its loads in
+# flight; the split design's blocks (`channel_vec.cuh` kThreads, kIters).
+# tests/test_torch_bn_train_plan.py reads them from the sources.
+FUSED_THREADS = 512
+STATS_UNROLL = 8
+BWD_UNROLL = 4
+SPLIT_THREADS = 256
+SPLIT_ITERS = 16
+MIN_ITERS = 2        # a fused CTA gets at least this many iterations of its loop
+SMEM_LIMIT = 232448  # dynamic shared memory a block can use on sm_90
+# the phases whose SM clock cycles `cycles=` takes (a row per block)
+BN_STATS_PHASES = ("load", "math", "reduce", "barrier", "finalize")
+BN_BWD_PHASES = BN_STATS_PHASES + ("barrier2", "dx")
+DESIGNS = ("fused", "split")
+
+
+class BnPlan(NamedTuple):
+    """A fused K16 / K17 call's geometry (`bn_train.cu` `FLayout`): V
+    channels a thread's vector, lanes_c channel-vector lanes x lanes_p
+    pixel lanes, q pixel lanes a warp folds by shuffles, `rows` rows of
+    the cross-warp reduction, `grid` co-resident CTAs (at most one a
+    multiprocessor), `smem` bytes of dynamic shared memory, `part` f64 words
+    of partial sums (a [C, 2] row per CTA)."""
+    V: int
+    lanes_c: int
+    lanes_p: int
+    q: int
+    rows: int
+    grid: int
+    smem: int
+    part: int
+
+
+@functools.lru_cache(maxsize=512)
+def plan_bn(kind: str, N: int, HW: int, C: int, itemsize: int, vec: bool, n_sm: int) -> BnPlan:
+    """The fused design's plan of a K16 (`kind="stats"`) or K17 (`"bwd"`)
+    call on [N, HW, C] values of `itemsize` bytes, 16-byte vectors when
+    `vec`, on a card of `n_sm` multiprocessors: each CTA gets a slab of at
+    least MIN_ITERS iterations of its loop (K16's slabs split the real rows'
+    pixels, which the host does not know, so its grid is planned on all)."""
+    if kind not in ("stats", "bwd"):
+        raise ValueError(f"plan_bn: unknown kind {kind!r}")
+    V = 16 // itemsize if vec else 1
+    cv = C // V
+    lanes_c = min(max(cv, 1), FUSED_THREADS)
+    lanes_p = FUSED_THREADS // lanes_c
+    q = 32 // lanes_c if lanes_c <= 32 and 32 % lanes_c == 0 else 1
+    rows = lanes_p // q
+    step = lanes_p * (STATS_UNROLL if kind == "stats" else BWD_UNROLL)
+    grid = max(1, min(n_sm, -(-N * HW // (step * MIN_ITERS))))
+    # the reduction rows, then K16's real-row indices or K17's five dx
+    # coefficients of a channel block
+    red = rows * lanes_c * V * 2 * 8
+    smem = red + (4 * N if kind == "stats" else 5 * lanes_c * V * 4)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K16 / K17: {N} rows x {C} channels need {smem} bytes of shared "
+                         f"memory, more than a block's {SMEM_LIMIT}")
+    return BnPlan(V, lanes_c, lanes_p, q, rows, grid, smem, grid * C * 2)
+
+
+def plan_split(N: int, HW: int, C: int, itemsize: int, vec: bool) -> int:
+    """The split design's partial rows: its partial pass's blocks
+    (`channel_vec.cuh` `Layout`: SPLIT_ITERS pixels a pixel lane)."""
+    V = 16 // itemsize if vec else 1
+    lanes_c = min(C // V, SPLIT_THREADS)
+    per_block = (SPLIT_THREADS // max(lanes_c, 1)) * SPLIT_ITERS
+    return -(-N * HW // per_block)
+
+
+def _vectorizable(C: int, itemsize: int, *ts: torch.Tensor) -> bool:
+    """16-byte vectors: C a multiple of a vector and every pointer aligned."""
+    return C % (16 // itemsize) == 0 and all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+_n_sm: dict[int, int] = {}
+
+
+def _multiprocessors(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    n = _n_sm.get(i)
+    if n is None:
+        n = _n_sm[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return n
+
+
+_bn_work: dict[tuple, tuple] = {}
+_bn_work_lock = threading.Lock()
+
+
+def _bn_workspace(dev: torch.device, stream: int, n_part: int, n_coef: int):
+    """The fused design's scratch on `stream`: (uint32 [2] grid-barrier
+    counters at zero, f64 [>= n_part] partials, f32 [>= n_coef] dx
+    coefficients). Every launch leaves the counters at zero, so one set
+    serves every call on the stream (and a captured graph); it grows by
+    fresh allocations."""
+    key = (dev.index, stream)
+    w = _bn_work.get(key)
+    if w is None or w[1].numel() < n_part or w[2].numel() < n_coef:
+        with _bn_work_lock:
+            w = _bn_work.get(key)
+            if w is None or w[1].numel() < n_part or w[2].numel() < n_coef:
+                size = lambda i, k: max(k, 0 if w is None else w[i].numel())
+                w = (torch.zeros(2, dtype=torch.int32, device=dev) if w is None else w[0],
+                     torch.empty(size(1, n_part), dtype=torch.float64, device=dev),
+                     torch.empty(size(2, n_coef), dtype=torch.float32, device=dev))
+                _bn_work[key] = w
+    return w
+
+
+def row_mask_u8(row_mask: torch.Tensor | None) -> torch.Tensor | None:
+    """A row mask as the kernels read it (uint8 [N]), made once per step by
+    `HourglassNet.forward`; the plain versions take it too."""
+    if row_mask is None or row_mask.dtype == torch.uint8:
+        return row_mask
+    return row_mask.to(torch.uint8)
+
+
 def _row_mask_u8(row_mask: torch.Tensor | None, N: int, dev) -> torch.Tensor | None:
     if row_mask is None:
         return None
     if row_mask.shape != (N,):
         raise ValueError(f"row_mask must be [{N}], got {tuple(row_mask.shape)}")
+    if row_mask.dtype == torch.uint8 and row_mask.device == dev and row_mask.is_contiguous():
+        return row_mask
     return row_mask.to(device=dev, dtype=torch.uint8).contiguous()
 
 
+def _check_vectors(name: str, dev, C: int, *vs: torch.Tensor) -> list:
+    vs = [v.contiguous() for v in vs]
+    if any(v.shape != (C,) or v.dtype != torch.float32 or v.device != dev for v in vs):
+        raise ValueError(f"{name}: per-channel vectors must be f32 [{C}] on x's device")
+    return vs
+
+
+def _bump(*ts: torch.Tensor) -> None:
+    """Tell autograd (and `_cache_key`) that a kernel wrote these in place."""
+    ts = [t for t in ts if not t.is_inference()]
+    if ts:
+        torch.autograd.graph.increment_version(ts)
+
+
+# K16 ---------------------------------------------------------------------------
 def _masked_count(row_mask: torch.Tensor | None, N: int, hw: int, dev) -> torch.Tensor:
     """M = max(sum(mask) * H * W, 1) in f64 (all rows without a mask)."""
     if row_mask is None:
         return torch.tensor(float(N * hw), dtype=torch.float64, device=dev)
-    return torch.clamp(row_mask.to(torch.float64).sum() * hw, min=1.0)
+    return torch.clamp((row_mask != 0).to(torch.float64).sum() * hw, min=1.0)
 
 
 def bn_stats_plain(x: torch.Tensor, row_mask: torch.Tensor | None = None):
     """Plain K16: per-channel mean and biased variance, f32 [C] (f64 for f64
-    x), over the rows `row_mask` marks (all rows without one): f64 sums of x
-    and x^2, mean = sum / M, var = sum2 / M - mean^2 with
+    x), over the rows `row_mask` (bool or uint8) marks (all rows without
+    one): f64 sums of x and x^2, mean = sum / M, var = sum2 / M - mean^2 with
     M = max(rows * H * W, 1)."""
     N, C, H, W = x.shape
     xd = x.to(torch.float64)
     if row_mask is not None:
-        xd = xd * row_mask.to(torch.float64)[:, None, None, None]
+        xd = xd * (row_mask != 0).to(torch.float64)[:, None, None, None]
     M = _masked_count(row_mask, N, H * W, x.device)
     mean = xd.sum((0, 2, 3)) / M
     var = torch.clamp((xd * xd).sum((0, 2, 3)) / M - mean * mean, min=0.0)
@@ -167,47 +310,114 @@ def bn_stats_plain(x: torch.Tensor, row_mask: torch.Tensor | None = None):
     return mean.to(out), var.to(out)
 
 
-_BN_STATS_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                      + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+def bn_train_stats_plain(x, row_mask, scale, bias, eps, run_mean=None, run_var=None,
+                         momentum=0.9):
+    """Plain fused K16: `bn_stats_plain`'s (mean, var), then the train-mode
+    norm's epilogue in its eager operations: rstd = rsqrt(var + eps), inv =
+    rstd * scale, shift = bias - mean * inv, and (given the buffers) the
+    running averages updated in place as flax does, m * running + (1 - m) *
+    batch with each product rounded. Returns (mean, var, rstd, inv, shift)."""
+    mean, var = bn_stats_plain(x, row_mask)
+    rstd = torch.rsqrt(var + eps)
+    inv = rstd * scale
+    shift = bias - mean * inv
+    if run_mean is not None:
+        run_mean.copy_(run_mean * momentum + mean * (1 - momentum))
+        run_var.copy_(run_var * momentum + var * (1 - momentum))
+    return mean, var, rstd, inv, shift
 
 
-def _bn_partials(x: torch.Tensor, dy=None, dx=None) -> torch.Tensor:
-    """K16 / K17's f64 scratch: one [C, 2] partial per block of the partial
-    pass (the blocks depend on the vector width the pointers allow)."""
-    N, C, H, W = x.shape
-    fn = _build.entry("bn_train", [ctypes.c_longlong] + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p] * 3, "suo_bn_chunks")
-    chunks = fn(N * H * W, C, _DTYPES[x.dtype], _build.ptr(x),
-                *(None if t is None else _build.ptr(t) for t in (dy, dx)))
-    return torch.empty((chunks, C, 2), dtype=torch.float64, device=x.device)
+_BN_STATS_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                     ctypes.c_void_p, ctypes.c_int]
+                            + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+_BN_STATS_FUSED_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                            + [ctypes.c_void_p] * 2 + [ctypes.c_float] * 3
+                            + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 
 
-def _bn_stats_cuda(x: torch.Tensor, row_mask: torch.Tensor | None = None):
-    _check_nhwc("K16 bn_stats", x)
+def _bn_stats_fused(x, mask, scale=None, bias=None, eps=1e-5, run_mean=None, run_var=None,
+                    momentum=0.9, cycles=None):
+    """One launch of the fused K16 (see `bn_train_stats_plain`; without
+    scale and bias only mean and var are written)."""
     N, C, H, W = x.shape
     dev = x.device
-    mask = _row_mask_u8(row_mask, N, dev)
-    part = _bn_partials(x)
+    it = x.element_size()
+    plan = plan_bn("stats", N, H * W, C, it, _vectorizable(C, it, x), _multiprocessors(dev))
+    st = _build.stream(dev.index)
+    bar, part, _ = _bn_workspace(dev, st, plan.part, 0)
+    out = torch.empty((5, C), dtype=torch.float32, device=dev)
+    affine = scale is not None
+    if affine:
+        vs = _check_vectors("K16 bn_stats", dev, C, scale, bias,
+                            *(() if run_mean is None else (run_mean, run_var)))
+        if run_mean is not None and (vs[2].data_ptr() != run_mean.data_ptr()
+                                     or vs[3].data_ptr() != run_var.data_ptr()):
+            raise ValueError("K16 bn_stats: the running averages must be contiguous")
+    fn = _build.entry("bn_train", _BN_STATS_FUSED_ARGTYPES, "suo_bn_stats_fused")
+    p = _build.ptr
+    err = fn(p(x), None if mask is None else p(mask), N, H * W, C,
+             p(vs[0]) if affine else None, p(vs[1]) if affine else None,
+             eps, momentum, 1 - momentum,
+             None if run_mean is None else p(run_mean), None if run_var is None else p(run_var),
+             p(part), p(bar), *(p(out[i]) for i in range(5)), _DTYPES[x.dtype],
+             int(plan.V > 1), plan.grid, plan.smem, None if cycles is None else p(cycles), st)
+    _build.check(err, "K16 bn_stats")
+    kcount.count("bn_stats")
+    if run_mean is not None:
+        _bump(run_mean, run_var)
+    return tuple(out)
+
+
+def _bn_stats_split(x, mask, cycles=None):
+    """The split design: the partial pass and the finalize (two launches)."""
+    N, C, H, W = x.shape
+    dev = x.device
+    it = x.element_size()
+    n_part = plan_split(N, H * W, C, it, _vectorizable(C, it, x))
+    part = torch.empty((n_part, C, 2), dtype=torch.float64, device=dev)
     mean = torch.empty(C, dtype=torch.float32, device=dev)
     var = torch.empty(C, dtype=torch.float32, device=dev)
-    fn = _build.entry("bn_train", _BN_STATS_ARGTYPES, "suo_bn_stats")
+    fn = _build.entry("bn_train", _BN_STATS_SPLIT_ARGTYPES, "suo_bn_stats")
     err = fn(_build.ptr(x), None if mask is None else _build.ptr(mask), N, H * W, C,
-             _build.ptr(part), _build.ptr(mean), _build.ptr(var), _DTYPES[x.dtype],
-             _build.stream())
-    _build.check(err, "K16 bn_stats")
+             _build.ptr(part), n_part, _build.ptr(mean), _build.ptr(var), _DTYPES[x.dtype],
+             None if cycles is None else _build.ptr(cycles), _build.stream(dev.index))
+    _build.check(err, "K16 bn_stats (split design)")
     kcount.count("bn_stats")
     return mean, var
 
 
-def bn_stats(x: torch.Tensor, row_mask: torch.Tensor | None = None):
-    """Masked batch statistics of train mode (see `bn_stats_plain`): K16 on
-    CUDA tensors, the plain version on CPU tensors. x must be channels_last."""
+def _bn_stats_cuda(x: torch.Tensor, row_mask: torch.Tensor | None = None, design: str = "fused",
+                   cycles: torch.Tensor | None = None):
+    """K16's bare statistics (mean, var) in either design; `cycles`: int64
+    zeros [rows, len(BN_STATS_PHASES)] that take SM clock cycles per phase
+    (rows: the fused plan's grid, or the split design's partial rows)."""
+    _check_nhwc("K16 bn_stats", x)
+    if design not in DESIGNS:
+        raise ValueError(f"K16 bn_stats: unknown design {design!r}")
+    mask = _row_mask_u8(row_mask, x.shape[0], x.device)
+    if design == "split":
+        return _bn_stats_split(x, mask, cycles)
+    return _bn_stats_fused(x, mask, cycles=cycles)[:2]
+
+
+def _bn_train_stats_cuda(x, row_mask, scale, bias, eps, run_mean=None, run_var=None,
+                         momentum=0.9, cycles=None):
+    _check_nhwc("K16 bn_stats", x)
+    mask = _row_mask_u8(row_mask, x.shape[0], x.device)
+    return _bn_stats_fused(x, mask, scale, bias, eps, run_mean, run_var, momentum, cycles)
+
+
+def bn_train_stats(x, row_mask, scale, bias, eps, run_mean=None, run_var=None, momentum=0.9):
+    """The train-mode norm's statistics and affine (see
+    `bn_train_stats_plain`), the running averages updated in place: one
+    launch of K16 on CUDA tensors, the plain version on CPU tensors. x must
+    be channels_last."""
     if x.device.type == "cpu":
         _check_nhwc("bn_stats", x, plain=True)
-        return bn_stats_plain(x, row_mask)
+        return bn_train_stats_plain(x, row_mask, scale, bias, eps, run_mean, run_var, momentum)
     if x.device.type != "cuda":
         raise ValueError(f"bn_stats: unsupported device {x.device}")
-    return _bn_stats_cuda(x, row_mask)
+    return _bn_train_stats_cuda(x, row_mask, scale, bias, eps, run_mean, run_var, momentum)
 
 
 # K17 ---------------------------------------------------------------------------
@@ -219,7 +429,10 @@ def norm_relu_bwd_plain(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
     inv = rstd * scale) dx runs through the statistics of the rows
     `row_mask` marks: dx = inv g - m_n (inv sum_g / M + (x - mean) inv rstd^2
     sum_gc / M); without them (fixed statistics) dx = inv g. dx in x's dtype,
-    channels_last; sum_g and sum_gc f32 [C] (f64 sums; all f64 for f64 x)."""
+    channels_last; sum_g and sum_gc f32 [C] (f64 sums; all f64 for f64 x).
+    Returns (dx, sum_g, sum_gc, dscale): dscale = sum_gc * rstd, the scale's
+    gradient in train mode, in the f32 (f64) operation the norm's backward
+    ran; sum_gc itself (d inv) with fixed statistics."""
     train = mean is not None
     N, C, H, W = x.shape
     c4 = lambda t: t[None, :, None, None]
@@ -239,51 +452,74 @@ def norm_relu_bwd_plain(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
         c = (ivd * rd * rd * sum_gc / M).to(f)
         corr = c4(b) + xc * c4(c)
         if row_mask is not None:
-            corr = torch.where(row_mask[:, None, None, None], corr,
+            corr = torch.where(row_mask[:, None, None, None] != 0, corr,
                                torch.zeros((), device=x.device))
         d = d - corr
     dx = d.to(x.dtype).contiguous(memory_format=_CL)
-    return dx, sum_g.to(f), sum_gc.to(f)
+    sum_g, sum_gc = sum_g.to(f), sum_gc.to(f)
+    return dx, sum_g, sum_gc, sum_gc * rstd if train else sum_gc
 
 
-_NORM_RELU_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong]
-                           + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                           + [ctypes.c_int, ctypes.c_void_p])
+_NORM_RELU_BWD_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong]
+                                 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
+                                 + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+_NORM_RELU_BWD_FUSED_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong,
+                                                           ctypes.c_int]
+                                 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                                 + [ctypes.c_void_p] * 2)
 
 
-def _norm_relu_bwd_cuda(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
+def _norm_relu_bwd_cuda(x, dy, inv, shift, mean=None, rstd=None, row_mask=None,
+                        design: str = "fused", cycles: torch.Tensor | None = None):
+    """K17 in either design (see `norm_relu_bwd_plain`); `cycles`: int64
+    zeros [rows, len(BN_BWD_PHASES)] (rows: the fused plan's grid, or the
+    split design's partial rows)."""
     _check_nhwc("K17 norm_relu_bwd", x, dy)
     N, C, H, W = x.shape
     dev = x.device
     if dy.shape != x.shape or dy.dtype != x.dtype:
         raise ValueError("K17 norm_relu_bwd: dy must match x's shape and dtype")
+    if design not in DESIGNS:
+        raise ValueError(f"K17 norm_relu_bwd: unknown design {design!r}")
     train = mean is not None
-    if not train:
-        mean = torch.zeros(C, dtype=torch.float32, device=dev)
     mask = _row_mask_u8(row_mask, N, dev) if train else None
-    vecs = [t.contiguous() for t in (inv, shift, mean, rstd if train else inv)]
-    if any(v.shape != (C,) or v.dtype != torch.float32 or v.device != dev for v in vecs):
-        raise ValueError("K17 norm_relu_bwd: inv, shift, mean and rstd must be f32 [C] "
-                         "on x's device")
+    vs = _check_vectors("K17 norm_relu_bwd", dev, C, inv, shift, *((mean, rstd) if train else ()))
     dx = torch.empty_like(x, memory_format=_CL)
-    part = _bn_partials(x, dy, dx)
-    sum_g = torch.empty(C, dtype=torch.float32, device=dev)
-    sum_gc = torch.empty(C, dtype=torch.float32, device=dev)
-    coef = torch.empty(C * 3, dtype=torch.float32, device=dev)
-    fn = _build.entry("bn_train", _NORM_RELU_BWD_ARGTYPES, "suo_norm_relu_bwd")
-    err = fn(_build.ptr(x), _build.ptr(dy), None if mask is None else _build.ptr(mask),
-             *(_build.ptr(v) for v in vecs), N, H * W, C, int(train), _build.ptr(part),
-             _build.ptr(sum_g), _build.ptr(sum_gc), _build.ptr(coef), _build.ptr(dx),
-             _DTYPES[x.dtype], _build.stream())
+    it = x.element_size()
+    vec = _vectorizable(C, it, x, dy, dx)
+    out = torch.empty((3, C), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    st = _build.stream(dev.index)
+    cyc = None if cycles is None else p(cycles)
+    if design == "split":
+        n_part = plan_split(N, H * W, C, it, vec)
+        part = torch.empty((n_part, C, 2), dtype=torch.float64, device=dev)
+        coef = torch.empty(C * 3, dtype=torch.float32, device=dev)
+        zeros = None if train else torch.zeros(C, dtype=torch.float32, device=dev)
+        fn = _build.entry("bn_train", _NORM_RELU_BWD_SPLIT_ARGTYPES, "suo_norm_relu_bwd")
+        err = fn(p(x), p(dy), None if mask is None else p(mask), p(vs[0]), p(vs[1]),
+                 p(vs[2]) if train else p(zeros), p(vs[3]) if train else p(vs[0]), N, H * W, C,
+                 int(train), p(part), n_part, p(out[0]), p(out[1]), p(coef), p(dx),
+                 _DTYPES[x.dtype], cyc, st)
+        _build.check(err, "K17 norm_relu_bwd (split design)")
+        kcount.count("norm_relu_bwd")
+        return dx, out[0], out[1], out[1] * vs[3] if train else out[1]
+    plan = plan_bn("bwd", N, H * W, C, it, vec, _multiprocessors(dev))
+    bar, part, coef = _bn_workspace(dev, st, plan.part, 3 * C)
+    fn = _build.entry("bn_train", _NORM_RELU_BWD_FUSED_ARGTYPES, "suo_norm_relu_bwd_fused")
+    err = fn(p(x), p(dy), None if mask is None else p(mask), p(vs[0]), p(vs[1]),
+             p(vs[2]) if train else None, p(vs[3]) if train else None, N, H * W, C,
+             p(part), p(bar), p(coef), p(out[0]), p(out[1]), p(out[2]), p(dx),
+             _DTYPES[x.dtype], int(vec), plan.grid, plan.smem, cyc, st)
     _build.check(err, "K17 norm_relu_bwd")
     kcount.count("norm_relu_bwd")
-    return dx, sum_g, sum_gc
+    return dx, out[0], out[1], out[2] if train else out[1]
 
 
 def norm_relu_bwd(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
-    """The backward of the norm + ReLU (see `norm_relu_bwd_plain`): K17 on
-    CUDA tensors, the plain version on CPU tensors. dy is made
-    channels_last."""
+    """The backward of the norm + ReLU (see `norm_relu_bwd_plain`): one
+    launch of K17 on CUDA tensors, the plain version on CPU tensors. dy is
+    made channels_last."""
     dy = dy.contiguous(memory_format=_CL)
     if x.device.type == "cpu":
         _check_nhwc("norm_relu_bwd", x, dy, plain=True)
@@ -305,35 +541,29 @@ class _NormRelu(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, inv, shift = ctx.saved_tensors
-        dx, sum_g, sum_gx = norm_relu_bwd(x, dy, inv, shift)
+        dx, sum_g, sum_gx, _ = norm_relu_bwd(x, dy, inv, shift)
         return dx, sum_gx, sum_g
 
 
 class _NormReluTrain(torch.autograd.Function):
-    """Train-mode norm + ReLU: K16's masked batch statistics, K8 applies
-    them; backward K17 through the statistics. Returns (y, mean, var), the
-    statistics for the running update (not differentiable)."""
+    """Train-mode norm + ReLU on K16's statistics and affine (computed
+    before the call, `MaskedBatchNorm.forward`): K8 applies inv and shift;
+    backward K17 through the statistics, which also gives the scale's
+    gradient (dscale) and the bias's (sum_g)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, row_mask, eps):
-        mean, var = bn_stats(x, row_mask)
-        rstd = torch.rsqrt(var + eps)
-        inv = rstd * scale
-        shift = bias - mean * inv
-        y = _norm_relu_fwd(x, inv, shift)
+    def forward(ctx, x, scale, bias, inv, shift, mean, rstd, row_mask):
         ctx.save_for_backward(x, inv, shift, mean, rstd,
                               row_mask if row_mask is not None else torch.empty(0))
         ctx.has_mask = row_mask is not None
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        return _norm_relu_fwd(x, inv, shift)
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
+    def backward(ctx, dy):
         x, inv, shift, mean, rstd, row_mask = ctx.saved_tensors
-        dx, sum_g, sum_gc = norm_relu_bwd(x, dy, inv, shift, mean, rstd,
-                                          row_mask if ctx.has_mask else None)
-        return dx, sum_gc * rstd, sum_g, None, None
-
+        dx, sum_g, _, dscale = norm_relu_bwd(x, dy, inv, shift, mean, rstd,
+                                             row_mask if ctx.has_mask else None)
+        return dx, dscale, sum_g, None, None, None, None, None
 
 
 # K9 ----------------------------------------------------------------------------
@@ -684,9 +914,9 @@ class MaskedBatchNorm(nn.Module):
     relu(x * inv + (bias - mean * inv)) with inv = rsqrt(var + eps) * scale,
     per channel in f32, then `nn.relu` (the flax module). At inference the
     statistics are the running averages (K8 on the card); in train mode
-    they are the batch's over the rows `row_mask` marks (K16, then K8;
-    backward K17), and the running averages move towards them with
-    momentum 0.9."""
+    they are the batch's over the rows `row_mask` marks (K16, which also
+    moves the running averages towards them with momentum 0.9 and computes
+    the affine; then K8; backward K17)."""
 
     MOMENTUM = 0.9
 
@@ -718,11 +948,11 @@ class MaskedBatchNorm(nn.Module):
                 row_mask: torch.Tensor | None = None) -> torch.Tensor:
         if not train:
             return norm_relu(x, *self.affine())
-        y, mean, var = _NormReluTrain.apply(x, self.scale, self.bias, row_mask, self.eps)
-        with torch.no_grad():  # flax: m * ra + (1 - m) * batch, each product rounded
-            self.mean.copy_(self.mean * self.MOMENTUM + mean * (1 - self.MOMENTUM))
-            self.var.copy_(self.var * self.MOMENTUM + var * (1 - self.MOMENTUM))
-        return y
+        with torch.no_grad():  # K16, with the running averages' update in place
+            mean, _, rstd, inv, shift = bn_train_stats(x, row_mask, self.scale, self.bias,
+                                                       self.eps, self.mean, self.var,
+                                                       self.MOMENTUM)
+        return _NormReluTrain.apply(x, self.scale, self.bias, inv, shift, mean, rstd, row_mask)
 
 
 class GroupNormRelu(nn.Module):
@@ -877,7 +1107,7 @@ class HourglassNet(nn.Module):
         rows `row_mask` [N] marks real (all rows without it), and the
         running averages' update."""
         dt = self.dtype
-        t = (train, row_mask)
+        t = (train, row_mask_u8(row_mask) if train else row_mask)
         x = self.stem_norm(conv(self.stem, x.to(dt)), *t)
         x = self.pre[0](x, *t)
         x = _max_pool2(x)

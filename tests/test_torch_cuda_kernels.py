@@ -885,7 +885,7 @@ def test_kernels_refuse_autograd(dev):
         return {k: p.grad.clone() for k, p in net.named_parameters() if p.grad is not None}
 
     plain = {"_norm_relu_fwd": lambda a, b, c: hg.norm_relu_plain(a, b, c),
-             "bn_stats": hg.bn_stats_plain, "norm_relu_bwd": hg.norm_relu_bwd_plain,
+             "bn_train_stats": hg.bn_train_stats_plain, "norm_relu_bwd": hg.norm_relu_bwd_plain,
              "_upsample_add_fwd": hg.upsample_add_plain,
              "upsample_add_bwd": hg.upsample_add_bwd_plain}
     for train in (False, True):
@@ -923,16 +923,23 @@ def test_kernels_refuse_autograd(dev):
                 assert (gk[k] - gp[k]).abs().max().item() <= 1e-4 * scale, (train, k)
 
 
-def test_k16_k17_bn_train(dev):
+@pytest.mark.parametrize("design", ["fused", "split"])
+def test_k16_k17_bn_train(dev, design):
     """K16's statistics and K17's sums and dx against their plain versions,
-    f32 and bf16, with and without padded rows: statistics 1e-6 relative
-    (f64 sums in another order), sums 1e-5 of their scale, dx 1e-5 of its
-    largest magnitude (f32) or 1 bf16 ulp of it."""
+    f32 and bf16, with and without padded rows, in both designs (the fused
+    design's grids of one CTA to many, a channel-block loop at C = 600, the
+    scalar path at C = 96 and 300): statistics 1e-6 relative (f64 sums in
+    another order), sums 1e-5 of their scale, dx 1e-5 of its largest
+    magnitude (f32) or 1 bf16 ulp of it. One counted call each, equal bits
+    when repeated; the fused K16's affine and running averages and K17's
+    scale gradient bit-equal to the eager ops they replace."""
     from suo_slam_tpu_torch import kernels
     from suo_slam_tpu_torch.models import hourglass as hg
 
     g = torch.Generator(device=dev).manual_seed(0)
-    for shape in ((5, 64, 16, 16), (3, 256, 8, 8), (4, 96, 3, 5), (2, 300, 4, 4)):
+    shapes = ((5, 64, 16, 16), (3, 256, 8, 8), (4, 96, 3, 5), (2, 300, 4, 4), (6, 256, 32, 32),
+              (32, 128, 4, 4), (2, 600, 3, 3))
+    for shape in shapes:
         N, C = shape[0], shape[1]
         for dt in (torch.float32, torch.bfloat16):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 1).to(dt).contiguous(
@@ -941,18 +948,33 @@ def test_k16_k17_bn_train(dev):
                 memory_format=torch.channels_last)
             for mask in (None, torch.arange(N, device=dev) % 3 != 1):
                 kernels.reset_counts()
-                mk, vk = hg._bn_stats_cuda(x, mask)
+                mk, vk = hg._bn_stats_cuda(x, mask, design=design)
                 mp, vp = hg.bn_stats_plain(x, mask)
                 assert kernels.counts()["bn_stats"] == 1
                 assert torch.allclose(mk, mp, rtol=1e-6, atol=1e-7)
                 assert torch.allclose(vk, vp, rtol=1e-6, atol=1e-7)
                 scale = torch.rand(C, device=dev, generator=g) + 0.5
+                bias = torch.randn(C, device=dev, generator=g)
+                if design == "fused":
+                    rm, rv = torch.randn(C, device=dev, generator=g), torch.rand(C, device=dev,
+                                                                                   generator=g)
+                    rm0, rv0 = rm.clone(), rv.clone()
+                    m2, v2, rs, iv, sh = hg._bn_train_stats_cuda(x, mask, scale, bias, 1e-5,
+                                                                 rm, rv, 0.9)
+                    assert torch.equal(m2, mk) and torch.equal(v2, vk)
+                    assert torch.equal(rs, torch.rsqrt(vk + 1e-5))
+                    assert torch.equal(iv, rs * scale)
+                    assert torch.equal(sh, bias - mk * iv)
+                    assert torch.equal(rm, rm0 * 0.9 + mk * (1 - 0.9))
+                    assert torch.equal(rv, rv0 * 0.9 + vk * (1 - 0.9))
                 rstd = torch.rsqrt(vp + 1e-5)
                 inv = rstd * scale
                 shift = torch.randn(C, device=dev, generator=g) - mp * inv
                 for train in (True, False):
                     args = (mp, rstd, mask) if train else ()
-                    k = hg._norm_relu_bwd_cuda(x, dy, inv, shift, *args)
+                    kernels.reset_counts()
+                    k = hg._norm_relu_bwd_cuda(x, dy, inv, shift, *args, design=design)
+                    assert kernels.counts()["norm_relu_bwd"] == 1
                     p = hg.norm_relu_bwd_plain(x, dy, inv, shift, *args)
                     for a, b in zip(k[1:], p[1:]):
                         assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1)
@@ -960,6 +982,66 @@ def test_k16_k17_bn_train(dev):
                     d = (k[0].float() - p[0].float()).abs().max().item()
                     assert d <= tol * p[0].float().abs().max().item(), (shape, dt, train, d)
                     assert k[0].is_contiguous(memory_format=torch.channels_last)
+                    assert torch.equal(k[3], k[2] * rstd if train else k[2])
+                    again = hg._norm_relu_bwd_cuda(x, dy, inv, shift, *args, design=design)
+                    assert all(torch.equal(a, b) for a, b in zip(k, again))
+
+
+def _graph_kernels(fn, calls=3):
+    """Kernel nodes per call of fn in a CUDA graph that captures `calls`
+    calls (`cuGraphGetNodes` / `cuGraphNodeGetType` of libcuda): every
+    launch, where a profiler session can lose some. fn runs once first on
+    the capture's stream (its workspace is made there)."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(calls):
+            fn()
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(graph, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    assert cu.cuGraphGetNodes(graph, nodes, ctypes.byref(count)) == 0
+    kind, kernels = ctypes.c_int(-1), 0
+    for i in range(count.value):
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]), ctypes.byref(kind)) == 0
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    g.replay()
+    torch.cuda.synchronize()
+    g.reset()
+    return kernels / calls
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_k16_k17_fused_one_launch_per_call(dev, dt):
+    """The fused K16 (with the affine and the running averages) and K17 (both
+    modes) are one kernel a call — by the kernel nodes of a captured graph,
+    which also replays — at the train step's largest norm and a small one;
+    their workspace counters are back at 0 after the calls and the replay."""
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    for shape in ((32, 256, 64, 64), (32, 128, 4, 4)):
+        x = torch.randn(shape, device=dev).to(dt).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(shape, device=dev).to(dt).contiguous(memory_format=torch.channels_last)
+        mask = (torch.arange(32, device=dev) % 4 != 3).to(torch.uint8)  # as the net passes it
+        C = shape[1]
+        one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        rm, rv = zero.clone(), one.clone()
+        mean, _, rstd, inv, shift = hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9)
+        calls = (lambda: hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv, 0.9),
+                 lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd, mask),
+                 lambda: hg._norm_relu_bwd_cuda(x, dy, inv, shift))
+        assert [_graph_kernels(f) for f in calls] == [1, 1, 1], shape
+        torch.cuda.synchronize()
+        for w in hg._bn_work.values():
+            assert not w[0].any()
 
 
 def test_k18_upsample_add_bwd(dev):
