@@ -177,13 +177,21 @@ Phases (any failure raises and exits non-zero):
      net equal to its plain-version run on the card and its logits' relative
      RMS and max uv gap to the f32 `quant="off"` net beside the CPU's on the
      same crops; host and device ms per call of the int8 and float nets at 8
-     crops (turns), device ms at 128 crops. Then K20 / K21 against their
-     plain versions and against F.group_norm + relu and its autograd (the
-     library yardstick) at 8 x 256 x 64 x 64 and 16 x 128 x 128 x 128, f32
-     and bf16, with device times and bytes bounds; `Evaluator(nviews=1)` with
+     crops (turns), device ms at 128 crops. Then K20 / K21 in both designs
+     (cluster, the main path: one launch a call; split, the first design)
+     against their plain versions and against F.group_norm + relu and its
+     autograd (the library yardstick) at 8 x 256 x 64 x 64, 16 x 128 x 128 x
+     128 and 32 x 256 x 64 x 64, f32 and bf16, the cluster design bit-equal
+     across repeated calls and one kernel a call (a captured graph's nodes),
+     L2-cold times in turns, device times and bytes bounds; both designs at
+     every norm shape of the group train step with SM cycles by phase at
+     three (`gn_step_shapes`, `gn_clocks`); `Evaluator(nviews=1)` with
      a full-width bf16 `norm="group"` net on phase 7's tree; 3 SLAM frames
      under phase 6's ground-truth wrapper; one full-width group train step
-     with K20 / K21 against its plain run under `STEP_GATES`; `python -m
+     with K20 / K21 against its plain run under `STEP_GATES`; the bf16 group
+     step's host and device ms, kernels, K20 / K21's device ms, launches
+     per step and the layout of the dy K21 receives (`--step-only --norm
+     group` runs this alone); `python -m
      suo_slam_tpu_torch.train --norm group` in process, 1 epoch x 4 steps + 2
      validation batches at phase 9's defaults, its exact launches and no plain
      version on a CUDA tensor; its checkpoint through `Evaluator(nviews=1)`;
@@ -4121,7 +4129,7 @@ def _row_mask(dev):
     return torch.arange(TRAIN_N, device=dev) % 4 != 3
 
 
-def bn_clocks(label, fn, phases, rows):
+def bn_clocks(label, fn, phases, rows, tag="[train]"):
     """SM clock cycles by phase of one L2-cold call (`fn(cycles)` launches
     the clocked instance; thread 0 of each block): the mean over the blocks
     that ran each phase, and the largest block's total."""
@@ -4136,7 +4144,7 @@ def bn_clocks(label, fn, phases, rows):
     r = cyc.cpu().double()
     mean = {k: round((r[:, i].sum() / max(int((r[:, i] > 0).sum()), 1)).item())
             for i, k in enumerate(phases)}
-    log(f"[train] {label}: SM cycles by phase, mean over the blocks that ran it "
+    log(f"{tag} {label}: SM cycles by phase, mean over the blocks that ran it "
         + json.dumps(mean) + f"; the slowest block {int(r.sum(1).max())} in all")
     return mean
 
@@ -4675,19 +4683,23 @@ def train_step_parity(dev, seed, root, norm="batch"):
     return out
 
 
-def step_timing(dev, seed, root):
+def step_timing(dev, seed, root, norm="batch"):
     """The bf16 full-width step's host ms (median of 5 synchronized steps),
     device ms and kernels (torch.profiler over one step), busy share, peak
-    memory and launches per step."""
+    memory and launches per step, of the BatchNorm net or (`norm="group"`)
+    the GroupNorm net; the norm kernels' share of the device time (K16 /
+    K17, or K20 / K21), and for the group net the layout of the dy each K21
+    call receives (a dy that is not channels_last would cost a copy)."""
     import torch
     from torch.autograd import DeviceType
 
     from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import hourglass as hg
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
     from suo_slam_tpu_torch.train import harness
 
     batch = _first_batch(root, dev, seed)
-    net = PkpNet(dtype=torch.bfloat16).to(dev)
+    net = PkpNet(dtype=torch.bfloat16, norm=norm).to(dev)
     state = harness.init_state(net, seed=seed)
     step = harness.make_train_step()
     for _ in range(2):
@@ -4695,8 +4707,20 @@ def step_timing(dev, seed, root):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    state, _ = step(state, batch, 0.0)
-    torch.cuda.synchronize()
+    dy_layouts = {"channels_last": 0, "other": 0}
+    real_bwd = hg.group_norm_relu_bwd
+
+    def spy(x, dy, *a):
+        dy_layouts["channels_last" if dy.is_contiguous(memory_format=torch.channels_last)
+                   else "other"] += 1
+        return real_bwd(x, dy, *a)
+
+    hg.group_norm_relu_bwd = spy
+    try:
+        state, _ = step(state, batch, 0.0)
+        torch.cuda.synchronize()
+    finally:
+        hg.group_norm_relu_bwd = real_bwd
     per_step = {k: v for k, v in kernels.counts().items() if v}
     times = []
     for _ in range(5):
@@ -4711,47 +4735,61 @@ def step_timing(dev, seed, root):
     kern = lambda a: [e for e in a if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)]
     avg = traced(lambda: step(state, batch, 0.0), lambda a: len(kern(a)) > 0, "train step")
-    bn = {"K16": [0.0, 0], "K17": [0.0, 0]}
+    group = norm == "group"
+    tag = "[group]" if group else "[train]"
+    names, kind_of = (("K20", "K21"), gn_kernel_of) if group else (("K16", "K17"), bn_kernel_of)
+    bn = {k: [0.0, 0] for k in names}
     if avg is None:
-        dev_ms, n_k, bn = "not measured", "not measured", "not measured"
+        dev_ms, n_k, bn, copies = "not measured", "not measured", "not measured", "not measured"
     else:
         dev_ms = sum(e.self_device_time_total for e in kern(avg)) / 1e3
         n_k = sum(e.count for e in kern(avg))
         top = sorted(kern(avg), key=lambda e: -e.self_device_time_total)[:14]
-        log("[train] the step's device time by kernel (ms, launches): " + json.dumps(
+        log(f"{tag} the step's device time by kernel (ms, launches): " + json.dumps(
             [[e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count] for e in top]))
         for e in kern(avg):
-            k = bn_kernel_of(e.key)
+            k = kind_of(e.key)
             if k is not None:
                 bn[k][0] += e.self_device_time_total / 1e3
                 bn[k][1] += e.count
-        log("[train] the step's K16 / K17 kernels (device ms, kernels): " + json.dumps(bn)
-            + f"; together {bn['K16'][0] + bn['K17'][0]:.3f} ms")
+        copies = sum(e.count for e in kern(avg) if "copy" in e.key.lower())
+        log(f"{tag} the step's {' / '.join(names)} kernels (device ms, kernels): "
+            + json.dumps(bn) + f"; together {bn[names[0]][0] + bn[names[1]][0]:.3f} ms, "
+            f"{(bn[names[0]][0] + bn[names[1]][0]) / dev_ms:.3f} of the device time; "
+            f"{copies} copy kernels in the step")
     busy = dev_ms / host if isinstance(dev_ms, float) else "not measured"
-    log(f"[train] full-width bf16 step (2 frames x 16 slots, 256x256 crops): host {host:.2f} ms "
-        f"(median of 5: {[round(t, 2) for t in times]}), device {dev_ms} ms in {n_k} kernels, "
-        f"busy share {busy}, peak memory {peak:.2f} GiB; launches per step "
-        + json.dumps(per_step))
-    want = {"bn_stats": NORMS_PER_FWD, "norm_relu_bwd": NORMS_PER_FWD, "norm_relu": NORMS_PER_FWD,
-            "upsample_add": JUNCTIONS_PER_FWD, "upsample_add_bwd": JUNCTIONS_PER_FWD,
-            "heatmap_readout": 1, "heatmap_readout_bwd": 1, "roi_crop": 1, "prior_render": 1}
-    if any(per_step.get(k) != v for k, v in want.items()):
+    log(f"{tag} full-width bf16 step, norm={norm} (2 frames x 16 slots, 256x256 crops): host "
+        f"{host:.2f} ms (median of 5: {[round(t, 2) for t in times]}), device {dev_ms} ms in "
+        f"{n_k} kernels, busy share {busy}, peak memory {peak:.2f} GiB; launches per step "
+        + json.dumps(per_step) + (f"; dy of K21's calls: {json.dumps(dy_layouts)}" if group
+                                  else ""))
+    if group:
+        want = {"group_norm_relu": NORMS_PER_FWD, "group_norm_relu_bwd": NORMS_PER_FWD,
+                "bn_stats": 0, "norm_relu_bwd": 0, "norm_relu": 0}
+    else:
+        want = {"bn_stats": NORMS_PER_FWD, "norm_relu_bwd": NORMS_PER_FWD,
+                "norm_relu": NORMS_PER_FWD}
+    want.update({"upsample_add": JUNCTIONS_PER_FWD, "upsample_add_bwd": JUNCTIONS_PER_FWD,
+                 "heatmap_readout": 1, "heatmap_readout_bwd": 1, "roi_crop": 1,
+                 "prior_render": 1})
+    if any(per_step.get(k, 0) != v for k, v in want.items()):
         raise AssertionError(f"launches per train step {per_step}, expected {want}")
     return dict(host_ms=host, device_ms=dev_ms, kernels=n_k, busy=busy, peak_gib=peak,
-                bn_train=bn, host_runs=times)
+                norm_kernels=bn, host_runs=times, dy_layouts=dy_layouts)
 
 
-def phase_step_only(dev, seed):
-    """`--step-only`: phase 9's train-step timing alone (`step_timing` on
-    phase 7's and 9's trees), against whichever package sits beside this
-    script — run in two checkouts in turns, it compares them in one call."""
+def phase_step_only(dev, seed, norm="batch"):
+    """`--step-only`: phase 9's (phase 10's with `norm="group"`) train-step
+    timing alone (`step_timing` on phase 7's and 9's trees), against
+    whichever package sits beside this script — run in two checkouts in
+    turns, it compares them in one call."""
     base, root = _eval_root()
     rng = np.random.default_rng(seed + 2)
     objs = EvalObjects(rng)
     write_bop_tree(root, objs, [SlamScene(rng, objs, EVAL_VIEWS)])
     write_train_split(root, EvalObjects(np.random.default_rng(seed + 2)),
                       np.random.default_rng(seed + 9))
-    return step_timing(dev, seed, root)
+    return step_timing(dev, seed, root, norm)
 
 
 def overfit(dev, seed, root, steps=30):
@@ -5058,26 +5096,96 @@ def phase_quant(dev, seed, net32, net16, crops):
     return entries, run["f32"][0]
 
 
+def gn_kernel_of(name: str):
+    """"K20" or "K21" for a kernel of `csrc/group_norm.cu` in a profiler
+    trace (both designs: the cluster kernels, and the split design's partial
+    pass by its mode, finalizes and second passes), None for any other."""
+    import re
+
+    if "gn_fwd_cluster_kernel" in name or "gn_stats_kernel" in name or "gn_apply_kernel" in name:
+        return "K20"
+    if any(k in name for k in ("gn_bwd_cluster_kernel", "gn_bwd_sample_kernel",
+                               "gn_bwd_channel_kernel", "gn_dx_kernel")):
+        return "K21"
+    m = re.search(r"gn_partial_kernel<[^,]+,\s*\d+,\s*(\d)", name)
+    if m:
+        return "K20" if m.group(1) == "0" else "K21"
+    return None
+
+
+GN_CHECK_SHAPES = ((N_OBJ, 256, 64, 64), (16, 128, 128, 128), (TRAIN_N, 256, 64, 64))
+GN_GATES = {"stats": 1e-6, "y f32": 1e-5, "dx f32": 1e-5, "y bf16": 2.0 ** -8,
+            "dx bf16": 2.0 ** -8, "sums": 1e-5}
+
+
+def gn_designs(hg):
+    """K20 / K21's two designs as (forward, backward): the wrappers (the
+    cluster design wherever `plan_gn` plans the shape: every shape of the
+    net) and the split design's functions (the wrappers' route for wider
+    pixels)."""
+    return {"cluster": (hg._group_norm_relu_cuda, hg._group_norm_relu_bwd_cuda),
+            "split": (hg._group_norm_relu_split, hg._group_norm_relu_bwd_split)}
+
+
+def gn_errors(fw, bw, x, dy, scale, bias, G, ref):
+    """One design's K20 / K21 errors against the plain versions' outputs
+    `ref` ((y, mean, rstd), (dx, dscale, dbias)) on the same inputs, keyed
+    as GN_GATES: statistics relative, y and dx of their largest magnitude,
+    the parameter gradients of their scale. Returns (errors, K20's outputs,
+    K21's)."""
+    import torch
+
+    rel = lambda a, b: ((a.float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp(min=1e-30)).item()
+    (yp, mp, rp), p = ref
+    yk, mk, rk = fw(x, scale, bias, G)
+    k = bw(x, dy, scale, bias, mp, rp)
+    torch.cuda.synchronize()
+    name = "f32" if x.dtype == torch.float32 else "bf16"
+    e = {"stats": max(rel(mk, mp), rel(rk, rp)), f"y {name}": rel(yk, yp),
+         f"dx {name}": rel(k[0], p[0]),
+         "sums": max(((a - b).abs().max() / b.abs().max().clamp(min=1.0)).item()
+                     for a, b in zip(k[1:], p[1:]))}
+    return e, (yk, mk, rk), k
+
+
+def gn_plan_class(plan) -> str:
+    """A cluster-design plan's class: one CTA (and samples a CTA), or a
+    cluster of 2-8 or 16 with the slice on chip or partly read again."""
+    if plan.k == 1:
+        return "k=1, spp>1" if plan.spp > 1 else "k=1"
+    return (f"k={'16' if plan.k == 16 else '2-8'}, "
+            + ("on chip" if plan.keep == plan.iters else "read again"))
+
+
 def check_k20_k21(dev, rng):
-    """K20 and K21 against their plain versions at the GroupNorm net's
-    shapes, 8 x 256 x 64 x 64 (a residual's first norm at 8 crops) and 16 x
-    128 x 128 x 128 (a pre-residual's at 16 slots), f32 and bf16:
-    statistics 1e-6 relative (f64 sums in another order), y and dx within
-    1e-5 of their largest magnitude (f32) or 2^-8 (bf16), dscale / dbias 1e-5
-    of their scale; against F.group_norm + relu and its autograd (the
-    library yardstick) within 1e-4 of the largest magnitude (f32). Kernel,
-    device, plain and library times and bytes bounds (x read, y written;
-    x, dy read, dx written)."""
+    """K20 and K21 against their plain versions in both designs at the
+    GroupNorm net's shapes, 8 x 256 x 64 x 64 (a residual's first norm at 8
+    crops), 16 x 128 x 128 x 128 (a pre-residual's at 16 slots) and 32 x 256
+    x 64 x 64 (the train step's largest), f32 and bf16: statistics 1e-6
+    relative (f64 sums in another order), y and dx within 1e-5 of their
+    largest magnitude (f32) or 2^-8 (bf16), dscale / dbias 1e-5 of their
+    scale; against F.group_norm + relu and its autograd (the library
+    yardstick) within 1e-4 of the largest magnitude (f32). The cluster
+    design (the main path): every output bit-equal when a call is repeated,
+    one `gn_` kernel a call (the nodes of a captured graph), its workspace
+    counters back at 0. Times at each shape and dtype: L2-cold device us of
+    both designs in turns (split, cluster, cluster, split) and of the
+    library; host us a call of both designs (`host_ns`); kernel (warm),
+    device (profiler), plain and library ms and the bytes bound (x read, y
+    written; x, dy read, dx written). Then the route's boundary
+    (`gn_route_boundary`)."""
     import torch
     import torch.nn.functional as F
 
     from suo_slam_tpu_torch.models import hourglass as hg
 
     cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
-    err = {"stats": 0.0, "y f32": 0.0, "y bf16": 0.0, "dx f32": 0.0, "dx bf16": 0.0,
-           "sums": 0.0, "library f32": 0.0}
-    res, entries = {}, []
-    for shape in ((N_OBJ, 256, 64, 64), (16, 128, 128, 128)):
+    designs = gn_designs(hg)
+    err = {d: dict.fromkeys(GN_GATES, 0.0) for d in designs}
+    err_lib, repeat = 0.0, True
+    res, entries, cold_sums = {}, [], {}
+    for shape in GN_CHECK_SHAPES:
         C = shape[1]
         G = hg.num_groups(C)
         x32 = cl((rng.normal(size=shape) * 1.5 + 0.3).astype(np.float32))
@@ -5086,18 +5194,21 @@ def check_k20_k21(dev, rng):
         bias = torch.from_numpy((rng.normal(size=C) * 0.2).astype(np.float32)).to(dev)
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             x, dy = x32.to(dt), dy32.to(dt)
-            yk, mk, rk = hg._group_norm_relu_cuda(x, scale, bias, G)
             yp, mp, rp = hg.group_norm_relu_plain(x, scale, bias, G)
-            k = hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp)
             p = hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp)
-            torch.cuda.synchronize()
             rel = lambda a, b: ((a.float() - b.float()).abs().max()
                                 / b.float().abs().max().clamp(min=1e-30)).item()
-            err["stats"] = max(err["stats"], rel(mk, mp), rel(rk, rp))
-            err[f"y {name}"] = max(err[f"y {name}"], rel(yk, yp))
-            err[f"dx {name}"] = max(err[f"dx {name}"], rel(k[0], p[0]))
-            err["sums"] = max(err["sums"], *(((a - b).abs().max() / b.abs().max().clamp(min=1.0))
-                                             .item() for a, b in zip(k[1:], p[1:])))
+            if hg._gn_plan("fwd", x, G) is None or hg._gn_plan("bwd", x, G, dy) is None:
+                raise AssertionError(f"K20 / K21: no cluster plan at {list(x.shape)} {name}")
+            for d, (fw, bw) in designs.items():
+                e1, (yk, mk, rk), k = gn_errors(fw, bw, x, dy, scale, bias, G, ((yp, mp, rp), p))
+                for key, v in e1.items():
+                    err[d][key] = max(err[d][key], v)
+                if d == "cluster":
+                    again = (hg._group_norm_relu_cuda(x, scale, bias, G)
+                             + hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp))
+                    repeat &= all(torch.equal(u, v) for u, v in zip((yk, mk, rk) + k, again))
+                    ycl, kcl = yk, k
             # (F.group_norm on the card takes its affine in the input's dtype)
             xg = x.detach().clone().requires_grad_(True)
             w = scale.detach().to(dt).requires_grad_(True)
@@ -5105,51 +5216,261 @@ def check_k20_k21(dev, rng):
             ylib = torch.relu(F.group_norm(xg, G, w, bb, hg.GN_EPS))
             if dt == torch.float32:
                 glib = torch.autograd.grad(ylib, (xg, w, bb), dy, retain_graph=True)
-                err["library f32"] = max(err["library f32"], rel(yk, ylib.detach()),
-                                         rel(k[0], glib[0]), rel(k[1], glib[1]),
-                                         rel(k[2], glib[2]))
+                err_lib = max(err_lib, rel(ycl, ylib.detach()), rel(kcl[0], glib[0]),
+                              rel(kcl[1], glib[1]), rel(kcl[2], glib[2]))
             n, es = x.numel(), x.element_size()
             timing = {}
-            for label, fn, plain, lib, nbytes, ops in (
-                    ("K20 group_norm_relu", lambda: hg._group_norm_relu_cuda(x, scale, bias, G),
+            for label, fns, plain, lib, nbytes, ops in (
+                    ("K20 group_norm_relu",
+                     {d: (lambda f=f: f[0](x, scale, bias, G)) for d, f in designs.items()},
                      lambda: hg.group_norm_relu_plain(x, scale, bias, G),
                      lambda: torch.relu(F.group_norm(x, G, w, bb, hg.GN_EPS)),
                      2 * n * es + 2 * C * 4, 8 * n),
                     ("K21 group_norm_relu_bwd",
-                     lambda: hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp),
+                     {d: (lambda f=f: f[1](x, dy, scale, bias, mp, rp))
+                      for d, f in designs.items()},
                      lambda: hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp),
                      lambda: torch.autograd.grad(ylib, (xg, w, bb), dy, retain_graph=True),
                      3 * n * es + 2 * C * 4, 12 * n)):
-                ms, plain_ms = cuda_ms(fn), cuda_ms(plain, n=5, inner=2)
+                cold = {d: [] for d in designs}
+                for d in ("split", "cluster", "cluster", "split"):
+                    cold[d].append(1e3 * cuda_ms_cold(fns[d]))
+                lib_cold = 1e3 * cuda_ms_cold(lib)
+                hns = host_ns(fns, n=500)
+                ms, plain_ms = cuda_ms(fns["cluster"]), cuda_ms(plain, n=5, inner=2)
                 lib_ms = cuda_ms(lib)
-                us, src = device_us(fn, "gn_", per_call=3 if label.startswith("K20") else 4)
+                us, src = device_us(fns["cluster"], "gn_", per_call=1)
                 b = bound(nbytes, ops)
-                _report(f"{label} ({name}, {list(x.shape)}, {G} groups, device {us:.3f} us "
-                        f"by {src})", err[f"{'y' if label.startswith('K20') else 'dx'} {name}"],
-                        "1e-5 of max" if name == "f32" else "2^-8 of max", ms, plain_ms,
-                        lib_ms, b, lib)
+                key = f"{'y' if label.startswith('K20') else 'dx'} {name}"
+                _report(f"{label} ({name}, {list(x.shape)}, {G} groups, device {us:.3f} us by "
+                        f"{src}; L2-cold device us, in turns: cluster "
+                        f"{[round(v, 3) for v in cold['cluster']]}, split "
+                        f"{[round(v, 3) for v in cold['split']]}, library {lib_cold:.3f})",
+                        err["cluster"][key], "1e-5 of max" if name == "f32" else "2^-8 of max",
+                        ms, plain_ms, lib_ms, b, lib)
                 timing[label] = (ms, plain_ms, lib_ms, b, us)
+                cold_sums[(label[:3], "x".join(map(str, x.shape)), name)] = (
+                    statistics.mean(cold["cluster"]), statistics.mean(cold["split"]), lib_cold,
+                    b[0] * 1e3, hns["cluster"] / 1e3, hns["split"] / 1e3)
             res[(shape, name)] = timing
             del x, dy, xg, ylib
-    log("[group] K20 / K21 errors over 2 shapes, f32 and bf16: "
-        + json.dumps({k: f"{v:.3e}" for k, v in err.items()})
-        + " (tol: stats 1e-6, y / dx f32 1e-5 of max, bf16 2^-8, sums 1e-5 of scale, "
-          "library f32 1e-4 of max)")
-    if not (err["stats"] <= 1e-6 and err["y f32"] <= 1e-5 and err["dx f32"] <= 1e-5
-            and err["y bf16"] <= 2.0 ** -8 and err["dx bf16"] <= 2.0 ** -8
-            and err["sums"] <= 1e-5 and err["library f32"] <= 1e-4):
-        raise AssertionError(f"K20 / K21 disagree with their plain versions or the library: "
-                             f"{err}")
-    timing = res[((N_OBJ, 256, 64, 64), "bf16")]
+    for d in designs:
+        log(f"[group] K20 / K21 ({d} design) errors over {len(GN_CHECK_SHAPES)} shapes, f32 and "
+            f"bf16: " + json.dumps({k: f"{v:.3e}" for k, v in err[d].items()})
+            + " (tol: stats 1e-6, y / dx f32 1e-5 of max, bf16 2^-8, sums 1e-5 of scale)")
+    log(f"[group] cluster K20 / K21 against F.group_norm + relu and its autograd (f32): "
+        f"{err_lib:.3e} of max (tol 1e-4); repeated calls bit-equal: {repeat}")
+    log("[group] K20 / K21 L2-cold device us (cluster, split, library, bound), then host us a "
+        "call (cluster, split; `host_ns`) by kernel, shape, dtype: " + json.dumps({" ".join(map(str, k)): [round(v, 3) for v in t]
+                                for k, t in cold_sums.items()}))
+    for d, e in err.items():
+        if any(e[key] > tol for key, tol in GN_GATES.items()):
+            raise AssertionError(f"K20 / K21 ({d} design) disagree with their plain versions: {e}")
+    if err_lib > 1e-4 or not repeat:
+        raise AssertionError(f"cluster K20 / K21: library {err_lib}, repeats equal {repeat}")
+
+    # kernels a call, by the nodes of a captured graph
+    big = GN_CHECK_SHAPES[2]
+    C = big[1]
+    G = hg.num_groups(C)
+    x = cl((rng.normal(size=big) * 1.5).astype(np.float32)).to(torch.bfloat16)
+    dy = cl(rng.normal(size=big).astype(np.float32)).to(torch.bfloat16)
+    one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    _, mean, rstd = hg._group_norm_relu_cuda(x, one, zero, G)
+    per_call = {f"{kn} {d}": launches_per_call(fn) for d, f in designs.items() for kn, fn in (
+        ("K20", lambda f=f: f[0](x, one, zero, G)),
+        ("K21", lambda f=f: f[1](x, dy, one, zero, mean, rstd)))}
+    log(f"[group] K20 / K21 kernels per call (captured graph, bf16 {list(big)}): "
+        + json.dumps(per_call))
+    if per_call["K20 cluster"] != 1 or per_call["K21 cluster"] != 1:
+        raise AssertionError(f"cluster K20 / K21 launch more than one kernel a call: {per_call}")
+    torch.cuda.synchronize()
+    if any(w[0].any().item() for w in hg._gn_work.values()):
+        raise AssertionError("a cluster K21 launch left its arrival counters non-zero")
+    gn_route_boundary(dev, rng)
+    timing = res[(GN_CHECK_SHAPES[0], "bf16")]
     for kname, label, key in (("group_norm_relu", "K20 group_norm_relu", "y bf16"),
                               ("group_norm_relu_bwd", "K21 group_norm_relu_bwd", "dx bf16")):
         ms, plain_ms, lib_ms, b, _ = timing[label]
         entries.append(dict(name=kname, route="cuda",
                             source="suo_slam_tpu_torch/csrc/group_norm.cu",
                             replaces="suo_slam_tpu/models/hourglass.py:104",
-                            max_abs_err=err[key], ms=ms, plain_ms=plain_ms, bound_ms=b[0],
-                            bound_by=b[1], library_ms=lib_ms))
+                            max_abs_err=err["cluster"][key], ms=ms, plain_ms=plain_ms,
+                            bound_ms=b[0], bound_by=b[1], library_ms=lib_ms))
     return entries
+
+
+# the wrappers' route at its boundary: the widest pixel the cluster design
+# takes (256 f32 vectors), one vector wider, and an unvectorized bf16 pixel
+# of 300 values (600 bytes)
+GN_BOUNDARY = (((N_OBJ, 1024, 32, 32), "f32"), ((N_OBJ, 1028, 32, 32), "f32"),
+               ((N_OBJ, 300, 32, 32), "bf16"))
+
+
+def gn_route_boundary(dev, rng):
+    """K20 / K21 through the wrappers at GN_BOUNDARY: the design `plan_gn`
+    picks (kernels a call by graph nodes: 1 and 1 for the cluster design, 3
+    and 4 for the split), its outputs against the plain versions under
+    GN_GATES, and L2-cold device us; where the cluster design takes the
+    shape, the split design's too, in turns (split, cluster, cluster,
+    split): a time on each side of the route's choice."""
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    designs = gn_designs(hg)
+    out = {}
+    for shape, name in GN_BOUNDARY:
+        dt = torch.float32 if name == "f32" else torch.bfloat16
+        C = shape[1]
+        G = hg.num_groups(C)
+        cl = lambda a: torch.from_numpy(a).to(dev).to(dt).contiguous(
+            memory_format=torch.channels_last)
+        x = cl((rng.normal(size=shape) * 1.5 + 0.3).astype(np.float32))
+        dy = cl(rng.normal(size=shape).astype(np.float32))
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+        bias = torch.from_numpy((rng.normal(size=C) * 0.2).astype(np.float32)).to(dev)
+        yp, mp, rp = hg.group_norm_relu_plain(x, scale, bias, G)
+        p = hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp)
+        route = "cluster" if hg._gn_plan("fwd", x, G) is not None else "split"
+        e, _, _ = gn_errors(*designs["cluster"], x, dy, scale, bias, G, ((yp, mp, rp), p))
+        per_call = [launches_per_call(lambda: hg._group_norm_relu_cuda(x, scale, bias, G)),
+                    launches_per_call(lambda: hg._group_norm_relu_bwd_cuda(x, dy, scale, bias,
+                                                                          mp, rp))]
+        fns = {d: (lambda f=f: f[0](x, scale, bias, G), lambda f=f: f[1](x, dy, scale, bias, mp, rp))
+               for d, f in designs.items()}
+        order = ("split", "cluster", "cluster", "split") if route == "cluster" else ("cluster",)
+        cold = {}
+        for i, kn in enumerate(("K20", "K21")):
+            for d in order:
+                cold.setdefault(f"{kn} {d if route == 'cluster' else 'route'}", []).append(
+                    round(1e3 * cuda_ms_cold(fns[d][i]), 3))
+        key = f"{'x'.join(map(str, shape))} {name}"
+        out[key] = dict(route=route, kernels_a_call=per_call, cold_us=cold,
+                        errors={k: f"{v:.3e}" for k, v in e.items()})
+        if (any(v > GN_GATES[k] for k, v in e.items())
+                or per_call != ([1, 1] if route == "cluster" else [3, 4])):
+            raise AssertionError(f"K20 / K21 at the route's boundary, {key}: {out[key]}")
+        del x, dy, yp, p
+    log("[group] K20 / K21 through the wrappers at the route's boundary (the design plan_gn "
+        "picks, kernels a call, L2-cold device us, errors against the plain versions): "
+        + json.dumps(out))
+    return out
+
+
+def gn_clocks(label, x, dy, scale, bias, G, mean, rstd):
+    """SM clock cycles by phase of one L2-cold call of each cluster-design
+    kernel (`bn_clocks`, a row per CTA launched)."""
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    dt = hg._DTYPES[x.dtype]
+    for kind, phases, fn, ts in (
+            ("fwd", hg.GN_FWD_PHASES,
+             lambda cyc: hg._group_norm_relu_cuda(x, scale, bias, G, cycles=cyc), (x,)),
+            ("bwd", hg.GN_BWD_PHASES,
+             lambda cyc: hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mean, rstd, cycles=cyc),
+             (dy, x))):
+        plan = hg._gn_plan(kind, x, G, *ts)
+        rows = hg._gn_rows(x.device, kind, dt, plan)
+        bn_clocks(f"{'K20' if kind == 'fwd' else 'K21'} cluster ({label}, k {plan.k}, spp "
+                  f"{plan.spp}, {rows} CTA rows, keep {plan.keep} of {plan.iters}, slots "
+                  f"{plan.slots})", fn, phases, plan.k * rows, tag="[group]")
+
+
+def gn_step_shapes(dev, rng):
+    """K20 and K21 at every norm shape of the GroupNorm train step (one
+    train-mode forward of the full-width group net on TRAIN_N crops records
+    them), bf16 as the step and f32 as a `--no_bf16` step: each design's
+    outputs against the plain versions under GN_GATES (the worst error by
+    plan class: every plan the step runs is held), one L2-cold call of each
+    design per shape, the sums over the step's 180 calls of each — where a
+    step's K20 / K21 time goes — and SM cycles by phase at three bf16 shapes
+    (`gn_clocks`)."""
+    import collections
+
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+
+    net = PkpNet(dtype=torch.bfloat16, norm="group").to(dev)
+    shapes = collections.Counter()
+    real = hg.group_norm_relu
+
+    def spy(x, *a, **kw):
+        shapes[tuple(x.shape)] += 1
+        return real(x, *a, **kw)
+
+    crops = torch.from_numpy(rng.uniform(0, 1, (TRAIN_N, 256, 256, 3)).astype(np.float32)).to(dev)
+    hg.group_norm_relu = spy
+    try:
+        with torch.no_grad():
+            net(crops, train=True)
+    finally:
+        hg.group_norm_relu = real
+    if sum(shapes.values()) != NORMS_PER_FWD:
+        raise AssertionError(f"the group net's forward made {sum(shapes.values())} norm calls")
+    del net, crops
+    designs = gn_designs(hg)
+    totals = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        cl = lambda a: torch.from_numpy(a).to(dev).to(dt).contiguous(
+            memory_format=torch.channels_last)
+        rows, tot = [], collections.Counter()
+        worst = collections.defaultdict(lambda: collections.defaultdict(float))
+        for shape, n in sorted(shapes.items(), key=lambda kv: -kv[0][2]):
+            C = shape[1]
+            G = hg.num_groups(C)
+            x = cl((rng.normal(size=shape) * 1.5 + 0.3).astype(np.float32))
+            dy = cl(rng.normal(size=shape).astype(np.float32))
+            scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+            bias = torch.from_numpy((rng.normal(size=C) * 0.2).astype(np.float32)).to(dev)
+            yp, mp, rp = hg.group_norm_relu_plain(x, scale, bias, G)
+            ref = ((yp, mp, rp), hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp))
+            plans = [hg._gn_plan("fwd", x, G), hg._gn_plan("bwd", x, G, dy)]
+            if None in plans:
+                raise AssertionError(f"K20 / K21: no cluster plan at {list(shape)} {name}")
+            for d, (fw, bw) in designs.items():
+                e, _, _ = gn_errors(fw, bw, x, dy, scale, bias, G, ref)
+                for kn, plan, keys in (("K20", plans[0], ("stats", f"y {name}")),
+                                       ("K21", plans[1], (f"dx {name}", "sums"))):
+                    cls = f"{kn} " + (f"cluster {gn_plan_class(plan)}" if d == "cluster"
+                                      else "split")
+                    for key in keys:
+                        worst[cls][key] = max(worst[cls][key], e[key])
+            del yp, ref
+            mean, rstd = mp, rp
+            t = {f"{kn} {d}": (lambda f=f, kn=kn: f[0](x, scale, bias, G) if kn == "K20" else
+                               f[1](x, dy, scale, bias, mean, rstd))
+                 for kn in ("K20", "K21") for d, f in designs.items()}
+            us = {k: 1e3 * cuda_ms_cold(f, n=7) for k, f in t.items()}
+            for k, v in us.items():
+                tot[k] += n * v
+            bytes_ = x.numel() * x.element_size()
+            tot["K20 bound"] += n * 2 * bytes_ / HBM_BYTES_PER_S * 1e6
+            tot["K21 bound"] += n * 3 * bytes_ / HBM_BYTES_PER_S * 1e6
+            rows.append([list(shape), n, gn_plan_class(plans[0]), gn_plan_class(plans[1])]
+                        + [round(us[k], 2) for k in t])
+            if name == "bf16" and shape in ((TRAIN_N, 256, 64, 64), (TRAIN_N, 128, 16, 16),
+                                            (TRAIN_N, 128, 4, 4)):
+                gn_clocks(str(list(shape)), x, dy, scale, bias, G, mean, rstd)
+            del x, dy, mean, rstd
+        log(f"[group] K20 / K21 against the plain versions at every norm shape of the GroupNorm "
+            f"step, {name}, worst by design and plan class (gates: stats 1e-6, y / dx "
+            f"{'1e-5' if name == 'f32' else '2^-8'} of max, sums 1e-5 of scale): "
+            + json.dumps({c: {k: f"{v:.3e}" for k, v in e.items()}
+                          for c, e in sorted(worst.items())}))
+        bad = {c: e for c, e in worst.items() if any(v > GN_GATES[k] for k, v in e.items())}
+        if bad:
+            raise AssertionError(f"K20 / K21 disagree with their plain versions at the {name} "
+                                 f"step's norm shapes: {bad}")
+        log(f"[group] K20 / K21 by norm shape of the {name} GroupNorm step (shape, calls, K20's "
+            f"and K21's plan class, L2-cold device us a call: " + ", ".join(t) + "): "
+            + json.dumps(rows))
+        log(f"[group] ... {name}, summed over the step's calls (ms; bounds: bytes at 3.35 "
+            "TB/s): " + json.dumps({k: round(v / 1e3, 3) for k, v in tot.items()}))
+        totals[name] = tot
+    return totals
 
 
 def phase_group(dev, seed, objs, scene):
@@ -5170,6 +5491,7 @@ def phase_group(dev, seed, objs, scene):
 
     rng = np.random.default_rng(seed + 20)
     entries = check_k20_k21(dev, rng)
+    gn_step_shapes(dev, rng)
     base, root = _eval_root()
     kp_root = os.path.join(root, "kp_configs")
     netg16 = full_width_net(seed, torch.bfloat16, norm="group").to(dev).eval().to(
@@ -5218,8 +5540,10 @@ def phase_group(dev, seed, objs, scene):
     if c["group_norm_relu"] == 0 or c["norm_relu"] or float(np.mean(ok)) < 0.9:
         raise AssertionError("group SLAM run: no K20 launch, a K8 launch or poses off")
     del engine, inf
-    # one full-width train step with K20 / K21 against its plain run
+    # one full-width train step with K20 / K21 against its plain run, then
+    # the bf16 step's times, kernels and launches
     train_step_parity(dev, seed, root, norm="group")
+    step_timing(dev, seed, root, norm="group")
     # the training CLI with --norm group, then its checkpoint through Evaluator
     work = os.path.join(base, "train_cli_group")
     shutil.rmtree(work, ignore_errors=True)
@@ -5527,6 +5851,8 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=22)
     ap.add_argument("--step-only", action="store_true",
                     help="build, then time the full-width bf16 train step only")
+    ap.add_argument("--norm", choices=("batch", "group"), default="batch",
+                    help="the net --step-only times (BatchNorm or GroupNorm)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5535,7 +5861,7 @@ def main(argv=None):
     dev = phase_card()
     phase_build()
     if args.step_only:
-        r = phase_step_only(dev, args.seed)
+        r = phase_step_only(dev, args.seed, args.norm)
         log(smi_line())
         log(json.dumps({"step": r}))
         return 0

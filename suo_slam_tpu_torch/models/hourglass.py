@@ -51,8 +51,15 @@ their sums; K16's affine and running averages and K17's scale gradient bit
 for bit). K16 and K17 have two designs (`design=`): "fused", the main path,
 one cooperative launch of a persistent grid per call (`plan_bn`, scratch and
 grid-barrier counters in a per-stream workspace, `_bn_workspace`), and
-"split", the first design, kept for comparison. The max-pools and the
-convolutions keep torch's autograd, as the JAX package left them to XLA.
+"split", the first design, kept for comparison. K20 and K21 take one of
+two routes by shape: the cluster design, one launch per call of a
+persistent grid of thread-block clusters, a cluster a sample (`plan_gn`;
+`_gn_rows` asks the card how many run at once; K21's rows and arrival
+counters in a per-stream workspace, `_gn_workspace`), wherever a CTA's
+threads cover a pixel's channel vectors (every shape of the net); the split
+design, the first one (three and four launches), for wider pixels. The
+max-pools and the convolutions keep torch's autograd, as the JAX package
+left them to XLA.
 
 The net's kinds of norm and convolution are chosen at construction, as the
 JAX package's `norm` and `conv_cls`: `norm="batch"` builds `MaskedBatchNorm`
@@ -703,9 +710,216 @@ def group_norm_relu_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tens
     return y, mean, rstd
 
 
-_GN_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_double]
-                + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+# K20 / K21: plans, workspace -------------------------------------------------
+# `csrc/group_norm.cu`'s constants of the cluster design
+# (tests/test_torch_gn_plan.py reads them from the source)
+GN_THREADS = 256         # threads of a CTA
+GN_MAX_CLUSTER = 16      # CTAs of a sample's cluster
+GN_MAX_TEAMS = 8         # samples of a CTA (k = 1)
+GN_TAIL_UNROLL = 4       # tail pixels a thread loads together
+GN_KEEP_BATCH = 4        # kept pixels in one cp.async group of a thread
+GN_SMEM_BUDGET = 231424  # dynamic shared memory of a CTA
+GN_MIN_SLICE = 32768     # bytes a slice keeps when k grows to fill the card
+# the phases whose SM clock cycles `cycles=` takes (a row per CTA)
+GN_FWD_PHASES = ("load", "math", "fold", "cluster", "apply")
+GN_BWD_PHASES = ("load", "math", "fold", "cluster", "dx", "final")
+
+
+class GnPlan(NamedTuple):
+    """A cluster-design K20 / K21 call's plan (`group_norm.cu` `GGeom`,
+    `g_layout`): V channels a thread's vector, k CTAs a sample's cluster,
+    spp samples a CTA (teams of GN_THREADS / spp threads, k = 1), cv
+    channel-vector lanes x lanes_p pixel lanes a team, q pixel lanes a warp
+    folds by shuffles, `rows` rows of the cross-warp fold, `iters` pixels of
+    a sample for the busiest thread, `keep` of them kept in shared memory,
+    `slots` pixels in the thread's ring there (more than `keep` where the
+    next sample's copies can start early), `blocks` blocks of spp samples
+    (the grid is (k, CTA rows), rows taking blocks in turn), `smem` bytes of
+    dynamic shared memory."""
+    V: int
+    k: int
+    spp: int
+    cv: int
+    lanes_p: int
+    q: int
+    rows: int
+    iters: int
+    keep: int
+    slots: int
+    blocks: int
+    smem: int
+
+
+def gn_geom(C: int, V: int, spp: int) -> tuple:
+    """`group_norm.cu` `GGeom`: (cv, a team's threads, lanes_p, q, rows)."""
+    cv = C // V
+    tt = GN_THREADS // spp
+    lanes_p = tt // cv
+    q = 32 // cv if cv <= 32 and 32 % cv == 0 else 1
+    return cv, tt, lanes_p, q, (tt // 32 if q > 1 else lanes_p)
+
+
+def gn_smem(spp: int, rows: int, lanes_p: int, C: int, G: int, itemsize: int, slots: int,
+            bwd: bool) -> int:
+    """`group_norm.cu` `g_layout`'s total: the fold rows (at least
+    GN_THREADS f64 pairs), the per-channel rows and group partials (f64
+    pairs a team, two sets), the ring slots of x (and dy), the group
+    statistics (f32 pairs a team)."""
+    kept = spp * slots * lanes_p * C * itemsize
+    return (16 * max(spp * rows * C, GN_THREADS) + 32 * spp * C + 32 * spp * G
+            + kept * (2 if bwd else 1) + 8 * spp * G)
+
+
+@functools.lru_cache(maxsize=512)
+def plan_gn(kind: str, N: int, HW: int, C: int, itemsize: int, vec: bool, n_sm: int,
+            max_cluster: int, groups: int | None = None) -> GnPlan | None:
+    """The cluster design's plan of a K20 (`kind="fwd"`) or K21 (`"bwd"`)
+    call on [N, HW, C] values of `itemsize` bytes in `groups` groups
+    (`num_groups(C)` by default), 16-byte vectors when `vec`, on a card of
+    `n_sm` multiprocessors that co-schedules clusters of up to
+    `max_cluster` CTAs; None where a pixel holds more channel vectors than
+    a CTA has threads (the split design's shapes). k, a power of two,
+    doubles while a sample's slice
+    (x, and K21's dy) does not fit a CTA's shared memory, then while the k N
+    CTAs do not fill the card and a slice would keep GN_MIN_SLICE bytes.
+    With k = 1, samples share a CTA (spp doubles, up to GN_MAX_TEAMS) while a
+    team still covers its sample with at most two pixels a thread. Where a
+    slice does not fit, each thread keeps its first `keep` pixels on chip
+    and reads the rest again; where it fits and the blocks outnumber what
+    one wave of CTAs holds, the ring takes up to twice a slice, so the
+    next block's copies start while the current one is reduced."""
+    if kind not in ("fwd", "bwd"):
+        raise ValueError(f"plan_gn: unknown kind {kind!r}")
+    G = num_groups(C) if groups is None else groups
+    bwd = kind == "bwd"
+    V = 16 // itemsize if vec else 1
+    cv = C // V
+    if C % V:
+        raise ValueError(f"K20 / K21: {C} channels are no whole number of {V}-vectors")
+    if cv > GN_THREADS:
+        return None
+    px = C * itemsize * (2 if bwd else 1)  # bytes a pixel keeps
+    cap = 1
+    while cap * 2 <= min(max_cluster, GN_MAX_CLUSTER):
+        cap *= 2
+
+    def fit(k, spp):  # (iters, keep, slots, smem) of a layout
+        _, _, lanes_p, _, rows = gn_geom(C, V, spp)
+        iters = -(-(-(-HW // k)) // lanes_p)
+        fixed = gn_smem(spp, rows, lanes_p, C, G, itemsize, 0, bwd)
+        room = max(0, (GN_SMEM_BUDGET - fixed) // (spp * lanes_p * px)) if vec else 0
+        keep = min(iters, room)
+        slots = min(room, 2 * iters) if keep == iters and -(-N // spp) * k > n_sm else keep
+        return iters, keep, slots, gn_smem(spp, rows, lanes_p, C, G, itemsize, slots, bwd)
+
+    k = 1
+    while k < cap:
+        iters, keep, _, _ = fit(k, 1)
+        if (keep < iters and vec) or (N * k < n_sm and -(-HW // (2 * k)) * px >= GN_MIN_SLICE):
+            k *= 2
+        else:
+            break
+    spp = 1
+    while k == 1 and 2 * spp <= min(GN_MAX_TEAMS, N):
+        tt = GN_THREADS // (2 * spp)
+        if tt < max(32, cv) or HW > 2 * (tt // cv):
+            break
+        iters, keep, _, _ = fit(1, 2 * spp)
+        if keep < iters and vec:
+            break
+        spp *= 2
+    _, _, lanes_p, q, rows = gn_geom(C, V, spp)
+    iters, keep, slots, smem = fit(k, spp)
+    if smem > GN_SMEM_BUDGET:
+        raise ValueError(f"K20 / K21: {C} channels need {smem} bytes of shared memory, more "
+                         f"than a CTA's {GN_SMEM_BUDGET}")
+    return GnPlan(V, k, spp, cv, lanes_p, q, rows, iters, keep, slots, -(-N // spp), smem)
+
+
+_gn_caps: dict[int, int] = {}  # device -> the largest cluster it co-schedules
+
+
+def _gn_cluster_cap(dev: torch.device) -> int:
+    """The largest cluster of the cluster design's CTAs this card
+    co-schedules (`suo_group_norm_max_cluster`: at the whole shared-memory
+    budget), at most GN_MAX_CLUSTER; asked once per device."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    cap = _gn_caps.get(i)
+    if cap is None:
+        fn = _build.entry("group_norm", [ctypes.POINTER(ctypes.c_int)],
+                          "suo_group_norm_max_cluster")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(i):
+            _build.check(fn(ctypes.byref(out)), "K20 / K21 group_norm (cluster size)")
+        if out.value < 1:
+            raise RuntimeError("K20 / K21: this card co-schedules no cluster of their CTAs")
+        cap = _gn_caps[i] = min(GN_MAX_CLUSTER, out.value)
+    return cap
+
+
+_gn_active: dict[tuple, int] = {}  # (device, kind, dtype, vec, k, smem) -> clusters at once
+
+
+def _gn_rows(dev: torch.device, kind: str, dtype: int, plan: GnPlan) -> int:
+    """The CTA rows a cluster-design launch takes: the clusters of its plan
+    the card runs at once (`suo_group_norm_active_clusters`, asked once per
+    device and plan), at most its blocks."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (i, kind, dtype, plan.V > 1, plan.k, plan.smem)
+    n = _gn_active.get(key)
+    if n is None:
+        fn = _build.entry("group_norm", [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)],
+                          "suo_group_norm_active_clusters")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(i):
+            _build.check(fn(plan.k, plan.smem, int(kind == "bwd"), dtype, int(plan.V > 1),
+                            ctypes.byref(out)), "K20 / K21 group_norm (clusters at once)")
+        if out.value < 1:
+            raise RuntimeError(f"K20 / K21: the card runs no cluster of {plan.k} CTAs of "
+                               f"{plan.smem} bytes")
+        n = _gn_active[key] = out.value
+    return min(n, plan.blocks)
+
+
+_gn_work: dict[tuple, tuple] = {}
+
+
+def _gn_workspace(dev: torch.device, stream: int, n_rows: int):
+    """K21's cluster-design scratch on `stream`: (uint32 [GN_MAX_CLUSTER]
+    arrival counters at zero, f64 [>= n_rows] rows). Every launch leaves the
+    counters at zero, so one set serves every call on the stream (and a
+    captured graph); the rows grow by fresh allocations."""
+    key = (dev.index, stream)
+    w = _gn_work.get(key)
+    if w is None or w[1].numel() < n_rows:
+        with _bn_work_lock:
+            w = _gn_work.get(key)
+            if w is None or w[1].numel() < n_rows:
+                w = (torch.zeros(GN_MAX_CLUSTER, dtype=torch.int32, device=dev)
+                     if w is None else w[0],
+                     torch.empty(max(n_rows, 0 if w is None else w[1].numel()),
+                                 dtype=torch.float64, device=dev))
+                _gn_work[key] = w
+    return w
+
+
+def _gn_plan(kind: str, x: torch.Tensor, groups: int, *ts: torch.Tensor) -> GnPlan | None:
+    """The cluster design's plan of a call on x (vectors where x and ts
+    allow; the outputs, fresh allocations, are aligned), None for the split
+    design."""
+    N, C, H, W = x.shape
+    it = x.element_size()
+    dev = x.device
+    return plan_gn(kind, N, H * W, C, it, _vectorizable(C, it, x, *ts), _multiprocessors(dev),
+                   _gn_cluster_cap(dev), groups)
+
+
+_GN_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_double]
+                      + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p])
+_GN_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_int, ctypes.c_double]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
 
 
 def _gn_vectors(name: str, x: torch.Tensor, *vs: torch.Tensor) -> list:
@@ -718,41 +932,66 @@ def _gn_vectors(name: str, x: torch.Tensor, *vs: torch.Tensor) -> list:
     return vs
 
 
-def _gn_part(x: torch.Tensor, *ptrs) -> torch.Tensor:
-    """K20 / K21's f64 scratch: [N, spans, C, 2] partials (the spans depend
-    on the vector width the pointers allow)."""
+def _gn_fwd_args(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int):
+    name = "K20 group_norm_relu"
+    _check_nhwc(name, x)
+    if x.shape[1] % groups:
+        raise ValueError(f"{name}: {groups} groups do not divide {x.shape[1]} channels")
+    return _gn_vectors(name, x, scale, bias)
+
+
+def _group_norm_relu_split(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           groups: int, eps: float = GN_EPS):
+    """K20's split design (see `group_norm_relu_plain`): a partial pass, the
+    statistics and the apply pass, three launches; `_group_norm_relu_cuda`'s
+    route where `plan_gn` gives no plan."""
+    scale, bias = _gn_fwd_args(x, scale, bias, groups)
     N, C, H, W = x.shape
-    fn = _build.entry("group_norm", [ctypes.c_longlong] + [ctypes.c_int] * 2
-                      + [ctypes.c_void_p] * 3, "suo_group_norm_spans")
-    spans = fn(H * W, C, _DTYPES[x.dtype], *(None if t is None else _build.ptr(t) for t in ptrs))
-    return torch.empty((N, spans, C, 2), dtype=torch.float64, device=x.device)
+    y = torch.empty_like(x, memory_format=_CL)
+    stats = torch.empty((2, N, groups), dtype=torch.float32, device=x.device)  # mean, rstd
+    it = x.element_size()
+    spans = plan_split(1, H * W, C, it, _vectorizable(C, it, x, y))
+    part = torch.empty((N, spans, C, 2), dtype=torch.float64, device=x.device)
+    p = _build.ptr
+    fn = _build.entry("group_norm", _GN_SPLIT_ARGTYPES, "suo_group_norm_relu")
+    err = fn(p(x), p(scale), p(bias), N, H * W, C, groups, eps, p(part), p(stats[0]),
+             p(stats[1]), p(y), _DTYPES[x.dtype], _build.stream())
+    _build.check(err, "K20 group_norm_relu (split design)")
+    kcount.count("group_norm_relu")
+    return y, stats[0], stats[1]
 
 
 def _group_norm_relu_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
-                          eps: float = GN_EPS):
-    _check_nhwc("K20 group_norm_relu", x)
+                          eps: float = GN_EPS, cycles: torch.Tensor | None = None):
+    """K20 (see `group_norm_relu_plain`): one launch of the cluster design
+    where `plan_gn` gives a plan, else the split design; `cycles`: int64
+    zeros [k * rows, len(GN_FWD_PHASES)] that take the cluster design's SM
+    clock cycles per phase (a row per CTA launched, `_gn_rows`)."""
+    scale, bias = _gn_fwd_args(x, scale, bias, groups)
+    plan = _gn_plan("fwd", x, groups)
+    if plan is None:
+        if cycles is not None:
+            raise ValueError("K20 group_norm_relu: the split design takes no cycles")
+        return _group_norm_relu_split(x, scale, bias, groups, eps)
     N, C, H, W = x.shape
-    if C % groups:
-        raise ValueError(f"K20 group_norm_relu: {groups} groups do not divide {C} channels")
-    scale, bias = _gn_vectors("K20 group_norm_relu", x, scale, bias)
     y = torch.empty_like(x, memory_format=_CL)
-    mean = torch.empty((N, groups), dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    part = _gn_part(x, x, y, None)
-    fn = _build.entry("group_norm", _GN_ARGTYPES, "suo_group_norm_relu")
-    err = fn(_build.ptr(x), _build.ptr(scale), _build.ptr(bias), N, H * W, C, groups, eps,
-             _build.ptr(part), _build.ptr(mean), _build.ptr(rstd), _build.ptr(y),
-             _DTYPES[x.dtype], _build.stream())
+    stats = torch.empty((2, N, groups), dtype=torch.float32, device=x.device)  # mean, rstd
+    p = _build.ptr
+    rows = _gn_rows(x.device, "fwd", _DTYPES[x.dtype], plan)
+    fn = _build.entry("group_norm", _GN_CLUSTER_ARGTYPES, "suo_group_norm_relu_cluster")
+    err = fn(p(x), p(scale), p(bias), N, H * W, C, groups, eps, p(stats[0]), p(stats[1]),
+             p(y), _DTYPES[x.dtype], int(plan.V > 1), plan.k, plan.spp, plan.keep, plan.slots,
+             rows, plan.smem, None if cycles is None else p(cycles), _build.stream())
     _build.check(err, "K20 group_norm_relu")
     kcount.count("group_norm_relu")
-    return y, mean, rstd
+    return y, stats[0], stats[1]
 
 
 def group_norm_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                     eps: float = GN_EPS):
     """GroupNorm + ReLU with its statistics (see `group_norm_relu_plain`):
-    K20 on CUDA tensors, the plain version on CPU tensors. x must be
-    channels_last."""
+    K20 on CUDA tensors (one launch of the cluster design at every shape of
+    the net), the plain version on CPU tensors. x must be channels_last."""
     if x.device.type == "cpu":
         _check_nhwc("group_norm_relu", x, plain=True)
         return group_norm_relu_plain(x, scale, bias, groups, eps)
@@ -794,40 +1033,85 @@ def group_norm_relu_bwd_plain(x, dy, scale, bias, mean, rstd):
     return dx.to(x.dtype).contiguous(memory_format=_CL), dscale.to(f), dbias.to(f)
 
 
-_GN_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                              ctypes.c_int]
-                    + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
+_GN_BWD_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                    ctypes.c_int]
+                          + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p])
+_GN_BWD_CLUSTER_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_int]
+                            + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
 
 
-def _group_norm_relu_bwd_cuda(x, dy, scale, bias, mean, rstd):
-    _check_nhwc("K21 group_norm_relu_bwd", x, dy)
-    N, C, H, W = x.shape
+def _gn_bwd_args(x, dy, scale, bias, mean, rstd):
+    name = "K21 group_norm_relu_bwd"
+    _check_nhwc(name, x, dy)
+    N, C = x.shape[:2]
     groups = mean.shape[1]
     if dy.shape != x.shape or dy.dtype != x.dtype:
-        raise ValueError("K21 group_norm_relu_bwd: dy must match x's shape and dtype")
+        raise ValueError(f"{name}: dy must match x's shape and dtype")
     if mean.shape != (N, groups) or rstd.shape != (N, groups) or C % groups:
-        raise ValueError(f"K21 group_norm_relu_bwd: mean and rstd must be [{N}, G], G | {C}")
-    scale, bias, mean, rstd = _gn_vectors("K21 group_norm_relu_bwd", x, scale, bias, mean, rstd)
-    dx = torch.empty_like(x, memory_format=_CL)
-    part = _gn_part(x, x, dy, dx)
+        raise ValueError(f"{name}: mean and rstd must be [{N}, G], G | {C}")
+    return _gn_vectors(name, x, scale, bias, mean, rstd)
+
+
+def _group_norm_relu_bwd_split(x, dy, scale, bias, mean, rstd):
+    """K21's split design (see `group_norm_relu_bwd_plain`): a partial pass,
+    per-sample and per-channel sums, the dx pass, four launches;
+    `_group_norm_relu_bwd_cuda`'s route where `plan_gn` gives no plan."""
+    scale, bias, mean, rstd = _gn_bwd_args(x, dy, scale, bias, mean, rstd)
+    N, C, H, W = x.shape
+    groups = mean.shape[1]
     dev = x.device
+    dx = torch.empty_like(x, memory_format=_CL)
+    out = torch.empty((2, C), dtype=torch.float32, device=dev)  # dscale, dbias
+    it = x.element_size()
+    spans = plan_split(1, H * W, C, it, _vectorizable(C, it, x, dy, dx))
+    part = torch.empty((N, spans, C, 2), dtype=torch.float64, device=dev)
     sums = torch.empty((N, C, 2), dtype=torch.float64, device=dev)
     coef = torch.empty((N, groups, 2), dtype=torch.float32, device=dev)
-    dscale = torch.empty(C, dtype=torch.float32, device=dev)
-    dbias = torch.empty_like(dscale)
-    fn = _build.entry("group_norm", _GN_BWD_ARGTYPES, "suo_group_norm_relu_bwd")
-    err = fn(*(_build.ptr(t) for t in (x, dy, scale, bias, mean, rstd)), N, H * W, C, groups,
-             *(_build.ptr(t) for t in (part, sums, coef, dscale, dbias, dx)),
-             _DTYPES[x.dtype], _build.stream())
+    p = _build.ptr
+    fn = _build.entry("group_norm", _GN_BWD_SPLIT_ARGTYPES, "suo_group_norm_relu_bwd")
+    err = fn(*(p(t) for t in (x, dy, scale, bias, mean, rstd)), N, H * W, C, groups,
+             *(p(t) for t in (part, sums, coef, out[0], out[1], dx)), _DTYPES[x.dtype],
+             _build.stream())
+    _build.check(err, "K21 group_norm_relu_bwd (split design)")
+    kcount.count("group_norm_relu_bwd")
+    return dx, out[0], out[1]
+
+
+def _group_norm_relu_bwd_cuda(x, dy, scale, bias, mean, rstd,
+                              cycles: torch.Tensor | None = None):
+    """K21 (see `group_norm_relu_bwd_plain`): one launch of the cluster
+    design where `plan_gn` gives a plan, else the split design; `cycles`:
+    int64 zeros [k * rows, len(GN_BWD_PHASES)] (the cluster design's CTAs)."""
+    scale, bias, mean, rstd = _gn_bwd_args(x, dy, scale, bias, mean, rstd)
+    groups = mean.shape[1]
+    plan = _gn_plan("bwd", x, groups, dy)
+    if plan is None:
+        if cycles is not None:
+            raise ValueError("K21 group_norm_relu_bwd: the split design takes no cycles")
+        return _group_norm_relu_bwd_split(x, dy, scale, bias, mean, rstd)
+    N, C, H, W = x.shape
+    dev = x.device
+    dx = torch.empty_like(x, memory_format=_CL)
+    out = torch.empty((2, C), dtype=torch.float32, device=dev)  # dscale, dbias
+    p = _build.ptr
+    st = _build.stream(dev.index)
+    count, sums = _gn_workspace(dev, st, plan.blocks * C * 2)
+    fn = _build.entry("group_norm", _GN_BWD_CLUSTER_ARGTYPES, "suo_group_norm_relu_bwd_cluster")
+    err = fn(*(p(t) for t in (x, dy, scale, bias, mean, rstd)), N, H * W, C, groups,
+             *(p(t) for t in (sums, count, out[0], out[1], dx)), _DTYPES[x.dtype],
+             int(plan.V > 1), plan.k, plan.spp, plan.keep, plan.slots,
+             _gn_rows(dev, "bwd", _DTYPES[x.dtype], plan), plan.smem,
+             None if cycles is None else p(cycles), st)
     _build.check(err, "K21 group_norm_relu_bwd")
     kcount.count("group_norm_relu_bwd")
-    return dx, dscale, dbias
+    return dx, out[0], out[1]
 
 
 def group_norm_relu_bwd(x, dy, scale, bias, mean, rstd):
     """The backward of the GroupNorm + ReLU (see `group_norm_relu_bwd_plain`):
-    K21 on CUDA tensors, the plain version on CPU tensors. dy is made
-    channels_last."""
+    K21 on CUDA tensors (one launch of the cluster design at every shape of
+    the net), the plain version on CPU tensors. dy is made channels_last."""
     dy = dy.contiguous(memory_format=_CL)
     if x.device.type == "cpu":
         _check_nhwc("group_norm_relu_bwd", x, dy, plain=True)

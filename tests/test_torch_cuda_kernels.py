@@ -1126,16 +1126,27 @@ def test_k12_f32_ops(dev):
 
 def test_k20_k21_group_norm(dev):
     """K20 (y, mean, rstd) and K21 (dx, dscale, dbias) against their plain
-    versions, f32 and bf16, at group sizes 1 to 8 and unvectorized channel
-    counts: statistics 1e-6 relative (f64 sums in another order), y and dx
-    within 1e-5 of their largest magnitude (f32) or 1 bf16 ulp of it, the
-    parameter gradients within 1e-5 of their scale."""
+    versions in both designs (the wrappers' route, and the split design's
+    functions at every shape), f32 and bf16, at group sizes 1 to 8,
+    unvectorized channel counts, one shape of each cluster-design plan class
+    (k = 1 with several samples a CTA, k > 1 with the slice in shared
+    memory, k > 1 with part of it read again) and pixels wider than the
+    cluster design takes (the wrappers route them to the split design:
+    three and four kernels a call, one elsewhere): statistics 1e-6 relative
+    (f64 sums in another order), y and dx within 1e-5 of their largest
+    magnitude (f32) or 1 bf16 ulp of it, the parameter gradients within 1e-5
+    of their scale; one counted call each, and the cluster design's outputs
+    bit-equal when a call is repeated."""
     from suo_slam_tpu_torch import kernels
     from suo_slam_tpu_torch.models import hourglass as hg
 
     g = torch.Generator(device=dev).manual_seed(21)
+    classes = set()
+    routes = {"route": (hg._group_norm_relu_cuda, hg._group_norm_relu_bwd_cuda),
+              "split": (hg._group_norm_relu_split, hg._group_norm_relu_bwd_split)}
     for shape in ((4, 256, 16, 16), (3, 128, 32, 32), (2, 64, 9, 7), (3, 16, 4, 4),
-                  (2, 36, 5, 5)):
+                  (2, 36, 5, 5), (32, 128, 4, 4), (4, 128, 64, 64), (2, 256, 64, 64),
+                  (2, 2048, 4, 4), (2, 300, 5, 5)):
         N, C = shape[:2]
         G = hg.num_groups(C)
         for dt in (torch.float32, torch.bfloat16):
@@ -1144,19 +1155,84 @@ def test_k20_k21_group_norm(dev):
             dy = cl(torch.randn(shape, device=dev, generator=g))
             scale = torch.rand(C, device=dev, generator=g) + 0.5
             bias = torch.randn(C, device=dev, generator=g) * 0.2
-            kernels.reset_counts()
-            yk, mk, rk = hg._group_norm_relu_cuda(x, scale, bias, G)
             yp, mp, rp = hg.group_norm_relu_plain(x, scale, bias, G)
-            assert kernels.counts()["group_norm_relu"] == 1
-            assert torch.allclose(mk, mp, rtol=1e-6, atol=1e-7)
-            assert torch.allclose(rk, rp, rtol=1e-6, atol=0)
-            tol = 1e-5 if dt == torch.float32 else 2.0 ** -8
-            assert (yk.float() - yp.float()).abs().max().item() <= tol * yp.float().abs().max().item()
-            assert yk.is_contiguous(memory_format=torch.channels_last)
-            k = hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp)
             p = hg.group_norm_relu_bwd_plain(x, dy, scale, bias, mp, rp)
-            assert kernels.counts()["group_norm_relu_bwd"] == 1
-            for a, b in zip(k[1:], p[1:]):
-                assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1)
-            d = (k[0].float() - p[0].float()).abs().max().item()
-            assert d <= tol * p[0].float().abs().max().item(), (shape, dt, d)
+            tol = 1e-5 if dt == torch.float32 else 2.0 ** -8
+            cluster = hg._gn_plan("fwd", x, G) is not None
+            assert (hg._gn_plan("bwd", x, G, dy) is not None) == cluster
+            assert cluster == (C // (16 // x.element_size() if C * x.element_size() % 16 == 0
+                                     else 1) <= hg.GN_THREADS)
+            assert [_graph_kernels(lambda: hg._group_norm_relu_cuda(x, scale, bias, G)),
+                    _graph_kernels(lambda: hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp,
+                                                                        rp))] == (
+                [1, 1] if cluster else [3, 4]), (shape, dt)
+            for design, (fwd, bwd) in routes.items():
+                kernels.reset_counts()
+                yk, mk, rk = fwd(x, scale, bias, G)
+                assert kernels.counts()["group_norm_relu"] == 1
+                assert torch.allclose(mk, mp, rtol=1e-6, atol=1e-7), (shape, dt, design)
+                assert torch.allclose(rk, rp, rtol=1e-6, atol=0), (shape, dt, design)
+                d = (yk.float() - yp.float()).abs().max().item()
+                assert d <= tol * yp.float().abs().max().item(), (shape, dt, design, d)
+                assert yk.is_contiguous(memory_format=torch.channels_last)
+                k = bwd(x, dy, scale, bias, mp, rp)
+                assert kernels.counts()["group_norm_relu_bwd"] == 1
+                for a, b in zip(k[1:], p[1:]):
+                    assert (a - b).abs().max().item() <= 1e-5 * max(b.abs().max().item(), 1)
+                d = (k[0].float() - p[0].float()).abs().max().item()
+                assert d <= tol * p[0].float().abs().max().item(), (shape, dt, design, d)
+                if design == "route" and cluster:
+                    assert all(torch.equal(a, b) for a, b in zip(
+                        (yk, mk, rk), hg._group_norm_relu_cuda(x, scale, bias, G)))
+                    assert all(torch.equal(a, b) for a, b in zip(
+                        k, hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mp, rp)))
+                    for kind, ts in (("fwd", (yk,)), ("bwd", (dy, k[0]))):
+                        plan = hg._gn_plan(kind, x, G, *ts)
+                        classes.add("k = 1, spp > 1" if plan.spp > 1 else "k = 1"
+                                    if plan.k == 1 else "k > 1, on chip"
+                                    if plan.keep == plan.iters else "k > 1, read again")
+    assert classes >= {"k = 1, spp > 1", "k > 1, on chip", "k > 1, read again"}, classes
+    for w in hg._gn_work.values():
+        assert not w[0].any()
+
+
+def test_k20_k21_cluster_one_launch_and_graph_replay(dev):
+    """The cluster design's K20 and K21 are one kernel a call (the kernel
+    nodes of a captured graph); a graph that captures a K20 + K21 pair
+    replays to the eager call's bits; the workspace counters are back at 0."""
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    for shape in ((32, 256, 64, 64), (32, 128, 4, 4), (8, 64, 128, 128)):
+        C = shape[1]
+        G = hg.num_groups(C)
+        for dt in (torch.float32, torch.bfloat16):
+            cl = lambda t: t.to(dt).contiguous(memory_format=torch.channels_last)
+            x = cl(torch.randn(shape, device=dev) * 1.5 + 0.3)
+            dy = cl(torch.randn(shape, device=dev))
+            scale = torch.rand(C, device=dev) + 0.5
+            bias = torch.randn(C, device=dev) * 0.2
+            _, mean, rstd = hg._group_norm_relu_cuda(x, scale, bias, G)
+            calls = (lambda: hg._group_norm_relu_cuda(x, scale, bias, G),
+                     lambda: hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, mean, rstd))
+            assert [_graph_kernels(f) for f in calls] == [1, 1], (shape, dt)
+
+            def pair():
+                y, m, r = hg._group_norm_relu_cuda(x, scale, bias, G)
+                return (y, m, r) + hg._group_norm_relu_bwd_cuda(x, dy, scale, bias, m, r)
+
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                pair()  # the capture stream's workspace, made before the capture
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = pair()
+            graph.replay()
+            torch.cuda.synchronize()
+            eager = pair()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, eager)), (shape, dt)
+            graph.reset()
+            for w in hg._gn_work.values():
+                assert not w[0].any()
