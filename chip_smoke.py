@@ -124,18 +124,26 @@ Phases (any failure raises and exits non-zero):
      convolution shape of the forward, with its real codes and its route —
      wgmma for every stride-1 convolution —, plus the concat stem's 7x7
      stride-2 prior convolution on the mma.sync route), K12 (each mode:
-     input dtype or prologue, outputs, padded rows) and K13 (each level)
-     bit-equal to their plain versions on the same CUDA inputs, with
+     input dtype or prologue — its pool mode, the max-pool fused with the
+     nrq after it, and its junction mode, the second operand read at half
+     resolution, included —, outputs, padded rows) and K13 (each level, off
+     the path since K12's two modes took its work: each mode's call
+     bit-equal to the K13 -> K12 chain it replaced, both calls' device us
+     in turns and bytes bounds) bit-equal to their plain versions on the
+     same CUDA inputs, with
      kernel, device, plain, `torch._int_mm` (cuBLASLt s8 GEMM; an im2col of
      the 3x3 input; wrapper and device) times and bounds (int8 operations at
      1,979 TOP/s or bytes at 3.35 TB/s); K2 on the bf16 logits against its
-     plain version; launches per forward; the whole int8 net against its
+     plain version; launches per forward (K13 none); the whole int8 net
+     against its
      plain-version run on the card (equal logits) and against the f32 net
      (uv gap within 1.5x the CPU's on the same two crops); the int8 and
      bf16 nets' host and device ms per call and crops/s; the same at 128
      crops (the JAX bench's batch: launches per prior-free forward, K11 and
      K12 bit-equal and timed at every distinct call, device ms per call,
-     crops/s and kernels of the int8 and bf16 nets); a scales sidecar written by
+     crops/s and kernels of the int8 and bf16 nets; `--int8-only` runs the
+     128-crop int8 forward alone, to compare two checkouts in turns); a
+     scales sidecar written by
      `calibrate_int8` over the phase-7 BOP tree, then `Evaluator(nviews=1,
      int8=True)` to its end; a 6-frame SLAM run with
      `SlamConfig(int8_inference=True, int8_calib_frames=2)` under phase 6's
@@ -143,7 +151,10 @@ Phases (any failure raises and exits non-zero):
   9. training: a `train_real` split (40 480x640 PNG views of 5-8 of the
      eight objects, YCB-V's every-5th cut keeps 8) beside phase 7's test
      split; K16-K19 against their plain versions at the train step's
-     full-width shapes (32 rows, 8 padded; f32 and bf16) with kernel,
+     full-width shapes (32 rows, 8 padded; f32 and bf16; K19 on both paths,
+     dense — a cluster per crop, the main path's — and strided, the earlier
+     design, L2-cold in turns, both orders, batch-invariant, one kernel a
+     call, a captured call replaying equal) with kernel,
      device, plain and library times (F.batch_norm + relu forward and
      backward; avg_pool2d; autograd of softmax + einsum), L2-cold device
      times (`cuda_ms_cold`) and bytes bounds; K16 / K17 in both designs
@@ -158,8 +169,9 @@ Phases (any failure raises and exits non-zero):
      against the same step on the plain versions, f32 and bf16 (loss and
      terms, every gradient, the new statistics; gated by the step's own
      sensitivity to 1e-6 input noise); the bf16 step's host and device ms,
-     kernels, K16 / K17's device ms, busy share, peak memory and launches
-     per step (K16 / K17 / K8 180, K9 / K18 8, K1 / K2 / K5 / K19 1;
+     kernels, K16 / K17's and K19's device ms (K19's route: dense), busy
+     share, peak memory and launches per step (K16 / K17 / K8 180, K9 / K18
+     8, K1 / K2 / K5 / K19 1;
      `--step-only` runs this alone, to compare two checkouts in turns); 30
      steps overfitting one batch
      (the loss falls); `python -m suo_slam_tpu_torch.train` in process, full
@@ -213,8 +225,9 @@ Phases (any failure raises and exits non-zero):
      100% camera poses, all four SLAM legs); SfM `--nviews 2` sequential and
      `--pipeline_scenes 3` in int8 (CSV equal);
  12. the kernels JSON line (K1-K7's, K14's, K15's and K22's launches from the
-     SLAM path, K22's 0 there, K8-K10's from the evaluation phase, K11-K13's from the int8
-     phase's evaluation and SLAM runs, K16-K19's from the training CLI, K11 /
+     SLAM path, K22's 0 there, K8-K10's from the evaluation phase, K11-K13's (K13's 0)
+     and K12's pool and junction modes' from the int8 phase's evaluation and
+     SLAM runs, K16-K19's from the training CLI, K11 /
      K12's f32 modes from phase 10's 8-crop f32 forward, K20 / K21's from its
      training CLI), the nvidia-smi line, and the last line {"ok": true,
      "device": {...}}.
@@ -259,9 +272,13 @@ TARGET_US = {"K1 device": 5.18, "K15 phase 3": 35.0, "K15 frame": 40.0,
 SINGLE_VIEW_KERNELS = ("roi_crop", "heatmap_readout", "pnp_ransac", "ba_lm")
 # K3, K4, K7, K22: checked in phase 3, off the main path (K15 and K14 replaced
 # them; K15 ranks the sampler's draws itself)
-OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur", "pnp_sample")
+OFF_PATH_KERNELS = ("pnp_hypotheses", "ba_edges", "ba_schur", "pnp_sample",
+                    "int8_pool_junction")  # and K13: K12's pool and junction modes took it
 EVAL_KERNELS = ("norm_relu", "upsample_add", "add_dists")  # launches from the evaluation phase
-INT8_KERNELS = ("int8_conv", "int8_quant", "int8_pool_junction")  # from the int8 phase
+# from the int8 phase: K11, K12 and (of K12's launches) its pool and junction modes
+INT8_KERNELS = ("int8_conv", "int8_quant", "int8_quant_pool", "int8_quant_junction")
+# an int8 forward's kernels by name (K13's too, for a parent checkout's runs)
+INT8_KERNEL_NAMES = ("int8_conv", "int8_quant", "int8_pool_junction")
 TRAIN_KERNELS = ("bn_stats", "norm_relu_bwd", "upsample_add_bwd",  # from the training phase
                  "heatmap_readout_bwd")
 QUANT_KERNELS = ("int8_conv_f32", "int8_quant_f32")  # K11 / K12's f32 modes (phase 10)
@@ -2354,7 +2371,7 @@ def phase_main_path(dev, rng, objs, net, seed, n_views=6):
     missing = [k for k in SINGLE_VIEW_KERNELS if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the single-view path: {missing}, or "
-                             f"K3 / K4 / K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K3 / K4 / K7 / K22 / K13 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     if not counts["pnp_ransac"] == calls.n == len(views):
         raise AssertionError(f"K15: {counts['pnp_ransac']} launches for {calls.n} "
                              f"pnp_ransac_batch calls over {len(views)} views (want one each)")
@@ -2776,7 +2793,7 @@ def phase_slam(dev, rng, objs, net, seed, scene):
                and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS + GROUP_KERNELS]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}, or K3 / K4 / "
-                             f"K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K7 / K22 / K13 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     n_global = len(engine.opt_times)  # frames 10, 20 and the final collect_results
     log(f"[slam] K14 launches: {counts['ba_lm']} = {counts['ba_lm'] - n_global} tracking BAs "
         f"over {n_frames} frames + {n_global} global BAs; K4 {counts['ba_edges']}, K7 "
@@ -2864,7 +2881,7 @@ def phase_slam(dev, rng, objs, net, seed, scene):
         f"{json.dumps({k: [n, round(b, 5)] for k, (n, b) in k89.items()})}")
     if c["ba_lm"] != 1 or any(c[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"the profiled frame: K14 {c['ba_lm']} (want 1 tracking BA), "
-                             f"K3 / K4 / K7 / K22 {[c[k] for k in OFF_PATH_KERNELS]} (want 0)")
+                             f"K3 / K4 / K7 / K22 / K13 {[c[k] for k in OFF_PATH_KERNELS]} (want 0)")
     if not (c["pnp_ransac"] == calls.n >= 2 and c["chi2_counts"] == sum(k6.n.values()) >= 1):
         raise AssertionError(f"the profiled frame: K15 {c['pnp_ransac']} launches for "
                              f"{calls.n} pnp_ransac_batch calls (want one each, two or more), "
@@ -3473,7 +3490,7 @@ def phase_evaluate(dev, seed, net16):
                if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the evaluation path: {missing}, or "
-                             f"K3 / K4 / K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K3 / K4 / K7 / K22 / K13 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     return counts
 
 
@@ -3487,7 +3504,8 @@ def _eval_root():
 
 def _int8_traffic(name, a, kw):
     """(bytes, int8 operations) a K11 / K12 / K13 call must move and do:
-    each input read once, each output written once."""
+    each input read once, each output written once (K12's pool and junction
+    modes: the unpooled input, the half-resolution operand)."""
     from suo_slam_tpu_torch.models import int8_kernels as ik
 
     x = a[0]
@@ -3504,10 +3522,15 @@ def _int8_traffic(name, a, kw):
     if name == "int8_quant":  # the prologue's operands, the input, the outputs
         xq = x.q if isinstance(x, ik.Deq) else x
         C = xq.shape[-1]
-        n_out = (a[1] is not None) + (len(a) > 2 and a[2] is not None)
-        nb = xq.numel() * xq.element_size() + n_out * (xq.numel() // C) * (kw.get("c_out") or C)
-        if kw.get("x2") is not None:
-            nb += xq.numel()
+        x2, pool = kw.get("x2"), bool(kw.get("pool"))
+        # output pixels: a quarter of the input's in the pool mode (its input
+        # read once, 4x its output); a junction reads x2 at a quarter
+        P = ik.plan_quant(xq.shape, kw.get("c_out"), pool=pool,
+                          up_shape=tuple(x2.q.shape) if x2 is not None and x2.up else None).P
+        n_out = (a[1] is not None or pool) + (len(a) > 2 and a[2] is not None)
+        nb = xq.numel() * xq.element_size() + n_out * P * (kw.get("c_out") or C)
+        if x2 is not None:
+            nb += x2.q.numel()
         if kw.get("add") is not None:
             nb += kw["add"].numel() * kw["add"].element_size()
         return nb, 0.0
@@ -3517,21 +3540,24 @@ def _int8_traffic(name, a, kw):
 
 
 def _quant_mode(a, kw):
-    """A K12 call's mode: its input ("f32", "bf16", "s8", or the prologue
-    "deq[+deq][+tensor|+vector]") and outputs ("raw", "norm", "pair"), with
-    "padded" where it writes wider rows."""
+    """A K12 call's mode: its input ("f32", "bf16", "s8", "s8 pool" (the
+    pool mode), or the prologue "deq[+deq|+deq/2][+tensor|+vector]", "/2"
+    the junction mode's half-resolution operand) and outputs ("raw", "norm",
+    "pair"; the pool mode's raw output is the pooled codes), with "padded"
+    where it writes wider rows."""
     from suo_slam_tpu_torch.models import int8_kernels as ik
 
     x = a[0]
     if isinstance(x, ik.Deq):
-        src = "deq" + ("+deq" if kw.get("x2") is not None else "")
+        x2 = kw.get("x2")
+        src = "deq" + ("" if x2 is None else "+deq/2" if x2.up else "+deq")
         add = kw.get("add")
         if add is not None:
             src += "+vector" if add.dim() == 1 else "+tensor"
     else:
         src = str(x.dtype).replace("torch.", "").replace("bfloat16", "bf16").replace(
-            "float32", "f32").replace("int8", "s8")
-    raw, norm = a[1] is not None, len(a) > 2 and a[2] is not None
+            "float32", "f32").replace("int8", "s8") + (" pool" if kw.get("pool") else "")
+    raw, norm = a[1] is not None or bool(kw.get("pool")), len(a) > 2 and a[2] is not None
     out = "pair" if raw and norm else "raw" if raw else "norm"
     C = (x.q if isinstance(x, ik.Deq) else x).shape[-1]
     return (f"{src} {out}" + (" padded" if (kw.get("c_out") or C) != C else "")
@@ -3741,46 +3767,108 @@ def check_k12(dev, calls, label="8 crops", time_plain=True):
             f"{b[0]:.5f} ms ({b[1]})")
         out[mode] = (ms, plain_ms, b, int(np.prod(shape)), us)
     log(f"[kernel] K12 ({label}): {len(res)} modes bit-equal to the plain version")
-    key = max(out, key=lambda k: (k.endswith("pair"), k.startswith("deq"), out[k][3]))
+    plain_modes = [k for k in out if " pool" not in k and "/2" not in k]
+    key = max(plain_modes, key=lambda k: (k.endswith("pair"), k.startswith("deq"), out[k][3]))
     ms, plain_ms, b, _, _ = out[key]
     return dict(name="int8_quant", route="cuda", source="suo_slam_tpu_torch/csrc/int8_quant.cu",
                 replaces="suo_slam_tpu/models/int8_forward.py:223", max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None), out
 
 
-def check_k13(dev, calls):
-    """K13's pool and junction at every level of the forward, on their real
-    codes: equal codes / bf16 bits."""
+def _k13_level(a, kw):
+    """For a K12 call in its pool or junction mode (arguments a, kw): its
+    kind and the K13 call, its plain version and the K13 -> K12 chain it
+    replaced (K13's output, then K12's plain mode on it), as functions; None
+    for a K12 call in neither mode."""
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    x, x2 = a[0], kw.get("x2")
+    if kw.get("pool"):
+        k13 = lambda: ik._int8_maxpool_cuda(x)
+
+        def chain():
+            p = k13()
+            return p, ik._int8_quant_cuda(p, None, *a[2:])[1]
+
+        return "max-pool", (x,), k13, lambda: ik.int8_maxpool_plain(x), chain
+    if x2 is not None and x2.up:
+        args = (x.q, x2.q, x.s, x2.s)
+        k13 = lambda: ik._int8_upsample_add_cuda(*args)
+        chain = lambda: ik._int8_quant_cuda(k13(), *a[1:], c_out=kw.get("c_out"))
+        return "junction", args, k13, lambda: ik.int8_upsample_add_plain(*args), chain
+    return None
+
+
+def check_k13(dev, calls, time_plain=True):
+    """K13, the earlier design of the hourglass's max-pool and junction (off
+    the int8 forward since K12's pool and junction modes took them), at
+    every level of the forward, on the inputs of the K12 calls that replaced
+    it: K13 equal to its plain version, with its times; the fused K12 call
+    bit-equal to the K13 -> K12 chain, both calls' device us in turns
+    (fused, chain, chain, fused: every kernel of a call, from the profiler)
+    and the fused call's bytes bound. Returns K13's JSON row and the rows of
+    K12's pool and junction modes (their largest calls)."""
     import torch
 
     from suo_slam_tpu_torch.models import int8_kernels as ik
 
-    out = {}
+    out, fused_rows, levels = {}, {}, 0
     for key, (a, kw) in sorted(calls.items(), key=lambda t: str(t[0])):
-        if key[0] == "int8_maxpool":
-            kf, pf = ik._int8_maxpool_cuda, ik.int8_maxpool_plain
-        elif key[0] == "int8_upsample_add":
-            kf, pf = ik._int8_upsample_add_cuda, ik.int8_upsample_add_plain
-        else:
+        if key[0] != "int8_quant" or _k13_level(a, kw) is None:
             continue
-        k, p = kf(*a), pf(*a)
+        kind, k13_args, kf, pf, chain = _k13_level(a, kw)
+        fused = lambda: ik._int8_quant_cuda(*a, **kw)
+        k, p = kf(), pf()
+        got, want = fused(), chain()
         torch.cuda.synchronize()
         if not torch.equal(k, p):
             raise AssertionError(f"K13 disagrees with its plain version at {key}")
-        b = bound(*_int8_traffic(key[0], a, kw))
-        ms = cuda_ms(lambda: kf(*a), n=10, inner=5)
-        plain_ms = cuda_ms(lambda: pf(*a), n=5, inner=2)
-        us, src = device_us(lambda: kf(*a), "int8_pool_junction_kernel", n=5)
-        kind = "junction" if key[0] == "int8_upsample_add" else "max-pool"
-        _report(f"K13 {kind} ({list(a[0].shape)}, device {us:.3f} us by {src})", 0.0,
+        if not all((u is None and v is None) or torch.equal(u, v) for u, v in zip(got, want)):
+            raise AssertionError(f"K12's {kind} mode disagrees with the K13 -> K12 chain at {key}")
+        levels += 1
+        name = "int8_maxpool" if kind == "max-pool" else "int8_upsample_add"
+        b = bound(*_int8_traffic(name, k13_args, {}))
+        ms = cuda_ms(kf, n=10, inner=5)
+        plain_ms = cuda_ms(pf, n=5, inner=2)
+        us, src = device_us(kf, "int8_pool_junction_kernel", n=5)
+        _report(f"K13 {kind} ({list(k13_args[0].shape)}, device {us:.3f} us by {src})", 0.0,
                 "0 (bit-equal)", ms, plain_ms, None, b)
-        out[(kind, a[0].numel())] = (ms, plain_ms, b)
+        out[(kind, k13_args[0].numel())] = (ms, plain_ms, b)
+        turns = {"fused": [], "chain": []}
+        for turn in ("fused", "chain", "chain", "fused"):
+            turns[turn].append(lib_device_us(fused if turn == "fused" else chain)[0])
+        fb = bound(*_int8_traffic("int8_quant", a, kw))
+        # the chain: K13, then K12 on its output (the pooled codes, the bf16 sum)
+        mid = k if kind == "max-pool" else torch.empty(k13_args[0].shape, dtype=torch.bfloat16,
+                                                       device="meta")
+        cb = bound(_int8_traffic(name, k13_args, {})[0] + _int8_traffic(
+            "int8_quant", (mid,) + tuple(a[1:]), {"c_out": kw.get("c_out")})[0], 0.0)
+        log(f"[kernel] K12 {kind} mode ({_quant_mode(a, kw)}, {list(k13_args[0].shape)}): "
+            f"bit-equal to the K13 -> K12 chain | device us in turns (fused, chain, chain, "
+            f"fused): {[round(v, 3) for v in turns['fused'][:1] + turns['chain'] + turns['fused'][1:]]}"
+            f" | bound {fb[0]:.5f} ms ({fb[1]}; the chain's {cb[0]:.5f})")
+        fms = cuda_ms(fused, n=10, inner=5)
+        fplain = (cuda_ms(lambda: ik.int8_quant_plain(*a, **kw), n=5, inner=2)
+                  if time_plain else None)
+        n = k13_args[0].numel()
+        if kind not in fused_rows or n > fused_rows[kind][0]:
+            fused_rows[kind] = (n, fms, fplain, fb)
+    log(f"[kernel] K13 and K12's pool / junction modes: {levels} levels, each bit-equal")
     key = max((k for k in out if k[0] == "junction"), key=lambda k: k[1])
     ms, plain_ms, b = out[key]
-    return dict(name="int8_pool_junction", route="cuda",
-                source="suo_slam_tpu_torch/csrc/int8_pool_junction.cu",
-                replaces="suo_slam_tpu/models/int8_forward.py:292", max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)
+    rows = [dict(name="int8_pool_junction", route="cuda",
+                 source="suo_slam_tpu_torch/csrc/int8_pool_junction.cu",
+                 replaces="suo_slam_tpu/models/int8_forward.py:292", max_abs_err=0.0, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=None)]
+    for kind, name, line in (("max-pool", "int8_quant_pool", 286),
+                             ("junction", "int8_quant_junction", 292)):
+        _, fms, fplain, fb = fused_rows[kind]
+        rows.append(dict(name=name, route="cuda", source="suo_slam_tpu_torch/csrc/int8_quant.cu",
+                         replaces=f"suo_slam_tpu/models/int8_forward.py:{line}",
+                         max_abs_err=0.0, ms=fms, plain_ms=fplain, bound_ms=fb[0],
+                         bound_by=fb[1], library_ms=None))
+    return rows
+
 
 
 def check_k2_bf16(dev, raw16):
@@ -3832,8 +3920,8 @@ def _net_device_ms(nets, n_crops, calls=3):
             continue
         kern = [e for e in avg if e.device_type == DeviceType.CUDA]
         by = {k: sum(e.self_device_time_total for e in kern if f"{k}_kernel" in e.key)
-              / (1e3 * calls) for k in INT8_KERNELS + ("heatmap_readout", "norm_relu",
-                                                       "upsample_add")}
+              / (1e3 * calls) for k in INT8_KERNEL_NAMES + ("heatmap_readout", "norm_relu",
+                                                            "upsample_add")}
         ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
                       and e.self_device_time_total > 0),
                      key=lambda e: e.self_device_time_total, reverse=True)[:6]
@@ -3868,9 +3956,9 @@ def _int8_128(dev, seed, net16, qw, scales, n=128):
     f()
     torch.cuda.synchronize()
     c = kernels.counts()
-    c = {k: c[k] for k in INT8_KERNELS + ("heatmap_readout",)}
+    c = {k: c[k] for k in INT8_KERNELS + ("int8_pool_junction", "heatmap_readout")}
     log(f"[int8 {n}] launches per prior-free forward ({n} crops): {json.dumps(c)}")
-    if (c["int8_conv"], c["int8_quant"], c["int8_pool_junction"]) != (185, 84, 17):
+    if tuple(c[k] for k in INT8_KERNELS + ("int8_pool_junction",)) != (185, 84, 9, 8, 0):
         raise AssertionError(f"int8 launches per forward at {n} crops: {c}")
     calls = _int8_calls(f)
     check_k11(dev, calls, f"{n} crops", stem=False, time_plain=False)
@@ -3887,6 +3975,44 @@ def _int8_128(dev, seed, net16, qw, scales, n=128):
         + json.dumps(_net_device_ms({"int8": f, "bf16": bf16_call}, n)))
     del crops
     torch.cuda.empty_cache()
+
+
+def phase_int8_only(dev, seed, sizes=(128, 8)):
+    """`--int8-only`: phase 8's full-width prior-free int8 forward alone at
+    128 and 8 crops (the seeded bf16 net, calibrated on 8 seeded crops):
+    launches per forward, device ms per call by torch.profiler (busy time,
+    kernels, the int8 kernels' share) over 5 calls and CUDA-event ms per
+    call, against whichever package sits beside this script — run in two
+    checkouts in turns, it compares them in one call."""
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import int8_forward as i8
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    net16 = sk.make_frame_inference(full_width_net(seed, torch.bfloat16), device=dev).net
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    scales = i8.calibrate(net16, [torch.rand((N_OBJ, 256, 256, 3), device=dev, generator=g)])
+    qw = i8.quantize_weights(net16)
+    apply_np = i8.make_int8_apply(net16, no_prior=True)
+    out = {}
+    for n in sizes:
+        g = torch.Generator(device=dev).manual_seed(seed + n)
+        crops = torch.rand((n, 256, 256, 3), device=dev, generator=g)
+        f = lambda: apply_np(qw, scales, crops)
+        f()
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        f()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.counts().items() if v}
+        ms = cuda_ms(f, n=5, inner=3, warmup=1)
+        out[n] = {"launches": launches, "event_ms": ms,
+                  "device": _net_device_ms({"int8": f}, n, calls=5)["int8"]}
+        log(f"[int8 {n}] prior-free forward alone: " + json.dumps(out[n]))
+        del crops
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
@@ -3926,12 +4052,14 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
         f()
         torch.cuda.synchronize()
         c = kernels.counts()
-        per_fwd[name] = {k: c[k] for k in INT8_KERNELS + ("heatmap_readout",)}
-    log(f"[int8] launches per forward (8 crops): {json.dumps(per_fwd)}")
+        per_fwd[name] = {k: c[k] for k in INT8_KERNELS + ("int8_pool_junction",
+                                                          "heatmap_readout")}
+    log(f"[int8] launches per forward (8 crops; K12's pool and junction modes counted in its "
+        f"calls too; K13 off the path): {json.dumps(per_fwd)}")
     want = {"with prior": (186, 85), "prior-free": (185, 84)}
     for name, c in per_fwd.items():
-        if (c["int8_conv"], c["int8_quant"], c["int8_pool_junction"],
-                c["heatmap_readout"]) != want[name] + (17, 1):
+        if tuple(c[k] for k in INT8_KERNELS + ("int8_pool_junction", "heatmap_readout")) != (
+                want[name] + (9, 8, 0, 1)):
             raise AssertionError(f"int8 launches per forward ({name}): {c}")
     calls, traffic = {}, []
     calls.update(_int8_calls(lambda: apply(qw, scales, crops, prior)))
@@ -3943,13 +4071,13 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
         t[1] += nb
         t[2] += ops
         t[3] += bound(nb, ops, INT8_OPS_PER_S)[0]
-    log("[int8] the prior-free forward's K11-K13 calls (8 crops): calls, GB, G int8 "
+    log("[int8] the prior-free forward's K11 / K12 calls (8 crops): calls, GB, G int8 "
         "operations and the sum of their bounds in ms: " + json.dumps(
             {k: [v[0], round(v[1] / 1e9, 4), round(v[2] / 1e9, 3), round(v[3], 4)]
              for k, v in tot.items()})
         + f"; total bound {sum(v[3] for v in tot.values()):.4f} ms")
     (k11, _), (k12, _) = check_k11(dev, calls), check_k12(dev, calls)
-    entries = [k11, k12, check_k13(dev, calls)]
+    entries = [k11, k12] + check_k13(dev, calls)
     del calls
     # the whole net: kernels against plain versions on the card, then against f32
     o8 = apply(qw, scales, crops, prior)
@@ -4078,7 +4206,7 @@ def phase_int8(dev, rng, seed, net32, net16, crops, objs, scene):
                                           "pnp_ransac") if counts[k] == 0]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the int8 path: {missing}, or K3 / K4 / "
-                             f"K7 / K22 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+                             f"K7 / K22 / K13 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
     return entries, counts, k2_err
 
 
@@ -4464,11 +4592,17 @@ def check_k18(dev, rng):
 
 
 def check_k19(dev, rng):
-    """K19 on the readout's [32, 64, 64, 41] f32 logits (the head's NHWC
-    view of channels_last, and its transpose) against its plain version:
-    within 1e-4 of the largest gradient (f - E[f] cancels near a heatmap's
-    peak, and the two round the moments' sums in other orders). Library:
-    autograd of softmax + einsum."""
+    """K19 on the readout's [32, 64, 64, 41] logits (the head's NHWC view of
+    channels_last, and its transpose), f32 and bf16, on both paths — dense
+    (a cluster of 8 CTAs per crop, the main path's since `plan_readout_bwd`
+    sends the head's layout there) and strided (the earlier design) —
+    against the plain version: within 1e-4 of the largest gradient in f32
+    (f - E[f] cancels near a heatmap's peak, and the two round the moments'
+    sums in other orders), 2^-7 in bf16 (one rounding of each); the dense
+    path one kernel a call, a crop's gradient the same bits in the 32-crop
+    call and alone, a captured call replaying the eager bits; L2-cold device
+    us of both paths in turns (dense, strided, strided, dense) for each
+    dtype and order. Library: autograd of softmax + einsum."""
     import torch
 
     from suo_slam_tpu_torch.ops import heatmap as hm
@@ -4477,17 +4611,55 @@ def check_k19(dev, rng):
         dev).contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
     g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
          for s in ((TRAIN_N, 41, 2), (TRAIN_N, 41, 2, 2), (TRAIN_N, 41))]
-    err = 0.0
-    for view in (x, x.transpose(1, 2)):
-        k = hm._heatmap_readout_bwd_cuda(view, *g)
-        p = hm.heatmap_readout_bwd_plain(view, *g)
-        torch.cuda.synchronize()
-        if k.stride() != view.stride():
-            raise AssertionError("K19 did not write the logits' layout")
-        err = max(err, ((k - p).abs().max() / p.abs().max()).item())
-    log(f"[train] K19 max err, plain and transposed: {err:.3e} of the largest gradient (tol 1e-4)")
-    if err > 1e-4:
-        raise AssertionError(f"K19 disagrees with its plain version: {err}")
+    errs, cold = {}, {}
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
+    for dt in (torch.float32, torch.bfloat16):
+        for order, view in (("plain", x), ("transposed", x.transpose(1, 2))):
+            v = view.to(dt)
+            label = f"{str(dt)[6:]} {order}"
+            plan = hm.plan_readout_bwd(v.shape, v.stride(), v.element_size(), v.data_ptr())
+            if plan.path != hm.DENSE:
+                raise AssertionError(f"K19 {label}: the head's layout took the strided path")
+            p = hm.heatmap_readout_bwd_plain(v, *g).float()
+            for path, name in ((None, "dense"), (hm.STRIDED, "strided")):
+                k = hm._heatmap_readout_bwd_cuda(v, *g, path=path)
+                torch.cuda.synchronize()
+                if k.stride() != v.stride() or k.dtype != dt:
+                    raise AssertionError(f"K19 {label} {name}: did not write the logits' layout")
+                errs[(label, name)] = ((k.float() - p).abs().max() / p.abs().max()).item()
+                if errs[(label, name)] > tols[dt]:
+                    raise AssertionError(f"K19 {label} {name} disagrees with its plain version: "
+                                         f"{errs[(label, name)]}")
+            dense = lambda: hm._heatmap_readout_bwd_cuda(v, *g)
+            strided = lambda: hm._heatmap_readout_bwd_cuda(v, *g, path=hm.STRIDED)
+            if launches_per_call(dense) != 1:
+                raise AssertionError(f"K19 {label}: the dense path is not one kernel a call")
+            full = dense()
+            bad = [n for n in (0, TRAIN_N // 2 - 3, TRAIN_N - 1) if not torch.equal(
+                full[n], hm._heatmap_readout_bwd_cuda(v[n:n + 1], *(t[n:n + 1] for t in g))[0])]
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                captured = dense()
+            graph.replay()
+            torch.cuda.synchronize()
+            if bad or not torch.equal(captured, full):
+                raise AssertionError(f"K19 {label}: crops {bad} differ alone, or the captured "
+                                     f"call replays other bits")
+            del graph, captured
+            turns = {"dense": [], "strided": []}
+            for turn in ("dense", "strided", "strided", "dense"):
+                turns[turn].append(1e3 * cuda_ms_cold(dense if turn == "dense" else strided))
+            cold[label] = turns
+            log(f"[train] K19 {label} {list(v.shape)}: max err dense {errs[(label, 'dense')]:.3e}, "
+                f"strided {errs[(label, 'strided')]:.3e} of the largest gradient (tol "
+                f"{tols[dt]:.1e}); dense one kernel a call, batch-invariant, graph replay "
+                f"equal; L2-cold device us in turns (dense, strided, strided, dense): "
+                f"{[round(t, 3) for t in turns['dense'][:1] + turns['strided'] + turns['dense'][1:]]}"
+                f" (targets: dense <= {60 if dt == torch.float32 else 45} us)")
+    err = max(e for (label, name), e in errs.items()
+              if label.startswith("float32") and name == "dense")
     xg = x.detach().requires_grad_(True)
     H, W = 64, 64
     u, v = hm.ndc_grid(H, W, torch.float32, dev)
@@ -4500,11 +4672,14 @@ def check_k19(dev, rng):
     ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(lambda: hm.heatmap_readout_bwd_plain(x, *g)), \
         cuda_ms(lib)
     us, src = lib_device_us(fn)
-    cold, lib_cold = 1e3 * cuda_ms_cold(fn), 1e3 * cuda_ms_cold(lib)
+    lib_cold = 1e3 * cuda_ms_cold(lib)
     b = bound(2 * x.numel() * 4 + TRAIN_N * 41 * 7 * 4, 40 * x.numel())
-    _report(f"K19 heatmap_readout_bwd (f32, {list(x.shape)}, device {us:.3f} us by {src} with "
-            f"warm inputs, {cold:.3f} us L2-cold; library {lib_cold:.3f} us L2-cold)",
-            err, "1e-4 of max", ms, plain_ms, lib_ms, b, lib)
+    b16 = bound(2 * x.numel() * 2 + TRAIN_N * 41 * 7 * 4, 40 * x.numel())
+    dcold = statistics.median(cold["float32 plain"]["dense"])
+    _report(f"K19 heatmap_readout_bwd (f32, {list(x.shape)}, dense path, device {us:.3f} us by "
+            f"{src} with warm inputs, {dcold:.3f} us L2-cold; bf16 bound {b16[0]:.5f} ms; "
+            f"library {lib_cold:.3f} us L2-cold)", err, "1e-4 of max", ms, plain_ms, lib_ms, b,
+            lib)
     return dict(name="heatmap_readout_bwd", route="cuda",
                 source="suo_slam_tpu_torch/csrc/heatmap_readout.cu",
                 replaces="suo_slam_tpu/models/pkpnet.py:125", max_abs_err=err, ms=ms,
@@ -4715,12 +4890,27 @@ def step_timing(dev, seed, root, norm="batch"):
                    else "other"] += 1
         return real_bwd(x, dy, *a)
 
-    hg.group_norm_relu_bwd = spy
+    # the route of K19's calls (the planner is absent from a checkout older
+    # than K19's dense path: every call then takes the strided kernel)
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    k19_routes = {}
+    real_k19 = hm.heatmap_readout_bwd
+
+    def k19_spy(logits, *a):
+        plan = getattr(hm, "plan_readout_bwd", None)
+        r = "strided (no planner)" if plan is None else "dense" if plan(
+            logits.shape, logits.stride(), logits.element_size(),
+            logits.data_ptr()).path == hm.DENSE else "strided"
+        k19_routes[r] = k19_routes.get(r, 0) + 1
+        return real_k19(logits, *a)
+
+    hg.group_norm_relu_bwd, hm.heatmap_readout_bwd = spy, k19_spy
     try:
         state, _ = step(state, batch, 0.0)
         torch.cuda.synchronize()
     finally:
-        hg.group_norm_relu_bwd = real_bwd
+        hg.group_norm_relu_bwd, hm.heatmap_readout_bwd = real_bwd, real_k19
     per_step = {k: v for k, v in kernels.counts().items() if v}
     times = []
     for _ in range(5):
@@ -4739,9 +4929,15 @@ def step_timing(dev, seed, root, norm="batch"):
     tag = "[group]" if group else "[train]"
     names, kind_of = (("K20", "K21"), gn_kernel_of) if group else (("K16", "K17"), bn_kernel_of)
     bn = {k: [0.0, 0] for k in names}
+    k19_ms = "not measured"
     if avg is None:
         dev_ms, n_k, bn, copies = "not measured", "not measured", "not measured", "not measured"
     else:
+        k19 = [e for e in kern(avg) if "heatmap_readout_bwd_kernel" in e.key]
+        k19_ms = sum(e.self_device_time_total for e in k19) / 1e3
+        log(f"{tag} the step's K19 (readout backward): {k19_ms:.4f} ms of device time in "
+            f"{sum(e.count for e in k19)} launches ({[e.key[:48] for e in k19]}); routes of its "
+            f"calls: {json.dumps(k19_routes)}")
         dev_ms = sum(e.self_device_time_total for e in kern(avg)) / 1e3
         n_k = sum(e.count for e in kern(avg))
         top = sorted(kern(avg), key=lambda e: -e.self_device_time_total)[:14]
@@ -4774,8 +4970,12 @@ def step_timing(dev, seed, root, norm="batch"):
                  "prior_render": 1})
     if any(per_step.get(k, 0) != v for k, v in want.items()):
         raise AssertionError(f"launches per train step {per_step}, expected {want}")
+    if hasattr(hm, "plan_readout_bwd") and k19_routes != {"dense": 1}:
+        raise AssertionError(f"the step's readout backward did not take K19's dense path: "
+                             f"{k19_routes}")
     return dict(host_ms=host, device_ms=dev_ms, kernels=n_k, busy=busy, peak_gib=peak,
-                norm_kernels=bn, host_runs=times, dy_layouts=dy_layouts)
+                norm_kernels=bn, host_runs=times, dy_layouts=dy_layouts, k19_ms=k19_ms,
+                k19_routes=k19_routes)
 
 
 def phase_step_only(dev, seed, norm="batch"):
@@ -5853,6 +6053,8 @@ def main(argv=None):
                     help="build, then time the full-width bf16 train step only")
     ap.add_argument("--norm", choices=("batch", "group"), default="batch",
                     help="the net --step-only times (BatchNorm or GroupNorm)")
+    ap.add_argument("--int8-only", action="store_true",
+                    help="build, then time the full-width int8 forward at 128 crops only")
     args = ap.parse_args(argv)
 
     import torch
@@ -5864,6 +6066,11 @@ def main(argv=None):
         r = phase_step_only(dev, args.seed, args.norm)
         log(smi_line())
         log(json.dumps({"step": r}))
+        return 0
+    if args.int8_only:
+        r = phase_int8_only(dev, args.seed)
+        log(smi_line())
+        log(json.dumps({"int8_128": r}))
         return 0
     rng = np.random.default_rng(args.seed)
     objs = Objects(rng)
@@ -5895,7 +6102,7 @@ def main(argv=None):
     entries += int8_entries + train_entries + quant_entries + group_entries
     for e in entries:
         e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts
-                         if e["name"] in INT8_KERNELS else train_counts
+                         if e["name"] in INT8_KERNELS + ("int8_pool_junction",) else train_counts
                          if e["name"] in TRAIN_KERNELS else quant_counts
                          if e["name"] in QUANT_KERNELS else group_counts
                          if e["name"] in GROUP_KERNELS else counts)[e["name"]]

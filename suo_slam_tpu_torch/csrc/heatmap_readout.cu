@@ -54,12 +54,24 @@
 //   d logit = p (f - E[f]) + d pooled / (H W),
 // with E[f] = du E[u] + dv E[v] + Dcuu (E[u^2] - 2 E[u]^2)
 //       + Dcvv (E[v^2] - 2 E[v]^2) + Dcuv (E[uv] - 2 E[u] E[v]).
-// f32 throughout; the result rounds once to the logits' dtype and is written
-// with the strides the caller gives (the logits' own layout). The max and
+// f32 throughout; the result rounds once to the logits' dtype. The max and
 // the moments are recomputed from the logits, as K2 computes them. Bound:
 // bytes, the logits read once and their gradient written once (at the train
 // step's 32 x 41 planes of 64 x 64 f32: 21.5 MB, 6.4 us at 3.35 TB/s).
-// Design: the strided path's block per plane, a third pass that writes.
+// Dense path (`heatmap_readout_bwd_kernel_dense`, the main path's:
+// `ops/heatmap.py` `plan_readout_bwd` picks it wherever K2's dense path
+// takes the layout): K2's cluster of kCluster CTAs per crop and its strip of
+// storage rows, copied into shared memory once by TMA; pass 1 the channels'
+// maxima, pushed to every CTA; pass 2 the six moments, pushed to EVERY CTA
+// too (each needs E[u], E[v], E[u^2], E[v^2], E[uv] and so E[f]) and
+// combined in rank order, so every CTA holds the same bits; pass 3 forms
+// d logit in place in the strip (each thread its own positions) and the CTA
+// writes the strip back with 16-byte stores in the slab's storage order. The
+// logits are read from device memory once (the strided path read them three
+// times, 41 x 4 bytes apart); every sum runs in a fixed order per crop, so a
+// crop's gradient is the same bits in any batch. Strided path
+// (`heatmap_readout_bwd_kernel`, the earlier design, for other layouts): a
+// block per plane, three passes, written with the strides the caller gives.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -494,10 +506,206 @@ heatmap_readout_kernel_dense(DenseArgs a) {
   // no CTA touches another's shared memory after the last cluster barrier
 }
 
+struct DenseBwdArgs {
+  const void* logits;
+  long long sn;     // elements between crops of the logits
+  void* dl;         // the gradient, the logits' storage order
+  long long dn;     // elements between crops of dl
+  int A, Bd, K;     // a crop in storage order [A, Bd, K]
+  int transposed;   // as DenseArgs
+  int rows;         // storage rows of each CTA's strip
+  int J;            // threads per channel: J * kPer = Bd
+  int strip_bytes;  // the strip's space, a 16-byte multiple
+  const float* guv;    // [N, K, 2]
+  const float* gcov;   // [N, K, 2, 2]
+  const float* gpool;  // [N, K]
+};
+
+// the per-channel values pass 3 reads: shift, 1 / z folded as z, E[u],
+// E[v], du, dv, dcuu, dcvv, dcuv, E[f], d pooled / (H W)
+enum { cShift, cZ, cEu, cEv, cDu, cDv, cDuu, cDvv, cDuv, cEf, cPool, kCoef };
+
 template <typename T>
-int launch_dense(const DenseArgs& a, int N, int threads, size_t smem, cudaStream_t st) {
-  static size_t raised = 0;  // the dynamic shared memory allowed so far
-  auto kern = heatmap_readout_kernel_dense<T>;
+__global__ void __launch_bounds__(kMaxDenseThreads, 1)
+heatmap_readout_bwd_kernel_dense(DenseBwdArgs a) {
+  // dynamic: the strip; the per-thread moments [6][blockDim]; what the
+  // other CTAs push: the moments' partials [cluster][6][K] and the maxima
+  // [cluster][K] (at every rank)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* strip = reinterpret_cast<T*>(smem_raw);
+  __shared__ __align__(8) uint64_t bars[kMaxStripRows];
+  __shared__ float red1[kMaxDenseThreads];
+  __shared__ float cf[kCoef][kMaxK];
+  __shared__ float ca[kMaxStripRows];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int t = threadIdx.x, nt = blockDim.x;
+  float* red2 = reinterpret_cast<float*>(smem_raw + a.strip_bytes);  // [6][nt]
+  float* rmom = red2 + 6 * nt;
+  float* rmax = rmom + kCluster * 6 * a.K;
+  const int n = blockIdx.x / kCluster;
+  const int K = a.K, Bd = a.Bd, A = a.A;
+  const int a0 = rank * a.rows;
+  const int nrows = max(0, min(a.rows, A - a0));
+  const int row_elems = Bd * K;
+  const T* src = static_cast<const T*>(a.logits) + n * a.sn + (long long)a0 * row_elems;
+  const int J = a.J;
+  const int j = t / K, k = t - j * K;
+  const bool active = j < J;
+
+  if (t < nrows) {
+    mbar_init(&bars[t], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  __syncthreads();
+  if (t < nrows) {
+    const uint32_t row_bytes = (uint32_t)(row_elems * sizeof(T));
+    mbar_expect_tx(&bars[t], row_bytes);
+    bulk_load(strip + (long long)t * row_elems, src + (long long)t * row_elems, row_bytes,
+              &bars[t]);
+  }
+  const float hb = 0.5f * (float)Bd, ha = 0.5f * (float)A;
+  for (int r = t; r < nrows; r += nt) {
+    const float x = (float)(a0 + r) + 0.5f;
+    ca[r] = a.transposed ? x / ha - 1.f : 1.f - x / ha;
+  }
+  float cb[kPer], cb2[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer; ++q) {
+    const float x = (float)(j + q * J) + 0.5f;
+    cb[q] = a.transposed ? 1.f - x / hb : x / hb - 1.f;
+    cb2[q] = cb[q] * cb[q];
+  }
+
+  // pass 1: each channel's max, pushed to every CTA
+  float mx = -FLT_MAX;
+  for (int r = 0; r < nrows; ++r) {
+    mbar_wait(&bars[r], 0);
+    if (active) {
+      const T* row = strip + r * row_elems + j * K + k;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) mx = fmaxf(mx, to_f32(row[q * J * K]));
+    }
+  }
+  red1[t] = mx;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (t < K) {
+    float v = red1[t];
+    for (int q = 1; q < J; ++q) v = fmaxf(v, red1[q * K + t]);
+    for (int d = 0; d < kCluster; ++d) cluster.map_shared_rank(rmax + rank * K + t, d)[0] = v;
+  }
+  cluster.sync();
+  if (t < K) {
+    float m = rmax[t];
+    for (int c = 1; c < kCluster; ++c) m = fmaxf(m, rmax[c * K + t]);
+    cf[cShift][t] = m;
+  }
+  __syncthreads();
+
+  // pass 2: the moments in storage coordinates (K2's), pushed to every CTA
+  float m0 = 0.f, a1 = 0.f, b1 = 0.f, aa = 0.f, bb = 0.f, ab = 0.f;
+  if (active) {
+    const float shift = cf[cShift][k];
+    for (int r = 0; r < nrows; ++r) {
+      const T* row = strip + r * row_elems + j * K + k;
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const float e = expf(shifted(to_f32(row[q * J * K]), shift, T()));
+        s0 += e;
+        s1 += e * cb[q];
+        s2 += e * cb2[q];
+      }
+      const float c = ca[r];
+      m0 += s0;
+      a1 += c * s0;
+      b1 += s1;
+      aa += (c * c) * s0;
+      bb += s2;
+      ab += c * s1;
+    }
+  }
+  red2[0 * nt + t] = m0;
+  red2[1 * nt + t] = a1;
+  red2[2 * nt + t] = b1;
+  red2[3 * nt + t] = aa;
+  red2[4 * nt + t] = bb;
+  red2[5 * nt + t] = ab;
+  __syncthreads();
+  if (t < 6 * K) {
+    const int f = t / K, c = t - f * K;
+    const float* rf = red2 + f * nt + c;
+    float v = rf[0];
+    for (int q = 1; q < J; ++q) v += rf[q * K];
+    for (int d = 0; d < kCluster; ++d)
+      cluster.map_shared_rank(rmom + (rank * 6 + f) * K + c, d)[0] = v;
+  }
+  cluster.sync();  // no CTA touches another's shared memory after this barrier
+  if (t < K) {
+    float s[6];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      s[f] = rmom[f * K + t];
+      for (int c = 1; c < kCluster; ++c) s[f] += rmom[(c * 6 + f) * K + t];
+    }
+    const float su = a.transposed ? s[1] : s[2], sv = a.transposed ? s[2] : s[1];
+    const float suu = a.transposed ? s[3] : s[4], svv = a.transposed ? s[4] : s[3];
+    const float z = fmaxf(s[0], FLT_MIN);
+    const float eu = su / z, ev = sv / z;
+    const float euu = suu / z, evv = svv / z, euv = s[5] / z;
+    const int plane = n * K + t;
+    const float du = a.guv[plane * 2], dv = a.guv[plane * 2 + 1];
+    const float dcuu = a.gcov[plane * 4], dcvv = a.gcov[plane * 4 + 3];
+    const float dcuv = a.gcov[plane * 4 + 1] + a.gcov[plane * 4 + 2];
+    cf[cZ][t] = z;
+    cf[cEu][t] = eu;
+    cf[cEv][t] = ev;
+    cf[cDu][t] = du;
+    cf[cDv][t] = dv;
+    cf[cDuu][t] = dcuu;
+    cf[cDvv][t] = dcvv;
+    cf[cDuv][t] = dcuv;
+    cf[cEf][t] = du * eu + dv * ev + dcuu * (euu - 2.f * eu * eu) +
+                 dcvv * (evv - 2.f * ev * ev) + dcuv * (euv - 2.f * eu * ev);
+    cf[cPool][t] = a.gpool[plane] / (float)(A * Bd);
+  }
+  __syncthreads();
+
+  // pass 3: p (f - E[f]) + d pooled / (H W), in place in the strip
+  if (active) {
+    const float shift = cf[cShift][k], z = cf[cZ][k], eu = cf[cEu][k], ev = cf[cEv][k];
+    const float du = cf[cDu][k], dv = cf[cDv][k], dcuu = cf[cDuu][k], dcvv = cf[cDvv][k];
+    const float dcuv = cf[cDuv][k], ef = cf[cEf][k], dpool = cf[cPool][k];
+    for (int r = 0; r < nrows; ++r) {
+      T* row = strip + r * row_elems + j * K + k;
+      const float c = ca[r];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const float u = a.transposed ? c : cb[q], v = a.transposed ? cb[q] : c;
+        const float e = expf(shifted(to_f32(row[q * J * K]), shift, T()));
+        const float f = du * u + dv * v + dcuu * (u * u - 2.f * eu * u) +
+                        dcvv * (v * v - 2.f * ev * v) + dcuv * (u * v - ev * u - eu * v);
+        row[q * J * K] = from_f32<T>((e / z) * (f - ef) + dpool);
+      }
+    }
+  }
+  __syncthreads();
+  // the strip back to device memory in its storage order, 16 bytes a store
+  const int n16 = nrows * row_elems * (int)sizeof(T) / 16;
+  const uint4* s16 = reinterpret_cast<const uint4*>(strip);
+  uint4* d16 = reinterpret_cast<uint4*>(static_cast<T*>(a.dl) + n * a.dn +
+                                        (long long)a0 * row_elems);
+  for (int i = t; i < n16; i += nt) d16[i] = s16[i];
+}
+
+// one launch of `kern` on N clusters of kCluster CTAs; `raised` is the
+// dynamic shared memory the kernel has been allowed so far
+template <typename Args>
+int launch_cluster(void (*kern)(Args), const Args& a, int N, int threads, size_t smem,
+                   cudaStream_t st, size_t& raised) {
   if (smem > raised) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -517,6 +725,18 @@ int launch_dense(const DenseArgs& a, int N, int threads, size_t smem, cudaStream
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kern, a);
+}
+
+template <typename T>
+int launch_dense(const DenseArgs& a, int N, int threads, size_t smem, cudaStream_t st) {
+  static size_t raised = 0;
+  return launch_cluster(heatmap_readout_kernel_dense<T>, a, N, threads, smem, st, raised);
+}
+
+template <typename T>
+int launch_dense_bwd(const DenseBwdArgs& a, int N, int threads, size_t smem, cudaStream_t st) {
+  static size_t raised = 0;
+  return launch_cluster(heatmap_readout_bwd_kernel_dense<T>, a, N, threads, smem, st, raised);
 }
 
 }  // namespace
@@ -584,6 +804,37 @@ extern "C" int suo_heatmap_readout_dense(const void* logits, long long sn, int N
     cudaStream_t s = (cudaStream_t)stream;
     const int e = dtype == 0 ? launch_dense<float>(a, N, threads, smem, s)
                              : launch_dense<__nv_bfloat16>(a, N, threads, smem, s);
+    if (e != 0) return e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// K19's dense path: the logits' crops [A, Bd, K] contiguous in storage order
+// (`sn` elements apart), dl written in the same order (`dn` apart), the
+// geometry of K2's dense path (`ops/heatmap.py` `plan_readout_bwd` checks
+// the alignment and sizes this entry assumes). guv, gcov, gpool as above.
+extern "C" int suo_heatmap_readout_bwd_dense(const void* logits, long long sn, int N, int A,
+                                             int Bd, int K, int transposed, const void* guv,
+                                             const void* gcov, const void* gpool, void* dl,
+                                             long long dn, int dtype, void* stream) {
+  if (N * K > 0) {
+    const int rows = (A + kCluster - 1) / kCluster;
+    const int J = Bd / kPer;
+    const int threads = (J * K + 31) / 32 * 32;
+    const size_t es = dtype == 0 ? 4 : 2;
+    const size_t strip = (size_t)rows * Bd * K * es;
+    auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+    if (K > kMaxK || rows > kMaxStripRows || J * kPer != Bd || threads > kMaxDenseThreads ||
+        threads < 6 * K || (Bd * K * es) % 16 || !al(logits) || !al(dl) ||
+        (N > 1 && ((sn * es) % 16 || (dn * es) % 16)))
+      return (int)cudaErrorInvalidValue;
+    // + the per-thread moments, rmom and rmax
+    const size_t smem = strip + (size_t)6 * threads * 4 + (size_t)kCluster * K * 7 * 4;
+    DenseBwdArgs a{logits, sn, dl, dn, A, Bd, K, transposed, rows, J, (int)strip,
+                   (const float*)guv, (const float*)gcov, (const float*)gpool};
+    cudaStream_t s = (cudaStream_t)stream;
+    const int e = dtype == 0 ? launch_dense_bwd<float>(a, N, threads, smem, s)
+                             : launch_dense_bwd<__nv_bfloat16>(a, N, threads, smem, s);
     if (e != 0) return e;
   }
   return (int)cudaGetLastError();

@@ -1,4 +1,7 @@
-// K13 — the int8 engine's s8 2x2 max-pool and s8 hourglass junction.
+// K13 — the int8 engine's s8 2x2 max-pool and s8 hourglass junction: the
+// earlier design, off the int8 forward since K12's pool and junction modes
+// (`csrc/int8_quant.cu`) do this work inside the quantize pass that follows
+// it; kept as the reference those modes are held against on the card.
 //
 // Replaces `suo_slam_tpu/models/int8_forward.py` `_Int8Engine.maxpool`
 // (`:286-290`, a VALID 2x2 / stride-2 `reduce_window` on the codes: the scale

@@ -38,6 +38,23 @@
 // heads' 41 bf16 logits) load element by element; their stores stay 16 bytes
 // wide when Cp allows.
 //
+// Two prologue modes take the hourglass's max-pool and junction, the work of
+// K13 (`csrc/int8_pool_junction.cu`, kept as the earlier design), into this
+// pass (`kMode`; the plain instances compile as before):
+//   pool (`maxpool` `:286-290`, then the `nrq` that reads its result): the
+//     s8 input of output pixel (n, h, w) is the max of x's 2x2 window at
+//     (n, 2h, 2w) — four 16-byte loads and `__vmaxs4` — and the raw output
+//     is that pooled code itself (the pooled tensor, which the block's skip
+//     reads), the normalised output its nrq;
+//   junction (`upsample_add` `:292-300`, then its `quant` / `quant_pair`):
+//     x2 is read at (n, h / 2, w / 2) of its [N, H/2, W/2, C] codes, the
+//     nearest-2x upsample through indices; the prologue's sum is the
+//     junction's bf16(q1 s1) + bf16(q2 s2), so its bf16 tensor is never
+//     written (at 8 x 64 x 64 x 256 the junction and its quant_pair move
+//     27.3 MB instead of 60.9).
+// Both derive the pixel's (n, h, w) from its index with one 32-bit division
+// by the row width (and one by the height for an odd pooled height).
+//
 // f32 operations (`f32_ops`): the raw codes of the quantized PkpNet's
 // convolution inputs, `suo_slam_tpu/models/quant.py` `Conv` (`:84-87`):
 //   out_raw[p, c] = clip(rint(RN_f32(f32(x) / div[c])), -127, 127)
@@ -64,12 +81,14 @@ struct QuantArgs {
   const float* vec[6];   // s1, s2, add vector, div, m, cc ([C] f32 or null)
   int8_t* out_raw;       // [P, Cp] or null
   int8_t* out_norm;      // [P, Cp] or null
-  long long P;
+  long long P;           // output pixels
   int C, Cp;
   int wide;              // Cp % 16 == 0 and both outputs 16-byte aligned
+  int H, W;              // pool: x's (unpooled) extents; junction: the output's
 };
 
 enum { kS1, kS2, kAddV, kDiv, kM, kCc };
+enum { kPlain = 0, kPool = 1, kUp = 2 };  // the prologue modes (the entry's `mode`)
 
 // bf16x2 arithmetic, each half rounded once to nearest even (sm_90). On bf16
 // operands it equals the f32 operation rounded to bf16, which is what the
@@ -171,13 +190,19 @@ struct Packed {
   }
 };
 
+// p / d for a pixel index, in 32 bits where the count allows
+__device__ __forceinline__ long long pdiv(long long p, int d, long long n) {
+  return n <= 0xffffffffLL ? (long long)((unsigned)p / (unsigned)d) : p / d;
+}
+
 // One pass: kVec when C == Cp, C % 16 == 0 and every pointer is 16-byte
 // aligned (one vector per 16 channels, no tail). T float computes in f32,
 // bf16 and s8 in bf16 (pairs of channels in bf16x2), bf16 with kF32 in f32.
 // kU vectors per pass, all their loads issued before any arithmetic; three
 // blocks on an SM (at most 85 registers) keep more of them in flight than
-// two did.
-template <typename T, bool kVec, int kU, bool kF32 = false>
+// two did. kMode: kPool (T s8, no other prologue operand, the raw output the
+// pooled codes) or kUp (x2 at half resolution).
+template <typename T, bool kVec, int kU, bool kF32 = false, int kMode = kPlain>
 __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
   constexpr bool kBf16 = !std::is_same<T, float>::value && !kF32;
   // Per-channel vectors, laid out so that a warp's reads are conflict-free
@@ -229,6 +254,7 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
     Packed<T> xw[kU];
     Packed<int8_t> w2[kU];
     Packed<__nv_bfloat16> uw[kU];
+    Packed<int8_t> win[kPool == kMode ? kU : 1][3];  // pool: the window's other three
 #pragma unroll
     for (int q = 0; q < kU; ++q) {
       const long long t = t0 + q * stride;
@@ -238,21 +264,53 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
       vi[q] = (int)(t - p * nvec);
       pix[q] = p;
       const long long i0 = p * a.C + 16 * vi[q];  // input offset of the vector
-      if (kVec) {
-        xw[q].load(x, i0);
-        if (has_x2) w2[q].load(a.x2, i0);
-        if (has_add) uw[q].load(a.add, i0);
+      const int m = a.C - 16 * vi[q];  // channels of this vector in the input
+      if constexpr (kMode == kPool) {
+        static_assert(std::is_same<T, int8_t>::value, "the pool reads s8 codes");
+        // the window's first input pixel: row n H + 2 h = 2 r + n (H & 1) of
+        // the output row r = n (H / 2) + h, column 2 w
+        const int wo = a.W >> 1;
+        const long long r = pdiv(p, wo, a.P);
+        const long long row = 2 * r + ((a.H & 1) ? pdiv(r, a.H >> 1, a.P) : 0);
+        const long long j0 = (row * a.W + 2 * (p - r * wo)) * a.C + 16 * vi[q];
+        const long long o[3] = {j0 + a.C, j0 + (long long)a.W * a.C,
+                                j0 + (long long)a.W * a.C + a.C};
+        if (kVec) {
+          xw[q].load(x, j0);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) win[q][i].load(x, o[i]);
+        } else {
+          xw[q].load_n(x, j0, m);
+#pragma unroll
+          for (int i = 0; i < 3; ++i) win[q][i].load_n(x, o[i], m);
+        }
       } else {
-        const int m = a.C - 16 * vi[q];  // channels of this vector in the input
-        xw[q].load_n(x, i0, m);
-        if (has_x2) w2[q].load_n(a.x2, i0, m);
-        if (has_add) uw[q].load_n(a.add, i0, m);
+        long long i2 = i0;  // x2's offset: junction, its pixel (n, h / 2, w / 2)
+        if constexpr (kMode == kUp) {
+          const long long r = pdiv(p, a.W, a.P);  // n H + h, H even
+          i2 = ((r >> 1) * (a.W >> 1) + ((p - r * a.W) >> 1)) * a.C + 16 * vi[q];
+        }
+        if (kVec) {
+          xw[q].load(x, i0);
+          if (has_x2) w2[q].load(a.x2, i2);
+          if (has_add) uw[q].load(a.add, i0);
+        } else {
+          xw[q].load_n(x, i0, m);
+          if (has_x2) w2[q].load_n(a.x2, i2, m);
+          if (has_add) uw[q].load_n(a.add, i0, m);
+        }
       }
     }
 #pragma unroll
     for (int q = 0; q < kU; ++q) {
       if (t0 + q * stride >= total) break;
       const int v = vi[q];
+      if constexpr (kMode == kPool) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          xw[q].w[k] = __vmaxs4(__vmaxs4(xw[q].w[k], win[q][0].w[k]),
+                                __vmaxs4(win[q][1].w[k], win[q][2].w[k]));
+      }
       unsigned rw[4], nw[4];  // the codes, packed as they are made
 #pragma unroll
       for (int wq = 0; wq < 4; ++wq) {  // channels 4 wq .. 4 wq + 3 of the vector
@@ -272,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
             }
             if (has_add) xp = badd2(xp, uw[q].w[jj]);
             if (has_addv) xp = badd2(xp, pr[16 * nv + at]);
-            if (has_raw) {
+            if (kMode != kPool && has_raw) {
               const float2 d0 = dr[(2 * jj) * nv + v], d1 = dr[(2 * jj + 1) * nv + v];
               const unsigned qp = pack_rn(quot_bf16(lo_f(xp), d0.y), quot_bf16(hi_f(xp), d1.y));
               rc[2 * h] = code(lo_f(qp));
@@ -309,7 +367,10 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
           const int left = a.C - 16 * v - 4 * wq;
           keep = left >= 4 ? 0xffffffffu : left <= 0 ? 0u : (1u << (8 * left)) - 1u;
         }
-        if (has_raw) rw[wq] = pack4(rc[0], rc[1], rc[2], rc[3]) & keep;
+        if (kMode == kPool)  // the raw output: the pooled codes themselves
+          rw[wq] = xw[q].w[wq] & keep;
+        else if (has_raw)
+          rw[wq] = pack4(rc[0], rc[1], rc[2], rc[3]) & keep;
         if (has_norm) nw[wq] = pack4(nc[0], nc[1], nc[2], nc[3]) & keep;
       }
       const long long o = pix[q] * a.Cp + 16 * v;
@@ -331,51 +392,73 @@ __global__ void __launch_bounds__(kThreads, 3) int8_quant_kernel(QuantArgs a) {
   }
 }
 
-template <typename T, bool kVec, int kU, bool kF32>
+template <typename T, bool kVec, int kU, bool kF32, int kMode>
 void launch_u(const QuantArgs& a, cudaStream_t s) {
   const long long total = a.P * ((a.Cp + 15) / 16);
   long long blocks = (total + kThreads * kU - 1) / (kThreads * kU);
   if (blocks > 132LL * 16) blocks = 132LL * 16;
   const size_t smem = 288 * (size_t)((a.C + 15) / 16);  // dr + (mc or the bf16 pairs)
-  int8_quant_kernel<T, kVec, kU, kF32><<<(unsigned)blocks, kThreads, smem, s>>>(a);
+  int8_quant_kernel<T, kVec, kU, kF32, kMode><<<(unsigned)blocks, kThreads, smem, s>>>(a);
 }
 
-template <typename T, bool kF32 = false>
+template <typename T, bool kF32 = false, int kMode = kPlain>
 int launch(const QuantArgs& a, bool vec, cudaStream_t s) {
   if (a.P * ((a.Cp + 15) / 16) <= 0) return 0;
   if (vec)
-    launch_u<T, true, 2, kF32>(a, s);
+    launch_u<T, true, 2, kF32, kMode>(a, s);
   else
-    launch_u<T, false, 1, kF32>(a, s);
+    launch_u<T, false, 1, kF32, kMode>(a, s);
   return 0;
 }
 
 }  // namespace
 
-// x: P pixels x C channels, xdtype 0 = f32, 1 = bf16, 2 = s8 codes. The
-// prologue: s1 [C] (dequantize x, which must then be s8), x2 [P, C] s8 with
-// s2 [C], add [P, C] bf16, addv [C]; each may be null. div [C] (raw output)
-// and m, cc [C] (normalised output) are f32 arrays; out_raw / out_norm
-// ([P, Cp] s8) may be null to skip that output. f32_ops: a bf16 input
-// computes in f32 (no prologue then). Returns cudaErrorInvalidValue for
-// C > 1024, Cp < C or a prologue with f32_ops, else cudaGetLastError() after
-// the launch.
+// x: P output pixels x C channels, xdtype 0 = f32, 1 = bf16, 2 = s8 codes.
+// The prologue: s1 [C] (dequantize x, which must then be s8), x2 [P, C] s8
+// with s2 [C], add [P, C] bf16, addv [C]; each may be null. div [C] (raw
+// output) and m, cc [C] (normalised output) are f32 arrays; out_raw /
+// out_norm ([P, Cp] s8) may be null to skip that output. f32_ops: a bf16
+// input computes in f32 (no prologue then). mode 1 (pool): x holds s8 codes
+// [N, H, W, C] with P = N (H / 2) (W / 2), no other prologue operand and no
+// div; out_raw takes the pooled codes. mode 2 (junction): x2 holds [N, H / 2,
+// W / 2, C] codes for P = N H W output pixels, H and W even. vec: one
+// 16-byte vector per 16 channels (`int8_kernels.plan_quant` decides it; it
+// needs C == Cp, C % 16 == 0 and every tensor 16-byte aligned). Returns
+// cudaErrorInvalidValue for C > 1024, Cp < C, a prologue with f32_ops, a
+// mode's operands out of place, or vec where its conditions fail; else
+// cudaGetLastError() after the launch.
 extern "C" int suo_int8_quant(const void* x, int xdtype, const void* s1, const void* x2,
                               const void* s2, const void* add, const void* addv, long long P,
                               int C, int Cp, const void* div, const void* m, const void* cc,
-                              void* out_raw, void* out_norm, int f32_ops, void* stream) {
-  if (C <= 0 || C > kMaxC || Cp < C) return (int)cudaErrorInvalidValue;
-  if (f32_ops && (xdtype == 2 || s1 || x2 || s2 || add || addv)) return (int)cudaErrorInvalidValue;
+                              void* out_raw, void* out_norm, int f32_ops, int mode, int H,
+                              int W, int vec, void* stream) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (C <= 0 || C > kMaxC || Cp < C) return bad;
+  if (f32_ops && (xdtype == 2 || s1 || x2 || s2 || add || addv || mode != kPlain)) return bad;
+  if (mode == kPool) {
+    const long long px = (long long)(H / 2) * (W / 2);
+    if (xdtype != 2 || s1 || x2 || s2 || add || addv || div || !out_raw || px <= 0 || P % px)
+      return bad;
+  } else if (mode == kUp) {
+    if (xdtype != 2 || !s1 || !x2 || !s2 || H <= 0 || W <= 0 || (H | W) & 1 ||
+        P % ((long long)H * W))
+      return bad;
+  } else if (mode != kPlain) {
+    return bad;
+  }
   QuantArgs a{x, (const int8_t*)x2, (const __nv_bfloat16*)add,
               {(const float*)s1, (const float*)s2, (const float*)addv, (const float*)div,
                (const float*)m, (const float*)cc},
-              (int8_t*)out_raw, (int8_t*)out_norm, P, C, Cp, 0};
+              (int8_t*)out_raw, (int8_t*)out_norm, P, C, Cp, 0, H, W};
   auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
   a.wide = (Cp & 15) == 0 && al(out_raw) && al(out_norm);
-  const bool vec = C == Cp && (C & 15) == 0 && al(x) && al(x2) && al(add) && al(out_raw) &&
-                   al(out_norm);
+  if (vec && !(C == Cp && (C & 15) == 0 && al(x) && al(x2) && al(add) && al(out_raw) &&
+               al(out_norm)))
+    return bad;
   cudaStream_t s = (cudaStream_t)stream;
-  if (xdtype == 0) launch<float>(a, vec, s);
+  if (mode == kPool) launch<int8_t, false, kPool>(a, vec, s);
+  else if (mode == kUp) launch<int8_t, false, kUp>(a, vec, s);
+  else if (xdtype == 0) launch<float>(a, vec, s);
   else if (xdtype == 1 && f32_ops) launch<__nv_bfloat16, true>(a, vec, s);
   else if (xdtype == 1) launch<__nv_bfloat16>(a, vec, s);
   else launch<int8_t>(a, vec, s);

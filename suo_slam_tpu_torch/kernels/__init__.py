@@ -7,7 +7,8 @@ K2, K5 and K19 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
 `models/int8_kernels.py`, K14 `solvers/ba.py`, K20 and K21
 `models/hourglass.py`, K22 `solvers/pnp.py`) and adds one to its counter
 here where — and only where — it launches its CUDA kernel (once per call,
-where a call runs several kernels). `count` takes a lock: the pipelined
+where a call runs several kernels; K12's launches in its pool and
+junction modes count under their own names too). `count` takes a lock: the pipelined
 evaluation launches from several worker threads, and `+= 1` on a dict entry
 is a read-modify-write that two threads could interleave and lose.
 
@@ -39,7 +40,9 @@ LAUNCHES: dict[str, int] = {
     "upsample_add": 0,  # K9
     "add_dists": 0,     # K10
     "int8_conv": 0,     # K11
-    "int8_quant": 0,    # K12
+    "int8_quant": 0,    # K12 (every mode)
+    "int8_quant_pool": 0,  # K12's pool mode (of those)
+    "int8_quant_junction": 0,  # K12's junction mode (of those)
     "int8_pool_junction": 0,  # K13 (max-pool and junction)
     "ba_lm": 0,         # K14
     "pnp_ransac": 0,    # K15

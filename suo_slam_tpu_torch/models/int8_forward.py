@@ -9,7 +9,10 @@ ReLU / requantize epilogue), K12 (quant, nrq and the dual-output quant_pair
 of every chained block boundary, behind a prologue that forms JAX's bf16
 dequantize-and-add of the residual, projection, injection and junction
 sums: the engine's `sum` hands it the operands instead of computing the
-sum in torch) and K13 (s8 max-pool, s8 junction). The
+sum in torch). K12 also takes the s8 max-pool, fused with the nrq that
+follows it (`maxpool(act, norm)`), and the junction, whose sum (a `_Sum`
+with its second activation read at half resolution) its next quantize
+forms; K13, their earlier kernel, is off this path. The
 stem convolution stays f32 (`F.conv2d`, TF32 off), and so do the readout's
 moments and the validity head (`ops/heatmap.py`, K2 on the bf16 logits).
 
@@ -67,10 +70,12 @@ def _bn_affine(norm: MaskedBatchNorm, device=None):
 
 class _Sum(NamedTuple):
     """The int8 engine's `sum`: JAX's bf16 dequantize-and-add, formed by the
-    next quantize's prologue (K12) instead of being materialised."""
+    next quantize's prologue (K12) instead of being materialised. `up`: the
+    second activation is read nearest-2x upsampled (the junction)."""
 
     acts: tuple
     add: torch.Tensor | None
+    up: bool = False
 
 
 class _CalAct(NamedTuple):
@@ -155,9 +160,10 @@ class _CalibEngine:
         self._record(y, False)
         return _CalAct(y, False)
 
-    def maxpool(self, act):
-        return _CalAct(F.max_pool2d(act.x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1),
-                       act.pc)
+    def maxpool(self, act, norm=None):
+        """The 2x2 max-pool; with `norm`, (pooled, its nrq)."""
+        p = _CalAct(F.max_pool2d(act.x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1), act.pc)
+        return p if norm is None else (p, self.nrq(p, norm))
 
     def upsample_add(self, up1, low):
         lo = low.x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
@@ -267,7 +273,7 @@ class _Int8Engine:
         div, mc, deq = v[0], v[1:1 + n_norm], v[1 + n_norm:]
         if acts:
             x = ik.Deq(acts[0].q, deq[0])
-            x2 = ik.Deq(acts[1].q, deq[1]) if len(acts) > 1 else None
+            x2 = ik.Deq(acts[1].q, deq[1], xf.up) if len(acts) > 1 else None
             return ik.int8_quant(x, div, *mc, x2=x2, add=xf.add, c_out=c_out)
         return ik.int8_quant(xf, div, *mc, c_out=c_out)
 
@@ -297,17 +303,21 @@ class _Int8Engine:
     def is_per_channel(self, act: QT):
         return act.s.dim() > 0
 
-    def nrq(self, act: QT, norm):
+    def _nrq_vecs(self, act: QT, norm):
+        """(point, m, c) of an nrq of act: folded, relu(deq(q) * a + b) /
+        s_out -> max(q * m + c, 0) in bf16."""
         po = self._next_point()
 
         def make():
-            # folded: relu(deq(q) * a + b) / s_out -> max(q * m + c, 0) in bf16
             a, b = _bn_affine(norm)
             s_out = self._s(po)
             return (((act.s * a) / s_out).to(torch.bfloat16).float(),
                     (b / s_out).to(torch.bfloat16).float())
 
-        m, c = self._vecs(act.q.device, make)
+        return (po,) + self._vecs(act.q.device, make)
+
+    def nrq(self, act: QT, norm):
+        po, m, c = self._nrq_vecs(act, norm)
         _, q = ik.int8_quant(act.q, None, m, c)
         return QT(q, self._s(po))
 
@@ -343,15 +353,24 @@ class _Int8Engine:
         m, c = self._vecs(act.q.device, make)
         return QT(ik.int8_conv(act.q, qc, m, c, out_s8=True), self._s(po))
 
-    def maxpool(self, act: QT):
-        return QT(ik.int8_maxpool(act.q), act.s)
+    def maxpool(self, act: QT, norm=None):
+        """The 2x2 max-pool of the codes (the scale is positive, so the max
+        commutes with dequantization), one K12 call in its pool mode; with
+        `norm`, fused with the nrq that reads the pooled tensor: returns
+        (pooled, normed), the nrq's calibration point and vectors taken in
+        its place of the order."""
+        if norm is None:
+            q, _ = ik.int8_quant(act.q, None, pool=True)
+            return QT(q, act.s)
+        po, m, c = self._nrq_vecs(act, norm)  # the pooled tensor keeps act's scale
+        q, qn = ik.int8_quant(act.q, None, m, c, pool=True)
+        return QT(q, act.s), QT(qn, self._s(po))
 
     def upsample_add(self, up1: QT, low: QT):
-        C = up1.q.shape[-1]
-        e_up, e_low = self._vecs(up1.q.device, lambda: (
-            up1.s.to(torch.bfloat16).float().expand(C),
-            low.s.to(torch.bfloat16).float().expand(C)))
-        return ik.int8_upsample_add(up1.q, low.q, e_up, e_low)
+        """The junction bf16(up1) + bf16(upsample2x(low)), left for the next
+        quantize's prologue (K12's junction mode): `low` is read at half
+        resolution, the bf16 sum never written."""
+        return _Sum((up1, low), None, up=True)
 
 
 def _residual(eng, m: Residual, act_x, out_pc=True, pre_norm=None, pair_norm=None):
@@ -394,6 +413,16 @@ def _res_chain(eng, blocks, act, pre_norm=None, last_out_pc=True, tail_norm=None
     return act, pre_norm
 
 
+def _pool(eng, act, blocks):
+    """The max-pool of act and, where a Residual chain reads the pooled
+    tensor, its first block's nrq in the same call (that block then takes it
+    as its pre_norm): (pooled, normed or None)."""
+    blocks = list(blocks)
+    if not blocks:
+        return eng.maxpool(act), None
+    return eng.maxpool(act, blocks[0].norm0)
+
+
 def _per_tensor(eng, act):
     """Requantize a per-channel trunk tensor for direct conv consumption."""
     if eng.is_per_channel(act):
@@ -406,15 +435,17 @@ def _hourglass(eng, hg: Hourglass, act_x, pre_norm=None, ret_norm=None):
     max-pool branch reads the raw tensor). ret_norm: the return junction
     dual-emits the caller's next norm input too."""
     up1, _ = _res_chain(eng, hg.up1, act_x, pre_norm=pre_norm)
-    low = eng.maxpool(act_x)
     if isinstance(hg.low2, Hourglass):
         # the pooled chain runs straight into the inner hourglass's first up1
         # block; the inner return junction dual-emits low3's first norm
-        low, pn = _res_chain(eng, hg.low1, low, tail_norm=hg.low2.up1[0].norm0)
+        low, pn = _pool(eng, act_x, hg.low1)
+        low, pn = _res_chain(eng, hg.low1, low, pre_norm=pn, tail_norm=hg.low2.up1[0].norm0)
         low, pn = _hourglass(eng, hg.low2, low, pre_norm=pn, ret_norm=hg.low3[0].norm0)
         low, _ = _res_chain(eng, hg.low3, low, pre_norm=pn)
     else:
-        low, _ = _res_chain(eng, list(hg.low1) + list(hg.low2) + list(hg.low3), low)
+        chain = list(hg.low1) + list(hg.low2) + list(hg.low3)
+        low, pn = _pool(eng, act_x, chain)
+        low, _ = _res_chain(eng, chain, low, pre_norm=pn)
     out = eng.upsample_add(up1, low)
     if ret_norm is None:
         return eng.quant(out, pc=True)
@@ -453,8 +484,8 @@ def _traverse(eng, net: PkpNet, images_roi, prior_kp, no_prior=False):
     x = torch.relu(x * a0 + b0).contiguous()
     act, pn = eng.quant_pair(x, bb.pre[0].norm0, pc=False)
     act = _residual(eng, bb.pre[0], act, pre_norm=pn)
-    act = eng.maxpool(act)
-    act, pn = _residual(eng, bb.pre[1], act, pair_norm=bb.pre[2].norm0)
+    act, pn = eng.maxpool(act, bb.pre[1].norm0)
+    act, pn = _residual(eng, bb.pre[1], act, pre_norm=pn, pair_norm=bb.pre[2].norm0)
     hg0 = bb.hgs[0].up1[0].norm0
     if concat:
         act, pn = _residual(eng, bb.pre[2], act, pre_norm=pn, pair_norm=hg0)

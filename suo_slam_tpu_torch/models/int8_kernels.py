@@ -21,9 +21,15 @@ product, sum and quotient as XLA does on the CPU:
   (`Deq`): JAX's dequantize-and-add before a quantize, formed in the pass;
   with `f32_ops`, a bf16 input's raw codes in f32 operations (`QuantConv`
   widens its input to f32 before the division);
-- K13 `int8_maxpool` / `int8_upsample_add` (`csrc/int8_pool_junction.cu`):
-  the s8 2x2 max-pool and the junction bf16(up1 * e_up) + bf16(low * e_low)
-  with `low` upsampled 2x through indices.
+  and two prologue modes that take the hourglass's max-pool and junction
+  into the pass (`plan_quant`): `pool=True` reads the s8 input as the max of
+  its 2x2 windows and writes the pooled codes as the raw output beside their
+  nrq; a `Deq` with `up=True` as the second operand is read at (h/2, w/2),
+  so the junction's bf16 sum feeds the quantize without being written;
+- K13 `int8_maxpool` / `int8_upsample_add` (`csrc/int8_pool_junction.cu`),
+  the earlier design of those two, off the int8 forward since K12 took
+  them: the s8 2x2 max-pool and the junction bf16(up1 * e_up) +
+  bf16(low * e_low) with `low` upsampled 2x through indices.
 
 The per-channel vectors (e1, e2, div, m, c, e_up, e_low) are f32 tensors on
 the activations' device holding values of the operation's dtype; the engine
@@ -259,10 +265,12 @@ QUANT_MAX_C = 1024  # K12 stages its per-channel vectors in shared memory
 class Deq(NamedTuple):
     """An operand of K12's prologue, dequantized as bf16(q * s): NHWC s8
     codes q and their scale s, an f32 [C] vector of bf16 values (a
-    per-tensor scale expanded)."""
+    per-tensor scale expanded). `up`: the second operand of a junction, q
+    at half the first's resolution, read nearest-2x upsampled."""
 
     q: torch.Tensor
     s: torch.Tensor
+    up: bool = False
 
 
 def op_dtype(x) -> torch.dtype:
@@ -276,10 +284,16 @@ def padded(c: int) -> int:
     return -(-c // CIN_ALIGN) * CIN_ALIGN
 
 
+def upsample2x(q: torch.Tensor) -> torch.Tensor:
+    """Nearest-2x upsample of NHWC codes."""
+    return q.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
 def prologue_plain(x, x2: Deq | None = None, add: torch.Tensor | None = None) -> torch.Tensor:
     """K12's input: x itself (f32, bf16 or s8 codes), or for a `Deq` x the
     sum bf16(q * s) [+ bf16(q2 * s2)] [+ add] left to right in bf16, `add` a
-    bf16 tensor of x's shape or an f32 [C] vector of bf16 values."""
+    bf16 tensor of x's shape or an f32 [C] vector of bf16 values; q2 read
+    upsampled where x2.up."""
     if not isinstance(x, Deq):
         if x2 is not None or add is not None:
             raise ValueError("int8_quant: a prologue starts from a Deq operand")
@@ -287,23 +301,97 @@ def prologue_plain(x, x2: Deq | None = None, add: torch.Tensor | None = None) ->
     bf = torch.bfloat16
     v = x.q.to(bf) * x.s.to(bf)
     if x2 is not None:
-        v = v + x2.q.to(bf) * x2.s.to(bf)
+        v = v + (upsample2x(x2.q) if x2.up else x2.q).to(bf) * x2.s.to(bf)
     if add is not None:
         v = v + add.to(bf)
     return v
 
 
+# K12's prologue modes (`mode` in `csrc/int8_quant.cu`)
+QUANT_PLAIN, QUANT_POOL, QUANT_UP = range(3)
+
+
+class QuantPlan(NamedTuple):
+    """How K12 runs a call (`plan_quant`): its prologue mode, the output
+    pixels P, channels C and output row width c_out, the spatial extents
+    the mode reads (pool: the unpooled input's; junction: the output's; 0
+    in the plain mode) and whether it takes the vector path."""
+
+    mode: int
+    P: int
+    C: int
+    c_out: int
+    H: int
+    W: int
+    vec: bool
+
+
+def plan_quant(shape, c_out: int | None = None, *, pool: bool = False,
+               up_shape: tuple | None = None, ptrs=()) -> QuantPlan:
+    """K12's launch for an input of `shape` (the codes of a `Deq`, or the
+    tensor): the pool mode for `pool`, the junction mode where the second
+    operand is read upsampled (`up_shape`, its codes' shape: [N, H/2, W/2,
+    C] of an [N, H, W, C] input); `ptrs` the addresses of every tensor the
+    kernel reads or writes. The vector path (one 16-byte load or store per
+    16 channels, no tail) needs c_out == C, C % 16 == 0 and every address
+    16-byte aligned. Raises where a mode cannot take the shapes (as the
+    plain version does)."""
+    C = shape[-1]
+    c_out = C if c_out is None else c_out
+    _check("K12 int8_quant", 0 < C <= QUANT_MAX_C and c_out >= C, f"C = {C}, c_out = {c_out}")
+    mode, H, W = QUANT_PLAIN, 0, 0
+    P = 1
+    for d in shape[:-1]:
+        P *= d
+    if pool or up_shape is not None:
+        _check("K12 int8_quant", len(shape) == 4 and not (pool and up_shape is not None),
+               f"the pool and junction modes take one NHWC input, got {tuple(shape)}")
+        N, H, W, _ = shape
+    if pool:
+        mode = QUANT_POOL
+        _check("K12 int8_quant", H >= 2 and W >= 2, f"a 2x2 pool of {tuple(shape)}")
+        P = N * (H // 2) * (W // 2)
+    elif up_shape is not None:
+        mode = QUANT_UP
+        _check("K12 int8_quant", H % 2 == 0 and W % 2 == 0
+               and tuple(up_shape) == (N, H // 2, W // 2, C),
+               f"a junction's second operand {tuple(up_shape)} is not half of {tuple(shape)}")
+    vec = c_out == C and C % 16 == 0 and all(p % 16 == 0 for p in ptrs)
+    return QuantPlan(mode, P, C, c_out, H, W, vec)
+
+
+def _mode_check(x, div, x2, add, f32_ops, pool) -> None:
+    """The operands the pool and junction modes take (plain and kernel)."""
+    name = "K12 int8_quant"
+    if pool:
+        _check(name, not isinstance(x, Deq) and x.dtype == torch.int8 and x2 is None
+               and add is None and div is None and not f32_ops,
+               "the pool mode takes s8 codes alone (no prologue operand, no divisor: its raw "
+               "output is the pooled codes)")
+    if x2 is not None and x2.up:
+        _check(name, isinstance(x, Deq), "a junction starts from a Deq operand")
+        plan_quant(x.q.shape, up_shape=x2.q.shape)
+
+
 def int8_quant_plain(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                      c: torch.Tensor | None = None, *, x2: Deq | None = None,
                      add: torch.Tensor | None = None, c_out: int | None = None,
-                     f32_ops: bool = False):
+                     f32_ops: bool = False, pool: bool = False):
     """Plain K12 on an NHWC input (f32, bf16, s8 codes, or the prologue
     `prologue_plain(x, x2, add)`): (raw codes clip(rint(x / div)) or None,
     normalised codes clip(rint(max(x * m + c, 0))) or None), each operation
     in the op dtype (f32 with `f32_ops`, for f32 or bf16 x alone); both
-    outputs c_out (default C) channels wide, zero beyond C."""
+    outputs c_out (default C) channels wide, zero beyond C. `pool`: x (s8
+    codes) is 2x2 max-pooled first and the raw output is the pooled codes."""
     if f32_ops and (isinstance(x, Deq) or x.dtype == torch.int8):
         raise ValueError("int8_quant: f32_ops takes an f32 or bf16 input, no prologue")
+    _mode_check(x, div, x2, add, f32_ops, pool)
+    if pool:
+        xp = int8_maxpool_plain(x)
+        C = xp.shape[-1]
+        _, norm = int8_quant_plain(xp, None, m, c, c_out=c_out)
+        raw = xp if c_out in (None, C) else F.pad(xp, (0, c_out - C)).contiguous()
+        return raw, norm
     xd = prologue_plain(x, x2, add)
     dt = torch.float32 if f32_ops else op_dtype(xd)
     xd = xd.to(dt)
@@ -323,13 +411,13 @@ def int8_quant_plain(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
 
 _QUANT_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                      c: torch.Tensor | None = None, *, x2: Deq | None = None,
                      add: torch.Tensor | None = None, c_out: int | None = None,
-                     f32_ops: bool = False):
+                     f32_ops: bool = False, pool: bool = False):
     name = "K12 int8_quant"
     p_s1 = p_x2 = p_s2 = p_add = p_addv = None  # a null pointer where unused
     if isinstance(x, Deq):
@@ -340,8 +428,8 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
         s1 = _vec(name, x.s, C, xq.device)  # kept alive until the launch
         p_s1 = _build.ptr(s1)
         if x2 is not None:
-            _check(name, x2.q.dtype == torch.int8 and x2.q.shape == xq.shape
-                   and x2.q.is_contiguous() and x2.q.device == xq.device,
+            _check(name, x2.q.dtype == torch.int8 and x2.q.is_contiguous()
+                   and x2.q.device == xq.device and (x2.up or x2.q.shape == xq.shape),
                    f"second operand {tuple(x2.q.shape)} {x2.q.dtype} does not fit "
                    f"{tuple(xq.shape)}")
             s2 = _vec(name, x2.s, C, xq.device)
@@ -363,48 +451,62 @@ def _int8_quant_cuda(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
         _check(name, div is None or xq.dtype != torch.int8, "s8 codes take no raw output")
     _check(name, not f32_ops or (p_s1 is None and xq.dtype != torch.int8),
            "f32_ops takes an f32 or bf16 input, no prologue")
+    _mode_check(x, div, x2, add, f32_ops, pool)
     dev = xq.device
-    _check(name, div is not None or m is not None, "no output requested")
+    _check(name, pool or div is not None or m is not None, "no output requested")
     C = xq.shape[-1]
     c_out = C if c_out is None else c_out
-    _check(name, 0 < C <= QUANT_MAX_C and c_out >= C, f"C = {C}, c_out = {c_out}")
-    shape = tuple(xq.shape[:-1]) + (c_out,)
+    lead = tuple(xq.shape[:-1])
+    if pool:
+        lead = (lead[0], lead[1] // 2, lead[2] // 2)
+    shape = lead + (c_out,)
     raw = norm = None
     p_div = p_m = p_c = p_raw = p_norm = None
-    if div is not None:
+    if div is not None or pool:
         raw = torch.empty(shape, dtype=torch.int8, device=dev)
+        p_raw = _build.ptr(raw)
+    if div is not None:
         div = _vec(name, div, C, dev)
-        p_div, p_raw = _build.ptr(div), _build.ptr(raw)
+        p_div = _build.ptr(div)
     if m is not None:
         m, c = _vec(name, m, C, dev), _vec(name, c, C, dev)
         norm = torch.empty(shape, dtype=torch.int8, device=dev)
         p_m, p_c, p_norm = _build.ptr(m), _build.ptr(c), _build.ptr(norm)
+    up = x2 is not None and x2.up
+    plan = plan_quant(xq.shape, c_out, pool=pool, up_shape=tuple(x2.q.shape) if up else None,
+                      ptrs=[q for q in (_build.ptr(xq), p_x2, p_add, p_raw, p_norm) if q])
     fn = _build.entry("int8_quant", _QUANT_ARGTYPES)
     err = fn(_build.ptr(xq), _QUANT_DTYPES[xq.dtype], p_s1, p_x2, p_s2, p_add, p_addv,
-             xq.numel() // C, C, c_out, p_div, p_m, p_c, p_raw, p_norm, int(f32_ops),
-             _build.stream())
+             plan.P, C, c_out, p_div, p_m, p_c, p_raw, p_norm, int(f32_ops), plan.mode,
+             plan.H, plan.W, int(plan.vec), _build.stream())
     _build.check(err, name)
     kcount.count("int8_quant")
+    if plan.mode == QUANT_POOL:
+        kcount.count("int8_quant_pool")
+    elif plan.mode == QUANT_UP:
+        kcount.count("int8_quant_junction")
     return raw, norm
 
 
 def int8_quant(x, div: torch.Tensor | None, m: torch.Tensor | None = None,
                c: torch.Tensor | None = None, *, x2: Deq | None = None,
                add: torch.Tensor | None = None, c_out: int | None = None,
-               f32_ops: bool = False):
+               f32_ops: bool = False, pool: bool = False):
     """The quantize family with its prologue (see `int8_quant_plain`): K12
     on CUDA tensors, the plain version on CPU tensors."""
     d = (x.q if isinstance(x, Deq) else x).device
+    kw = dict(x2=x2, add=add, c_out=c_out, f32_ops=f32_ops, pool=pool)
     if d.type == "cpu":
-        return int8_quant_plain(x, div, m, c, x2=x2, add=add, c_out=c_out, f32_ops=f32_ops)
+        return int8_quant_plain(x, div, m, c, **kw)
     if d.type != "cuda":
         raise ValueError(f"int8_quant: unsupported device {d}")
-    return _int8_quant_cuda(x, div, m, c, x2=x2, add=add, c_out=c_out, f32_ops=f32_ops)
+    return _int8_quant_cuda(x, div, m, c, **kw)
 
 
 # K13 ---------------------------------------------------------------------------
 def int8_maxpool_plain(x: torch.Tensor) -> torch.Tensor:
-    """Plain K13 pool: VALID 2x2 / stride-2 max of NHWC s8 codes."""
+    """Plain K13 pool (and K12's pool prologue): VALID 2x2 / stride-2 max of
+    NHWC s8 codes."""
     N, H, W, C = x.shape
     Ho, Wo = H // 2, W // 2
     return x[:, : 2 * Ho, : 2 * Wo].reshape(N, Ho, 2, Wo, 2, C).amax(dim=(2, 4)).contiguous()
@@ -415,8 +517,7 @@ def int8_upsample_add_plain(up1: torch.Tensor, low: torch.Tensor, e_up: torch.Te
     """Plain K13 junction: bf16(up1 * e_up) + bf16(nearest2x(low) * e_low) in
     bf16 operations (NHWC)."""
     bf = torch.bfloat16
-    lo = low.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-    return (up1.to(bf) * e_up.to(bf) + lo.to(bf) * e_low.to(bf)).contiguous()
+    return (up1.to(bf) * e_up.to(bf) + upsample2x(low).to(bf) * e_low.to(bf)).contiguous()
 
 
 def _codes4(name: str, *xs: torch.Tensor) -> None:

@@ -19,7 +19,10 @@ other strides to its strided path.
 Where autograd records the readout (training), it is one
 `torch.autograd.Function` whose backward is K19: the logits' gradient from
 those of uv, cov and pooled (the gradient of the JAX net's train-time
-`spatial_softmax` -> `soft_argmax` and mean pool).
+`spatial_softmax` -> `soft_argmax` and mean pool). `plan_readout_bwd` sends
+K19 to its dense path (K2's cluster design, the gradient written in the
+slab's storage order) wherever K2 takes the dense path, else to its strided
+path.
 `render_prior_heatmaps` draws the peak-1 Gaussians of the SLAM engine's
 projected prior keypoints. A CPU tensor takes the plain
 version; a CUDA tensor launches `csrc/heatmap_readout.cu` /
@@ -140,6 +143,12 @@ READOUT_PER = 8             # kPer: inner positions of a row per thread
 READOUT_MAX_ROWS = 32       # kMaxStripRows
 READOUT_MAX_K = 64          # kMaxK
 READOUT_STRIP_BYTES = 160 * 1024  # dynamic shared memory of a CTA's strip, at most
+# static shared memory of K19's dense kernel: the rows' mbarriers, the
+# per-thread maxima, the per-channel coefficients (11 x kMaxK) and the rows'
+# coordinates; a CTA has 227 KB (232,448 bytes) on an H100
+READOUT_BWD_STATIC = 8 * READOUT_MAX_ROWS + 4 * READOUT_MAX_THREADS + 4 * 11 * READOUT_MAX_K \
+    + 4 * READOUT_MAX_ROWS
+CTA_SMEM = 232448
 
 
 class ReadoutPlan(NamedTuple):
@@ -196,6 +205,22 @@ def plan_readout(shape, strides, elem_size: int, data_ptr: int,
     if path == DENSE:
         raise ValueError(f"K2's dense path cannot take {tuple(shape)}: {why}")
     raise ValueError(f"K2 has no path {path}")
+
+
+def plan_readout_bwd(shape, strides, elem_size: int, data_ptr: int,
+                     path: int | None = None) -> ReadoutPlan:
+    """K19's launch: its dense path wherever K2's takes the logits
+    (`plan_readout`, the same geometry and the same `path` rule), with the
+    backward's dynamic shared memory — the strip, kept whole for the third
+    pass, the per-thread moments [6][threads] beside it, the moments' and
+    maxima's exchange buffers [cluster][7][K] — else the strided path."""
+    plan = plan_readout(shape, strides, elem_size, data_ptr, path)
+    if plan.path != DENSE:
+        return plan
+    K = shape[3]
+    smem = (plan.rows * plan.Bd * K * elem_size + 6 * plan.threads * 4
+            + READOUT_CLUSTER * K * 7 * 4)
+    return plan._replace(smem=smem)
 
 
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
@@ -295,9 +320,14 @@ def _dense(t: torch.Tensor) -> bool:
 _BWD_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
                  + [ctypes.c_int, ctypes.c_void_p])
+_BWD_DENSE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                                  ctypes.c_void_p])
 
 
-def _heatmap_readout_bwd_cuda(logits, g_uv, g_cov, g_pooled):
+def _heatmap_readout_bwd_cuda(logits, g_uv, g_cov, g_pooled, path: int | None = None):
+    """K19, one launch on the path `plan_readout_bwd` picks (`path` forces
+    one: STRIDED is the earlier design, kept for comparisons)."""
     if logits.dtype not in _LOGIT_DTYPES or logits.dim() != 4:
         raise ValueError(f"K19 takes [N,H,W,K] f32 or bf16 logits, got "
                          f"{tuple(logits.shape)} {logits.dtype}")
@@ -307,14 +337,26 @@ def _heatmap_readout_bwd_cuda(logits, g_uv, g_cov, g_pooled):
             g.device != logits.device for g in gs):
         raise ValueError("K19: the gradients of uv, cov and pooled must be [N,K,2], "
                          "[N,K,2,2] and [N,K] on the logits' device")
-    if _dense(logits):
-        dl = torch.empty_strided(logits.shape, logits.stride(), dtype=logits.dtype,
-                                 device=logits.device)
+    plan = plan_readout_bwd(logits.shape, logits.stride(), logits.element_size(),
+                            logits.data_ptr(), path)
+    dt = _LOGIT_DTYPES[logits.dtype]
+    if plan.path == DENSE:  # dl in the slab's storage order, as the logits
+        dl = torch.empty((N, plan.A, plan.Bd, K), dtype=logits.dtype, device=logits.device)
+        if plan.transposed:
+            dl = dl.permute(0, 2, 1, 3)
+        fn = _build.entry("heatmap_readout", _BWD_DENSE_ARGTYPES, "suo_heatmap_readout_bwd_dense")
+        err = fn(_build.ptr(logits), logits.stride(0), N, plan.A, plan.Bd, K,
+                 int(plan.transposed), *(_build.ptr(g) for g in gs), _build.ptr(dl),
+                 plan.A * plan.Bd * K, dt, _build.stream())
     else:
-        dl = torch.empty(logits.shape, dtype=logits.dtype, device=logits.device)
-    fn = _build.entry("heatmap_readout", _BWD_ARGTYPES, "suo_heatmap_readout_bwd")
-    err = fn(_build.ptr(logits), *logits.stride(), N, H, W, K, *(_build.ptr(g) for g in gs),
-             _build.ptr(dl), *dl.stride(), _LOGIT_DTYPES[logits.dtype], _build.stream())
+        if _dense(logits):
+            dl = torch.empty_strided(logits.shape, logits.stride(), dtype=logits.dtype,
+                                     device=logits.device)
+        else:
+            dl = torch.empty(logits.shape, dtype=logits.dtype, device=logits.device)
+        fn = _build.entry("heatmap_readout", _BWD_ARGTYPES, "suo_heatmap_readout_bwd")
+        err = fn(_build.ptr(logits), *logits.stride(), N, H, W, K, *(_build.ptr(g) for g in gs),
+                 _build.ptr(dl), *dl.stride(), dt, _build.stream())
     _build.check(err, "K19 heatmap_readout_bwd")
     kernels.count("heatmap_readout_bwd")
     return dl

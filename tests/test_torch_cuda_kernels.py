@@ -517,6 +517,61 @@ def test_k13_int8_pool_junction(dev):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
+def test_k12_pool_and_junction_modes(dev):
+    """K12's pool mode (the max-pool fused with the nrq that reads it) and
+    junction mode (the second operand read at half resolution) equal the
+    earlier chain — K13's kernel, then K12 on its output — and the plain
+    version, bit for bit: every hourglass width, a ragged C (no vector
+    path), odd pooled extents, per-tensor and per-channel scales, quant and
+    quant_pair after the junction, the pool alone."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models import int8_kernels as ik
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    bf = lambda t: t.to(torch.bfloat16).float()
+    codes = lambda shape: torch.randint(-127, 128, shape, device=dev, generator=g,
+                                        dtype=torch.int32).to(torch.int8)
+    for C, H, W in ((256, 64, 64), (128, 16, 16), (48, 8, 8), (40, 6, 6), (16, 7, 9),
+                    (256, 2, 2)):
+        x = codes((3, H, W, C))
+        m = bf(torch.randn(C, device=dev, generator=g) * 0.2)
+        c = bf(torch.randn(C, device=dev, generator=g) * 5)
+        kernels.reset_counts()
+        fused = ik.int8_quant(x, None, m, c, pool=True)
+        alone, _ = ik.int8_quant(x, None, pool=True)
+        assert kernels.counts()["int8_quant_pool"] == 2
+        pooled = ik._int8_maxpool_cuda(x) if C % 4 == 0 else ik.int8_maxpool_plain(x)
+        chain = (pooled, ik.int8_quant(pooled, None, m, c)[1])
+        plain = ik.int8_quant_plain(x, None, m, c, pool=True)
+        torch.cuda.synchronize()
+        for a, b, p in zip(fused, chain, plain):
+            assert torch.equal(a, b) and torch.equal(a, p), ("pool", C, H, W)
+        assert torch.equal(alone, chain[0])
+        if H % 2 or W % 2:
+            continue
+        low = codes((3, H // 2, W // 2, C))
+        s_up = bf(torch.rand(C, device=dev, generator=g) * 0.05 + 0.001)
+        for s_low in (bf(torch.full((C,), 0.03, device=dev)),
+                      bf(torch.rand(C, device=dev, generator=g) * 0.05 + 0.001)):
+            div = bf(torch.rand(C, device=dev, generator=g) * 0.05 + 0.01)
+            for args in ((div,), (div, m, c)):
+                kw = dict(x2=ik.Deq(low, s_low, up=True))
+                fused = ik.int8_quant(ik.Deq(x, s_up), *args, **kw)
+                plain = ik.int8_quant_plain(ik.Deq(x, s_up), *args, **kw)
+                if C % 4 == 0:
+                    t = ik._int8_upsample_add_cuda(x, low, s_up, s_low)
+                    chain = ik.int8_quant(t, *args)
+                    # the quantize of the materialised sum: its own bf16 chain
+                    assert torch.equal(t, ik.int8_upsample_add_plain(x, low, s_up, s_low))
+                else:
+                    chain = plain
+                torch.cuda.synchronize()
+                for a, b, p in zip(fused, chain, plain):
+                    assert (a is None) == (b is None) == (p is None)
+                    assert a is None or (torch.equal(a, b) and torch.equal(a, p)), (
+                        "junction", C, H, len(args))
+
+
 def _lm_arrays(V, O, n_views, n_objs, seed, K=41):
     import chip_smoke as cs
 
@@ -1064,12 +1119,52 @@ def test_k19_heatmap_readout_bwd(dev):
     for view in (x, x.transpose(1, 2)):
         for dt in (torch.float32, torch.bfloat16):
             v = view.to(dt)
-            k = hm._heatmap_readout_bwd_cuda(v, gu, gc, gp)
+            plan = hm.plan_readout_bwd(v.shape, v.stride(), v.element_size(), v.data_ptr())
+            assert plan.path == hm.DENSE  # the head's layout takes the dense path
             p = hm.heatmap_readout_bwd_plain(v, gu, gc, gp)
-            assert k.stride() == v.stride() and k.dtype == dt
-            # f - E[f] cancels near a peak; the two sum the moments in other orders
-            tol = 1e-4 if dt == torch.float32 else 2.0 ** -7
-            assert (k.float() - p.float()).abs().max().item() <= tol * p.float().abs().max().item()
+            for path in (None, hm.STRIDED):
+                k = hm._heatmap_readout_bwd_cuda(v, gu, gc, gp, path=path)
+                assert k.stride() == v.stride() and k.dtype == dt
+                # f - E[f] cancels near a peak; the two sum the moments in other orders
+                tol = 1e-4 if dt == torch.float32 else 2.0 ** -7
+                assert (k.float() - p.float()).abs().max().item() <= (
+                    tol * p.float().abs().max().item()), (path, dt)
+    # other layouts take the strided path
+    y = x.contiguous().permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert hm.plan_readout_bwd(y.shape, y.stride(), 4, y.data_ptr()).path == hm.STRIDED
+    k = hm._heatmap_readout_bwd_cuda(y, gu, gc, gp)
+    p = hm.heatmap_readout_bwd_plain(y, gu, gc, gp)
+    assert (k - p).abs().max().item() <= 1e-4 * p.abs().max().item()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_k19_dense_batch_invariance_and_graph_replay(dev, dt):
+    """K19's dense path: a crop's gradient has the same bits in a 32-crop
+    call and alone (both orders), it is one kernel a call, and a captured
+    call replays the eager bits."""
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = (torch.randn(32, 41, 64, 64, device=dev, generator=g) * 3).to(dt).contiguous(
+        memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    gu, gc, gp = (torch.randn(s, device=dev, generator=g)
+                  for s in ((32, 41, 2), (32, 41, 2, 2), (32, 41)))
+    for v in (x, x.transpose(1, 2)):
+        full = hm._heatmap_readout_bwd_cuda(v, gu, gc, gp)
+        for n in (0, 5, 31):
+            one = hm._heatmap_readout_bwd_cuda(v[n:n + 1], gu[n:n + 1], gc[n:n + 1],
+                                               gp[n:n + 1])
+            assert torch.equal(one[0], full[n]), n
+        f = lambda: hm._heatmap_readout_bwd_cuda(v, gu, gc, gp)
+        assert _graph_kernels(f) == 1
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = f()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, full)
 
 
 def test_k11_f32_epilogue(dev):

@@ -6,7 +6,10 @@ package's `models/int8_forward.py` on the CPU.
 - Each engine operation (quant, quant_pair, nrq, conv_nrq, conv_raw,
   maxpool, upsample_add) takes the same s8 codes, scales and BatchNorm
   affines in both packages; the codes and the bf16 bits must be equal (JAX
-  eager, whose per-operation bf16 rounding the port reproduces).
+  eager, whose per-operation bf16 rounding the port reproduces). The port
+  fuses maxpool with the nrq after it and leaves the junction's sum to the
+  quantize that follows (K12's pool and junction modes), so those cases
+  hold JAX's operation and its successor against the port's fused call.
 - `quantize_weights`: equal codes and scales for `from_jax_variables`
   weights.
 - Calibration: the full-width point structure (255 points, JAX by
@@ -199,15 +202,25 @@ def _op_case(name):
         j = ji8._Int8Engine(tuple(map(jnp.asarray, s_out))).conv_nrq(qj, p, a, b, padding=pad)
         t = ti8._Int8Engine(_tscales(s_out)).conv_nrq(qt, conv, norm)
         return [(j.q, t.q)]
-    if name == "maxpool":
-        qj, qt = _qt(_codes(rng, (2, 8, 8, C), lo=-128), pc)
-        return [(ji8._Int8Engine(()).maxpool(qj).q, ti8._Int8Engine(()).maxpool(qt).q)]
-    if name.startswith("upsample_add"):
+    if name == "maxpool":  # JAX's maxpool -> nrq, the port's one fused call
+        norm, a, b = _norm(rng, C)
+        qj, qt = _qt(_codes(rng, (2, 8, 8, C), lo=-128), pc * 0.01)
+        s_out = (f32(1.3),)
+        ej = ji8._Int8Engine(tuple(map(jnp.asarray, s_out)))
+        pj = ej.maxpool(qj)
+        nj = ej.nrq(pj, a, b)
+        pt, nt = ti8._Int8Engine(_tscales(s_out)).maxpool(qt, norm)
+        assert torch.equal(pt.s, qt.s)
+        return [(pj.q, pt.q), (nj.q, nt.q)]
+    if name.startswith("upsample_add"):  # JAX's junction -> quant, the port's quant of it
         s_low = pt * 0.01 if name.endswith("pt") else pc * 0.02
         uj, ut = _qt(_codes(rng, (2, 8, 8, C)), pc * 0.01)
         lj, lt = _qt(_codes(rng, (2, 4, 4, C)), s_low)
-        return [(ji8._Int8Engine(()).upsample_add(uj, lj),
-                 ti8._Int8Engine(()).upsample_add(ut, lt))]
+        v = np.asarray(ji8._Int8Engine(()).upsample_add(uj, lj).astype(jnp.float32))
+        s = (np.abs(v).max(axis=(0, 1, 2)) * 0.8).astype(f32)  # clips some values
+        ej, et = ji8._Int8Engine((jnp.asarray(s),)), ti8._Int8Engine((_t(s),))
+        return [(ej.quant(ej.upsample_add(uj, lj), pc=True).q,
+                 et.quant(et.upsample_add(ut, lt), pc=True).q)]
     raise AssertionError(name)
 
 
@@ -506,16 +519,26 @@ def test_k11_plan_takes_every_forward_convolution_to_wgmma(crops, monkeypatch):
 def test_launches_per_forward_of_the_full_architecture(monkeypatch):
     """K11 / K12 / K13 calls per forward at the full architecture (2 stacks
     x 2 modules, depth 4; the width does not change the counts): 186 / 85 /
-    17 with a prior, 185 / 84 / 17 without. JAX's traversal makes 120
+    0 with a prior, 185 / 84 / 0 without. JAX's traversal makes 120
     conv_nrq + 66 conv_raw, 26 quant + 50 quant_pair + 9 nrq (its quant_pair
     calls quant for the raw output: 76 quant calls in all), 9 maxpool + 8
-    upsample_add."""
+    upsample_add. In the port each maxpool is one K12 call in its pool mode
+    with the nrq that follows it (all 9), each junction feeds its quantize
+    through K12's junction mode (all 8), and K13 runs no more."""
     calls = {}
     for fn in ("int8_conv", "int8_quant", "int8_maxpool", "int8_upsample_add"):
         orig = getattr(ik, fn)
 
         def spy(*a, _orig=orig, _fn=fn, **kw):
             calls[_fn] = calls.get(_fn, 0) + 1
+            if _fn == "int8_quant":
+                mode = ("pool" if kw.get("pool") else "junction"
+                        if kw.get("x2") is not None and kw["x2"].up else None)
+                if mode:
+                    calls[mode] = calls.get(mode, 0) + 1
+                    # the pool always with its nrq; the junction into a quantize
+                    assert (a[1] is None and a[2] is not None) if mode == "pool" else (
+                        a[1] is not None)
             return _orig(*a, **kw)
 
         monkeypatch.setattr(ik, fn, spy)
@@ -529,7 +552,8 @@ def test_launches_per_forward_of_the_full_architecture(monkeypatch):
         calls.clear()
         out = ti8.make_int8_apply(net, no_prior=no_prior)(qw, scales, x)
         assert (calls["int8_conv"], calls["int8_quant"]) == want
-        assert calls["int8_maxpool"] + calls["int8_upsample_add"] == 17
+        assert (calls["pool"], calls["junction"]) == (9, 8)
+        assert calls.get("int8_maxpool", 0) + calls.get("int8_upsample_add", 0) == 0
         assert out.prob_logits.dtype == torch.bfloat16 and torch.isfinite(out.uv).all()
 
 
