@@ -57,7 +57,13 @@ Phases (any failure raises and exits non-zero):
      resident point table; the earlier two kernels) at B = 1, 8 and 96 (one
      scored scene of phase 7), per-point equal to its plain version and a
      pose's results equal across B; each beside the earlier
-     designs' times (`EARLIER_US`); then the full-width net in bf16 against
+     designs' times (`EARLIER_US`); K5 at the SLAM path's symmetric group
+     ([4, 64, 64, 41]) in f32 (equal to its plain version) and bf16 (equal
+     to the plain f32 map rounded once), device us beside the bytes bound,
+     and one with-prior frame call of the bf16 net that renders its prior in
+     bf16 (one K5 launch, the bits of an f32 render the net casts, no copy
+     or cast that reads the prior map or its mask, its kernels and copy
+     kernels by torch.profiler); then the full-width net in bf16 against
      the same net in f32 on the card (uv within the bf16 error the CPU shows
      for the same crops), both nets' ms per call on the host clock (with K8 /
      K9 and with their plain versions) and their device ms per call;
@@ -157,7 +163,9 @@ Phases (any failure raises and exits non-zero):
      call, a captured call replaying equal) with kernel,
      device, plain and library times (F.batch_norm + relu forward and
      backward; avg_pool2d; autograd of softmax + einsum), L2-cold device
-     times (`cuda_ms_cold`) and bytes bounds; K16 / K17 in both designs
+     times (`cuda_ms_cold`) and bytes bounds; K18 on both routes (vector,
+     scalar), the calls counted, L2-cold at the four junctions beside their
+     bounds; K16 / K17 in both designs
      (fused, the main path: one cooperative launch a call; split, the
      first design): equal to their plain versions, the fused K16's affine
      and running averages and K17's scale gradient bit-equal to the eager
@@ -169,7 +177,8 @@ Phases (any failure raises and exits non-zero):
      against the same step on the plain versions, f32 and bf16 (loss and
      terms, every gradient, the new statistics; gated by the step's own
      sensitivity to 1e-6 input noise); the bf16 step's host and device ms,
-     kernels, K16 / K17's and K19's device ms (K19's route: dense), busy
+     kernels, K16 / K17's, K18's (and K18's under its other loads, beside
+     the sum of its bounds) and K19's device ms (K19's route: dense), busy
      share, peak memory and launches per step (K16 / K17 / K8 180, K9 / K18
      8, K1 / K2 / K5 / K19 1;
      `--step-only` runs this alone, to compare two checkouts in turns); 30
@@ -1010,31 +1019,178 @@ def check_k4(dev, rng, objs):
                 plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
 
 
-def check_k5(dev, rng):
+def _k5_inputs(dev, rng):
+    """The SLAM path's symmetric group: 3 objects in a bucket of 4 crops,
+    post_stem priors at 64x64, about 40% of the channels valid, the padded
+    slot masked."""
+    import torch
+
+    ob = 4
+    uv = torch.from_numpy(rng.uniform(-1.1, 1.1, (ob, NK, 2)).astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.uniform(size=(ob, NK)) < 0.4).to(dev)
+    mask[3] = False
+    return uv, mask
+
+
+def k5_device_us(uv, mask):
+    """K5's device us at [4, 64, 64, 41] by dtype (torch.profiler), with the
+    bytes bound and the device us of `zero_` on a map of that size (the
+    card's own floor for writing those bytes)."""
     import torch
 
     from suo_slam_tpu_torch.ops import heatmap as hm
 
-    # the SLAM path's symmetric group: 3 objects in a bucket of 4 crops,
-    # post_stem priors at 64x64, about half the channels valid
-    ob, hw = 4, (64, 64)
-    uv = torch.from_numpy(rng.uniform(-1.1, 1.1, (ob, NK, 2)).astype(np.float32)).to(dev)
-    mask = torch.from_numpy(rng.uniform(size=(ob, NK)) < 0.4).to(dev)
-    mask[3] = False  # the padded slot
+    hw, sigma = (64, 64), hm.prior_sigma_for((64, 64))
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        us, src = device_us(lambda: hm._render_prior_cuda(uv, mask, hw, sigma, dt),
+                            "prior_render_kernel")
+        n_bytes = uv.shape[0] * 64 * 64 * NK * dt.itemsize + uv.shape[0] * NK * 9
+        z = torch.empty((uv.shape[0], 64, 64, NK), dtype=dt, device=uv.device)
+        out[name] = {"device_us": us, "by": src, "bound_us": 1e6 * n_bytes / HBM_BYTES_PER_S,
+                     "zero_us": lib_device_us(z.zero_, n=20)[0]}
+    return out
+
+
+def prior_copies(call, mask) -> list:
+    """Run `call` and list the copies and casts in it (aten `to`,
+    `_to_copy`, `clone` or `contiguous` that return new memory, and `copy_`)
+    that read the prior map that `render_prior_heatmaps` returns there, or
+    the keypoint `mask` the call is given: each would be a launch of its own
+    beside K5's."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    watched = {mask.untyped_storage().data_ptr(): "mask"}
+    keep, hits = [], []  # maps kept alive, so that no later tensor reuses their memory
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in ("to", "_to_copy", "clone", "contiguous", "copy_", "_copy_from"):
+                src = args[1] if name == "copy_" else args[0]
+                ptr = lambda t: t.untyped_storage().data_ptr()
+                what = watched.get(ptr(src)) if isinstance(src, torch.Tensor) else None
+                if what and (name == "copy_" or ptr(out) != ptr(src)):
+                    hits.append(f"{func} of the {what} {list(src.shape)} {src.dtype}")
+            return out
+
+    def render(*a, **k):
+        out = real(*a, **k)
+        keep.append(out)
+        watched[out.untyped_storage().data_ptr()] = "prior map"
+        return out
+
+    real, hm.render_prior_heatmaps = hm.render_prior_heatmaps, render
+    try:
+        with Watch():
+            call()
+    finally:
+        hm.render_prior_heatmaps = real
+    if not keep:
+        raise AssertionError("prior_copies: the call rendered no prior")
+    return hits
+
+
+def k5_bf16_frame(dev, net16, uv, mask, seed=5):
+    """One with-prior call of the bf16 net's `make_frame_inference` on a
+    seeded 480x640 frame (4 boxes, the last invalid; the priors `uv`,
+    `mask` at post_stem's 64x64): the same
+    bits as an f32 render that the net casts itself (the route before K5
+    wrote bf16); one K5 launch by counter and no copy or cast of the prior
+    map or its mask (`prior_copies`); by torch.profiler its kernels, K5's
+    among them, and its copy kernels."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.ops import heatmap as hm
+    from suo_slam_tpu_torch.ops import roi
+    from suo_slam_tpu_torch.slam import kernels as sk
+
+    fn = sk.make_frame_inference(net16, device=dev)
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.uniform(0, 1, (H_IMG, W_IMG, 3)).astype(np.float32)).to(dev)
+    boxes = torch.tensor([[40.0, 30.0, 200.0, 190.0], [300.0, 100.0, 420.0, 260.0],
+                          [100.0, 250.0, 330.0, 460.0], [0.0, 0.0, 10.0, 10.0]], device=dev)
+    valid = torch.tensor([True, True, True, False], device=dev)
+    call = lambda: fn(img, boxes, valid, uv, mask)
+    phw = net16.prior_hw((256, 256))
+    with torch.inference_mode():
+        out = call()
+        crops = roi.roi_crop_batch(img[None], boxes[None], valid[None], (256, 256))[0]
+        ref = net16(crops, hm.render_prior_heatmaps(uv, mask, phw, hm.prior_sigma_for(phw)))
+        ref = (ref.uv, ref.cov, ref.kp_mask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, ref)):
+            gaps = [(a.float() - b.float()).abs().max().item() for a, b in zip(out, ref)]
+            raise AssertionError(f"bf16 with-prior frame call: not the bits of the f32 render "
+                                 f"the net casts (uv, cov, kp_mask gaps {gaps})")
+        kernels.reset_counts()
+        call()
+        torch.cuda.synchronize()
+        k5 = kernels.counts()["prior_render"]
+        casts = prior_copies(call, mask)
+        cuda = lambda a: [e for e in a if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False)]
+        avg = traced(call, lambda a: len(cuda(a)) > 0, "bf16 with-prior frame call")
+    r = {"k5_launches": k5, "prior_casts": casts, "kernels": "not measured",
+         "copies": "not measured", "k5_kernels": "not measured"}
+    if avg is not None:
+        ks = cuda(avg)
+        r.update(kernels=sum(e.count for e in ks),
+                 copies=sum(e.count for e in ks if "copy" in e.key.lower()),
+                 k5_kernels=[e.key[:72] for e in ks if "prior_render" in e.key])
+    log("[kernel] K5 in a bf16 with-prior frame call (4 boxes): same bits as the f32 render "
+        "the net casts; " + json.dumps(r))
+    if k5 != 1 or casts:
+        raise AssertionError(f"bf16 with-prior frame call: {k5} K5 launches (expected 1), "
+                             f"copies or casts of the prior: {casts}")
+    return r
+
+
+def check_k5(dev, rng, net16=None):
+    """K5 at the SLAM path's symmetric group ([4, 64, 64, 41], `_k5_inputs`)
+    in f32 and bf16: the f32 map equal to the plain version, the bf16 map
+    equal to the plain f32 map rounded once; kernel, device and plain times
+    beside the bytes bound. With `net16`, a bf16 with-prior frame call
+    (`k5_bf16_frame`)."""
+    import torch
+
+    from suo_slam_tpu_torch.ops import heatmap as hm
+
+    uv, mask = _k5_inputs(dev, rng)
+    hw = (64, 64)
     sigma = hm.prior_sigma_for(hw)
-    out_k = hm._render_prior_cuda(uv, mask, hw, sigma)
     out_p = hm.render_prior_heatmaps_plain(uv, mask, hw, sigma)
-    torch.cuda.synchronize()
-    err = (out_k - out_p).abs().max().item()
-    tol = 1e-6  # the same f32 Gaussian of values in [0, 1]
-    if not (err <= tol and out_k.is_contiguous()):
-        raise AssertionError(f"K5 disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: hm._render_prior_cuda(uv, mask, hw, sigma))
-    plain_ms = cuda_ms(lambda: hm.render_prior_heatmaps_plain(uv, mask, hw, sigma))
-    n_out = out_k.numel()
-    # ~20 f32 operations per output (2 sub, 2 div, 3 mul, 1 add, the exp)
-    b = bound(n_out * 4 + ob * NK * 9, n_out * 20)
-    _report("K5 prior_render", err, tol, ms, plain_ms, None, b)
+    err, rows, dev_us = 0.0, {}, k5_device_us(uv, mask)
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        fn = lambda: hm._render_prior_cuda(uv, mask, hw, sigma, dt)
+        out_k = fn()
+        torch.cuda.synchronize()
+        e = (out_k.float() - out_p.to(dt).float()).abs().max().item()
+        if not (torch.equal(out_k, out_p.to(dt)) and out_k.is_contiguous()):
+            raise AssertionError(f"K5 ({name}) is not its plain version's map rounded once: {e}")
+        err = max(err, e)
+        ms = cuda_ms(fn)
+        plain_ms = cuda_ms(lambda: hm.render_prior_heatmaps_plain(uv, mask, hw, sigma, dt))
+        n_out = out_k.numel()
+        # ~20 f32 operations per output (2 sub, 2 div, 3 mul, 1 add, the exp)
+        b = bound(n_out * dt.itemsize + uv.shape[0] * NK * 9, n_out * 20)
+        d = dev_us[name]
+        _report(f"K5 prior_render ({name}, [4, 64, 64, 41], device {d['device_us']:.3f} us by "
+                f"{d['by']}; zero_ of the map {d['zero_us']:.3f} us)", e, "0", ms, plain_ms,
+                None, b)
+        rows[name] = (ms, plain_ms, b)
+    log(f"[kernel] K5 device us at [4, 64, 64, 41]: f32 {dev_us['f32']['device_us']:.3f} "
+        f"(target <= 2.5; the first design 4.800), bf16 {dev_us['bf16']['device_us']:.3f} "
+        f"(target below f32)")
+    if net16 is not None:
+        k5_bf16_frame(dev, net16, uv, mask)
+    ms, plain_ms, b = rows["f32"]
     return dict(name="prior_render", route="cuda",
                 source="suo_slam_tpu_torch/csrc/prior_render.cu",
                 replaces="suo_slam_tpu/ops/heatmap.py:167", max_abs_err=err, ms=ms,
@@ -4549,10 +4705,35 @@ def bn_step_shapes(dev, rng):
     return tot
 
 
+K18_LEVELS = (64, 32, 16, 8)  # the train step's junctions: up1 [32, 256, H, H]
+
+
+def k18_cold_us(dev, seed=18):
+    """K18's L2-cold device us (`cuda_ms_cold`) at the four junctions of the
+    train step in f32 and bf16, beside the bytes bound: rows [dtype, H, us,
+    bound us]."""
+    import torch
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for H in K18_LEVELS:
+            dy = torch.from_numpy(rng.normal(size=(TRAIN_N, 256, H, H)).astype(np.float32)).to(
+                dev).to(dt).contiguous(memory_format=torch.channels_last)
+            us = 1e3 * cuda_ms_cold(lambda: hg._upsample_add_bwd_cuda(dy))
+            b = 1e6 * dy.numel() * dy.element_size() * 5 / 4 / HBM_BYTES_PER_S
+            rows.append([name, H, round(us, 3), round(b, 3)])
+    return rows
+
+
 def check_k18(dev, rng):
     """K18 at each junction of the train step (up1 [32, 256, H, H] for H =
-    64, 32, 16, 8), f32 and bf16: equal to its plain version (same f32
-    additions in the same order, one rounding). Library: 4 x
+    64, 32, 16, 8), f32 and bf16, on its vector route and its scalar route
+    (a dy one value off 16 bytes): equal to its plain version
+    (the same f32 additions in the same order, one rounding); L2-cold device
+    us at every level beside the bytes bound (`k18_cold_us`). Library: 4 x
     F.avg_pool2d(dy, 2)."""
     import torch
     import torch.nn.functional as F
@@ -4560,17 +4741,30 @@ def check_k18(dev, rng):
     from suo_slam_tpu_torch.models import hourglass as hg
 
     cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
-    err = 0.0
-    for H in (64, 32, 16, 8):
+    err, routes, n = 0.0, {}, 0
+    for H in K18_LEVELS:
         dy32 = cl(rng.normal(size=(TRAIN_N, 256, H, H)).astype(np.float32))
         for dt in (torch.float32, torch.bfloat16):
             dy = dy32.to(dt)
-            k, p = hg._upsample_add_bwd_cuda(dy), hg.upsample_add_bwd_plain(dy)
-            torch.cuda.synchronize()
-            err = max(err, (k.float() - p.float()).abs().max().item())
-    log(f"[train] K18 max abs err over 4 levels, f32 and bf16: {err:.3e} (tol 0)")
-    if err != 0.0:
-        raise AssertionError(f"K18 disagrees with its plain version: {err}")
+            base = torch.empty(1 + dy.numel(), dtype=dt, device=dev)
+            odd = base[1:].view(TRAIN_N, H, H, 256).permute(0, 3, 1, 2).copy_(dy)
+            p = hg.upsample_add_bwd_plain(dy)
+            for x in (dy, odd):
+                r = hg.plan_upsample_bwd(tuple(x.shape), x.element_size(), x.data_ptr())
+                routes[r] = routes.get(r, 0) + 1
+                k = hg._upsample_add_bwd_cuda(x)
+                torch.cuda.synchronize()
+                err = max(err, (k.float() - p.float()).abs().max().item())
+                n += 1
+    log(f"[train] K18 max abs err over 4 levels, f32 and bf16, both routes "
+        f"({json.dumps(routes)}): {err:.3e} (tol 0)")
+    want = {hg.K18_VECTOR: 2 * len(K18_LEVELS), hg.K18_SCALAR: 2 * len(K18_LEVELS)}
+    if n != 4 * len(K18_LEVELS) or routes != want or err != 0.0:
+        raise AssertionError(f"K18 disagrees with its plain version: {err} over {n} calls, "
+                             f"routes {routes} (expected {want})")
+    cold = k18_cold_us(dev)
+    log("[train] K18 L2-cold device us by level (dtype, H of dy [32, 256, H, H], us, "
+        "bytes bound us): " + json.dumps(cold))
     out = {}
     for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         dy = cl(rng.normal(size=(TRAIN_N, 256, 64, 64)).astype(np.float32)).to(dt)
@@ -4578,10 +4772,10 @@ def check_k18(dev, rng):
         lib = lambda: F.avg_pool2d(dy, 2) * 4
         ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(lambda: hg.upsample_add_bwd_plain(dy)), cuda_ms(lib)
         us, src = lib_device_us(fn)
-        cold, lib_cold = 1e3 * cuda_ms_cold(fn), 1e3 * cuda_ms_cold(lib)
+        c, lib_cold = 1e3 * cuda_ms_cold(fn), 1e3 * cuda_ms_cold(lib)
         b = bound(dy.numel() * dy.element_size() * 5 / 4, dy.numel())
         _report(f"K18 upsample_add_bwd ({name}, dy {list(dy.shape)}, device {us:.3f} us by "
-                f"{src} with warm inputs, {cold:.3f} us L2-cold; library {lib_cold:.3f} us "
+                f"{src} with warm inputs, {c:.3f} us L2-cold; library {lib_cold:.3f} us "
                 f"L2-cold)", err, "0", ms, plain_ms, lib_ms, b, lib)
         out[name] = (ms, plain_ms, lib_ms, b)
     ms, plain_ms, lib_ms, b = out["bf16"]
@@ -4858,6 +5052,12 @@ def train_step_parity(dev, seed, root, norm="batch"):
     return out
 
 
+def _k18_step_ms(events):
+    """(device ms, launches) of K18 in a step's CUDA events."""
+    k = [e for e in events if "upsample_add_bwd" in e.key]
+    return sum(e.self_device_time_total for e in k) / 1e3, sum(e.count for e in k)
+
+
 def step_timing(dev, seed, root, norm="batch"):
     """The bf16 full-width step's host ms (median of 5 synchronized steps),
     device ms and kernels (torch.profiler over one step), busy share, peak
@@ -4905,12 +5105,21 @@ def step_timing(dev, seed, root, norm="batch"):
         k19_routes[r] = k19_routes.get(r, 0) + 1
         return real_k19(logits, *a)
 
-    hg.group_norm_relu_bwd, hm.heatmap_readout_bwd = spy, k19_spy
+    # K18's calls: the bytes of each dy, for the bound summed over them
+    k18_bytes = []
+    real_k18 = hg.upsample_add_bwd
+
+    def k18_spy(dy):
+        k18_bytes.append(dy.numel() * dy.element_size() * 5 / 4)
+        return real_k18(dy)
+
+    hg.group_norm_relu_bwd, hm.heatmap_readout_bwd, hg.upsample_add_bwd = spy, k19_spy, k18_spy
     try:
         state, _ = step(state, batch, 0.0)
         torch.cuda.synchronize()
     finally:
         hg.group_norm_relu_bwd, hm.heatmap_readout_bwd = real_bwd, real_k19
+        hg.upsample_add_bwd = real_k18
     per_step = {k: v for k, v in kernels.counts().items() if v}
     times = []
     for _ in range(5):
@@ -4929,7 +5138,7 @@ def step_timing(dev, seed, root, norm="batch"):
     tag = "[group]" if group else "[train]"
     names, kind_of = (("K20", "K21"), gn_kernel_of) if group else (("K16", "K17"), bn_kernel_of)
     bn = {k: [0.0, 0] for k in names}
-    k19_ms = "not measured"
+    k19_ms = k18_ms = "not measured"
     if avg is None:
         dev_ms, n_k, bn, copies = "not measured", "not measured", "not measured", "not measured"
     else:
@@ -4938,6 +5147,11 @@ def step_timing(dev, seed, root, norm="batch"):
         log(f"{tag} the step's K19 (readout backward): {k19_ms:.4f} ms of device time in "
             f"{sum(e.count for e in k19)} launches ({[e.key[:48] for e in k19]}); routes of its "
             f"calls: {json.dumps(k19_routes)}")
+        k18_ms = _k18_step_ms(kern(avg))
+        log(f"{tag} the step's K18 (junction backward): "
+            f"{k18_ms[0]:.4f} ms of device time in {k18_ms[1]} launches; bytes bound "
+            f"{1e3 * sum(k18_bytes) / HBM_BYTES_PER_S:.4f} ms summed over its "
+            f"{len(k18_bytes)} calls")
         dev_ms = sum(e.self_device_time_total for e in kern(avg)) / 1e3
         n_k = sum(e.count for e in kern(avg))
         top = sorted(kern(avg), key=lambda e: -e.self_device_time_total)[:14]
@@ -4975,7 +5189,8 @@ def step_timing(dev, seed, root, norm="batch"):
                              f"{k19_routes}")
     return dict(host_ms=host, device_ms=dev_ms, kernels=n_k, busy=busy, peak_gib=peak,
                 norm_kernels=bn, host_runs=times, dy_layouts=dy_layouts, k19_ms=k19_ms,
-                k19_routes=k19_routes)
+                k19_routes=k19_routes, k18_ms=k18_ms,
+                k18_bound_ms=1e3 * sum(k18_bytes) / HBM_BYTES_PER_S)
 
 
 def phase_step_only(dev, seed, norm="batch"):
@@ -6082,7 +6297,7 @@ def main(argv=None):
     crops = torch.from_numpy(rng.uniform(0, 1, (N_OBJ, 256, 256, 3)).astype(np.float32)).to(dev)
     scene = SlamScene(np.random.default_rng(args.seed + 1), objs, args.frames + 1)
     entries = [check_k1(dev, rng, objs), check_k2(dev, rng, net), check_k3(dev, rng, objs),
-               check_k4(dev, rng, objs), check_k5(dev, rng), check_k6(dev, rng, objs),
+               check_k4(dev, rng, objs), check_k5(dev, rng, net16), check_k6(dev, rng, objs),
                check_k7(dev, scene), check_k8(dev, rng, net, net16, crops), check_k9(dev, rng),
                check_k10(dev, rng), check_k14(dev, np.random.default_rng(args.seed + 14), objs),
                check_k15(dev, np.random.default_rng(args.seed + 15)),

@@ -38,7 +38,9 @@ tensors (B4, B13):
 - K9 `upsample_add` (`csrc/upsample_add.cu`): the hourglass junction
   up1 + nearest2x(low), without materialising the upsampled tensor;
 - K18 `upsample_add_bwd` (`csrc/upsample_add.cu`): low's gradient, the 2x2
-  sums of the output's (up1's is the output's itself);
+  sums of the output's (up1's is the output's itself); 16-byte vectors of
+  channels where C and the pointers allow, one value a thread otherwise
+  (`plan_upsample_bwd` picks the route by shape and alignment);
 - K20 `group_norm_relu` (`csrc/group_norm.cu`): the GroupNorm net's
   (`norm="group"`) norm + ReLU, per-sample group statistics and the affine
   in one call; K21 `group_norm_relu_bwd` its backward through the
@@ -628,18 +630,41 @@ def upsample_add_bwd_plain(dy: torch.Tensor) -> torch.Tensor:
     return s.to(dy.dtype).contiguous(memory_format=_CL)
 
 
-_UPSAMPLE_ADD_BWD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# K18's routes (`csrc/upsample_add.cu`): a thread per 16-byte vector of
+# channels, or per value
+K18_VECTOR, K18_SCALAR = "vector", "scalar"
+
+
+def plan_upsample_bwd(shape, itemsize: int, *ptrs: int) -> str:
+    """K18's route for a dy of NCHW `shape` and `itemsize` bytes a value,
+    given the data pointers of dy and d_low: the vector route where C is a
+    multiple of a 16-byte vector and every pointer is 16-byte aligned, else
+    the scalar route. Raises on what the kernel refuses: odd H or W, a dy
+    row pair of 2^31 values or more (its offsets are 32-bit)."""
+    N, C, H, W = shape
+    if H % 2 or W % 2:
+        raise ValueError(f"K18 upsample_add_bwd: odd size {tuple(shape)}")
+    if 2 * W * C >= 2 ** 31 or N * (H // 2) >= 2 ** 31:
+        raise ValueError(f"K18 upsample_add_bwd: {tuple(shape)} exceeds 32-bit row offsets")
+    if C % (16 // itemsize) == 0 and all(q % 16 == 0 for q in ptrs):
+        return K18_VECTOR
+    return K18_SCALAR
+
+
+_UPSAMPLE_ADD_BWD_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _upsample_add_bwd_cuda(dy: torch.Tensor) -> torch.Tensor:
+    """K18 on the route `plan_upsample_bwd` picks."""
     _check_nhwc("K18 upsample_add_bwd", dy)
     N, C, H, W = dy.shape
-    if H % 2 or W % 2:
-        raise ValueError(f"K18 upsample_add_bwd: odd size {tuple(dy.shape)}")
     dlow = torch.empty((N, C, H // 2, W // 2), dtype=dy.dtype, device=dy.device,
                        memory_format=_CL)
+    route = plan_upsample_bwd(tuple(dy.shape), dy.element_size(), dy.data_ptr(),
+                              dlow.data_ptr())
     fn = _build.entry("upsample_add", _UPSAMPLE_ADD_BWD_ARGTYPES, "suo_upsample_add_bwd")
-    err = fn(_build.ptr(dy), _build.ptr(dlow), N, H, W, C, _DTYPES[dy.dtype], _build.stream())
+    err = fn(_build.ptr(dy), _build.ptr(dlow), N, H, W, C, _DTYPES[dy.dtype],
+             int(route == K18_VECTOR), _build.stream())
     _build.check(err, "K18 upsample_add_bwd")
     kcount.count("upsample_add_bwd")
     return dlow

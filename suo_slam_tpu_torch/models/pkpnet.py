@@ -93,6 +93,14 @@ class PkpNet(nn.Module):
         """The backbone's working dtype."""
         return self.backbone.dtype
 
+    @property
+    def prior_dtype(self) -> torch.dtype:
+        """The dtype a prior is rendered in (`render_prior_heatmaps(...,
+        dtype=)`) so that the net casts nothing: the working dtype for
+        post_stem (the projection reads the prior in it), f32 for concat
+        (the prior joins the f32 crops before the backbone's cast)."""
+        return self.dtype if self.prior_mode == "post_stem" else torch.float32
+
     def prior_hw(self, input_hw: tuple[int, int]) -> tuple[int, int]:
         """Resolution the prior heatmaps are rendered at."""
         if self.prior_mode == "concat":
@@ -123,7 +131,7 @@ class PkpNet(nn.Module):
                 if tuple(prior_kp.shape[1:3]) != (h // 4, w // 4):
                     raise ValueError(f"post_stem prior must be H/4 x W/4, got "
                                      f"{tuple(prior_kp.shape)}")
-                extra = _nhwc_to_cl(prior_kp.to(x.dtype))
+                extra = _nhwc_to_cl(prior_kp)  # the backbone casts it to its dtype
             outs = self.backbone(x, extra, train=train, row_mask=row_mask)
         return [_nhwc(o) for o in outs]
 

@@ -400,10 +400,12 @@ def _prior_sigmas(hw, sigma_px: float, dtype=torch.float32):
 
 def render_prior_heatmaps_plain(uv: torch.Tensor, mask: torch.Tensor,
                                 hw: tuple[int, int] = (256, 256),
-                                sigma_px: float = PRIOR_SIGMA_PX) -> torch.Tensor:
+                                sigma_px: float = PRIOR_SIGMA_PX,
+                                dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch K5: [..., K, 2] NDC keypoints and [..., K] validity ->
-    [..., H, W, K] peak-1 Gaussians, f32 (f64 for f64 uv); a masked or
-    non-finite keypoint draws nothing (its channel is 0)."""
+    [..., H, W, K] peak-1 Gaussians, computed in f32 (f64 for f64 uv) and
+    rounded once to `dtype` (default: that dtype); a masked or non-finite
+    keypoint draws nothing (its channel is 0)."""
     h, w = hw
     dev = uv.device
     f = kernels.plain_dtype(uv.dtype)
@@ -415,33 +417,60 @@ def render_prior_heatmaps_plain(uv: torch.Tensor, mask: torch.Tensor,
     dv = (v[..., None] - uvc[..., None, None, :, 1]) / sv
     g = torch.exp(-0.5 * (du * du + dv * dv))
     valid = (mask.bool() & finite).to(f)[..., None, None, :]
-    return g * valid
+    return (g * valid).to(dtype or f)
+
+
+# K5's store routes (`csrc/prior_render.cu`): 16-byte stores, or one value a store
+PRIOR_VECTOR, PRIOR_SCALAR = "vector", "scalar"
+_PRIOR_TILE = (8, 16)  # kRows x kCols: a block's pixels, whose staged terms bound K
+_PRIOR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def plan_prior_render(n: int, hw: tuple[int, int], k: int, dtype: torch.dtype,
+                      out_ptr: int = 0) -> str:
+    """K5's store route (`csrc/prior_render.cu`) for n crops of [H, W, K]
+    maps of `dtype` (f32 or bf16) at `out_ptr`: 16-byte stores where W * K
+    is a multiple of a vector and the output is 16-byte aligned, else one
+    value a store. Raises on what the kernel refuses: another dtype, more
+    than 65,535 crops, or keypoints whose staged terms (du of a tile's
+    columns, dv of its rows) outgrow a block's shared memory."""
+    if dtype not in _PRIOR_DTYPES:
+        raise ValueError(f"K5 writes f32 or bf16, got {dtype}")
+    v = 16 // dtype.itemsize
+    if (hw[1] * k) % v or out_ptr % 16:
+        v = 1
+    rows, cols = _PRIOR_TILE
+    if 4 * ((cols * k + 3) // 4 * 4 + rows * (k + v - 1)) > CTA_SMEM or n > 65535:
+        raise ValueError(f"K5 takes at most 65535 crops, and keypoints whose staged terms "
+                         f"fit {CTA_SMEM} bytes of shared memory: got {n} crops of {k}")
+    return PRIOR_VECTOR if v > 1 else PRIOR_SCALAR
 
 
 _PRIOR_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def _render_prior_cuda(uv: torch.Tensor, mask: torch.Tensor, hw, sigma_px: float):
+def _render_prior_cuda(uv: torch.Tensor, mask: torch.Tensor, hw, sigma_px: float,
+                       dtype: torch.dtype | None = None):
     if uv.shape[-1] != 2 or mask.shape != uv.shape[:-1]:
         raise ValueError(f"K5 takes [..., K, 2] keypoints and a [..., K] mask, got "
                          f"{tuple(uv.shape)} and {tuple(mask.shape)}")
     if mask.device != uv.device:
         raise ValueError("K5 inputs must lie on one CUDA device")
+    dtype = dtype or torch.float32
     lead, K = tuple(uv.shape[:-2]), uv.shape[-2]
-    if 3 * K * 4 > 48 * 1024:
-        raise ValueError(f"K5 stages at most 4096 keypoints per crop, got {K}")
     N = 1
     for d in lead:
         N *= d
     h, w = hw
     su, sv = _prior_sigmas(hw, sigma_px)
     uvc = uv.reshape(N, K, 2).to(torch.float32).contiguous()
-    mk = mask.reshape(N, K).to(torch.uint8).contiguous()
-    out = torch.empty((N, h, w, K), dtype=torch.float32, device=uv.device)
+    mk = mask.reshape(N, K).bool().contiguous()  # a bool tensor's bytes, as they are
+    out = torch.empty((N, h, w, K), dtype=dtype, device=uv.device)
+    route = plan_prior_render(N, hw, K, dtype, out.data_ptr())
     fn = _build.entry("prior_render", _PRIOR_ARGTYPES)
     err = fn(_build.ptr(uvc), _build.ptr(mk), N, h, w, K, su, sv, _build.ptr(out),
-             _build.stream())
+             _PRIOR_DTYPES[dtype], int(route == PRIOR_VECTOR), _build.stream())
     _build.check(err, "K5 prior_render")
     kernels.count("prior_render")
     return out.reshape(lead + (h, w, K))
@@ -449,16 +478,20 @@ def _render_prior_cuda(uv: torch.Tensor, mask: torch.Tensor, hw, sigma_px: float
 
 def render_prior_heatmaps(uv: torch.Tensor, mask: torch.Tensor,
                           hw: tuple[int, int] = (256, 256),
-                          sigma_px: float = PRIOR_SIGMA_PX) -> torch.Tensor:
+                          sigma_px: float = PRIOR_SIGMA_PX,
+                          dtype: torch.dtype | None = None) -> torch.Tensor:
     """Prior-keypoint Gaussians [..., H, W, K] (NHWC, contiguous) of
     [..., K, 2] NDC keypoints: each valid, finite keypoint, clipped to
     [-1, 1], becomes an isotropic Gaussian of peak 1 and `sigma_px` pixels of
-    the output map. K5 on a CUDA tensor, the plain version on a CPU tensor."""
+    the output map, computed in f32 and rounded once to `dtype` (f32 or
+    bf16; default f32, f64 for f64 uv on the CPU): a net passes its
+    `prior_dtype`, so it casts nothing. K5 on a CUDA tensor, the plain
+    version on a CPU tensor."""
     if uv.device.type == "cpu":
-        return render_prior_heatmaps_plain(uv, mask, hw, sigma_px)
+        return render_prior_heatmaps_plain(uv, mask, hw, sigma_px, dtype)
     if uv.device.type != "cuda":
         raise ValueError(f"render_prior_heatmaps: unsupported device {uv.device}")
-    return _render_prior_cuda(uv, mask, hw, sigma_px)
+    return _render_prior_cuda(uv, mask, hw, sigma_px, dtype)
 
 
 def max_merge_priors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -578,8 +578,10 @@ def make_frame_inference(net, input_hw=(256, 256), device="cuda", int8=False,
     `net` is a `models.pkpnet.PkpNet` holding its weights (see
     `models.convert.from_jax_variables`); it is moved to `device`, put in
     eval mode and `channels_last` memory. Its backbone runs in the net's
-    working dtype (`PkpNet(dtype=...)`, f32 or bf16); the crops, the prior
-    render and the readout stay f32.
+    working dtype (`PkpNet(dtype=...)`, f32 or bf16); the crops and the
+    readout stay f32, and K5 renders the prior in the net's `prior_dtype`
+    (bf16 for a bf16 post_stem net), so the net casts nothing; the int8
+    program renders it in f32, which K12 quantizes.
 
     int8=True runs the backbone through the s8-resident executor
     (`models/int8_forward.py`, kernels K11-K13) on the net's f32 parameters,
@@ -613,16 +615,16 @@ def make_frame_inference(net, input_hw=(256, 256), device="cuda", int8=False,
             obj_valid[None].to(dev), input_hw,
         )[0]
 
-    def render(uv, valid):
+    def render(uv, valid, dtype=torch.float32):
         return hm.render_prior_heatmaps(uv.to(dev, torch.float32), valid.to(dev), hw=phw,
-                                        sigma_px=hm.prior_sigma_for(phw))
+                                        sigma_px=hm.prior_sigma_for(phw), dtype=dtype)
 
     if not int8:
 
         @torch.inference_mode()
         def fn(img, boxes, obj_valid, prior_uv=None, prior_valid=None, has_prior=True):
             crops = crop(img, boxes, obj_valid)
-            prior = render(prior_uv, prior_valid) if has_prior else None
+            prior = render(prior_uv, prior_valid, net.prior_dtype) if has_prior else None
             out = net(crops, prior)
             return out.uv, out.cov, out.kp_mask
 
@@ -732,12 +734,12 @@ def make_multi_frame_inference(net, input_hw=(256, 256), device="cuda", int8=Fal
             torch.as_tensor(valid).to(dev), input_hw)
         return crops.reshape((-1,) + crops.shape[2:])  # [G*O, h, w, 3]
 
-    def render(prior_uv, prior_valid):
+    def render(prior_uv, prior_valid, dtype=f32):
         prior_uv = torch.as_tensor(prior_uv).to(dev, f32)
         nk = prior_uv.shape[-2]
         return hm.render_prior_heatmaps(
             prior_uv.reshape(-1, nk, 2), torch.as_tensor(prior_valid).to(dev).reshape(-1, nk),
-            hw=phw, sigma_px=hm.prior_sigma_for(phw))  # [G*O, ph, pw, K]
+            hw=phw, sigma_px=hm.prior_sigma_for(phw), dtype=dtype)  # [G*O, ph, pw, K]
 
     def unflatten(out, g, o):
         rows = lambda a: None if a is None else a.reshape((g, o) + a.shape[1:])
@@ -749,7 +751,8 @@ def make_multi_frame_inference(net, input_hw=(256, 256), device="cuda", int8=Fal
         def fn(imgs, boxes, valid, prior_uv=None, prior_valid=None, has_prior=True):
             g, o = boxes.shape[:2]
             crops = crop(imgs, boxes, valid)
-            out = net(crops, render(prior_uv, prior_valid) if has_prior else None)
+            out = net(crops, render(prior_uv, prior_valid, net.prior_dtype) if has_prior
+                      else None)
             return unflatten(out, g, o)
 
         fn.supports_no_prior = True

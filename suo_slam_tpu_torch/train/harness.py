@@ -140,7 +140,7 @@ def forward_loss(net: PkpNet, batch: Batch, epoch, train: bool,
     phw = net.prior_hw(input_hw)
     prior = hm.render_prior_heatmaps(batch.prior_uv.reshape(b * o, -1, 2),
                                      batch.prior_mask.reshape(b * o, -1), hw=phw,
-                                     sigma_px=hm.prior_sigma_for(phw))
+                                     sigma_px=hm.prior_sigma_for(phw), dtype=net.prior_dtype)
     row_mask = batch.obj_mask.reshape(b * o)
     out = net(crops, prior, train=train, row_mask=row_mask, generator=generator,
               dropout_mask=dropout_mask)

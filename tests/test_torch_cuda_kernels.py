@@ -197,6 +197,14 @@ def test_k4_ba_edges(dev):
 
 
 def test_k5_prior_render(dev):
+    """K5 on both store routes (16-byte and one value a store), in f32 and
+    bf16, with a bool mask, NaN / inf keypoints and ragged 8 x 8 tiles: f32
+    equal to the plain version, bf16 equal to the plain f32 map rounded once
+    (`.to(torch.bfloat16)`), at sizes whose half-extent is a power of two;
+    at others PyTorch on the card divides the NDC grid by its Python scalar
+    through a reciprocal, which K5 and the CPU do not, so there K5's f32
+    map is within 1e-6 of the plain one and its bf16 map is the f32 map
+    rounded once. One kernel a call: no mask conversion, no cast."""
     from suo_slam_tpu_torch.ops import heatmap as hm
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -204,12 +212,32 @@ def test_k5_prior_render(dev):
     uv[0, 0, 0] = float("nan")
     uv[0, 1, 1] = float("inf")
     mask = torch.rand(8, 41, device=dev, generator=g) < 0.7
-    for hw in ((64, 64), (256, 256)):
-        k = hm.render_prior_heatmaps(uv, mask, hw, hm.prior_sigma_for(hw))
-        p = hm.render_prior_heatmaps_plain(uv, mask, hw, hm.prior_sigma_for(hw))
-        assert k.is_contiguous() and k.shape == p.shape
-        assert (k - p).abs().max().item() <= 1e-6
-        assert not k[0, ..., :2].any()
+    routes = set()
+    for hw in ((64, 64), (256, 256), (16, 2), (16, 4), (4, 2), (2, 16), (20, 12)):
+        sigma = hm.prior_sigma_for(hw)
+        p = hm.render_prior_heatmaps_plain(uv, mask, hw, sigma)
+        k = {dt: hm.render_prior_heatmaps(uv, mask, hw, sigma, dtype=dt)
+             for dt in (torch.float32, torch.bfloat16)}
+        if hw == (20, 12):
+            assert (k[torch.float32] - p).abs().max().item() <= 1e-6
+            p = k[torch.float32]
+        for dt, kd in k.items():
+            routes.add((dt, hm.plan_prior_render(8, hw, 41, dt, kd.data_ptr())))
+            assert kd.is_contiguous() and kd.shape == p.shape and kd.dtype == dt
+            assert torch.equal(kd, p.to(dt)), (hw, dt)
+            assert not kd[0, ..., :2].any()
+            assert _graph_kernels(lambda: hm.render_prior_heatmaps(uv, mask, hw, sigma,
+                                                                   dtype=dt)) == 1
+    assert routes == {(dt, r) for dt in (torch.float32, torch.bfloat16)
+                      for r in (hm.PRIOR_VECTOR, hm.PRIOR_SCALAR)}
+    # fewer keypoints than a vector: a dv row's repeated terms wrap more than once
+    for K, hw in ((3, (16, 8)), (1, (32, 16))):
+        sigma = hm.prior_sigma_for(hw)
+        p = hm.render_prior_heatmaps_plain(uv[:, :K], mask[:, :K], hw, sigma)
+        for dt in (torch.float32, torch.bfloat16):
+            k = hm.render_prior_heatmaps(uv[:, :K], mask[:, :K], hw, sigma, dtype=dt)
+            assert hm.plan_prior_render(8, hw, K, dt, k.data_ptr()) == hm.PRIOR_VECTOR
+            assert torch.equal(k, p.to(dt)), (K, hw, dt)
 
 
 def _ransac_problem(dev, g, S=8, M=1):
@@ -1100,13 +1128,33 @@ def test_k16_k17_fused_one_launch_per_call(dev, dt):
 
 
 def test_k18_upsample_add_bwd(dev):
+    """K18 equal to its plain version on both routes — the vector route (16
+    bytes a load) and the scalar route, for channel counts no multiple of a
+    vector and for a dy one value off 16 bytes — and at the four junctions of the full-width train step (32 rows
+    x 256 channels, 64 down to 8) in f32 and bf16."""
     from suo_slam_tpu_torch.models import hourglass as hg
+
+    cl = torch.channels_last
+    routes = set()
+
+    def check(dy):
+        route = hg.plan_upsample_bwd(tuple(dy.shape), dy.element_size(), dy.data_ptr())
+        routes.add((dy.dtype, route))
+        assert torch.equal(hg._upsample_add_bwd_cuda(dy), hg.upsample_add_bwd_plain(dy)), (
+            tuple(dy.shape), dy.dtype, route)
 
     for dt in (torch.float32, torch.bfloat16):
         for H in (64, 8, 2):
-            dy = torch.randn(3, 40, H, H, device=dev).to(dt).contiguous(
-                memory_format=torch.channels_last)
-            assert torch.equal(hg._upsample_add_bwd_cuda(dy), hg.upsample_add_bwd_plain(dy))
+            for C in (40, 12, 6):
+                check(torch.randn(3, C, H, H + 2, device=dev).to(dt).contiguous(memory_format=cl))
+        base = torch.randn(1 + 2 * 10 * 6 * 256, device=dev).to(dt)
+        view = base[1:].view(2, 10, 6, 256).permute(0, 3, 1, 2)
+        assert view.is_contiguous(memory_format=cl) and view.data_ptr() % 16
+        check(view)
+        for H in (64, 32, 16, 8):
+            check(torch.randn(32, 256, H, H, device=dev).to(dt).contiguous(memory_format=cl))
+    assert routes == {(dt, r) for dt in (torch.float32, torch.bfloat16)
+                      for r in (hg.K18_VECTOR, hg.K18_SCALAR)}
 
 
 def test_k19_heatmap_readout_bwd(dev):
