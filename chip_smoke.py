@@ -187,7 +187,20 @@ Phases (any failure raises and exits non-zero):
      width and bf16, 2 epochs x 4 steps + 2 validation batches, its exact
      launches, no plain version on a CUDA tensor, its checkpoints, and a
      second run that auto-resumes at epoch 2; the trained checkpoint through
-     `Evaluator(nviews=1)`;
+     `Evaluator(nviews=1)` and `python -m suo_slam_tpu_torch.plot_cov` (both
+     files, K1 and K2 launched); the -u step (no covariance head: L2 + the
+     readout's spread) with the kernels against its plain run under
+     `STEP_GATES` in f32 and bf16, and the bf16 -u step beside the
+     covariance step (host / device ms, kernels, K2 and K19 once a step, no
+     softmax kernel: no probability map); the training loader alone over
+     the split, augmented: host ms a batch in line, with 4 threads and with
+     4 processes (the modes' first batches bit-equal), the CPU count; the
+     CLI with augmentations on, run 1 `-u --loader process --workers 4` (1
+     epoch x 4 steps + 2 validation batches; its checkpoint through
+     `Evaluator(nviews=1, no_network_cov=True)`), run 2 `--use_cache`
+     (thread mode, 1 epoch x 4 steps), each with its epoch s and sec/it,
+     exact launches and no plain version on a CUDA tensor (the kernels line
+     gives run 1's K2 / K19 launches as `launches_u_run`);
  10. the quantized and the GroupNorm nets at full width (2 x 2 x 256, 256x256
      crops, seeded weights): `PkpNet(quant="int8")` in f32 and bf16 from the
      float net's weights, calibrated by `quant.calibrate` on 4 batches of 8
@@ -4965,15 +4978,17 @@ def _first_batch(root, dev, seed, truncate_obj=16):
     return harness.to_batch(np_batch, dev, o_pad=truncate_obj)
 
 
-def _step_record(dt, seed, batch, keep, dev, norm="batch"):
+def _step_record(dt, seed, batch, keep, dev, norm="batch", calc_cov=True):
     """One full-width train step from seeded flax-style weights: loss, its
-    terms, every parameter gradient and the new running statistics."""
+    terms, every parameter gradient and the new running statistics
+    (`calc_cov=False`: the -u net and loss)."""
     import torch
 
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
     from suo_slam_tpu_torch.train import harness
 
-    net = PkpNet(n_stack=2, n_modules=2, features=256, dtype=dt, norm=norm).to(dev)
+    net = PkpNet(n_stack=2, n_modules=2, features=256, dtype=dt, norm=norm,
+                 calc_cov=calc_cov).to(dev)
     state = harness.init_state(net, seed=seed)
     _, m = harness.make_train_step()(state, batch, 0.0, dropout_mask=keep)
     torch.cuda.synchronize()
@@ -5012,7 +5027,7 @@ STEP_GATES = {"f32": dict(terms=1e-5, stats=1e-5, cos=0.999, grad=0.5),
               "bf16": dict(terms=1e-2, stats=2e-2, cos=0.99)}
 
 
-def train_step_parity(dev, seed, root, norm="batch"):
+def train_step_parity(dev, seed, root, norm="batch", calc_cov=True):
     """One full-width train step (2 x 16 crop slots, the CLI's first batch,
     seeded flax-style weights, one dropout mask) with the kernels against the
     same step with every wrapper on its plain version, in f32 and bf16, cuDNN
@@ -5020,7 +5035,8 @@ def train_step_parity(dev, seed, root, norm="batch"):
     running statistics (against their scale), gradients (the whole
     gradient's cosine; each tensor against its largest magnitude). bf16
     rounds each activation to 2^-9 relative: its terms and statistics are
-    held to 1e-2 and 2e-2."""
+    held to 1e-2 and 2e-2. `calc_cov=False`: the -u step (L2 + the
+    readout's spread, through K2 and K19)."""
     import torch
 
     batch = _first_batch(root, dev, seed)
@@ -5032,11 +5048,12 @@ def train_step_parity(dev, seed, root, norm="batch"):
     try:
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             gate = STEP_GATES[name]
-            kern = _step_record(dt, seed, batch, keep, dev, norm)
+            kern = _step_record(dt, seed, batch, keep, dev, norm, calc_cov)
             with plain_versions():
-                plain = _step_record(dt, seed, batch, keep, dev, norm)
+                plain = _step_record(dt, seed, batch, keep, dev, norm, calc_cov)
             d = _distances(kern, plain)
-            log(f"[train] full-width step ({name}, norm={norm}), kernels vs plain: "
+            log(f"[train] full-width {'' if calc_cov else '-u '}step ({name}, norm={norm}), "
+                f"kernels vs plain: "
                 + json.dumps({k: f"{v:.6e}" for k, v in d.items()})
                 + f" (gates {json.dumps(gate)}); loss {kern['metrics']['loss']:.6f}"
                 + f" (plain {plain['metrics']['loss']:.6f})")
@@ -5044,8 +5061,8 @@ def train_step_parity(dev, seed, root, norm="batch"):
                   and d["cos"] >= gate["cos"] and d["grad"] <= gate.get("grad", np.inf))
             finite = all(np.isfinite(v) for v in kern["metrics"].values())
             if not (ok and finite):
-                raise AssertionError(f"train step ({name}, norm={norm}): kernels vs plain {d}, "
-                                     f"gates {gate}")
+                raise AssertionError(f"train step ({name}, norm={norm}, calc_cov={calc_cov}): "
+                                     f"kernels vs plain {d}, gates {gate}")
             out[name] = d
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
@@ -5231,19 +5248,190 @@ def overfit(dev, seed, root, steps=30):
     return first, last
 
 
+def u_step_kernels(dev, seed, root):
+    """The bf16 -u step (no covariance head) beside the covariance step, each
+    from seeded weights on the CLI's first batch: launches per step (the
+    counters: K2 and K19 once each), host ms (median of 5 synchronized
+    steps), device ms and kernels by torch.profiler over one step, and the
+    kernels that would form a probability map (a softmax): none."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.train import harness
+
+    batch = _first_batch(root, dev, seed)
+    kern = lambda a: [e for e in a if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)]
+    out = {}
+    for label, calc_cov in (("cov", True), ("-u", False)):
+        net = PkpNet(dtype=torch.bfloat16, calc_cov=calc_cov).to(dev)
+        state = harness.init_state(net, seed=seed)
+        step = harness.make_train_step()
+        for _ in range(2):
+            state, _ = step(state, batch, 0.0)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        state, m = step(state, batch, 0.0)
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in kernels.counts().items() if v}
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, 0.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        avg = traced(lambda: step(state, batch, 0.0), lambda a: len(kern(a)) > 0,
+                     f"{label} train step")
+        if avg is None:
+            dev_ms = n_k = "not measured"
+            softmax = []
+        else:
+            dev_ms = sum(e.self_device_time_total for e in kern(avg)) / 1e3
+            n_k = sum(e.count for e in kern(avg))
+            softmax = [e.key[:60] for e in kern(avg) if "softmax" in e.key.lower()]
+        out[label] = dict(host_ms=statistics.median(times), device_ms=dev_ms, kernels=n_k,
+                          launches=per_step, softmax=softmax,
+                          var_loss=float(m["var_loss"]))
+        log(f"[train] full-width bf16 {label} step: host {out[label]['host_ms']:.2f} ms "
+            f"(median of 5: {[round(t, 2) for t in times]}), device {dev_ms} ms in {n_k} "
+            f"kernels; K2 / K19 launches {per_step.get('heatmap_readout')} / "
+            f"{per_step.get('heatmap_readout_bwd')}; softmax kernels {softmax}; var_loss "
+            f"{out[label]['var_loss']:.6f}")
+    u = out["-u"]
+    if (u["launches"].get("heatmap_readout") != 1 or u["launches"].get("heatmap_readout_bwd") != 1
+            or u["softmax"] or not np.isfinite(u["var_loss"])):
+        raise AssertionError(f"-u step: {u}")
+    if isinstance(u["kernels"], int) and isinstance(out["cov"]["kernels"], int) \
+            and u["kernels"] > out["cov"]["kernels"] + 16:
+        raise AssertionError(f"-u step: {u['kernels']} kernels against the covariance step's "
+                             f"{out['cov']['kernels']}")
+    return out
+
+
+def loader_timing(root, seed, workers=4, epochs=2, copies=6):
+    """Host ms a batch of the training loader over phase 9's `train_real`
+    split concatenated `copies` times (48 480x640 PNG frames, augmentations
+    on, 2 frames a batch, 24 batches an epoch): in line (1 worker),
+    `workers` threads and `workers` processes, after one warm-up batch (the
+    pool's start in process mode, timed apart); the modes' first batches
+    bit-equal; the machine's CPU count."""
+    import os
+
+    from suo_slam_tpu_torch.data.bop import BopDataset
+    from suo_slam_tpu_torch.data.loader import ConcatLoader
+
+    def make(w, mode):
+        ds = [BopDataset(root, "train_real", bop_dset="ycbv", ignore_symmetry=False,
+                         det_type="gt+noise", kp_config_root=os.path.join(root, "kp_configs"),
+                         seed=123 + i) for i in range(copies)]
+        return ConcatLoader(ds, 2, 16, seed=seed, workers=w, mode=mode)
+
+    out, firsts = {}, {}
+    for label, w, mode in (("inline", 1, "thread"), ("thread", workers, "thread"),
+                           ("process", workers, "process")):
+        loader = make(w, mode)
+        try:
+            t0 = time.perf_counter()
+            firsts[label] = next(iter(loader.epoch(shuffle=False, seed=1)))
+            warm = time.perf_counter() - t0
+            n, t1 = 0, time.perf_counter()
+            for _ in range(epochs):
+                for _ in loader.epoch():
+                    n += 1
+            out[label] = dict(ms_per_batch=(time.perf_counter() - t1) * 1e3 / n, batches=n,
+                              first_batch_s=warm, workers=w)
+        finally:
+            loader.close()
+    cpus = os.cpu_count()
+    avail = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else cpus
+    log(f"[train] loader, 480x640 augmented, 2 frames a batch, {out['inline']['batches']} "
+        f"batches a mode, host ms a batch: "
+        + json.dumps({k: round(v["ms_per_batch"], 2) for k, v in out.items()})
+        + f" (workers {workers}; first batch s "
+        + json.dumps({k: round(v["first_batch_s"], 2) for k, v in out.items()})
+        + f"); CPUs {cpus}, available {avail}")
+    for label in ("thread", "process"):
+        a, b = firsts["inline"], firsts[label]
+        if set(a) != set(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"loader: the {label} mode's first batch differs from in-line")
+    return dict(out, cpus=cpus, cpus_available=avail)
+
+
+def _cli_run(argv, work):
+    """`python -m suo_slam_tpu_torch.train` in process, from `work`: (rc, its
+    output, wall s, launches, plain versions called on CUDA tensors, the
+    host clock at each train step's call)."""
+    import io
+    import os
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.train import __main__ as cli
+    from suo_slam_tpu_torch.train import harness
+
+    stamps, make = [], harness.make_train_step
+
+    def make_timed(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*sa, **skw):
+            stamps.append(time.perf_counter())
+            return step(*sa, **skw)
+        return timed
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    harness.make_train_step = make_timed
+    try:
+        buf = io.StringIO()
+        kernels.reset_counts()
+        t1 = time.perf_counter()
+        with plain_on_cuda_counter() as hits, contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        return (rc, buf.getvalue(), time.perf_counter() - t1, kernels.counts(), dict(hits),
+                stamps)
+    finally:
+        harness.make_train_step = make
+        os.chdir(cwd)
+
+
+def _epoch_stats(text, stamps=()):
+    """(epoch s, the CLI's printed sec/it, s between consecutive train
+    steps' calls: loading and the step's host time, the steady sec/it) from
+    the training CLI's output and `_cli_run`'s step clock."""
+    import re
+
+    secs = [float(x) for x in re.findall(r"Epoch \d+ done in ([\d.]+)s", text)]
+    its = [float(x) for x in re.findall(r"sec/it=([\d.]+)", text)]
+    gaps = [round(b - a, 3) for a, b in zip(stamps, stamps[1:])]
+    return secs, its, gaps
+
+
+def _want_launches(steps, vals):
+    """The training CLI's launches of the BatchNorm net: `steps` train steps
+    and `vals` validation batches."""
+    return {"bn_stats": NORMS_PER_FWD * steps, "norm_relu_bwd": NORMS_PER_FWD * steps,
+            "upsample_add_bwd": JUNCTIONS_PER_FWD * steps, "heatmap_readout_bwd": steps,
+            "norm_relu": NORMS_PER_FWD * (steps + vals),
+            "upsample_add": JUNCTIONS_PER_FWD * (steps + vals),
+            "heatmap_readout": steps + vals, "roi_crop": steps + vals,
+            "prior_render": steps + vals}
+
+
 def phase_train(dev, seed):
     """Training on the card (the module docstring's phase 9). Returns the
-    K16-K19 entries and the launches of the CLI run."""
+    K16-K19 entries, the launches of the CLI run and those of the -u CLI
+    run."""
     import io
     import os
     import re
     import shutil
 
-    import torch
-
-    from suo_slam_tpu_torch import kernels
     from suo_slam_tpu_torch.evaluate import Evaluator
-    from suo_slam_tpu_torch.train import __main__ as cli
 
     base, root = _eval_root()
     rng = np.random.default_rng(seed + 9)
@@ -5254,7 +5442,9 @@ def phase_train(dev, seed):
     entries = check_k16_k17(dev, rng) + [check_k18(dev, rng), check_k19(dev, rng)]
     bn_step_shapes(dev, rng)
     train_step_parity(dev, seed, root)
+    train_step_parity(dev, seed, root, calc_cov=False)
     step_timing(dev, seed, root)
+    u_step_kernels(dev, seed, root)
     overfit(dev, seed, root)
 
     # the CLI, full width and bf16 (its defaults), from the repository's
@@ -5265,41 +5455,20 @@ def phase_train(dev, seed):
     argv = ["--device", dev.type, "--dataset", "ycbv", "--data_split", "real", "--no_augmentations",
             "--steps_per_epoch", "4", "--val_steps", "2", "--data_root", root,
             "--kp_config_root", os.path.join(root, "kp_configs")]
-    cwd = os.getcwd()
-    os.chdir(work)
-    try:
-        buf = io.StringIO()
-        kernels.reset_counts()
-        t1 = time.perf_counter()
-        with plain_on_cuda_counter() as hits, contextlib.redirect_stdout(buf):
-            rc = cli.main(argv + ["--epochs", "2"])
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        counts = kernels.counts()
-        text = buf.getvalue()
-        buf2 = io.StringIO()
-        with contextlib.redirect_stdout(buf2):
-            rc2 = cli.main(argv + ["--epochs", "3"])
-        text2 = buf2.getvalue()
-    finally:
-        os.chdir(cwd)
+    rc, text, wall, counts, hits, stamps = _cli_run(argv + ["--epochs", "2"], work)
+    rc2, text2 = _cli_run(argv + ["--epochs", "3"], work)[:2]
     with open(os.path.join(work, "cli.log"), "w") as f:
         f.write(text + "\n---- resume ----\n" + text2)
     (outdir,) = [os.path.join(work, "results", d) for d in os.listdir(os.path.join(work, "results"))]
     losses = [float(x) for x in re.findall(r"train loss ([-\d.eE+naninf]+)", text)]
     files = sorted(os.listdir(outdir))
     log(f"[train] CLI, 2 epochs x 4 steps + 2 val batches, full width bf16: rc {rc}, "
-        f"{wall:.2f} s; epoch train losses {losses}; files {files}")
+        f"{wall:.2f} s; epoch train losses {losses}; epoch s, sec/it, s between steps "
+        f"{_epoch_stats(text, stamps)}; files {files}")
     for line in text.splitlines():
         if line.startswith(("Epoch", "Training on", "Validating")):
             log(f"[train]   {line.strip()}")
-    steps, vals = 8, 4
-    want = {"bn_stats": NORMS_PER_FWD * steps, "norm_relu_bwd": NORMS_PER_FWD * steps,
-            "upsample_add_bwd": JUNCTIONS_PER_FWD * steps, "heatmap_readout_bwd": steps,
-            "norm_relu": NORMS_PER_FWD * (steps + vals),
-            "upsample_add": JUNCTIONS_PER_FWD * (steps + vals),
-            "heatmap_readout": steps + vals, "roi_crop": steps + vals,
-            "prior_render": steps + vals}
+    want = _want_launches(8, 4)
     got = {k: counts[k] for k in want}
     log(f"[train] CLI launches: {json.dumps(got)} (want {json.dumps(want)}); plain versions "
         f"on CUDA tensors: {json.dumps(hits)}")
@@ -5327,7 +5496,106 @@ def phase_train(dev, seed):
         raise AssertionError(f"Evaluator on the trained checkpoint:\n{buf.getvalue()[-3000:]}")
     log(f"[train] Evaluator(nviews=1) on {ck} (epoch {ev.model_epoch}): ran to its end, "
         f"{ev.method_name()}")
-    return entries, counts
+    plot_cov_run(dev, root, ck, os.path.join(base, "plot_cov"))
+    loader_timing(root, seed)
+    u_counts = train_cli_more(dev, base, root)
+    return entries, counts, u_counts
+
+
+def plot_cov_run(dev, root, ck, out):
+    """`python -m suo_slam_tpu_torch.plot_cov` in process on a trained
+    checkpoint over the `train_real` split: both files, the line."""
+    import io
+    import os
+    import shutil
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch import plot_cov
+
+    shutil.rmtree(out, ignore_errors=True)
+    buf = io.StringIO()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with plain_on_cuda_counter() as hits, contextlib.redirect_stdout(buf):
+        rc = plot_cov.main(["-c", ck, "--dataset", "ycbv", "--split", "train_real",
+                            "--data_root", root, "--kp_config_root",
+                            os.path.join(root, "kp_configs"), "--out", out,
+                            "--device", dev.type])
+    wall = time.perf_counter() - t0
+    got = {k: v for k, v in kernels.counts().items() if v}
+    files = sorted(os.listdir(out)) if os.path.isdir(out) else []
+    line = open(os.path.join(out, "percent_sigma_inbounds.txt")).read().strip() \
+        if "percent_sigma_inbounds.txt" in files else None
+    log(f"[train] plot_cov on {os.path.basename(ck)} over train_real: rc {rc}, {wall:.2f} s, "
+        f"\"{line}\"; files {files}; launches {json.dumps(got)}; plain versions on CUDA "
+        f"tensors {json.dumps(hits)}")
+    if rc != 0 or files != ["percent_sigma_inbounds.txt", "sigma_plot.png"] or hits \
+            or not got.get("roi_crop") or not got.get("heatmap_readout"):
+        raise AssertionError(f"plot_cov: rc {rc}, files {files}, launches {got}, plain {hits}:\n"
+                             f"{buf.getvalue()[-2000:]}")
+
+
+def train_cli_more(dev, base, root):
+    """The training CLI at full width, bf16, augmentations on: (1) `-u
+    --loader process --workers 4`, 1 epoch x 4 steps + 2 validation batches,
+    its checkpoint then through `Evaluator(nviews=1, no_network_cov=True)`;
+    (2) `--use_cache` (thread mode), 1 epoch x 4 steps. Each: exact
+    launches (K2 and K19 once a step), no plain version on a CUDA tensor,
+    epoch s and sec/it. Returns run 1's launches."""
+    import io
+    import os
+    import shutil
+
+    from suo_slam_tpu_torch.evaluate import Evaluator
+
+    common = ["--device", dev.type, "--dataset", "ycbv", "--data_split", "real",
+              "--epochs", "1", "--steps_per_epoch", "4", "--data_root", root,
+              "--kp_config_root", os.path.join(root, "kp_configs")]
+    runs = [("-u, process loader", ["-u", "--loader", "process", "--workers", "4",
+                                    "--val_steps", "2"], 4, 2),
+            ("cache, thread loader", ["--use_cache", "--no_val"], 4, 0)]
+    cache = os.path.join(root, "train_real.suocache")
+    if os.path.exists(cache):
+        os.remove(cache)
+    u_counts = None
+    for i, (label, flags, steps, vals) in enumerate(runs):
+        work = os.path.join(base, f"train_cli_{i + 1}")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        rc, text, wall, counts, hits, stamps = _cli_run(common + flags, work)
+        with open(os.path.join(work, "cli.log"), "w") as f:
+            f.write(text)
+        want = _want_launches(steps, vals)
+        got = {k: counts[k] for k in want}
+        log(f"[train] CLI run {i + 1} ({label}), augmentations on, 1 epoch x {steps} steps + "
+            f"{vals} val batches, full width bf16: rc {rc}, {wall:.2f} s; epoch s, sec/it, s "
+            f"between steps {_epoch_stats(text, stamps)}; launches {json.dumps(got)} (want {json.dumps(want)}); "
+            f"plain versions on CUDA tensors {json.dumps(hits)}")
+        for line in text.splitlines():
+            if line.startswith(("Epoch", "Training on", "Native cache", "Packing")):
+                log(f"[train]   {line.strip()}")
+        if rc != 0 or got != want or hits or len(_epoch_stats(text)[0]) != 1:
+            raise AssertionError(f"training CLI run {i + 1}: rc {rc}, launches {got} (want "
+                                 f"{want}), plain on CUDA {hits}:\n{text[-3000:]}")
+        if i == 0:
+            u_counts = counts
+            (run,) = os.listdir(os.path.join(work, "results"))
+            ck = os.path.join(work, "results", run, "checkpoint-latest")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                ev = Evaluator("ycbv", root, ck, nviews=1, detection_type="gt", no_viz=True,
+                               no_network_cov=True, kp_config_root=os.path.join(root, "kp_configs"),
+                               device=dev)
+                ev.model_path = os.path.join(base, "results_trained_u")
+                summary = ev.run()
+            if summary is None or ev.model_epoch != 0:
+                raise AssertionError(f"Evaluator(no_network_cov=True) on the -u checkpoint:\n"
+                                     f"{buf.getvalue()[-3000:]}")
+            log(f"[train] Evaluator(nviews=1, no_network_cov=True) on the -u checkpoint: ran "
+                f"to its end, {ev.method_name()}")
+        elif not os.path.isfile(cache):
+            raise AssertionError(f"--use_cache wrote no {cache}")
+    return u_counts
 
 
 # quantized and GroupNorm nets -------------------------------------------------------
@@ -6310,7 +6578,7 @@ def main(argv=None):
     int8_entries, int8_counts, k2_bf16_err = phase_int8(dev, rng, args.seed, net, net16, crops,
                                                         objs, scene)
     entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], k2_bf16_err)
-    train_entries, train_counts = phase_train(dev, args.seed)
+    train_entries, train_counts, u_counts = phase_train(dev, args.seed)
     quant_entries, quant_counts = phase_quant(dev, args.seed, net, net16, crops)
     group_entries, group_counts = phase_group(dev, args.seed, objs, scene)
     phase_throughput(dev, args.seed, net, net16)
@@ -6321,11 +6589,16 @@ def main(argv=None):
                          if e["name"] in TRAIN_KERNELS else quant_counts
                          if e["name"] in QUANT_KERNELS else group_counts
                          if e["name"] in GROUP_KERNELS else counts)[e["name"]]
+    for e in entries:  # K2 / K19 in phase 9's -u training run (4 steps + 2 val batches)
+        if e["name"] in ("heatmap_readout", "heatmap_readout_bwd"):
+            e["launches_u_run"] = u_counts[e["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
-    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    extra = ["launches_u_run"]
+    log(json.dumps({"kernels": [{k: e[k] for k in keys + [x for x in extra if x in e]}
+                                for e in entries]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

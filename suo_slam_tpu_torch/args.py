@@ -70,7 +70,7 @@ def get_train_args(argv_override=None):
                         help=NORM_HELP)
     parser.add_argument("--workers", "-j", type=int, default=_env_int("SUO_WORKERS", 4))
     parser.add_argument("--loader", default="thread", choices=["thread", "process"],
-                        help="Worker tier of the train loader (thread only is ported).")
+                        help="Worker tier of the train loader: threads or spawned processes.")
     parser.add_argument("--batch_size", "-b", type=int,
                         default=_env_int("SUO_BATCH_SIZE", 16 if is_tless else 2))
     parser.add_argument("--epochs", type=int, default=1000 if is_tless else 30)
@@ -96,7 +96,7 @@ def get_train_args(argv_override=None):
                              "(off: the val split is the eval split; selection uses the "
                              "training loss).")
     parser.add_argument("--use_cache", action="store_true",
-                        help="The native frame cache loader (not ported).")
+                        help="The native frame cache loader (<data_root>/<split>.suocache).")
     _common(parser)
     return _finish(parser, argv_override)
 

@@ -10,13 +10,14 @@ and stored as f64, as the JAX package computes them.
 `pick_symmetry_transform` selects, for a GT pose T_OtoC, the symmetry T_s
 minimizing the mean distance between the mean-subtracted keypoints under
 T_OtoC @ T_s and under the labeled view pose, over a padded [S_max, 4, 4]
-stack with a validity mask (torch, batched over the stack).
+stack with a validity mask (torch, batched over the stack). The module
+imports torch only there: the training loader's worker processes build the
+stacks and never import torch.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 N_DISCRETIZE = 64  # continuous-symmetry discretization steps
 
@@ -83,6 +84,8 @@ def pick_symmetry_transform(
     T_VtoC [4, 4] labeled view pose. Returns (T_OtoC @ T_best [4, 4], best
     index).
     """
+    import torch
+
     if T_OtoC.shape[-2] == 3:
         bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=T_OtoC.dtype, device=T_OtoC.device)
         T_OtoC = torch.cat([T_OtoC, bottom], dim=-2)

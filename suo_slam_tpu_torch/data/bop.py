@@ -12,13 +12,16 @@ package uses OpenCV).
 
 Training samples draw, from a per-thread numpy `Generator`, in the JAX
 package's order: the `gt+noise` box jitter, then per object the
+augmentation stack (`data/augmentations.py`: the scale-and-rotate warp,
+which also moves K, the boxes and the depth map that `mask_occluded`
+reads, then the blur and Pillow's enhancers), then per object the
 give-prior coin, the random symmetry of a prior object and its noisy pose.
 numpy's streams are the same on both sides, so the same seed gives
 bit-equal samples (`sample_seeded`, the loader's per-item seeds). What the
-card's machine cannot read or run is refused, naming its ROADMAP item:
-augmentations (cv2 warps, PIL filters: A20), VOC background compositing
-(A21, when background images are found; without any the JAX package trains
-on with a warning, and so does this), pbr splits (JPEG: A22).
+card's machine cannot read is refused, naming its ROADMAP item: VOC
+background compositing (A21, when background images are found; without any
+the JAX package trains on with a warning, and so does this), pbr splits
+(JPEG: A22).
 
 Units follow BOP: translations and keypoints in mm.
 """
@@ -35,6 +38,7 @@ import numpy as np
 
 from ..core.symmetry import build_symmetry_stack
 from ..kp import config as kp_config
+from . import augmentations as aug
 from . import png
 
 IMAGE_SIZE = (256, 256)
@@ -95,10 +99,7 @@ class BopDataset:
                 f"split {split!r}: pbr frames are JPEG, and the port reads PNG only "
                 "(ROADMAP A22)")
         self.no_aug = no_aug or "train" not in split
-        if not self.no_aug:
-            raise NotImplementedError(
-                "training augmentations (cv2 warps and PIL filters) are not ported "
-                "(ROADMAP A20): pass no_aug=True / --no_augmentations")
+        self.augs = [] if self.no_aug else aug.default_train_augs()
         self.data_root = data_root
         self.split = split
         self.bop_dset = bop_dset
@@ -412,6 +413,9 @@ class BopDataset:
             x, y, w, h = xywh
             w, h = max(MIN_BOX_WH, w), max(MIN_BOX_WH, h)
             bboxes[i] = (x, y, x + w, y + h)
+
+        # the warp moves K, the boxes and the depth map the occlusion test reads
+        img, depth, bboxes, K = aug.apply_augs(self.augs, self.rng, img, depth, bboxes, K)
 
         poses = np.zeros((O, 3, 4), np.float32)
         poses_sym = np.zeros((O, 3, 4), np.float32)

@@ -12,6 +12,11 @@ what `cv2.imread` returns for the reads the loader makes:
 Non-interlaced images only, with any of the five row filters. Other formats
 and reads (palette, alpha, interlaced, 16-bit colour, conversions between
 gray and colour) raise ValueError.
+
+`imwrite(path, img)` writes what `cv2.imwrite` takes for those reads: an
+[H, W, 3] uint8 BGR image as 8-bit RGB, an [H, W] uint8 or uint16 image as
+8- or 16-bit gray (`encode` takes the file's channel order); rows unfiltered,
+zlib level 6.
 """
 
 from __future__ import annotations
@@ -110,6 +115,36 @@ def decode(data: bytes) -> np.ndarray:
     else:
         img = rec.reshape(h, w, ch)
     return img[..., 0] if ch == 1 else img
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode(img: np.ndarray) -> bytes:
+    """[H, W] uint8 / uint16 gray or [H, W, 3] uint8 RGB (file order) ->
+    PNG bytes."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[-1] == 3 and img.dtype == np.uint8:
+        color, depth = 2, 8
+    elif img.ndim == 2 and img.dtype in (np.uint8, np.uint16):
+        color, depth = 0, 8 * img.dtype.itemsize
+    else:
+        raise ValueError(f"PNG: cannot write a {img.dtype} image of shape {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(img, ">u2" if depth == 16 else np.uint8).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1)
+    return (_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write a PNG file as `cv2.imwrite(path, img)` does for the images the
+    module docstring lists (3 channels in BGR order)."""
+    img = np.asarray(img)
+    with open(path, "wb") as f:
+        f.write(encode(img[..., ::-1] if img.ndim == 3 else img))
 
 
 def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:

@@ -52,8 +52,10 @@ class PkpNetOutput(NamedTuple):
     kp_mask_logits: torch.Tensor     # [N, K]
     kp_mask: torch.Tensor            # [N, K] sigmoid validity probability
     aux_logits: tuple = ()           # earlier stacks, NHWC
+    spread: torch.Tensor | None = None  # [N, K] E|p - uv|^2 (calc_cov=False)
     # The softmaxed heatmaps (`prob` in the JAX output) are never formed by
     # the readout kernel: `hm.spatial_softmax(out.prob_logits)` gives them.
+    # The no-covariance loss reads `spread` instead, from K2's covariance.
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -170,6 +172,7 @@ class PkpNet(nn.Module):
             kp_mask_logits=mask_logits,
             kp_mask=torch.sigmoid(mask_logits),
             aux_logits=aux,
+            spread=None if self.calc_cov else hm.readout_spread(cov),
         )
 
 

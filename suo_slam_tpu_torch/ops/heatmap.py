@@ -91,7 +91,8 @@ def soft_argmax(prob: torch.Tensor, calc_cov: bool = True, min_var: float = 1e-6
 
 def heatmap_variance(prob: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """E[|p - uv|^2] per channel: [..., H, W, K], [..., K, 2] -> [..., K]
-    (the spread term of the no-covariance loss)."""
+    (the spread term of the no-covariance loss, from probability maps;
+    `readout_spread` gives it from the readout's covariance)."""
     h, w, k = prob.shape[-3:]
     u, v = ndc_grid(h, w, prob.dtype, prob.device)
     feats = torch.stack([torch.ones_like(u), u, v, u * u + v * v], -1).reshape(h * w, 4)
@@ -100,6 +101,16 @@ def heatmap_variance(prob: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     # E[|p|^2] - 2 uv . E[p] + |uv|^2 E[1]
     return (m[..., 3] - 2.0 * (uv[..., 0] * m[..., 1] + uv[..., 1] * m[..., 2])
             + torch.sum(uv * uv, -1) * m[..., 0])
+
+
+def readout_spread(cov: torch.Tensor, min_var: float = 1e-6) -> torch.Tensor:
+    """The heatmap's spread E[|p - uv|^2] [..., K] at uv = E[p], from the
+    readout's covariance [..., K, 2, 2]: cuu + cvv - 2 min_var. With uv the
+    mean, JAX's `heatmap_variance` E|p|^2 - 2 uv . E[p] + |uv|^2 E[1] is this
+    trace in the same E-form (E[u^2] - E[u]^2 + E[v^2] - E[v]^2), so the
+    no-covariance loss needs no probability map: its gradient reaches the
+    logits through K19 as g_cov's diagonal."""
+    return cov[..., 0, 0] + cov[..., 1, 1] - 2.0 * min_var
 
 
 def soft_argmax_from_logits(logits: torch.Tensor, calc_cov: bool = True,

@@ -12,14 +12,20 @@ losses (annealed MLE + variance + BCE), `--pretrain`, the epoch loop with
 `--val_select_best`). The loss sum stays on the device; the host reads it on
 print steps and at the epoch's end.
 
-Refused, naming the ROADMAP item: `--use_cache` (A24), `--loader process`
-(A23), `-u` / `--no_network_cov` training (A25), more than one visible card
-(A15); the datasets refuse augmentations (A20), VOC
-backgrounds (A21) and pbr splits (A22). The per-epoch prediction dump is
-A11: one line says so.
+The data tier takes the JAX CLI's three modes: the thread loader (the
+default), `--loader process` (a spawned process pool, `--workers`
+processes) and `--use_cache` (the native frame cache,
+`<data_root>/<split>.suocache`, packed at first use); augmentations are on
+unless `--no_augmentations`. `-u` / `--no_network_cov` trains the L2 +
+heatmap-variance loss, whose spread term the readout (K2, K19 backward)
+gives without a probability map.
+
+Refused, naming the ROADMAP item: more than one visible card (A15); the
+datasets refuse VOC backgrounds (A21) and pbr splits (A22). The per-epoch
+prediction dump is A11: one line says so.
 
     SUO_TINY_NET=1 python -m suo_slam_tpu_torch.train --device cpu \\
-        --dataset ycbv --data_split real --no_augmentations --epochs 2 ...
+        --dataset ycbv --data_split real --epochs 2 [--loader process] [-u] ...
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 from .. import _device
 from ..args import get_train_args
 from ..data.bop import BopDataset
+from ..data.fastload import CacheLoader
 from ..data.loader import ConcatLoader
 from ..models import convert
 from ..models.pkpnet import PkpNet
@@ -60,20 +67,28 @@ def build_val_datasets(args):
                        kp_config_root=args.kp_config_root, seed=666)]
 
 
-def _refuse(args, dev) -> None:
-    refusals = [
-        (args.use_cache, "--use_cache: the native frame cache loader is not ported (ROADMAP A24)"),
-        (args.loader != "thread", "--loader process: the process-pool loader is not ported "
-                                  "(ROADMAP A23)"),
-        (args.no_network_cov, "-u / --no_network_cov training (the L2 + heatmap-variance "
-                              "loss) is not ported (ROADMAP A25)"),
-        (dev.type == "cuda" and torch.cuda.device_count() > 1,
-         "more than one card is visible: data-parallel training is not ported (ROADMAP A15); "
-         "set CUDA_VISIBLE_DEVICES to one card"),
-    ]
-    for hit, msg in refusals:
-        if hit:
-            raise SystemExit(f"suo_slam_tpu_torch.train: {msg}")
+def _refuse(dev) -> None:
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        raise SystemExit("suo_slam_tpu_torch.train: more than one card is visible: "
+                         "data-parallel training is not ported (ROADMAP A15); set "
+                         "CUDA_VISIBLE_DEVICES to one card")
+
+
+def build_loader(args, datasets):
+    """The training loader of the flags: the frame cache, or the thread /
+    process loader."""
+    if args.use_cache:
+        paths = [os.path.join(args.data_root, f"{ds.split}.suocache") for ds in datasets]
+        loader = CacheLoader(datasets, paths, args.batch_size, args.truncate_obj,
+                             n_threads=args.workers)
+        print(f"Native cache loader: {loader.total} frames ({len(datasets)} splits), "
+              f"{len(loader)} steps/epoch")
+        return loader
+    loader = ConcatLoader(datasets, args.batch_size, args.truncate_obj, workers=args.workers,
+                          mode=args.loader)
+    print(f"Training on {loader.total} frames, {len(loader)} steps/epoch "
+          f"({loader.workers} decode {loader.mode} workers)")
+    return loader
 
 
 def _ram_ok(max_percent: float = 99.0) -> bool:
@@ -109,7 +124,7 @@ def main(argv=None) -> int:
                 print(f"Resume: overriding --{flag}={getattr(args, flag)} with the "
                       f"checkpoint's recorded {trained[flag]!r}")
                 setattr(args, flag, trained[flag])
-    _refuse(args, dev)
+    _refuse(dev)
 
     tiny = bool(int(os.environ.get("SUO_TINY_NET", "0")))  # smoke tests
     net = PkpNet(calc_cov=not args.no_network_cov, norm=args.norm,
@@ -134,10 +149,15 @@ def main(argv=None) -> int:
     with open(os.path.join(outdir, "params.txt"), "w") as f:
         json.dump(vars(args), f, indent=2)
 
-    loader = ConcatLoader(build_datasets(args), args.batch_size, args.truncate_obj,
-                          workers=args.workers)
-    print(f"Training on {loader.total} frames, {len(loader)} steps/epoch "
-          f"({loader.workers} decode thread workers)")
+    loader = build_loader(args, build_datasets(args))
+    try:
+        return _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_train)
+    finally:
+        loader.close()
+
+
+def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_train) -> int:
+    """The epoch loop: training steps, the validation epoch, checkpoints."""
     do_anneal = args.pretrain is None
     step_fn = harness.make_train_step(do_anneal=do_anneal)
     eval_step = harness.make_eval_step(do_anneal=do_anneal)

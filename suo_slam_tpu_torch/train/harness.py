@@ -133,7 +133,8 @@ def forward_loss(net: PkpNet, batch: Batch, epoch, train: bool,
                  dropout_mask: torch.Tensor | None = None):
     """(loss, aux) of one batch: crops, rendered priors, the net (train mode:
     batch statistics over the real object slots, dropout), the annealed
-    objective."""
+    objective (without the covariance head: L2 + the readout's spread, so
+    K2 and K19 carry it and no probability map is formed)."""
     b, o = batch.boxes.shape[:2]
     crops = roi_ops.roi_crop_batch(batch.images, batch.boxes, batch.obj_mask, input_hw)
     crops = crops.reshape((b * o,) + crops.shape[2:])
@@ -147,8 +148,7 @@ def forward_loss(net: PkpNet, batch: Batch, epoch, train: bool,
     uv_gt = batch.uv_gt.reshape(b * o, -1, 2)
     # labeled channels of real (non-padded) object slots only
     kp_mask = (batch.kp_mask & batch.obj_mask[..., None]).reshape(b * o, -1)
-    prob = hm.spatial_softmax(out.prob_logits) if out.cov is None else None
-    return losses.total_loss(out.uv, out.cov, prob, out.kp_mask_logits, uv_gt, kp_mask,
+    return losses.total_loss(out.uv, out.cov, out.spread, out.kp_mask_logits, uv_gt, kp_mask,
                              epoch, do_anneal=do_anneal)
 
 

@@ -2,14 +2,15 @@
 
 Port of `suo_slam_tpu/train/losses.py` (plain torch, as the JAX package
 computes them in `jnp`): every term is a masked mean over the padded [N, K]
-layout, so the batch shape never depends on the labels.
+layout, so the batch shape never depends on the labels. The no-covariance
+loss takes the heatmap's spread per keypoint (`PkpNetOutput.spread`, from
+the readout's covariance) where JAX takes the probability maps and forms
+`heatmap_variance` from them: the same term, without a [N, H, W, K] map.
 """
 
 from __future__ import annotations
 
 import torch
-
-from ..ops import heatmap as hm
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -30,12 +31,13 @@ def mle_loss(uv_pred, uv_gt, cov, mask):
     return _masked_mean(maha, mask), _masked_mean(torch.log(det), mask)
 
 
-def l2_variance_loss(uv_pred, uv_gt, prob, mask):
-    """No-covariance fallback: L2 on uv + heatmap variance minimization."""
+def l2_variance_loss(uv_pred, uv_gt, spread, mask):
+    """No-covariance fallback: L2 on uv + heatmap variance minimization;
+    spread [N, K] is E|p - uv|^2 (`heatmap.readout_spread`, or
+    `heatmap.heatmap_variance` of probability maps)."""
     res = uv_gt - uv_pred
     uv_l = _masked_mean(torch.sum(res * res, -1), mask)
-    var = hm.heatmap_variance(prob, uv_pred)
-    return uv_l, _masked_mean(var, mask)
+    return uv_l, _masked_mean(spread, mask)
 
 
 def bce_with_logits(logits, target):
@@ -43,14 +45,14 @@ def bce_with_logits(logits, target):
     return torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
 
 
-def kp_loss(uv, cov, prob, kp_mask_logits, uv_gt, mask):
+def kp_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask):
     """(uv_loss, var_loss, mask_bce_loss), all scalars. mask [N, K] bool: the
     labeled channels; the BCE trains the validity head against it over ALL
     channels, padded rows included."""
     if cov is not None:
         uv_l, var_l = mle_loss(uv, uv_gt, cov, mask)
     else:
-        uv_l, var_l = l2_variance_loss(uv, uv_gt, prob, mask)
+        uv_l, var_l = l2_variance_loss(uv, uv_gt, spread, mask)
     bce = torch.mean(bce_with_logits(kp_mask_logits, mask.to(kp_mask_logits.dtype)))
     any_valid = torch.sum(mask) > 0
     zero = torch.zeros((), dtype=uv_l.dtype, device=uv_l.device)
@@ -64,10 +66,10 @@ def anneal_weights(epoch, device=None, dtype=torch.float32):
     return torch.sigmoid(e - 5.0), torch.sigmoid(e - 10.0)
 
 
-def total_loss(uv, cov, prob, kp_mask_logits, uv_gt, mask, epoch, do_anneal: bool = True):
+def total_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask, epoch, do_anneal: bool = True):
     """Combined objective uv + 0.5 * var_l * var + mask_l * bce, and its
     terms."""
-    uv_l, var_l, bce_l = kp_loss(uv, cov, prob, kp_mask_logits, uv_gt, mask)
+    uv_l, var_l, bce_l = kp_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask)
     if do_anneal:
         var_w, mask_w = anneal_weights(epoch, uv_l.device, uv_l.dtype)
     else:

@@ -88,9 +88,9 @@ def test_dataset_index_and_samples_match_jax(layout, ignore_symmetry):
 
 
 def test_unported_sampling_raises(layout):
-    """Random priors now draw (the training side is ported); what the
-    training side still refuses names its ROADMAP item: augmentations (A20)
-    and pbr splits, which are JPEG (A22)."""
+    """Random priors draw and augmentations run (the training side is
+    ported); what the training side still refuses names its ROADMAP item:
+    pbr splits, which are JPEG (A22)."""
     dset, root = layout
     _, dt = _datasets(dset, root)
     s = dt.scene_ids()[0]
@@ -98,10 +98,10 @@ def test_unported_sampling_raises(layout):
     r = dt.get_raw(s, v, dt.obj_ids(s, v), p_give_prior=1.0)
     assert r["has_prior"].all() and np.isfinite(r["prior_uvs"]).all()
     kw = dict(bop_dset=dset, kp_config_root=os.path.join(root, "kp_configs"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-        tbop.BopDataset(root, "train_synt", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP A22"):
         tbop.BopDataset(root, "train_pbr", no_aug=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP A22"):
+        tbop.BopDataset(root, "train_pbr", **kw)
 
 
 def test_png_reader_matches_cv2_on_the_fixture(layout):

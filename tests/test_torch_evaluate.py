@@ -73,6 +73,17 @@ def ycbv(tmp_path_factory):
     return str(root)
 
 
+@pytest.fixture(scope="module")
+def ycbv_two_views(tmp_path_factory):
+    """The fixture's scene cut to 2 views: SfM with `nviews=2` runs one
+    keyframe group on it (a quarter of the 4-view scene's work)."""
+    root = tmp_path_factory.mktemp("eval2") / "bop_datasets" / "ycbv"
+    write_synthetic_bop(str(root), n_scenes=1, n_views=2, seed=3, splits=("test",))
+    os.symlink(root / "models_bop-compat", root / "models_bop-compat_eval",
+               target_is_directory=True)
+    return str(root)
+
+
 def _evaluate(module, root, out, nviews, **kw):
     ev = module.Evaluator("ycbv", root, "", nviews=nviews, detection_type="gt",
                           debug_gt_kp=True, no_viz=True,
@@ -296,11 +307,13 @@ def test_vsd_scoring_matches_jax(tmp_path):
     dict(nviews=2), dict(nviews=-1, gt_cam_pose=True), dict(nviews=-1, no_prior_det=True),
     dict(nviews=-1, give_all_prior=True), dict(nviews=1, ref_manual_info=True),
 ])
-def test_other_modes_match_jax(ycbv, tmp_path, kw):
+def test_other_modes_match_jax(request, tmp_path, kw):
     """SfM and the ablation flags, both evaluators with the replayed draws:
     the same method name, camera-pose share and AUCs within 0.1 points.
     (`--give_all_prior` with GT keypoints in both: every object takes the
-    prior path, the cameras come from the backup pose, AUC of ADD(-S) ~65.)"""
+    prior path, the cameras come from the backup pose, AUC of ADD(-S) ~65.)
+    SfM runs on the 2-view scene (`ycbv_two_views`): one keyframe group."""
+    ycbv = request.getfixturevalue("ycbv_two_views" if kw.get("nviews") == 2 else "ycbv")
     common = dict(detection_type="gt", debug_gt_kp=True, no_viz=True,
                   kp_config_root=os.path.join(ycbv, "kp_configs"), **kw)
     ej = jax_evaluate.Evaluator("ycbv", ycbv, "", **common)

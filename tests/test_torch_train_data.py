@@ -5,8 +5,8 @@ priors, `sample_seeded`, `map_by="obj_<id>"`), `collate` and whole
 `ConcatLoader` epochs, in line and with threads — bit-equal, since both
 sides draw from the same numpy streams in the same order. The fixture's
 symmetries are discrete (the discretized continuous ones are f32 rotations
-that agree within 1e-6, `tests/test_torch_bop.py`). Also: each refusal of
-the training path names an item that ROADMAP.md lists.
+that agree within 1e-6, `tests/test_torch_bop.py`). Also: each refusal the
+training path keeps names an item that ROADMAP.md lists.
 """
 
 import os
@@ -104,15 +104,20 @@ def _roadmap_has(item: str) -> bool:
 
 
 def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
+    """What the training path still refuses names its ROADMAP item: pbr
+    splits (A22), VOC backgrounds (A21) and more than one visible card
+    (A15). Augmentations, `--use_cache`, `--loader process` and `-u` train
+    (`tests/test_torch_augmentations.py`, `test_torch_fastload.py`,
+    `test_torch_loader_modes.py`, `test_torch_train_u.py`)."""
+    import torch
+
     from suo_slam_tpu_torch.train import __main__ as cli
 
     kw = dict(bop_dset="ycbv", kp_config_root=os.path.join(root, "kp_configs"))
     msgs = []
-    for fn in (lambda: tbop.BopDataset(root, "train_real", **kw),              # A20
-               lambda: tbop.BopDataset(root, "train_pbr", no_aug=True, **kw)):  # A22
-        with pytest.raises(NotImplementedError) as e:
-            fn()
-        msgs.append(str(e.value))
+    with pytest.raises(NotImplementedError) as e:                              # A22
+        tbop.BopDataset(root, "train_pbr", no_aug=True, **kw)
+    msgs.append(str(e.value))
     bg = tmp_path / "voc"
     bg.mkdir()
     (bg / "0001.png").write_bytes(b"")
@@ -120,11 +125,11 @@ def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError) as e:                              # A21
         tbop.BopDataset(root, "train_synt", no_aug=True, **kw)
     msgs.append(str(e.value))
-    base = ["--device", "cpu", "--data_root", root, "--no_augmentations"]
-    for flags in (["--use_cache"], ["--loader", "process"], ["-u"]):
-        with pytest.raises(SystemExit) as e:                                   # A24 A23 A25
-            cli.main(base + flags)
-        msgs.append(str(e.value))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(SystemExit) as e:                                       # A15
+        cli._refuse(torch.device("cuda"))
+    msgs.append(str(e.value))
+    cli._refuse(torch.device("cpu"))  # the CPU is one device
     items = [re.search(r"ROADMAP (A\d+)", m).group(1) for m in msgs]
-    assert items == ["A20", "A22", "A21", "A24", "A23", "A25"]
+    assert items == ["A22", "A21", "A15"]
     assert all(_roadmap_has(i) for i in items), items

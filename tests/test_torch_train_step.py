@@ -73,6 +73,7 @@ from suo_slam_tpu.train import harness as jh
 from suo_slam_tpu.train import losses as jl
 from suo_slam_tpu_torch.models import convert
 from suo_slam_tpu_torch.models.pkpnet import PkpNet
+from suo_slam_tpu_torch.ops import heatmap as thm
 from suo_slam_tpu_torch.train import harness as th
 from suo_slam_tpu_torch.train import losses as tl
 
@@ -357,7 +358,10 @@ def test_losses_match_jax_value_and_gradient(with_cov):
     (lj, auxj), gj = jax.value_and_grad(jf, argnums=(0, 2, 3), has_aux=True)(
         *(None if x is None else jnp.asarray(x) for x in args))
     ts = [None if x is None else torch.tensor(x, requires_grad=True) for x in args]
-    lt, auxt = tl.total_loss(*ts, torch.from_numpy(uv_gt), torch.from_numpy(mask), EPOCH)
+    # the port's no-covariance loss takes the spread term; from prob here
+    spread = lambda t: t[2] if with_cov else thm.heatmap_variance(t[2], t[0])
+    lt, auxt = tl.total_loss(ts[0], ts[1], spread(ts), ts[3], torch.from_numpy(uv_gt),
+                             torch.from_numpy(mask), EPOCH)
     lt.backward()
     assert abs(float(lt.detach()) - float(lj)) <= 1e-5 * abs(float(lj))
     for k in auxj:
@@ -368,8 +372,8 @@ def test_losses_match_jax_value_and_gradient(with_cov):
         else:
             assert _rel(t.grad.numpy(), np.asarray(g)) <= 1e-5
     empty = torch.zeros(N, K, dtype=torch.bool)  # no labeled channel: every term 0
-    lz, _ = tl.total_loss(*[t.detach() if t is not None else None for t in ts],
-                          torch.from_numpy(uv_gt), empty, EPOCH)
+    td = [t.detach() if t is not None else None for t in ts]
+    lz, _ = tl.total_loss(td[0], td[1], spread(td), td[3], torch.from_numpy(uv_gt), empty, EPOCH)
     assert float(lz) == 0.0
 
 
