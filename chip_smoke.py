@@ -200,7 +200,20 @@ Phases (any failure raises and exits non-zero):
      `Evaluator(nviews=1, no_network_cov=True)`), run 2 `--use_cache`
      (thread mode, 1 epoch x 4 steps), each with its epoch s and sec/it,
      exact launches and no plain version on a CUDA tensor (the kernels line
-     gives run 1's K2 / K19 launches as `launches_u_run`);
+     gives run 1's K2 / K19 launches as `launches_u_run`); then the JPEG
+     splits (`phase_train_jpeg`): `train_synt` (16 480x640 PNG views, depth 0
+     off the objects) and `train_pbr` (the same frames as JPEG q95 4:2:0 from
+     `data/jpeg.py`'s encoder) and a VOC directory of 8 JPEGs (500x375 and
+     375x500, one gray, one with a restart interval); the host ms (one
+     thread, median of 20) of the decoder on a pbr frame, `png.imread` on a
+     `train_real` frame and `resize_linear` 500x375 -> 480x640; the decoder's
+     SHA-256 digests on `jpeg.check_images()` equal to the CPU tests' pins
+     (`cv2.imread`'s bits); the loader over `train_synt` (composited) and
+     `train_pbr` in line, with 4 threads and 4 processes (first batches
+     bit-equal); the CLI on `--data_split real+synt` with the VOC directory
+     and on `--data_split pbr --use_cache`, each 1 epoch x 4 steps + 2
+     validation batches with its epoch s, sec/it, exact launches and no
+     plain version on a CUDA tensor;
  10. the quantized and the GroupNorm nets at full width (2 x 2 x 256, 256x256
      crops, seeded weights): `PkpNet(quant="int8")` in f32 and bf16 from the
      float net's weights, calibrated by `quant.calibrate` on 4 batches of 8
@@ -5310,10 +5323,10 @@ def u_step_kernels(dev, seed, root):
     return out
 
 
-def loader_timing(root, seed, workers=4, epochs=2, copies=6):
-    """Host ms a batch of the training loader over phase 9's `train_real`
-    split concatenated `copies` times (48 480x640 PNG frames, augmentations
-    on, 2 frames a batch, 24 batches an epoch): in line (1 worker),
+def loader_timing(root, seed, workers=4, epochs=2, copies=6, split="train_real"):
+    """Host ms a batch of the training loader over one of phase 9's splits
+    concatenated `copies` times (`train_real`: 48 480x640 PNG frames;
+    augmentations on, 2 frames a batch, 24 batches an epoch): in line (1 worker),
     `workers` threads and `workers` processes, after one warm-up batch (the
     pool's start in process mode, timed apart); the modes' first batches
     bit-equal; the machine's CPU count."""
@@ -5323,7 +5336,7 @@ def loader_timing(root, seed, workers=4, epochs=2, copies=6):
     from suo_slam_tpu_torch.data.loader import ConcatLoader
 
     def make(w, mode):
-        ds = [BopDataset(root, "train_real", bop_dset="ycbv", ignore_symmetry=False,
+        ds = [BopDataset(root, split, bop_dset="ycbv", ignore_symmetry=False,
                          det_type="gt+noise", kp_config_root=os.path.join(root, "kp_configs"),
                          seed=123 + i) for i in range(copies)]
         return ConcatLoader(ds, 2, 16, seed=seed, workers=w, mode=mode)
@@ -5346,7 +5359,7 @@ def loader_timing(root, seed, workers=4, epochs=2, copies=6):
             loader.close()
     cpus = os.cpu_count()
     avail = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else cpus
-    log(f"[train] loader, 480x640 augmented, 2 frames a batch, {out['inline']['batches']} "
+    log(f"[train] loader, {split} x {copies}, 480x640 augmented, 2 frames a batch, {out['inline']['batches']} "
         f"batches a mode, host ms a batch: "
         + json.dumps({k: round(v["ms_per_batch"], 2) for k, v in out.items()})
         + f" (workers {workers}; first batch s "
@@ -5355,7 +5368,8 @@ def loader_timing(root, seed, workers=4, epochs=2, copies=6):
     for label in ("thread", "process"):
         a, b = firsts["inline"], firsts[label]
         if set(a) != set(b) or any(not np.array_equal(a[k], b[k]) for k in a):
-            raise AssertionError(f"loader: the {label} mode's first batch differs from in-line")
+            raise AssertionError(f"loader ({split}): the {label} mode's first batch differs "
+                                 "from in-line")
     return dict(out, cpus=cpus, cpus_available=avail)
 
 
@@ -5499,6 +5513,7 @@ def phase_train(dev, seed):
     plot_cov_run(dev, root, ck, os.path.join(base, "plot_cov"))
     loader_timing(root, seed)
     u_counts = train_cli_more(dev, base, root)
+    phase_train_jpeg(dev, seed, base, root)
     return entries, counts, u_counts
 
 
@@ -5596,6 +5611,169 @@ def train_cli_more(dev, base, root):
         elif not os.path.isfile(cache):
             raise AssertionError(f"--use_cache wrote no {cache}")
     return u_counts
+
+
+SYNT_VIEWS = 16  # train_synt and train_pbr keep every frame
+VOC_IMAGES = 8
+
+
+def _texture(rng, h, w, level, spread=14.0):
+    """A uint8 [h, w, 3] surface: `level` (a colour) plus seeded noise."""
+    return np.clip(np.asarray(level, np.float32) + rng.normal(0, spread, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+def write_jpeg_splits(base, root, objs, rng):
+    """`train_synt` (480x640 PNG frames) and `train_pbr` (the same frames as
+    JPEG, quality 95, 4:2:0, written by `data/jpeg.py`'s encoder) beside
+    `train_real`: SYNT_VIEWS views of 5-8 of the eight objects over textured
+    surroundings, with PNG depth maps that are 0 off the objects (the
+    synthetic splits' background mask); and a VOC directory of VOC_IMAGES
+    JPEGs at 500x375 and 375x500, one gray and one with a restart interval,
+    at `<bop_root>/VOCdevkit/VOC2012/JPEGImages`. Returns the VOC directory
+    and one pbr frame's path."""
+    import os
+
+    from suo_slam_tpu_torch.data import jpeg
+
+    scene = SlamScene(rng, objs, SYNT_VIEWS)
+    dirs = {sp: os.path.join(root, sp, "000000") for sp in ("train_synt", "train_pbr")}
+    for sdir in dirs.values():
+        for d in ("rgb", "depth", "mask_visib"):
+            os.makedirs(os.path.join(sdir, d), exist_ok=True)
+    cams, gts, gt_infos = {}, {}, {}
+    for v in range(SYNT_VIEWS):
+        T, bboxes, _ = scene.frame(v)
+        keep = np.sort(rng.choice(N_OBJ, int(rng.integers(5, N_OBJ + 1)), replace=False))
+        img = _texture(rng, H_IMG, W_IMG, (45, 50, 40))
+        depth = np.zeros((H_IMG, W_IMG), np.uint16)
+        gts[str(v)], gt_infos[str(v)] = [], []
+        for o in keep:
+            x1, y1, x2, y2 = (int(round(c)) for c in bboxes[o])
+            img[y1:y2, x1:x2] = _texture(rng, y2 - y1, x2 - x1,
+                                         (60 + 20 * o, 200 - 15 * o, 90 + 10 * o))
+            depth[y1:y2, x1:x2] = int(T[o, 2, 3])
+            gts[str(v)].append({"obj_id": int(o) + 1,
+                                "cam_R_m2c": T[o, :3, :3].reshape(-1).tolist(),
+                                "cam_t_m2c": T[o, :3, 3].tolist()})
+            x1, y1, x2, y2 = (float(c) for c in bboxes[o])
+            gt_infos[str(v)].append({"bbox_obj": [x1, y1, x2 - x1, y2 - y1],
+                                     "bbox_visib": [x1, y1, x2 - x1, y2 - y1],
+                                     "visib_fract": 1.0, "px_count_visib": 1000})
+        write_png(os.path.join(dirs["train_synt"], "rgb", f"{v:06d}.png"), img)
+        jpeg.imwrite(os.path.join(dirs["train_pbr"], "rgb", f"{v:06d}.jpg"), img, 95, "4:2:0")
+        for sdir in dirs.values():
+            write_png(os.path.join(sdir, "depth", f"{v:06d}.png"), depth)
+        cams[str(v)] = {"cam_K": YCBV_K.reshape(-1).tolist(), "depth_scale": 1.0}
+    for sdir in dirs.values():
+        for name, d in (("scene_camera", cams), ("scene_gt", gts),
+                        ("scene_gt_info", gt_infos)):
+            with open(os.path.join(sdir, f"{name}.json"), "w") as f:
+                json.dump(d, f)
+    voc = os.path.join(base, "bop_datasets", "VOCdevkit", "VOC2012", "JPEGImages")
+    os.makedirs(voc, exist_ok=True)
+    for i in range(VOC_IMAGES):
+        h, w = (375, 500) if i % 2 == 0 else (500, 375)
+        img = _texture(rng, h, w, rng.uniform(60, 200, 3), spread=30.0)
+        if i == 1:
+            img = img[..., 1]
+        jpeg.imwrite(os.path.join(voc, f"2008_{i:06d}.jpg"), img, 90, "4:2:0",
+                     restart_interval=4 if i == 2 else 0)
+    return voc, os.path.join(dirs["train_pbr"], "rgb", "000000.jpg")
+
+
+def _median_ms(fn, n=20):
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def jpeg_timing(root, voc, pbr_frame):
+    """Host ms on the host CPU, one thread, median of 20: the
+    decoder on a 640x480 q95 4:2:0 pbr frame, `png.imread` on a 480x640
+    `train_real` frame, `resize_linear` 500x375 -> 480x640 (a VOC
+    background); then the decoder's SHA-256 digests on `jpeg.check_images()`
+    against the ones the CPU tests pin (and tie to `cv2.imread`)."""
+    import os
+
+    from suo_slam_tpu_torch.data import augmentations, jpeg, png
+
+    data = open(pbr_frame, "rb").read()
+    real = os.path.join(root, "train_real", "000000", "rgb", "000000.png")
+    bg = jpeg.imread(os.path.join(voc, "2008_000000.jpg"))
+    out = dict(jpeg_decode_ms=_median_ms(lambda: jpeg.decode(data)),
+               png_imread_ms=_median_ms(lambda: png.imread(real)),
+               resize_linear_ms=_median_ms(lambda: augmentations.resize_linear(bg, (640, 480))),
+               pbr_frame_bytes=len(data), bg_shape=list(bg.shape))
+    log(f"[train] host ms, one thread, median of 20: " + json.dumps(
+        {k: round(v, 3) if isinstance(v, float) else v for k, v in out.items()}))
+    got = jpeg.check_digests()
+    log(f"[train] JPEG decoder digests (this checkout's g++ build): {json.dumps(got)}")
+    if got != jpeg.CHECK_SHA256:
+        raise AssertionError(f"JPEG decoder digests {got} differ from the CPU tests' pins "
+                             f"{jpeg.CHECK_SHA256}")
+    log("[train] JPEG decoder digests equal the CPU tests' pins (cv2.imread's bits)")
+    return out
+
+
+def train_cli_jpeg(dev, base, root):
+    """The training CLI at full width, bf16, augmentations on, 1 epoch x 4
+    steps + 2 validation batches: (1) `--data_split real+synt` with the VOC
+    directory present (train_synt composited), (2) `--data_split pbr
+    --use_cache` (the cache packed from the JPEG frames). Each: epoch s,
+    sec/it, exact launches and no plain version on a CUDA tensor."""
+    import os
+    import shutil
+
+    common = ["--device", dev.type, "--dataset", "ycbv", "--epochs", "1", "--steps_per_epoch",
+              "4", "--val_steps", "2", "--data_root", root,
+              "--kp_config_root", os.path.join(root, "kp_configs")]
+    runs = [("real+synt, VOC present", ["--data_split", "real+synt"]),
+            ("pbr, cache", ["--data_split", "pbr", "--use_cache"])]
+    cache = os.path.join(root, "train_pbr.suocache")
+    if os.path.exists(cache):
+        os.remove(cache)
+    for i, (label, flags) in enumerate(runs):
+        work = os.path.join(base, f"train_cli_jpeg_{i + 1}")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        rc, text, wall, counts, hits, stamps = _cli_run(common + flags, work)
+        with open(os.path.join(work, "cli.log"), "w") as f:
+            f.write(text)
+        want = _want_launches(4, 2)
+        got = {k: counts[k] for k in want}
+        log(f"[train] CLI ({label}), augmentations on, 1 epoch x 4 steps + 2 val batches, "
+            f"full width bf16: rc {rc}, {wall:.2f} s; epoch s, sec/it, s between steps "
+            f"{_epoch_stats(text, stamps)}; launches {json.dumps(got)} (want "
+            f"{json.dumps(want)}); plain versions on CUDA tensors {json.dumps(hits)}")
+        for line in text.splitlines():
+            if line.startswith(("Epoch", "Training on", "Native cache", "Packing", "WARNING")):
+                log(f"[train]   {line.strip()}")
+        if rc != 0 or got != want or hits or len(_epoch_stats(text)[0]) != 1 \
+                or "WARNING: no background images" in text:
+            raise AssertionError(f"training CLI ({label}): rc {rc}, launches {got} (want "
+                                 f"{want}), plain on CUDA {hits}:\n{text[-3000:]}")
+    if not os.path.isfile(cache):
+        raise AssertionError(f"--use_cache wrote no {cache}")
+
+
+def phase_train_jpeg(dev, seed, base, root):
+    """Phase 9's JPEG part: the synthetic and pbr splits and VOC written by
+    the port's encoder, the decoder's and resize's host ms, the digests, the
+    loader on each split in its three modes, two CLI runs."""
+    t0 = time.perf_counter()
+    voc, pbr_frame = write_jpeg_splits(base, root, EvalObjects(np.random.default_rng(seed + 2)),
+                                       np.random.default_rng(seed + 20))
+    log(f"[train] train_synt and train_pbr ({SYNT_VIEWS} views each) and {VOC_IMAGES} VOC "
+        f"JPEGs written in {time.perf_counter() - t0:.2f} s")
+    jpeg_timing(root, voc, pbr_frame)
+    for split in ("train_synt", "train_pbr"):
+        loader_timing(root, seed, epochs=1, copies=3, split=split)
+    train_cli_jpeg(dev, base, root)
+    log(f"[train] JPEG part of phase 9: {time.perf_counter() - t0:.1f} s")
 
 
 # quantized and GroupNorm nets -------------------------------------------------------

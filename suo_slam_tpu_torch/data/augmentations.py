@@ -15,6 +15,10 @@ call it replaces, as OpenCV 5.0 and Pillow 12.1 run it:
   `warp_affine_nearest` (the depth map) rounds the same coordinates half to
   even. (OpenCV 5.0 computes in f32; the fixed-point remap of OpenCV 4 is
   gone.)
+- `resize_linear` is `cv2.resize(img, (w, h))` (INTER_LINEAR) on uint8:
+  f32 offsets, integer taps at 2^11, the vertical pass as OpenCV's SIMD
+  path computes it; an exact 2x downscale is its INTER_AREA (the VOC
+  background compositing).
 - `blend` is `Image.blend`: in1 + alpha * (in2 - in1) in f32, truncated,
   clipped first where alpha lies outside [0, 1].
 - `luma` is Pillow's RGB -> L: (19595 R + 38470 G + 7471 B + 2^15) >> 16.
@@ -136,6 +140,48 @@ def warp_affine_nearest(img: np.ndarray, A) -> np.ndarray:
     out = np.zeros_like(img)
     out[inside] = img[sy[inside], sx[inside]]
     return out
+
+
+def _linear_taps(dst: int, src: int, clamp_weight: bool):
+    """OpenCV's INTER_LINEAR taps along one axis: (i0, i1, w0, w1), the
+    weights at 2^11 from the f32 offset (d + 0.5) * scale - 0.5, rounded
+    half to even. The columns clamp the offset and its weight at the ends
+    (`clamp_weight`); the rows clamp only the two row indices."""
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(_F32)
+    i0 = np.floor(f).astype(np.int64)
+    f = np.subtract(f, i0.astype(_F32), dtype=_F32)
+    if clamp_weight:
+        lo, hi = i0 < 0, i0 >= src - 1
+        f[lo | hi] = 0
+        i0 = np.where(lo, 0, np.where(hi, src - 1, i0))
+    w1 = np.rint(f * _F32(2048)).astype(np.int32)
+    w0 = np.rint(np.subtract(_F32(1), f, dtype=_F32) * _F32(2048)).astype(np.int32)
+    return np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1), w0, w1
+
+
+def resize_linear(img: np.ndarray, dsize) -> np.ndarray:
+    """`cv2.resize(img, (w, h))` (INTER_LINEAR) of a uint8 [H, W, C] or
+    [H, W] image, bit for bit as OpenCV 5.0 computes it: horizontal taps in
+    integers at 2^11; the vertical pass as its SIMD path on every column,
+    ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16) saturated to int16, then
+    (v + 2) >> 2 saturated to uint8. An exact 2x downscale is OpenCV's
+    INTER_AREA there: (a + b + c + d + 2) >> 2 of each 2x2 block."""
+    w, h = int(dsize[0]), int(dsize[1])
+    src = img.reshape(img.shape[0], img.shape[1], -1)
+    H, W, C = src.shape
+    if W == 2 * w and H == 2 * h:
+        s = src.astype(np.int32).reshape(h, 2, w, 2, C).sum((1, 3))
+        return ((s + 2) >> 2).astype(np.uint8).reshape((h, w) + img.shape[2:])
+    x0, x1, a0, a1 = _linear_taps(w, W, True)
+    y0, y1, b0, b1 = _linear_taps(h, H, False)
+    s = src.astype(np.int32)
+    hz = (s[:, x0] * a0[None, :, None] + s[:, x1] * a1[None, :, None]).reshape(H, w * C)
+    hz >>= 4  # at most 255 * 2^11 >> 4 < 2^15: the int16 pack saturates nothing
+    v = ((hz[y0] * b0[:, None]) >> 16) + ((hz[y1] * b1[:, None]) >> 16)
+    np.clip(v, -32768, 32767, out=v)
+    v += 2
+    v >>= 2
+    return np.clip(v, 0, 255).astype(np.uint8).reshape((h, w) + img.shape[2:])
 
 
 # --------------------------------------------------------------- Pillow ---

@@ -7,21 +7,25 @@ contract: BOP scene dirs with `scene_camera.json` / `scene_gt.json` /
 `kp_configs/<dset>_kp_config.csv`, YCB-V `keyframe.txt`, T-LESS
 `all_target_tless.json`. Keypoints live in fixed [41, 3] vocabulary-layout
 arrays with a channel mask built once at init; `get_raw` projects them
-vectorized over the vocabulary. Images are read by `data/png.py` (the JAX
-package uses OpenCV).
+vectorized over the vocabulary. Images are read by `data/png.py` and
+`data/jpeg.py`, chosen by the file's signature (the JAX package uses
+OpenCV); pbr splits read `rgb/*.jpg`.
 
 Training samples draw, from a per-thread numpy `Generator`, in the JAX
-package's order: the `gt+noise` box jitter, then per object the
+package's order: on synthetic splits and T-LESS `train_primesense`, the VOC
+background composite (`SUO_BG_IMAGES_DIR` or
+`<bop_root>/VOCdevkit/VOC2012/JPEGImages`: primesense's 0-2 occluder
+sources, then the background's index; the background resized by
+`augmentations.resize_linear` and written over the pixels off the objects),
+the `gt+noise` box jitter, primesense's occluder pastes, then per object the
 augmentation stack (`data/augmentations.py`: the scale-and-rotate warp,
 which also moves K, the boxes and the depth map that `mask_occluded`
 reads, then the blur and Pillow's enhancers), then per object the
 give-prior coin, the random symmetry of a prior object and its noisy pose.
 numpy's streams are the same on both sides, so the same seed gives
-bit-equal samples (`sample_seeded`, the loader's per-item seeds). What the
-card's machine cannot read is refused, naming its ROADMAP item: VOC
-background compositing (A21, when background images are found; without any
-the JAX package trains on with a warning, and so does this), pbr splits
-(JPEG: A22).
+bit-equal samples (`sample_seeded`, the loader's per-item seeds). Without
+background images on disk both packages train the synthetic splits on with
+a warning.
 
 Units follow BOP: translations and keypoints in mm.
 """
@@ -39,14 +43,23 @@ import numpy as np
 from ..core.symmetry import build_symmetry_stack
 from ..kp import config as kp_config
 from . import augmentations as aug
-from . import png
+from . import jpeg, png
 
 IMAGE_SIZE = (256, 256)
 MIN_BOX_WH = 10.0
 
 
 def _imread(path, flags=png.IMREAD_COLOR):
-    img = png.imread(path, flags)
+    """`cv2.imread(path, flags)` of a PNG or JPEG file, chosen by its
+    signature."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if jpeg.is_jpeg(data):
+        img = jpeg.decode(data, flags, name=str(path))
+    elif png.is_png(data):
+        img = png.imdecode(data, flags)
+    else:
+        raise ValueError(f"{path}: neither a JPEG nor a PNG file")
     assert img.size > 0, f"Empty image {path}"
     return img
 
@@ -94,10 +107,6 @@ class BopDataset:
     ):
         assert bop_dset in ("ycbv", "tless")
         assert det_type in ("gt", "gt+noise")
-        if "pbr" in split:
-            raise NotImplementedError(
-                f"split {split!r}: pbr frames are JPEG, and the port reads PNG only "
-                "(ROADMAP A22)")
         self.no_aug = no_aug or "train" not in split
         self.augs = [] if self.no_aug else aug.default_train_augs()
         self.data_root = data_root
@@ -119,7 +128,9 @@ class BopDataset:
         self.kp_cfg = kp_config.load_kp_config(bop_dset, kp_config_root)
         self._load_labeled_kp()
         self._load_symmetries()
-        self._refuse_backgrounds()
+        self.bg_image_files = self._background_files()
+        if "pbr" in split or self.bg_image_files:
+            jpeg.load_library()  # built here, before any loader process starts
         self._index_scenes()
 
     @property
@@ -141,23 +152,29 @@ class BopDataset:
         self._tls = threading.local()
         self._thread_counter = itertools.count()
 
-    def _refuse_backgrounds(self) -> None:
-        """Synthetic splits (and T-LESS primesense) composite VOC backgrounds
-        in the JAX package; with none on disk it trains on without them."""
-        if not ("synt" in self.split
-                or (self.bop_dset == "tless" and self.split == "train_primesense")):
-            return
+    def _should_load_bg_images(self) -> bool:
+        """Synthetic splits and T-LESS primesense composite backgrounds."""
+        return "synt" in self.split or (
+            self.bop_dset == "tless" and self.split == "train_primesense")
+
+    def _background_files(self) -> list[str]:
+        """The sorted VOC background list (empty, with a warning, when none
+        is on disk)."""
+        if not self._should_load_bg_images():
+            return []
         bop_root = os.path.realpath(os.path.join(self.data_root, ".."))
         bg_dir = os.environ.get("SUO_BG_IMAGES_DIR",
                                 os.path.join(bop_root, "VOCdevkit/VOC2012/JPEGImages"))
-        exts = (".jpg", ".jpeg", ".JPEG", ".png")
-        if os.path.isdir(bg_dir) and any(f.endswith(exts) for f in os.listdir(bg_dir)):
-            raise NotImplementedError(
-                f"background images found under {bg_dir}: VOC compositing is not ported "
-                "(ROADMAP A21)")
-        print(f"WARNING: no background images under {bg_dir} — training synthetic splits "
-              "without VOC compositing (download VOCtrainval_11-May-2012.tar or set "
-              "SUO_BG_IMAGES_DIR).")
+        files = []
+        if os.path.isdir(bg_dir):
+            exts = (".jpg", ".jpeg", ".JPEG", ".png")
+            files = [os.path.join(bg_dir, f) for f in sorted(os.listdir(bg_dir))
+                     if f.endswith(exts)]
+        if not files:
+            print(f"WARNING: no background images under {bg_dir} — training synthetic "
+                  "splits without VOC compositing (download VOCtrainval_11-May-2012.tar "
+                  "or set SUO_BG_IMAGES_DIR).")
+        return files
 
     # ---------------------------------------------------------------- init --
     @property
@@ -349,7 +366,8 @@ class BopDataset:
 
     # ------------------------------------------------------------------- IO --
     def read_img(self, scene_id, view_id):
-        path = os.path.join(self.curr_root, f"{scene_id:06d}", "rgb", f"{view_id:06d}.png")
+        ext = ".jpg" if "pbr" in self.split else ".png"
+        path = os.path.join(self.curr_root, f"{scene_id:06d}", "rgb", f"{view_id:06d}{ext}")
         img = _imread(path)
         assert img.dtype == np.uint8
         return img
@@ -362,6 +380,30 @@ class BopDataset:
     def read_mask(self, scene_id, view_id, obj_id):
         path = self.data[scene_id][view_id].objects[obj_id].mask_path
         return np.squeeze(_imread(path, png.IMREAD_GRAYSCALE))
+
+    def _composite(self, scene_id, view_id, obj_ids, img, depth):
+        """A random background over the pixels off the objects, on a copy of
+        img: synthetic splits mask by depth == 0; T-LESS primesense by the
+        object's mask, and draws 0-2 occluder crops for `get_raw` to paste.
+        -> (img, [(crop [h, w, 3], mask [h, w] bool)])"""
+        img = np.ascontiguousarray(img).copy()
+        paste_imgs = []
+        if self.bop_dset == "tless" and self.split == "train_primesense":
+            assert len(obj_ids) == 1
+            bg_mask = self.read_mask(scene_id, view_id, obj_ids[0]) != 255
+            for _ in range(int(self.rng.integers(0, 3))):
+                s_p, v_p, o_p = self.object_index[int(self.rng.integers(len(self.object_index)))]
+                img_p = self.read_img(s_p, v_p)
+                mask_p = self.read_mask(s_p, v_p, o_p)
+                x, y, w, h = (int(v) for v in self.data[s_p][v_p].objects[o_p].bbox_xywh)
+                paste_imgs.append((img_p[y:y + h, x:x + w], mask_p[y:y + h, x:x + w] == 255))
+        else:
+            d = depth if depth is not None else self.read_depth(scene_id, view_id)
+            bg_mask = d == 0
+        bg_path = self.bg_image_files[int(self.rng.integers(len(self.bg_image_files)))]
+        bg = aug.resize_linear(_imread(bg_path), img.shape[:2][::-1])
+        img[bg_mask] = bg[bg_mask]
+        return img, paste_imgs
 
     # ------------------------------------------------------------- sampling --
     def pick_symmetry_transform(self, obj_idx: int, T_OtoC: np.ndarray, random: bool = False):
@@ -394,7 +436,8 @@ class BopDataset:
         NDC-fixed K; kp_uvs [O,41,2]; kp_masks [O,41]; model_kps [O,41,3];
         kp_model_masks [O,41]; prior_uvs [O,41,2] (a noisy projection where
         the p_give_prior coin fell, NDC of the box); has_prior [O].
-        img / depth: an optional pre-decoded BGR uint8 frame / mm depth map.
+        img / depth: an optional pre-decoded BGR uint8 frame / mm depth map
+        (the frame cache's, never written: the composite works on a copy).
         """
         if img is None:
             img = self.read_img(scene_id, view_id)
@@ -402,6 +445,10 @@ class BopDataset:
         K = frame.K.copy()
         if self.mask_occluded and depth is None:
             depth = self.read_depth(scene_id, view_id)
+
+        paste_imgs = []
+        if self.bg_image_files:
+            img, paste_imgs = self._composite(scene_id, view_id, obj_ids, img, depth)
 
         O = len(obj_ids)
         nk = kp_config.num_kp()
@@ -413,6 +460,18 @@ class BopDataset:
             x, y, w, h = xywh
             w, h = max(MIN_BOX_WH, w), max(MIN_BOX_WH, h)
             bboxes[i] = (x, y, x + w, y + h)
+
+        # occluders pasted near a random detection
+        for img_p, mask_p in paste_imgs:
+            ph, pw = img_p.shape[:2]
+            if ph == 0 or pw == 0 or ph > img.shape[0] or pw > img.shape[1]:
+                continue
+            x1, y1, x2, y2 = bboxes[int(self.rng.integers(len(bboxes)))].astype(int)
+            px = min(max(0, int(self.rng.integers(x1 - pw, max(x1 - pw + 1, x2)))),
+                     img.shape[1] - pw)
+            py = min(max(0, int(self.rng.integers(y1 - ph, max(y1 - ph + 1, y2)))),
+                     img.shape[0] - ph)
+            img[py:py + ph, px:px + pw][mask_p] = img_p[mask_p]
 
         # the warp moves K, the boxes and the depth map the occlusion test reads
         img, depth, bboxes, K = aug.apply_augs(self.augs, self.rng, img, depth, bboxes, K)

@@ -2,11 +2,11 @@
 batch gatherer (`--use_cache`).
 
 Port of `suo_slam_tpu/data/fastload.py`. BOP frames are decoded once (PNG,
-by `data/png.py`) into a flat mmap-able cache whose bytes equal the JAX
-package's; at train time the native library (`native/fastload.cpp`, built
-with g++ at first use into `build/suo_native/`; a failed build raises)
-copies shuffled batches out of it on a thread pool, with readahead for the
-next batch. The label math (symmetry pick, projection, augmentation) stays
+or a pbr split's JPEG, by `BopDataset.read_img`) into a flat mmap-able
+cache whose bytes equal the JAX package's; at train time the native
+library (`native/fastload.cpp`, built with g++ at first use into
+`build/suo_native/`; a failed build raises) copies shuffled batches out of
+it on a thread pool, with readahead for the next batch. The label math (symmetry pick, projection, augmentation) stays
 in `BopDataset.get_raw`, fed the decoded frame, so a sample is what the
 decoding path gives for the same draws.
 
@@ -20,12 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
+from . import native
 from .bop import collate
 
 _MAGIC = b"SUOC"
@@ -36,28 +36,18 @@ _HEADER = np.dtype([
     ("record_bytes", "<u8"),
 ])
 
-SOURCE = Path(__file__).resolve().parents[1] / "native" / "fastload.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "suo_native"
+SOURCE = native.NATIVE_DIR / "fastload.cpp"
+BUILD_DIR = native.BUILD_DIR
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
 def build_library() -> Path:
-    """Compile `SOURCE` with g++ into `BUILD_DIR` (again when the source is
-    newer than the library); a failed build raises RuntimeError with the
-    compiler's output."""
-    so = BUILD_DIR / "libfastload.so"
-    if not so.exists() or so.stat().st_mtime < SOURCE.stat().st_mtime:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"libfastload.so.{os.getpid()}.tmp"
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", str(SOURCE),
-               "-o", str(tmp)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"fastload build failed ({' '.join(cmd)}):\n{r.stderr}")
-        os.replace(tmp, so)  # atomic: a concurrent build or load sees one library
-    return so
+    """`BUILD_DIR/libfastload.so`, compiled from `SOURCE` by
+    `data/native.py` when missing or stale; a failed build raises
+    RuntimeError with the compiler's output."""
+    return native.build_library(SOURCE, BUILD_DIR)
 
 
 def _load_lib():

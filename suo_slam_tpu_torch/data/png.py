@@ -147,11 +147,14 @@ def imwrite(path: str, img: np.ndarray) -> None:
         f.write(encode(img[..., ::-1] if img.ndim == 3 else img))
 
 
-def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
-    """Read a PNG file as `cv2.imread(path, flags)` returns it (see the
-    module docstring for the reads supported)."""
-    with open(path, "rb") as f:
-        img = decode(f.read())
+def is_png(data: bytes) -> bool:
+    return data[:8] == _SIGNATURE
+
+
+def imdecode(data: bytes, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """PNG bytes as `cv2.imdecode(data, flags)` returns them (see the module
+    docstring for the reads supported)."""
+    img = decode(data)
     if flags == IMREAD_COLOR and img.ndim == 3 and img.dtype == np.uint8:
         return np.ascontiguousarray(img[..., ::-1])
     if img.ndim == 2 and (flags == IMREAD_ANYDEPTH
@@ -159,3 +162,10 @@ def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
         return img
     raise ValueError(f"PNG: flags {flags} on a {'gray' if img.ndim == 2 else 'colour'} "
                      f"{img.dtype} image are not supported")
+
+
+def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """Read a PNG file as `cv2.imread(path, flags)` returns it (see the
+    module docstring for the reads supported)."""
+    with open(path, "rb") as f:
+        return imdecode(f.read(), flags)

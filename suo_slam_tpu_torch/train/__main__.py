@@ -20,9 +20,12 @@ unless `--no_augmentations`. `-u` / `--no_network_cov` trains the L2 +
 heatmap-variance loss, whose spread term the readout (K2, K19 backward)
 gives without a probability map.
 
-Refused, naming the ROADMAP item: more than one visible card (A15); the
-datasets refuse VOC backgrounds (A21) and pbr splits (A22). The per-epoch
-prediction dump is A11: one line says so.
+The default splits train as the JAX CLI's do: YCB-V `real+synt` composites
+VOC backgrounds over `train_synt`, T-LESS `primesense` composites them and
+pastes occluders, and `pbr` reads JPEG frames (`data/bop.py`,
+`data/jpeg.py`); `--use_cache` packs any of them. Refused, naming the
+ROADMAP item: more than one visible card (A15). The per-epoch prediction
+dump is A11: one line says so.
 
     SUO_TINY_NET=1 python -m suo_slam_tpu_torch.train --device cpu \\
         --dataset ycbv --data_split real --epochs 2 [--loader process] [-u] ...

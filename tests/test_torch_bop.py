@@ -27,6 +27,7 @@ from suo_slam_tpu_torch.data import bop as tbop
 from suo_slam_tpu_torch.data import mesh as tmesh
 from suo_slam_tpu_torch.data import png
 from suo_slam_tpu_torch.eval import detections as tdet
+from tests.helpers.jpeg_bop import write_pbr_split
 from tests.helpers.synthetic_bop import write_synthetic_bop
 
 SPLITS = {"ycbv": "test", "tless": "test_primesense"}
@@ -89,19 +90,24 @@ def test_dataset_index_and_samples_match_jax(layout, ignore_symmetry):
 
 def test_unported_sampling_raises(layout):
     """Random priors draw and augmentations run (the training side is
-    ported); what the training side still refuses names its ROADMAP item:
-    pbr splits, which are JPEG (A22)."""
+    ported), and pbr splits, whose frames are JPEG, are read (A22, no longer
+    refused): the same samples as the JAX package's."""
     dset, root = layout
     _, dt = _datasets(dset, root)
     s = dt.scene_ids()[0]
     v = dt.view_ids(s)[0]
     r = dt.get_raw(s, v, dt.obj_ids(s, v), p_give_prior=1.0)
     assert r["has_prior"].all() and np.isfinite(r["prior_uvs"]).all()
-    kw = dict(bop_dset=dset, kp_config_root=os.path.join(root, "kp_configs"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A22"):
-        tbop.BopDataset(root, "train_pbr", no_aug=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A22"):
-        tbop.BopDataset(root, "train_pbr", **kw)
+    if not os.path.isdir(os.path.join(root, "train_pbr")):
+        write_pbr_split(root, SPLITS[dset])
+    kw = dict(bop_dset=dset, kp_config_root=os.path.join(root, "kp_configs"), seed=3,
+              ignore_symmetry=True)  # the continuous symmetries: see the module docstring
+    dj, dt = jbop.BopDataset(root, "train_pbr", **kw), tbop.BopDataset(root, "train_pbr", **kw)
+    assert dt.augs and len(dt) == len(dj) > 0
+    for i in range(len(dt)):
+        a, b = dj.sample_seeded(i, i), dt.sample_seeded(i, i)
+        for k in a:
+            assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
 
 
 def test_png_reader_matches_cv2_on_the_fixture(layout):

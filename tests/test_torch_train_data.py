@@ -6,7 +6,8 @@ priors, `sample_seeded`, `map_by="obj_<id>"`), `collate` and whole
 sides draw from the same numpy streams in the same order. The fixture's
 symmetries are discrete (the discretized continuous ones are f32 rotations
 that agree within 1e-6, `tests/test_torch_bop.py`). Also: each refusal the
-training path keeps names an item that ROADMAP.md lists.
+training path keeps names an item that ROADMAP.md lists, and pbr splits and
+VOC backgrounds are no longer refused.
 """
 
 import os
@@ -20,6 +21,7 @@ from suo_slam_tpu.data import bop as jbop
 from suo_slam_tpu.data.loader import ConcatLoader as JaxLoader
 from suo_slam_tpu_torch.data import bop as tbop
 from suo_slam_tpu_torch.data.loader import ConcatLoader
+from tests.helpers.jpeg_bop import write_pbr_split, write_voc
 from tests.helpers.synthetic_bop import write_synthetic_bop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,9 +106,10 @@ def _roadmap_has(item: str) -> bool:
 
 
 def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
-    """What the training path still refuses names its ROADMAP item: pbr
-    splits (A22), VOC backgrounds (A21) and more than one visible card
-    (A15). Augmentations, `--use_cache`, `--loader process` and `-u` train
+    """What the training path still refuses names its ROADMAP item: more
+    than one visible card (A15). pbr splits (A22) and VOC backgrounds (A21)
+    are read now (`tests/test_torch_bg_compositing.py`). Augmentations,
+    `--use_cache`, `--loader process` and `-u` train
     (`tests/test_torch_augmentations.py`, `test_torch_fastload.py`,
     `test_torch_loader_modes.py`, `test_torch_train_u.py`)."""
     import torch
@@ -114,22 +117,21 @@ def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
     from suo_slam_tpu_torch.train import __main__ as cli
 
     kw = dict(bop_dset="ycbv", kp_config_root=os.path.join(root, "kp_configs"))
+    if not os.path.isdir(os.path.join(root, "train_pbr")):
+        write_pbr_split(root, "train_real")
+    assert len(tbop.BopDataset(root, "train_pbr", no_aug=True, **kw)) == 20      # A22
+    bg = write_voc(str(tmp_path), n=1)
+    monkeypatch.setenv("SUO_BG_IMAGES_DIR", bg)
+    synt = tbop.BopDataset(root, "train_real", no_aug=True, **kw)
+    assert synt.bg_image_files == []  # real frames take no background
+    monkeypatch.setattr(tbop.BopDataset, "_should_load_bg_images", lambda self: True)
+    assert len(tbop.BopDataset(root, "train_real", no_aug=True, **kw).bg_image_files) == 1
     msgs = []
-    with pytest.raises(NotImplementedError) as e:                              # A22
-        tbop.BopDataset(root, "train_pbr", no_aug=True, **kw)
-    msgs.append(str(e.value))
-    bg = tmp_path / "voc"
-    bg.mkdir()
-    (bg / "0001.png").write_bytes(b"")
-    monkeypatch.setenv("SUO_BG_IMAGES_DIR", str(bg))
-    with pytest.raises(NotImplementedError) as e:                              # A21
-        tbop.BopDataset(root, "train_synt", no_aug=True, **kw)
-    msgs.append(str(e.value))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(SystemExit) as e:                                       # A15
         cli._refuse(torch.device("cuda"))
     msgs.append(str(e.value))
     cli._refuse(torch.device("cpu"))  # the CPU is one device
     items = [re.search(r"ROADMAP (A\d+)", m).group(1) for m in msgs]
-    assert items == ["A22", "A21", "A15"]
+    assert items == ["A15"]
     assert all(_roadmap_has(i) for i in items), items
