@@ -124,7 +124,16 @@ Phases (any failure raises and exits non-zero):
      bf16 net (seeded random weights, passed as `net=`) must run to its end
      and write summary.txt and the BOP CSV. Per-view latency and the K8-K10
      counts of the phase; each leg launches K10 once (one meter call per
-     scored scene);
+     scored scene). Then the visualization leg: `Evaluator(nviews=-1)` with
+     the full-width bf16 net (its calls guided to the ground truth by
+     `GtGuided`, so objects initialise and priors appear), viz on with
+     `viz_cov`, `do_viz_extra` and `show_viz`: one PNG per view, (480, 1920,
+     3) where the view has a prior and (480, 1280, 3) otherwise, each
+     object's input / output (/ overlay where posed) panels, the last view's
+     frame equal to `eval.viz.make_frame_viz` redrawn from the engine's
+     `get_view_viz_data`, the no-display line printed once; the same leg
+     with `no_viz=True` in turns (median view ms of each) and `_write_viz`'s
+     host ms per frame, drawing apart from PNG encoding and writing;
   8. int8 serving: the full-width net's s8-resident program
      (`models/int8_forward.py`) calibrated on the card; K11 (every distinct
      convolution shape of the forward, with its real codes and its route —
@@ -185,10 +194,16 @@ Phases (any failure raises and exits non-zero):
      steps overfitting one batch
      (the loss falls); `python -m suo_slam_tpu_torch.train` in process, full
      width and bf16, 2 epochs x 4 steps + 2 validation batches, its exact
-     launches, no plain version on a CUDA tensor, its checkpoints, and a
-     second run that auto-resumes at epoch 2; the trained checkpoint through
+     launches (each epoch's two prediction dumps add a crop and a
+     prior-free forward: K1, K8, K9, K2), no plain version on a CUDA tensor,
+     its checkpoints, and a second run that auto-resumes at epoch 2; the
+     dumps `viz_{train,test}_epoch_{0,1,2}/sample.png` (480 x 1280) and
+     `viz_best` (one epoch's test dump); the trained checkpoint through
      `Evaluator(nviews=1)` and `python -m suo_slam_tpu_torch.plot_cov` (both
-     files, K1 and K2 launched); the -u step (no covariance head: L2 + the
+     files, K1 and K2 launched); the YCB-V paper sweep
+     (`suo_slam_tpu_torch/scripts/eval_all_ycbv.sh`, a subprocess, its 5
+     runs with viz on) on phase 7's tree with the trained `model_best`:
+     table.txt's 5 blocks and its seconds; the -u step (no covariance head: L2 + the
      readout's spread) with the kernels against its plain run under
      `STEP_GATES` in f32 and bf16, and the bf16 -u step beside the
      covariance step (host / device ms, kernels, K2 and K19 once a step, no
@@ -240,7 +255,8 @@ Phases (any failure raises and exits non-zero):
      per step and the layout of the dy K21 receives (`--step-only --norm
      group` runs this alone); `python -m
      suo_slam_tpu_torch.train --norm group` in process, 1 epoch x 4 steps + 2
-     validation batches at phase 9's defaults, its exact launches and no plain
+     validation batches at phase 9's defaults, its exact launches (the two
+     prediction dumps' forwards included) and no plain
      version on a CUDA tensor; its checkpoint through `Evaluator(nviews=1)`;
  11. throughput evaluation: a BOP tree of 4 scenes x 16 views x 8 objects
      (480x640, the full-width net), every network call wrapped by
@@ -3673,7 +3689,149 @@ def phase_evaluate(dev, seed, net16):
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the evaluation path: {missing}, or "
                              f"K3 / K4 / K7 / K22 / K13 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
+    eval_viz_legs(dev, root, base, net16)
     return counts
+
+
+NO_DISPLAY_LINE = "[evaluate] --show_viz: no display server; disabled"
+VIZ_CHECK_VIEW = EVAL_VIEWS - 1  # the view whose written frame is redrawn and compared
+
+
+def _viz_leg(dev, root, base, net16, guide, no_viz, label):
+    """One SLAM sweep of phase 7's tree with the full-width bf16 net under
+    `guide`: with visualization (viz_cov, do_viz_extra, show_viz) or
+    without. Returns (Evaluator, output, per-view s, launches, per-view
+    expectations {j: (frame shape, {obj: has a pose})}, detections with
+    ellipses in the redrawn view)."""
+    import io
+    import os
+    import shutil
+
+    import torch
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.data import png
+    from suo_slam_tpu_torch.eval import viz as tviz
+    from suo_slam_tpu_torch.evaluate import Evaluator
+
+    buf = io.StringIO()
+    starts, expect, n_cov = [], {}, []
+    kernels.reset_counts()
+    with guide.installed(), contextlib.redirect_stdout(buf):
+        ev = Evaluator("ycbv", root, "", nviews=-1, detection_type="gt", net=net16,
+                       no_viz=no_viz, viz_cov=True, do_viz_extra=True, show_viz=not no_viz,
+                       kp_config_root=os.path.join(root, "kp_configs"), device=dev)
+        ev.model_path = os.path.join(base, "results_viz", label)
+        shutil.rmtree(ev.model_path, ignore_errors=True)
+        run_slam, write_viz = ev._run_slam, ev._write_viz
+
+        def timed(*a, **kw):
+            starts.append(time.perf_counter())
+            return run_slam(*a, **kw)
+
+        def checked(outdir, scene_id, j, view_id, results):
+            write_viz(outdir, scene_id, j, view_id, results)
+            eng = ev.object_slam
+            view = eng.view_ids[-1] if eng.view_ids else view_id
+            dets = eng.get_view_viz_data(view)
+            poses = {o: r["T_OtoC"] for o, r in results.get(view, {}).get("poses", {}).items()}
+            has_prior = any(d.get("prior_uv") is not None for d in dets.values())
+            expect[j] = ((H_IMG, (3 if has_prior else 2) * W_IMG, 3),
+                         {o: poses.get(o) is not None for o in dets})
+            if j != VIZ_CHECK_VIEW:
+                return
+            # the written frame against make_frame_viz redrawn from the
+            # engine's data, as _write_viz draws it (viz_cov: ellipses on)
+            priors = None
+            for d in dets.values():
+                if d.get("prior_uv") is None:
+                    continue
+                pm = d["model_mask"]
+                pmap = tviz.render_prior_px((H_IMG, W_IMG), tviz._bbox_ndc_to_px(
+                    d["prior_uv"][pm], d["bbox"]), np.where(pm)[0])
+                priors = pmap if priors is None else np.maximum(priors, pmap)
+            want = tviz.make_frame_viz(ev._last_img, dets, poses, ev._last_K,
+                                       mesh_db=ev.mesh_db, priors=priors)
+            with open(os.path.join(outdir, "viz_images", f"scene_{scene_id}_{j:06d}.png"),
+                      "rb") as f:
+                got = png.decode(f.read())
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"viz leg: view {j}'s written frame differs from "
+                                     f"make_frame_viz redrawn ({got.shape} vs {want.shape}, "
+                                     f"{int((got != want).any(-1).sum())} pixels)")
+            n_cov.append(sum(d["cov"] is not None for d in dets.values()))
+
+        ev._run_slam, ev._write_viz = timed, checked
+        torch.cuda.synchronize()
+        summary = ev.run()
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+    text = buf.getvalue()
+    if summary is None:
+        raise AssertionError(f"viz leg {label} failed:\n{text[-3000:]}")
+    return ev, text, np.diff(starts[:-1]), kernels.counts(), expect, n_cov
+
+
+def eval_viz_legs(dev, root, base, net16):
+    """Phase 7's visualization leg: `Evaluator(nviews=-1)` with the
+    full-width bf16 net (each call guided to the ground truth by `GtGuided`,
+    so objects initialise and the prior panel appears), viz on with viz_cov,
+    do_viz_extra and show_viz, over the phase's views: a PNG per view of the
+    shape its prior decides, each object's panels, one view's frame equal to
+    `make_frame_viz` redrawn, the no-display line; the same leg without viz
+    in turns (median view ms), `_write_viz`'s host ms per frame (drawing,
+    PNG encoding and writing) and the legs' launches."""
+    import os
+
+    from suo_slam_tpu_torch.data import png
+
+    guide = GtGuided(root, dev)
+    saved = {k: os.environ.pop(k) for k in ("DISPLAY", "WAYLAND_DISPLAY") if k in os.environ}
+    try:
+        legs = [_viz_leg(dev, root, base, net16, guide, no_viz, f"{tag}{i}")
+                for i in range(2) for no_viz, tag in ((False, "viz"), (True, "noviz"))]
+    finally:
+        os.environ.update(saved)
+    ev, text, _, counts, expect, n_cov = legs[0]
+    viz_dir = os.path.join(ev.model_path, ev.method_name(), "viz_images")
+    n_frames = n_obj = n_overlay = 0
+    for j in range(EVAL_VIEWS):
+        if j not in expect:
+            raise AssertionError(f"viz leg: view {j} drew no frame")
+        shape, posed = expect[j]
+        got = png.imread(os.path.join(viz_dir, f"scene_0_{j:06d}.png")).shape
+        names = set(os.listdir(os.path.join(viz_dir, f"scene_0_{j:06d}")))
+        want = {"bbox_input.png"} | {f"viz_obj_{o}_{k}.png" for o, p in posed.items()
+                                     for k in ("input", "output") + (("overlay",) if p else ())}
+        if got != shape or names != want:
+            raise AssertionError(f"viz leg view {j}: frame {got} (want {shape}), panels "
+                                 f"{sorted(names ^ want)} differ")
+        n_frames += 1
+        n_obj += len(posed)
+        n_overlay += sum(posed.values())
+    if text.count(NO_DISPLAY_LINE) != 1:
+        raise AssertionError(f"viz leg: the no-display line printed {text.count(NO_DISPLAY_LINE)}"
+                             " times")
+    need = ("roi_crop", "norm_relu", "upsample_add", "heatmap_readout", "pnp_ransac", "ba_lm",
+            "chi2_counts", "prior_render", "add_dists")
+    if [k for k in need if counts[k] == 0]:
+        raise AssertionError(f"viz leg: kernels not launched: {[k for k in need if not counts[k]]}")
+    if len(n_cov) != 1:
+        raise AssertionError(f"viz leg: view {VIZ_CHECK_VIEW} was not redrawn")
+    med = {lab: 1e3 * float(np.median(leg[2])) for leg, lab in
+           zip(legs, ("viz 1", "no viz 1", "viz 2", "no viz 2"))}
+    vm = [leg[0].viz_ms for leg in legs[0::2]]
+    draw = [m["draw"] / m["frames"] for m in vm]
+    enc = [m["png"] / m["frames"] for m in vm]
+    n_prior = sum(shape[1] == 3 * W_IMG for shape, _ in expect.values())
+    log(f"[eval] viz leg: {n_frames} frames ({n_prior} with the prior panel), {n_obj} objects' "
+        f"panels ({n_overlay} with the overlay), view {VIZ_CHECK_VIEW}'s frame equal to "
+        f"make_frame_viz redrawn ({n_cov[0]} detections with ellipses), the "
+        f"no-display line once; launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    log(f"[eval] viz leg, median view ms in turns: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in med.items()) + "; _write_viz host ms per frame: drawing "
+        + " / ".join(f"{d:.3f}" for d in draw) + ", PNG encoding and writing "
+        + " / ".join(f"{e:.3f}" for e in enc))
 
 
 # int8 phase ---------------------------------------------------------------------
@@ -5425,15 +5583,15 @@ def _epoch_stats(text, stamps=()):
     return secs, its, gaps
 
 
-def _want_launches(steps, vals):
-    """The training CLI's launches of the BatchNorm net: `steps` train steps
-    and `vals` validation batches."""
+def _want_launches(steps, vals, dumps):
+    """The training CLI's launches of the BatchNorm net: `steps` train steps,
+    `vals` validation batches and `dumps` per-epoch prediction dumps (one
+    crop and one prior-free forward each: K1, K8, K9 and K2, no K5)."""
+    fwd = steps + vals + dumps
     return {"bn_stats": NORMS_PER_FWD * steps, "norm_relu_bwd": NORMS_PER_FWD * steps,
             "upsample_add_bwd": JUNCTIONS_PER_FWD * steps, "heatmap_readout_bwd": steps,
-            "norm_relu": NORMS_PER_FWD * (steps + vals),
-            "upsample_add": JUNCTIONS_PER_FWD * (steps + vals),
-            "heatmap_readout": steps + vals, "roi_crop": steps + vals,
-            "prior_render": steps + vals}
+            "norm_relu": NORMS_PER_FWD * fwd, "upsample_add": JUNCTIONS_PER_FWD * fwd,
+            "heatmap_readout": fwd, "roi_crop": fwd, "prior_render": steps + vals}
 
 
 def phase_train(dev, seed):
@@ -5482,7 +5640,7 @@ def phase_train(dev, seed):
     for line in text.splitlines():
         if line.startswith(("Epoch", "Training on", "Validating")):
             log(f"[train]   {line.strip()}")
-    want = _want_launches(8, 4)
+    want = _want_launches(8, 4, 4)  # a train and a test dump per epoch
     got = {k: counts[k] for k in want}
     log(f"[train] CLI launches: {json.dumps(got)} (want {json.dumps(want)}); plain versions "
         f"on CUDA tensors: {json.dumps(hits)}")
@@ -5497,6 +5655,7 @@ def phase_train(dev, seed):
             or not os.path.isfile(os.path.join(outdir, "checkpoint-2")):
         raise AssertionError(f"training CLI did not auto-resume at epoch 2:\n{text2[-3000:]}")
     log("[train] second run: auto-resumed at epoch 2, wrote checkpoint-2")
+    check_epoch_dumps(outdir, epochs=3)
 
     # the trained checkpoint through the evaluation entry point
     ck = os.path.join(outdir, "checkpoint-latest")
@@ -5511,10 +5670,73 @@ def phase_train(dev, seed):
     log(f"[train] Evaluator(nviews=1) on {ck} (epoch {ev.model_epoch}): ran to its end, "
         f"{ev.method_name()}")
     plot_cov_run(dev, root, ck, os.path.join(base, "plot_cov"))
+    sweep_ycbv(dev, root, os.path.join(outdir, "model_best"))
     loader_timing(root, seed)
     u_counts = train_cli_more(dev, base, root)
     phase_train_jpeg(dev, seed, base, root)
     return entries, counts, u_counts
+
+
+def check_epoch_dumps(outdir, epochs):
+    """The training CLI's per-epoch prediction dumps: a train and a test
+    folder per epoch with a 2-panel sample.png, and viz_best holding one
+    epoch's test dump."""
+    import os
+
+    from suo_slam_tpu_torch.data import png
+
+    shapes, data = {}, {}
+    for e in range(epochs):
+        for split in ("train", "test"):
+            path = os.path.join(outdir, f"viz_{split}_epoch_{e}", "sample.png")
+            shapes[f"{split} {e}"] = png.imread(path).shape if os.path.isfile(path) else None
+            if split == "test" and shapes[f"{split} {e}"]:
+                data[e] = open(path, "rb").read()
+    best = os.path.join(outdir, "viz_best", "sample.png")
+    best_of = [e for e, d in data.items() if os.path.isfile(best) and open(best, "rb").read() == d]
+    log(f"[train] per-epoch dumps: {json.dumps(shapes)}; viz_best is epoch {best_of}'s test dump")
+    if any(v != (H_IMG, 2 * W_IMG, 3) for v in shapes.values()) or not best_of:
+        raise AssertionError(f"training CLI dumps: {shapes}, viz_best of {best_of}")
+
+
+def sweep_ycbv(dev, root, ck):
+    """The YCB-V paper sweep (`suo_slam_tpu_torch/scripts/eval_all_ycbv.sh`)
+    as a subprocess on phase 7's tree with `ck`: its 5 runs and table.txt's
+    5 blocks, the seconds it took."""
+    import os
+    import re
+    import signal
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "suo_slam_tpu_torch",
+                          "scripts", "eval_all_ycbv.sh")
+    env = {k: v for k, v in os.environ.items() if k not in ("DISPLAY", "WAYLAND_DISPLAY")}
+    cmd = ["bash", script, ck, "--detection_type", "gt", "--device", dev.type, "--data_root",
+           root, "--kp_config_root", os.path.join(root, "kp_configs")]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(ck), env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("the YCB-V sweep ran past 600 s")
+    sec = time.perf_counter() - t0
+    with open(os.path.join(os.path.dirname(ck), "sweep_ycbv.log"), "w") as f:
+        f.write(text)
+    table = os.path.join(os.path.dirname(ck), "table.txt")
+    body = open(table).read() if os.path.isfile(table) else ""
+    blocks = re.findall(r"^==== (.*) ====$", body, re.M)
+    cams = re.findall(r"NOTE: ([\d.]+)% of camera poses found", body)
+    frames = [len([f for f in os.listdir(os.path.join(os.path.dirname(b), "viz_images"))
+                   if f.endswith(".png")]) for b in blocks]
+    log(f"[train] YCB-V sweep (eval_all_ycbv.sh) on the trained {os.path.basename(ck)}: rc "
+        f"{proc.returncode}, {sec:.1f} s; table.txt blocks "
+        f"{[os.path.basename(os.path.dirname(b)) for b in blocks]}; camera poses found "
+        f"{cams} %; frames written per run {frames}")
+    if proc.returncode != 0 or len(blocks) != 5 or text.count("RUN: --nviews") != 5:
+        raise AssertionError(f"the YCB-V sweep: rc {proc.returncode}, {len(blocks)} blocks:\n"
+                             f"{text[-3000:]}")
 
 
 def plot_cov_run(dev, root, ck, out):
@@ -5567,20 +5789,20 @@ def train_cli_more(dev, base, root):
               "--epochs", "1", "--steps_per_epoch", "4", "--data_root", root,
               "--kp_config_root", os.path.join(root, "kp_configs")]
     runs = [("-u, process loader", ["-u", "--loader", "process", "--workers", "4",
-                                    "--val_steps", "2"], 4, 2),
-            ("cache, thread loader", ["--use_cache", "--no_val"], 4, 0)]
+                                    "--val_steps", "2"], 4, 2, 2),
+            ("cache, thread loader", ["--use_cache", "--no_val"], 4, 0, 1)]
     cache = os.path.join(root, "train_real.suocache")
     if os.path.exists(cache):
         os.remove(cache)
     u_counts = None
-    for i, (label, flags, steps, vals) in enumerate(runs):
+    for i, (label, flags, steps, vals, dumps) in enumerate(runs):
         work = os.path.join(base, f"train_cli_{i + 1}")
         shutil.rmtree(work, ignore_errors=True)
         os.makedirs(work)
         rc, text, wall, counts, hits, stamps = _cli_run(common + flags, work)
         with open(os.path.join(work, "cli.log"), "w") as f:
             f.write(text)
-        want = _want_launches(steps, vals)
+        want = _want_launches(steps, vals, dumps)
         got = {k: counts[k] for k in want}
         log(f"[train] CLI run {i + 1} ({label}), augmentations on, 1 epoch x {steps} steps + "
             f"{vals} val batches, full width bf16: rc {rc}, {wall:.2f} s; epoch s, sec/it, s "
@@ -5743,7 +5965,7 @@ def train_cli_jpeg(dev, base, root):
         rc, text, wall, counts, hits, stamps = _cli_run(common + flags, work)
         with open(os.path.join(work, "cli.log"), "w") as f:
             f.write(text)
-        want = _want_launches(4, 2)
+        want = _want_launches(4, 2, 2)
         got = {k: counts[k] for k in want}
         log(f"[train] CLI ({label}), augmentations on, 1 epoch x 4 steps + 2 val batches, "
             f"full width bf16: rc {rc}, {wall:.2f} s; epoch s, sec/it, s between steps "
@@ -6430,10 +6652,10 @@ def phase_group(dev, seed, objs, scene):
         f.write(text)
     (outdir,) = [os.path.join(work, "results", d) for d in os.listdir(os.path.join(work, "results"))]
     losses = [float(x) for x in re.findall(r"train loss ([-\d.eE+naninf]+)", text)]
-    steps, vals = 4, 2
-    want = {"group_norm_relu": NORMS_PER_FWD * (steps + vals),
+    steps, vals, dumps = 4, 2, 2  # a train and a test prediction dump
+    want = {"group_norm_relu": NORMS_PER_FWD * (steps + vals + dumps),
             "group_norm_relu_bwd": NORMS_PER_FWD * steps, "norm_relu": 0, "bn_stats": 0,
-            "norm_relu_bwd": 0, "upsample_add": JUNCTIONS_PER_FWD * (steps + vals),
+            "norm_relu_bwd": 0, "upsample_add": JUNCTIONS_PER_FWD * (steps + vals + dumps),
             "upsample_add_bwd": JUNCTIONS_PER_FWD * steps}
     got = {k: counts[k] for k in want}
     log(f"[group] CLI --norm group, 1 epoch x 4 steps + 2 val batches, full width bf16: rc {rc}, "

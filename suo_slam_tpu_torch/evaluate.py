@@ -24,9 +24,16 @@ on K worker threads, each with its own engine, and serves their frames'
 network calls as one call per round (`eval/pipeline.py`). `--int8
 --pipeline_scenes` needs a scales sidecar (online calibration would see
 other crops than the sequential sweep) unless `--int8_online_ok` accepts
-the difference. Not ported yet, and refused with SystemExit naming its
-ROADMAP item: visualization (viz is on unless `--no_viz`; `--viz_cov`,
-`--do_viz_extra`, `--show_viz`).
+the difference.
+
+Visualization is on unless `--no_viz`, as in the JAX CLI: the sequential
+sweep writes a 3-panel PNG per frame (detections and keypoints | model
+points at the estimated poses | the prior blend, when a detection has a
+prior) into `<outdir>/viz_images/scene_<id>_<j:06d>.png`; `--viz_cov` adds
+the covariance ellipses, `--do_viz_extra` the per-object panels of the
+paper's figures into a folder per frame, and `--show_viz` a live window
+(standard-library Tk; off, with a line saying so, without a display
+server). The drawing is `eval/viz.py`, OpenCV's pixels without OpenCV.
 """
 
 from __future__ import annotations
@@ -46,19 +53,6 @@ YCBV_CLASSES = {
     20: "052_extra_large_clamp", 21: "061_foam_brick",
 }
 TLESS_CLASSES = {i + 1: str(i + 1) for i in range(30)}
-
-
-def refuse_unported(no_viz=True, viz_cov=False, do_viz_extra=False, show_viz=False,
-                    debug_saved_only=False):
-    """SystemExit for a flag whose path is not ported yet, naming its
-    ROADMAP item."""
-    viz = [f for f, on in (("--viz_cov", viz_cov), ("--do_viz_extra", do_viz_extra),
-                           ("--show_viz", show_viz)) if on]
-    if not no_viz and not debug_saved_only:
-        viz.insert(0, "viz (on unless --no_viz)")
-    if viz:
-        raise SystemExit(f"{', '.join(viz)}: visualization is not ported yet: ROADMAP A11 "
-                         "(pass --no_viz)")
 
 
 class Evaluator:
@@ -97,7 +91,6 @@ class Evaluator:
             if not no_viz:
                 raise SystemExit("--pipeline_scenes is a throughput mode; viz needs the "
                                  "sequential path (drop --pipeline_scenes or keep --no_viz)")
-        refuse_unported(no_viz, viz_cov, do_viz_extra, show_viz, debug_saved_only)
         self.device = resolve_device(device)
         self._hyp_sampler = hyp_sampler
         self.batched_runner = None
@@ -200,6 +193,18 @@ class Evaluator:
         self.detection_type = detection_type
         self.debug_gt_kp = debug_gt_kp
         self.gt_cam_pose = gt_cam_pose
+        self.no_viz = no_viz
+        self.viz_cov = viz_cov
+        self.do_viz_extra = do_viz_extra
+        self.show_viz = show_viz
+        if self.show_viz and self.no_viz:
+            # the live window is part of the viz block, so --no_viz wins
+            print("[evaluate] --show_viz has no effect with --no_viz "
+                  "(viz composition is disabled); drop --no_viz for the "
+                  "live window")
+        self._window = None  # the --show_viz Tk window, opened at the first frame
+        # host ms of _write_viz: drawing, PNG encoding and writing; frames
+        self.viz_ms = {"draw": 0.0, "png": 0.0, "frames": 0}
         self.give_all_prior = give_all_prior
         self.no_network_cov = no_network_cov
         self.no_prior_det = no_prior_det
@@ -324,6 +329,8 @@ class Evaluator:
                         results[view_id]["poses"] if self.nviews > 0 else None
                     )
                     scene_results.append((view_id, pred_poses, gt_obj_ids))
+                    if not self.no_viz:
+                        self._write_viz(outdir, scene_id, j, view_id, results)
 
                 if self.do_add and self.saved_detections is not None:
                     saved_views.append((view_id, gt_obj_ids))
@@ -468,17 +475,21 @@ class Evaluator:
 
     _MISSING = object()
 
-    def _feed_view(self, engine, scene_id, view_id_k, first_for_gt_cam=-1, inputs=_MISSING):
+    def _feed_view(self, engine, scene_id, view_id_k, first_for_gt_cam=-1, inputs=_MISSING,
+                   store_last=True):
         """Load one view's detections (or take `inputs`, the batched runner's
         entry) and feed `engine.process_view`; False when the view has no
         usable detections. The sequential sweep and the pipelined workers
-        share it."""
+        share it; the workers pass `store_last=False` (the `_last_*` viz
+        state belongs to the sequential sweep)."""
         if inputs is self._MISSING:
             inputs = self._view_inputs(scene_id, view_id_k)
         if inputs is None:
             print(f"WARNING no detections for scene {scene_id} view {view_id_k}")
             return False
         obj_ids, bboxes, sample = inputs
+        if store_last:
+            self._last_img, self._last_K = sample["img"], sample["K"]
         cam_pose = None
         if self.gt_cam_pose:
             from .data.bop import _to44_cam
@@ -514,6 +525,105 @@ class Evaluator:
             self._feed_view(self.object_slam, scene_id, view_id_k, first_for_gt_cam=first,
                             inputs=inputs)
         return self.object_slam.collect_results(last_only=self.nviews < 0)
+
+    def _write_viz(self, outdir, scene_id, j, view_id, results):
+        """The 3-panel PNG of a frame (`evaluate.py:202-229` in the
+        reference), the `--show_viz` window, and under `--do_viz_extra` the
+        per-object panels (`lib/object_slam.py:277-308`). Host work on the
+        engine's numpy mirrors, after `collect_results`."""
+        from .data import png
+        from .eval.viz import _bbox_ndc_to_px, make_extra_viz, make_frame_viz, render_prior_px
+
+        t0 = time.perf_counter()
+        viz_dir = os.path.join(outdir, "viz_images")
+        os.makedirs(viz_dir, exist_ok=True)
+        eng = self.object_slam
+        view_for_viz = eng.view_ids[-1] if eng.view_ids else view_id
+        dets = eng.get_view_viz_data(view_for_viz)
+        if not self.viz_cov:
+            # ellipses on the kp panel are opt-in (`object_slam.py:268`)
+            dets = {o: {**d, "cov": None} for o, d in dets.items()}
+        poses = {
+            o: r["T_OtoC"]
+            for o, r in results.get(view_for_viz, {}).get("poses", {}).items()
+        }
+        img = self._last_img
+        # the full-image prior blend panel (`object_slam.py:263-266`): every
+        # detection's prior keypoints rasterized into one map (each channel
+        # keeps the maximum, so this equals the maximum of per-detection
+        # maps that the JAX CLI forms, without a map per detection)
+        centers, channels = [], []
+        for d in dets.values():
+            if d.get("prior_uv") is None:
+                continue
+            pm = d.get("model_mask")
+            if pm is None:
+                pm = np.ones(d["prior_uv"].shape[0], bool)
+            centers.append(_bbox_ndc_to_px(d["prior_uv"][pm], d["bbox"]))
+            channels.append(np.where(pm)[0])
+        priors = None
+        if centers:
+            priors = render_prior_px(img.shape[:2], np.concatenate(centers),
+                                     np.concatenate(channels))
+        viz = make_frame_viz(img, dets, poses, self._last_K, mesh_db=self.mesh_db,
+                             priors=priors)
+        extra = None
+        if self.do_viz_extra:
+            extra = make_extra_viz(img, dets, poses, self._last_K, mesh_db=self.mesh_db,
+                                   viz_cov=self.viz_cov)
+        t1 = time.perf_counter()
+        # the file holds viz's channels as they are, as cv2.imwrite(path,
+        # viz[..., ::-1]) writes them
+        data = png.encode(viz)
+        with open(os.path.join(viz_dir, f"scene_{scene_id}_{j:06d}.png"), "wb") as f:
+            f.write(data)
+        if extra is not None:
+            extra_dir = os.path.join(viz_dir, f"scene_{scene_id}_{j:06d}")
+            os.makedirs(extra_dir, exist_ok=True)
+            for name, im in extra.items():
+                png.imwrite(os.path.join(extra_dir, f"{name}.png"), im[..., ::-1])
+        t2 = time.perf_counter()
+        self.viz_ms["draw"] += 1e3 * (t1 - t0)
+        self.viz_ms["png"] += 1e3 * (t2 - t1)
+        self.viz_ms["frames"] += 1
+        if self.show_viz:
+            self._show(data)
+
+    def _show(self, png_bytes):
+        """The live window of `--show_viz` (the reference's `cv2.imshow` +
+        `waitKey(1)`): a Tk window showing the frame's PNG, updated each
+        frame. Without a display server, or when Tk cannot show the frame,
+        it is turned off with the JAX CLI's lines."""
+        import base64
+
+        if self._window is None and not (os.environ.get("DISPLAY")
+                                         or os.environ.get("WAYLAND_DISPLAY")):
+            self.show_viz = False
+            print("[evaluate] --show_viz: no display server; disabled")
+            return
+        try:
+            import tkinter
+        except ImportError:
+            tkinter = None
+        if tkinter is not None:
+            try:
+                if self._window is None:
+                    root = tkinter.Tk()
+                    root.title("ObjectSLAM")
+                    label = tkinter.Label(root)
+                    label.pack()
+                    self._window = (root, label)
+                root, label = self._window
+                photo = tkinter.PhotoImage(master=root, data=base64.b64encode(png_bytes))
+                label.configure(image=photo)
+                label.image = photo  # Tk keeps no reference of its own
+                root.update()
+                return
+            except tkinter.TclError:
+                pass
+        self.show_viz = False
+        self._window = None
+        print("[evaluate] --show_viz: imshow failed; disabled")
 
     def _run_pipelined(self, scene_ids, csv_lines):
         """The pipelined sweep (`--pipeline_scenes K`): K worker threads each
@@ -580,7 +690,7 @@ class Evaluator:
                 for view_id in self.dataset.view_ids(scene_id):
                     view_id = int(view_id)
                     gt_obj_ids = self.dataset.obj_ids(scene_id, view_id)
-                    self._feed_view(eng, scene_id, view_id)
+                    self._feed_view(eng, scene_id, view_id, store_last=False)
                     if len(eng.collect_results(last_only=True)) == 0:
                         continue
                     scene_results.append((view_id, None, gt_obj_ids))
@@ -589,7 +699,7 @@ class Evaluator:
             # an SfM keyframe: a fresh engine is the sequential sweep's reset
             view_id, views = payload
             for v in views:
-                self._feed_view(eng, scene_id, v, first_for_gt_cam=views[0])
+                self._feed_view(eng, scene_id, v, first_for_gt_cam=views[0], store_last=False)
             results = eng.collect_results(last_only=False)
             if len(results) == 0:
                 return {"kf": None, **stats()}

@@ -187,3 +187,32 @@ def default_config_path(bop_dset: str, root: str | None = None) -> str:
 
 def load_kp_config(bop_dset: str, root: str | None = None) -> KpConfig:
     return KpConfig(default_config_path(bop_dset, root))
+
+
+def kp_colors() -> np.ndarray:
+    """Deterministic distinct BGR uint8 colors for the 41 keypoints (viz)."""
+    n = num_kp()
+    hues = (np.arange(n) * 0.61803398875) % 1.0  # golden-ratio spacing
+    h = hues * 6.0
+    i = h.astype(int) % 6
+    f = h - np.floor(h)
+    v = np.full(n, 255.0)
+    p = np.zeros(n)
+    q = v * (1 - f)
+    t = v * f
+    rgb = np.choose(
+        i[:, None],
+        [
+            np.stack([v, t, p], 1),
+            np.stack([q, v, p], 1),
+            np.stack([p, v, t], 1),
+            np.stack([p, q, v], 1),
+            np.stack([t, p, v], 1),
+            np.stack([v, p, q], 1),
+        ],
+    )
+    return rgb[:, ::-1].astype(np.int64)  # BGR
+
+
+def kp_color(kp_name: str) -> np.ndarray:
+    return kp_colors()[KP_INDEX[kp_name]]

@@ -24,8 +24,12 @@ The default splits train as the JAX CLI's do: YCB-V `real+synt` composites
 VOC backgrounds over `train_synt`, T-LESS `primesense` composites them and
 pastes occluders, and `pbr` reads JPEG frames (`data/bop.py`,
 `data/jpeg.py`); `--use_cache` packs any of them. Refused, naming the
-ROADMAP item: more than one visible card (A15). The per-epoch prediction
-dump is A11: one line says so.
+ROADMAP item: more than one visible card (A15).
+
+After each epoch's checkpoint the CLI dumps, as the JAX CLI does, the
+net's predictions on the epoch's last training batch and the first
+validation batch into `viz_<split>_epoch_<N>/sample.png`, and copies the
+test split's folder to `viz_best/` when the epoch is the best.
 
     SUO_TINY_NET=1 python -m suo_slam_tpu_torch.train --device cpu \\
         --dataset ycbv --data_split real --epochs 2 [--loader process] [-u] ...
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -92,6 +97,56 @@ def build_loader(args, datasets):
     print(f"Training on {loader.total} frames, {len(loader)} steps/epoch "
           f"({loader.workers} decode {loader.mode} workers)")
     return loader
+
+
+def _dump_epoch_viz(outdir, epoch, net, np_batch, dev, max_objs=4, split="train"):
+    """The per-epoch prediction PNG (the reference dumps one every epoch into
+    `viz_<split>_epoch_<N>`, `train.py:33-38,119-156`): the batch's first
+    frame, its objects cropped (K1 on the card) and run through the net
+    with its running statistics and no prior (K8, K9, K2), the first
+    `max_objs` drawn by `eval/viz.make_frame_viz`. It leaves training as it
+    was: no generator, no gradient, no statistics change. Only the write is
+    best-effort (an OSError prints a line, as the JAX CLI prints its
+    failures); a fault in the crop or the net stops the run. Returns the
+    folder, or None when the write failed."""
+    from ..data import png
+    from ..eval.viz import make_frame_viz
+    from ..ops import roi as roi_ops
+
+    img = np_batch["images"][0]
+    boxes = np_batch["boxes"][0]
+    omask = np_batch["obj_mask"][0]
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.no_grad():
+            crops = roi_ops.roi_crop_batch(
+                torch.as_tensor(img[None], device=dev), torch.as_tensor(boxes[None], device=dev),
+                torch.as_tensor(omask[None], device=dev), (256, 256))[0]
+            out = net(crops)
+    finally:
+        net.train(was_training)
+    uv = out.uv.float().cpu().numpy()
+    cov = None if out.cov is None else out.cov.float().cpu().numpy()
+    kp_mask = out.kp_mask.float().cpu().numpy()
+    dets = {}
+    for i in range(min(int(omask.sum()), max_objs)):
+        obj_id = int(np_batch["obj_ids"][0][i]) if "obj_ids" in np_batch else i + 1
+        dets[obj_id] = {
+            "bbox": boxes[i],
+            "uv": uv[i],
+            "cov": None if cov is None else cov[i],
+            "kp_mask": (kp_mask[i] > 0.3) & np_batch["kp_model_masks"][0][i],
+        }
+    viz = make_frame_viz(img, dets, {}, np_batch["K"][0])
+    viz_dir = os.path.join(outdir, f"viz_{split}_epoch_{epoch}")
+    try:
+        os.makedirs(viz_dir, exist_ok=True)
+        png.imwrite(os.path.join(viz_dir, "sample.png"), viz[..., ::-1])
+    except OSError as e:
+        print(f"viz dump failed: {e}")
+        return None
+    return viz_dir
 
 
 def _ram_ok(max_percent: float = 99.0) -> bool:
@@ -175,15 +230,16 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
                   f"{len(val_loader)} batches/epoch")
         else:
             print("WARNING: no test split on disk — model_best falls back to training loss")
-    print("per-epoch viz dump: not ported (ROADMAP A11)")
 
     args_dict = vars(args).copy()
     for epoch in range(start_epoch, args.epochs):
         t_epoch = t0 = time.time()
         sum_loss, n_steps = torch.zeros((), device=dev), 0
+        train_np_batch = None
         for i, np_batch in enumerate(loader.epoch()):
             if args.steps_per_epoch and i >= args.steps_per_epoch:
                 break
+            train_np_batch = np_batch
             batch = harness.to_batch(np_batch, dev, o_pad=args.truncate_obj)
             state, metrics = step_fn(state, batch, float(epoch))
             sum_loss = sum_loss + metrics["loss"]
@@ -201,6 +257,7 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
         train_loss = float(sum_loss) / max(1, n_steps)
 
         val_err = None
+        val_np_batch = None
         if val_loader is not None:
             v_sum, v_n = 0.0, 0
             for d in val_loader.datasets:
@@ -208,6 +265,8 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
             for j, np_batch in enumerate(val_loader.epoch(shuffle=False, seed=666)):
                 if args.val_steps and j >= args.val_steps:
                     break
+                if val_np_batch is None:
+                    val_np_batch = np_batch
                 m = eval_step(net, harness.to_batch(np_batch, dev, o_pad=args.truncate_obj),
                               float(epoch))
                 v_sum += float(m["uv_loss"])
@@ -230,6 +289,15 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
             best_train, is_best = train_loss, True
         ckpt.save_checkpoint(outdir, state, epoch, args_dict, best_val, is_best=is_best,
                              best_train=best_train)
+        if train_np_batch is not None:
+            _dump_epoch_viz(outdir, epoch, net, train_np_batch, dev, split="train")
+        if val_np_batch is not None:
+            viz_dir = _dump_epoch_viz(outdir, epoch, net, val_np_batch, dev, split="test")
+            if is_best and viz_dir is not None:
+                viz_best = os.path.join(outdir, "viz_best")
+                if os.path.exists(viz_best):
+                    shutil.rmtree(viz_best)
+                shutil.copytree(viz_dir, viz_best)
         print(f"Epoch {epoch} done in {time.time() - t_epoch:.1f}s, train loss {train_loss:.4f}"
               + (f", val uv_loss {val_err:.4f}" if val_err is not None else "")
               + (" (best)" if is_best else ""))

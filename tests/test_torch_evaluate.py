@@ -20,9 +20,10 @@ scene has no edge at the gate, so the two engines' f32 differences (~0.02 mm
 after tracking) cannot choose different branches.
 
 Also: one subprocess run of `python -m suo_slam_tpu_torch.evaluate --device
-cpu`; the flags whose paths are not ported (visualization) raise SystemExit
-naming ROADMAP items that exist, and the throughput modes refuse what the
-JAX package refuses, with its messages; a reference
+cpu`; each visualization flag builds an Evaluator that runs a view and
+writes its frame (tests/test_torch_viz_cli.py holds the frames against the
+JAX package's drawing), and the throughput modes refuse what the JAX
+package refuses, with its messages; a reference
 `.pth.tar` loads through the port's converter; the VSD scoring of a T-LESS
 CSV equals the JAX package's.
 """
@@ -156,17 +157,40 @@ def test_cli_runs_on_the_cpu(ycbv, tmp_path):
 
 
 @pytest.mark.parametrize("flags,nviews,message", [
-    (dict(no_viz=False), 1, "ROADMAP A11"), (dict(viz_cov=True), 1, "ROADMAP A11"),
-    (dict(do_viz_extra=True), 1, "ROADMAP A11"), (dict(show_viz=True), 1, "ROADMAP A11"),
+    # the visualization flags (ROADMAP A11, ported) build and run
+    (dict(no_viz=False), 1, None), (dict(viz_cov=True), 1, None),
+    (dict(do_viz_extra=True), 1, None), (dict(show_viz=True), 1, None),
     # the throughput modes (ROADMAP A13, ported) refuse as the JAX package does
     (dict(batched=True), 1, "--batched requires --nviews 1 with a real network"),
     (dict(pipeline_scenes=2, batched=True), -1, "--pipeline_scenes is exclusive with --batched"),
     (dict(int8=True, batched=True), 1, "--int8 requires a norm='batch' network"),
     (dict(pipeline_scenes=2, no_viz=False), -1, "viz needs the sequential path"),
 ], ids=[f"flags{i}" for i in range(8)])
-def test_unported_flags_raise_naming_roadmap_items(ycbv, flags, nviews, message):
-    """The flags whose paths are not ported raise naming their ROADMAP item;
-    the throughput modes' own refusals carry the JAX package's messages."""
+def test_unported_flags_raise_naming_roadmap_items(ycbv, flags, nviews, message, tmp_path,
+                                                  monkeypatch, capsys):
+    """Each visualization flag builds an Evaluator that runs one view and
+    writes its frame (the extra panels under do_viz_extra; show_viz without
+    a display server turns itself off with the JAX CLI's line); the
+    throughput modes' own refusals carry the JAX package's messages."""
+    if message is None:
+        monkeypatch.delenv("DISPLAY", raising=False)
+        monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+        ev = port_evaluate.Evaluator("ycbv", ycbv, "", nviews=nviews, detection_type="gt",
+                                     debug_gt_kp=True, device="cpu",
+                                     kp_config_root=os.path.join(ycbv, "kp_configs"),
+                                     **{"no_viz": False, **flags})
+        view = ev.dataset.view_ids(0)[0]
+        results = ev._run_slam(0, [view])
+        ev._write_viz(str(tmp_path), 0, 0, view, results)
+        frame = tmp_path / "viz_images" / "scene_0_000000.png"
+        assert frame.is_file() and ev.viz_ms["frames"] == 1
+        extra = tmp_path / "viz_images" / "scene_0_000000"
+        assert extra.is_dir() == bool(flags.get("do_viz_extra"))
+        if flags.get("do_viz_extra"):
+            assert (extra / "bbox_input.png").is_file()
+        shown = "--show_viz: no display server; disabled" in capsys.readouterr().out
+        assert shown == bool(flags.get("show_viz")) and not ev.show_viz
+        return
     kw = {"no_viz": True, **flags}
     with pytest.raises(SystemExit) as e:
         port_evaluate.Evaluator("ycbv", ycbv, "", nviews=nviews, detection_type="gt",

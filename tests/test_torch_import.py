@@ -82,12 +82,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 def test_slam_mode_raises_naming_its_roadmap_item():
     """SLAM, SfM, debug_gt_kp and int8 runs construct (int8 serving, B5, is
     ported: an int8 engine builds its s8 program and refuses a run with
-    neither scales nor calibration frames); the paths that stay owed (the
-    visualization flags) raise in the CLI naming a ROADMAP entry that
-    exists."""
-    import re
-
-    from suo_slam_tpu_torch.evaluate import refuse_unported
+    neither scales nor calibration frames); the CLI takes the visualization
+    flags (ported: no refusal is left)."""
+    from suo_slam_tpu_torch import evaluate as port_evaluate
+    from suo_slam_tpu_torch.args import get_args
     from suo_slam_tpu_torch.models.pkpnet import PkpNet
     from suo_slam_tpu_torch.slam.engine import ObjectSlam, SlamConfig
 
@@ -101,9 +99,7 @@ def test_slam_mode_raises_naming_its_roadmap_item():
     with pytest.raises(ValueError, match="activation scales"):
         ObjectSlam(SlamConfig(int8_inference=True, int8_calib_frames=0), net=net,
                    device="cpu")
-    roadmap = open(os.path.join(REPO, "ROADMAP.md")).read()
     for kw in ("viz_cov", "show_viz"):
-        with pytest.raises(SystemExit, match="ROADMAP") as e:
-            refuse_unported(**{kw: True})
-        item = re.search(r"ROADMAP ([AB]\d+)", str(e.value)).group(1)
-        assert re.search(rf"\*\*{item}[ .]", roadmap), (item, str(e.value))
+        args = get_args([f"--{kw}"])
+        assert getattr(args, kw) and not args.no_viz
+    assert not hasattr(port_evaluate, "refuse_unported")
