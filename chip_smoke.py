@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: the single-view frame, SLAM
 mode, the evaluation entry point, int8 serving, training, the quantized
-and GroupNorm networks and the throughput evaluation modes of SUO-SLAM on
-one NVIDIA GPU, through the entry points a user calls.
+and GroupNorm networks, the throughput evaluation modes, data-parallel
+training and the compat shims of SUO-SLAM on one NVIDIA GPU, through the
+entry points a user calls.
 
     python3 chip_smoke.py
 
@@ -275,13 +276,46 @@ Phases (any failure raises and exits non-zero):
      priors and K5) in int8 (CSV equal) and bf16 (AUC of ADD(-S) > 80 and
      100% camera poses, all four SLAM legs); SfM `--nviews 2` sequential and
      `--pipeline_scenes 3` in int8 (CSV equal);
- 12. the kernels JSON line (K1-K7's, K14's, K15's and K22's launches from the
-     SLAM path, K22's 0 there, K8-K10's from the evaluation phase, K11-K13's (K13's 0)
+ 12. data parallelism: K16 / K17's cross-rank modes (K16 partial sums and
+     finalize, K17 sums and dx; `check_k16_k17_cross`) through a gloo group
+     of one rank at phase 9's five norm shapes, f32 and bf16: the partial
+     and backward sums against their plain versions (1e-12 relative), the
+     finalize exact, dx within 1e-5 (f32) / 2^-8 (bf16) of its max, one
+     rank's result bit-equal to the fused kernels, one kernel a call, warm
+     and L2-cold device us at [32, 256, 64, 64] beside the plain versions
+     and bytes bounds; an all-reduce of one norm's [513] f64 sums over gloo
+     and NCCL (host and device ms); then `make_sharded_train_step` in two
+     processes spawned on this one card (gloo: NCCL refuses one card twice),
+     the full-width net (2 x 2 x 256, 256x256 crops) in f32 and bf16 on a
+     global batch of 4 frames x 8 object slots from phase 9's split, one SGD
+     step (lr 1e-2) held against one process on the joined batch, cuDNN
+     pinned on both sides (`DP_GATES`: f32 loss rtol 5e-4, parameters atol
+     3e-4 — JAX's own — and the running averages 1e-6 relative; bf16 loss
+     2e-3, parameters 3e-3, running averages 1e-2 and an update cosine of
+     0.9, about twice the worst of three seeds), where the runs part (every
+     convolution and norm traced by row digests: the calls whose output
+     differs on equal inputs), the ranks equal to each other, each rank's
+     launches (180 of each cross-rank mode, no fused K16 / K17) and
+     all-reduces (363), the step's host ms on each rank with its
+     collectives' host ms beside the one-process step's; sharded inference
+     of the f32 net (2 ranks x 4 crops) against the local forward (1e-3);
+     `python -m torch.distributed.run --nproc_per_node 1 -m
+     suo_slam_tpu_torch.train` (NCCL) beside the plain start, one step
+     each: the running averages within 1e-6 relative;
+ 13. the compat shims on the card: `compat.g2o` on a 2-camera x 2-object
+     graph (`ba.lm_run`: K4 + K7 each iteration, no K14) and
+     `compat.lambdatwist.pnp` (one K15 launch) against their CPU runs
+     (1e-4);
+ 14. the kernels JSON line (K1-K3's, K5-K6's, K14's, K15's and K22's launches
+     from the SLAM path, K22's 0 there, K4 and K7's from phase 13's compat
+     path, K8-K10's from the evaluation phase, K11-K13's (K13's 0)
      and K12's pool and junction modes' from the int8 phase's evaluation and
-     SLAM runs, K16-K19's from the training CLI, K11 /
+     SLAM runs, K16-K19's from the training CLI, K16 / K17's cross-rank
+     modes' from rank 0 of phase 12's bf16 sharded step, K11 /
      K12's f32 modes from phase 10's 8-crop f32 forward, K20 / K21's from its
      training CLI), the nvidia-smi line, and the last line {"ok": true,
-     "device": {...}}.
+     "device": {...}}. `--parallel-only` builds, writes phase 7's and 9's
+     trees and runs phases 12 and 13 alone.
 
 The script imports nothing of JAX or of the JAX package; its scenes are made
 with numpy from --seed.
@@ -2988,7 +3022,8 @@ def phase_slam(dev, rng, objs, net, seed, scene):
     log("[slam] launches per frame: " + json.dumps(
         {k: round(c / n_frames, 2) for k, c in counts.items()}))
     missing = [k for k, c in counts.items() if c == 0 and k != "add_dists"
-               and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS + GROUP_KERNELS]
+               and k not in INT8_KERNELS + OFF_PATH_KERNELS + TRAIN_KERNELS + GROUP_KERNELS
+               + CROSS_KERNELS]
     if missing or any(counts[k] for k in OFF_PATH_KERNELS):
         raise AssertionError(f"kernels not launched on the SLAM path: {missing}, or K3 / K4 / "
                              f"K7 / K22 / K13 launched: {[counts[k] for k in OFF_PATH_KERNELS]}")
@@ -5198,6 +5233,20 @@ STEP_GATES = {"f32": dict(terms=1e-5, stats=1e-5, cos=0.999, grad=0.5),
               "bf16": dict(terms=1e-2, stats=2e-2, cos=0.99)}
 
 
+@contextlib.contextmanager
+def _pinned_cudnn():
+    """cuDNN deterministic, no autotuning: a convolution's algorithm is then
+    a function of its shapes alone."""
+    import torch
+
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+
+
 def train_step_parity(dev, seed, root, norm="batch", calc_cov=True):
     """One full-width train step (2 x 16 crop slots, the CLI's first batch,
     seeded flax-style weights, one dropout mask) with the kernels against the
@@ -5213,10 +5262,8 @@ def train_step_parity(dev, seed, root, norm="batch", calc_cov=True):
     batch = _first_batch(root, dev, seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     keep = torch.rand((32, NK), generator=g, device=dev) < 0.5
-    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     out = {}
-    try:
+    with _pinned_cudnn():
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             gate = STEP_GATES[name]
             kern = _step_record(dt, seed, batch, keep, dev, norm, calc_cov)
@@ -5235,8 +5282,6 @@ def train_step_parity(dev, seed, root, norm="batch", calc_cov=True):
                 raise AssertionError(f"train step ({name}, norm={norm}, calc_cov={calc_cov}): "
                                      f"kernels vs plain {d}, gates {gate}")
             out[name] = d
-    finally:
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
     return out
 
 
@@ -6927,6 +6972,707 @@ def phase_throughput(dev, seed, net32, net16):
         raise AssertionError("throughput evaluation: " + "; ".join(fails))
 
 
+# --------------------------------------------- phases 12-13: data parallel, compat --
+DP_WORLD = 2
+DP_FRAMES, DP_SLOTS = 4, 8  # the sharded step's global batch: 4 frames x 8 object slots
+CROSS_KERNELS = ("bn_stats_partial", "bn_stats_finalize", "norm_relu_bwd_sums",
+                 "norm_relu_bwd_dx")  # K16 / K17's cross-rank modes (phase 12's sharded step)
+COMPAT_KERNELS = ("ba_edges", "ba_schur")  # K4, K7: `ba.lm_run`'s (phase 13's compat path)
+# the sharded step against one process on the joined batch, cuDNN pinned on both sides
+# (deterministic, no autotuning). f32, the parity check: JAX's own tolerances for its
+# sharded step (`tests/test_parallel.py`: loss rtol 5e-4, parameters atol 3e-4 after one
+# SGD step of lr 1e-2) and the running averages to K16's 1e-6 relative. bf16: the runs
+# part at one convolution that cuDNN computes differently for a rank's 16 crops and the
+# joined 32 on equal inputs (phase 12 traces every convolution and norm by row digests:
+# one such call in each dtype, out [16, 128, 64, 64] in f32 and [16, 128, 32, 32] in bf16;
+# no norm parts on equal inputs, so the cross-rank statistics add no difference). That
+# moves uv by ~2e-6 of its scale in f32 and by 1-3e-2 in bf16 (2^-9 a rounding), and the
+# train-mode step at random weights amplifies it. So bf16 holds limits about twice the
+# worst reading of seeds 0, 1 and 2 (H100 80GB HBM3, 700 W): loss 1.4e-4 - 7.1e-4,
+# parameters 7.9e-4 - 1.4e-3, running averages 3.1e-3 - 4.4e-3 of their scale, update
+# cosine (the biases the norms remove left out, as `_step_record` does) 0.952 - 0.963.
+DP_GATES = {"f32": dict(loss=5e-4, params=3e-4, stats=1e-6),
+            "bf16": dict(loss=2e-3, params=3e-3, stats=1e-2, cos=0.9)}
+DP_LR = 1e-2
+
+
+def _dp_batch(root, dev, seed):
+    """The sharded step's global batch: the CLI's loader over phase 9's
+    `train_real` (4 frames, `gt+noise` boxes, priors), 8 object slots."""
+    import os
+
+    from suo_slam_tpu_torch.data.bop import BopDataset
+    from suo_slam_tpu_torch.data.loader import ConcatLoader
+    from suo_slam_tpu_torch.train import harness
+
+    ds = BopDataset(root, "train_real", bop_dset="ycbv", ignore_symmetry=False, no_aug=True,
+                    det_type="gt+noise", kp_config_root=os.path.join(root, "kp_configs"),
+                    seed=seed)
+    np_batch = next(iter(ConcatLoader([ds], DP_FRAMES, DP_SLOTS, seed=seed, workers=1).epoch()))
+    return harness.to_batch(np_batch, dev, o_pad=DP_SLOTS)
+
+
+def _dp_keep(dev, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((DP_FRAMES * DP_SLOTS, NK), generator=g, device=dev) < 0.5
+
+
+def _dp_state(dt, seed, dev):
+    """The full-width net in `dt` from seeded flax-style weights, SGD."""
+    import torch
+
+    from suo_slam_tpu_torch.models.pkpnet import PkpNet
+    from suo_slam_tpu_torch.train import harness
+
+    net = PkpNet(n_stack=2, n_modules=2, features=256, dtype=dt).to(dev)
+    state = harness.init_state(net, seed=seed)
+    state.optimizer = torch.optim.SGD(net.parameters(), lr=DP_LR)
+    return state
+
+
+def _dp_record(state, metrics):
+    import torch
+
+    torch.cuda.synchronize()
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                sd={k: v.detach().float().cpu().clone() for k, v in state.net.state_dict().items()})
+
+
+def _row_digest(t):
+    """A digest of each leading-axis row's bits (int64 [rows]): equal rows
+    give equal digests; rows that differ in any value, almost surely not."""
+    import torch
+
+    t = t.detach().contiguous()
+    bits = t.view({2: torch.int16, 4: torch.int32}[t.element_size()]).reshape(t.shape[0], -1)
+    w = torch.arange(bits.shape[1], device=t.device, dtype=torch.int64) % 1000003 + 1
+    return (bits.to(torch.int64) * w).sum(1).cpu()
+
+
+@contextlib.contextmanager
+def _dp_trace(net):
+    """Record, from the step run inside, the crops (the backbone's input) and
+    the net's uv as CPU copies, and in call order every convolution's and
+    every norm's input and output as row digests (`_row_digest`), in the
+    yielded dict."""
+    import torch.nn.functional as F
+
+    from suo_slam_tpu_torch.models.hourglass import MaskedBatchNorm
+
+    got = {"conv": [], "norm": []}
+    cut = (lambda t: t.detach().cpu().clone())
+    inner = F.conv2d
+
+    def conv2d(x, *a, **kw):
+        y = inner(x, *a, **kw)
+        got["conv"].append((_row_digest(x), _row_digest(y), tuple(y.shape)))
+        return y
+
+    norms = [m for m in net.modules() if isinstance(m, MaskedBatchNorm)]
+    hooks = [net.backbone.register_forward_pre_hook(lambda m, a: got.update(crops=cut(a[0]))),
+             net.register_forward_hook(lambda m, a, o: got.update(uv=cut(o.uv)))]
+    hooks += [m.register_forward_hook(lambda m, a, o: got["norm"].append(
+        (_row_digest(a[0]), _row_digest(o), tuple(o.shape)))) for m in norms]
+    F.conv2d = conv2d
+    try:
+        yield got
+    finally:
+        F.conv2d = inner
+        for h in hooks:
+            h.remove()
+
+
+def _where_runs_part(got, ref, rows):
+    """Where a rank's run parts from the joined batch's (`ref`, its `rows`):
+    the crops' and uv's largest difference over their largest magnitude;
+    for the convolutions and the norms, in call order, how many outputs
+    differ, how many of those had equal inputs (each one a source of the
+    difference) and the first such call with its output's shape."""
+    import torch
+
+    out = {}
+    for k in ("crops", "uv"):
+        d = (got[k].float() - ref[k][rows].float()).abs()
+        out[k] = d.max().item() / max(ref[k][rows].float().abs().max().item(), 1e-30)
+    for k in ("conv", "norm"):
+        if len(got[k]) != len(ref[k]):
+            raise AssertionError(f"traced {k} calls: {len(got[k])} on a rank, "
+                                 f"{len(ref[k])} in the joined step")
+        src, differ = [], 0
+        for i, ((gi, go, shape), (ri, ro, _)) in enumerate(zip(got[k], ref[k])):
+            part = not torch.equal(go, ro[rows])
+            differ += part
+            if part and torch.equal(gi, ri[rows]):
+                src.append([i, list(shape)])
+        out[k] = dict(calls=len(got[k]), differ=differ, parted_on_equal_input=len(src),
+                      first=src[0] if src else None)
+    return out
+
+
+def _timed_collectives():
+    """Wrap `mesh.all_reduce_sum` to add each call's host seconds (the gloo
+    collective on CUDA tensors copies through the host and returns when done)
+    to the returned dict."""
+    from suo_slam_tpu_torch.parallel import mesh as pm
+
+    acc = {"s": 0.0, "n": 0}
+    inner = pm.all_reduce_sum
+
+    def timed(t, group=None):
+        t0 = time.perf_counter()
+        out = inner(t, group)
+        acc["s"] += time.perf_counter() - t0
+        acc["n"] += 1
+        return out
+
+    pm.all_reduce_sum = timed
+    return acc
+
+
+def _dp_rank(rank, world, init_file, cfg, q):
+    """One rank of phase 12's sharded step on cuda:0 (gloo: the ranks share the
+    card): the f32 and bf16 steps from the same seeded weights, each rank's
+    launches and collectives, its step ms, and sharded inference."""
+    import torch
+
+    from suo_slam_tpu_torch import _device, kernels
+    from suo_slam_tpu_torch.parallel import mesh as pm
+    from suo_slam_tpu_torch.train import harness
+
+    try:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        dev = _device.resolve_device("cuda:0")
+        mesh = pm.data_parallel_mesh([dev] * world, rank=rank, init_method=f"file://{init_file}")
+        out = {"rank": rank, "backend": mesh.backend}
+        batch = _dp_batch(cfg["root"], dev, cfg["seed"])
+        mine = pm.shard_batch(mesh, batch)
+        keep = _dp_keep(dev, cfg["seed"])
+        step = harness.make_sharded_train_step(mesh)
+        acc = _timed_collectives()
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            state = _dp_state(dt, cfg["seed"], dev)
+            kernels.reset_counts()
+            pm.reset_counts()
+            with _dp_trace(state.net) as trace:
+                _, m = step(state, mine, 0.0, keep)
+            rec = _dp_record(state, m)
+            out[f"counts {name}"] = kernels.counts()
+            out[f"collectives {name}"] = pm.counts()
+            torch.save(dict(rec, trace=trace), f"{cfg['out']}.{name}.{rank}.pt")
+            # step ms: host clock around synchronized steps, after the measured one
+            ms = []
+            for _ in range(4):
+                mesh.barrier()
+                torch.cuda.synchronize()
+                acc["s"], acc["n"] = 0.0, 0
+                t0 = time.perf_counter()
+                step(state, mine, 0.0, keep)
+                torch.cuda.synchronize()
+                ms.append((1e3 * (time.perf_counter() - t0), 1e3 * acc["s"], acc["n"]))
+            out[f"step ms {name}"] = ms[1:]
+        net = full_width_net(cfg["seed"]).to(dev).to(memory_format=torch.channels_last)
+        crops = torch.from_numpy(np.random.default_rng(cfg["seed"] + 12).uniform(
+            0, 1, (N_OBJ, 256, 256, 3)).astype(np.float32)).to(dev)
+        kernels.reset_counts()
+        uv, cov, kp = pm.make_sharded_inference(net, mesh)(crops)
+        out["infer counts"] = {k: v for k, v in kernels.counts().items() if v}
+        torch.save({"uv": uv.cpu(), "cov": cov.cpu(), "kp_mask": kp.cpu()},
+                   f"{cfg['out']}.infer.{rank}.pt")
+        mesh.barrier()
+        mesh.close()
+        q.put(out)
+    except BaseException as e:
+        import traceback
+
+        q.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def _dp_distance(got, ref, init):
+    """Loss (relative), parameters (absolute), running averages (against
+    their scale) and the cosine of the two parameter updates from `init`."""
+    import torch
+
+    loss = abs(got["metrics"]["loss"] - ref["metrics"]["loss"]) / abs(ref["metrics"]["loss"])
+    sd = ref["sd"]
+    norm_fed = {k for k in sd if k.endswith(".bias") and k[:-5] + ".weight" in sd
+                and k not in ("classifier.bias", "backbone.heads.1.bias")}
+    params, stats, ug, ur, uga, ura = 0.0, 0.0, [], [], [], []
+    for k, v in sd.items():
+        d = (got["sd"][k] - v).abs().max().item()
+        if k.endswith((".mean", ".var")):
+            stats = max(stats, d / max(v.abs().max().item(), 1.0))
+        else:
+            params = max(params, d)
+            a, b = (got["sd"][k] - init[k]).reshape(-1).double(), (v - init[k]).reshape(-1).double()
+            uga.append(a)
+            ura.append(b)
+            if k not in norm_fed:
+                ug.append(a)
+                ur.append(b)
+    cos = lambda x, y: (torch.cat(x) @ torch.cat(y) / torch.cat(x).norm()
+                        / torch.cat(y).norm()).item()
+    return dict(loss=loss, params=params, stats=stats, cos=cos(ug, ur), cos_all=cos(uga, ura))
+
+
+def check_k16_k17_cross(dev, rng):
+    """K16 / K17's cross-rank modes on one card through a group of one rank:
+    at the train step's norm shapes (phase 9's five, 8 of 32 rows padded; f32
+    and bf16) K16's partial sums against the plain partial sums (1e-12
+    relative: f64 sums in another order), its finalize bit-equal to the
+    plain finalize on the same sums, K17's sums against the plain sums
+    (1e-12) and its dx against the plain dx on the same sums (1e-5 of max
+    f32, 2^-8 bf16); with one rank the two pairs bit-equal to the fused
+    kernels (the same partial rows, in the same order). One kernel a call;
+    device times (warm and L2-cold) at the largest shape beside the plain
+    versions and bounds; an all-reduce of the [2C + 1] f64 sums over gloo
+    and over NCCL (host and device ms). Returns the four modes' entries."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from suo_slam_tpu_torch.models import hourglass as hg
+    from suo_slam_tpu_torch.parallel import mesh as pm
+
+    tmp = tempfile.mkdtemp(prefix="suo_pg_")
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(tmp, 'init')}", rank=0,
+                            world_size=1)
+    group = dist.group.WORLD
+    try:
+        mask = _row_mask(dev).to(torch.uint8)
+        shapes = [(TRAIN_N, 64, 128, 128), (TRAIN_N, 256, 64, 64), (TRAIN_N, 128, 64, 64),
+                  (TRAIN_N, 256, 8, 8), (TRAIN_N, 128, 4, 4)]
+        err = {"partial": 0.0, "finalize": 0.0, "sums": 0.0, "dx f32": 0.0, "dx bf16": 0.0}
+        equal_fused = True
+        cl = lambda a: torch.from_numpy(a).to(dev).contiguous(memory_format=torch.channels_last)
+        rel = lambda a, b: ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        for shape in shapes:
+            C = shape[1]
+            x32 = cl((rng.normal(size=shape) * 1.5 + rng.normal(size=(1, C, 1, 1)))
+                     .astype(np.float32))
+            dy32 = cl(rng.normal(size=shape).astype(np.float32))
+            scale = torch.from_numpy(rng.uniform(0.5, 1.5, C).astype(np.float32)).to(dev)
+            bias = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev) * 0.3
+            for dt in (torch.float32, torch.bfloat16):
+                x, dy = x32.to(dt), dy32.to(dt)
+                rm = torch.from_numpy(rng.normal(size=C).astype(np.float32)).to(dev)
+                rv = torch.from_numpy(rng.uniform(0.5, 2.0, C).astype(np.float32)).to(dev)
+                sums = hg._bn_stats_partial_cuda(x, mask)
+                err["partial"] = max(err["partial"], rel(sums, hg.bn_stats_partial_plain(x, mask)))
+                rk, vk, rp, vp = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+                k = hg._bn_stats_finalize_cuda(sums, scale, bias, 1e-5, rk, vk, 0.9)
+                p = hg.bn_stats_finalize_plain(sums, scale, bias, 1e-5, rp, vp, 0.9)
+                exact = all(torch.equal(a, b) for a, b in zip(k + (rk, vk), p + (rp, vp)))
+                err["finalize"] = max(err["finalize"], 0.0 if exact else max(
+                    rel(a, b) for a, b in zip(k + (rk, vk), p + (rp, vp))))
+                rf, vf = rm.clone(), rv.clone()
+                fused = hg._bn_train_stats_cuda(x, mask, scale, bias, 1e-5, rf, vf, 0.9)
+                rc, vc = rm.clone(), rv.clone()
+                cross = hg.bn_train_stats_cross(x, mask, scale, bias, 1e-5, rc, vc, 0.9, group)
+                equal_fused &= all(torch.equal(a, b) for a, b in zip(fused + (rf, vf),
+                                                                      cross + (rc, vc)))
+                mean, _, rstd, inv, shift = fused
+                s17, sg, sgc, dsc = hg._norm_relu_bwd_sums_cuda(x, dy, inv, shift, mean, rstd, mask)
+                ps = hg.norm_relu_bwd_sums_plain(x, dy, inv, shift, mean, rstd, mask)
+                err["sums"] = max(err["sums"], rel(s17, ps[0]))
+                dx = hg._norm_relu_bwd_dx_cuda(x, dy, inv, shift, mean, rstd, mask, s17)
+                pdx = hg.norm_relu_bwd_dx_plain(x, dy, inv, shift, mean, rstd, mask, s17)
+                key = "dx f32" if dt == torch.float32 else "dx bf16"
+                err[key] = max(err[key], rel(dx.float(), pdx.float()))
+                f17 = hg._norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd, mask)
+                c17 = hg.norm_relu_bwd_cross(x, dy, inv, shift, mean, rstd, mask, group)
+                equal_fused &= all(torch.equal(a, b) for a, b in zip(f17, c17))
+        torch.cuda.synchronize()
+        log(f"[parallel] K16 / K17 cross-rank modes over {len(shapes)} shapes, f32 and bf16, "
+            f"8 of 32 rows padded: " + json.dumps({k: f"{v:.3e}" for k, v in err.items()})
+            + " (tol: partial and sums 1e-12 relative, finalize 0, dx f32 1e-5 of max, "
+            f"bf16 2^-8); one rank's result bit-equal to the fused kernels: {equal_fused}")
+        if not (err["partial"] <= 1e-12 and err["sums"] <= 1e-12 and err["finalize"] == 0.0
+                and err["dx f32"] <= 1e-5 and err["dx bf16"] <= 2.0 ** -8 and equal_fused):
+            raise AssertionError(f"K16 / K17 cross-rank modes: {err}, equal to fused "
+                                 f"{equal_fused}")
+
+        big = shapes[1]
+        C = big[1]
+        one, zero = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        entries = []
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            x = cl((rng.normal(size=big) * 1.5).astype(np.float32)).to(dt)
+            dy = cl(rng.normal(size=big).astype(np.float32)).to(dt)
+            rm, rv = zero.clone(), one.clone()
+            mean, _, rstd, inv, shift = hg._bn_train_stats_cuda(x, mask, one, zero, 1e-5, rm, rv)
+            s16 = hg._bn_stats_partial_cuda(x, mask)
+            s17 = hg._norm_relu_bwd_sums_cuda(x, dy, inv, shift, mean, rstd, mask)[0]
+            fns = {
+                "bn_stats_partial": (lambda: hg._bn_stats_partial_cuda(x, mask),
+                                     lambda: hg.bn_stats_partial_plain(x, mask)),
+                "bn_stats_finalize": (
+                    lambda: hg._bn_stats_finalize_cuda(s16, one, zero, 1e-5, rm, rv, 0.9),
+                    lambda: hg.bn_stats_finalize_plain(s16, one, zero, 1e-5, rm, rv, 0.9)),
+                "norm_relu_bwd_sums": (
+                    lambda: hg._norm_relu_bwd_sums_cuda(x, dy, inv, shift, mean, rstd, mask),
+                    lambda: hg.norm_relu_bwd_sums_plain(x, dy, inv, shift, mean, rstd, mask)),
+                "norm_relu_bwd_dx": (
+                    lambda: hg._norm_relu_bwd_dx_cuda(x, dy, inv, shift, mean, rstd, mask, s17),
+                    lambda: hg.norm_relu_bwd_dx_plain(x, dy, inv, shift, mean, rstd, mask,
+                                                      s17))}
+            n, es = x.numel(), x.element_size()
+            real = int(mask.sum().item()) * n // big[0]
+            sums_b = (2 * C + 1) * 8
+            cost = {"bn_stats_partial": (real * es + sums_b, 3 * real),
+                    "bn_stats_finalize": (sums_b + 11 * C * 4, 12 * C),
+                    "norm_relu_bwd_sums": (2 * n * es + 7 * C * 4 + sums_b, 8 * n),
+                    "norm_relu_bwd_dx": (3 * n * es + 4 * C * 4 + sums_b, 10 * n)}
+            per_call = {k: launches_per_call(f) for k, (f, _) in fns.items()}
+            if any(v != 1 for v in per_call.values()):
+                raise AssertionError(f"cross-rank modes: kernels a call {per_call}")
+            for kname, (fn, plain) in fns.items():
+                ms, plain_ms = cuda_ms(fn), cuda_ms(plain, n=5, inner=2)
+                cold = 1e3 * cuda_ms_cold(fn)
+                b = bound(*cost[kname])
+                e = (err["partial"] if kname == "bn_stats_partial" else err["finalize"]
+                     if kname == "bn_stats_finalize" else err["sums"]
+                     if kname == "norm_relu_bwd_sums" else err[f"dx {name}"])
+                _report(f"{kname} ({name}, {list(big)}, 8 of 32 rows padded; L2-cold device "
+                        f"{cold:.3f} us)", e, "see above", ms, plain_ms, None, b)
+                if name == "bf16":
+                    entries.append(dict(name=kname, route="cuda",
+                                        source="suo_slam_tpu_torch/csrc/bn_train.cu",
+                                        replaces="suo_slam_tpu/models/hourglass.py:69"
+                                        if kname.startswith("bn_stats")
+                                        else "suo_slam_tpu/models/hourglass.py:88",
+                                        max_abs_err=e, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+                                        bound_by=b[1], library_ms=None, cold_us=cold))
+        log(f"[parallel] cross-rank modes, kernels a call (captured graph): "
+            + json.dumps(per_call))
+
+        # the all-reduce of one norm's sums: gloo (a world of one here) and NCCL
+        t = torch.zeros(2 * 256 + 1, dtype=torch.float64, device=dev)
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: bootstrap on loopback
+        nccl = dist.new_group([0], backend="nccl")
+        for label, g in (("gloo", group), ("nccl", nccl)):
+            for _ in range(3):
+                pm.all_reduce_sum(t, g)
+            torch.cuda.synchronize()
+            host = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                pm.all_reduce_sum(t, g)
+                torch.cuda.synchronize()
+                host.append(1e3 * (time.perf_counter() - t0))
+            dev_ms = cuda_ms(lambda: pm.all_reduce_sum(t, g), n=10, inner=10)
+            log(f"[parallel] all-reduce of [{t.numel()}] f64 sums over {label} (one rank): "
+                f"host {statistics.median(host):.4f} ms synchronized (median of 20), "
+                f"{dev_ms:.4f} ms a call between CUDA events")
+        return entries
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(dev, seed):
+    """Phase 12 (the module docstring's): data parallelism."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.train import harness
+
+    base, root = _eval_root()
+    rng = np.random.default_rng(seed + 12)
+    entries = check_k16_k17_cross(dev, rng)
+
+    # the sharded step: two ranks on this card over gloo against one process
+    t0 = time.perf_counter()
+    work = os.path.join(base, "parallel")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = {"root": root, "seed": seed, "out": os.path.join(work, "dp")}
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    init = os.path.join(tempfile.mkdtemp(prefix="suo_pg_"), "init")
+    procs = [ctx.Process(target=_dp_rank, args=(r, DP_WORLD, init, cfg, q))
+             for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        ranks = sorted((q.get(timeout=600) for _ in procs), key=lambda r: r["rank"])
+    finally:
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.kill()
+    errors = [r["error"] for r in ranks if "error" in r]
+    if errors:
+        raise AssertionError("sharded step ranks failed:\n" + "\n".join(errors))
+    log(f"[parallel] {DP_WORLD} ranks on {dev} ({ranks[0]['backend']}): "
+        f"{time.perf_counter() - t0:.1f} s, their start included")
+    batch, keep = _dp_batch(root, dev, seed), _dp_keep(dev, seed)
+    step = harness.make_train_step()
+    n_rank = DP_FRAMES * DP_SLOTS // DP_WORLD  # a rank's crops
+    gates_ok, rank_counts, timing = True, {}, {}
+    with _pinned_cudnn():  # as on the ranks
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            state = _dp_state(dt, seed, dev)
+            init = {k: v.detach().float().cpu().clone()
+                    for k, v in state.net.state_dict().items()}
+            kernels.reset_counts()
+            with _dp_trace(state.net) as ref_trace:
+                _, m = step(state, batch, 0.0, keep)
+            ref = _dp_record(state, m)
+            one_counts = kernels.counts()
+            ms = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(state, batch, 0.0, keep)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t1))
+            got = [torch.load(f"{cfg['out']}.{name}.{r}.pt") for r in range(DP_WORLD)]
+            same = all(torch.equal(got[0]["sd"][k], g["sd"][k])
+                       for g in got[1:] for k in ref["sd"])
+            d = _dp_distance(got[0], ref, init)
+            for r, g in enumerate(got):
+                part = _where_runs_part(g["trace"], ref_trace,
+                                        slice(r * n_rank, (r + 1) * n_rank))
+                log(f"[parallel]   where rank {r}'s run parts from the joined batch's ({name}, "
+                    f"cuDNN deterministic, no autotuning): " + json.dumps(part))
+                if part["crops"]:
+                    raise AssertionError(f"sharded step ({name}): rank {r}'s crops differ from "
+                                         f"the joined batch's ({part['crops']})")
+            gate = DP_GATES[name]
+            ok = (d["loss"] <= gate["loss"] and d["params"] <= gate["params"]
+                  and d["stats"] <= gate["stats"] and d["cos"] >= gate.get("cos", -1.0) and same)
+            gates_ok &= ok
+            log(f"[parallel] sharded step ({name}, {DP_WORLD} ranks x {DP_FRAMES // DP_WORLD} "
+                f"frames x {DP_SLOTS} slots, SGD lr {DP_LR}) against one process on the joined "
+                f"batch: "
+                + json.dumps({k: f"{v:.3e}" for k, v in d.items()})
+                + f" (gates {json.dumps(gate)}); loss {got[0]['metrics']['loss']:.6f} "
+                f"(one process {ref['metrics']['loss']:.6f}); ranks' parameters and running "
+                f"averages equal: {same}")
+            for r in ranks:
+                c = r[f"counts {name}"]
+                rank_counts[(name, r["rank"])] = c
+                log(f"[parallel]   rank {r['rank']} ({name}): launches "
+                    + json.dumps({k: c[k] for k in CROSS_KERNELS + (
+                        "bn_stats", "norm_relu_bwd", "norm_relu", "upsample_add_bwd")})
+                    + f"; collectives {json.dumps(r[f'collectives {name}'])}; step ms (host, "
+                    f"synchronized), collectives' host ms, calls: {r[f'step ms {name}']}")
+            log(f"[parallel]   one process ({name}): step ms {[round(v, 3) for v in ms[1:]]}; "
+                f"launches " + json.dumps({k: one_counts[k] for k in CROSS_KERNELS + (
+                    "bn_stats", "norm_relu_bwd")}))
+            timing[name] = (statistics.median([v[0] for v in ranks[0][f"step ms {name}"]]),
+                            statistics.median(ms[1:]))
+    want = {k: NORMS_PER_FWD for k in CROSS_KERNELS}
+    for (name, r), c in rank_counts.items():
+        if {k: c[k] for k in CROSS_KERNELS} != want or c["bn_stats"] or c["norm_relu_bwd"]:
+            raise AssertionError(f"rank {r} ({name}): cross-rank launches "
+                                 f"{ {k: c[k] for k in CROSS_KERNELS} } (want {want}), fused "
+                                 f"{c['bn_stats']} / {c['norm_relu_bwd']} (want 0)")
+    coll = ranks[0]["collectives bf16"]["all_reduce"]
+    if coll != 2 * NORMS_PER_FWD + 3:
+        raise AssertionError(f"sharded step: {coll} all-reduces, want {2 * NORMS_PER_FWD + 3}")
+    if not gates_ok:
+        raise AssertionError("the sharded step disagrees with one process on the joined batch")
+    log(f"[parallel] step ms, 2 ranks on one card vs one process (median): "
+        + json.dumps({k: [round(a, 3), round(b, 3)] for k, (a, b) in timing.items()}))
+
+    # sharded inference against the local forward
+    net = full_width_net(seed).to(dev).to(memory_format=torch.channels_last).eval()
+    crops = torch.from_numpy(np.random.default_rng(seed + 12).uniform(
+        0, 1, (N_OBJ, 256, 256, 3)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        out = net(crops)
+    worst = 0.0
+    for r in range(DP_WORLD):
+        got = torch.load(f"{cfg['out']}.infer.{r}.pt")
+        for k in ("uv", "cov", "kp_mask"):
+            worst = max(worst, (got[k] - getattr(out, k).cpu()).abs().max().item())
+    log(f"[parallel] sharded inference ({DP_WORLD} ranks x {N_OBJ // DP_WORLD} crops, f32 net) "
+        f"against the local forward: max abs {worst:.3e} (tol 1e-3); rank 0's launches "
+        f"{json.dumps(ranks[0]['infer counts'])}")
+    if worst > 1e-3:
+        raise AssertionError(f"sharded inference differs from the local forward by {worst}")
+    cli_counts = train_cli_torchrun(dev, base, root)
+    return entries, rank_counts[("bf16", 0)], cli_counts
+
+
+def train_cli_torchrun(dev, base, root):
+    """`python -m torch.distributed.run --nproc_per_node 1 -m
+    suo_slam_tpu_torch.train` (NCCL, one rank: the group's start, rank 0's
+    writes, the cross-rank modes) against the plain start on the same flags,
+    one step each: the checkpoints' running averages within K16's 1e-6
+    relative. Returns the plain run's launches."""
+    import os
+    import shutil
+    import signal
+
+    from suo_slam_tpu_torch.train import checkpoint as ck
+
+    argv = ["--dataset", "ycbv", "--data_split", "real", "--no_augmentations",
+            "--steps_per_epoch", "1", "--epochs", "1", "--val_steps", "1", "--no_resume",
+            "--data_root", root, "--kp_config_root", os.path.join(root, "kp_configs")]
+    runs = {}
+    for name in ("plain", "torchrun"):
+        work = os.path.join(base, f"train_cli_{name}")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        if name == "plain":
+            rc, text, _, counts, hits, _ = _cli_run(argv, work)
+        else:
+            repo = os.path.dirname(os.path.abspath(__file__))
+            env = dict(os.environ, PYTHONPATH=repo + (
+                os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""))
+            env.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one host: NCCL's bootstrap on loopback
+            proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                                     "--standalone", "--nproc_per_node", "1", "-m",
+                                     "suo_slam_tpu_torch.train"] + argv, cwd=work, env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                    start_new_session=True)
+            try:
+                text, _ = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise AssertionError("the torchrun training CLI ran past 600 s")
+            rc, counts, hits = proc.returncode, None, {}
+        wall = time.perf_counter() - t0
+        res = os.path.join(work, "results")
+        dirs = os.listdir(res) if os.path.isdir(res) else []
+        if rc != 0 or len(dirs) != 1 or hits:
+            raise AssertionError(f"training CLI ({name}): rc {rc}, {dirs}, plain on CUDA "
+                                 f"{hits}:\n{text[-4000:]}")
+        outdir = os.path.join(res, dirs[0])
+        runs[name] = ck._payload(os.path.join(outdir, "checkpoint-latest"))
+        dp = [line for line in text.splitlines() if line.startswith(("Data parallel", "Epoch"))]
+        log(f"[parallel] training CLI, {name}: rc {rc}, {wall:.1f} s; files "
+            f"{sorted(os.listdir(outdir))}; " + " | ".join(dp))
+        if name == "torchrun" and "Data parallel: 1 ranks (nccl)" not in text:
+            raise AssertionError(f"torchrun CLI did not join an NCCL group:\n{text[-4000:]}")
+        if name == "plain":
+            plain_counts = counts
+
+    def leaves(t, p=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from leaves(v, f"{p}/{k}")
+        else:
+            yield p, np.asarray(t, np.float64)
+
+    a, b = dict(leaves(runs["plain"]["batch_stats"])), dict(leaves(runs["torchrun"]["batch_stats"]))
+    worst = max(np.abs(b[k] - a[k]).max() / max(np.abs(a[k]).max(), 1e-30) for k in a)
+    log(f"[parallel] running averages after one step, torchrun (one NCCL rank, cross-rank "
+        f"modes) against the plain start (fused): {worst:.3e} relative (tol 1e-6)")
+    if worst > 1e-6:
+        raise AssertionError(f"torchrun CLI statistics {worst} from the plain start's")
+    return plain_counts
+
+
+def _g2o_graph(g2o, device):
+    """`tests/test_compat_g2o.py`'s graph: 2 cameras x 2 objects x 12 points,
+    the second camera perturbed, through the public g2o API."""
+    rng = np.random.default_rng(0)
+    k4 = np.array([1.2, 1.2, 0.0, 0.0])
+    opt = g2o.SparseOptimizer(device=device)
+    opt.set_algorithm(g2o.OptimizationAlgorithmLevenberg(
+        g2o.BlockSolverSE3(g2o.LinearSolverDenseSE3())))
+    objs, obj_gt, cams, cam_gt = [], [], [], []
+    for j in range(2):
+        T = np.eye(4)
+        T[:3, 3] = [60.0 * j - 30.0, 0.0, 600.0]
+        v = g2o.VertexSE3Expmap()
+        v.set_id(j)
+        v.set_estimate(g2o.SE3Quat(T[:3, :3], T[:3, 3]))
+        opt.add_vertex(v)
+        objs.append(v)
+        obj_gt.append(T)
+    for i in range(2):
+        T = np.eye(4)
+        T[:3, 3] = [5.0 * i, 0.0, 0.0]
+        T0 = T.copy()
+        if i == 1:
+            T0[:3, 3] += [3.0, -2.0, 4.0]
+        v = g2o.VertexSE3Expmap()
+        v.set_id(2 + i)
+        v.set_estimate(g2o.SE3Quat(T0[:3, :3], T0[:3, 3]))
+        v.set_fixed(i == 0)
+        opt.add_vertex(v)
+        cams.append(v)
+        cam_gt.append(T)
+    pts = rng.uniform(-40, 40, (2, 12, 3))
+    for j in range(2):
+        for i in range(2):
+            for p in pts[j]:
+                pc = cam_gt[i][:3, :3] @ (obj_gt[j][:3, :3] @ p + obj_gt[j][:3, 3]) \
+                    + cam_gt[i][:3, 3]
+                e = g2o.EdgeSE3ProjectFromObject(k4, p)
+                e.set_vertex(0, objs[j])
+                e.set_vertex(1, cams[i])
+                e.set_measurement(1.2 * pc[:2] / pc[2] + rng.normal(0, 1e-3, 2))
+                e.set_information(np.eye(2) * 1e4)
+                e.set_robust_kernel(g2o.RobustKernelHuber(np.sqrt(5.991)))
+                opt.add_edge(e)
+    return opt, objs + cams
+
+
+def phase_compat(dev, seed):
+    """Phase 13 (the module docstring's): the compat shims on the card."""
+    from suo_slam_tpu_torch import kernels
+    from suo_slam_tpu_torch.compat import g2o, lambdatwist
+
+    out, ms = {}, {}
+    for d in ("cpu", dev):
+        opt, verts = _g2o_graph(g2o, d)
+        opt.initialize_optimization(0)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        opt.optimize(20)
+        ms[str(d)] = 1e3 * (time.perf_counter() - t0)
+        counts = kernels.counts()
+        out[str(d)] = [v.estimate().matrix() for v in verts]
+    worst = 0.0
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        worst = max(worst, np.abs(a[:3, :3] - b[:3, :3]).max(),
+                    np.abs(a[:3, 3] - b[:3, 3]).max() / 600.0)
+    k = {n: counts[n] for n in COMPAT_KERNELS + ("ba_lm",)}
+    log(f"[compat] g2o graph (2 cameras x 2 objects x 12 points, Huber, 20 LM iterations) on "
+        f"the card against the CPU: {worst:.3e} (tol 1e-4: rotations, translations over the "
+        f"scene's depth 600); optimize ms card {ms[str(dev)]:.2f}, CPU {ms['cpu']:.2f}; "
+        f"launches {json.dumps(k)}")
+    if worst > 1e-4 or not (k["ba_edges"] > 0 and k["ba_schur"] > 0) or k["ba_lm"]:
+        raise AssertionError(f"compat g2o on the card: {worst}, launches {k}")
+    compat_counts = dict(counts)
+    rng = np.random.default_rng(seed + 13)
+    R = random_rotation(rng)
+    t = np.array([0.1, -0.05, 2.0])
+    x = rng.uniform(-0.5, 0.5, (NK, 3))
+    pc = x @ R.T + t
+    y = pc[:, :2] / pc[:, 2:3]
+    kernels.reset_counts()
+    T_card = lambdatwist.pnp(x, y, device=dev)
+    k15 = kernels.counts()["pnp_ransac"]
+    T_cpu = lambdatwist.pnp(x, y, device="cpu")
+    gt = np.eye(4)
+    gt[:3, :3], gt[:3, 3] = R, t
+    e_card = max(np.abs(T_card - gt)[:3, :3].max(), np.abs(T_card - gt)[:3, 3].max() / 2.0)
+    e_cpu = max(np.abs(T_cpu - gt)[:3, :3].max(), np.abs(T_cpu - gt)[:3, 3].max() / 2.0)
+    log(f"[compat] lambdatwist.pnp on {NK} clean points: card {e_card:.3e}, CPU {e_cpu:.3e} "
+        f"from the true pose (tol 1e-4); K15 launches {k15}")
+    if e_card > 1e-4 or e_cpu > 1e-4 or k15 != 1:
+        raise AssertionError(f"compat lambdatwist: {e_card} / {e_cpu}, K15 {k15}")
+    compat_counts["pnp_ransac"] = k15
+    return compat_counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6938,6 +7684,8 @@ def main(argv=None):
                     help="the net --step-only times (BatchNorm or GroupNorm)")
     ap.add_argument("--int8-only", action="store_true",
                     help="build, then time the full-width int8 forward at 128 crops only")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, write the training split, then phases 12 and 13 only")
     args = ap.parse_args(argv)
 
     import torch
@@ -6954,6 +7702,19 @@ def main(argv=None):
         r = phase_int8_only(dev, args.seed)
         log(smi_line())
         log(json.dumps({"int8_128": r}))
+        return 0
+    if args.parallel_only:
+        base, root = _eval_root()
+        rng = np.random.default_rng(args.seed + 2)
+        objs = EvalObjects(rng)
+        write_bop_tree(root, objs, [SlamScene(rng, objs, EVAL_VIEWS)])
+        write_train_split(root, EvalObjects(np.random.default_rng(args.seed + 2)),
+                          np.random.default_rng(args.seed + 9))
+        entries, counts, _ = phase_parallel(dev, args.seed)
+        compat = phase_compat(dev, args.seed)
+        log(smi_line())
+        log(json.dumps({"kernels": [dict(e, launches=counts[e["name"]]) for e in entries],
+                        "compat": {k: compat[k] for k in COMPAT_KERNELS + ("pnp_ransac",)}}))
         return 0
     rng = np.random.default_rng(args.seed)
     objs = Objects(rng)
@@ -6982,13 +7743,17 @@ def main(argv=None):
     quant_entries, quant_counts = phase_quant(dev, args.seed, net, net16, crops)
     group_entries, group_counts = phase_group(dev, args.seed, objs, scene)
     phase_throughput(dev, args.seed, net, net16)
-    entries += int8_entries + train_entries + quant_entries + group_entries
+    parallel_entries, parallel_counts, _ = phase_parallel(dev, args.seed)
+    compat_counts = phase_compat(dev, args.seed)
+    entries += int8_entries + train_entries + quant_entries + group_entries + parallel_entries
     for e in entries:
         e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts
                          if e["name"] in INT8_KERNELS + ("int8_pool_junction",) else train_counts
                          if e["name"] in TRAIN_KERNELS else quant_counts
                          if e["name"] in QUANT_KERNELS else group_counts
-                         if e["name"] in GROUP_KERNELS else counts)[e["name"]]
+                         if e["name"] in GROUP_KERNELS else parallel_counts
+                         if e["name"] in CROSS_KERNELS else compat_counts
+                         if e["name"] in COMPAT_KERNELS else counts)[e["name"]]
     for e in entries:  # K2 / K19 in phase 9's -u training run (4 steps + 2 val batches)
         if e["name"] in ("heatmap_readout", "heatmap_readout_bwd"):
             e["launches_u_run"] = u_counts[e["name"]]

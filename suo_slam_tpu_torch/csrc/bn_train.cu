@@ -77,6 +77,24 @@
 // finalize of C / 32 blocks, then (K17) a dx pass: two (K16) or three (K17)
 // launches per call.
 //
+// Cross-rank modes (data parallelism: one process a card, the statistics of
+// the global batch; `models/hourglass.py` `bn_train_stats_cross`,
+// `norm_relu_bwd_cross`). K16 "partial": the fused kernel up to its grid
+// barrier, whose finalize then writes this rank's grid-reduced f64 sums
+// sums[c * 2 + {0, 1}] = (sum x, sum x^2) and sums[2C] = its count of values
+// (real rows x HW, or N x HW without a mask) instead of the statistics; the
+// caller all-reduces sums (SUM), then K16 "finalize" (a thread a channel)
+// writes mean, var, rstd, inv, shift and the running averages from them with
+// M = max(sum of the counts, 1), by the fused epilogue's own operations
+// (`bn_epilogue`). K17 "sums": the fused backward up to its first barrier,
+// whose finalize writes sums = (sum g, sum g * xc) and the count, and this
+// rank's sum_g, sum_gc and dscale (the parameters' gradients, which the step
+// sums over the ranks afterwards); after the all-reduce K17 "dx" (the fused
+// plan's grid, no barrier) stages each channel block's dx coefficients from
+// the global sums (`dx_coefs`, the fused finalize's formula) and runs the
+// fused dx walk. On one rank both pairs give the fused kernels' bits: the
+// same partial rows, summed in the same order, through the same arithmetic.
+//
 // With `cycles` (int64 [rows, phases], zeros) thread 0 of each block adds its
 // SM clock cycles per phase (`hourglass.BN_STATS_PHASES`,
 // `BN_BWD_PHASES`) to its block's row: a load's wait is read by a volatile
@@ -368,6 +386,7 @@ struct StatsArgs {
   unsigned* bar;        // [2] zeros, left zeros
   float *mean, *var, *rstd, *inv, *shift;
   long long* cycles;    // null or [grid, kStatsPhases]
+  double* sums;         // non-null: the cross-rank partial mode ([2C + 1] out)
 };
 
 struct BwdArgs {
@@ -382,6 +401,8 @@ struct BwdArgs {
   float *sum_g, *sum_gc, *dscale;
   void* dx;
   long long* cycles;    // null or [grid, kBwdPhases]
+  double* sums;         // non-null: the cross-rank sums mode ([2C + 1] out);
+                        // the dx mode: the all-reduced sums (in)
 };
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
@@ -563,6 +584,41 @@ __device__ __forceinline__ long long warp_count_rows(const uint8_t* mask, int N)
   return m;
 }
 
+// MaskedBatchNorm's eager f32 operations on channel c's sums, in order: the
+// fused finalize's and the cross-rank finalize's one code
+__device__ __forceinline__ void bn_epilogue(int c, double s1, double s2, double M,
+                                            const float* scale, const float* bias, float eps,
+                                            float mom, float mom1, float* run_mean,
+                                            float* run_var, float* mean, float* var,
+                                            float* rstd, float* inv, float* shift) {
+  const double mu = s1 / M;
+  const double v = s2 / M - mu * mu;
+  const float mf = (float)mu, vf = (float)(v > 0.0 ? v : 0.0);
+  mean[c] = mf;
+  var[c] = vf;
+  if (scale != nullptr) {
+    const float rs = rsqrtf(vf + eps);
+    const float iv = rs * scale[c];
+    rstd[c] = rs;
+    inv[c] = iv;
+    shift[c] = bias[c] - mf * iv;
+    if (run_mean != nullptr) {
+      run_mean[c] = run_mean[c] * mom + mf * mom1;
+      run_var[c] = run_var[c] * mom + vf * mom1;
+    }
+  }
+}
+
+// dx's per-channel coefficients (inv, inv sum_g / M, inv rstd^2 sum_gc / M)
+// from channel c's sums: the fused finalize's and the dx mode's one code
+__device__ __forceinline__ void dx_coefs(float inv_c, float rstd_c, double s1, double s2,
+                                         double M, float& c0, float& c1, float& c2) {
+  const double iv = (double)inv_c, r = (double)rstd_c;
+  c0 = inv_c;
+  c1 = (float)(iv * s1 / M);
+  c2 = (float)(iv * r * r * s2 / M);
+}
+
 // K16, fused. Dynamic shared memory: the reduction rows, then the indices of
 // the real rows (int [N]).
 template <typename T, int V, bool kClock>
@@ -648,27 +704,104 @@ __global__ void __launch_bounds__(kFThreads, 1) bn_stats_fused_kernel(const Stat
   grid_barrier(a.bar, 1u);
   clk.mark(kBarrier);
   grid_leave(a.bar);
-  const double M = count_of(a.mask != nullptr, R, a.N, HW);
-  finalize_channels(a.part, C, [&](int c, double s1, double s2) {
-    const double mu = s1 / M;
-    const double v = s2 / M - mu * mu;
-    const float mf = (float)mu, vf = (float)(v > 0.0 ? v : 0.0);
-    a.mean[c] = mf;
-    a.var[c] = vf;
-    if (a.scale != nullptr) {  // MaskedBatchNorm's eager f32 operations, in order
-      const float rs = rsqrtf(vf + a.eps);
-      const float iv = rs * a.scale[c];
-      a.rstd[c] = rs;
-      a.inv[c] = iv;
-      a.shift[c] = a.bias[c] - mf * iv;
-      if (a.run_mean != nullptr) {
-        a.run_mean[c] = a.run_mean[c] * a.mom + mf * a.mom1;
-        a.run_var[c] = a.run_var[c] * a.mom + vf * a.mom1;
-      }
-    }
-  });
+  if (a.sums != nullptr) {  // cross-rank partial mode: this rank's sums and count
+    if (blockIdx.x == 0 && t == 0)
+      a.sums[2 * C] = (a.mask != nullptr ? (double)R : (double)a.N) * (double)HW;
+    finalize_channels(a.part, C, [&](int c, double s1, double s2) {
+      a.sums[c * 2] = s1;
+      a.sums[c * 2 + 1] = s2;
+    });
+  } else {
+    const double M = count_of(a.mask != nullptr, R, a.N, HW);
+    finalize_channels(a.part, C, [&](int c, double s1, double s2) {
+      bn_epilogue(c, s1, s2, M, a.scale, a.bias, a.eps, a.mom, a.mom1, a.run_mean, a.run_var,
+                  a.mean, a.var, a.rstd, a.inv, a.shift);
+    });
+  }
   clk.mark(kFinalize);
   clk.flush(kStatsPhases);
+}
+
+// K17's dx pass over the slab [p0, p1), walked back: dx = a g - m_n (b +
+// (x - mean) c) with (a, b, c) of each channel from stage(c, a, b, c), staged
+// in cf [5][width] once a channel block. Returns the clock's dependency word.
+template <typename T, int V, bool kClock, typename Stage>
+__device__ __forceinline__ unsigned dx_walk(const BwdArgs& a, const FLayout& L, long long p0,
+                                            long long p1, int sub, int jl, float* cf,
+                                            Stage stage) {
+  const T* __restrict__ x = static_cast<const T*>(a.x);
+  const T* __restrict__ dy = static_cast<const T*>(a.dy);
+  T* __restrict__ dx = static_cast<T*>(a.dx);
+  const int C = a.C, t = threadIdx.x;
+  const long long HW = a.HW;
+  const long long step = (long long)L.lanes_p * kBwdUnroll;
+  unsigned dep = 0u;
+  const int width = L.lanes_c * V;
+  for (int jb = ((L.cv - 1) / L.lanes_c) * L.lanes_c; jb >= 0; jb -= L.lanes_c) {
+    const int left = L.cv - jb, cblk = (left < L.lanes_c ? left : L.lanes_c) * V;
+    __syncthreads();  // the previous channel block's readers are done
+    for (int i = t; i < cblk; i += kFThreads) {
+      const int c = jb * V + i;
+      stage(c, cf[i], cf[width + i], cf[2 * width + i]);
+      cf[3 * width + i] = __ldg(a.shift + c);
+      cf[4 * width + i] = __ldg(a.mean + c);
+    }
+    __syncthreads();
+    const int j = jb + jl;
+    if (!(sub < L.lanes_p && j < L.cv) || p0 + sub >= p1) continue;
+    float iv[V], sh[V], mu[V], cb[V], cc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int i = jl * V + k;
+      iv[k] = cf[i];
+      cb[k] = cf[width + i];
+      cc[k] = cf[2 * width + i];
+      sh[k] = cf[3 * width + i];
+      mu[k] = cf[4 * width + i];
+    }
+    const long long cj = (long long)j * V;
+    const long long n_it = (p1 - (p0 + sub) + step - 1) / step;
+    long long pl = p0 + sub + (n_it - 1) * step + (long long)(kBwdUnroll - 1) * L.lanes_p;
+    if (pl >= p1) pl = p1 - 1;
+    long long n = pl / HW;  // the row walk, backwards (one division per thread)
+    long long row_start = n * HW;
+    bool on = a.mask == nullptr || __ldg(a.mask + n) != 0;
+    for (long long i = n_it - 1; i >= 0; --i) {
+      const long long pb = p0 + sub + i * step;
+      Vec<T, V> xv[kBwdUnroll], dv[kBwdUnroll];
+#pragma unroll
+      for (int u = kBwdUnroll - 1; u >= 0; --u) {
+        long long p = pb + (long long)u * L.lanes_p;
+        if (p >= p1) p = p1 - 1;
+        xv[u] = ldv<T, V>(x + p * C + cj, true);
+        dv[u] = ldv<T, V>(dy + p * C + cj, true);
+      }
+#pragma unroll
+      for (int u = kBwdUnroll - 1; u >= 0; --u) {
+        const long long p = pb + (long long)u * L.lanes_p;
+        if (p >= p1) continue;
+        if (p < row_start) {
+          do {
+            --n;
+            row_start -= HW;
+          } while (p < row_start);
+          on = a.mask == nullptr || __ldg(a.mask + n) != 0;
+        }
+        Vec<T, V> out;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float xf = to_f(xv[u].v[k]);
+          const float g = relu_pre<T>(xf * iv[k] + sh[k]) ? to_f(dv[u].v[k]) : 0.f;
+          float d = iv[k] * g;
+          if (on) d = d - (cb[k] + (xf - mu[k]) * cc[k]);
+          out.v[k] = from_f<T>(d);
+        }
+        stv_cs<T, V>(dx + p * C + cj, out);
+        if constexpr (kClock) dep ^= first_word(out);
+      }
+    }
+  }
+  return dep;
 }
 
 // K17, fused. Dynamic shared memory: the reduction rows, then a channel
@@ -748,8 +881,24 @@ __global__ void __launch_bounds__(kFThreads, 1) bn_bwd_fused_kernel(const BwdArg
   }
   grid_barrier(a.bar, 1u);
   clk.mark(kBarrier);
-  if (!train) grid_leave(a.bar);
+  const bool cross = a.sums != nullptr;  // the cross-rank sums mode ends here
+  if (!train || cross) grid_leave(a.bar);
   // the finalize, a warp per channel over the grid
+  if (cross) {
+    if (blockIdx.x == 0 && t == 0)
+      a.sums[2 * C] = (a.mask != nullptr ? (double)s_rows : (double)a.N) * (double)HW;
+    finalize_channels(a.part, C, [&](int c, double s1, double s2) {
+      const float sg = (float)s1, sgc = (float)s2;
+      a.sums[c * 2] = s1;
+      a.sums[c * 2 + 1] = s2;
+      a.sum_g[c] = sg;
+      a.sum_gc[c] = sgc;
+      a.dscale[c] = sgc * a.rstd[c];
+    });
+    clk.mark(kFinalize);
+    clk.flush(kBwdPhases);
+    return;
+  }
   const double M = count_of(a.mask != nullptr, s_rows, a.N, HW);
   finalize_channels(a.part, C, [&](int c, double s1, double s2) {
     const float sg = (float)s1, sgc = (float)s2;
@@ -758,10 +907,7 @@ __global__ void __launch_bounds__(kFThreads, 1) bn_bwd_fused_kernel(const BwdArg
     if (train) {
       const float rf = a.rstd[c];
       a.dscale[c] = sgc * rf;
-      const double iv = (double)a.inv[c], r = (double)rf;
-      a.coef[c * 3] = a.inv[c];
-      a.coef[c * 3 + 1] = (float)(iv * s1 / M);
-      a.coef[c * 3 + 2] = (float)(iv * r * r * s2 / M);
+      dx_coefs(a.inv[c], rf, s1, s2, M, a.coef[c * 3], a.coef[c * 3 + 1], a.coef[c * 3 + 2]);
     }
   });
   clk.mark(kFinalize);
@@ -772,78 +918,45 @@ __global__ void __launch_bounds__(kFThreads, 1) bn_bwd_fused_kernel(const BwdArg
   grid_barrier(a.bar, 2u);
   clk.mark(kBarrier2);
   grid_leave(a.bar);
-  // dx, the slab walked back: dx = a g - m_n (b + (x - mean) c)
-  unsigned dep = 0u;
-  const int width = L.lanes_c * V;
-  float* cf = reinterpret_cast<float*>(smem + L.red_doubles(V));  // [5][width]
-  for (int jb = ((L.cv - 1) / L.lanes_c) * L.lanes_c; jb >= 0; jb -= L.lanes_c) {
-    const int left = L.cv - jb, cblk = (left < L.lanes_c ? left : L.lanes_c) * V;
-    __syncthreads();  // the previous channel block's readers are done
-    for (int i = t; i < cblk; i += kFThreads) {
-      const int c = jb * V + i;
-      cf[i] = __ldcg(a.coef + c * 3);
-      cf[width + i] = __ldcg(a.coef + c * 3 + 1);
-      cf[2 * width + i] = __ldcg(a.coef + c * 3 + 2);
-      cf[3 * width + i] = __ldg(a.shift + c);
-      cf[4 * width + i] = __ldg(a.mean + c);
-    }
-    __syncthreads();
-    const int j = jb + jl;
-    if (!(sub < L.lanes_p && j < L.cv) || p0 + sub >= p1) continue;
-    float iv[V], sh[V], mu[V], cb[V], cc[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int i = jl * V + k;
-      iv[k] = cf[i];
-      cb[k] = cf[width + i];
-      cc[k] = cf[2 * width + i];
-      sh[k] = cf[3 * width + i];
-      mu[k] = cf[4 * width + i];
-    }
-    const long long cj = (long long)j * V;
-    const long long n_it = (p1 - (p0 + sub) + step - 1) / step;
-    long long pl = p0 + sub + (n_it - 1) * step + (long long)(kBwdUnroll - 1) * L.lanes_p;
-    if (pl >= p1) pl = p1 - 1;
-    long long n = pl / HW;  // the row walk, backwards (one division per thread)
-    long long row_start = n * HW;
-    bool on = a.mask == nullptr || __ldg(a.mask + n) != 0;
-    for (long long i = n_it - 1; i >= 0; --i) {
-      const long long pb = p0 + sub + i * step;
-      Vec<T, V> xv[kBwdUnroll], dv[kBwdUnroll];
-#pragma unroll
-      for (int u = kBwdUnroll - 1; u >= 0; --u) {
-        long long p = pb + (long long)u * L.lanes_p;
-        if (p >= p1) p = p1 - 1;
-        xv[u] = ldv<T, V>(x + p * C + cj, true);
-        dv[u] = ldv<T, V>(dy + p * C + cj, true);
-      }
-#pragma unroll
-      for (int u = kBwdUnroll - 1; u >= 0; --u) {
-        const long long p = pb + (long long)u * L.lanes_p;
-        if (p >= p1) continue;
-        if (p < row_start) {
-          do {
-            --n;
-            row_start -= HW;
-          } while (p < row_start);
-          on = a.mask == nullptr || __ldg(a.mask + n) != 0;
-        }
-        Vec<T, V> out;
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-          const float xf = to_f(xv[u].v[k]);
-          const float g = relu_pre<T>(xf * iv[k] + sh[k]) ? to_f(dv[u].v[k]) : 0.f;
-          float d = iv[k] * g;
-          if (on) d = d - (cb[k] + (xf - mu[k]) * cc[k]);
-          out.v[k] = from_f<T>(d);
-        }
-        stv_cs<T, V>(dx + p * C + cj, out);
-        if constexpr (kClock) dep ^= first_word(out);
-      }
-    }
-  }
+  const unsigned dep = dx_walk<T, V, kClock>(
+      a, L, p0, p1, sub, jl, reinterpret_cast<float*>(smem + L.red_doubles(V)),
+      [&](int c, float& c0, float& c1, float& c2) {
+        c0 = __ldcg(a.coef + c * 3);
+        c1 = __ldcg(a.coef + c * 3 + 1);
+        c2 = __ldcg(a.coef + c * 3 + 2);
+      });
   clk.mark(kDx, dep);
   clk.flush(kBwdPhases);
+}
+
+// K17's cross-rank dx mode, on the fused plan's grid (its slabs): each CTA
+// stages its channel blocks' coefficients from the all-reduced sums (count at
+// sums[2C]) and walks its slab as the fused kernel's last phase does. Dynamic
+// shared memory: the fused layout's (the coefficients after the reduction
+// rows, which this mode leaves unused).
+template <typename T, int V>
+__global__ void __launch_bounds__(kFThreads, 1) bn_bwd_dx_kernel(const BwdArgs a) {
+  extern __shared__ double smem[];
+  const FLayout L(a.C, V);
+  long long p0, p1;
+  slab_of((long long)a.N * a.HW, &p0, &p1);
+  const int sub = threadIdx.x / L.lanes_c, jl = threadIdx.x % L.lanes_c;
+  const double cnt = __ldg(a.sums + 2 * a.C);
+  const double M = cnt > 1.0 ? cnt : 1.0;
+  dx_walk<T, V, false>(a, L, p0, p1, sub, jl, reinterpret_cast<float*>(smem + L.red_doubles(V)),
+                       [&](int c, float& c0, float& c1, float& c2) {
+                         dx_coefs(__ldg(a.inv + c), __ldg(a.rstd + c), __ldg(a.sums + c * 2),
+                                  __ldg(a.sums + c * 2 + 1), M, c0, c1, c2);
+                       });
+}
+
+// K16's cross-rank finalize: a thread a channel, from the all-reduced sums
+__global__ void __launch_bounds__(kThreads) bn_cross_finalize_kernel(const StatsArgs a) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= a.C) return;
+  const double cnt = a.sums[2 * a.C];
+  bn_epilogue(c, a.sums[c * 2], a.sums[c * 2 + 1], cnt > 1.0 ? cnt : 1.0, a.scale, a.bias, a.eps,
+              a.mom, a.mom1, a.run_mean, a.run_var, a.mean, a.var, a.rstd, a.inv, a.shift);
 }
 
 // ============================================================== launches ==
@@ -949,6 +1062,11 @@ int bwd_fused_v(const BwdArgs& a, int grid, int smem, cudaStream_t s) {
   return launch_fused<BwdArgs, bn_bwd_fused_kernel<T, V, false>>(a, grid, smem, s);
 }
 
+template <typename T, int V>
+int bwd_dx_v(const BwdArgs& a, int grid, int smem, cudaStream_t s) {
+  return launch_fused<BwdArgs, bn_bwd_dx_kernel<T, V>>(a, grid, smem, s);
+}
+
 }  // namespace
 
 // ---------------------------------------------------------- the split design
@@ -1008,7 +1126,7 @@ extern "C" int suo_bn_stats_fused(const void* x, const void* mask, int N, long l
                                   void* bar, void* mean, void* var, void* rstd, void* inv,
                                   void* shift, int dtype, int vec, int grid, int smem,
                                   void* cycles, void* stream) {
-  StatsArgs a;
+  StatsArgs a = {};
   a.x = x;
   a.mask = (const uint8_t*)mask;
   a.N = N;
@@ -1047,7 +1165,7 @@ extern "C" int suo_norm_relu_bwd_fused(const void* x, const void* dy, const void
                                        void* bar, void* coef, void* sum_g, void* sum_gc,
                                        void* dscale, void* dx, int dtype, int vec, int grid,
                                        int smem, void* cycles, void* stream) {
-  BwdArgs a;
+  BwdArgs a = {};
   a.x = x;
   a.dy = dy;
   a.mask = (const uint8_t*)mask;
@@ -1071,4 +1189,112 @@ extern "C" int suo_norm_relu_bwd_fused(const void* x, const void* dy, const void
     return vec ? bwd_fused_v<float, 4>(a, grid, smem, s) : bwd_fused_v<float, 1>(a, grid, smem, s);
   return vec ? bwd_fused_v<__nv_bfloat16, 8>(a, grid, smem, s)
              : bwd_fused_v<__nv_bfloat16, 1>(a, grid, smem, s);
+}
+
+// ------------------------------------------------------- the cross-rank modes
+// K16 partial: as suo_bn_stats_fused without the affine, writing this rank's
+// sums [2C + 1] f64 (per channel sum x, sum x^2; then the count of values).
+extern "C" int suo_bn_stats_partial(const void* x, const void* mask, int N, long long HW, int C,
+                                    void* part, void* bar, void* sums, int dtype, int vec,
+                                    int grid, int smem, void* stream) {
+  StatsArgs a = {};
+  a.x = x;
+  a.mask = (const uint8_t*)mask;
+  a.N = N;
+  a.C = C;
+  a.HW = HW;
+  a.part = (double*)part;
+  a.bar = (unsigned*)bar;
+  a.sums = (double*)sums;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return vec ? stats_fused_v<float, 4>(a, grid, smem, s)
+               : stats_fused_v<float, 1>(a, grid, smem, s);
+  return vec ? stats_fused_v<__nv_bfloat16, 8>(a, grid, smem, s)
+             : stats_fused_v<__nv_bfloat16, 1>(a, grid, smem, s);
+}
+
+// K16 finalize: from the all-reduced sums [2C + 1] f64, mean, var, rstd, inv,
+// shift [C] f32 out and run_mean, run_var [C] f32 updated in place (or null).
+extern "C" int suo_bn_stats_finalize(const void* sums, int C, const void* scale,
+                                     const void* bias, float eps, float mom, float mom1,
+                                     void* run_mean, void* run_var, void* mean, void* var,
+                                     void* rstd, void* inv, void* shift, void* stream) {
+  StatsArgs a = {};
+  a.C = C;
+  a.sums = (double*)sums;
+  a.scale = (const float*)scale;
+  a.bias = (const float*)bias;
+  a.eps = eps;
+  a.mom = mom;
+  a.mom1 = mom1;
+  a.run_mean = (float*)run_mean;
+  a.run_var = (float*)run_var;
+  a.mean = (float*)mean;
+  a.var = (float*)var;
+  a.rstd = (float*)rstd;
+  a.inv = (float*)inv;
+  a.shift = (float*)shift;
+  bn_cross_finalize_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K17 sums: train mode (mean, rstd given), as suo_norm_relu_bwd_fused up to its
+// first barrier: sums [2C + 1] f64 out (sum g, sum g * xc; the count), and
+// this rank's sum_g, sum_gc, dscale [C] f32; no dx.
+extern "C" int suo_norm_relu_bwd_sums(const void* x, const void* dy, const void* mask,
+                                      const void* inv, const void* shift, const void* mean,
+                                      const void* rstd, int N, long long HW, int C, void* part,
+                                      void* bar, void* sums, void* sum_g, void* sum_gc,
+                                      void* dscale, int dtype, int vec, int grid, int smem,
+                                      void* stream) {
+  BwdArgs a = {};
+  a.x = x;
+  a.dy = dy;
+  a.mask = (const uint8_t*)mask;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.mean = (const float*)mean;
+  a.rstd = (const float*)rstd;
+  a.N = N;
+  a.C = C;
+  a.HW = HW;
+  a.part = (double*)part;
+  a.bar = (unsigned*)bar;
+  a.sum_g = (float*)sum_g;
+  a.sum_gc = (float*)sum_gc;
+  a.dscale = (float*)dscale;
+  a.sums = (double*)sums;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return vec ? bwd_fused_v<float, 4>(a, grid, smem, s) : bwd_fused_v<float, 1>(a, grid, smem, s);
+  return vec ? bwd_fused_v<__nv_bfloat16, 8>(a, grid, smem, s)
+             : bwd_fused_v<__nv_bfloat16, 1>(a, grid, smem, s);
+}
+
+// K17 dx: dx [N, HW, C] from the all-reduced sums [2C + 1] f64, on the fused
+// plan's grid and shared memory (the K17 "bwd" plan).
+extern "C" int suo_norm_relu_bwd_dx(const void* x, const void* dy, const void* mask,
+                                    const void* inv, const void* shift, const void* mean,
+                                    const void* rstd, const void* sums, int N, long long HW,
+                                    int C, void* dx, int dtype, int vec, int grid, int smem,
+                                    void* stream) {
+  BwdArgs a = {};
+  a.x = x;
+  a.dy = dy;
+  a.mask = (const uint8_t*)mask;
+  a.inv = (const float*)inv;
+  a.shift = (const float*)shift;
+  a.mean = (const float*)mean;
+  a.rstd = (const float*)rstd;
+  a.N = N;
+  a.C = C;
+  a.HW = HW;
+  a.sums = (double*)sums;
+  a.dx = dx;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return vec ? bwd_dx_v<float, 4>(a, grid, smem, s) : bwd_dx_v<float, 1>(a, grid, smem, s);
+  return vec ? bwd_dx_v<__nv_bfloat16, 8>(a, grid, smem, s)
+             : bwd_dx_v<__nv_bfloat16, 1>(a, grid, smem, s);
 }

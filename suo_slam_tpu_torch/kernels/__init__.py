@@ -8,7 +8,8 @@ K2, K5 and K19 `ops/heatmap.py`, K3 and K15 `solvers/pnp.py`, K4 and K7
 `models/hourglass.py`, K22 `solvers/pnp.py`) and adds one to its counter
 here where — and only where — it launches its CUDA kernel (once per call,
 where a call runs several kernels; K12's launches in its pool and
-junction modes count under their own names too). `count` takes a lock: the pipelined
+junction modes count under their own names too; K16 / K17's cross-rank
+modes, separate launches, count under theirs alone). `count` takes a lock: the pipelined
 evaluation launches from several worker threads, and `+= 1` on a dict entry
 is a read-modify-write that two threads could interleave and lose.
 
@@ -47,7 +48,11 @@ LAUNCHES: dict[str, int] = {
     "ba_lm": 0,         # K14
     "pnp_ransac": 0,    # K15
     "bn_stats": 0,      # K16
+    "bn_stats_partial": 0,   # K16's cross-rank partial mode (this rank's sums)
+    "bn_stats_finalize": 0,  # K16's cross-rank finalize mode (from the all-reduced sums)
     "norm_relu_bwd": 0,  # K17
+    "norm_relu_bwd_sums": 0,  # K17's cross-rank sums mode
+    "norm_relu_bwd_dx": 0,    # K17's cross-rank dx mode
     "upsample_add_bwd": 0,  # K18
     "heatmap_readout_bwd": 0,  # K19
     "group_norm_relu": 0,  # K20

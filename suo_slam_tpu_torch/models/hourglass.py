@@ -87,6 +87,7 @@ from torch import nn
 
 from .. import kernels as kcount
 from ..kernels import _build
+from ..parallel import mesh as _mesh
 
 _CL = torch.channels_last
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -303,20 +304,58 @@ def _masked_count(row_mask: torch.Tensor | None, N: int, hw: int, dev) -> torch.
     return torch.clamp((row_mask != 0).to(torch.float64).sum() * hw, min=1.0)
 
 
+def _pack_sums(s1: torch.Tensor, s2: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """f64 [2C + 1]: (s1[c], s2[c]) interleaved per channel, then the count:
+    the layout of the cross-rank modes' sums (`bn_train.cu`)."""
+    return torch.cat([torch.stack([s1, s2], 1).reshape(-1), count.reshape(1)])
+
+
+def _unpack_sums(sums: torch.Tensor):
+    """(s1 [C], s2 [C], M = max(count, 1)) of `_pack_sums`' layout."""
+    C = (sums.numel() - 1) // 2
+    s = sums[: 2 * C].reshape(C, 2)
+    return s[:, 0], s[:, 1], torch.clamp(sums[2 * C], min=1.0)
+
+
+def bn_stats_partial_plain(x: torch.Tensor, row_mask: torch.Tensor | None = None):
+    """Plain K16 partial mode: this rank's f64 [2C + 1] sums, (sum x, sum x^2)
+    per channel over the rows `row_mask` (bool or uint8) marks (all rows
+    without one), then their count of values, rows x H x W."""
+    N, C, H, W = x.shape
+    xd = x.to(torch.float64)
+    if row_mask is None:
+        count = torch.tensor(float(N * H * W), dtype=torch.float64, device=x.device)
+    else:
+        m = (row_mask != 0).to(torch.float64)
+        xd = xd * m[:, None, None, None]
+        count = m.sum() * (H * W)
+    return _pack_sums(xd.sum((0, 2, 3)), (xd * xd).sum((0, 2, 3)), count)
+
+
+def _bn_moments(sums: torch.Tensor, out: torch.dtype):
+    """mean = s1 / M, var = max(s2 / M - mean^2, 0) in f64, rounded to `out`."""
+    s1, s2, M = _unpack_sums(sums)
+    mean = s1 / M
+    var = torch.clamp(s2 / M - mean * mean, min=0.0)
+    return mean.to(out), var.to(out)
+
+
 def bn_stats_plain(x: torch.Tensor, row_mask: torch.Tensor | None = None):
     """Plain K16: per-channel mean and biased variance, f32 [C] (f64 for f64
     x), over the rows `row_mask` (bool or uint8) marks (all rows without
     one): f64 sums of x and x^2, mean = sum / M, var = sum2 / M - mean^2 with
     M = max(rows * H * W, 1)."""
-    N, C, H, W = x.shape
-    xd = x.to(torch.float64)
-    if row_mask is not None:
-        xd = xd * (row_mask != 0).to(torch.float64)[:, None, None, None]
-    M = _masked_count(row_mask, N, H * W, x.device)
-    mean = xd.sum((0, 2, 3)) / M
-    var = torch.clamp((xd * xd).sum((0, 2, 3)) / M - mean * mean, min=0.0)
-    out = kcount.plain_dtype(x.dtype)
-    return mean.to(out), var.to(out)
+    return _bn_moments(bn_stats_partial_plain(x, row_mask), kcount.plain_dtype(x.dtype))
+
+
+def _bn_affine_plain(mean, var, scale, bias, eps, run_mean, run_var, momentum):
+    rstd = torch.rsqrt(var + eps)
+    inv = rstd * scale
+    shift = bias - mean * inv
+    if run_mean is not None:
+        run_mean.copy_(run_mean * momentum + mean * (1 - momentum))
+        run_var.copy_(run_var * momentum + var * (1 - momentum))
+    return mean, var, rstd, inv, shift
 
 
 def bn_train_stats_plain(x, row_mask, scale, bias, eps, run_mean=None, run_var=None,
@@ -327,13 +366,17 @@ def bn_train_stats_plain(x, row_mask, scale, bias, eps, run_mean=None, run_var=N
     running averages updated in place as flax does, m * running + (1 - m) *
     batch with each product rounded. Returns (mean, var, rstd, inv, shift)."""
     mean, var = bn_stats_plain(x, row_mask)
-    rstd = torch.rsqrt(var + eps)
-    inv = rstd * scale
-    shift = bias - mean * inv
-    if run_mean is not None:
-        run_mean.copy_(run_mean * momentum + mean * (1 - momentum))
-        run_var.copy_(run_var * momentum + var * (1 - momentum))
-    return mean, var, rstd, inv, shift
+    return _bn_affine_plain(mean, var, scale, bias, eps, run_mean, run_var, momentum)
+
+
+def bn_stats_finalize_plain(sums, scale, bias, eps, run_mean=None, run_var=None, momentum=0.9,
+                            dtype=torch.float32):
+    """Plain K16 finalize mode: `bn_train_stats_plain`'s outputs from
+    all-reduced sums (`bn_stats_partial_plain`'s layout summed over the
+    ranks), M = max(the summed count, 1); mean and var in `dtype` (f64 for
+    f64 activations)."""
+    mean, var = _bn_moments(sums, dtype)
+    return _bn_affine_plain(mean, var, scale, bias, eps, run_mean, run_var, momentum)
 
 
 _BN_STATS_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
@@ -430,6 +473,38 @@ def bn_train_stats(x, row_mask, scale, bias, eps, run_mean=None, run_var=None, m
 
 
 # K17 ---------------------------------------------------------------------------
+def _bwd_g_plain(x, dy, inv, shift, mean):
+    """(f, x in f, g = dy [y > 0] in f, xc = x - mean (x when mean is None)),
+    f the plain versions' dtype (f32; f64 for f64 x)."""
+    c4 = lambda t: t[None, :, None, None]
+    f = kcount.plain_dtype(x.dtype)
+    xf = x.to(f)
+    on = (xf * c4(inv) + c4(shift)).to(x.dtype) > 0
+    g = torch.where(on, dy.to(f), torch.zeros((), device=x.device))
+    return f, g, xf - c4(mean) if mean is not None else xf
+
+
+def _bwd_sums_plain(g, xc):
+    """f64 [C] sums of g and g * xc over all rows."""
+    gd = g.to(torch.float64)
+    return gd.sum((0, 2, 3)), (gd * xc.to(torch.float64)).sum((0, 2, 3))
+
+
+def _bwd_dx_plain(x, g, xc, inv, rstd, row_mask, s1, s2, M, f):
+    """dx = inv g - m_n (inv s1 / M + xc inv rstd^2 s2 / M), the coefficients
+    from f64 sums rounded once to f; dx in x's dtype, channels_last."""
+    c4 = lambda t: t[None, :, None, None]
+    ivd = inv.to(torch.float64)
+    rd = rstd.to(torch.float64)
+    b = (ivd * s1 / M).to(f)
+    c = (ivd * rd * rd * s2 / M).to(f)
+    corr = c4(b) + xc * c4(c)
+    if row_mask is not None:
+        corr = torch.where(row_mask[:, None, None, None] != 0, corr,
+                           torch.zeros((), device=x.device))
+    return (c4(inv) * g - corr).to(x.dtype).contiguous(memory_format=_CL)
+
+
 def norm_relu_bwd_plain(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
     """Plain K17: the backward of y = relu(cast(x * inv + shift)).
 
@@ -444,29 +519,40 @@ def norm_relu_bwd_plain(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
     ran; sum_gc itself (d inv) with fixed statistics."""
     train = mean is not None
     N, C, H, W = x.shape
-    c4 = lambda t: t[None, :, None, None]
-    f = kcount.plain_dtype(x.dtype)
-    xf = x.to(f)
-    on = (xf * c4(inv) + c4(shift)).to(x.dtype) > 0
-    g = torch.where(on, dy.to(f), torch.zeros((), device=x.device))
-    xc = xf - c4(mean) if train else xf
-    sum_g = g.to(torch.float64).sum((0, 2, 3))
-    sum_gc = (g.to(torch.float64) * xc.to(torch.float64)).sum((0, 2, 3))
-    d = c4(inv) * g
+    f, g, xc = _bwd_g_plain(x, dy, inv, shift, mean)
+    sum_g, sum_gc = _bwd_sums_plain(g, xc)
     if train:
         M = _masked_count(row_mask, N, H * W, x.device)
-        ivd = inv.to(torch.float64)
-        b = (ivd * sum_g / M).to(f)
-        rd = rstd.to(torch.float64)
-        c = (ivd * rd * rd * sum_gc / M).to(f)
-        corr = c4(b) + xc * c4(c)
-        if row_mask is not None:
-            corr = torch.where(row_mask[:, None, None, None] != 0, corr,
-                               torch.zeros((), device=x.device))
-        d = d - corr
-    dx = d.to(x.dtype).contiguous(memory_format=_CL)
+        dx = _bwd_dx_plain(x, g, xc, inv, rstd, row_mask, sum_g, sum_gc, M, f)
+    else:
+        dx = (inv[None, :, None, None] * g).to(x.dtype).contiguous(memory_format=_CL)
     sum_g, sum_gc = sum_g.to(f), sum_gc.to(f)
     return dx, sum_g, sum_gc, sum_gc * rstd if train else sum_gc
+
+
+def norm_relu_bwd_sums_plain(x, dy, inv, shift, mean, rstd, row_mask=None):
+    """Plain K17 sums mode (train mode): (sums, sum_g, sum_gc, dscale) with
+    sums this rank's f64 [2C + 1] (sum g, sum g * xc per channel, then the
+    count of values of the rows `row_mask` marks, as K16's) and the other
+    three `norm_relu_bwd_plain`'s, over this rank's rows."""
+    N, C, H, W = x.shape
+    f, g, xc = _bwd_g_plain(x, dy, inv, shift, mean)
+    s1, s2 = _bwd_sums_plain(g, xc)
+    if row_mask is None:
+        count = torch.tensor(float(N * H * W), dtype=torch.float64, device=x.device)
+    else:
+        count = (row_mask != 0).to(torch.float64).sum() * (H * W)
+    sum_gc = s2.to(f)
+    return _pack_sums(s1, s2, count), s1.to(f), sum_gc, sum_gc * rstd
+
+
+def norm_relu_bwd_dx_plain(x, dy, inv, shift, mean, rstd, row_mask, sums):
+    """Plain K17 dx mode: `norm_relu_bwd_plain`'s train-mode dx through the
+    all-reduced sums (`norm_relu_bwd_sums_plain`'s layout summed over the
+    ranks), M = max(the summed count, 1)."""
+    f, g, xc = _bwd_g_plain(x, dy, inv, shift, mean)
+    s1, s2, M = _unpack_sums(sums)
+    return _bwd_dx_plain(x, g, xc, inv, rstd, row_mask, s1, s2, M, f)
 
 
 _NORM_RELU_BWD_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong]
@@ -538,6 +624,214 @@ def norm_relu_bwd(x, dy, inv, shift, mean=None, rstd=None, row_mask=None):
     return _norm_relu_bwd_cuda(x, dy, inv, shift, mean, rstd, row_mask)
 
 
+# K16 / K17 across ranks ------------------------------------------------------------
+# Data parallelism (`parallel/`, `train/harness.make_sharded_train_step`) runs
+# one process a card; the masked train-mode norm's statistics and their
+# gradient's two sums are the global batch's. Inside `cross_rank(group)`
+# every `MaskedBatchNorm(train=True)` runs K16 as partial sums, an
+# all-reduce over `group` and a finalize, and its backward K17 as sums, an
+# all-reduce and a dx pass: one collective each way, a norm. Outside it the
+# one-launch fused paths run, as on one card.
+_cross = threading.local()
+
+
+class cross_rank:
+    """Context: the train-mode norms entered inside it take their statistics
+    across the ranks of `group` (a `torch.distributed` process group; their
+    backward keeps it, wherever autograd runs it)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        self._prev = getattr(_cross, "group", None)
+        _cross.group = self.group
+        return self
+
+    def __exit__(self, *exc):
+        _cross.group = self._prev
+        return False
+
+
+def cross_rank_group():
+    """The process group of the innermost `cross_rank`, or None."""
+    return getattr(_cross, "group", None)
+
+
+_BN_PARTIAL_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BN_FINALIZE_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                         + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 8)
+_BWD_SUMS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                      + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD_DX_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                    + [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def _bn_stats_partial_cuda(x, row_mask=None):
+    """K16's partial mode: this rank's f64 [2C + 1] sums (see
+    `bn_stats_partial_plain`), one cooperative launch on the fused plan."""
+    _check_nhwc("K16 bn_stats (partial)", x)
+    N, C, H, W = x.shape
+    dev = x.device
+    mask = _row_mask_u8(row_mask, N, dev)
+    it = x.element_size()
+    plan = plan_bn("stats", N, H * W, C, it, _vectorizable(C, it, x), _multiprocessors(dev))
+    st = _build.stream(dev.index)
+    bar, part, _ = _bn_workspace(dev, st, plan.part, 0)
+    sums = torch.empty(2 * C + 1, dtype=torch.float64, device=dev)
+    p = _build.ptr
+    fn = _build.entry("bn_train", _BN_PARTIAL_ARGTYPES, "suo_bn_stats_partial")
+    err = fn(p(x), None if mask is None else p(mask), N, H * W, C, p(part), p(bar), p(sums),
+             _DTYPES[x.dtype], int(plan.V > 1), plan.grid, plan.smem, st)
+    _build.check(err, "K16 bn_stats (partial)")
+    kcount.count("bn_stats_partial")
+    return sums
+
+
+def _bn_stats_finalize_cuda(sums, scale, bias, eps, run_mean=None, run_var=None, momentum=0.9):
+    """K16's finalize mode: (mean, var, rstd, inv, shift) f32 [C] from the
+    all-reduced sums, the running averages updated in place."""
+    dev = sums.device
+    C = (sums.numel() - 1) // 2
+    if sums.dtype != torch.float64 or sums.shape != (2 * C + 1,) or not sums.is_contiguous():
+        raise ValueError("K16 bn_stats (finalize): sums must be contiguous f64 [2C + 1]")
+    vs = _check_vectors("K16 bn_stats (finalize)", dev, C, scale, bias,
+                        *(() if run_mean is None else (run_mean, run_var)))
+    if run_mean is not None and (vs[2].data_ptr() != run_mean.data_ptr()
+                                 or vs[3].data_ptr() != run_var.data_ptr()):
+        raise ValueError("K16 bn_stats (finalize): the running averages must be contiguous")
+    out = torch.empty((5, C), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    fn = _build.entry("bn_train", _BN_FINALIZE_ARGTYPES, "suo_bn_stats_finalize")
+    err = fn(p(sums), C, p(vs[0]), p(vs[1]), eps, momentum, 1 - momentum,
+             None if run_mean is None else p(run_mean), None if run_var is None else p(run_var),
+             *(p(out[i]) for i in range(5)), _build.stream(dev.index))
+    _build.check(err, "K16 bn_stats (finalize)")
+    kcount.count("bn_stats_finalize")
+    if run_mean is not None:
+        _bump(run_mean, run_var)
+    return tuple(out)
+
+
+def _norm_relu_bwd_sums_cuda(x, dy, inv, shift, mean, rstd, row_mask=None):
+    """K17's sums mode (train mode): (sums f64 [2C + 1], sum_g, sum_gc,
+    dscale), one cooperative launch on the fused plan (see
+    `norm_relu_bwd_sums_plain`)."""
+    _check_nhwc("K17 norm_relu_bwd (sums)", x, dy)
+    N, C, H, W = x.shape
+    dev = x.device
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("K17 norm_relu_bwd (sums): dy must match x's shape and dtype")
+    mask = _row_mask_u8(row_mask, N, dev)
+    vs = _check_vectors("K17 norm_relu_bwd (sums)", dev, C, inv, shift, mean, rstd)
+    it = x.element_size()
+    plan = plan_bn("bwd", N, H * W, C, it, _vectorizable(C, it, x, dy), _multiprocessors(dev))
+    st = _build.stream(dev.index)
+    bar, part, _ = _bn_workspace(dev, st, plan.part, 0)
+    sums = torch.empty(2 * C + 1, dtype=torch.float64, device=dev)
+    out = torch.empty((3, C), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    fn = _build.entry("bn_train", _BWD_SUMS_ARGTYPES, "suo_norm_relu_bwd_sums")
+    err = fn(p(x), p(dy), None if mask is None else p(mask), *(p(v) for v in vs), N, H * W, C,
+             p(part), p(bar), p(sums), p(out[0]), p(out[1]), p(out[2]), _DTYPES[x.dtype],
+             int(plan.V > 1), plan.grid, plan.smem, st)
+    _build.check(err, "K17 norm_relu_bwd (sums)")
+    kcount.count("norm_relu_bwd_sums")
+    return sums, out[0], out[1], out[2]
+
+
+def _norm_relu_bwd_dx_cuda(x, dy, inv, shift, mean, rstd, row_mask, sums):
+    """K17's dx mode: train-mode dx from the all-reduced sums, on the fused
+    plan's grid (see `norm_relu_bwd_dx_plain`)."""
+    _check_nhwc("K17 norm_relu_bwd (dx)", x, dy)
+    N, C, H, W = x.shape
+    dev = x.device
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError("K17 norm_relu_bwd (dx): dy must match x's shape and dtype")
+    if sums.dtype != torch.float64 or sums.shape != (2 * C + 1,) or sums.device != dev:
+        raise ValueError(f"K17 norm_relu_bwd (dx): sums must be f64 [{2 * C + 1}] on x's device")
+    mask = _row_mask_u8(row_mask, N, dev)
+    vs = _check_vectors("K17 norm_relu_bwd (dx)", dev, C, inv, shift, mean, rstd)
+    dx = torch.empty_like(x, memory_format=_CL)
+    it = x.element_size()
+    plan = plan_bn("bwd", N, H * W, C, it, _vectorizable(C, it, x, dy, dx),
+                   _multiprocessors(dev))
+    p = _build.ptr
+    fn = _build.entry("bn_train", _BWD_DX_ARGTYPES, "suo_norm_relu_bwd_dx")
+    err = fn(p(x), p(dy), None if mask is None else p(mask), *(p(v) for v in vs),
+             p(sums.contiguous()), N, H * W, C, p(dx), _DTYPES[x.dtype], int(plan.V > 1),
+             plan.grid, plan.smem, _build.stream(dev.index))
+    _build.check(err, "K17 norm_relu_bwd (dx)")
+    kcount.count("norm_relu_bwd_dx")
+    return dx
+
+
+def _on(x: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the plain
+    versions); raises on another device."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return True
+
+
+def bn_stats_partial(x, row_mask=None):
+    """K16's partial mode on CUDA tensors, its plain version on CPU ones."""
+    if _on(x, "bn_stats_partial"):
+        return _bn_stats_partial_cuda(x, row_mask)
+    _check_nhwc("bn_stats_partial", x, plain=True)
+    return bn_stats_partial_plain(x, row_mask)
+
+
+def bn_stats_finalize(sums, scale, bias, eps, run_mean=None, run_var=None, momentum=0.9,
+                      dtype=torch.float32):
+    """K16's finalize mode on CUDA tensors, its plain version on CPU ones."""
+    if _on(sums, "bn_stats_finalize"):
+        return _bn_stats_finalize_cuda(sums, scale, bias, eps, run_mean, run_var, momentum)
+    return bn_stats_finalize_plain(sums, scale, bias, eps, run_mean, run_var, momentum, dtype)
+
+
+def norm_relu_bwd_sums(x, dy, inv, shift, mean, rstd, row_mask=None):
+    """K17's sums mode on CUDA tensors, its plain version on CPU ones."""
+    if _on(x, "norm_relu_bwd_sums"):
+        return _norm_relu_bwd_sums_cuda(x, dy, inv, shift, mean, rstd, row_mask)
+    _check_nhwc("norm_relu_bwd_sums", x, dy, plain=True)
+    return norm_relu_bwd_sums_plain(x, dy, inv, shift, mean, rstd, row_mask)
+
+
+def norm_relu_bwd_dx(x, dy, inv, shift, mean, rstd, row_mask, sums):
+    """K17's dx mode on CUDA tensors, its plain version on CPU ones."""
+    if _on(x, "norm_relu_bwd_dx"):
+        return _norm_relu_bwd_dx_cuda(x, dy, inv, shift, mean, rstd, row_mask, sums)
+    _check_nhwc("norm_relu_bwd_dx", x, dy, plain=True)
+    return norm_relu_bwd_dx_plain(x, dy, inv, shift, mean, rstd, row_mask, sums)
+
+
+def bn_train_stats_cross(x, row_mask, scale, bias, eps, run_mean=None, run_var=None,
+                         momentum=0.9, group=None):
+    """`bn_train_stats` over the global batch of `group`'s ranks: K16's
+    partial sums of this rank's real rows, one all-reduce (SUM) of them and
+    their counts, K16's finalize (the plain versions on CPU tensors). Every
+    rank gets the same statistics and running averages."""
+    sums = bn_stats_partial(x, row_mask)
+    _mesh.all_reduce_sum(sums, group)
+    return bn_stats_finalize(sums, scale, bias, eps, run_mean, run_var, momentum,
+                             kcount.plain_dtype(x.dtype))
+
+
+def norm_relu_bwd_cross(x, dy, inv, shift, mean, rstd, row_mask=None, group=None):
+    """The train-mode `norm_relu_bwd` through the global batch's sums: K17's
+    sums, one all-reduce of them, K17's dx pass. Returns (dx, sum_g, sum_gc,
+    dscale) with the last three this rank's (the parameters' gradients,
+    which the step sums over the ranks)."""
+    dy = dy.contiguous(memory_format=_CL)
+    sums, sum_g, sum_gc, dscale = norm_relu_bwd_sums(x, dy, inv, shift, mean, rstd, row_mask)
+    _mesh.all_reduce_sum(sums, group)
+    return norm_relu_bwd_dx(x, dy, inv, shift, mean, rstd, row_mask, sums), sum_g, sum_gc, dscale
+
+
 class _NormRelu(torch.autograd.Function):
     """K8 with fixed statistics, its backward K17 (stat terms off):
     d inv = sum g x, d shift = sum g."""
@@ -561,18 +855,23 @@ class _NormReluTrain(torch.autograd.Function):
     gradient (dscale) and the bias's (sum_g)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, inv, shift, mean, rstd, row_mask):
+    def forward(ctx, x, scale, bias, inv, shift, mean, rstd, row_mask, group=None):
         ctx.save_for_backward(x, inv, shift, mean, rstd,
                               row_mask if row_mask is not None else torch.empty(0))
         ctx.has_mask = row_mask is not None
+        ctx.group = group
         return _norm_relu_fwd(x, inv, shift)
 
     @staticmethod
     def backward(ctx, dy):
         x, inv, shift, mean, rstd, row_mask = ctx.saved_tensors
-        dx, sum_g, _, dscale = norm_relu_bwd(x, dy, inv, shift, mean, rstd,
-                                             row_mask if ctx.has_mask else None)
-        return dx, dscale, sum_g, None, None, None, None, None
+        m = row_mask if ctx.has_mask else None
+        if ctx.group is not None:
+            dx, sum_g, _, dscale = norm_relu_bwd_cross(x, dy, inv, shift, mean, rstd, m,
+                                                       ctx.group)
+        else:
+            dx, sum_g, _, dscale = norm_relu_bwd(x, dy, inv, shift, mean, rstd, m)
+        return dx, dscale, sum_g, None, None, None, None, None, None
 
 
 # K9 ----------------------------------------------------------------------------
@@ -1225,7 +1524,8 @@ class MaskedBatchNorm(nn.Module):
     statistics are the running averages (K8 on the card); in train mode
     they are the batch's over the rows `row_mask` marks (K16, which also
     moves the running averages towards them with momentum 0.9 and computes
-    the affine; then K8; backward K17)."""
+    the affine; then K8; backward K17) — inside `cross_rank(group)` the
+    global batch's over the ranks (K16 / K17's cross-rank modes)."""
 
     MOMENTUM = 0.9
 
@@ -1257,11 +1557,18 @@ class MaskedBatchNorm(nn.Module):
                 row_mask: torch.Tensor | None = None) -> torch.Tensor:
         if not train:
             return norm_relu(x, *self.affine())
+        group = cross_rank_group()
         with torch.no_grad():  # K16, with the running averages' update in place
-            mean, _, rstd, inv, shift = bn_train_stats(x, row_mask, self.scale, self.bias,
-                                                       self.eps, self.mean, self.var,
-                                                       self.MOMENTUM)
-        return _NormReluTrain.apply(x, self.scale, self.bias, inv, shift, mean, rstd, row_mask)
+            if group is None:
+                mean, _, rstd, inv, shift = bn_train_stats(x, row_mask, self.scale, self.bias,
+                                                           self.eps, self.mean, self.var,
+                                                           self.MOMENTUM)
+            else:
+                mean, _, rstd, inv, shift = bn_train_stats_cross(
+                    x, row_mask, self.scale, self.bias, self.eps, self.mean, self.var,
+                    self.MOMENTUM, group)
+        return _NormReluTrain.apply(x, self.scale, self.bias, inv, shift, mean, rstd, row_mask,
+                                    group)
 
 
 class GroupNormRelu(nn.Module):

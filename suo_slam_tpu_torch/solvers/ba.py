@@ -496,6 +496,30 @@ def _optimize_eager(problem: BAProblem, iters_per_round=DEFAULT_GLOBAL_ROUNDS,
     ), iters
 
 
+def lm_run(problem: BAProblem, n_iters: int, use_huber, lam0: float = 1e-5,
+           tracking_only: bool = False, fix_first_cam: bool = False,
+           huber_delta: float = HUBER_DELTA):
+    """g2o `SparseOptimizer.optimize(n)`'s counterpart (the JAX `lm_run`): one
+    LM run of up to n_iters iterations over the problem's current inlier
+    set — no chi2 reclassification, no Huber schedule: `use_huber` holds for
+    the whole run, as the caller (`compat/g2o.py`) owns both — leaving the
+    loop on the JAX `while_loop`'s exit. Per-camera fixing comes from
+    `problem.cam_frozen` (and `obj_frozen`); `tracking_only` freezes every
+    object. Each iteration is K4 (edge assembly and the trial's chi2) and
+    K7 (the Schur solve) on CUDA tensors — not K14, which owns its own
+    classification and Huber schedule —, their plain versions on CPU
+    tensors. Returns (cam_T, obj_T, lam), the poses re-orthonormalized."""
+    dtype, dev = problem.cam_T.dtype, problem.cam_T.device
+    act_vo = problem.cam_active[:, None] & problem.obj_active[None, :]
+    inl = problem.inliers & problem.valid & act_vo[..., None]
+    lm_iteration = _make_lm_iteration(problem, tracking_only, fix_first_cam,
+                                      float(huber_delta), _device_of(problem.uv) != "cpu")
+    cam_T, obj_T, lam, _ = _lm_while(lm_iteration, problem.cam_T, problem.obj_T, inl,
+                                     torch.tensor(lam0, dtype=dtype, device=dev), int(n_iters),
+                                     bool(use_huber))
+    return _reorthonormalize(cam_T), _reorthonormalize(obj_T), lam
+
+
 # K14 ----------------------------------------------------------------------------
 LM_DESIGNS = ("cluster", "block")  # the redesign (the main path), the earlier one-block design
 LM_THREADS = 512                # the block design: one persistent block per call (`kThreads`)

@@ -23,8 +23,23 @@ gives without a probability map.
 The default splits train as the JAX CLI's do: YCB-V `real+synt` composites
 VOC backgrounds over `train_synt`, T-LESS `primesense` composites them and
 pastes occluders, and `pbr` reads JPEG frames (`data/bop.py`,
-`data/jpeg.py`); `--use_cache` packs any of them. Refused, naming the
-ROADMAP item: more than one visible card (A15).
+`data/jpeg.py`); `--use_cache` packs any of them.
+
+More than one card trains data-parallel, one process a card, as the JAX
+CLI shards its step over every visible device: started plainly with N
+cards visible, the CLI spawns N ranks (a card each, NCCL); started under
+`torchrun` (`python -m torch.distributed.run --nproc_per_node N -m
+suo_slam_tpu_torch.train ...`) it joins the group torchrun's environment
+describes (NCCL on the cards, gloo with `--device cpu`). The global batch
+is `--batch_size` frames, each rank training on its contiguous share
+(`train/harness.make_sharded_train_step`: the joined batch's step); a
+batch size that is no multiple of the cards trains on one card, with a
+line saying so. Every rank replays the loader's shared stream and collates
+the joined batch (a slice's collate is not the joined batch's slice: the
+batch's largest frame and object count and the truncation draws of the
+frames before it set it), then keeps its frames. Rank 0 alone writes the
+checkpoints, `params.txt` and the dumps, and validates (unsharded, as the
+JAX CLI does); the other ranks wait at a barrier after each epoch.
 
 After each epoch's checkpoint the CLI dumps, as the JAX CLI does, the
 net's predictions on the epoch's last training batch and the first
@@ -52,6 +67,7 @@ from ..data.fastload import CacheLoader
 from ..data.loader import ConcatLoader
 from ..models import convert
 from ..models.pkpnet import PkpNet
+from ..parallel import mesh as pm
 from . import checkpoint as ckpt
 from . import harness
 
@@ -75,11 +91,67 @@ def build_val_datasets(args):
                        kp_config_root=args.kp_config_root, seed=666)]
 
 
-def _refuse(dev) -> None:
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise SystemExit("suo_slam_tpu_torch.train: more than one card is visible: "
-                         "data-parallel training is not ported (ROADMAP A15); set "
-                         "CUDA_VISIBLE_DEVICES to one card")
+def plan_world(dev, batch_size: int) -> int:
+    """The ranks a plain start trains on: every visible card when there are
+    several and they divide the batch, else one (with a line saying so)."""
+    if dev.type != "cuda" or dev.index is not None:
+        return 1
+    n = torch.cuda.device_count()
+    if n > 1 and batch_size % n:
+        print(f"batch size {batch_size} is no multiple of the {n} visible cards: "
+              "training on one card")
+        return 1
+    return max(n, 1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _under_torchrun() -> bool:
+    return "TORCHELASTIC_RUN_ID" in os.environ or (
+        "LOCAL_RANK" in os.environ and "WORLD_SIZE" in os.environ)
+
+
+def _spawned_rank(rank: int, argv, world: int, init_method: str) -> None:
+    """One rank of a plain multi-card start (`torch.multiprocessing.spawn`)."""
+    args = get_train_args(argv)
+    devices = [torch.device("cuda", i) for i in range(world)]
+    _device.resolve_device(devices[rank])
+    m = pm.data_parallel_mesh(devices, rank=rank, init_method=init_method)
+    try:
+        rc = _run(args, devices[rank], m)
+    finally:
+        m.close()
+    if rc:
+        raise SystemExit(rc)
+
+
+def _main_torchrun(args) -> int:
+    """A rank started by torchrun: join its group (or, where the cards do
+    not divide the batch, rank 0 trains alone)."""
+    world, local = int(os.environ["WORLD_SIZE"]), int(os.environ.get("LOCAL_RANK", "0"))
+    rank = int(os.environ.get("RANK", local))
+    dev = torch.device("cuda", local) if args.device == "cuda" else torch.device("cpu")
+    _device.resolve_device(dev)
+    if args.batch_size % world:
+        if rank:
+            return 0
+        print(f"batch size {args.batch_size} is no multiple of the {world} ranks: "
+              "training on one card")
+        return _run(args, dev, None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)  # NCCL binds the current card
+    m = pm.data_parallel_mesh(None if dev.type == "cuda" else [dev] * world,
+                              init_method="env://")
+    try:
+        return _run(args, dev, m)
+    finally:
+        m.close()
 
 
 def build_loader(args, datasets):
@@ -160,7 +232,24 @@ def _ram_ok(max_percent: float = 99.0) -> bool:
 
 def main(argv=None) -> int:
     args = get_train_args(argv)
+    if _under_torchrun():
+        return _main_torchrun(args)
     dev = _device.resolve_device(args.device)
+    world = plan_world(dev, args.batch_size)
+    if world > 1:
+        pm.spawn_ranks(world, "suo_slam_tpu_torch.train.__main__", "_spawned_rank",
+                       argv if argv is not None else sys.argv[1:], world,
+                       f"tcp://localhost:{_free_port()}")
+        return 0
+    return _run(args, dev, None)
+
+
+def _run(args, dev, mesh) -> int:
+    """Training on `dev`, as one rank of `mesh` (data parallel) or alone
+    (mesh None)."""
+    rank0 = mesh is None or mesh.rank == 0
+    if not rank0:  # rank 0 alone prints the run's log
+        sys.stdout = open(os.devnull, "w")
     print("======= Train Args ================")
     for k, v in sorted(vars(args).items()):
         print(f"{k}: {v}")
@@ -182,7 +271,6 @@ def main(argv=None) -> int:
                 print(f"Resume: overriding --{flag}={getattr(args, flag)} with the "
                       f"checkpoint's recorded {trained[flag]!r}")
                 setattr(args, flag, trained[flag])
-    _refuse(dev)
 
     tiny = bool(int(os.environ.get("SUO_TINY_NET", "0")))  # smoke tests
     net = PkpNet(calc_cov=not args.no_network_cov, norm=args.norm,
@@ -199,28 +287,38 @@ def main(argv=None) -> int:
     if args.pretrain:
         variables, _, _ = ckpt.load_model_only(args.pretrain)
         net.load_state_dict(convert.from_jax_variables(variables))
-    if outdir is None:
-        outdir = os.path.join(results_root, ckpt.output_dir_name(args.dataset, split_tag,
-                                                                 args.ext))
-        os.makedirs(outdir, exist_ok=True)
-    print(f"Writing results to {outdir}")
-    with open(os.path.join(outdir, "params.txt"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if mesh is not None:
+        pm.broadcast_module(net, mesh)  # every rank starts from rank 0's weights
+        print(f"Data parallel: {mesh.world_size} ranks ({mesh.backend}), "
+              f"{args.batch_size // mesh.world_size} frames a rank")
+    if rank0:
+        if outdir is None:
+            outdir = os.path.join(results_root, ckpt.output_dir_name(args.dataset, split_tag,
+                                                                     args.ext))
+            os.makedirs(outdir, exist_ok=True)
+        print(f"Writing results to {outdir}")
+        with open(os.path.join(outdir, "params.txt"), "w") as f:
+            json.dump(vars(args), f, indent=2)
 
     loader = build_loader(args, build_datasets(args))
     try:
-        return _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_train)
+        return _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_train,
+                      mesh)
     finally:
         loader.close()
 
 
-def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_train) -> int:
-    """The epoch loop: training steps, the validation epoch, checkpoints."""
+def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_train,
+           mesh=None) -> int:
+    """The epoch loop: training steps, the validation epoch, checkpoints
+    (on rank 0 of a mesh; the other ranks wait for it at a barrier)."""
+    rank0 = mesh is None or mesh.rank == 0
     do_anneal = args.pretrain is None
-    step_fn = harness.make_train_step(do_anneal=do_anneal)
+    step_fn = (harness.make_train_step(do_anneal=do_anneal) if mesh is None
+               else harness.make_sharded_train_step(mesh, do_anneal=do_anneal))
     eval_step = harness.make_eval_step(do_anneal=do_anneal)
     val_loader = None
-    if not args.no_val:
+    if not args.no_val and rank0:
         val_datasets = build_val_datasets(args)
         if val_datasets:
             # workers=1: in-line loading keeps the sample -> stream mapping fixed
@@ -240,7 +338,9 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
             if args.steps_per_epoch and i >= args.steps_per_epoch:
                 break
             train_np_batch = np_batch
-            batch = harness.to_batch(np_batch, dev, o_pad=args.truncate_obj)
+            mine = np_batch if mesh is None else pm.shard_batch(mesh, {
+                k: np_batch[k] for k in harness.Batch._fields})
+            batch = harness.to_batch(mine, dev, o_pad=args.truncate_obj)
             state, metrics = step_fn(state, batch, float(epoch))
             sum_loss = sum_loss + metrics["loss"]
             n_steps += 1
@@ -277,6 +377,9 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
                 val_err = v_sum / v_n
                 print(f"\nEpoch {epoch} val uv_loss: {val_err:.4f}")
 
+        if not rank0:  # rank 0 validates and writes; wait for it
+            mesh.barrier()
+            continue
         # model_best: the training loss by default; the validation error only
         # under --val_select_best (the val split is the evaluation split)
         is_best = False
@@ -301,6 +404,8 @@ def _train(args, dev, net, state, loader, outdir, start_epoch, best_val, best_tr
         print(f"Epoch {epoch} done in {time.time() - t_epoch:.1f}s, train loss {train_loss:.4f}"
               + (f", val uv_loss {val_err:.4f}" if val_err is not None else "")
               + (" (best)" if is_best else ""))
+        if mesh is not None:
+            mesh.barrier()
     return 0
 
 

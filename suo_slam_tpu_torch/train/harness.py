@@ -1,8 +1,7 @@
 """The training step: ROI crop (K1), prior render (K5), PkpNet in train mode,
 the loss, backward and Adam, on one device.
 
-Port of `suo_slam_tpu/train/harness.py:29-155` (the mesh functions, data
-parallelism over several cards, are ROADMAP A15). JAX's state is immutable
+Port of `suo_slam_tpu/train/harness.py`. JAX's state is immutable
 and its step pure; here the net's parameters and running statistics and the
 optimizer's moments are updated in place, and `TrainState` holds the net,
 the optimizer, the step count and the dropout key. The step keeps its
@@ -17,6 +16,18 @@ inject JAX's mask through `dropout_mask`.
 
 Adam is `torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)`, the update
 rule of `optax.adam(lr)` (tested on equal gradients).
+
+`make_sharded_train_step(mesh)` is the step of one rank of a data-parallel
+group (`parallel/mesh.py`), the JAX `make_sharded_train_step`: the step of
+one device on the joined batch, with this rank holding a contiguous slice
+of its images. Every reduction the joined step makes is global: the loss's
+mask counts (one all-reduce before the forward), the masked BatchNorm's
+statistics and their gradient's sums (K16 / K17's cross-rank modes, one
+all-reduce each way a norm), the gradients (one all-reduce of them all,
+then the optimizer on every rank) and the reported metrics (one more).
+Each rank draws the global dropout mask and keeps its rows. The
+parameters, running statistics and optimizer state stay equal on every
+rank because every rank applies the same update.
 """
 
 from __future__ import annotations
@@ -28,9 +39,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..models import convert
+from ..models import hourglass as hg
 from ..models.pkpnet import PkpNet
 from ..ops import heatmap as hm
+from ..parallel import mesh as pm
 from ..ops import roi as roi_ops
 from . import losses
 
@@ -130,11 +144,12 @@ def dropout_generator(state: TrainState, device) -> torch.Generator:
 def forward_loss(net: PkpNet, batch: Batch, epoch, train: bool,
                  input_hw: tuple[int, int] = (256, 256), do_anneal: bool = True,
                  generator: torch.Generator | None = None,
-                 dropout_mask: torch.Tensor | None = None):
+                 dropout_mask: torch.Tensor | None = None, totals: torch.Tensor | None = None):
     """(loss, aux) of one batch: crops, rendered priors, the net (train mode:
     batch statistics over the real object slots, dropout), the annealed
     objective (without the covariance head: L2 + the readout's spread, so
-    K2 and K19 carry it and no probability map is formed)."""
+    K2 and K19 carry it and no probability map is formed). `totals`: the
+    global batch's mask counts (`losses.kp_loss`), for a sharded step."""
     b, o = batch.boxes.shape[:2]
     crops = roi_ops.roi_crop_batch(batch.images, batch.boxes, batch.obj_mask, input_hw)
     crops = crops.reshape((b * o,) + crops.shape[2:])
@@ -149,7 +164,7 @@ def forward_loss(net: PkpNet, batch: Batch, epoch, train: bool,
     # labeled channels of real (non-padded) object slots only
     kp_mask = (batch.kp_mask & batch.obj_mask[..., None]).reshape(b * o, -1)
     return losses.total_loss(out.uv, out.cov, out.spread, out.kp_mask_logits, uv_gt, kp_mask,
-                             epoch, do_anneal=do_anneal)
+                             epoch, do_anneal=do_anneal, totals=totals)
 
 
 def make_train_step(input_hw: tuple[int, int] = (256, 256), do_anneal: bool = True):
@@ -181,5 +196,71 @@ def make_eval_step(input_hw: tuple[int, int] = (256, 256), do_anneal: bool = Tru
     def step(net: PkpNet, batch: Batch, epoch):
         loss, aux = forward_loss(net, batch, epoch, False, input_hw, do_anneal)
         return dict(aux, loss=loss)
+
+    return step
+
+
+AUX_KEYS = ("uv_loss", "var_loss", "mask_loss")  # the loss's terms, summed over the ranks
+
+
+def _all_reduce_grads(net, group) -> None:
+    """Sum every parameter's gradient over the ranks: one all-reduce of
+    their concatenation (a missing gradient counts as zeros)."""
+    ps = list(net.parameters())
+    for p in ps:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in ps])
+    pm.all_reduce_sum(flat, group)
+    i = 0
+    for p in ps:
+        n = p.numel()
+        p.grad.copy_(flat[i:i + n].view_as(p.grad))
+        i += n
+
+
+def make_sharded_train_step(mesh, input_hw: tuple[int, int] = (256, 256),
+                            do_anneal: bool = True):
+    """The data-parallel step of this rank (see the module docstring):
+    (state, batch, epoch, dropout_mask=None) -> (state, metrics), `batch`
+    this rank's `shard_batch` slice of the global batch (the same number of
+    images on every rank), `dropout_mask` None (each rank draws the global
+    [N, K] mask from `dropout_generator` and keeps its rows) or the global
+    mask to apply. The metrics are the global batch's, equal on every rank.
+    The norms run their cross-rank modes at every world size, one included."""
+    group, world, rank = mesh.group, mesh.world_size, mesh.rank
+
+    def step(state: TrainState, batch: Batch, epoch, dropout_mask=None):
+        net, opt = state.net, state.optimizer
+        b, o = batch.boxes.shape[:2]
+        n, k = b * o, net.num_kp
+        dev = batch.images.device
+        if dropout_mask is None:
+            gen = dropout_generator(state, dev)
+            dropout_mask = torch.rand((world * n, k), generator=gen, device=dev) < 0.5
+        if dropout_mask.shape != (world * n, k):
+            raise ValueError(f"sharded step: a global dropout mask of [{world * n}, {k}] "
+                             f"expected, got {tuple(dropout_mask.shape)}")
+        keep = dropout_mask[rank * n:(rank + 1) * n]
+        dt = kernels.plain_dtype(net.dtype)
+        kp_mask = batch.kp_mask & batch.obj_mask[..., None]
+        totals = torch.stack([kp_mask.sum().to(dt), torch.tensor(float(n * k), dtype=dt,
+                                                                 device=dev)])
+        pm.all_reduce_sum(totals, group)
+        opt.zero_grad(set_to_none=True)
+        with hg.cross_rank(group):
+            loss, aux = forward_loss(net, batch, epoch, True, input_hw, do_anneal, None, keep,
+                                     totals)
+        loss.backward()
+        _all_reduce_grads(net, group)
+        opt.step()
+        state.step += 1
+        parts = torch.stack([loss.detach()] + [aux[key].detach() for key in AUX_KEYS])
+        pm.all_reduce_sum(parts, group)
+        metrics = {k2: v.detach() for k2, v in aux.items()}
+        metrics["loss"] = parts[0]
+        for i, key in enumerate(AUX_KEYS):
+            metrics[key] = parts[i + 1]
+        return state, metrics
 
     return step

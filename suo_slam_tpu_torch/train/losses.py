@@ -13,12 +13,14 @@ from __future__ import annotations
 import torch
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, total=None) -> torch.Tensor:
+    """sum(x m) / max(sum(m), 1); `total` in place of sum(m): the global
+    batch's mask count, which makes this rank's share of the global mean."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m) if total is None else total, min=1.0)
 
 
-def mle_loss(uv_pred, uv_gt, cov, mask):
+def mle_loss(uv_pred, uv_gt, cov, mask, total=None):
     """Gaussian MLE: (Mahalanobis residual mean, logdet(cov) mean), with the
     1e-6 diagonal loading and the closed-form 2x2 inverse."""
     res = uv_gt - uv_pred
@@ -28,16 +30,16 @@ def mle_loss(uv_pred, uv_gt, cov, mask):
     det = torch.clamp(a * d - b * b, min=1e-12)
     ru, rv = res[..., 0], res[..., 1]
     maha = (d * ru * ru - 2.0 * b * ru * rv + a * rv * rv) / det
-    return _masked_mean(maha, mask), _masked_mean(torch.log(det), mask)
+    return _masked_mean(maha, mask, total), _masked_mean(torch.log(det), mask, total)
 
 
-def l2_variance_loss(uv_pred, uv_gt, spread, mask):
+def l2_variance_loss(uv_pred, uv_gt, spread, mask, total=None):
     """No-covariance fallback: L2 on uv + heatmap variance minimization;
     spread [N, K] is E|p - uv|^2 (`heatmap.readout_spread`, or
     `heatmap.heatmap_variance` of probability maps)."""
     res = uv_gt - uv_pred
-    uv_l = _masked_mean(torch.sum(res * res, -1), mask)
-    return uv_l, _masked_mean(spread, mask)
+    uv_l = _masked_mean(torch.sum(res * res, -1), mask, total)
+    return uv_l, _masked_mean(spread, mask, total)
 
 
 def bce_with_logits(logits, target):
@@ -45,16 +47,20 @@ def bce_with_logits(logits, target):
     return torch.clamp(logits, min=0.0) - logits * target + torch.log1p(torch.exp(-logits.abs()))
 
 
-def kp_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask):
+def kp_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask, totals=None):
     """(uv_loss, var_loss, mask_bce_loss), all scalars. mask [N, K] bool: the
     labeled channels; the BCE trains the validity head against it over ALL
-    channels, padded rows included."""
+    channels, padded rows included. `totals` (the sharded step's): the global
+    batch's (sum of mask, N x K), a [2] tensor: each term is then this
+    rank's share of the global batch's, and `any_valid` the global batch's."""
+    total = None if totals is None else totals[0]
     if cov is not None:
-        uv_l, var_l = mle_loss(uv, uv_gt, cov, mask)
+        uv_l, var_l = mle_loss(uv, uv_gt, cov, mask, total)
     else:
-        uv_l, var_l = l2_variance_loss(uv, uv_gt, spread, mask)
-    bce = torch.mean(bce_with_logits(kp_mask_logits, mask.to(kp_mask_logits.dtype)))
-    any_valid = torch.sum(mask) > 0
+        uv_l, var_l = l2_variance_loss(uv, uv_gt, spread, mask, total)
+    b = bce_with_logits(kp_mask_logits, mask.to(kp_mask_logits.dtype))
+    bce = torch.mean(b) if totals is None else torch.sum(b) / totals[1]
+    any_valid = torch.sum(mask) > 0 if totals is None else totals[0] > 0
     zero = torch.zeros((), dtype=uv_l.dtype, device=uv_l.device)
     return (torch.where(any_valid, uv_l, zero), torch.where(any_valid, var_l, zero),
             torch.where(any_valid, bce, zero))
@@ -66,10 +72,12 @@ def anneal_weights(epoch, device=None, dtype=torch.float32):
     return torch.sigmoid(e - 5.0), torch.sigmoid(e - 10.0)
 
 
-def total_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask, epoch, do_anneal: bool = True):
+def total_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask, epoch, do_anneal: bool = True,
+               totals=None):
     """Combined objective uv + 0.5 * var_l * var + mask_l * bce, and its
-    terms."""
-    uv_l, var_l, bce_l = kp_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask)
+    terms (with `totals`, this rank's share of the global batch's: see
+    `kp_loss`)."""
+    uv_l, var_l, bce_l = kp_loss(uv, cov, spread, kp_mask_logits, uv_gt, mask, totals)
     if do_anneal:
         var_w, mask_w = anneal_weights(epoch, uv_l.device, uv_l.dtype)
     else:

@@ -29,6 +29,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "from suo_slam_tpu_torch import evaluate, calibrate_int8\n"
         "from suo_slam_tpu_torch.data import bop\n"
         "from suo_slam_tpu_torch.models import int8_forward, int8_kernels\n"
+        "from suo_slam_tpu_torch import parallel, compat\n"
+        "from suo_slam_tpu_torch.compat import g2o, lambdatwist\n"
+        "from suo_slam_tpu_torch.parallel import mesh\n"
+        "from suo_slam_tpu_torch.train import harness\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'suo_slam_tpu', 'cv2'))\n"
         "print(bad)\n"
@@ -54,6 +58,8 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
              if f.endswith(".py")]
     assert len(files) >= 15
+    for sub in ("parallel", "compat"):  # the data-parallel and compat packages are walked
+        assert any(os.sep + sub + os.sep in f for f in files), sub
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

@@ -106,10 +106,11 @@ def _roadmap_has(item: str) -> bool:
 
 
 def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
-    """What the training path still refuses names its ROADMAP item: more
-    than one visible card (A15). pbr splits (A22) and VOC backgrounds (A21)
-    are read now (`tests/test_torch_bg_compositing.py`). Augmentations,
-    `--use_cache`, `--loader process` and `-u` train
+    """The training path refuses nothing left: more than one visible card
+    trains data-parallel (A15, `tests/test_torch_parallel.py`), one card
+    where the cards do not divide the batch. pbr splits (A22) and VOC
+    backgrounds (A21) are read (`tests/test_torch_bg_compositing.py`).
+    Augmentations, `--use_cache`, `--loader process` and `-u` train
     (`tests/test_torch_augmentations.py`, `test_torch_fastload.py`,
     `test_torch_loader_modes.py`, `test_torch_train_u.py`)."""
     import torch
@@ -126,12 +127,8 @@ def test_training_refusals_name_roadmap_items(root, monkeypatch, tmp_path):
     assert synt.bg_image_files == []  # real frames take no background
     monkeypatch.setattr(tbop.BopDataset, "_should_load_bg_images", lambda self: True)
     assert len(tbop.BopDataset(root, "train_real", no_aug=True, **kw).bg_image_files) == 1
-    msgs = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit) as e:                                       # A15
-        cli._refuse(torch.device("cuda"))
-    msgs.append(str(e.value))
-    cli._refuse(torch.device("cpu"))  # the CPU is one device
-    items = [re.search(r"ROADMAP (A\d+)", m).group(1) for m in msgs]
-    assert items == ["A15"]
-    assert all(_roadmap_has(i) for i in items), items
+    assert not hasattr(cli, "_refuse")                                         # A15
+    assert cli.plan_world(torch.device("cuda"), 2) == 2  # both cards, one rank each
+    assert cli.plan_world(torch.device("cpu"), 2) == 1  # the CPU is one device
+    assert _roadmap_has("A15")
