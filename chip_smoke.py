@@ -306,7 +306,20 @@ Phases (any failure raises and exits non-zero):
      graph (`ba.lm_run`: K4 + K7 each iteration, no K14) and
      `compat.lambdatwist.pnp` (one K15 launch) against their CPU runs
      (1e-4);
- 14. the kernels JSON line (K1-K3's, K5-K6's, K14's, K15's and K22's launches
+ 14. the labeling and symmetry-choice tools (host numpy, no device work, as
+     in the JAX package) on phase 7's BOP tree written anew with 2 views,
+     object 1 made a generated closed mesh of 32,768 triangles (T-LESS CAD
+     scale) with 16 symmetry candidates: `render_shaded` at 240x320 and
+     480x640; a scripted session of `manual_keypoints.LabelSession` over
+     `tools.labeling.KeypointLabeler` (8 views at 240x320; clicks on every
+     view, an inspection refused while a keypoint is short of samples, one
+     accepted after a view-pose adjustment, a save into the tree's kp_info);
+     `manual_keypoints --viz` over the tree; `view_sym_choice` of object 1
+     (480x640, 16 candidates); their host ms and wall times beside the
+     nvidia-smi line; the whole pass twice, every output (the saved JSON and
+     the PNGs, by sha256) and the printed choice equal in both.
+     `--tools-only` runs this phase alone;
+ 15. the kernels JSON line (K1-K3's, K5-K6's, K14's, K15's and K22's launches
      from the SLAM path, K22's 0 there, K4 and K7's from phase 13's compat
      path, K8-K10's from the evaluation phase, K11-K13's (K13's 0)
      and K12's pool and junction modes' from the int8 phase's evaluation and
@@ -7673,6 +7686,219 @@ def phase_compat(dev, seed):
     return compat_counts
 
 
+# ------------------------------------------------------- phase 14: the tools --
+TOOLS_FOLD = 16  # the tools mesh's rotational symmetry about z: 16 candidates
+
+
+def tools_mesh(n_u=256, n_v=64, R=35.0, r=14.0, fold=TOOLS_FOLD):
+    """A closed torus of 2 n_u n_v triangles about z (mm; 32,768 at the
+    defaults, T-LESS CAD scale), its radius modulated `fold` times around,
+    so that a turn of 360 / fold degrees about z maps it onto itself vertex
+    for vertex (n_u a multiple of fold)."""
+    u = 2 * np.pi * np.arange(n_u) / n_u
+    v = 2 * np.pi * np.arange(n_v) / n_v
+    uu, vv = np.meshgrid(u, v, indexing="ij")
+    ring = R * (1.0 + 0.15 * np.cos(fold * uu)) + r * np.cos(vv)
+    verts = np.stack([ring * np.cos(uu), ring * np.sin(uu), r * np.sin(vv)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(n_u), np.arange(n_v), indexing="ij")
+    a, b = i * n_v + j, ((i + 1) % n_u) * n_v + j
+    c, d = ((i + 1) % n_u) * n_v + (j + 1) % n_v, i * n_v + (j + 1) % n_v
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    return verts.astype(np.float32), faces.astype(np.int32)
+
+
+def write_tools_tree(root, seed, n_u=256):
+    """Phase 7's BOP tree (its objects and scene, from the same seed; 2 of its
+    views) with object 1 made `tools_mesh` (a binary PLY with faces) and given
+    the mesh's 15 turns about z as its discrete symmetries. Returns the
+    mesh's (verts, faces)."""
+    import os
+
+    rng = np.random.default_rng(seed + 2)
+    objs = EvalObjects(rng)
+    write_bop_tree(root, objs, [SlamScene(rng, objs, EVAL_VIEWS)], n_views=2)
+    verts, faces = tools_mesh(n_u)
+    models = os.path.join(root, "models_bop-compat")
+    with open(os.path.join(models, "obj_000001.ply"), "wb") as f:
+        f.write(f"ply\nformat binary_little_endian 1.0\nelement vertex {len(verts)}\n"
+                "property float x\nproperty float y\nproperty float z\n"
+                f"element face {len(faces)}\nproperty list uchar int vertex_indices\n"
+                "end_header\n".encode())
+        f.write(verts.astype("<f4").tobytes())
+        rec = np.zeros(len(faces), [("n", "u1"), ("v", "<i4", (3,))])
+        rec["n"], rec["v"] = 3, faces
+        f.write(rec.tobytes())
+    with open(os.path.join(models, "models_info.json")) as f:
+        info = json.load(f)
+    syms = []
+    for k in range(1, TOOLS_FOLD):
+        a = 2 * math.pi * k / TOOLS_FOLD
+        T = np.eye(4)
+        T[:2, :2] = [[math.cos(a), -math.sin(a)], [math.sin(a), math.cos(a)]]
+        syms.append(T.reshape(-1).tolist())
+    info["1"] = {"diameter": float(2.0 * np.linalg.norm(verts, axis=1).max()),
+                 "symmetries_discrete": syms}
+    with open(os.path.join(models, "models_info.json"), "w") as f:
+        json.dump(info, f)
+    return verts, faces
+
+
+def _quiet(fn, *a):
+    """fn(*a) with its standard output captured: (result, text, wall ms)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        r = fn(*a)
+    return r, buf.getvalue(), 1e3 * (time.perf_counter() - t0)
+
+
+def tools_leg(root, seed, out):
+    """One pass of the tools over `root` into `out`: a scripted labeling
+    session on object 1 (clicks on every view, an inspection refused and
+    one accepted after a view-pose adjustment, a save into the tree's
+    kp_info), `manual_keypoints --viz` over the tree, `view_sym_choice` of
+    object 1 in view 0. Returns ({output: sha256}, host ms, the printed
+    symmetry line)."""
+    import hashlib
+    import os
+
+    from suo_slam_tpu_torch import manual_keypoints as mk
+    from suo_slam_tpu_torch import view_sym_choice as vs
+    from suo_slam_tpu_torch.data.mesh import load_mesh_db
+    from suo_slam_tpu_torch.kp import config as kp_config
+    from suo_slam_tpu_torch.tools.labeling import KeypointLabeler
+
+    ms = {}
+    db = load_mesh_db(os.path.join(root, "models_bop-compat"))
+    t0 = time.perf_counter()
+    lab = KeypointLabeler(db.verts_full[1], db.faces[1], mk.K_LABEL,
+                          diameter=float(db.diameter[0]))
+    ms["labeler"] = 1e3 * (time.perf_counter() - t0)
+    names = kp_config.load_kp_config("ycbv", os.path.join(root, "kp_configs")).kp_names[0]
+    kp_json = os.path.join(root, "kp_info", "obj_000001_kp_info.json")
+    s = mk.LabelSession(lab, names, kp_json)
+    h, w = lab.hw
+    rng = np.random.default_rng(seed + 14)
+    for k in range(len(names)):  # keypoint k on views 2k .. 2k + 3: every view clicked
+        for vi in ((2 * k + j) % 8 for j in range(4)):
+            ys, xs = np.nonzero(lab.depths[vi] > 0)
+            p = int(rng.integers(len(xs)))
+            _quiet(s.click, (vi % 4) * w + int(xs[p]), (vi // 4) * h + int(ys[p]))
+        if k == 0:  # an inspection with a keypoint short of samples is not accepted
+            _quiet(s.key, "n")
+            ys, xs = np.nonzero(lab.depths[0] > 0)
+            _quiet(s.click, int(xs[0]), int(ys[0]))
+            _quiet(s.key, "v")
+            _, text, _ = _quiet(s.key, "\r")
+            if s.inspection is None or "ERROR" not in text:
+                raise AssertionError(f"tools: an inspection short of samples was accepted: {text}")
+            _quiet(s.key, "\x1b")
+            _quiet(s.key, "p")
+            _, text, _ = _quiet(s.click, 2, 2)  # off the surface
+            if "MISSED" not in text:
+                raise AssertionError(f"tools: a click off the surface was taken: {text}")
+        _quiet(s.key, "n")
+    _quiet(s.key, "v")
+    for key in "wwaaio":
+        _quiet(s.key, key)
+    t0 = time.perf_counter()
+    img, ok = lab.render_inspection()
+    ms["render_inspection"] = 1e3 * (time.perf_counter() - t0)
+    _, text, _ = _quiet(s.key, "\r")
+    if s.inspection is not None or "Accepted view_pose" not in text:
+        raise AssertionError(f"tools: the adjusted view pose was not accepted: {text}")
+    _, text, _ = _quiet(s.key, "s")
+    _quiet(s.key, "q")
+    if not (s.done and "Saved" in text and os.path.isfile(kp_json)):
+        raise AssertionError(f"tools: the session did not save: {text}")
+    saved = json.load(open(kp_json))
+    if sorted(saved["keypoints"]) != sorted(names) or \
+            not np.allclose(np.reshape(saved["view_pose"], (4, 4)), lab.view_pose):
+        raise AssertionError("tools: the saved kp_info lacks a keypoint or the view pose")
+    viz_dir = os.path.join(out, "kp_info_viz")
+    rc, text, ms["manual_keypoints_viz"] = _quiet(mk.main, [
+        "--dataset", "ycbv", "--viz", "--data_root", root, "--out", viz_dir,
+        "--kp_config_root", os.path.join(root, "kp_configs")])
+    if rc or text.count("Wrote") != N_OBJ:
+        raise AssertionError(f"manual_keypoints --viz: rc {rc}\n{text}")
+    sym_png = os.path.join(out, "sym_choice.png")
+    rc, text, ms["view_sym_choice"] = _quiet(vs.main, [
+        "--dataset", "ycbv", "--data_root", root, "--obj_id", "1", "--out", sym_png,
+        "--kp_config_root", os.path.join(root, "kp_configs")])
+    line = text.strip().splitlines()[-1] if text.strip() else ""
+    if rc or not line.startswith("Best symmetry index: ") or f"/{TOOLS_FOLD};" not in line:
+        raise AssertionError(f"view_sym_choice: rc {rc}\n{text}")
+    files = {"kp_info.json": kp_json, "sym_choice.png": sym_png}
+    files.update({f"kp_info_viz/{f}": os.path.join(viz_dir, f) for f in os.listdir(viz_dir)})
+    digests = {k: hashlib.sha256(open(f, "rb").read()).hexdigest() for k, f in files.items()}
+    return digests, ms, line
+
+
+def phase_tools(seed):
+    """Phase 14 (the module docstring's): the labeling and symmetry-choice
+    tools, host numpy, on the card's machine. Returns the figures printed."""
+    import os
+
+    from suo_slam_tpu_torch.data import png
+    from suo_slam_tpu_torch.eval.render import render_shaded
+    from suo_slam_tpu_torch.manual_keypoints import K_LABEL
+    from suo_slam_tpu_torch.tools.labeling import canonical_view_poses
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tools")
+    root = os.path.join(base, "bop_datasets", "ycbv")
+    t0 = time.perf_counter()
+    verts, faces = write_tools_tree(root, seed)
+    log(f"[tools] phase 7's BOP tree (2 views) with object 1 a closed mesh of {len(faces)} "
+        f"triangles and {TOOLS_FOLD} symmetry candidates written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {"triangles": int(len(faces))}
+    T = canonical_view_poses(float(2.0 * np.linalg.norm(verts, axis=1).max()))[1]
+    for hw, K in (((240, 320), K_LABEL), ((H_IMG, W_IMG), YCBV_K)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rgb, depth = render_shaded(verts, faces, K, T, hw)
+            times.append(1e3 * (time.perf_counter() - t0))
+        cover = float((depth > 0).mean())
+        if not (0.02 < cover < 0.9 and rgb[depth > 0].min() > 0):
+            raise AssertionError(f"render_shaded at {hw}: covers {cover:.3f} of the image")
+        out[f"render_shaded_ms_{hw[0]}x{hw[1]}"] = statistics.median(times)
+    # the tools twice on the same inputs: every output must repeat bit for bit
+    kp_json = os.path.join(root, "kp_info", "obj_000001_kp_info.json")
+    written = open(kp_json, "rb").read()  # the session overwrites it
+    legs = []
+    for rep in range(2):
+        with open(kp_json, "wb") as f:
+            f.write(written)
+        legs.append(tools_leg(root, seed, os.path.join(base, f"out{rep}")))
+    (d0, ms0, line0), (d1, ms1, line1) = legs
+    if d0 != d1 or line0.split(";")[0] != line1.split(";")[0]:
+        diff = sorted(k for k in set(d0) | set(d1) if d0.get(k) != d1.get(k))
+        raise AssertionError(f"tools: the second pass differs from the first: {diff}, "
+                             f"{line0!r} / {line1!r}")
+    grid = png.imread(os.path.join(base, "out0", "sym_choice.png"))
+    if grid.shape != (4 * H_IMG, 4 * W_IMG, 3):
+        raise AssertionError(f"view_sym_choice grid {grid.shape}, not 4 x 4 tiles of 480x640")
+    for k in ms0:
+        out[f"{k}_ms"] = [ms0[k], ms1[k]]
+    out["symmetry"] = line0.split(";")[0]
+    out["outputs"] = len(d0)
+    log(f"[tools] host ms (two passes): render_shaded 240x320 "
+        f"{out['render_shaded_ms_240x320']:.1f}, 480x640 {out['render_shaded_ms_480x640']:.1f} "
+        f"(median of 5, {len(faces)} triangles); labeler (8 views at 240x320) "
+        f"{ms0['labeler']:.1f} / {ms1['labeler']:.1f}; render_inspection "
+        f"{ms0['render_inspection']:.1f} / {ms1['render_inspection']:.1f}; manual_keypoints "
+        f"--viz ({N_OBJ} objects) {ms0['manual_keypoints_viz']:.1f} / "
+        f"{ms1['manual_keypoints_viz']:.1f}; view_sym_choice (480x640, {TOOLS_FOLD} "
+        f"candidates) {ms0['view_sym_choice']:.1f} / {ms1['view_sym_choice']:.1f}; "
+        f"{line0}; {len(d0)} outputs equal in both passes (sha256); {smi_line()}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7686,12 +7912,19 @@ def main(argv=None):
                     help="build, then time the full-width int8 forward at 128 crops only")
     ap.add_argument("--parallel-only", action="store_true",
                     help="build, write the training split, then phases 12 and 13 only")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="the labeling and symmetry-choice tools (phase 14) only")
     args = ap.parse_args(argv)
 
     import torch
 
     t_start = time.perf_counter()
     dev = phase_card()
+    if args.tools_only:
+        r = phase_tools(args.seed)
+        log(smi_line())
+        log(json.dumps({"tools": r}))
+        return 0
     phase_build()
     if args.step_only:
         r = phase_step_only(dev, args.seed, args.norm)
@@ -7745,6 +7978,7 @@ def main(argv=None):
     phase_throughput(dev, args.seed, net, net16)
     parallel_entries, parallel_counts, _ = phase_parallel(dev, args.seed)
     compat_counts = phase_compat(dev, args.seed)
+    log(json.dumps({"tools": phase_tools(args.seed)}))
     entries += int8_entries + train_entries + quant_entries + group_entries + parallel_entries
     for e in entries:
         e["launches"] = (eval_counts if e["name"] in EVAL_KERNELS else int8_counts

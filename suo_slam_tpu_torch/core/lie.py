@@ -104,6 +104,18 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def to_4x4(T: torch.Tensor) -> torch.Tensor:
+    """Promote [..., 3, 4] to [..., 4, 4]; pass [..., 4, 4] through."""
+    if T.shape[-2] == 4:
+        return T
+    return make_T(T[..., :3, :3], T[..., :3, 3])
+
+
+def compose(Ta: torch.Tensor, Tb: torch.Tensor) -> torch.Tensor:
+    """T_a @ T_b for [..., 3/4, 4] poses, returns [..., 4, 4]."""
+    return to_4x4(Ta) @ to_4x4(Tb)
+
+
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """[..., 6] tangent [omega, v] -> [..., 4, 4] pose with t = V(omega) v."""
     w, v = xi[..., :3], xi[..., 3:]
@@ -159,3 +171,19 @@ def R_to_quat(R: torch.Tensor) -> torch.Tensor:
     all_q = torch.stack([q_w, q_x, q_y, q_z], dim=-2)  # [..., 4 candidates, 4]
     q = torch.gather(all_q, -2, idx[..., None].expand(idx.shape[:-1] + (1, 4)))[..., 0, :]
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def euler2R(euler_deg: torch.Tensor) -> torch.Tensor:
+    """ZYX-style Euler [..., 3] = (gamma, beta, alpha) in degrees -> R
+    [..., 3, 3], the convention that discretizes continuous symmetries."""
+    g, b, a = torch.deg2rad(euler_deg).movedim(-1, 0)
+    ca, cb, cg = torch.cos(a), torch.cos(b), torch.cos(g)
+    sa, sb, sg = torch.sin(a), torch.sin(b), torch.sin(g)
+    return torch.stack(
+        [
+            torch.stack([ca * cb, ca * sb * sg - sa * cg, ca * sb * cg + sa * sg], -1),
+            torch.stack([sa * cb, sa * sb * sg + ca * cg, sa * sb * cg - ca * sg], -1),
+            torch.stack([-sb, cb * sg, cb * cg], -1),
+        ],
+        dim=-2,
+    )

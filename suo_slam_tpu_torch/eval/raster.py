@@ -8,18 +8,23 @@ images of shape [H, W, 3], drawing in place.
   float32 arithmetic of OpenCV's `HSV2RGB_b`).
 - `circle`: `cv2.circle(img, center, radius, color, -1)` (the integer
   midpoint circle of drawing.cpp's `Circle`, filled).
-- `ellipse`: `cv2.ellipse(img, center, axes, angle, 0, 360, color, 2)`:
+- `ellipse`: `cv2.ellipse(img, center, axes, angle, 0, 360, color, t)`:
   `ellipse2Poly`'s points (OpenCV's own sine table) in 16-bit fixed point,
-  then the thick polyline: each segment a convex polygon (`FillConvexPoly`,
-  its outline drawn by `Line2`) with round joins.
-- `rectangle`: `cv2.rectangle(img, pt1, pt2, color, 2)`, the same thick
-  polyline, closed.
-- `put_text`: `cv2.putText(img, text, org, cv2.FONT_HERSHEY_PLAIN, 1.0,
-  color, 1, cv2.LINE_AA)`. OpenCV 5.0 renders the Hershey font names with
-  its built-in TrueType font: each glyph's 8-bit coverage `a` is blended
-  over the image in turn as `(bg * (255 - a) + col * a + 127) // 255`, the
-  glyphs at integer advances with no kerning. The coverage and the advances
-  are tables read off OpenCV (`eval/_raster_tables.py`).
+  then at t = 2 the thick polyline: each segment a convex polygon
+  (`FillConvexPoly`, its outline drawn by `Line2`) with round joins; at
+  t = -1 (filled) one `FillConvexPoly` of the points.
+- `rectangle`: `cv2.rectangle(img, pt1, pt2, color, t)`, t = 2 or 3, the
+  same thick polyline, closed (an odd thickness widens the segments by half
+  a pixel and rounds the joins up).
+- `put_text`: `cv2.putText(img, text, org, font, scale, color, thickness)`
+  for the three fonts of `FONTS`: FONT_HERSHEY_PLAIN 1.0 thickness 1,
+  PLAIN 1.2 thickness 2 and FONT_HERSHEY_SIMPLEX 0.5 thickness 1, each at
+  LINE_8 or LINE_AA (the same pixels in OpenCV 5.0). OpenCV 5.0 renders the
+  Hershey font names with its built-in TrueType font: each glyph's 8-bit
+  coverage `a` is blended over the image in turn as
+  `(bg * (255 - a) + col * a + 127) // 255`, the glyphs at integer advances
+  with no kerning. The coverage and the advances are tables read off OpenCV
+  (`eval/_raster_tables.py`).
 
 Clipping follows OpenCV's own (`clipLine` in fixed point, the scan
 converter's row and column limits), so a primitive partly or wholly outside
@@ -33,7 +38,8 @@ import math
 
 import numpy as np
 
-from ._raster_tables import PLAIN_GLYPHS, SIN_QUARTER
+from ._raster_tables import (PLAIN_1_2_T2_GLYPHS, PLAIN_GLYPHS, SIMPLEX_0_5_GLYPHS,
+                             SIN_QUARTER)
 
 XY_SHIFT = 16
 XY_ONE = 1 << XY_SHIFT
@@ -261,16 +267,17 @@ def _fill_convex_poly(runs, w, h, v):
         y = stop
 
 
-def _thick_line(runs, w, h, p0, p1, flags):
-    """drawing.cpp's `ThickLine` at thickness 2, LINE_8, for fixed-point
-    points: the segment's polygon and, per `flags`, round caps (`Circle`
-    of radius 1) at its ends."""
+def _thick_line(runs, w, h, p0, p1, flags, thickness):
+    """drawing.cpp's `ThickLine` at a thickness above 1, LINE_8, for
+    fixed-point points: the segment's polygon and, per `flags`, round caps
+    (`Circle` of radius (thickness + 1) // 2) at its ends."""
     dx = (p0[0] - p1[0]) / XY_ONE
     dy = (p1[1] - p0[1]) / XY_ONE
     r = dx * dx + dy * dy
-    thickness = 2 << (XY_SHIFT - 1)
+    odd = thickness & 1
+    thickness <<= XY_SHIFT - 1
     if abs(r) > 2.220446049250313e-16:  # DBL_EPSILON
-        r = thickness / math.sqrt(r)
+        r = (thickness + odd * XY_ONE * 0.5) / math.sqrt(r)
         dpx, dpy = round(dy * r), round(dx * r)
         _fill_convex_poly(runs, w, h, [
             (p0[0] + dpx, p0[1] + dpy), (p0[0] - dpx, p0[1] - dpy),
@@ -282,14 +289,15 @@ def _thick_line(runs, w, h, p0, p1, flags):
         _add_disc(runs, (p1[0] + _HALF) >> XY_SHIFT, (p1[1] + _HALF) >> XY_SHIFT, cap)
 
 
-def _polyline2(img, pts, closed, color):
-    """drawing.cpp's `PolyLine` at thickness 2 over fixed-point points."""
+def _polyline(img, pts, closed, color, thickness):
+    """drawing.cpp's `PolyLine` at a thickness above 1 over fixed-point
+    points."""
     h, w = img.shape[:2]
     runs = []
     p0 = pts[-1] if closed else pts[0]
     flags = 2 if closed else 3
     for p in pts[0 if closed else 1:]:
-        _thick_line(runs, w, h, p0, p, flags)
+        _thick_line(runs, w, h, p0, p, flags, thickness)
         p0 = p
         flags = 2
     _draw_runs(img, runs, color)
@@ -329,9 +337,12 @@ def circle(img, center, radius, color):
     return img
 
 
-def ellipse(img, center, axes, angle, color):
-    """`cv2.ellipse(img, center, axes, angle, 0, 360, color, 2)`: the full
-    outline at thickness 2, LINE_8, with a float `angle` in degrees."""
+def ellipse(img, center, axes, angle, color, thickness=2):
+    """`cv2.ellipse(img, center, axes, angle, 0, 360, color, thickness)`:
+    the full outline at thickness 2, or filled at thickness -1 (LINE_8),
+    with a float `angle` in degrees."""
+    if thickness not in (2, -1):
+        raise ValueError(f"ellipse draws thickness 2 or -1 (filled), not {thickness}")
     ang = int(round(float(angle)))  # cvRound
     cx, cy = int(center[0]) << XY_SHIFT, int(center[1]) << XY_SHIFT
     ax, ay = abs(int(axes[0])) << XY_SHIFT, abs(int(axes[1])) << XY_SHIFT
@@ -345,22 +356,38 @@ def ellipse(img, center, axes, angle, color):
             prev = pt
     if len(v) == 1:
         v = [(cx, cy), (cx, cy)]
-    _polyline2(img, v, False, color)
+    if thickness == -1:
+        runs = []
+        _fill_convex_poly(runs, img.shape[1], img.shape[0], v)
+        _draw_runs(img, runs, color)
+    else:
+        _polyline(img, v, False, color, thickness)
     return img
 
 
-def rectangle(img, pt1, pt2, color):
-    """`cv2.rectangle(img, pt1, pt2, color, 2)` (LINE_8)."""
+def rectangle(img, pt1, pt2, color, thickness=2):
+    """`cv2.rectangle(img, pt1, pt2, color, thickness)`, thickness 2 or 3
+    (LINE_8)."""
+    if thickness not in (2, 3):
+        raise ValueError(f"rectangle draws thickness 2 or 3, not {thickness}")
     x1, y1 = int(pt1[0]) << XY_SHIFT, int(pt1[1]) << XY_SHIFT
     x2, y2 = int(pt2[0]) << XY_SHIFT, int(pt2[1]) << XY_SHIFT
-    _polyline2(img, [(x1, y1), (x2, y1), (x2, y2), (x1, y2)], True, color)
+    _polyline(img, [(x1, y1), (x2, y1), (x2, y2), (x1, y2)], True, color, thickness)
     return img
 
 
 # ------------------------------------------------------------------ text --
+# font key: glyph table of the cv2.putText call (font, scale, thickness)
+FONTS = {
+    "plain": PLAIN_GLYPHS,                # FONT_HERSHEY_PLAIN, 1.0, 1
+    "plain_1.2_t2": PLAIN_1_2_T2_GLYPHS,  # FONT_HERSHEY_PLAIN, 1.2, 2
+    "simplex_0.5": SIMPLEX_0_5_GLYPHS,    # FONT_HERSHEY_SIMPLEX, 0.5, 1
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _glyph(c):
-    adv, x0, y0, gw, hexrows = PLAIN_GLYPHS[c]
+def _glyph(font, c):
+    adv, x0, y0, gw, hexrows = FONTS[font][c]
     cov = np.frombuffer(bytes.fromhex(hexrows), np.uint8)
     if gw == 0:
         return adv, np.zeros((0,), np.int64), np.zeros((0,), np.int64), cov.astype(np.int64)
@@ -369,9 +396,14 @@ def _glyph(c):
     return adv, ys + y0, xs + x0, cov[ys, xs].astype(np.int64)
 
 
-def put_text(img, text, org, color):
-    """`cv2.putText(img, text, org, cv2.FONT_HERSHEY_PLAIN, 1.0, color, 1,
-    cv2.LINE_AA)` for printable ASCII `text`."""
+def put_text(img, text, org, color, font="plain"):
+    """`cv2.putText(img, text, org, <font>, color)` for printable ASCII
+    `text`, `font` a key of `FONTS`: "plain" is FONT_HERSHEY_PLAIN at scale
+    1.0, thickness 1; "plain_1.2_t2" the same font at 1.2, thickness 2;
+    "simplex_0.5" FONT_HERSHEY_SIMPLEX at 0.5, thickness 1 (LINE_8 or
+    LINE_AA alike)."""
+    if font not in FONTS:
+        raise ValueError(f"put_text draws the fonts {sorted(FONTS)}, not {font!r}")
     bad = [c for c in text if c not in PLAIN_GLYPHS]
     if bad:
         raise ValueError(f"put_text draws printable ASCII only, not {bad[0]!r}")
@@ -380,7 +412,7 @@ def put_text(img, text, org, color):
     x = int(org[0])
     y = int(org[1])
     for c in text:
-        adv, ys, xs, a = _glyph(c)
+        adv, ys, xs, a = _glyph(font, c)
         ys, xs = ys + y, xs + x
         ok = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
         if ok.any():

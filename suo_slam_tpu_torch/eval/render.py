@@ -1,7 +1,8 @@
-"""Z-buffer depth rasterizer (host numpy), for the VSD metric.
+"""Z-buffer rasterizer (host numpy), for the VSD metric and the labeling
+tools.
 
-The port's own copy of the depth path of `suo_slam_tpu/eval/render.py`:
-triangles bucketed by the power-of-2 size of their clipped pixel bbox, each
+The port's own copy of `suo_slam_tpu/eval/render.py`: depth, and the
+flat-shaded RGB of the labeling and symmetry-choice tools. Triangles bucketed by the power-of-2 size of their clipped pixel bbox, each
 bucket's barycentrics evaluated over a shared pixel lattice at once, one
 scatter-min into the flat z-buffer; pixel-center sampling and
 perspective-correct 1/z interpolation. BOP convention: depth images hold the
@@ -144,3 +145,39 @@ def render_depth(
     """
     depth, _ = _rasterize(verts, faces, K, T_OtoC, hw, near)
     return depth
+
+
+def render_shaded(
+    verts: np.ndarray,
+    faces: np.ndarray,
+    K: np.ndarray,
+    T_OtoC: np.ndarray,
+    hw: tuple[int, int],
+    color=(200, 200, 200),
+    light_dir=(0.3, -0.4, -1.0),
+    ambient: float = 0.35,
+    near: float = 10.0,
+):
+    """Flat-shaded Lambertian RGB render (+ depth) of one mesh: per-face
+    normal in the camera frame, intensity = ambient + (1 - ambient) |n . l|
+    (double-sided: the winding of BOP models is not consistent), one base
+    colour.
+
+    Returns ([H, W, 3] uint8 RGB with black background, [H, W] f32 depth).
+    """
+    depth, fid = _rasterize(verts, faces, K, T_OtoC, hw, near)
+    img = np.zeros(hw + (3,), np.uint8)
+    if faces is None or len(faces) == 0 or not (fid >= 0).any():
+        return img, depth
+    R, t = np.asarray(T_OtoC)[:3, :3], np.asarray(T_OtoC)[:3, 3]
+    p_cam = np.asarray(verts) @ R.T + t
+    tri = p_cam[np.asarray(faces)]  # [F, 3, 3]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+    l = np.asarray(light_dir, np.float64)
+    l /= np.linalg.norm(l)
+    intens = ambient + (1.0 - ambient) * np.abs(n @ l)  # [F]
+    hit = fid >= 0
+    shade = intens[fid[hit]][:, None] * np.asarray(color, np.float64)[None, :]
+    img[hit] = np.clip(shade, 0, 255).astype(np.uint8)
+    return img, depth

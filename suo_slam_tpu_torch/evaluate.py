@@ -594,33 +594,19 @@ class Evaluator:
         `waitKey(1)`): a Tk window showing the frame's PNG, updated each
         frame. Without a display server, or when Tk cannot show the frame,
         it is turned off with the JAX CLI's lines."""
-        import base64
+        from .eval import window
 
-        if self._window is None and not (os.environ.get("DISPLAY")
-                                         or os.environ.get("WAYLAND_DISPLAY")):
+        if self._window is None and not window.display_server():
             self.show_viz = False
             print("[evaluate] --show_viz: no display server; disabled")
             return
         try:
-            import tkinter
-        except ImportError:
-            tkinter = None
-        if tkinter is not None:
-            try:
-                if self._window is None:
-                    root = tkinter.Tk()
-                    root.title("ObjectSLAM")
-                    label = tkinter.Label(root)
-                    label.pack()
-                    self._window = (root, label)
-                root, label = self._window
-                photo = tkinter.PhotoImage(master=root, data=base64.b64encode(png_bytes))
-                label.configure(image=photo)
-                label.image = photo  # Tk keeps no reference of its own
-                root.update()
-                return
-            except tkinter.TclError:
-                pass
+            if self._window is None:
+                self._window = window.Window("ObjectSLAM")
+            self._window.show(png_bytes)
+            return
+        except window.WindowError:
+            pass
         self.show_viz = False
         self._window = None
         print("[evaluate] --show_viz: imshow failed; disabled")

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .._device import resolve_device
+
 COLLECTIVES: dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0}
 # how long a rank waits in a collective before the group gives up: the
 # training CLI's ranks wait at a barrier while rank 0 runs the whole
@@ -81,11 +83,15 @@ def data_parallel_mesh(devices=None, rank: int | None = None,
     creates it from `init_method` (`tcp://localhost:<port>` or
     `file://<path>`), with this process's `rank` and a world of
     `len(devices)`. `devices`: one device per rank, in rank order; this
-    rank's is `devices[rank]` (without a list: the current card where there
-    is one, else the CPU). The backend is NCCL where every device is a
-    distinct card (or, without a list, where a card is visible), gloo on the
-    CPU or where a card repeats. A created group waits `GROUP_TIMEOUT` in a
-    collective."""
+    rank's is `devices[rank]`. Without a list this rank's device is the
+    current card, and where no card is visible the call raises (as
+    `_device.resolve_device` does) before it joins or creates a group: a
+    mesh on the CPU takes an explicit `devices=["cpu"] * world`. The
+    backend is NCCL where every device is a distinct card (and, without a
+    list, for a group created here), gloo on the CPU or where a card
+    repeats. A created group waits `GROUP_TIMEOUT` in a collective."""
+    if devices is None:
+        resolve_device("cuda")
     devices = None if devices is None else [torch.device(d) for d in devices]
     owns = False
     if not dist.is_initialized():
@@ -94,7 +100,7 @@ def data_parallel_mesh(devices=None, rank: int | None = None,
         if init_method != "env://" and (devices is None or rank is None):
             raise ValueError("data_parallel_mesh: creating a group needs devices and rank")
         if devices is None:
-            backend = "nccl" if torch.cuda.is_available() else "gloo"
+            backend = "nccl"
         else:
             cuda = all(d.type == "cuda" for d in devices)
             distinct = len({d.index for d in devices}) == len(devices)
@@ -108,12 +114,7 @@ def data_parallel_mesh(devices=None, rank: int | None = None,
     if devices is not None and len(devices) != w:
         raise ValueError(f"data_parallel_mesh: {len(devices)} devices for a world of {w}")
     be = dist.get_backend()
-    if devices is not None:
-        dev = devices[r]
-    elif be == "nccl":
-        dev = torch.device("cuda", torch.cuda.current_device())
-    else:
-        dev = torch.device("cpu")
+    dev = devices[r] if devices is not None else torch.device("cuda", torch.cuda.current_device())
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     return Mesh(group=dist.group.WORLD, device=dev, rank=r, world_size=w, backend=be,

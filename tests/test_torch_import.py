@@ -109,3 +109,31 @@ def test_slam_mode_raises_naming_its_roadmap_item():
         args = get_args([f"--{kw}"])
         assert getattr(args, kw) and not args.no_viz
     assert not hasattr(port_evaluate, "refuse_unported")
+
+
+def test_the_tools_import_neither_jax_nor_opencv_nor_pillow():
+    """The labeling and symmetry-choice tools (and their window, drawing
+    and renderer) load without JAX, the JAX package, OpenCV or Pillow, and
+    no module of the port or chip_smoke.py names OpenCV or Pillow."""
+    code = (
+        "import sys\n"
+        "from suo_slam_tpu_torch.tools import labeling\n"
+        "from suo_slam_tpu_torch import manual_keypoints, view_sym_choice\n"
+        "from suo_slam_tpu_torch.eval import window, raster, render\n"
+        "from suo_slam_tpu_torch.core import geometry, lie\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'suo_slam_tpu', 'cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    for name in ("tools/labeling.py", "manual_keypoints.py", "view_sym_choice.py"):
+        assert os.path.join(PKG, name) in files, name
+    bad = [(f, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in FORBIDDEN + ("cv2", "PIL")]
+    assert not bad, bad
